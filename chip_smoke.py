@@ -9,12 +9,12 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
 2. Build: every hand-written kernel of ``skypilot_tpu_torch/csrc`` with
    ``nvcc`` for ``sm_90a``, one process per source, all at once.
 3. Kernels: each kernel against its plain PyTorch version on the same
-   CUDA inputs at the serving path's shapes, with its time (CUDA events
-   over many launches), its bound (the larger of bytes over the memory
-   rate and operations over the peak rate), the plain version's time
-   and, where one PyTorch call computes the same function, that call's
-   time.
-4. Main path: the port's HTTP server (``infer/server.py``) at llama3-8b
+   CUDA inputs at its main path's shapes (K1/K2 serving, K3/K4 the
+   llama3-1b training shape), with its time (CUDA events over many
+   launches), its bound (the larger of bytes over the memory rate and
+   operations over the peak rate), the plain version's time and, where
+   one PyTorch call computes the same function, that call's time.
+4. Serve: the port's HTTP server (``infer/server.py``) at llama3-8b
    full width and depth with random bf16 weights from a fixed seed
    answers 8 concurrent ``/generate`` requests, one streamed. The
    kernels' launch counts are set to 0 just before and read just after;
@@ -23,16 +23,24 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    kernels, in bf16 (divergence reported) and on the same weights in
    float32, where greedy tokens must agree wherever the plain logits'
    top-2 gap exceeds 1e-2.
+5. Train: gradient parity of the kernels against the plain versions at
+   llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
+   ``train.run`` at llama3-1b full width and depth for 6 steps on a
+   repeated batch (counts set to 0 before, read after: K2 32, K3 16 and
+   K4 16 launches a step; the loss must fall), one profiled step, and a
+   llama3-tiny resume from a checkpoint that must equal the
+   uninterrupted run bit for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. ``--phase kernels`` or ``--phase
-serve`` runs one of phases 3-4 alone (the build always runs).
+``{"ok": true, "device": {...}}``. ``--phase kernels``, ``serve`` or
+``train`` runs one of phases 3-5 alone (the build always runs).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import socket
@@ -247,6 +255,118 @@ def _check_flash(name: str, case) -> dict:
                 library_ms=library_ms)
 
 
+def _bf16_ulp_err(got, want, name: str, floor_rel: float = 1e-3):
+    """Max |got - want| for bf16 outputs, held per element to one bf16
+    ulp of the plain value plus ``floor_rel`` * max|plain| (a flipped
+    rounding costs one ulp; near zero, where fp32 summation order
+    dominates, the floor applies)."""
+    import torch
+    w = want.float()
+    d = (got.float() - w).abs()
+    # ulp of a bf16 value x: 2^(floor(log2|x|) - 7); frexp gives
+    # |x| = m 2^e with m in [0.5, 1), so floor(log2|x|) = e - 1.
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)
+    tol = ulp + floor_rel * w.abs().max()
+    worst = (d / tol).max().item()
+    if not worst <= 1.0:
+        raise AssertionError(f"{name}: |kernel - plain| exceeds one bf16 "
+                             f"ulp + {floor_rel} * max|plain| "
+                             f"(worst ratio {worst:.3f})")
+    return d.max().item()
+
+
+def _bwd_case(dtype, segments: bool, gen, dev):
+    """K3/K4 inputs at llama3-1b's training shape: batch 4, S 2048, 16
+    q-heads over 8 kv-heads, head_dim 128, causal; O and lse from the
+    forward kernel, dO random."""
+    import torch
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    B, S, H, Hkv, D = 4, 2048, 16, 8, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, k, v = randn(B, S, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    do = randn(B, S, H, D)
+    seg = None
+    if segments:
+        cuts = torch.rand((B, S), generator=gen, device=dev) < 4.0 / S
+        seg = cuts.int().cumsum(dim=1).to(torch.int32)
+    o, lse = fa.flash_attention_fwd(q, k, v, seg)
+    return dict(q=q, k=k, v=v, o=o, lse=lse, do=do, seg=seg,
+                delta=fa.attention_delta(o, do))
+
+
+def _check_bwd(name: str, case) -> dict:
+    """K3 and K4 against the plain backward on the same inputs; each
+    kernel's time, bound and plain time, and the library yardstick:
+    the backward of one scaled_dot_product_attention call, which
+    computes dQ, dK and dV together (on both rows)."""
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    q, k, v, o, lse, do, seg, delta = (case[n] for n in (
+        "q", "k", "v", "o", "lse", "do", "seg", "delta"))
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, seg)
+    torch.cuda.synchronize()
+    rq, rk, rv = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, seg)
+    if q.dtype == torch.bfloat16:
+        err_dkv = max(_bf16_ulp_err(dk, rk, f"{name} dK"),
+                      _bf16_ulp_err(dv, rv, f"{name} dV"))
+        err_dq = _bf16_ulp_err(dq, rq, f"{name} dQ")
+        kind = "bf16"
+    else:
+        err_dkv = max(_err(dk, rk, f"{name} dK", 1e-4),
+                      _err(dv, rv, f"{name} dV", 1e-4))
+        err_dq = _err(dq, rq, f"{name} dQ", 1e-4)
+        kind = "fp32"
+    del rq, rk, rv
+    ms_dkv = _time_ms(lambda i: fa.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, seg), 5)
+    ms_dq = _time_ms(lambda i: fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, seg), 5)
+    plain_ms = _time_ms(lambda i: fa.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, seg), 2, warmup=1)
+    B, S, H, D = q.shape
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    if seg is not None:
+        mask = (seg[:, None, :, None] == seg[:, None, None, :]) & causal
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                             enable_gqa=True)
+        pairs = mask.sum().item() * H
+    else:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        pairs = B * H * S * (S + 1) // 2
+    dot = do.transpose(1, 2)
+    library_ms = _time_ms(lambda i: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 5)
+    del out
+    item = q.element_size()
+    # Each input read once, each output written once.
+    n_in = ((q.numel() + k.numel() + v.numel() + do.numel()) * item
+            + (lse.numel() + delta.numel()) * 4
+            + (seg.numel() * 4 if seg is not None else 0))
+    rows = []
+    for kname, ms, err, n_out, ops_per_pair in (
+            ("flash_attention_bwd_dkv", ms_dkv, err_dkv,
+             (k.numel() + v.numel()) * item, 8),
+            ("flash_attention_bwd_dq", ms_dq, err_dq, q.numel() * item, 6)):
+        bound_ms, bound_by = _bound_ms(n_in + n_out,
+                                       ops_per_pair * pairs * D, kind)
+        _log(f"kernel {kname}{name}: max_abs_err={err:.3e} ms={ms:.4f} "
+             f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
+             f"({bound_by}) library_ms={library_ms:.4f}")
+        rows.append((kname, dict(name=kname + name, max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=library_ms)))
+    return dict(rows)
+
+
 def phase_kernels(dev):
     """Returns {kernel: [case results]}, the main-path case first."""
     import torch
@@ -259,7 +379,16 @@ def phase_kernels(dev):
                           _flash_case(S, s, gen, dev))
              for S, s in ((1024, False), (512, False), (1024, True),
                           (512, True))]
-    return {"paged_attention": paged, "flash_attention_fwd": flash}
+    cases = {"paged_attention": paged, "flash_attention_fwd": flash,
+             "flash_attention_bwd_dkv": [], "flash_attention_bwd_dq": []}
+    for dtype, segs in ((torch.bfloat16, False), (torch.bfloat16, True),
+                        (torch.float32, False)):
+        label = f"[{str(dtype).split('.')[-1]},seg={int(segs)}]"
+        rows = _check_bwd(label, _bwd_case(dtype, segs, gen, dev))
+        for kname, row in rows.items():
+            cases[kname].append(row)
+        torch.cuda.empty_cache()
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -469,9 +598,228 @@ def phase_serve(dev, card: str):
     return launches
 
 
+# name: (route, source, the TPU kernel it replaces)
+KERNELS = {
+    "paged_attention": ("cuda", "skypilot_tpu_torch/csrc/paged_attention.cu",
+                        "skypilot_tpu/ops/paged_attention.py:67"),
+    "flash_attention_fwd": ("cuda", "skypilot_tpu_torch/csrc/flash_fwd.cu",
+                            "skypilot_tpu/ops/flash_attention.py:58"),
+    "flash_attention_bwd_dkv": ("cuda",
+                                "skypilot_tpu_torch/csrc/flash_bwd.cu",
+                                "skypilot_tpu/ops/flash_attention.py:170"),
+    "flash_attention_bwd_dq": ("cuda", "skypilot_tpu_torch/csrc/flash_bwd.cu",
+                               "skypilot_tpu/ops/flash_attention.py:226"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: training
+# ---------------------------------------------------------------------------
+
+def _plain_attention(q, k, v, segment_ids=None):
+    """Attention through the plain versions of K2, K3 and K4."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    return fa.FlashAttention.apply(q, k, v, segment_ids, True, True)
+
+
+def _grad_parity(dev, dtype) -> dict:
+    """llama3-1b width (d_model 2048, 16/8 heads, head_dim 128, d_ff
+    8192, vocab 128256) at 2 layers, one packed batch of 2 x 2048: loss
+    and gradients through the kernels and through the plain versions,
+    on the same card and weights. Returns the loss difference and, per
+    parameter, max|kernel - plain| / max|plain|."""
+    import torch
+    from skypilot_tpu_torch.data import input_pipeline as ip
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-1b"], n_layers=2,
+                              dtype=dtype, xent_chunk=512)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=dev)
+    docs = ip.synthetic_doc_stream(64, cfg.vocab_size, mean_len=600,
+                                   seed=SEED)
+    batch = ip.to_device(next(ip.packed_batches(docs, 2, 2048)), dev)
+    got = trainer.grads_of(params, batch, cfg)
+    want = trainer.grads_of(params, batch, cfg, attention=_plain_attention)
+    names = [f"{k}.{n}" if k == "blocks" else k
+             for k, w in params.items()
+             for n in (w if k == "blocks" else [None])]
+    rel = {n: ((g - w).abs().max() / w.abs().max()).item()
+           for n, g, w in zip(names, got[2], want[2])}
+    return {"loss_kernel": got[0].item(), "loss_plain": want[0].item(),
+            "grad_rel": rel}
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def _run_main(argv) -> dict:
+    """``train.run.main`` with its summary line kept off this script's
+    stdout (whose last two lines are the contract's)."""
+    import contextlib
+    import io
+    from skypilot_tpu_torch.train import run
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = run.main(argv)
+    _log(f"train: run.main({' '.join(argv)}) -> {buf.getvalue().strip()}")
+    return res
+
+
+def _profile_train_step(dev, card: str) -> None:
+    """One llama3-1b step (batch 4 x 2048, after a warm-up step) under
+    torch.profiler: device time by kernel class and the device's idle
+    share of the step's wall time (kernels run on one stream, so their
+    times add up without overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-1b"], xent_chunk=512)
+    tc = trainer.TrainConfig(warmup_steps=1, total_steps=6)
+    state = trainer.create_train_state(cfg, tc, dev)
+    step = trainer.make_train_step(cfg, tc)
+    batch = trainer.synthetic_batch(cfg, 4, 2048, device=dev)
+    step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    classes = {"K2 flash_fwd": ("flash_fwd",), "K3 flash_bwd_dkv":
+               ("flash_bwd_dkv",), "K4 flash_bwd_dq": ("flash_bwd_dq",),
+               "matmul": ("gemm", "xmma", "cutlass", "cublas", "nvjet")}
+    by = {c: 0.0 for c in list(classes) + ["other"]}
+    other = {}
+    n = 0
+    for evt in prof.events():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.time_range.elapsed_us()
+        name = evt.name.lower()
+        cls = next((c for c, keys in classes.items()
+                    if any(k in name for k in keys)), "other")
+        by[cls] += us / 1e3
+        if cls == "other":
+            other[evt.name] = other.get(evt.name, 0.0) + us / 1e3
+        n += 1
+    busy = sum(by.values())
+    if n == 0:
+        _log("train[profile]: the profiler recorded no device activity; "
+             "device time by kernel not measured")
+        return
+    _log(f"train[profile]: llama3-1b step wall {wall_ms:.1f} ms under the "
+         f"profiler; {n} device activities, busy {busy:.1f} ms, idle "
+         f"share {max(0.0, 1 - busy / wall_ms):.3f}; device ms by class "
+         + ", ".join(f"{c} {t:.1f}" for c, t in by.items()) + f"; {card}")
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
+    _log("train[profile]: largest 'other' kernels (ms): "
+         + "; ".join(f"{t:.1f} {name[:90]}" for name, t in top))
+
+
+def phase_train(dev, card: str):
+    """Returns {kernel: launches} over the llama3-1b run."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import checkpoints
+
+    # 1. Gradient parity. In fp32 both paths differ only in the
+    # attention kernels' fp32 summation order (dK/dV sum the group's
+    # heads in one accumulator; the plain version sums per head), about
+    # 1e-6 relative per kernel output; two layers and the loss carry it
+    # to ~1e-5 at most. Held to 1e-5 relative on the loss and 1e-4 of
+    # max|plain| per parameter gradient. bf16 is reported, as in the
+    # serve phase: a flipped bf16 rounding there is not an error.
+    par = _grad_parity(dev, torch.float32)
+    worst = max(par["grad_rel"].items(), key=lambda kv: kv[1])
+    dl = abs(par["loss_kernel"] - par["loss_plain"]) / abs(par["loss_plain"])
+    _log(f"train[fp32 parity]: loss kernel {par['loss_kernel']:.7f} plain "
+         f"{par['loss_plain']:.7f} (rel {dl:.2e}); worst grad {worst[0]} "
+         f"max|diff|/max|plain| {worst[1]:.2e}")
+    if not dl <= 1e-5 or not worst[1] <= 1e-4:
+        raise AssertionError(f"fp32 gradient parity failed: loss rel {dl}, "
+                             f"grads {par['grad_rel']}")
+    par = _grad_parity(dev, torch.bfloat16)
+    worst = max(par["grad_rel"].items(), key=lambda kv: kv[1])
+    _log(f"train[bf16 parity, reported]: loss kernel "
+         f"{par['loss_kernel']:.6f} plain {par['loss_plain']:.6f}; worst "
+         f"grad {worst[0]} max|diff|/max|plain| {worst[1]:.2e}")
+    del par
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. The main path: llama3-1b at full width and depth.
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    for f in kernels:
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = 6
+    res = _run_main(["--config", "llama3-1b", "--steps", str(steps),
+                     "--log-every", "1", "--xent-chunk", "512"])
+    launches = {f.__name__: f.launches for f in kernels}
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = res["losses"]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"llama3-1b losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"llama3-1b loss did not fall on a repeated "
+                             f"batch: {losses}")
+    per_step = {n: c / steps for n, c in launches.items()}
+    if per_step != {"flash_attention_fwd": 32, "flash_attention_bwd_dkv": 16,
+                    "flash_attention_bwd_dq": 16}:
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"K2 32 (forward + recompute), K3 16, K4 16")
+    med = sorted(res["step_ms"][1:])[(steps - 1) // 2]
+    _log(f"train: llama3-1b batch 4 x 2048, {steps} steps, losses "
+         f"{[round(x, 4) for x in losses]}; median step {med:.1f} ms "
+         f"({4 * 2048 / med * 1e3:.0f} tokens/s, steps 2-{steps}); first "
+         f"step {res['step_ms'][0]:.1f} ms; peak allocated "
+         f"{peak / 2**30:.2f} GiB; launches per step {per_step}; {card}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    _profile_train_step(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. Resume at llama3-tiny: 4 steps with a checkpoint every 2, then
+    # step 2 restored in a fresh directory and run to 4. The kernels
+    # use no atomics, so the two runs agree bit for bit.
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        common = ["--config", "llama3-tiny", "--steps", "4", "--seq", "256",
+                  "--log-every", "1", "--ckpt-every", "2"]
+        full = _run_main(common + ["--ckpt-dir", a])
+        shutil.copytree(os.path.join(a, "2"), os.path.join(b, "2"))
+        resumed = _run_main(common + ["--ckpt-dir", b, "--resume"])
+        if resumed["losses"] != full["losses"][2:]:
+            raise AssertionError(f"resumed losses {resumed['losses']} != "
+                                 f"uninterrupted {full['losses'][2:]}")
+        if not _tree_equal(checkpoints.CheckpointManager(a).restore(step=4),
+                           checkpoints.CheckpointManager(b).restore(step=4)):
+            raise AssertionError("the resumed run's step-4 state differs")
+    _log(f"train: llama3-tiny resume from step 2 equals the uninterrupted "
+         f"run (losses {resumed['losses']}; step-4 states bit-equal)")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "serve"),
+    ap.add_argument("--phase", choices=("all", "kernels", "serve", "train"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -510,25 +858,30 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 _log(f"  {name}: {line.strip()}")
 
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
     cases = {}
     if args.phase in ("all", "kernels"):
         cases = phase_kernels(dev)
-    launches = {"paged_attention": 0, "flash_attention_fwd": 0}
+        free()
+    # Launches of each kernel on each main path, counted from 0 just
+    # before that path runs and read just after it.
+    by_path = {}
     if args.phase in ("all", "serve"):
-        launches = phase_serve(dev, smi)
+        by_path["serve"] = phase_serve(dev, smi)
+        free()
+    if args.phase in ("all", "train"):
+        by_path["train"] = phase_train(dev, smi)
+        free()
 
-    meta = {
-        "paged_attention": ("cuda",
-                            "skypilot_tpu_torch/csrc/paged_attention.cu",
-                            "skypilot_tpu/ops/paged_attention.py:67"),
-        "flash_attention_fwd": ("cuda",
-                                "skypilot_tpu_torch/csrc/flash_fwd.cu",
-                                "skypilot_tpu/ops/flash_attention.py:58"),
-    }
     kernels = []
-    for name, (route, source, replaces) in meta.items():
+    for name, (route, source, replaces) in KERNELS.items():
+        counts = {path: n[name] for path, n in by_path.items() if name in n}
         entry = {"name": name, "route": route, "source": source,
-                 "replaces": replaces, "launches": launches[name]}
+                 "replaces": replaces, "launches": sum(counts.values()),
+                 "launches_by_path": counts}
         runs = cases.get(name)
         if runs:
             head = runs[0]
@@ -538,6 +891,11 @@ def main() -> int:
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 library_ms=head["library_ms"], cases=runs)
         kernels.append(entry)
+    if args.phase == "all":
+        for k in kernels:
+            if k["launches"] <= 0:
+                raise AssertionError(f"kernel {k['name']} never launched "
+                                     f"on a main path")
     for k in kernels:
         if any(isinstance(v, float) and not math.isfinite(v)
                for v in k.values()):

@@ -10,7 +10,9 @@ names, so a JAX parameter tree converts one to one
 Serving stores the weights in ``cfg.dtype`` (bf16): the JAX programs
 cast fp32 parameters with ``.astype(cfg.dtype)`` inside every program,
 and storing the cast result gives the same numbers without re-casting
-the weights on every step.
+the weights on every step. Training (:func:`loss_fn`) keeps
+``cfg.param_dtype`` parameters and casts them in every step, as the JAX
+package does; the trainer (``train/trainer.py``) holds them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.ops import attention as attn_ops
@@ -255,11 +258,13 @@ def logits(x: torch.Tensor, params: Params,
 
 def decoder_layer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
                   cos: torch.Tensor, sin: torch.Tensor,
-                  attention: Optional[Callable] = None):
+                  attention: Optional[Callable] = None,
+                  segment_ids: Optional[torch.Tensor] = None):
     """One pre-norm decoder block. x: [B, S, D] -> (x', k, v), with the
     layer's post-rope k and v rows [B, S, Hkv, hd] (what prefill
     caches). ``attention(q, k, v)`` defaults to causal grouped-query
-    attention through the flash kernel."""
+    attention through the flash kernels; with ``segment_ids`` [B, S] it
+    is called with ``segment_ids=`` as well (packed documents)."""
     if attention is None:
         attention = attn_ops.gqa_attention
     dt = cfg.dtype
@@ -267,22 +272,52 @@ def decoder_layer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
     q = apply_rope(project_in(h, layer["wq"].to(dt)), cos, sin)
     k = apply_rope(project_in(h, layer["wk"].to(dt)), cos, sin)
     v = project_in(h, layer["wv"].to(dt))
-    o = attention(q, k, v)
+    if segment_ids is None:
+        o = attention(q, k, v)
+    else:
+        o = attention(q, k, v, segment_ids=segment_ids)
     x = x + project_out(o, layer["wo"].to(dt))
     h = rms_norm(x, layer["ln2"], cfg.norm_eps)
     return x + ffn(h, layer, dt), k, v
 
 
-def forward_hidden(params: Params, tokens: torch.Tensor,
-                   cfg: LlamaConfig) -> torch.Tensor:
-    """Token ids [B, S] -> final-norm hidden states [B, S, D]."""
+def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                   *, positions: Optional[torch.Tensor] = None,
+                   segment_ids: Optional[torch.Tensor] = None,
+                   attention: Optional[Callable] = None) -> torch.Tensor:
+    """Token ids [B, S] -> final-norm hidden states [B, S, D].
+
+    ``positions`` [B, S] and ``segment_ids`` [B, S] enable packed
+    sequences (rope restarts per document, attention stays inside a
+    document; see ``data/input_pipeline.py``). With ``cfg.remat`` and
+    grad enabled, each layer runs under ``torch.utils.checkpoint``: only
+    the layer inputs are kept, and the backward recomputes each layer
+    (the JAX package's ``nothing_saveable`` policy). ``attention`` is
+    passed to :func:`decoder_layer`."""
+    if cfg.remat_policy != "none":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} is not "
+                         f"supported by the port (only 'none')")
     S = tokens.shape[1]
-    x = params["embed"].to(cfg.dtype)[tokens]
-    positions = torch.arange(S, device=tokens.device)
+    # F.embedding: a deterministic backward on the card (a sort, no
+    # atomics), so a resumed run repeats an uninterrupted one bit for bit.
+    x = F.embedding(tokens, params["embed"].to(cfg.dtype))
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)
     cos, sin = rope_frequencies(cfg, positions)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x, _, _ = decoder_layer(cfg, x, layer_slice(params, i), cos, sin)
+        layer = layer_slice(params, i)
+        if remat:
+            x = checkpoint(_layer_hidden, cfg, x, layer, cos, sin, attention,
+                           segment_ids, use_reentrant=False)
+        else:
+            x = _layer_hidden(cfg, x, layer, cos, sin, attention,
+                              segment_ids)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _layer_hidden(cfg, x, layer, cos, sin, attention, segment_ids):
+    return decoder_layer(cfg, x, layer, cos, sin, attention, segment_ids)[0]
 
 
 @torch.no_grad()
@@ -290,3 +325,92 @@ def forward(params: Params, tokens: torch.Tensor,
             cfg: LlamaConfig) -> torch.Tensor:
     """Token ids [B, S] -> logits [B, S, vocab] (float32)."""
     return logits(forward_hidden(params, tokens, cfg), params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: LlamaConfig,
+            attention: Optional[Callable] = None):
+    """Next-token cross-entropy. batch: {"tokens": [B, S] int, optionally
+    "mask": [B, S] (1 = predict this position's next token),
+    "positions" and "segment_ids" [B, S] (packed)}. Returns (loss,
+    {"loss", "accuracy", "tokens"}), all 0-dim float32 tensors."""
+    tokens = batch["tokens"]
+    h = forward_hidden(params, tokens, cfg,
+                       positions=batch.get("positions"),
+                       segment_ids=batch.get("segment_ids"),
+                       attention=attention)
+    loss, acc, denom = xent_metrics(params, h, tokens,
+                                    packed_loss_mask(batch), cfg)
+    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
+def packed_loss_mask(batch: Dict[str, torch.Tensor]):
+    """Loss mask honoring packed segments: only within-document
+    next-token transitions count (the last token of each segment has no
+    target). Returns batch["mask"] unchanged when not packed."""
+    mask = batch.get("mask")
+    seg = batch.get("segment_ids")
+    if seg is None:
+        return mask
+    same_next = (seg[:, :-1] == seg[:, 1:]) & (seg[:, :-1] > 0)
+    pad = torch.zeros((seg.shape[0], 1), dtype=torch.bool,
+                      device=seg.device)
+    seg_mask = torch.cat([same_next, pad], dim=1)
+    return seg_mask if mask is None else mask * seg_mask.to(mask.dtype)
+
+
+def _chunk_xent(h: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+                m: torch.Tensor):
+    """Summed log-likelihood and correct predictions of one chunk: the
+    head product in the activation dtype, then float32."""
+    logits = (h @ head).float()
+    logps = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logps, -1, targets[..., None])[..., 0]
+    correct = (logits.argmax(dim=-1) == targets).to(m.dtype)
+    return (ll * m).sum(), (correct * m).sum()
+
+
+def xent_metrics(params: Params, h: torch.Tensor, tokens: torch.Tensor,
+                 mask: Optional[torch.Tensor], cfg: LlamaConfig,
+                 head: Optional[torch.Tensor] = None):
+    """LM head + next-token cross-entropy over final-norm hidden states
+    h [B, S, D]. Returns (loss, accuracy, denom). As in the JAX package,
+    the head product is taken in ``cfg.dtype`` and then widened to
+    float32 (serving's :func:`logits` multiplies in float32 instead).
+
+    With ``cfg.xent_chunk`` > 0 the sequence is cut into chunks padded
+    with masked positions, and each chunk's [B, c, vocab] logits are
+    recomputed in the backward (``torch.utils.checkpoint``), so the
+    full logits tensor never exists."""
+    if head is None:
+        head = lm_head(params, cfg)
+    head = head.to(cfg.dtype)
+    B, S = tokens.shape
+    targets = tokens[:, 1:].long()
+    m = (torch.ones((B, S - 1), dtype=torch.float32, device=h.device)
+         if mask is None else mask[:, :-1].float())
+    h = h[:, :-1]
+    c = cfg.xent_chunk
+    if not c:
+        ll_sum, correct = _chunk_xent(h, head, targets, m)
+    else:
+        pad = (-(S - 1)) % c
+        if pad:
+            h = F.pad(h, (0, 0, 0, pad))
+            targets = F.pad(targets, (0, pad))
+            m = F.pad(m, (0, pad))
+        ll_sum = correct = torch.zeros((), dtype=torch.float32,
+                                       device=h.device)
+        for i in range(0, h.shape[1], c):
+            part = (h[:, i:i + c], head, targets[:, i:i + c], m[:, i:i + c])
+            if torch.is_grad_enabled():
+                ll, ok = checkpoint(_chunk_xent, *part, use_reentrant=False)
+            else:
+                ll, ok = _chunk_xent(*part)
+            ll_sum = ll_sum + ll
+            correct = correct + ok
+    denom = m.sum().clamp_min(1.0)
+    return -ll_sum / denom, correct / denom, denom

@@ -4,10 +4,11 @@ the plain einsum attention it is held against.
 Counterpart of ``skypilot_tpu/ops/attention.py``. The JAX module picked
 the Pallas kernel only on a TPU, at ``seq >= 1024`` and for head dims
 that are multiples of 128, and fell back to XLA on any error. The port
-has no such gates and no fallback: :func:`gqa_attention` always goes to
-the flash wrapper (``ops/flash_attention.py``), which launches the CUDA
-kernel for CUDA tensors at every sequence length and raises on what the
-kernel does not take; only CPU tensors run the plain version.
+has no such gates and no fallback: :func:`gqa_attention` always goes
+through ``FlashAttention`` (``ops/flash_attention.py``), whose wrappers
+launch the CUDA kernels (forward, and under autograd the backward) for
+CUDA tensors at every sequence length and raise on what the kernels do
+not take; only CPU tensors run the plain versions.
 """
 
 from __future__ import annotations
@@ -55,6 +56,6 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   segment_ids: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     """Grouped-query attention. q: [B, S, Hq, D]; k/v: [B, S, Hkv, D],
-    unexpanded: the flash kernel reads kv-head ``h // (Hq / Hkv)``."""
-    return fa.flash_attention(q, k, v, causal=causal,
-                              segment_ids=segment_ids)
+    unexpanded: the flash kernels read kv-head ``h // (Hq / Hkv)``.
+    Differentiable: the backward runs K3 and K4."""
+    return fa.FlashAttention.apply(q, k, v, segment_ids, causal)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions on the card.
+"""The port's CUDA kernels (K1 paged attention, K2 flash forward, K3/K4
+flash backward) against their plain versions on the card.
 
 Every test here carries the ``gpu`` marker and skips inside the test
 when no card is present. The file imports neither jax nor the JAX
@@ -78,6 +79,109 @@ def test_flash_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError):                 # not contiguous
         t = torch.zeros((1, 4, 64, 64), device=dev).transpose(1, 2)
         tfa.flash_attention_fwd(t, t, t)
+
+
+# -- K3 / K4: flash-attention backward --------------------------------------
+
+def _ulp_close(got, want):
+    """bf16: within one bf16 ulp of the plain value plus 1e-3 of its
+    largest magnitude (a flipped rounding costs one ulp)."""
+    w = want.float()
+    _, e = torch.frexp(w)
+    tol = torch.ldexp(torch.ones_like(w), e - 8) + 1e-3 * w.abs().max()
+    assert ((got.float() - w).abs() <= tol).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("S", [128, 200, 512])
+@pytest.mark.parametrize("dtype,segments", [
+    (torch.bfloat16, False), (torch.bfloat16, True),
+    (torch.float32, False), (torch.float32, True)])
+def test_flash_bwd_kernels_match_plain(S, dtype, segments, D):
+    dev = _cuda()
+    q, k, v, seg = _flash_inputs(dev, dtype, S, segments, D)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    o, lse = tfa.flash_attention_fwd(q, k, v, seg)
+    delta = tfa.attention_delta(o, do)
+    before = (tfa.flash_attention_bwd_dkv.launches,
+              tfa.flash_attention_bwd_dq.launches)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, seg)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_bwd_dkv.launches,
+            tfa.flash_attention_bwd_dq.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, seg)
+    for g, w in zip((dq, dk, dv), want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if dtype == torch.bfloat16:
+            _ulp_close(g, w)
+        else:
+            _close(g, w, 1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_attention_function_runs_the_kernels_on_card():
+    """FlashAttention's backward through K3/K4 against the same
+    function through the plain versions, float32 on the card."""
+    dev = _cuda()
+    q, k, v, seg = _flash_inputs(dev, torch.float32, 256, True, 64)
+    g = torch.randn(q.shape, device=dev)
+    grads = {}
+    for plain in (False, True):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        counts = (tfa.flash_attention_bwd_dkv.launches,
+                  tfa.flash_attention_bwd_dq.launches)
+        tfa.FlashAttention.apply(*xs, seg, True, plain).backward(g)
+        ran = (tfa.flash_attention_bwd_dkv.launches > counts[0],
+               tfa.flash_attention_bwd_dq.launches > counts[1])
+        assert ran == ((False, False) if plain else (True, True))
+        grads[plain] = [x.grad for x in xs]
+    for a, b in zip(grads[False], grads[True]):
+        _close(a, b, 1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_wrappers_raise_instead_of_falling_back():
+    dev = _cuda()
+    q, k, v, _ = _flash_inputs(dev, torch.float32, 128, False, 64)
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    delta = tfa.attention_delta(o, o)
+    with pytest.raises(TypeError):                  # f16 lse
+        tfa.flash_attention_bwd_dq(q, k, v, o, lse.half(), delta)
+    with pytest.raises(ValueError):                 # strided dO
+        t = torch.zeros((2, 4, 128, 64), device=dev).transpose(1, 2)
+        tfa.flash_attention_bwd_dkv(q, k, v, t, lse, delta)
+    with pytest.raises(ValueError):                 # dO of another dtype
+        tfa.flash_attention_bwd_dkv(q, k, v, o.bfloat16(), lse, delta)
+
+
+@pytest.mark.gpu
+def test_train_step_gradients_match_plain_path_on_card():
+    """llama3-tiny in float32 on the card: a packed batch's loss and
+    gradients through the kernels equal those through the plain
+    versions within 1e-4 of each gradient's largest magnitude."""
+    import dataclasses
+    from skypilot_tpu_torch.data import input_pipeline as ip
+    from skypilot_tpu_torch.train import trainer as tt
+    dev = _cuda()
+    cfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"], dtype=torch.float32,
+                              xent_chunk=32)
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    docs = ip.synthetic_doc_stream(40, cfg.vocab_size, mean_len=30)
+    batch = ip.to_device(next(ip.packed_batches(docs, 2, 128)), dev)
+
+    def plain(q, k, v, segment_ids=None):
+        return tfa.FlashAttention.apply(q, k, v, segment_ids, True, True)
+
+    got = tt.grads_of(params, batch, cfg)
+    want = tt.grads_of(params, batch, cfg, attention=plain)
+    assert abs(got[0].item() - want[0].item()) <= 1e-5 * want[0].item()
+    for a, b in zip(got[2], want[2]):
+        _close(a, b, 1e-4)
 
 
 # -- K1: paged attention ----------------------------------------------------
