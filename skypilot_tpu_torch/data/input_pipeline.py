@@ -23,6 +23,9 @@ import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 
+# Batches :func:`prefetch` moves to the device ahead of the consumer.
+PREFETCH_DEPTH = 2
+
 
 def _pack_numpy(docs: List[np.ndarray], rows: int, cols: int,
                 pad_id: int):
@@ -112,14 +115,15 @@ def to_device(batch: Dict[str, np.ndarray],
             for k, v in batch.items()}
 
 
-def prefetch(batches: Iterable[Dict[str, np.ndarray]], size: int = 2,
+def prefetch(batches: Iterable[Dict[str, np.ndarray]],
              device: DeviceLike = None) -> Iterator[Dict[str, torch.Tensor]]:
     """Batches moved to ``device`` by a background thread, up to
-    ``size`` ahead. The thread ends when the stream ends, and also when
-    the consumer stops: closing this generator (``close()``, or dropping
-    it) stops and joins the thread, even over an infinite stream."""
+    ``PREFETCH_DEPTH`` ahead. The thread ends when the stream ends, and
+    also when the consumer stops: closing this generator (``close()``,
+    or dropping it) stops and joins the thread, even over an infinite
+    stream."""
     device = resolve_device(device)
-    q: "queue.Queue" = queue.Queue(maxsize=size)
+    q: "queue.Queue" = queue.Queue(maxsize=PREFETCH_DEPTH)
     stop = threading.Event()
     end = object()
 

@@ -374,8 +374,7 @@ def _chunk_xent(h: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
 
 
 def xent_metrics(params: Params, h: torch.Tensor, tokens: torch.Tensor,
-                 mask: Optional[torch.Tensor], cfg: LlamaConfig,
-                 head: Optional[torch.Tensor] = None):
+                 mask: Optional[torch.Tensor], cfg: LlamaConfig):
     """LM head + next-token cross-entropy over final-norm hidden states
     h [B, S, D]. Returns (loss, accuracy, denom). As in the JAX package,
     the head product is taken in ``cfg.dtype`` and then widened to
@@ -385,9 +384,7 @@ def xent_metrics(params: Params, h: torch.Tensor, tokens: torch.Tensor,
     with masked positions, and each chunk's [B, c, vocab] logits are
     recomputed in the backward (``torch.utils.checkpoint``), so the
     full logits tensor never exists."""
-    if head is None:
-        head = lm_head(params, cfg)
-    head = head.to(cfg.dtype)
+    head = lm_head(params, cfg).to(cfg.dtype)
     B, S = tokens.shape
     targets = tokens[:, 1:].long()
     m = (torch.ones((B, S - 1), dtype=torch.float32, device=h.device)

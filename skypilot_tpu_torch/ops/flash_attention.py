@@ -295,19 +295,15 @@ flash_attention_bwd_dq.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention, in place of the JAX package's
-    ``_flash`` ``custom_vjp``. ``apply(q, k, v, segment_ids, causal,
-    plain)`` (positional) -> O; the forward saves q, k, v, O and the
-    logsumexp, the backward forms delta in plain torch and runs K3 and
-    K4. ``plain=True`` runs the plain versions instead, on any device:
-    the reference the kernels are held against."""
+    ``_flash`` ``custom_vjp``. ``apply(q, k, v, segment_ids, causal)``
+    (positional) -> O; the forward saves q, k, v, O and the logsumexp,
+    the backward forms delta in plain torch and runs K3 and K4."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids=None, causal=True, plain=False):
-        fwd = flash_attention_fwd_ref if plain else flash_attention_fwd
-        o, lse = fwd(q, k, v, segment_ids, causal)
+    def forward(ctx, q, k, v, segment_ids=None, causal=True):
+        o, lse = flash_attention_fwd(q, k, v, segment_ids, causal)
         ctx.save_for_backward(q, k, v, o, lse, segment_ids)
         ctx.causal = causal
-        ctx.plain = plain
         return o
 
     @staticmethod
@@ -316,13 +312,8 @@ class FlashAttention(torch.autograd.Function):
         # Autograd may hand over a strided gradient; the kernels take
         # contiguous rows.
         do = do.contiguous()
-        if ctx.plain:
-            dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do, seg,
-                                                 ctx.causal)
-        else:
-            delta = attention_delta(o, do)
-            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg,
-                                             ctx.causal)
-            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, seg,
-                                        ctx.causal)
-        return dq, dk, dv, None, None, None
+        delta = attention_delta(o, do)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg,
+                                         ctx.causal)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, seg, ctx.causal)
+        return dq, dk, dv, None, None

@@ -78,13 +78,21 @@ def lr_schedule(tc: TrainConfig) -> Callable[[int], float]:
     return schedule
 
 
-def _tree_leaves(tree, like=None) -> List[torch.Tensor]:
-    """Leaves of a nested dict, in the key order of ``like`` (default:
-    the tree's own), so moments and parameters pair up by name."""
+def _layer_leaves(tree, like=None) -> List[torch.Tensor]:
+    """Leaves of a parameter-shaped tree in the key order of ``like``
+    (default: the tree's own), so moments, gradients and parameters pair
+    up by name; each stacked ``blocks`` tensor [L, ...] gives its L rows
+    (views), the unit that autograd and the optimizer work in."""
     like = tree if like is None else like
-    if isinstance(like, dict):
-        return [x for k in like for x in _tree_leaves(tree[k], like[k])]
-    return [tree]
+    leaves = []
+    for k in like:
+        if k == "blocks":
+            for n in like[k]:
+                w = tree[k][n]
+                leaves.extend(w[i] for i in range(w.shape[0]))
+        else:
+            leaves.append(tree[k])
+    return leaves
 
 
 def _tree_map(fn, tree):
@@ -104,8 +112,9 @@ def init_opt_state(params, tc: TrainConfig) -> Dict[str, Any]:
 def make_optimizer(tc: TrainConfig):
     """update(grads, opt_state, params) -> grad_norm: the clip + AdamW
     chain applied in place to the ``params`` tree and ``opt_state``.
-    ``grads`` lists one gradient per leaf of ``params`` in its key
-    order. Returns the global norm before clipping."""
+    ``grads`` lists one gradient per entry of ``_layer_leaves(params)``
+    (each layer's row of a stacked tensor on its own). Returns the
+    global norm before clipping."""
     schedule = lr_schedule(tc)
     mu_dtype = _MU_DTYPES[tc.mu_dtype]
     b1, b2, wd = tc.beta1, tc.beta2, tc.weight_decay
@@ -113,8 +122,8 @@ def make_optimizer(tc: TrainConfig):
     @torch.no_grad()
     def update(grads: List[torch.Tensor], opt_state: Dict[str, Any],
                params) -> torch.Tensor:
-        mus = _tree_leaves(opt_state["mu"], params)
-        nus = _tree_leaves(opt_state["nu"], params)
+        mus = _layer_leaves(opt_state["mu"], params)
+        nus = _layer_leaves(opt_state["nu"], params)
         g_norm = torch.sqrt(sum(g.square().sum() for g in grads))
         clip = g_norm >= tc.grad_clip     # optax keeps g when g_norm < max
         count = opt_state["count"]
@@ -122,7 +131,7 @@ def make_optimizer(tc: TrainConfig):
         bc1 = 1 - np.float32(b1) ** np.float32(count_inc)
         bc2 = 1 - np.float32(b2) ** np.float32(count_inc)
         step = -np.float32(schedule(count))
-        for g, mu, nu, p in zip(grads, mus, nus, _tree_leaves(params)):
+        for g, mu, nu, p in zip(grads, mus, nus, _layer_leaves(params)):
             g = torch.where(clip, (g / g_norm) * tc.grad_clip, g)
             # As the JAX program computes it: b1 takes mu's dtype (a
             # weak-typed scalar; 0.9 -> 0.8984375 for a bf16 mu), the
@@ -191,10 +200,11 @@ def train_state_from_numpy(jax_state: Dict[str, Any],
 
 
 def _grad_leaves(params) -> Tuple[Dict[str, Any], List[torch.Tensor]]:
-    """Leaf tensors for autograd: the unstacked parameters as they are,
-    and each stacked block tensor as one leaf per layer (views of its
-    rows), so a layer's backward writes its own gradient instead of
-    adding a zero-padded copy of the whole stack."""
+    """Leaf tensors for autograd, in the order of ``_layer_leaves``: the
+    unstacked parameters as they are, and each stacked block tensor as
+    one leaf per layer (views of its rows), so a layer's backward writes
+    its own gradient instead of adding a zero-padded copy of the whole
+    stack."""
     leaves: List[torch.Tensor] = []
 
     def leaf(w):
@@ -214,21 +224,11 @@ def _grad_leaves(params) -> Tuple[Dict[str, Any], List[torch.Tensor]]:
 
 def grads_of(params, batch: Dict[str, torch.Tensor], cfg: llama.LlamaConfig,
              attention: Optional[Callable] = None):
-    """(loss, metrics, grads): grads lists one tensor per leaf of
-    ``_tree_leaves(params)``, stacked block gradients re-stacked."""
+    """(loss, metrics, grads): grads lists one tensor per entry of
+    ``_layer_leaves(params)``, a stacked tensor's gradient per layer."""
     view, leaves = _grad_leaves(params)
     loss, metrics = llama.loss_fn(view, batch, cfg, attention=attention)
-    flat = torch.autograd.grad(loss, leaves)
-    grads, i = [], 0
-    for k, w in params.items():
-        if k == "blocks":
-            for n in w:
-                L = w[n].shape[0]
-                grads.append(torch.stack(flat[i:i + L]))
-                i += L
-        else:
-            grads.append(flat[i])
-            i += 1
+    grads = list(torch.autograd.grad(loss, leaves))
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 

@@ -84,7 +84,7 @@ def test_save_snapshots_before_returning(tmp_path):
                      else x, state)
     with ck.CheckpointManager(str(tmp_path / "c")) as mgr:
         mgr.save(1, state)
-        for t in tt._tree_leaves(state["params"]):
+        for t in tt._layer_leaves(state["params"]):
             t.add_(1.0)                        # mutate while it writes
         state["opt_state"]["count"] = 99
         mgr.wait()

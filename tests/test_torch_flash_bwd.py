@@ -118,7 +118,7 @@ def test_plain_path_gradcheck_float64(segments):
             for x in (q, k, v)]
 
     def f(q, k, v):
-        return tfa.FlashAttention.apply(q, k, v, tseg, True, True)
+        return tfa.FlashAttention.apply(q, k, v, tseg, True)
 
     assert torch.autograd.gradcheck(f, args)
 

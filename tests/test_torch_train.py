@@ -74,7 +74,7 @@ def test_loss_and_grads_match_jax(kind, chunk):
     np.testing.assert_allclose(metrics["accuracy"].item(),
                                float(jm["accuracy"]), atol=1e-6)
     assert metrics["tokens"].item() == float(jm["tokens"])
-    want = tt._tree_leaves(_np_tree(jg), tp)
+    want = tt._layer_leaves(_np_tree(jg), tp)
     assert len(want) == len(grads)
     for w, g in zip(want, grads):
         assert g.shape == w.shape
@@ -164,10 +164,10 @@ def test_five_steps_match_jax_trainer(mu_dtype, clip):
     assert state["step"] == int(jstate["step"]) == 8
     atol = 3e-4 if mu_dtype else 2e-6
     want = _np_tree(jstate)
-    for w, p in zip(tt._tree_leaves(want["params"], state["params"]),
-                    tt._tree_leaves(state["params"])):
+    for w, p in zip(tt._layer_leaves(want["params"], state["params"]),
+                    tt._layer_leaves(state["params"])):
         np.testing.assert_allclose(p.numpy(), w, atol=atol, rtol=1e-4)
-    mu = tt._tree_leaves(state["opt_state"]["mu"])
+    mu = tt._layer_leaves(state["opt_state"]["mu"])
     assert all(t.dtype == (torch.bfloat16 if mu_dtype else torch.float32)
                for t in mu)
 
@@ -221,7 +221,7 @@ def test_prefetch_moves_batches_and_its_thread_ends():
             yield {"tokens": np.full((2, 4), i, np.int32)}
             i += 1
 
-    it = tip.prefetch(forever(), size=2, device="cpu")
+    it = tip.prefetch(forever(), device="cpu")
     first = [next(it)["tokens"] for _ in range(3)]
     assert all(isinstance(t, torch.Tensor) for t in first)
     assert [int(t[0, 0]) for t in first] == [0, 1, 2]
