@@ -19,22 +19,46 @@
 // Design. The Pallas grid swept its inner dimension in order on one
 // core; here that sweep becomes a loop inside one thread block, so
 // nothing is carried between blocks:
-//   K3: one block per (64-row k tile, kv-head, batch). K and V stay in
-//       shared memory while the block loops over the group's H / Hkv
-//       q-heads and, under the causal mask, over the q tiles from the
-//       diagonal on. One block owns its kv-head's tile for the whole
-//       group, so dK and dV are summed in registers without atomics and
-//       the result does not depend on the order blocks run in.
+//   K3: one block per (k tile, kv-head, batch). K and V stay in shared
+//       memory while the block loops over the group's H / Hkv q-heads
+//       and, under the causal mask, over the q tiles from the diagonal
+//       on. One block owns its kv-head's tile for the whole group, so dK
+//       and dV are summed in registers without atomics and the result
+//       does not depend on the order blocks run in.
 //   K4: one block per (64-row q tile, head, batch), looping over the k
 //       tiles up to the diagonal; kv-head h / (H / Hkv) is read directly,
 //       so K/V are never expanded.
-// Each of the 256 threads owns a 4 x 4 micro-tile of S and dP and a
-// 4 x D/16 slice of each output accumulator in registers. Products use
-// fp32 FMA; all accumulation is fp32 and each output is written once.
-// Every shared tile row is padded by one float so the column walks of
-// the products hit distinct banks. Only tiles that cross the diagonal,
-// the sequence end or a segment boundary pay the element mask.
-// Tensor cores (mma / wgmma) and TMA loads are the next step.
+// Only tiles that cross the diagonal, the sequence end or a segment
+// boundary pay the element mask.
+//
+// K3 in bf16 (flash_bwd_dkv_bf16_kernel), the trained path: wgmma on
+// TMA tiles (sm90.cuh). One block per (128-row k tile, kv-head, batch):
+// a producer warpgroup, whose first warp issues every load and which
+// hands its registers to the others (setmaxnreg), and two consumer
+// warpgroups of 64 k rows each, which keep their dK and dV accumulators
+// (fp32, 2 x 64 registers a thread at D = 128) for the whole sweep. K and
+// V are loaded once; Q and dO tiles of 32 rows, with their rows of
+// lse * log2(e), delta and segment ids, stream through a three-stage
+// ring with a full and an empty mbarrier per stage. Per tile the
+// consumers form the transposed products, so every per-k-row operand is
+// in their registers: S^T = K Q^T and dP^T = V dO^T (wgmma m64n32k16,
+// both operands from shared memory), P^T = exp2(S^T * scale * log2 e -
+// lse * log2 e) and dS^T = P^T * (dP^T - delta) on the fp32
+// accumulators, then dV += P^T dO and dK += dS^T Q (wgmma with A from
+// registers, dO and Q MN-major from the same boxes). P^T and dS^T enter
+// as two bf16 A operands each, hi = bf16(x) and lo = bf16(x - hi): one
+// bf16 rounding would cost up to 2^-9 of every term of dK and dV, past
+// the bf16 outputs' own rounding. The scale is applied to the fp32 S and,
+// once, to dK in the epilogue, never to a bf16 Q. k tiles with the most
+// q tiles are issued first. The products of a tile run one after the
+// other inside a warpgroup; the two warpgroups overlap each other.
+//
+// K3 in fp32 and K4 in both dtypes: CUDA-core FMA. 256 threads, each
+// owning a 4 x 4 micro-tile of S and dP and a 4 x D/16 slice of each
+// output accumulator in registers, over fp32 tiles in shared memory
+// (rows padded by one float against bank conflicts). Bounded by the FMA
+// rate (67 TFLOP/s); K4's tensor-core body is the next redesign, and the
+// fp32 bodies stay exact fp32 products for the fp32 parity checks.
 //
 // Layouts: q, dO, dQ [B, S, H, D]; k, v, dK, dV [B, S, Hkv, D] (f32 or
 // bf16, D = 32, 64 or 128); lse, delta [B, H, S] float32; segments
@@ -44,6 +68,10 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -277,6 +305,295 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   }
 }
 
+// K3, bf16 body: wgmma on TMA tiles.
+constexpr int kConsumers = 256;            // two warpgroups, 64 k rows each
+constexpr int kThreadsTC = kConsumers + 128;  // and a producer warpgroup
+constexpr int kBKT = 128;                  // k rows per block
+constexpr int kBQT = 32;                   // q rows per stage
+constexpr int kStages = 3;                 // Q / dO ring
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kBQT == 32, "the producer warp loads one q row per lane");
+
+// K and V (2 x kBKT x D) and the Q / dO ring (2 kStages x kBQT x D), bf16
+// in TMA boxes; barriers (K/V, then full and empty per stage); per stage
+// lse * log2 e, delta, q segment ids and a segment flag; k segment ids;
+// 1 KB to align the boxes. dK and dV are staged at the end over K, V and
+// the ring (2 x [kBKT][D + 8]).
+template <int D>
+constexpr size_t dkv_tc_smem_bytes() {
+  return 1024 + sizeof(__nv_bfloat16) * (2 * kBKT + 2 * kStages * kBQT) * D +
+         sizeof(uint64_t) * (1 + 2 * kStages) +
+         sizeof(float) * 2 * kStages * kBQT +
+         sizeof(int) * (kStages * kBQT + kStages + kBKT);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1) flash_bwd_dkv_bf16_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ seg,
+    sm90::bf16* __restrict__ dk, sm90::bf16* __restrict__ dv, int S, int H,
+    int Hkv, int causal, float scale, float scale_log2) {
+  using sm90::bf16;
+  using Bx = sm90::Boxes<D>;
+  constexpr int BC = Bx::BC;
+  constexpr int ROW = Bx::ROW;
+  constexpr int ND = D / 8;     // 8-wide output tiles
+  constexpr int NS = kBQT / 8;  // 8-wide tiles of S^T per stage
+  constexpr int KS = BC / 16;   // 16-deep steps per box
+  constexpr int QT = kBQT * D;  // elements of one Q or dO tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* k_s = reinterpret_cast<bf16*>(base);  // NB boxes [kBKT][BC]
+  bf16* v_s = k_s + kBKT * D;
+  bf16* ring = v_s + kBKT * D;  // stage st: Q at 2 st QT, dO after it
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(ring + 2 * kStages * QT);
+  uint64_t* full = kv_full + 1;      // [kStages]: the stage has landed
+  uint64_t* empty = full + kStages;  // [kStages]: 8 consumer warps are done
+  float* lse_s = reinterpret_cast<float*>(empty + kStages);  // [kStages][kBQT]
+  float* dl_s = lse_s + kStages * kBQT;                      // [kStages][kBQT]
+  int* qseg_s = reinterpret_cast<int*>(dl_s + kStages * kBQT);
+  int* sflag_s = qseg_s + kStages * kBQT;  // [kStages]: a q row's segment
+                                           // differs from the k tile's
+  int* kseg_s = sflag_s + kStages;         // [kBKT]
+
+  const int k0 = blockIdx.z * kBKT;  // k tile 0, the most work, first
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int rep = H / Hkv;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const bool segs = seg != nullptr;
+  const int* sb = segs ? seg + static_cast<size_t>(b) * S : nullptr;
+
+  if (tid == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], kConsumers / 32);
+    }
+    sm90::fence_barrier_init();
+  }
+  // Segments: is the whole k tile one segment (then a q tile of that
+  // same segment needs no element mask)?
+  int ks0 = 0;
+  bool k_uni = true;
+  if (segs) {
+    ks0 = sb[k0];
+    int mine = -2;
+    if (tid < kBKT) {
+      mine = k0 + tid < S ? sb[k0 + tid] : -2;
+      kseg_s[tid] = mine;
+    }
+    k_uni = __syncthreads_and(!(tid < kBKT && k0 + tid < S && mine != ks0));
+  } else {
+    __syncthreads();
+  }
+
+  // Steps: the group's q-heads, each over the q tiles from the diagonal.
+  const int n_qt = (S + kBQT - 1) / kBQT;
+  const int q_first = causal ? k0 / kBQT : 0;
+  const int per_head = n_qt - q_first;
+  const int n_steps = rep * per_head;
+
+  if (tid >= kConsumers) {
+    // The producer warpgroup gives its registers to the consumers; its
+    // first warp issues every load.
+    sm90::reg_dealloc<sm90::kProducerRegs>();
+    if (tid >= kConsumers + 32) return;
+    // Producer warp: K and V once, then the Q / dO ring with each step's
+    // lse, delta and segment ids.
+    if (lane == 0) {
+      sm90::mbar_expect_tx(kv_full, 2 * kBKT * D * 2);
+      for (int x = 0; x < Bx::NB; ++x) {
+        sm90::tma_load_4d(k_s + x * kBKT * BC, &tk, kv_full, x * BC, hk, k0,
+                          b);
+        sm90::tma_load_4d(v_s + x * kBKT * BC, &tv, kv_full, x * BC, hk, k0,
+                          b);
+      }
+    }
+    for (int it = 0; it < n_steps; ++it) {
+      const int st = it % kStages;
+      const int h = hk * rep + it / per_head;
+      const int q0 = (q_first + it % per_head) * kBQT;
+      if (it >= kStages) sm90::mbar_wait(&empty[st], (it / kStages - 1) & 1);
+      {
+        const int s = q0 + lane;  // kBQT == 32: one row per lane
+        const size_t row = (static_cast<size_t>(b) * H + h) * S;
+        lse_s[st * kBQT + lane] = s < S ? lse[row + s] * kLog2e : 0.f;
+        dl_s[st * kBQT + lane] = s < S ? delta[row + s] : 0.f;
+        if (segs) {
+          const int id = s < S ? sb[s] : -1;
+          qseg_s[st * kBQT + lane] = id;
+          const bool diff = __any_sync(0xffffffffu, s < S && id != ks0);
+          if (lane == 0) sflag_s[st] = diff;
+        }
+        __threadfence_block();
+        __syncwarp();
+      }
+      if (lane == 0) {
+        bf16* qd = ring + 2 * st * QT;
+        sm90::mbar_expect_tx(&full[st], 2 * QT * 2);
+        for (int x = 0; x < Bx::NB; ++x) {
+          sm90::tma_load_4d(qd + x * kBQT * BC, &tq, &full[st], x * BC, h,
+                            q0, b);
+          sm90::tma_load_4d(qd + QT + x * kBQT * BC, &tdo, &full[st], x * BC,
+                            h, q0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  sm90::reg_alloc<sm90::kConsumerRegs>();
+  // Consumers: warpgroup wg owns k rows 64 wg .. 64 wg + 63.
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = wg * 64 + warp * 16 + g;  // this thread's k rows: r0, r0 + 8
+  const bf16* kw = k_s + wg * 64 * BC;     // this warpgroup's K rows
+  const bf16* vw = v_s + wg * 64 * BC;     // and V rows
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  sm90::mbar_wait(kv_full, 0);
+
+  for (int it = 0; it < n_steps; ++it) {
+    const int st = it % kStages;
+    const int q0 = (q_first + it % per_head) * kBQT;
+    sm90::mbar_wait(&full[st], (it / kStages) & 1);
+    const bf16* qs = ring + 2 * st * QT;
+    const bf16* dos = qs + QT;
+    const float* ls = lse_s + st * kBQT;
+    const float* dls = dl_s + st * kBQT;
+    const int* qsg = qseg_s + st * kBQT;
+
+    // S^T = K Q^T and dP^T = V dO^T: K-major operands, one group.
+    float pt[NS][4], dst[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pt[j][e] = dst[j][e] = 0.f;
+    sm90::fence_regs(pt);
+    sm90::fence_regs(dst);
+    sm90::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int x = kk / KS;
+      const int off = (kk % KS) * 16;
+      const uint64_t dq =
+          sm90::desc(qs + x * kBQT * BC + off, 0, 8 * ROW, Bx::LAYOUT);
+      const uint64_t ddo =
+          sm90::desc(dos + x * kBQT * BC + off, 0, 8 * ROW, Bx::LAYOUT);
+      sm90::wgmma_ss(
+          pt, sm90::desc(kw + x * kBKT * BC + off, 0, 8 * ROW, Bx::LAYOUT),
+          dq);
+      sm90::wgmma_ss(
+          dst, sm90::desc(vw + x * kBKT * BC + off, 0, 8 * ROW, Bx::LAYOUT),
+          ddo);
+    }
+    sm90::wg_commit();
+    sm90::wg_wait<0>();
+    sm90::fence_regs(pt);
+    sm90::fence_regs(dst);
+
+    // P^T = exp(S^T / sqrt(D) - lse) under the mask, in fp32, then
+    // dS^T = P^T * (dP^T - delta).
+    const bool edge = (causal && q0 < k0 + kBKT) || q0 + kBQT > S ||
+                      k0 + kBKT > S || (segs && (sflag_s[st] || !k_uni));
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);  // q row in the stage
+        float p = exp2f(pt[j][e] * scale_log2 - ls[c]);
+        if (edge) {
+          const int r = r0 + (e >> 1) * 8;      // k row in the tile
+          bool ok = q0 + c < S && k0 + r < S;
+          if (causal) ok = ok && k0 + r <= q0 + c;
+          if (segs) ok = ok && qsg[c] == kseg_s[r];
+          if (!ok) p = 0.f;
+        }
+        pt[j][e] = p;
+        dst[j][e] = p * (dst[j][e] - dls[c]);
+      }
+
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T from registers as two
+    // bf16 A operands each (hi and lo), dO and Q MN-major (16 q rows down
+    // their rows per step). The 1/sqrt(D) of dK comes in the epilogue.
+    uint32_t pa[2 * (kBQT / 16)][4], sa[2 * (kBQT / 16)][4];
+#pragma unroll
+    for (int kk = 0; kk < kBQT / 16; ++kk) {
+      sm90::a_from_c(pa[2 * kk], pa[2 * kk + 1], pt, kk);
+      sm90::a_from_c(sa[2 * kk], sa[2 * kk + 1], dst, kk);
+    }
+    sm90::fence_regs(dva);
+    sm90::fence_regs(dka);
+    sm90::fence_regs(pa);
+    sm90::fence_regs(sa);
+    sm90::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQT / 16; ++kk) {
+      const uint64_t ddo =
+          sm90::desc(dos + kk * 16 * BC, kBQT * ROW, 8 * ROW, Bx::LAYOUT);
+      const uint64_t dq =
+          sm90::desc(qs + kk * 16 * BC, kBQT * ROW, 8 * ROW, Bx::LAYOUT);
+      sm90::wgmma_rs(dva, pa[2 * kk + 1], ddo);
+      sm90::wgmma_rs(dva, pa[2 * kk], ddo);
+      sm90::wgmma_rs(dka, sa[2 * kk + 1], dq);
+      sm90::wgmma_rs(dka, sa[2 * kk], dq);
+    }
+    sm90::wg_commit();
+    sm90::wg_wait<0>();
+    sm90::fence_regs(dva);
+    sm90::fence_regs(dka);
+    sm90::fence_regs(pa);
+    sm90::fence_regs(sa);
+    if (lane == 0) sm90::mbar_arrive(&empty[st]);  // this warp is done
+  }
+
+  // Stage dK and dV over K, V and the ring once both warpgroups are done
+  // with them (every load was consumed), then store 16-byte rows.
+  constexpr int LD = D + 8;
+  bf16* dks = k_s;
+  bf16* dvs = k_s + kBKT * LD;
+  sm90::named_sync(1, kConsumers);
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    const int c = j * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(dks + r0 * LD + c) =
+        sm90::pack(dka[j][0] * scale, dka[j][1] * scale);
+    *reinterpret_cast<uint32_t*>(dks + (r0 + 8) * LD + c) =
+        sm90::pack(dka[j][2] * scale, dka[j][3] * scale);
+    *reinterpret_cast<uint32_t*>(dvs + r0 * LD + c) =
+        sm90::pack(dva[j][0], dva[j][1]);
+    *reinterpret_cast<uint32_t*>(dvs + (r0 + 8) * LD + c) =
+        sm90::pack(dva[j][2], dva[j][3]);
+  }
+  sm90::named_sync(1, kConsumers);
+  const size_t kv_row = static_cast<size_t>(Hkv) * D;
+  const size_t kv_off = static_cast<size_t>(b) * S * kv_row +
+                        static_cast<size_t>(hk) * D;
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  for (int i = tid; i < kBKT * CH; i += kConsumers) {
+    const int r = i / CH;
+    const int c = i % CH;
+    const int s = k0 + r;
+    if (s >= S) continue;
+    const size_t off = kv_off + static_cast<size_t>(s) * kv_row + c * 8;
+    *reinterpret_cast<uint4*>(dk + off) =
+        *reinterpret_cast<const uint4*>(dks + r * LD + c * 8);
+    *reinterpret_cast<uint4*>(dv + off) =
+        *reinterpret_cast<const uint4*>(dvs + r * LD + c * 8);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K4: dQ
 // ---------------------------------------------------------------------------
@@ -397,10 +714,28 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-int launch_dkv(const Args& a) {
-  auto kern = flash_bwd_dkv_kernel<T, D>;
-  constexpr size_t smem = dkv_smem_bytes<D>();
+template <int D>
+int launch_dkv_bf16(const Args& a) {
+  // TMA reads 16-byte aligned tensors; dK and dV are stored in 16-byte
+  // rows.
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) |
+       reinterpret_cast<uintptr_t>(a.dout) |
+       reinterpret_cast<uintptr_t>(a.out0) |
+       reinterpret_cast<uintptr_t>(a.out1)) &
+      15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  constexpr int BC = sm90::Boxes<D>::BC;
+  CUtensorMap tq, tk, tv, tdo;
+  if (int e = sm90::bf16_map(&tq, a.q, D, a.H, a.S, a.B, BC, kBQT)) return e;
+  if (int e = sm90::bf16_map(&tk, a.k, D, a.Hkv, a.S, a.B, BC, kBKT))
+    return e;
+  if (int e = sm90::bf16_map(&tv, a.v, D, a.Hkv, a.S, a.B, BC, kBKT))
+    return e;
+  if (int e = sm90::bf16_map(&tdo, a.dout, D, a.H, a.S, a.B, BC, kBQT))
+    return e;
+  auto kern = flash_bwd_dkv_bf16_kernel<D>;
+  constexpr size_t smem = dkv_tc_smem_bytes<D>();
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -409,15 +744,42 @@ int launch_dkv(const Args& a) {
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  dim3 grid((a.S + kB - 1) / kB, a.Hkv, a.B);
-  kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const int*>(a.seg), static_cast<T*>(a.out0),
-      static_cast<T*>(a.out1), a.S, a.H, a.Hkv, a.causal,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
+  const double scale = 1.0 / std::sqrt(static_cast<double>(D));
+  dim3 grid(a.Hkv, a.B, (a.S + kBKT - 1) / kBKT);
+  kern<<<grid, kThreadsTC, smem, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const int*>(a.seg),
+      static_cast<sm90::bf16*>(a.out0), static_cast<sm90::bf16*>(a.out1), a.S,
+      a.H, a.Hkv, a.causal, static_cast<float>(scale),
+      static_cast<float>(scale * 1.4426950408889634));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkv(const Args& a) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_dkv_bf16<D>(a);
+  } else {
+    auto kern = flash_bwd_dkv_kernel<T, D>;
+    constexpr size_t smem = dkv_smem_bytes<D>();
+    static bool configured = false;
+    if (!configured) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      configured = true;
+    }
+    dim3 grid((a.S + kB - 1) / kB, a.Hkv, a.B);
+    kern<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<const int*>(a.seg), static_cast<T*>(a.out0),
+        static_cast<T*>(a.out1), a.S, a.H, a.Hkv, a.causal,
+        static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D>
@@ -462,8 +824,8 @@ int run(bool dkv, int D, int dtype, const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. seg may be null. Each returns the
-// cudaError_t of its launch (0 = success).
+// dtype: 0 = float32, 1 = bfloat16 (K3: the tensor-core body). seg may
+// be null. Each returns the cudaError_t of its launch (0 = success).
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,

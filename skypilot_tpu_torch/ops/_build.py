@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at
 first use with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/torch_kernels/`` at the repository root, then loaded with
-``ctypes``. The library name carries a hash of the source and the
-flags, so an edited kernel rebuilds and a stale one is never loaded. A
-failed build raises.
+``ctypes``. The library name carries a hash of the source, of every
+shared header ``csrc/*.cuh`` and of the flags, so an edited kernel or
+header rebuilds and a stale library is never loaded. A failed build
+raises.
 
 :func:`build_all` starts one ``nvcc`` per source together, so the build
 takes as long as the slowest file.
@@ -44,10 +45,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(
-        src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

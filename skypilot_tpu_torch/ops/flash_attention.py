@@ -13,7 +13,13 @@ Counterpart of ``skypilot_tpu/ops/flash_attention.py``:
   forward, then ``delta = rowsum(dO * O)`` in plain torch (the JAX
   package leaves it to XLA) and K3 + K4.
 
-The kernels multiply in fp32 FMA; their sources note the design.
+Dispatch is by dtype only. bf16 inputs, the served and trained path,
+reach K2's and K3's Hopper bodies: wgmma products on TMA-loaded shared
+tiles (``csrc/sm90.cuh``), P and dS entering their products as two bf16
+parts so that only the order of fp32 sums differs from the plain
+versions. K4 (both dtypes) and the float32 bodies of K2 and K3 multiply
+with fp32 FMA on CUDA cores, so float32 stays exact fp32 arithmetic.
+Each source notes its design and what bounds it.
 
 Layouts follow the JAX package's public function: q ``[B, S, H, D]``,
 k/v ``[B, S, Hkv, D]`` (not GQA-expanded: the kernel reads kv-head
