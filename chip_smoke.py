@@ -7,7 +7,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
 
 1. The card's name and power limit (``nvidia-smi``).
 2. Build: every hand-written kernel of ``skypilot_tpu_torch/csrc`` with
-   ``nvcc`` for ``sm_90a``, one process per source, all at once.
+   ``nvcc`` for ``sm_90a``, one process per source, all at once; ptxas's
+   registers and spills per kernel function.
 3. Kernels: each kernel against its plain PyTorch version on the same
    CUDA inputs at its main path's shapes (K1/K2 serving, K3/K4 the
    llama3-1b training shape), with its time (CUDA events over many
@@ -18,7 +19,13 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    the time over the library call's. The flash kernels' bf16 outputs
    are held per element to one bf16 ulp of the plain value plus 1e-3 of
    its largest magnitude, their float32 outputs and the logsumexp to
-   1e-4 of it; K1's partial sums to 2e-3 of it.
+   1e-4 of it; K1's partial sums to 2e-3 of it, its length-0 slots
+   exactly. K1 (which merges a slot's chunks inside its own launch) and
+   the bf16 K3/K4 must give equal bits on a second call. K1 also runs a
+   long-context case after the main path's (16 slots of 3000-4096 rows).
+   A K1 call takes less device time than its wrapper takes on the host,
+   so its time comes from replaying 64 launches from a CUDA graph; the
+   eager loop's time and the host's time per call are printed beside it.
 4. Serve: the port's HTTP server (``infer/server.py``) at llama3-8b
    full width and depth with random bf16 weights from a fixed seed
    answers 8 concurrent ``/generate`` requests, one streamed. The
@@ -87,6 +94,37 @@ def _rates_text(r: dict) -> str:
             f"bound, {lib}")
 
 
+def _ptxas_summary(log: str):
+    """One line per kernel function of an ``nvcc -Xptxas -v`` log: its
+    (demangled) name, registers and spill bytes."""
+    import re
+    import shutil
+    funcs = []  # [mangled name, registers, spill stores, spill loads]
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            funcs.append([m.group(1), "?", "0", "0"])
+        elif funcs and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            funcs[-1][2:] = m.groups()
+        elif funcs and (m := re.search(r"Used (\d+) registers", line)):
+            funcs[-1][1] = m.group(1)
+    names = [f[0] for f in funcs]
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = out.stdout.splitlines()
+    for name, (_, regs, st, ld) in zip(names, funcs):
+        for old, new in (("(anonymous namespace)::", ""),
+                         ("<unnamed>::", ""), ("(int)", ""), ("void ", ""),
+                         ("__nv_bfloat16", "bf16")):
+            name = name.replace(old, new)
+        yield (f"{name.split('(')[0]}: {regs} registers, spill stores "
+               f"{st} B, loads {ld} B")
+
+
 def _time_ms(fn, n: int, warmup: int = 2) -> float:
     """Mean device time of ``fn()`` over ``n`` calls, by CUDA events."""
     import torch
@@ -101,6 +139,49 @@ def _time_ms(fn, n: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def _graph_ms(fn, n: int) -> float:
+    """Mean device time of ``fn(i)`` over ``n`` calls replayed from one
+    CUDA graph, by CUDA events: the launches run back to back, without
+    the host's time per call between them (which, for a kernel shorter
+    than its Python wrapper's call, is what ``_time_ms`` would time)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(2):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * n)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _host_ms(fn, n: int) -> float:
+    """Mean host time of one ``fn(i)`` call (its enqueue, not its run)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
 
 
 def _err(got, want, name: str, rel: float):
@@ -160,6 +241,26 @@ def _paged_case(quant: bool, gen, dev):
                 span_blocks=span_blocks)
 
 
+def _paged_long_case(gen, dev):
+    """K1 at long context: 16 slots of 3000-4096 rows, 8 kv-heads, 4
+    query rows, head_dim 128, bf16, swept to span 16 blocks of 256 (the
+    kernel's chunks: 24-32 a slot) in a 4-layer pool."""
+    import torch
+    L, bl, G, hd, B, R, nb = 4, 256, 8, 128, 16, 4, 16
+    n_blocks = B * nb + 1
+    shape = (L, n_blocks, bl, G, hd)
+    kp = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    q = torch.randn((B, G, R, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    lengths = torch.randint(3000, 4097, (B,), generator=gen, device=dev)
+    perm = torch.randperm(n_blocks, generator=gen, device=dev)
+    table = torch.full((B, nb + 1), n_blocks, dtype=torch.int32, device=dev)
+    table[:, :nb] = perm[:B * nb].reshape(B, nb).int()
+    return dict(q=q, k_pool=kp, v_pool=vp, k_scale=None, v_scale=None,
+                table=table, lengths=lengths.int(), layer=2, span_blocks=nb)
+
+
 def _check_paged(name: str, case) -> dict:
     import torch
     from skypilot_tpu_torch.ops import paged_attention as pa
@@ -167,7 +268,11 @@ def _check_paged(name: str, case) -> dict:
             case["v_scale"], case["table"], case["lengths"])
     lay, sb = case["layer"], case["span_blocks"]
     acc, m, l = pa.paged_attention(*args, lay, span_blocks=sb)
+    again = pa.paged_attention(*args, lay, span_blocks=sb)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((acc, m, l), again)):
+        raise AssertionError(f"{name}: a second call gave other bits")
+    del again
     racc, rm, rl = pa.paged_attention_ref(*args, lay, sb)
     empty = case["lengths"] == 0
     if not (torch.all(m[empty] == -1e30) and torch.all(l[empty] == 0)
@@ -189,7 +294,12 @@ def _check_paged(name: str, case) -> dict:
     def plain(i):
         pa.paged_attention_ref(*args, i % L, sb)
 
-    ms = _time_ms(kern, 64)
+    # A call is shorter than the wrapper's host time, so the kernel's own
+    # time comes from graph replay; the eager loop and the host's time a
+    # call are reported beside it.
+    ms = _graph_ms(kern, 64)
+    eager_ms = _time_ms(kern, 64)
+    host_ms = _host_ms(kern, 64)
     plain_ms = _time_ms(plain, 8)
     B, G, R, hd = case["q"].shape
     bl = case["k_pool"].shape[2]
@@ -207,12 +317,13 @@ def _check_paged(name: str, case) -> dict:
     bound_ms, bound_by = _bound_ms(
         n_bytes, n_ops, "int8" if kv_item == 1 else "bf16")
     rates = _rates(ms, n_ops, bound_ms, None)
-    _log(f"kernel {name}: max_abs_err={err:.3e} ms={ms:.4f} "
+    _log(f"kernel {name}: max_abs_err={err:.3e} ms={ms:.4f} (graph "
+         f"replay; eager loop {eager_ms:.4f}, host {host_ms:.4f} a call) "
          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}); "
          + _rates_text(rates))
-    return dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                **rates)
+    return dict(name=name, max_abs_err=err, ms=ms, eager_ms=eager_ms,
+                host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, **rates)
 
 
 def _flash_case(S: int, segments: bool, gen, dev):
@@ -337,6 +448,15 @@ def _check_bwd(name: str, case) -> dict:
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, seg)
     torch.cuda.synchronize()
+    if q.dtype == torch.bfloat16:
+        # No atomics: a second call gives the same bits.
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, seg)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg)
+        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                and torch.equal(dv, dv2)):
+            raise AssertionError(f"{name}: K3/K4 gave other bits on a "
+                                 f"second call")
+        del dq2, dk2, dv2
     rq, rk, rv = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, seg)
     if q.dtype == torch.bfloat16:
         err_dkv = max(_bf16_ulp_err(dk, rk, f"{name} dK"),
@@ -403,7 +523,10 @@ def phase_kernels(dev):
     paged = [_check_paged("paged_attention[bf16]",
                           _paged_case(False, gen, dev)),
              _check_paged("paged_attention[int8]",
-                          _paged_case(True, gen, dev))]
+                          _paged_case(True, gen, dev)),
+             _check_paged("paged_attention[bf16,long]",
+                          _paged_long_case(gen, dev))]
+    torch.cuda.empty_cache()
     flash = [_check_flash(f"flash_attention_fwd[S={S},seg={int(s)}]",
                           _flash_case(S, s, gen, dev))
              for S, s in ((1024, False), (512, False), (1024, True),
@@ -567,7 +690,9 @@ def phase_serve(dev, card: str):
         httpd.shutdown()
         model.shutdown()
         th.join(timeout=30)
-    _log(f"serve: 8 requests in {wall:.2f} s; launches {launches}")
+    _log(f"serve: 8 requests in {wall:.2f} s; launches {launches} (K1 "
+         f"merges a slot's chunks inside its own launch: no merge kernel, "
+         f"0 merge launches)")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
@@ -894,9 +1019,8 @@ def main() -> int:
     _log(f"build: {len(_build.SOURCES)} kernels for sm_90a in "
          f"{time.time() - t0:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                _log(f"  {name}: {line.strip()}")
+        for line in _ptxas_summary(text):
+            _log(f"  {name}: {line}")
 
     def free():
         gc.collect()

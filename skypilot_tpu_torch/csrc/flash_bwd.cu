@@ -25,9 +25,10 @@
 //       on. One block owns its kv-head's tile for the whole group, so dK
 //       and dV are summed in registers without atomics and the result
 //       does not depend on the order blocks run in.
-//   K4: one block per (64-row q tile, head, batch), looping over the k
-//       tiles up to the diagonal; kv-head h / (H / Hkv) is read directly,
-//       so K/V are never expanded.
+//   K4: one block per (q tile, head, batch), looping over the k tiles up
+//       to the diagonal; kv-head h / (H / Hkv) is read directly, so K/V
+//       are never expanded. One block owns its dQ rows, so dQ too is
+//       summed in registers without atomics.
 // Only tiles that cross the diagonal, the sequence end or a segment
 // boundary pay the element mask.
 //
@@ -53,12 +54,31 @@
 // q tiles are issued first. The products of a tile run one after the
 // other inside a warpgroup; the two warpgroups overlap each other.
 //
-// K3 in fp32 and K4 in both dtypes: CUDA-core FMA. 256 threads, each
-// owning a 4 x 4 micro-tile of S and dP and a 4 x D/16 slice of each
-// output accumulator in registers, over fp32 tiles in shared memory
-// (rows padded by one float against bank conflicts). Bounded by the FMA
-// rate (67 TFLOP/s); K4's tensor-core body is the next redesign, and the
-// fp32 bodies stay exact fp32 products for the fp32 parity checks.
+// K4 in bf16 (flash_bwd_dq_bf16_kernel), the trained path: the forward's
+// layout (flash_fwd.cu) with K3's products. One block per (128-row q
+// tile, q-head, batch): the same producer warpgroup and two consumer
+// warpgroups of 64 q rows each, whose dQ accumulators (fp32, 64 registers
+// a thread at D = 128) stay in registers for the whole sweep. Q and dO
+// are loaded once and stay resident, with the tile's lse * log2(e),
+// delta and segment ids; K and V tiles of 64 rows stream through a
+// three-stage ring with a full and an empty mbarrier per stage. Per tile
+// the consumers form S = Q K^T and dP = dO V^T (wgmma m64n64k16, both
+// operands from shared memory), P = exp2(S * scale * log2 e - lse *
+// log2 e) and dS = P * (dP - delta) on the fp32 accumulators, then
+// dQ += dS K (wgmma with A from registers, K MN-major as V is in the
+// forward's P V). dS enters as two bf16 A operands, hi = bf16(dS) and
+// lo = bf16(dS - hi), for K3's reason; the 1/sqrt(D) of dQ is applied
+// once to the fp32 accumulator in the epilogue. 64-row k tiles keep S,
+// dP, dQ and the dS operands (32 + 32 + 64 + 32 registers) inside the
+// consumers' 232; 128-row ones would not fit. k tiles past the diagonal
+// are never loaded, and the first warpgroup skips the one k tile that
+// lies wholly above its rows; the heaviest q tiles are issued first.
+//
+// K3 and K4 in fp32: CUDA-core FMA. 256 threads, each owning a 4 x 4
+// micro-tile of S and dP and a 4 x D/16 slice of each output accumulator
+// in registers, over fp32 tiles in shared memory (rows padded by one
+// float against bank conflicts). Bounded by the FMA rate (67 TFLOP/s);
+// the fp32 bodies stay exact fp32 products for the fp32 parity checks.
 //
 // Layouts: q, dO, dQ [B, S, H, D]; k, v, dK, dV [B, S, Hkv, D] (f32 or
 // bf16, D = 32, 64 or 128); lse, delta [B, H, S] float32; segments
@@ -80,18 +100,11 @@ constexpr int kB = 64;       // rows of a q or k tile
 constexpr int kPP = kB + 1;  // padded row of a P / dS tile
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Rows [r0, r0 + kB) of a [S, row_stride] operand (D columns from src)
@@ -696,6 +709,284 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   }
 }
 
+// K4, bf16 body: wgmma on TMA tiles.
+constexpr int kBQ4 = 128;    // q rows per block: two warpgroups of 64
+constexpr int kBK4 = 64;     // k rows per stage
+constexpr int kStages4 = 3;  // K / V ring
+
+// Q and dO (2 x kBQ4 x D) and the K / V ring (2 kStages4 x kBK4 x D), bf16
+// in TMA boxes; barriers (Q/dO, then full and empty per stage); the q
+// tile's lse * log2 e, delta and segment ids; per stage k segment ids and
+// a segment flag; 1 KB to align the boxes. dQ is staged at the end over
+// the ring ([kBQ4][D + 8]).
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+  return 1024 + sizeof(__nv_bfloat16) * (2 * kBQ4 + 2 * kStages4 * kBK4) * D +
+         sizeof(uint64_t) * (1 + 2 * kStages4) + sizeof(float) * 2 * kBQ4 +
+         sizeof(int) * (kBQ4 + kStages4 * kBK4 + kStages4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1) flash_bwd_dq_bf16_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ seg,
+    sm90::bf16* __restrict__ dq, int S, int H, int Hkv, int causal,
+    float scale, float scale_log2) {
+  using sm90::bf16;
+  using Bx = sm90::Boxes<D>;
+  constexpr int BC = Bx::BC;
+  constexpr int ROW = Bx::ROW;
+  constexpr int ND = D / 8;     // 8-wide dQ tiles
+  constexpr int NS = kBK4 / 8;  // 8-wide tiles of S per stage
+  constexpr int KS = BC / 16;   // 16-deep steps per box
+  constexpr int QT = kBQ4 * D;  // elements of Q or dO
+  constexpr int TILE = kBK4 * D;  // elements of one K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* q_s = reinterpret_cast<bf16*>(base);  // NB boxes [kBQ4][BC]
+  bf16* do_s = q_s + QT;
+  bf16* ring = do_s + QT;  // stage st: K at 2 st TILE, V after it
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(ring + 2 * kStages4 * TILE);
+  uint64_t* full = qd_full + 1;       // [kStages4]: the stage has landed
+  uint64_t* empty = full + kStages4;  // [kStages4]: 8 consumer warps are done
+  float* lse_s = reinterpret_cast<float*>(empty + kStages4);  // [kBQ4]
+  float* dl_s = lse_s + kBQ4;                                 // [kBQ4]
+  int* qseg_s = reinterpret_cast<int*>(dl_s + kBQ4);          // [kBQ4]
+  int* kseg_s = qseg_s + kBQ4;  // [kStages4][kBK4]
+  int* sflag_s = kseg_s + kStages4 * kBK4;  // [kStages4]: a key's segment
+                                            // differs from the q tile's
+
+  // Heaviest q tiles first: under the causal mask tile i sweeps 2 i + 2
+  // k tiles, and blocks are issued in order of blockIdx.z.
+  const int n_q = (S + kBQ4 - 1) / kBQ4;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.z)) * kBQ4;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const bool segs = seg != nullptr;
+  const int* sb = segs ? seg + static_cast<size_t>(b) * S : nullptr;
+
+  if (tid == 0) {
+    sm90::mbar_init(qd_full, 1);
+    for (int i = 0; i < kStages4; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], kConsumers / 32);
+    }
+    sm90::fence_barrier_init();
+  }
+  // The q tile's rows of lse * log2 e and delta (rows past S: 0, never
+  // stored) and, with segments, whether the whole tile is one segment
+  // (then a k tile of that same segment needs no element mask).
+  if (tid < kBQ4) {
+    const int s = q0 + tid;
+    const size_t row = (static_cast<size_t>(b) * H + h) * S;
+    lse_s[tid] = s < S ? lse[row + s] * kLog2e : 0.f;
+    dl_s[tid] = s < S ? delta[row + s] : 0.f;
+  }
+  int qs0 = 0;
+  bool q_uni = true;
+  if (segs) {
+    qs0 = sb[q0];
+    int mine = -1;
+    if (tid < kBQ4) {
+      mine = q0 + tid < S ? sb[q0 + tid] : -1;
+      qseg_s[tid] = mine;
+    }
+    q_uni = __syncthreads_and(!(tid < kBQ4 && q0 + tid < S && mine != qs0));
+  } else {
+    __syncthreads();
+  }
+
+  // Causal: k tiles past the tile's last row contribute nothing.
+  int n_kv = (S + kBK4 - 1) / kBK4;
+  if (causal) n_kv = min(n_kv, (q0 + kBQ4 - 1) / kBK4 + 1);
+
+  if (tid >= kConsumers) {
+    // The producer warpgroup gives its registers to the consumers; its
+    // first warp issues every load.
+    sm90::reg_dealloc<sm90::kProducerRegs>();
+    if (tid >= kConsumers + 32) return;
+    // Producer warp: Q and dO once, then the K / V ring of kv-head
+    // h / (H / Hkv), each stage with its k segment ids.
+    const int hk = h / (H / Hkv);
+    if (lane == 0) {
+      sm90::mbar_expect_tx(qd_full, 2 * QT * 2);
+      for (int x = 0; x < Bx::NB; ++x) {
+        sm90::tma_load_4d(q_s + x * kBQ4 * BC, &tq, qd_full, x * BC, h, q0,
+                          b);
+        sm90::tma_load_4d(do_s + x * kBQ4 * BC, &tdo, qd_full, x * BC, h, q0,
+                          b);
+      }
+    }
+    for (int kj = 0; kj < n_kv; ++kj) {
+      const int st = kj % kStages4;
+      if (kj >= kStages4) sm90::mbar_wait(&empty[st], (kj / kStages4 - 1) & 1);
+      if (segs) {
+        bool diff = false;
+        for (int i = lane; i < kBK4; i += 32) {
+          const int s = kj * kBK4 + i;
+          const int id = s < S ? sb[s] : -2;
+          kseg_s[st * kBK4 + i] = id;
+          diff = diff || (s < S && id != qs0);
+        }
+        diff = __any_sync(0xffffffffu, diff);
+        if (lane == 0) sflag_s[st] = diff;
+        __threadfence_block();
+        __syncwarp();
+      }
+      if (lane == 0) {
+        bf16* kd = ring + 2 * st * TILE;
+        sm90::mbar_expect_tx(&full[st], 2 * TILE * 2);
+        for (int x = 0; x < Bx::NB; ++x) {
+          sm90::tma_load_4d(kd + x * kBK4 * BC, &tk, &full[st], x * BC, hk,
+                            kj * kBK4, b);
+          sm90::tma_load_4d(kd + TILE + x * kBK4 * BC, &tv, &full[st],
+                            x * BC, hk, kj * kBK4, b);
+        }
+      }
+    }
+    return;
+  }
+
+  sm90::reg_alloc<sm90::kConsumerRegs>();
+  // Consumers: warpgroup wg owns q rows 64 wg .. 64 wg + 63.
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = wg * 64 + warp * 16 + g;  // this thread's rows: r0, r0 + 8
+  const bf16* qw = q_s + wg * 64 * BC;     // this warpgroup's Q rows
+  const bf16* dw = do_s + wg * 64 * BC;    // and dO rows
+  const float ls0 = lse_s[r0], ls1 = lse_s[r0 + 8];
+  const float dl0 = dl_s[r0], dl1 = dl_s[r0 + 8];
+  const int wq0 = q0 + wg * 64;  // this warpgroup's first q row
+  float dqa[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+  sm90::mbar_wait(qd_full, 0);
+
+  for (int kj = 0; kj < n_kv; ++kj) {
+    const int st = kj % kStages4;
+    const int k0 = kj * kBK4;
+    sm90::mbar_wait(&full[st], (kj / kStages4) & 1);
+    // Causal: the tile's last k tile lies wholly above this warpgroup's
+    // rows when it is the first warpgroup.
+    if (causal && k0 > wq0 + 63) {
+      if (lane == 0) sm90::mbar_arrive(&empty[st]);
+      continue;
+    }
+    const bf16* ks = ring + 2 * st * TILE;
+    const bf16* vs = ks + TILE;
+
+    // S = Q K^T and dP = dO V^T: K-major operands, one group.
+    float sc[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int x = kk / KS;
+      const int off = (kk % KS) * 16;
+      const uint64_t dk =
+          sm90::desc(ks + x * kBK4 * BC + off, 0, 8 * ROW, Bx::LAYOUT);
+      const uint64_t dv =
+          sm90::desc(vs + x * kBK4 * BC + off, 0, 8 * ROW, Bx::LAYOUT);
+      sm90::wgmma_ss(
+          sc, sm90::desc(qw + x * kBQ4 * BC + off, 0, 8 * ROW, Bx::LAYOUT),
+          dk);
+      sm90::wgmma_ss(
+          dp, sm90::desc(dw + x * kBQ4 * BC + off, 0, 8 * ROW, Bx::LAYOUT),
+          dv);
+    }
+    sm90::wg_commit();
+    sm90::wg_wait<0>();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+
+    // P = exp(S / sqrt(D) - lse) under the mask, in fp32, then
+    // dS = P * (dP - delta), in place of dP.
+    const bool edge = (causal && k0 + kBK4 - 1 > wq0) || k0 + kBK4 > S ||
+                      (segs && (sflag_s[st] || !q_uni));
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool hi = e >> 1;  // row r0 + 8
+        float p = exp2f(sc[j][e] * scale_log2 - (hi ? ls1 : ls0));
+        if (edge) {
+          const int r = r0 + (e >> 1) * 8;      // q row in the tile
+          const int c = j * 8 + 2 * t + (e & 1);  // k row in the stage
+          bool ok = k0 + c < S;
+          if (causal) ok = ok && k0 + c <= q0 + r;
+          if (segs) ok = ok && qseg_s[r] == kseg_s[st * kBK4 + c];
+          if (!ok) p = 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - (hi ? dl1 : dl0));
+      }
+
+    // dQ += dS K: dS from registers as two bf16 A operands (hi and lo), K
+    // MN-major (16 k rows down its rows per step), as V is in the
+    // forward's P V. The 1/sqrt(D) of dQ comes in the epilogue.
+    uint32_t sa[2 * (kBK4 / 16)][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK4 / 16; ++kk)
+      sm90::a_from_c(sa[2 * kk], sa[2 * kk + 1], dp, kk);
+    sm90::fence_regs(dqa);
+    sm90::fence_regs(sa);
+    sm90::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK4 / 16; ++kk) {
+      const uint64_t dk =
+          sm90::desc(ks + kk * 16 * BC, kBK4 * ROW, 8 * ROW, Bx::LAYOUT);
+      sm90::wgmma_rs(dqa, sa[2 * kk + 1], dk);
+      sm90::wgmma_rs(dqa, sa[2 * kk], dk);
+    }
+    sm90::wg_commit();
+    sm90::wg_wait<0>();
+    sm90::fence_regs(dqa);
+    sm90::fence_regs(sa);
+    if (lane == 0) sm90::mbar_arrive(&empty[st]);  // this warp is done
+  }
+
+  // Stage dQ over the ring once both warpgroups are done with it (every
+  // load was consumed), then store 16-byte rows.
+  constexpr int LD = D + 8;
+  bf16* qds = ring;
+  sm90::named_sync(1, kConsumers);
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    const int c = j * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(qds + r0 * LD + c) =
+        sm90::pack(dqa[j][0] * scale, dqa[j][1] * scale);
+    *reinterpret_cast<uint32_t*>(qds + (r0 + 8) * LD + c) =
+        sm90::pack(dqa[j][2] * scale, dqa[j][3] * scale);
+  }
+  sm90::named_sync(1, kConsumers);
+  const size_t q_row = static_cast<size_t>(H) * D;
+  bf16* qb = dq + static_cast<size_t>(b) * S * q_row +
+             static_cast<size_t>(h) * D;
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  for (int i = tid; i < kBQ4 * CH; i += kConsumers) {
+    const int r = i / CH;
+    const int c = i % CH;
+    const int s = q0 + r;
+    if (s < S)
+      *reinterpret_cast<uint4*>(qb + static_cast<size_t>(s) * q_row + c * 8) =
+          *reinterpret_cast<const uint4*>(qds + r * LD + c * 8);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
@@ -782,10 +1073,26 @@ int launch_dkv(const Args& a) {
   }
 }
 
-template <typename T, int D>
-int launch_dq(const Args& a) {
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  constexpr size_t smem = dq_smem_bytes<D>();
+template <int D>
+int launch_dq_bf16(const Args& a) {
+  // TMA reads 16-byte aligned tensors; dQ is stored in 16-byte rows.
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) |
+       reinterpret_cast<uintptr_t>(a.dout) |
+       reinterpret_cast<uintptr_t>(a.out0)) &
+      15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  constexpr int BC = sm90::Boxes<D>::BC;
+  CUtensorMap tq, tk, tv, tdo;
+  if (int e = sm90::bf16_map(&tq, a.q, D, a.H, a.S, a.B, BC, kBQ4)) return e;
+  if (int e = sm90::bf16_map(&tk, a.k, D, a.Hkv, a.S, a.B, BC, kBK4))
+    return e;
+  if (int e = sm90::bf16_map(&tv, a.v, D, a.Hkv, a.S, a.B, BC, kBK4))
+    return e;
+  if (int e = sm90::bf16_map(&tdo, a.dout, D, a.H, a.S, a.B, BC, kBQ4))
+    return e;
+  auto kern = flash_bwd_dq_bf16_kernel<D>;
+  constexpr size_t smem = dq_tc_smem_bytes<D>();
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -794,15 +1101,42 @@ int launch_dq(const Args& a) {
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
-  kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const int*>(a.seg), static_cast<T*>(a.out0), a.S, a.H,
-      a.Hkv, a.causal,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
+  const double scale = 1.0 / std::sqrt(static_cast<double>(D));
+  dim3 grid(a.H, a.B, (a.S + kBQ4 - 1) / kBQ4);
+  kern<<<grid, kThreadsTC, smem, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const int*>(a.seg),
+      static_cast<sm90::bf16*>(a.out0), a.S, a.H, a.Hkv, a.causal,
+      static_cast<float>(scale),
+      static_cast<float>(scale * 1.4426950408889634));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dq(const Args& a) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_dq_bf16<D>(a);
+  } else {
+    auto kern = flash_bwd_dq_kernel<T, D>;
+    constexpr size_t smem = dq_smem_bytes<D>();
+    static bool configured = false;
+    if (!configured) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      configured = true;
+    }
+    dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+    kern<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<const int*>(a.seg), static_cast<T*>(a.out0), a.S, a.H,
+        a.Hkv, a.causal,
+        static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T>
@@ -824,8 +1158,9 @@ int run(bool dkv, int D, int dtype, const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (K3: the tensor-core body). seg may
-// be null. Each returns the cudaError_t of its launch (0 = success).
+// dtype: 0 = float32 (FMA bodies), 1 = bfloat16 (the tensor-core
+// bodies). seg may be null. Each returns the cudaError_t of its launch
+// (0 = success).
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,

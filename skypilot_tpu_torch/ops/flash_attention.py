@@ -14,12 +14,12 @@ Counterpart of ``skypilot_tpu/ops/flash_attention.py``:
   package leaves it to XLA) and K3 + K4.
 
 Dispatch is by dtype only. bf16 inputs, the served and trained path,
-reach K2's and K3's Hopper bodies: wgmma products on TMA-loaded shared
-tiles (``csrc/sm90.cuh``), P and dS entering their products as two bf16
-parts so that only the order of fp32 sums differs from the plain
-versions. K4 (both dtypes) and the float32 bodies of K2 and K3 multiply
-with fp32 FMA on CUDA cores, so float32 stays exact fp32 arithmetic.
-Each source notes its design and what bounds it.
+reach the Hopper bodies of K2, K3 and K4: wgmma products on TMA-loaded
+shared tiles (``csrc/sm90.cuh``), P and dS entering their products as
+two bf16 parts so that only the order of fp32 sums differs from the
+plain versions. The float32 bodies of all three multiply with fp32 FMA
+on CUDA cores, so float32 stays exact fp32 arithmetic. Each source
+notes its design and what bounds it.
 
 Layouts follow the JAX package's public function: q ``[B, S, H, D]``,
 k/v ``[B, S, Hkv, D]`` (not GQA-expanded: the kernel reads kv-head

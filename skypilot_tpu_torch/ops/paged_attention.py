@@ -12,9 +12,14 @@ table, for the caller to merge with the staged in-burst columns
 What bounds it: the bytes of the K/V rows below each slot's length.
 Decode reads every cached row once per step and does about ``4 R``
 operations per element read, far below the card's operations-per-byte
-line. The kernel stages each K/V tile in shared memory once for all
-``R`` rows of a (slot, kv-head), so every cached byte crosses device
-memory once; its source notes the rest of the design.
+line. The kernel splits each (slot, kv-head) sweep into chunks of
+rows, one thread block each (flash decoding), streams each chunk's K/V
+tiles through a ring of asynchronous copies once for all ``R`` rows, so
+every cached byte crosses device memory once, and merges a slot's
+chunks in fixed order inside the same launch; its source notes the rest
+of the design. The wrapper hands it a workspace for the chunks'
+partial stats and a per-device array of zeroed counters, which the
+kernel leaves at zero; calls on one device are expected in one stream.
 
 Layouts: q ``[B, G, R, hd]`` (float32 or bfloat16); pools
 ``[L, n_blocks, block_len, G, hd]`` (float32, bfloat16 or int8);
@@ -31,7 +36,7 @@ on what the kernel does not take) and runs the plain version
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -108,13 +113,29 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 def _lib() -> ctypes.CDLL:
+    """The kernel's library, its launch typed and ``chunk_rows`` (the
+    rows of one thread block) read once."""
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.chunk_rows = lib.paged_attention_chunk_rows()
     return lib
+
+
+# Per device: int32 counters, one per (slot, kv-head), that the kernel's
+# chunks count off and return to 0; zeroed once, grown as needed.
+_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[device] = t
+    return t
 
 
 def _check(q, k_pool, v_pool, k_scale, v_scale, table, lengths, layer,
@@ -186,20 +207,31 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
            span_blocks)
     B, G, R, hd = q.shape
     n_blocks, bl = k_pool.shape[1], k_pool.shape[2]
-    acc = torch.empty((B, G, R, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, G, R), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, G, R), dtype=torch.float32, device=q.device)
+    dev = q.device
+    acc = torch.empty((B, G, R, hd), dtype=torch.float32, device=dev)
+    m = torch.empty((B, G, R), dtype=torch.float32, device=dev)
+    l = torch.empty((B, G, R), dtype=torch.float32, device=dev)
     quant = k_scale is not None
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().paged_attention_launch(
+    lib = _lib()
+    # One thread block per chunk of rows; with more than one chunk a
+    # slot's partial stats meet in the workspace.
+    n_chunks = -(-span_blocks * bl // lib.chunk_rows)
+    ws = None
+    if n_chunks > 1:
+        ws = torch.empty(B * G * n_chunks * (R * hd + 2 * R),
+                         dtype=torch.float32, device=dev)
+    tickets = _ticket_counters(dev, B * G)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.paged_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None,
             table.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), B, G, R, hd, layer, n_blocks, bl,
-            table.shape[1], span_blocks, _Q_DTYPES[q.dtype],
-            _KV_DTYPES[k_pool.dtype], stream)
+            m.data_ptr(), l.data_ptr(),
+            ws.data_ptr() if ws is not None else None, tickets.data_ptr(),
+            B, G, R, hd, layer, n_blocks, bl, table.shape[1], span_blocks,
+            _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], stream)
     _build.check(err, "paged_attention")
     paged_attention.launches += 1
     return acc, m, l

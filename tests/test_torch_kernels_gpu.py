@@ -169,6 +169,48 @@ def test_flash_bwd_dkv_bf16_is_deterministic(segments):
         assert torch.equal(a, b)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("segments", [False, True])
+def test_flash_bwd_dq_bf16_is_deterministic(segments):
+    """K4 owns each q tile's dQ rows and sums them in registers with no
+    atomics: two runs on the same inputs give the same bits."""
+    dev = _cuda()
+    q, k, v, seg, do, _, lse, delta = _bwd_inputs(
+        dev, torch.bfloat16, 1000, segments, 128, 1, True)
+    first = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, seg)
+    second = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segments", [False, True])
+def test_flash_bwd_bf16_at_training_geometry(segments):
+    """K3 and K4 at llama3-1b's attention geometry (S 2048, 16 q-heads
+    over 8 kv-heads, head_dim 128), batch 1, under the bf16-ulp rule."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    B, S, H, Hkv, D = 1, 2048, 16, 8, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    q, k, v, do = randn(B, S, H, D), randn(B, S, Hkv, D), \
+        randn(B, S, Hkv, D), randn(B, S, H, D)
+    seg = None
+    if segments:
+        cuts = torch.rand((B, S), generator=gen, device=dev) < 4.0 / S
+        seg = cuts.int().cumsum(dim=1).to(torch.int32)
+    o, lse = tfa.flash_attention_fwd(q, k, v, seg)
+    delta = tfa.attention_delta(o, do)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, seg)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg)
+    torch.cuda.synchronize()
+    for g, w in zip((dq, dk, dv),
+                    tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, seg)):
+        _ulp_close(g, w)
+
+
 def _einsum_attention(q, k, v, segment_ids=None):
     """Causal attention by einsum on GQA-expanded K/V; autograd
     differentiates it, independently of the kernels' formula."""
@@ -242,11 +284,25 @@ def test_train_step_gradients_match_plain_path_on_card():
 
 # -- K1: paged attention ----------------------------------------------------
 
-def _paged_inputs(dev, quant, seed=0):
+# Slot lengths of the K1 cases: empty, one row, partial, one long enough
+# to span many of the kernel's chunks, and one whose table holds a
+# sentinel inside its length (_PAGED_HOLE: slot, table column).
+_PAGED_LENGTHS = (0, 1, 300, 4100, 2000)
+_PAGED_HOLE = (4, 3)
+
+
+def _paged_inputs(dev, kv_dtype, hd=128, R=4, bl=64, seed=0):
+    """Inputs of K1 over a 2-layer pool holding every slot's blocks in
+    scattered order; the table's last column is the sentinel."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    L, n, bl, G, hd, B, R, nb = 3, 20, 64, 2, 128, 5, 4, 4
+    L, G = 2, 2
+    lengths = list(_PAGED_LENGTHS)
+    B = len(lengths)
+    nb = -(-max(lengths) // bl)
+    n = sum(-(-m // bl) for m in lengths) + 1
     shape = (L, n, bl, G, hd)
-    if quant:
+    ks = vs = None
+    if kv_dtype == torch.int8:
         kp = torch.randint(-127, 128, shape, generator=gen, device=dev,
                            dtype=torch.int8)
         vp = torch.randint(-127, 128, shape, generator=gen, device=dev,
@@ -256,26 +312,40 @@ def _paged_inputs(dev, quant, seed=0):
         vs = (torch.rand((L, n, G, bl), generator=gen, device=dev)
               * 0.02 + 1e-3).bfloat16()
     else:
-        kp = torch.randn(shape, generator=gen, device=dev).bfloat16()
-        vp = torch.randn(shape, generator=gen, device=dev).bfloat16()
-        ks = vs = None
-    q = torch.randn((B, G, R, hd), generator=gen, device=dev).bfloat16()
-    lengths = [0, 1, 63, 130, 256]        # empty, partial, full
+        kp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+        vp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+    q_dtype = torch.float32 if kv_dtype == torch.float32 else torch.bfloat16
+    q = torch.randn((B, G, R, hd), generator=gen, device=dev).to(q_dtype)
     perm = torch.randperm(n, generator=gen, device=dev).tolist()
     table = torch.full((B, nb + 1), n, dtype=torch.int32)
     for b, m in enumerate(lengths):
         have = -(-m // bl)
-        table[b, :have] = torch.tensor(perm[b * nb: b * nb + have])
+        table[b, :have] = torch.tensor(perm[:have])
+        perm = perm[have:]
+    table[_PAGED_HOLE] = n
     return (q, kp, vp, ks, vs, table.to(dev),
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
+_POOLS = pytest.mark.parametrize(
+    "kv_dtype", [torch.float32, torch.bfloat16, torch.int8],
+    ids=["f32", "bf16", "int8"])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("layer,span_blocks", [(0, 4), (2, 3), (1, 1)])
-def test_paged_kernel_matches_plain(quant, layer, span_blocks):
+@_POOLS
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("R", [1, 4, 8])
+@pytest.mark.parametrize("bl", [16, 64, 256])
+@pytest.mark.parametrize("span", ["full", "short"])
+def test_paged_kernel_matches_plain(kv_dtype, hd, R, bl, span):
+    """K1 against its plain version: the full span, or one that stops
+    short of the longer slots' lengths; length-0 slots exactly."""
     dev = _cuda()
-    args = _paged_inputs(dev, quant)
+    args = _paged_inputs(dev, kv_dtype, hd, R, bl)
+    span_blocks = -(-(max(_PAGED_LENGTHS) if span == "full" else 1000)
+                    // bl)
+    layer = 1
     before = tpa.paged_attention.launches
     got = tpa.paged_attention(*args, layer, span_blocks=span_blocks)
     torch.cuda.synchronize()
@@ -284,14 +354,31 @@ def test_paged_kernel_matches_plain(quant, layer, span_blocks):
     live = args[-1] > 0
     for g, w in zip(got, want):
         _close(g[live], w[live], 2e-3)
+    assert torch.all(got[0][~live] == 0)
     assert torch.all(got[1][~live] == -1e30)
     assert torch.all(got[2][~live] == 0)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_paged_kernel_is_deterministic(kv_dtype):
+    """The chunks of a slot are merged in chunk order whichever finishes
+    last: two calls give the same bits."""
+    dev = _cuda()
+    args = _paged_inputs(dev, kv_dtype, 128, 4, 256)
+    span_blocks = -(-max(_PAGED_LENGTHS) // 256)
+    first = tpa.paged_attention(*args, 0, span_blocks=span_blocks)
+    second = tpa.paged_attention(*args, 0, span_blocks=span_blocks)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_paged_wrapper_raises_instead_of_falling_back():
     dev = _cuda()
-    q, kp, vp, _, _, table, lengths = _paged_inputs(dev, False)
+    q, kp, vp, _, _, table, lengths = _paged_inputs(dev, torch.bfloat16)
     with pytest.raises(TypeError):                  # int64 table
         tpa.paged_attention(q, kp, vp, None, None, table.long(), lengths,
                             0, span_blocks=1)
@@ -302,8 +389,8 @@ def test_paged_wrapper_raises_instead_of_falling_back():
         tpa.paged_attention(q, kp, vp, None, None, table.cpu(), lengths,
                             0, span_blocks=1)
     with pytest.raises(ValueError):                 # layer out of range
-        tpa.paged_attention(q, kp, vp, None, None, table, lengths, 3,
-                            span_blocks=1)
+        tpa.paged_attention(q, kp, vp, None, None, table, lengths,
+                            kp.shape[0], span_blocks=1)
 
 
 # -- the engine on the card -------------------------------------------------
