@@ -23,18 +23,26 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    exactly. K1 (which merges a slot's chunks inside its own launch) and
    the bf16 K3/K4 must give equal bits on a second call. K1 also runs a
    long-context case after the main path's (16 slots of 3000-4096 rows).
-   A K1 call takes less device time than its wrapper takes on the host,
-   so its time comes from replaying 64 launches from a CUDA graph; the
-   eager loop's time and the host's time per call are printed beside it.
+   K1's multi-row body (``paged_attention_rows``) runs at the serve
+   chunk's shape (2048 query rows of a kv-head over the 512 rows below
+   the chunk) and at a chunk's start of 0; SDPA over the same K/V,
+   gathered, is printed beside it as a yardstick (no PyTorch call
+   returns the unnormalized stats). A K1 call takes less device time
+   than its wrapper takes on the host, so its time comes from replaying
+   64 launches from a CUDA graph; the eager loop's time and the host's
+   time per call are printed beside it.
 4. Serve: the port's HTTP server (``infer/server.py``) at llama3-8b
    full width and depth with random bf16 weights from a fixed seed
-   answers 8 concurrent ``/generate`` requests, one streamed. The
-   kernels' launch counts are set to 0 just before and read just after;
-   two prompts are replayed through an engine that runs the plain
-   attention versions on the same card beside one that runs the
-   kernels, in bf16 (divergence reported) and on the same weights in
-   float32, where greedy tokens must agree wherever the plain logits'
-   top-2 gap exceeds 1e-2.
+   answers 9 concurrent ``/generate`` requests, two of them streamed
+   twins of a chunked and of a wave prompt; prompts longer than 512
+   tokens go through chunked prefill. The kernels' launch counts are
+   set to 0 just before and read just after (the multi-row body must
+   launch once a layer per chunk, and trailers report the chunks); two
+   prompts (one chunked) are replayed through
+   an engine that runs the plain attention versions on the same card
+   beside one that runs the kernels, in bf16 (divergence reported) and
+   on the same weights in float32, where greedy tokens must agree
+   wherever the plain logits' top-2 gap exceeds 1e-2.
 5. Train: gradient parity of the kernels against the plain versions at
    llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
    ``train.run`` at llama3-1b full width and depth for 6 steps on a
@@ -261,14 +269,56 @@ def _paged_long_case(gen, dev):
                 table=table, lengths=lengths.int(), layer=2, span_blocks=nb)
 
 
-def _check_paged(name: str, case) -> dict:
+def _paged_rows_case(start: int, gen, dev):
+    """K1's multi-row body at the chunk program's shapes on the serve
+    path (llama3-8b, chunk 512, max_len 1024): one slot, 8 kv-heads,
+    512 x 4 = 2048 query rows each, head_dim 128, bf16; the slot's
+    length is the chunk's ``start``, the span rung covering it is 512
+    rows (2 blocks of 256), the pool is the serve cache's (32 layers,
+    64 blocks and the trash block), read at layer 5."""
+    import torch
+    L, n_blocks, bl, G, hd = 32, 65, 256, 8, 128
+    shape = (L, n_blocks, bl, G, hd)
+    kp = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    q = torch.randn((1, G, 512 * 4, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    perm = torch.randperm(n_blocks - 1, generator=gen, device=dev)
+    table = torch.full((1, 5), n_blocks - 1, dtype=torch.int32, device=dev)
+    table[0, :3] = perm[:3].int()          # 775 tokens' blocks
+    lens = torch.tensor([start], dtype=torch.int32, device=dev)
+    return dict(q=q, k_pool=kp, v_pool=vp, k_scale=None, v_scale=None,
+                table=table, lengths=lens, layer=5, span_blocks=2)
+
+
+def _sdpa_yardstick(name: str, case) -> None:
+    """SDPA on the rows case's q over the slot's K/V rows below its
+    length, gathered beforehand: a library yardstick line only, since
+    no PyTorch call returns the unnormalized stats."""
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    n = int(case["lengths"][0])
+    k = pa.gather_kv_layer(case["k_pool"], case["layer"], case["table"],
+                           n).transpose(1, 2).contiguous()
+    v = pa.gather_kv_layer(case["v_pool"], case["layer"], case["table"],
+                           n).transpose(1, 2).contiguous()
+    q = case["q"]
+    ms = _time_ms(lambda i: F.scaled_dot_product_attention(q, k, v), 20)
+    _log(f"kernel {name}: yardstick, not a library equivalent: SDPA of "
+         f"the same q over the {n} rows gathered ({tuple(k.shape)}) "
+         f"{ms:.4f} ms")
+
+
+def _check_paged(name: str, case, fn=None) -> dict:
     import torch
     from skypilot_tpu_torch.ops import paged_attention as pa
+    fn = fn or pa.paged_attention
     args = (case["q"], case["k_pool"], case["v_pool"], case["k_scale"],
             case["v_scale"], case["table"], case["lengths"])
     lay, sb = case["layer"], case["span_blocks"]
-    acc, m, l = pa.paged_attention(*args, lay, span_blocks=sb)
-    again = pa.paged_attention(*args, lay, span_blocks=sb)
+    acc, m, l = fn(*args, lay, span_blocks=sb)
+    again = fn(*args, lay, span_blocks=sb)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip((acc, m, l), again)):
         raise AssertionError(f"{name}: a second call gave other bits")
@@ -281,15 +331,17 @@ def _check_paged(name: str, case) -> dict:
                              f"m=-1e30, l=0, acc=0")
     live = ~empty
     rel = 2e-3
-    err = max(_err(acc[live], racc[live], f"{name} acc", rel),
-              _err(m[live], rm[live], f"{name} m", rel),
-              _err(l[live], rl[live], f"{name} l", rel))
+    err = 0.0
+    if live.any():
+        err = max(_err(acc[live], racc[live], f"{name} acc", rel),
+                  _err(m[live], rm[live], f"{name} m", rel),
+                  _err(l[live], rl[live], f"{name} l", rel))
     L = case["k_pool"].shape[0]
 
     # Cycle the layer so each launch reads blocks no earlier launch left
-    # in L2, as the decode loop over layers does.
+    # in L2, as the loops over layers do.
     def kern(i):
-        pa.paged_attention(*args, i % L, span_blocks=sb)
+        fn(*args, i % L, span_blocks=sb)
 
     def plain(i):
         pa.paged_attention_ref(*args, i % L, sb)
@@ -304,10 +356,11 @@ def _check_paged(name: str, case) -> dict:
     B, G, R, hd = case["q"].shape
     bl = case["k_pool"].shape[2]
     # The K/V rows (and scales) below each slot's length within the
-    # span: what this run's data needs read.
+    # span, and the q rows of the slots that have any: what this run's
+    # data needs read.
     rows = case["lengths"].clamp(max=sb * bl).long().sum().item()
     kv_item = case["k_pool"].element_size()
-    n_bytes = (case["q"].numel() * case["q"].element_size()
+    n_bytes = (live.sum().item() * G * R * hd * case["q"].element_size()
                + 2 * rows * G * hd * kv_item
                + (2 * rows * G * 2 if case["k_scale"] is not None
                   else 0)
@@ -527,11 +580,22 @@ def phase_kernels(dev):
              _check_paged("paged_attention[bf16,long]",
                           _paged_long_case(gen, dev))]
     torch.cuda.empty_cache()
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    rows = []
+    for start in (512, 0):
+        case = _paged_rows_case(start, gen, dev)
+        name = f"paged_attention_rows[bf16,start={start}]"
+        rows.append(_check_paged(name, case, pa.paged_attention_rows))
+        if start:
+            _sdpa_yardstick(name, case)
+        del case
+        torch.cuda.empty_cache()
     flash = [_check_flash(f"flash_attention_fwd[S={S},seg={int(s)}]",
                           _flash_case(S, s, gen, dev))
              for S, s in ((1024, False), (512, False), (1024, True),
                           (512, True))]
-    cases = {"paged_attention": paged, "flash_attention_fwd": flash,
+    cases = {"paged_attention": paged, "paged_attention_rows": rows,
+             "flash_attention_fwd": flash,
              "flash_attention_bwd_dkv": [], "flash_attention_bwd_dq": []}
     for dtype, segs in ((torch.bfloat16, False), (torch.bfloat16, True),
                         (torch.float32, False)):
@@ -608,7 +672,8 @@ def _kernel_vs_plain(params, cfg, like, dev, prompts, label):
         e = eng.InferenceEngine(
             params, cfg, n_slots=like.n_slots, max_len=like.max_len,
             prompt_buckets=like.buckets, max_wave=like.max_wave,
-            kv_block=like.kv_block, device=dev, plain_attention=plain)
+            kv_block=like.kv_block, prefill_chunk=like.prefill_chunk,
+            device=dev, plain_attention=plain)
         runs[plain] = (e, e.generate(prompts, max_new_tokens=32))
     p = max(prompts, key=len)
     toks = torch.zeros((1, like.max_len), dtype=torch.long, device=dev)
@@ -623,27 +688,44 @@ def _kernel_vs_plain(params, cfg, like, dev, prompts, label):
 
 
 def phase_serve(dev, card: str):
-    """Returns {kernel: launches} over the 8-request run."""
+    """Returns {kernel: launches} over the 9-request run."""
     import numpy as np
     import torch
     from skypilot_tpu_torch.infer import server as srv
+    from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import paged_attention as pa
 
+    chunk = 512
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(64, 901, 7).tolist()
+    prompts = [rng.integers(1, llama.CONFIGS["llama3-8b"].vocab_size,
+                            n).tolist() for n in lens]
+    bodies = [{"tokens": p, "max_new_tokens": 32} for p in prompts]
+    # Streamed twins of the first chunked and the first wave prompt.
+    twins = [next(i for i, n in enumerate(lens) if n > chunk),
+             next(i for i, n in enumerate(lens) if n <= chunk)]
+    bodies += [{"tokens": prompts[i], "max_new_tokens": 32,
+                "stream": True} for i in twins]
+
     t0 = time.time()
+    # The server coalesces arrivals until a full wave's worth is queued
+    # (or they pause for coalesce_s): with the wave cap at the run's
+    # request count, admission starts once all of them are queued, and
+    # the wave prompt's twins share one prefill wave, whose GEMM shapes,
+    # and so roundings, the streamed twin must reproduce; the twins then
+    # decode in the same bursts. The cap never binds on these waves (at
+    # most 5 prompts share a bucket). Decode runs every slot at every
+    # step, so it is batch-invariant.
     engine = srv.make_engine("llama3-8b", slots=16, max_len=1024,
-                             admit_wave=8, kv_block=256, device=dev,
-                             seed=SEED)
+                             admit_wave=len(bodies), kv_block=256,
+                             prefill_chunk=chunk, device=dev, seed=SEED)
     cfg = engine.cfg
     torch.cuda.synchronize()
     _log(f"serve: llama3-8b {cfg.n_layers} layers d_model {cfg.d_model} "
          f"({cfg.num_params() / 1e9:.2f}B params, bf16) built in "
          f"{time.time() - t0:.1f} s")
     port = _free_port()
-    # Coalesce until all 8 arrivals are queued (it waits no longer than
-    # that): the prompt sent twice then shares one prefill wave, whose
-    # GEMM shapes, and so roundings, the streamed twin must reproduce.
-    # Decode runs every slot at every step, so it is batch-invariant.
     model, httpd = srv.serve(engine, host="127.0.0.1", port=port,
                              coalesce_s=0.5)
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -655,14 +737,6 @@ def phase_serve(dev, card: str):
                                     timeout=30) as r:
             if json.loads(r.read())["status"] != "ok":
                 raise AssertionError("/health is not ok")
-        rng = np.random.default_rng(SEED)
-        lens = rng.integers(64, 901, 7).tolist()
-        prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
-                   for n in lens]
-        bodies = [{"tokens": p, "max_new_tokens": 32} for p in prompts]
-        # The eighth request streams the first prompt again.
-        bodies.append({"tokens": prompts[0], "max_new_tokens": 32,
-                       "stream": True})
         results = [None] * len(bodies)
         errors = []
 
@@ -674,6 +748,7 @@ def phase_serve(dev, card: str):
 
         fa.flash_attention_fwd.launches = 0
         pa.paged_attention.launches = 0
+        pa.paged_attention_rows.launches = 0
         t1 = time.time()
         threads = [threading.Thread(target=one, args=(i,))
                    for i in range(len(bodies))]
@@ -683,29 +758,58 @@ def phase_serve(dev, card: str):
             t.join(timeout=900)
         wall = time.time() - t1
         launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                    "paged_attention": pa.paged_attention.launches}
+                    "paged_attention": pa.paged_attention.launches,
+                    "paged_attention_rows":
+                        pa.paged_attention_rows.launches}
         if errors or any(r is None for r in results):
             raise AssertionError(f"requests failed: {errors}")
     finally:
         httpd.shutdown()
         model.shutdown()
         th.join(timeout=30)
-    _log(f"serve: 8 requests in {wall:.2f} s; launches {launches} (K1 "
-         f"merges a slot's chunks inside its own launch: no merge kernel, "
-         f"0 merge launches)")
+    _log(f"serve: {len(bodies)} requests in {wall:.2f} s; launches "
+         f"{launches} (K1 merges a slot's chunks inside its own launch: "
+         f"no merge kernel, 0 merge launches)")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"main path")
+    # Chunked prefill: one multi-row launch a layer per chunk of every
+    # prompt longer than the chunk (the repeated prompt counts twice).
+    want_chunks = [-(-len(b["tokens"]) // chunk)
+                   if len(b["tokens"]) > chunk else 0 for b in bodies]
+    want_rows = sum(want_chunks) * cfg.n_layers
+    chunked = [len(b["tokens"]) for b, c in zip(bodies, want_chunks) if c]
+    _log(f"serve: chunked prompts {chunked} ({sum(want_chunks)} chunks): "
+         f"multi-row launches {launches['paged_attention_rows']}, "
+         f"expected {want_rows}")
+    if launches["paged_attention_rows"] != want_rows:
+        raise AssertionError(f"multi-row body launched "
+                             f"{launches['paged_attention_rows']} times, "
+                             f"expected {want_rows}")
+    trailers = [r.get("prefill_chunks") for r in results[:len(prompts)]]
+    if trailers != want_chunks[:len(prompts)]:
+        raise AssertionError(f"trailers report prefill_chunks {trailers}, "
+                             f"expected {want_chunks[:len(prompts)]}")
     for i, r in enumerate(results):
         toks = r["tokens"]
         if len(toks) != 32 and not (toks and toks[-1] == engine.eos_id):
             raise AssertionError(f"request {i}: {len(toks)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"request {i}: token outside the vocab")
-    if results[-1]["tokens"] != results[0]["tokens"]:
+    # The wave prompt's twins share every program: equal tokens. The
+    # chunked prompt's twins share their chunk programs, so their first
+    # tokens are equal; they start decoding at different times, so
+    # their bursts split the staged and cached columns at other
+    # positions, which reorders fp32 sums that bf16 then rounds: from
+    # there they may part (reported below with the plain top-2 gap).
+    stream_chunk, stream_wave = results[len(prompts):]
+    if stream_wave["tokens"] != results[twins[1]]["tokens"]:
         raise AssertionError("streamed tokens differ from the blocking "
-                             "ones for the same prompt")
+                             "ones for the same wave prompt")
+    if stream_chunk["tokens"][0] != results[twins[0]]["tokens"][0]:
+        raise AssertionError("the streamed twin of a chunked prompt has "
+                             "another first token than the blocking one")
     ttft = sorted(r["ttft_ms"] for r in results)
     n_tok = sum(len(r["tokens"]) for r in results)
     decode_s = wall - ttft[0] / 1e3
@@ -713,6 +817,11 @@ def phase_serve(dev, card: str):
          f"{ttft[len(ttft) // 2]:.1f} max {ttft[-1]:.1f}; decode "
          f"{(n_tok - len(results)) / decode_s:.1f} tokens/s over "
          f"{len(results)} requests on {card}")
+    for label, chunked in (("chunked", True), ("wave", False)):
+        part = sorted(r["ttft_ms"] for r, c in zip(results, want_chunks)
+                      if bool(c) == chunked)
+        _log(f"serve: TTFT ms of the {len(part)} {label} requests: "
+             + ", ".join(f"{t:.1f}" for t in part))
 
     # Kernels against plain attention, same card, same weights, the
     # shortest and the longest prompt. In bf16, the served numbers,
@@ -732,6 +841,12 @@ def phase_serve(dev, card: str):
                  f"{gap:.3e}") + "; the server gave "
              f"{'the same' if results[i]['tokens'] == g else 'other'} "
              f"tokens as the kernel path")
+    t, gap = _divergence(ref, prompts[twins[0]], stream_chunk["tokens"],
+                         results[twins[0]]["tokens"])
+    _log(f"serve[bf16]: the streamed twin of chunked prompt {twins[0]} " + (
+        "equals the blocking one over 32 steps" if t is None
+        else f"parts from the blocking one at step {t}, plain top-2 gap "
+             f"{gap:.3e}"))
     del ref
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = {k: ({n: w.float() for n, w in v.items()}
@@ -756,6 +871,10 @@ def phase_serve(dev, card: str):
 KERNELS = {
     "paged_attention": ("cuda", "skypilot_tpu_torch/csrc/paged_attention.cu",
                         "skypilot_tpu/ops/paged_attention.py:67"),
+    # The same TPU kernel's chunk-path use (C * rep rows a kv-head).
+    "paged_attention_rows": ("cuda",
+                             "skypilot_tpu_torch/csrc/paged_attention.cu",
+                             "skypilot_tpu/ops/paged_attention.py:67"),
     "flash_attention_fwd": ("cuda", "skypilot_tpu_torch/csrc/flash_fwd.cu",
                             "skypilot_tpu/ops/flash_attention.py:58"),
     "flash_attention_bwd_dkv": ("cuda",

@@ -2,9 +2,10 @@
 
 Counterpart of the core of ``skypilot_tpu/infer/engine.py`` for one
 configuration: paged KV (block table, ref-counted block allocator), wave
-admission grouped by prompt bucket, and staged decode bursts whose
-slots regroup by span rung. Greedy decoding is the contract; temperature
-and top-k sample from the engine's own ``torch.Generator``.
+admission grouped by prompt bucket, chunked prefill of long prompts, and
+staged decode bursts whose slots regroup by span rung. Greedy decoding
+is the contract; temperature and top-k sample from the engine's own
+``torch.Generator``.
 
 A fixed pool of decode slots advances a burst of tokens per device call
 for every active request, while new requests prefill into free slots
@@ -13,9 +14,14 @@ plus token budget, capped by ``max_len``) at admission, so decode never
 runs out of backing mid-flight; the pool, not a fault path, limits
 admission.
 
-Left for later slices of the port: chunked prefill, the prefix cache,
-speculative verify, int8 KV and weights, LoRA adapters, QoS, the flight
-recorder, metrics, tracing and crash recovery. The JAX engine padded
+Prompts longer than ``prefill_chunk`` (512 by default, as in the JAX
+engine) claim a slot and prefill in chunks, one chunk between decode
+bursts, so a long prompt never stalls the decoding slots for its whole
+length; shorter prompts ride waves.
+
+Left for later slices of the port: the prefix cache, speculative
+verify, int8 KV and weights, LoRA adapters, QoS, the flight recorder,
+metrics, tracing and crash recovery. The JAX engine padded
 admission waves to fixed row counts to avoid recompiles; PyTorch runs
 eagerly, so the port dispatches each wave at its own size and keeps no
 spare slot for padding rows.
@@ -47,6 +53,16 @@ class Request:
     first_token_s: Optional[float] = None
     done: bool = False
     eos_id: Optional[int] = None
+    n_chunks: int = 0                 # prefill chunks run for this request
+
+
+@dataclasses.dataclass
+class _ChunkState:
+    """A request mid-chunked-prefill: slot claimed, rows [0, pos)
+    resident (completed chunks), first token not yet produced."""
+    req: Request
+    pos: int            # next row offset to prefill
+    total: int          # len(prompt)
 
 
 @dataclasses.dataclass
@@ -121,6 +137,7 @@ class InferenceEngine:
                  eos_id: Optional[int] = None, seed: int = 0,
                  max_wave: Optional[int] = None, kv_block: int = 256,
                  kv_blocks: Optional[int] = None, span_buckets=None,
+                 prefill_chunk: Optional[int] = 512,
                  device: DeviceLike = None,
                  plain_attention: bool = False):
         self.device = resolve_device(device)
@@ -136,6 +153,12 @@ class InferenceEngine:
         self.sampling_params = sampling_params
         self.eos_id = eos_id
         self.plain_attention = plain_attention
+        # Chunked prefill: prompts longer than ``prefill_chunk`` prefill
+        # in chunks of that many tokens, alternating with decode bursts.
+        # 0 or None disables it.
+        self.prefill_chunk = (prefill_chunk
+                              if prefill_chunk and prefill_chunk > 0
+                              else None)
         if kv_block <= 0:
             raise ValueError("the port serves the paged KV layout only: "
                              "kv_block must be > 0")
@@ -171,6 +194,7 @@ class InferenceEngine:
         self.free_slots: List[int] = list(range(n_slots))
         self.slot_req: Dict[int, Request] = {}
         self.waiting: Deque[Request] = collections.deque()
+        self.chunking: Deque[_ChunkState] = collections.deque()
         self.finished: List[Request] = []
         self._next_rid = 0
         # Tokens dispatched to the device but not yet committed
@@ -273,16 +297,23 @@ class InferenceEngine:
     # -- admission ---------------------------------------------------------
 
     def admit(self, on_wave=None) -> None:
-        """Prefill+insert every admissible waiting request. Waves group
-        by prompt bucket (one long prompt must not drag co-admitted
-        short prompts up to its bucket) and are capped at max_wave. All
-        waves are dispatched first, then each wave's first tokens are
-        fetched in order; ``on_wave`` fires as each wave's tokens
-        land."""
+        """Prefill+insert every admissible waiting request. Prompts
+        longer than ``prefill_chunk`` claim a slot and join the chunk
+        queue instead (they never ride a wave). Waves group by prompt
+        bucket (one long prompt must not drag co-admitted short prompts
+        up to its bucket) and are capped at max_wave. All waves are
+        dispatched first, then each wave's first tokens are fetched in
+        order; ``on_wave`` fires as each wave's tokens land. A dry
+        block pool stalls admission with the request back at the
+        queue's head."""
         stalled = False
         while self.waiting and self.free_slots and not stalled:
             dispatched = []
             while self.waiting and self.free_slots and not stalled:
+                if self._use_chunked(self.waiting[0]):
+                    stalled = not self._claim_chunked(
+                        self.waiting.popleft())
+                    continue
                 bucket = _bucket(len(self.waiting[0].prompt), self.buckets)
                 wave: List[Request] = []
                 slots: List[int] = []
@@ -291,6 +322,9 @@ class InferenceEngine:
                         and (self.max_wave is None
                              or len(wave) < self.max_wave):
                     req = self.waiting.popleft()
+                    if self._use_chunked(req):
+                        stalled = not self._claim_chunked(req)
+                        continue
                     if _bucket(len(req.prompt), self.buckets) != bucket:
                         rest.append(req)
                         continue
@@ -347,6 +381,64 @@ class InferenceEngine:
             self.slot_req[slot] = req
             if self._req_finished(req, tok):
                 self._retire(req)
+
+    # -- chunked prefill ---------------------------------------------------
+
+    def _use_chunked(self, req: Request) -> bool:
+        return (self.prefill_chunk is not None
+                and len(req.prompt) > self.prefill_chunk)
+
+    def _claim_chunked(self, req: Request) -> bool:
+        """Claim a slot and its KV blocks for an incremental prefill and
+        queue its chunks; the claim stamps the slot's length to max_len
+        (:func:`kvcache.claim_slot`), so interleaved bursts' writes for
+        this not-yet-active slot land in the trash block. False when the
+        pool is too dry: the request goes back to the queue's head."""
+        slot = self._wave_claim(req)
+        if slot is None:
+            self.waiting.appendleft(req)
+            return False
+        req.slot = slot
+        kvcache.claim_slot(self.cache, slot, self.max_len)
+        self.chunking.append(_ChunkState(req=req, pos=0,
+                                         total=len(req.prompt)))
+        return True
+
+    def prefill_chunk_step(self) -> bool:
+        """Run ONE chunk of the head chunked prefill. The big-cache read
+        covers the span rung of the chunk's offset. On the final chunk
+        the request's first token is fetched (host sync), the slot joins
+        the decoding slots, and the request may retire at once. Returns
+        True if a chunk ran."""
+        if not self.chunking:
+            return False
+        st = self.chunking[0]
+        req = st.req
+        C = self.prefill_chunk
+        start = st.pos
+        n_valid = min(C, st.total - start)
+        final = start + n_valid >= st.total
+        chunk = np.zeros((C,), np.int64)
+        chunk[:n_valid] = req.prompt[start:start + n_valid]
+        tok_dev = kvcache.prefill_chunk(
+            self.params, self.cache, self._upload(chunk), start, n_valid,
+            req.slot, st.total if final else self.max_len, self.cfg,
+            self.sampling_params, self.table_device(), final=final,
+            span=self._span_arg(self._span_for(start)),
+            generator=self.generator, plain_attention=self.plain_attention)
+        req.n_chunks += 1
+        st.pos += n_valid
+        if not final:
+            return True
+        tok = int(tok_dev)                     # host sync
+        self.chunking.popleft()
+        req.tokens.append(tok)
+        if req.first_token_s is None:
+            req.first_token_s = time.time()
+        self.slot_req[req.slot] = req
+        if self._req_finished(req, tok):
+            self._retire(req)
+        return True
 
     # -- decoding ----------------------------------------------------------
 
@@ -435,13 +527,18 @@ class InferenceEngine:
 
     def step_burst(self, max_burst: int = 8,
                    on_wave=None) -> Dict[int, List[int]]:
-        """Admit, then decode up to ``max_burst`` tokens per slot."""
+        """Admit, run ONE prefill chunk if any are queued (chunk ->
+        decode-burst alternation), then decode up to ``max_burst`` tokens
+        per slot."""
         self.admit(on_wave)
+        if self.chunking:
+            self.prefill_chunk_step()
         return self.decode_burst(max_burst)
 
     def run_to_completion(self, max_burst: int = 8) -> List[Request]:
-        """Drain all waiting + active requests; returns finished list."""
-        while self.waiting or self.slot_req:
+        """Drain all waiting, chunking and active requests; returns the
+        finished list."""
+        while self.waiting or self.chunking or self.slot_req:
             self.step_burst(max_burst)
         return self.finished
 
@@ -450,6 +547,7 @@ class InferenceEngine:
         state (after a failure the server must not re-drive poisoned
         slots)."""
         self.waiting.clear()
+        self.chunking.clear()
         self.finished.clear()
         self.slot_req.clear()
         self.free_slots = list(range(self.n_slots))

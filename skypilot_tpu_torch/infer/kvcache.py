@@ -1,12 +1,16 @@
-"""Paged KV cache: wave prefill, insert and the staged decode burst.
+"""Paged KV cache: wave prefill, insert, chunked prefill and the staged
+decode burst.
 
 Counterpart of the paged serving subset of
 ``skypilot_tpu/infer/kvcache.py``: the block pool
 ``[L, n_blocks, block_len, G, hd]``, a per-slot block table mapping
 logical block j to a physical block id, wave prefill
-(:func:`prefill_batch` + :func:`insert`) and the staged decode burst
-(:func:`decode_burst_staged`), whose big-cache attention goes through
-the paged-attention kernel and merges with the in-burst staged columns.
+(:func:`prefill_batch` + :func:`insert`), chunked prefill
+(:func:`claim_slot` + :func:`prefill_chunk`) and the staged decode burst
+(:func:`decode_burst_staged`). The chunk's and the burst's big-cache
+attention goes through the paged-attention kernel and merges with the
+columns they hold outside the cache (the chunk's own rows, the burst's
+staged rows).
 
 Two differences from the JAX module, both about mutation:
 
@@ -238,6 +242,93 @@ def insert(cache: Cache, prefix: Cache, slot: int, true_len,
 
 
 # ---------------------------------------------------------------------------
+# Chunked prefill
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def claim_slot(cache: Cache, slot: int, claim_len: int) -> None:
+    """Claim a slot for a cold chunked prefill (in place): its length is
+    stamped to ``claim_len`` (max_len), so the rows that interleaved
+    decode bursts flush for every slot, active or not, at index
+    ``length`` fall past the table and land in the trash block instead
+    of over rows a finished chunk already wrote."""
+    cache["length"][slot] = claim_len
+
+
+@torch.no_grad()
+def prefill_chunk(params: llama.Params, cache: Cache,
+                  tokens_c: torch.Tensor, start: int, n_valid: int,
+                  slot: int, new_len: int, cfg: llama.LlamaConfig,
+                  sp: sampling_mod.SamplingParams, table: torch.Tensor, *,
+                  final: bool, span: Optional[int] = None,
+                  generator: Optional[torch.Generator] = None,
+                  plain_attention: bool = False) -> torch.Tensor:
+    """One chunk of an incremental prefill into decode slot ``slot``.
+
+    tokens_c: [C] right-padded chunk; ``start``: the chunk's first row
+    in the slot's sequence (rows below it, earlier chunks, are in the
+    cache); ``n_valid``: its real tokens; ``new_len``: the length to
+    stamp (max_len mid-prompt, the true total on the final chunk).
+    Attention is the big-cache block over the slot's rows below
+    ``start`` (the paged kernel with the chunk's ``C * rep`` query rows
+    per kv-head, through its block table, ``span``-bounded) merged with
+    the causal intra-chunk block, which stays a plain bf16 product as
+    the JAX program leaves it to XLA. The chunk's rows then scatter
+    through the table (rows past max_len land in the trash block) and
+    ``length`` is stamped, in place. Returns the first token sampled
+    at the last valid position on the ``final`` chunk, else 0 (device
+    tensors)."""
+    C = tokens_c.shape[0]
+    G, hd = cfg.n_kv_heads, cfg.head_dim
+    rep = cfg.n_heads // G
+    scale = hd ** -0.5
+    dev = tokens_c.device
+    x = params["embed"].to(cfg.dtype)[tokens_c][None]          # [1, C, D]
+    cos, sin = llama.rope_frequencies(
+        cfg, start + torch.arange(C, device=dev))
+    j = torch.arange(C, device=dev)
+    # Padding columns (>= n_valid) are masked out of the intra-chunk
+    # scores; padding rows compute rows past the prompt's length, which
+    # no read admits.
+    intra = (j[None, :] <= j[:, None]) & (j[None, :] < n_valid)
+    tbl = table[slot:slot + 1]
+    lens = torch.full((1,), start, dtype=torch.int32, device=dev)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        layer = llama.layer_slice(params, i)
+        q, k, v = _decode_qkv(cfg, layer, x, cos, sin)
+        kr, vr = k[0], v[0]                                    # [C, G, hd]
+        ks.append(kr)
+        vs.append(vr)
+        qh = q[0].reshape(C, G, rep, hd).to(torch.bfloat16)
+        ss = _bf16_dot("cgrk,jgk->cgrj", qh, kr) * scale
+        ss = ss.masked_fill(~intra[:, None, None, :], NEG_INF)
+        # The chunk's C * rep rows of each kv-head in one (slot,
+        # kv-head) cell of the kernel, masked below ``start``.
+        q_k = qh.permute(1, 0, 2, 3).reshape(1, G, C * rep, hd)
+        acc, m, l = _paged_attn_stats(cache, i, tbl, q_k.contiguous(),
+                                      lens, span, plain_attention)
+        acc = acc.reshape(G, C, rep, hd).permute(1, 0, 2, 3)
+        m = m.reshape(G, C, rep).permute(1, 0, 2)
+        l = l.reshape(G, C, rep).permute(1, 0, 2)
+        alpha, w_s, l_tot = _merge_attn_parts(acc, m, l, ss)
+        o = acc * alpha[..., None] + _bf16_dot("cgrj,jgk->cgrk", w_s, vr)
+        x = _decode_out_ffn(cfg, layer, x, o / l_tot[..., None])
+    if final:
+        x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = llama.logits(x[:, n_valid - 1], params, cfg)
+        tok = sampling_mod.sample(logits, sp, generator)[0]
+    else:
+        tok = torch.zeros((), dtype=torch.long, device=dev)
+    blk, off = _phys(cache, table, slot, start + j)
+    _write_rows(cache, blk, off, torch.stack(ks), torch.stack(vs))
+    cache["length"][slot] = new_len
+    if final:
+        cache["last_token"][slot] = tok
+    return tok
+
+
+# ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
 
@@ -253,9 +344,9 @@ def _decode_qkv(cfg, layer, x, cos, sin):
 
 
 def _decode_out_ffn(cfg, layer, x, o):
-    """Decode-layer back half: output projection + residual + FFN."""
-    B = x.shape[0]
-    o = o.reshape(B, 1, cfg.n_heads, cfg.head_dim).to(cfg.dtype)
+    """Layer back half: output projection + residual + FFN. x: [B, S,
+    D]; o: the attention output, B * S rows of every head."""
+    o = o.reshape(*x.shape[:2], cfg.n_heads, cfg.head_dim).to(cfg.dtype)
     x = x + llama.project_out(o, layer["wo"].to(cfg.dtype))
     h = llama.rms_norm(x, layer["ln2"], cfg.norm_eps)
     return x + _ffn(cfg, h, layer)

@@ -15,7 +15,9 @@ and response JSON keys:
                                closing line {"done": true, ...}
 
 A prompt longer than the largest bucket gets HTTP 400 with the
-reference's typed body (``PromptTooLongError.typed_error``).
+reference's typed body (``PromptTooLongError.typed_error``). Prompts
+longer than ``--prefill-chunk`` (512) prefill in chunks, one chunk
+between decode bursts; the trailer's ``prefill_chunks`` counts them.
 
     python -m skypilot_tpu_torch.infer.server --config llama3-8b
 
@@ -214,7 +216,8 @@ class ModelServer:
     def _step(self) -> bool:
         self._drain_inbox()
         e = self.engine
-        if not (e.waiting or e.slot_req or self._burst is not None):
+        if not (e.waiting or e.slot_req or e.chunking
+                or self._burst is not None):
             return False
         if e.waiting and e.free_slots:
             target = min(e.max_wave or len(e.free_slots),
@@ -234,10 +237,21 @@ class ModelServer:
             if e.free_slots:
                 e.admit(on_wave=self._on_wave)
                 self._flush_streams()
+        if e.chunking:
+            # Chunk -> decode alternation: the outstanding burst lands,
+            # ONE prefill chunk runs, then the next burst is dispatched
+            # below, so a long prompt stalls the decoding slots for one
+            # chunk at a time. The final chunk emits a first token.
+            self._complete_burst()
+            e.prefill_chunk_step()
+            self._flush_streams()
         if e.slot_req:
             quiet = (time.monotonic() - self._last_arrival
                      > self.open_window_s)
-            k = (self.max_burst if not e.free_slots or quiet
+            # While a chunked prefill is in flight bursts stay short:
+            # the alternation's granularity bounds its TTFT.
+            k = (self.max_burst
+                 if (not e.free_slots or quiet) and not e.chunking
                  else self.open_burst)
             nxt = e.dispatch_decode_burst(max_burst=k)
             self._complete_burst()
@@ -252,12 +266,12 @@ class ModelServer:
                     if req.first_token_s is not None else None)
             ttft = round(ttft, 2) if ttft is not None else None
             # The reference trailer's keys; the features behind the
-            # zero-valued ones (prefix cache, chunked prefill,
-            # speculation, QoS, recovery, adapters) are later slices.
+            # zero-valued ones (prefix cache, speculation, QoS, recovery,
+            # adapters) are later slices.
             p.result = {
                 "tokens": req.tokens, "ttft_ms": ttft,
                 "cache_hit": False, "cached_tokens": 0,
-                "prefill_chunks": 0, "spec_drafted": 0,
+                "prefill_chunks": req.n_chunks, "spec_drafted": 0,
                 "spec_accepted": 0, "drafter": "off", "preemptions": 0,
                 "recoveries": 0, "model": None,
             }
@@ -366,11 +380,12 @@ def serve(engine: eng.InferenceEngine, host: str = "0.0.0.0",
 
 def make_engine(config: str, slots: int = 16, max_len: int = 1024,
                 admit_wave: int = 8, kv_block: int = 256,
-                device: DeviceLike = None,
+                prefill_chunk: int = 512, device: DeviceLike = None,
                 seed: int = 0) -> eng.InferenceEngine:
     """The serving engine ``main()`` runs: ``config``'s model with
     random weights drawn in ``cfg.dtype`` on ``device`` from ``seed``,
-    greedy decoding, paged KV, prompt buckets (128, 512, max_len)."""
+    greedy decoding, paged KV, prompt buckets (128, 512, max_len),
+    chunked prefill above ``prefill_chunk`` tokens (0 disables it)."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[config]
     gen = torch.Generator(device=dev)
@@ -381,7 +396,7 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
     return eng.InferenceEngine(
         params, cfg, n_slots=slots, max_len=max_len,
         prompt_buckets=buckets, max_wave=admit_wave, kv_block=kv_block,
-        device=dev, seed=seed)
+        prefill_chunk=prefill_chunk, device=dev, seed=seed)
 
 
 def main(argv=None) -> None:
@@ -397,12 +412,18 @@ def main(argv=None) -> None:
                     help="admission wave cap (0 = uncapped)")
     ap.add_argument("--kv-block", type=int, default=256,
                     help="paged KV cache block length")
+    ap.add_argument("--prefill-chunk", type=int, default=512,
+                    help="prefill prompts longer than this in chunks of "
+                         "this many tokens between decode bursts "
+                         "(0 = off)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default, the card) or cpu")
     args = ap.parse_args(argv)
     engine = make_engine(args.config, slots=args.slots,
                          max_len=args.max_len, admit_wave=args.admit_wave,
-                         kv_block=args.kv_block, device=args.device)
+                         kv_block=args.kv_block,
+                         prefill_chunk=args.prefill_chunk,
+                         device=args.device)
     model, httpd = serve(engine, port=args.port, max_burst=args.max_burst)
     print(json.dumps({"event": "server.listening", "port": args.port,
                       "device": str(engine.device)}), file=sys.stderr,

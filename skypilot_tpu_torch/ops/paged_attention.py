@@ -1,25 +1,33 @@
-"""Paged decode attention over the block-table KV pool: the CUDA kernel,
-its plain version and its launch count.
+"""Paged attention over the block-table KV pool: the CUDA kernel's two
+bodies, their plain version and their launch counts.
 
 Counterpart of ``skypilot_tpu/ops/paged_attention.py``: the kernel
 ``csrc/paged_attention.cu`` replaces the Pallas ``_kernel`` driven by
 ``paged_attention``. For each (slot, kv-head) it returns the
 unnormalized online-softmax stats ``(acc, m, l)`` of that slot's ``R``
 query rows over logical blocks ``0 .. span_blocks - 1`` of its block
-table, for the caller to merge with the staged in-burst columns
-(``infer/kvcache.py`` ``_merge_attn_parts``).
+table, for the caller to merge with the columns it holds outside the
+cache (``infer/kvcache.py`` ``_merge_attn_parts``): a decode burst's
+staged rows, or a prefill chunk's own rows.
 
-What bounds it: the bytes of the K/V rows below each slot's length.
-Decode reads every cached row once per step and does about ``4 R``
-operations per element read, far below the card's operations-per-byte
-line. The kernel splits each (slot, kv-head) sweep into chunks of
-rows, one thread block each (flash decoding), streams each chunk's K/V
-tiles through a ring of asynchronous copies once for all ``R`` rows, so
-every cached byte crosses device memory once, and merges a slot's
-chunks in fixed order inside the same launch; its source notes the rest
-of the design. The wrapper hands it a workspace for the chunks'
-partial stats and a per-device array of zeroed counters, which the
-kernel leaves at zero; calls on one device are expected in one stream.
+:func:`paged_attention` picks the body by shape. The decode body takes
+``R * hd <= 4096`` (the GQA rows of a decode step); above that
+:func:`paged_attention_rows` runs the multi-row body, which takes the
+``C * rep`` rows of a prefill chunk on tensor cores (its source notes
+its design). Each body counts its own launches.
+
+What bounds the decode body: the bytes of the K/V rows below each
+slot's length. Decode reads every cached row once per step and does
+about ``4 R`` operations per element read, far below the card's
+operations-per-byte line. The kernel splits each (slot, kv-head) sweep
+into chunks of rows, one thread block each (flash decoding), streams
+each chunk's K/V tiles through a ring of asynchronous copies once for
+all ``R`` rows, so every cached byte crosses device memory once, and
+merges a slot's chunks in fixed order inside the same launch; its source
+notes the rest of the design. The wrapper hands it a workspace for the
+chunks' partial stats and a per-device array of zeroed counters, which
+the kernel leaves at zero; calls on one device are expected in one
+stream.
 
 Layouts: q ``[B, G, R, hd]`` (float32 or bfloat16); pools
 ``[L, n_blocks, block_len, G, hd]`` (float32, bfloat16 or int8);
@@ -45,8 +53,9 @@ from skypilot_tpu_torch.ops import _build
 NEG_INF = -1e30
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_ROWS_X_HD = 4096     # accumulator registers the kernel holds: R*hd
+_MAX_ROWS_X_HD = 4096     # accumulator registers the decode body holds
 _HEAD_DIMS = (32, 64, 128, 256)
+_ROWS_HEAD_DIMS = (32, 64, 128)
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -112,15 +121,25 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     return acc, m, l
 
 
+class Int8RowsUnsupportedError(TypeError):
+    """An int8 pool reached the multi-row body, which reads float32 and
+    bfloat16 pools only (int8 there is ROADMAP Queue 1 item 5, with the
+    int8 KV cache)."""
+
+
 def _lib() -> ctypes.CDLL:
-    """The kernel's library, its launch typed and ``chunk_rows`` (the
-    rows of one thread block) read once."""
+    """The kernel's library, its launches typed and ``chunk_rows`` (the
+    rows of one decode thread block) read once."""
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        rows = lib.paged_attention_rows_launch
+        rows.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+                         + [ctypes.c_void_p])
+        rows.restype = ctypes.c_int
         lib.chunk_rows = lib.paged_attention_chunk_rows()
     return lib
 
@@ -139,7 +158,7 @@ def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
 
 
 def _check(q, k_pool, v_pool, k_scale, v_scale, table, lengths, layer,
-           span_blocks) -> None:
+           span_blocks, rows: bool = False) -> None:
     if q.dim() != 4 or k_pool.dim() != 5 or k_pool.shape != v_pool.shape:
         raise ValueError(f"paged_attention: q [B,G,R,hd] and pools "
                          f"[L,n_blocks,bl,G,hd] expected, got "
@@ -150,10 +169,15 @@ def _check(q, k_pool, v_pool, k_scale, v_scale, table, lengths, layer,
     if k_pool.shape[3:] != (G, hd):
         raise ValueError("paged_attention: pool heads/head_dim do not "
                          "match q")
-    if R * hd > _MAX_ROWS_X_HD or hd not in _HEAD_DIMS:
+    if rows and hd not in _ROWS_HEAD_DIMS:
+        raise ValueError(f"paged_attention_rows: hd={hd} (one of "
+                         f"{_ROWS_HEAD_DIMS}) not supported by the "
+                         f"multi-row body")
+    if not rows and (R * hd > _MAX_ROWS_X_HD or hd not in _HEAD_DIMS):
         raise ValueError(f"paged_attention: R*hd={R * hd} (max "
                          f"{_MAX_ROWS_X_HD}) or hd={hd} (one of "
-                         f"{_HEAD_DIMS}) not supported by the kernel")
+                         f"{_HEAD_DIMS}) not supported by the decode "
+                         f"body")
     if q.dtype not in _Q_DTYPES:
         raise TypeError(f"paged_attention: q must be float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -191,6 +215,9 @@ def _check(q, k_pool, v_pool, k_scale, v_scale, table, lengths, layer,
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged_attention: pools must be 16-byte aligned "
                          "(the kernel reads rows as 16-byte vectors)")
+    if rows and q.data_ptr() % 16:
+        raise ValueError("paged_attention_rows: q must be 16-byte aligned "
+                         "(the multi-row body reads it in pairs)")
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -199,13 +226,18 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     lengths: torch.Tensor, layer: int, *,
                     span_blocks: int) -> Stats:
     """Block-table-native online-softmax stats ``(acc, m, l)``; see the
-    module docstring for layouts."""
+    module docstring for layouts. ``R * hd`` above 4096 goes to
+    :func:`paged_attention_rows`."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, k_scale, v_scale,
                                    table, lengths, layer, span_blocks)
+    B, G, R, hd = q.shape
+    if R * hd > _MAX_ROWS_X_HD:
+        return paged_attention_rows(q, k_pool, v_pool, k_scale, v_scale,
+                                    table, lengths, layer,
+                                    span_blocks=span_blocks)
     _check(q, k_pool, v_pool, k_scale, v_scale, table, lengths, layer,
            span_blocks)
-    B, G, R, hd = q.shape
     n_blocks, bl = k_pool.shape[1], k_pool.shape[2]
     dev = q.device
     acc = torch.empty((B, G, R, hd), dtype=torch.float32, device=dev)
@@ -237,5 +269,44 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return acc, m, l
 
 
-# Kernel launches since the count was last set to 0.
+def paged_attention_rows(q: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor,
+                         k_scale: Optional[torch.Tensor],
+                         v_scale: Optional[torch.Tensor],
+                         table: torch.Tensor, lengths: torch.Tensor,
+                         layer: int, *, span_blocks: int) -> Stats:
+    """:func:`paged_attention` through the multi-row body at any ``R``
+    (the chunk path's ``C * rep`` rows): float32 or bfloat16 pools,
+    ``hd`` 32, 64 or 128. An int8 pool on the card raises
+    :class:`Int8RowsUnsupportedError`."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pool, v_pool, k_scale, v_scale,
+                                   table, lengths, layer, span_blocks)
+    _check(q, k_pool, v_pool, k_scale, v_scale, table, lengths, layer,
+           span_blocks, rows=True)
+    if k_pool.dtype == torch.int8:
+        raise Int8RowsUnsupportedError(
+            "paged_attention_rows: int8 pools are not supported by the "
+            "multi-row body (R*hd > 4096); see ROADMAP Queue 1 item 5")
+    B, G, R, hd = q.shape
+    dev = q.device
+    acc = torch.empty((B, G, R, hd), dtype=torch.float32, device=dev)
+    m = torch.empty((B, G, R), dtype=torch.float32, device=dev)
+    l = torch.empty((B, G, R), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.paged_attention_rows_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            table.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), B, G, R, hd, layer,
+            k_pool.shape[1], k_pool.shape[2], table.shape[1], span_blocks,
+            _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], stream)
+    _build.check(err, "paged_attention_rows")
+    paged_attention_rows.launches += 1
+    return acc, m, l
+
+
+# Kernel launches since the count was last set to 0, per body.
 paged_attention.launches = 0
+paged_attention_rows.launches = 0

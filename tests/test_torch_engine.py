@@ -1,7 +1,8 @@
 """The port's serving engine against the JAX package's on the CPU:
 greedy tokens of a pinned multi-prompt workload (kv_block 16, max_len
 64, prefill_chunk 0, prefix_pool 0, spec_k 0, the paged-attention
-kernel on in interpret mode), plus the engine's own contracts."""
+kernel on in interpret mode), the JAX package's pinned chunked-prefill
+workload (chunk 8), plus the engine's own contracts."""
 
 import dataclasses
 
@@ -59,6 +60,35 @@ def jax_tokens(models):
     return e.generate(_prompts(jcfg.vocab_size), max_new_tokens=10)
 
 
+# The JAX package's pinned chunked-prefill workload
+# (tests/test_paged_attention.py): prompt lengths (5, 11, 3, 20), seed 1,
+# chunk 8 (11 and 20 take 2 and 3 chunks, the last partial; 5 and 3 ride
+# waves), kv_block 16, max_len 64, 4 slots, bucket 32.
+_CHUNK_LENS = (5, 11, 3, 20)
+
+
+def _chunk_prompts(vocab):
+    rng = np.random.default_rng(1)
+    return [rng.integers(1, vocab, n).tolist() for n in _CHUNK_LENS]
+
+
+def _chunk_engine(tp, tcfg, **kw):
+    return te.InferenceEngine(tp, tcfg, n_slots=4, max_len=64,
+                              prompt_buckets=(32,), kv_block=16,
+                              prefill_chunk=8, device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def jax_chunked(models):
+    jcfg, _, jp, _ = models
+    e = je.InferenceEngine(jp, jcfg, n_slots=4, max_len=64,
+                           prompt_buckets=(32,), kv_block=16,
+                           prefill_chunk=8, prefix_pool=0, spec_k=0,
+                           kv_kernel=True)
+    toks = e.generate(_chunk_prompts(jcfg.vocab_size), max_new_tokens=10)
+    return toks, {r.rid: r.n_chunks for r in e.finished}
+
+
 def test_greedy_tokens_match_jax_engine(models, jax_tokens):
     _, tcfg, _, tp = models
     e = _torch_engine(tp, tcfg)
@@ -108,6 +138,54 @@ def test_dry_pool_stalls_admission_then_recovers(models, jax_tokens):
     e = _torch_engine(tp, tcfg, kv_blocks=4)
     got = e.generate(_prompts(tcfg.vocab_size), max_new_tokens=10)
     assert got == jax_tokens
+
+
+@pytest.mark.parametrize("kw", [{}, {"plain_attention": True}],
+                         ids=["kernel", "plain"])
+def test_chunked_prefill_matches_jax_engine(models, jax_chunked, kw):
+    """Greedy fp32 tokens and every request's chunk count equal the JAX
+    engine's on its pinned chunk workload."""
+    _, tcfg, _, tp = models
+    want, want_chunks = jax_chunked
+    e = _chunk_engine(tp, tcfg, **kw)
+    assert e.generate(_chunk_prompts(tcfg.vocab_size),
+                      max_new_tokens=10) == want
+    assert {r.rid: r.n_chunks for r in e.finished} == want_chunks
+    assert sorted(want_chunks.values()) == [0, 0, 2, 3]
+    assert e.blocks_used() == 0 and not e.chunking
+
+
+def test_dry_pool_stalls_a_chunk_claim_then_recovers(models, jax_chunked,
+                                                     monkeypatch):
+    """Four blocks of 16 rows for requests that need 1, 2, 1 and 2: the
+    20-token prompt's chunk claim finds the pool dry, goes back to the
+    queue's head, and claims once a retirement frees blocks; its tokens
+    and chunks are unchanged."""
+    _, tcfg, _, tp = models
+    want, want_chunks = jax_chunked
+    e = _chunk_engine(tp, tcfg, kv_blocks=4)
+    claims = []
+    real = te.InferenceEngine._claim_chunked
+    monkeypatch.setattr(te.InferenceEngine, "_claim_chunked",
+                        lambda self, req: claims.append(
+                            (req.rid, real(self, req))) or claims[-1][1])
+    assert e.generate(_chunk_prompts(tcfg.vocab_size),
+                      max_new_tokens=10) == want
+    assert (3, False) in claims and claims[-1] == (3, True)
+    assert {r.rid: r.n_chunks for r in e.finished} == want_chunks
+    assert e.blocks_used() == 0
+
+
+def test_chunk_state_clears_on_reset(models):
+    _, tcfg, _, tp = models
+    e = _chunk_engine(tp, tcfg)
+    e.add_request(list(range(1, 21)), max_new_tokens=4)
+    e.admit()
+    assert len(e.chunking) == 1 and e.cache["length"][0] == 64
+    assert e.prefill_chunk_step() and e.chunking[0].pos == 8
+    e.reset()
+    assert not e.chunking and e.blocks_used() == 0
+    assert not e.prefill_chunk_step()
 
 
 def test_span_ladder_and_bucket_helpers():

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 paged attention, K2 flash forward, K3/K4
-flash backward) against their plain versions on the card.
+"""The port's CUDA kernels (K1 paged attention, its decode and multi-row
+bodies; K2 flash forward; K3/K4 flash backward) against their plain
+versions on the card.
 
 Every test here carries the ``gpu`` marker and skips inside the test
 when no card is present. The file imports neither jax nor the JAX
@@ -393,6 +394,119 @@ def test_paged_wrapper_raises_instead_of_falling_back():
                             kp.shape[0], span_blocks=1)
 
 
+# -- K1's multi-row body (chunked prefill) ----------------------------------
+
+# The engine's layout at max_len 1024: a pool of real blocks plus the trash
+# block, whose id is the sentinel of every table entry past a slot's
+# allocation. Slot 0 holds the chunk's resident rows (its length is the
+# chunk's start) and allocated rows past them; slot 1 is empty; slot 2's
+# length runs past the span.
+_ROWS_MAX_LEN = 1024
+_ROWS_SPAN = 512
+
+
+def _rows_inputs(dev, q_dtype, kv_dtype, hd, R, bl, start, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, G = 2, 2
+    nb = _ROWS_MAX_LEN // bl
+    lengths = [start, 0, 700]
+    alloc = [-(-(start + 64) // bl), 2, -(-700 // bl)]
+    n = sum(alloc)
+    trash = n
+    shape = (L, n + 1, bl, G, hd)
+    kp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+    vp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+    # Rows no mask admits hold large values: a leak shows at once.
+    kp[:, trash] = 100.0
+    vp[:, trash] = 100.0
+    q = torch.randn((len(lengths), G, R, hd), generator=gen,
+                    device=dev).to(q_dtype)
+    perm = torch.randperm(n, generator=gen, device=dev).tolist()
+    table = torch.full((len(lengths), nb + 1), trash, dtype=torch.int32)
+    for b, have in enumerate(alloc):
+        table[b, :have] = torch.tensor(perm[:have])
+        perm = perm[have:]
+    return (q, kp, vp, None, None, table.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+_ROWS_DTYPES = pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)], ids=["bf16", "bf16q-f32kv", "f32"])
+
+
+@pytest.mark.gpu
+@_ROWS_DTYPES
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("R", [64, 512, 2048])
+@pytest.mark.parametrize("bl", [16, 64, 256])
+@pytest.mark.parametrize("start", [0, 1, 255, 256, 512])
+def test_paged_rows_kernel_matches_plain(q_dtype, kv_dtype, hd, R, bl,
+                                         start):
+    """The multi-row body against the plain version under K1's rule,
+    tiles crossing blocks of 16 and 64 rows, the engine's sentinel (the
+    trash block, inside the pool) past every length; length-0 slots
+    exactly."""
+    dev = _cuda()
+    args = _rows_inputs(dev, q_dtype, kv_dtype, hd, R, bl, start)
+    span_blocks = _ROWS_SPAN // bl
+    layer = 1
+    before = tpa.paged_attention_rows.launches
+    got = tpa.paged_attention_rows(*args, layer, span_blocks=span_blocks)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention_rows.launches == before + 1
+    want = tpa.paged_attention_ref(*args, layer, span_blocks)
+    live = args[-1] > 0
+    for g, w in zip(got, want):
+        _close(g[live], w[live], 2e-3)
+    assert torch.all(got[0][~live] == 0)
+    assert torch.all(got[1][~live] == -1e30)
+    assert torch.all(got[2][~live] == 0)
+
+
+@pytest.mark.gpu
+@_ROWS_DTYPES
+def test_paged_rows_kernel_is_deterministic(q_dtype, kv_dtype):
+    """No split across the sweep and no atomics: equal bits on a second
+    call at the serve chunk's row count."""
+    dev = _cuda()
+    args = _rows_inputs(dev, q_dtype, kv_dtype, 128, 2048, 256, 512)
+    first = tpa.paged_attention_rows(*args, 0, span_blocks=2)
+    second = tpa.paged_attention_rows(*args, 0, span_blocks=2)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_paged_attention_dispatches_by_rows():
+    """paged_attention keeps the decode body up to R*hd 4096 and runs
+    the multi-row body above it, each counting its own launches; an
+    int8 pool above it raises the typed error."""
+    dev = _cuda()
+    for R, rows in ((32, False), (33, True)):
+        args = _rows_inputs(dev, torch.bfloat16, torch.bfloat16, 128, R,
+                            64, 255)
+        d0 = tpa.paged_attention.launches
+        r0 = tpa.paged_attention_rows.launches
+        got = tpa.paged_attention(*args, 0, span_blocks=8)
+        want = tpa.paged_attention_ref(*args, 0, 8)
+        torch.cuda.synchronize()
+        assert (tpa.paged_attention.launches - d0,
+                tpa.paged_attention_rows.launches - r0) == \
+            ((0, 1) if rows else (1, 0))
+        live = args[-1] > 0
+        for g, w in zip(got, want):
+            _close(g[live], w[live], 2e-3)
+    q, kp, vp, _, _, table, lengths = _rows_inputs(
+        dev, torch.bfloat16, torch.bfloat16, 128, 64, 64, 255)
+    L, n, bl, G, _ = kp.shape
+    scale = torch.full((L, n, G, bl), 0.01, device=dev).bfloat16()
+    with pytest.raises(tpa.Int8RowsUnsupportedError):
+        tpa.paged_attention(q, kp.to(torch.int8), vp.to(torch.int8), scale,
+                            scale, table, lengths, 0, span_blocks=8)
+
+
 # -- the engine on the card -------------------------------------------------
 
 @pytest.mark.gpu
@@ -421,3 +535,32 @@ def test_engine_kernel_path_matches_plain_path_on_card():
                tpa.paged_attention.launches > p0)
         assert ran == ((False, False) if plain else (True, True))
     assert out[False] == out[True]
+
+
+@pytest.mark.gpu
+def test_engine_chunk_path_matches_plain_path_on_card():
+    """llama3-tiny in float32 with chunks of 128 (R = 128 * rep rows a
+    kv-head, the multi-row body): the kernel engine's greedy tokens and
+    chunk counts equal the plain-attention engine's."""
+    import dataclasses
+    dev = _cuda()
+    cfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"],
+                              dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tl.init_params(cfg, gen, device=dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (200, 40, 129, 256 - 8, 90)]
+    out = {}
+    for plain in (False, True):
+        e = te.InferenceEngine(params, cfg, n_slots=3, max_len=256,
+                               prompt_buckets=(64, 256), kv_block=16,
+                               prefill_chunk=128, device=dev,
+                               plain_attention=plain)
+        r0 = tpa.paged_attention_rows.launches
+        toks = e.generate(prompts, max_new_tokens=8)
+        ran = tpa.paged_attention_rows.launches > r0
+        assert ran == (not plain)
+        out[plain] = (toks, sorted((r.rid, r.n_chunks) for r in e.finished))
+    assert out[False] == out[True]
+    assert [c for _, c in out[True][1]] == [2, 0, 2, 2, 0]

@@ -2,8 +2,10 @@
 against the JAX package's Pallas kernel in interpret mode, on the fuzz
 of ``tests/test_paged_attention.py`` (float and int8 pools, length-0
 slots, partial final blocks, scattered block ids, sentinel entries, a
-layer index > 0, span-bounded sweeps). The CUDA kernel's card tests
-are in ``test_torch_kernels_gpu.py``."""
+layer index > 0, span-bounded sweeps), and at the chunk path's
+multi-row shapes (``C * rep`` rows per kv-head) over the engine's pool
+layout, whose sentinel is the trash block inside the pool. The CUDA
+kernel's card tests are in ``test_torch_kernels_gpu.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -114,3 +116,77 @@ def test_cpu_tensors_run_the_plain_version():
         layer, span_blocks=NB)
     assert tpa.paged_attention.launches == before
 
+
+
+# -- the chunk path's multi-row shapes ---------------------------------------
+
+# llama3-tiny's geometry (2 kv-heads, rep 2, head_dim 32) at max_len 64:
+# a chunk of C tokens puts C * rep query rows on each kv-head.
+M_L, M_G, M_REP, M_HD, M_MAX_LEN = 2, 2, 2, 32, 64
+# Slot lengths (the chunk's start): empty, mid-block, block-aligned at
+# both block lengths, and the whole span.
+_M_LENGTHS = (0, 11, 16, 40, 64)
+
+
+def _rows_trial(rng, C, bl):
+    """Inputs laid out as the engine lays them: every slot's allocated
+    blocks scattered over the pool, the rest of its table (and the
+    sentinel column) pointing at the trash block, id n_real, which lies
+    inside the pool and holds large values no mask may admit."""
+    nb = M_MAX_LEN // bl
+    B = len(_M_LENGTHS)
+    alloc = [min(nb, -(-(n + 8) // bl)) for n in _M_LENGTHS]
+    n_real = sum(alloc)
+    shape = (M_L, n_real + 1, bl, M_G, M_HD)
+    kp = rng.standard_normal(shape).astype(np.float32)
+    vp = rng.standard_normal(shape).astype(np.float32)
+    kp[:, n_real] = 100.0
+    vp[:, n_real] = 100.0
+    table = np.full((B, nb + 1), n_real, np.int32)
+    ids = rng.permutation(n_real)
+    for b, have in enumerate(alloc):
+        table[b, :have] = ids[:have]
+        ids = ids[have:]
+    q = rng.standard_normal((B, M_G, C * M_REP, M_HD)).astype(np.float32)
+    return q, kp, vp, table, np.array(_M_LENGTHS, np.int32)
+
+
+@pytest.mark.parametrize("C", [8, 32])
+@pytest.mark.parametrize("bl", [8, 16])
+@pytest.mark.parametrize("span", [None, 32], ids=["full", "span32"])
+def test_rows_plain_matches_pallas_interpret(C, bl, span):
+    rng = np.random.default_rng(C * 100 + bl)
+    q, kp, vp, table, lengths = _rows_trial(rng, C, bl)
+    sb = -(-(span or M_MAX_LEN) // bl)
+    layer = 1
+    want = jpa.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), None, None,
+        jnp.asarray(table), jnp.asarray(lengths), jnp.int32(layer),
+        span_blocks=sb, interpret=True)
+    args = (torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+            None, None, torch.from_numpy(table), torch.from_numpy(lengths),
+            layer)
+    # On CPU tensors both entry points run the plain version.
+    for fn in (tpa.paged_attention_rows, tpa.paged_attention):
+        got = fn(*args, span_blocks=sb)
+        for name, g, w in zip(("acc", "m", "l"), got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                       err_msg=name)
+        # The length-0 slot: exactly the empty stats, as the kernel's.
+        assert np.all(got[1].numpy()[0] == np.float32(-1e30))
+        assert np.all(np.asarray(want[1])[0] == np.float32(-1e30))
+        assert np.all(got[2].numpy()[0] == 0) and np.all(
+            got[0].numpy()[0] == 0)
+
+
+def test_rows_cpu_tensors_run_the_plain_version():
+    rng = np.random.default_rng(5)
+    q, kp, vp, table, lengths = _rows_trial(rng, 32, 16)
+    before = (tpa.paged_attention.launches,
+              tpa.paged_attention_rows.launches)
+    tpa.paged_attention_rows(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        None, None, torch.from_numpy(table), torch.from_numpy(lengths), 0,
+        span_blocks=4)
+    assert (tpa.paged_attention.launches,
+            tpa.paged_attention_rows.launches) == before

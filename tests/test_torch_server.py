@@ -1,7 +1,8 @@
 """The port's HTTP server on the CPU: blocking and streamed /generate
 return the JAX engine's greedy tokens, the response keys are the
-reference server's, and an oversize prompt gets the reference's typed
-400 body."""
+reference server's, an oversize prompt gets the reference's typed 400
+body, and prompts longer than the prefill chunk go through chunks, with
+the reference trailer's ``prefill_chunks``."""
 
 import dataclasses
 import json
@@ -88,6 +89,39 @@ def served():
     t.join(timeout=30)
 
 
+@pytest.fixture(scope="module")
+def served_chunked():
+    """A server whose engine prefills prompts longer than 8 tokens in
+    chunks of 8, beside the JAX engine's tokens and chunk counts for the
+    same prompts (what the reference trailer reports)."""
+    jcfg = dataclasses.replace(jl.CONFIGS["llama3-tiny"], dtype=jnp.float32)
+    tcfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"],
+                               dtype=torch.float32)
+    jp = jl.init_params(jax.random.key(0), jcfg)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (27, 5, 17)]
+    ref = je.InferenceEngine(jp, jcfg, n_slots=2, max_len=64,
+                             prompt_buckets=(16, 32), kv_block=16,
+                             prefill_chunk=8, prefix_pool=0, spec_k=0,
+                             kv_kernel=True)
+    want = ref.generate(prompts, max_new_tokens=6)
+    chunks = [r.n_chunks for r in sorted(ref.finished, key=lambda r: r.rid)]
+    tp = tl.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
+                              device="cpu")
+    engine = te.InferenceEngine(tp, tcfg, n_slots=2, max_len=64,
+                                prompt_buckets=(16, 32), kv_block=16,
+                                prefill_chunk=8, device="cpu")
+    port = _free_port()
+    model, httpd = ts.serve(engine, host="127.0.0.1", port=port)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    model.wait_ready(timeout=120)
+    yield f"http://127.0.0.1:{port}", prompts, want, chunks
+    httpd.shutdown()
+    model.shutdown()
+    t.join(timeout=30)
+
+
 def test_health(served):
     url, _, _ = served
     with urllib.request.urlopen(f"{url}/health", timeout=30) as r:
@@ -125,6 +159,41 @@ def test_stream_generate_matches_jax_engine(served):
     assert [t for c in chunks[:-1] for t in c["tokens"]] == want[1]
     assert set(chunks[-1]) == _DONE_KEYS and chunks[-1]["done"] is True
     assert chunks[-1]["n_tokens"] == 6
+
+
+def test_long_prompts_go_through_chunks(served_chunked):
+    """Concurrent blocking requests, two of them longer than the chunk:
+    the JAX engine's tokens, and the reference trailer's chunk counts
+    (4 and 3 chunks; the short prompt rides a wave)."""
+    url, prompts, want, chunks = served_chunked
+    assert chunks == [4, 0, 3]
+    results = {}
+
+    def one(i):
+        results[i] = _post(f"{url}/generate",
+                           {"tokens": prompts[i], "max_new_tokens": 6})
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    for i in range(len(prompts)):
+        code, out = results[i]
+        assert code == 200 and set(out) == _BLOCKING_KEYS
+        assert out["tokens"] == want[i]
+        assert out["prefill_chunks"] == chunks[i]
+
+
+def test_long_prompt_streams_through_chunks(served_chunked):
+    url, prompts, want, _ = served_chunked
+    code, lines = _post(f"{url}/generate",
+                        {"tokens": prompts[0], "max_new_tokens": 6,
+                         "stream": True})
+    assert code == 200
+    assert [t for c in lines[:-1] for t in c["tokens"]] == want[0]
+    assert set(lines[-1]) == _DONE_KEYS and lines[-1]["n_tokens"] == 6
 
 
 @pytest.mark.parametrize("stream", [False, True], ids=["blocking",
