@@ -23,26 +23,38 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    exactly. K1 (which merges a slot's chunks inside its own launch) and
    the bf16 K3/K4 must give equal bits on a second call. K1 also runs a
    long-context case after the main path's (16 slots of 3000-4096 rows).
-   K1's multi-row body (``paged_attention_rows``) runs at the serve
-   chunk's shape (2048 query rows of a kv-head over the 512 rows below
-   the chunk) and at a chunk's start of 0; SDPA over the same K/V,
-   gathered, is printed beside it as a yardstick (no PyTorch call
-   returns the unnormalized stats). A K1 call takes less device time
-   than its wrapper takes on the host, so its time comes from replaying
-   64 launches from a CUDA graph; the eager loop's time and the host's
-   time per call are printed beside it.
+   K1's multi-row bodies (``paged_attention_rows``): the ``wgmma`` one
+   runs at the serve chunk's shape (2048 query rows of a kv-head over
+   the 512 rows below the chunk), at a chunk's start of 0, at two
+   chunks of an 8192-token prompt (starts 3584 and 7680, on pools of 4
+   layers whose K/V, cycled over the layers, exceeds the 50 MB L2) and
+   at the serve chunk on int8 pools; the ``mma.sync`` one at the serve chunk
+   on float32 pools; each case must run its own body only. SDPA over
+   the same K/V, gathered, is printed beside each as a
+   yardstick (no PyTorch call returns the unnormalized stats). A K1
+   call takes less device time than its wrapper takes on the host, so
+   its time comes from replaying 64 launches from a CUDA graph; the
+   eager loop's time and the host's time per call are printed beside
+   it.
 4. Serve: the port's HTTP server (``infer/server.py``) at llama3-8b
    full width and depth with random bf16 weights from a fixed seed
    answers 9 concurrent ``/generate`` requests, two of them streamed
    twins of a chunked and of a wave prompt; prompts longer than 512
    tokens go through chunked prefill. The kernels' launch counts are
-   set to 0 just before and read just after (the multi-row body must
-   launch once a layer per chunk, and trailers report the chunks); two
+   set to 0 just before and read just after (the ``wgmma`` multi-row
+   body must launch once a layer per chunk and the ``mma.sync`` one
+   never, and trailers report the chunks); one 512-token chunk of a
+   long prompt at starts 3584 and 7680 of a one-slot cache of max_len
+   8192 is timed (wall, and from one profiled chunk the device time of
+   the multi-row body, of matmul and of the rest); two
    prompts (one chunked) are replayed through
    an engine that runs the plain attention versions on the same card
    beside one that runs the kernels, in bf16 (divergence reported) and
    on the same weights in float32, where greedy tokens must agree
-   wherever the plain logits' top-2 gap exceeds 1e-2.
+   wherever the plain logits' top-2 gap exceeds 1e-2. The float32 leg
+   reads float32 pools, so its chunks run the ``mma.sync`` multi-row
+   body: counts set to 0 before that leg and read after it, that body
+   must launch once a layer per chunk and the ``wgmma`` one never.
 5. Train: gradient parity of the kernels against the plain versions at
    llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
    ``train.run`` at llama3-1b full width and depth for 6 steps on a
@@ -60,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -103,12 +116,15 @@ def _rates_text(r: dict) -> str:
 
 
 def _ptxas_summary(log: str):
-    """One line per kernel function of an ``nvcc -Xptxas -v`` log: its
+    """Each warning line of an ``nvcc -Xptxas -v`` log (C7514/C7515 say
+    a ``wgmma`` was serialized), then one line per kernel function: its
     (demangled) name, registers and spill bytes."""
     import re
     import shutil
     funcs = []  # [mangled name, registers, spill stores, spill loads]
     for line in log.splitlines():
+        if "warning" in line.lower():
+            yield line.strip()
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             funcs.append([m.group(1), "?", "0", "0"])
@@ -127,6 +143,7 @@ def _ptxas_summary(log: str):
     for name, (_, regs, st, ld) in zip(names, funcs):
         for old, new in (("(anonymous namespace)::", ""),
                          ("<unnamed>::", ""), ("(int)", ""), ("void ", ""),
+                         ("(bool)1", "true"), ("(bool)0", "false"),
                          ("__nv_bfloat16", "bf16")):
             name = name.replace(old, new)
         yield (f"{name.split('(')[0]}: {regs} registers, spill stores "
@@ -269,41 +286,83 @@ def _paged_long_case(gen, dev):
                 table=table, lengths=lengths.int(), layer=2, span_blocks=nb)
 
 
-def _paged_rows_case(start: int, gen, dev):
+def _paged_rows_case(start: int, gen, dev, kv: str = "bf16"):
     """K1's multi-row body at the chunk program's shapes on the serve
     path (llama3-8b, chunk 512, max_len 1024): one slot, 8 kv-heads,
-    512 x 4 = 2048 query rows each, head_dim 128, bf16; the slot's
+    512 x 4 = 2048 query rows each, head_dim 128, bf16 q; the slot's
     length is the chunk's ``start``, the span rung covering it is 512
     rows (2 blocks of 256), the pool is the serve cache's (32 layers,
-    64 blocks and the trash block), read at layer 5."""
+    64 blocks and the trash block), read at layer 5. ``kv``: the pools'
+    dtype, ``bf16``, ``int8`` (with bf16 scales, as the int8 KV cache
+    stores them) or ``f32`` (the engine's float32 parity leg)."""
     import torch
     L, n_blocks, bl, G, hd = 32, 65, 256, 8, 128
-    shape = (L, n_blocks, bl, G, hd)
-    kp = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
-    vp = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    kp, vp, ks, vs = _rows_pools((L, n_blocks, bl, G, hd), kv, gen, dev)
     q = torch.randn((1, G, 512 * 4, hd), generator=gen, device=dev,
                     dtype=torch.bfloat16)
     perm = torch.randperm(n_blocks - 1, generator=gen, device=dev)
     table = torch.full((1, 5), n_blocks - 1, dtype=torch.int32, device=dev)
     table[0, :3] = perm[:3].int()          # 775 tokens' blocks
     lens = torch.tensor([start], dtype=torch.int32, device=dev)
-    return dict(q=q, k_pool=kp, v_pool=vp, k_scale=None, v_scale=None,
+    return dict(q=q, k_pool=kp, v_pool=vp, k_scale=ks, v_scale=vs,
                 table=table, lengths=lens, layer=5, span_blocks=2)
+
+
+def _rows_pools(shape, kv: str, gen, dev):
+    """K and V pools of ``shape`` (bf16 or f32, or int8 with bf16 scales
+    ``[L, n_blocks, G, bl]``) and their scales (None but for int8)."""
+    import torch
+    if kv != "int8":
+        dtype = torch.bfloat16 if kv == "bf16" else torch.float32
+        return (torch.randn(shape, generator=gen, device=dev, dtype=dtype),
+                torch.randn(shape, generator=gen, device=dev, dtype=dtype),
+                None, None)
+    L, n, bl, G, _ = shape
+    pools = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [(torch.rand((L, n, G, bl), generator=gen, device=dev) * 0.02
+               + 1e-3).to(torch.bfloat16) for _ in range(2)]
+    return pools[0], pools[1], scales[0], scales[1]
+
+
+def _paged_rows_long_case(start: int, gen, dev):
+    """The multi-row body on a long prompt's chunk: llama3-8b at max_len
+    8192 (``models/llama.py``'s longest context), one slot, 8 kv-heads,
+    2048 query rows each, head_dim 128, bf16; the slot's length is the
+    chunk's ``start`` and the span the engine's rung covering it (4096
+    rows for 3584, the full 8192 for 7680), blocks of 256. The pool
+    holds 4 layers (the body reads one; 4 put the launches' combined
+    K/V past the 50 MB L2, as the 32 layers of a chunk do) of the span's
+    blocks and the trash block, read at layer 1."""
+    import torch
+    G, hd, bl = 8, 128, 256
+    nb = 16 if start < 4096 else 32
+    n_blocks = nb + 1
+    kp, vp, _, _ = _rows_pools((4, n_blocks, bl, G, hd), "bf16", gen,
+                                dev)
+    q = torch.randn((1, G, 512 * 4, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    table = torch.full((1, nb + 1), nb, dtype=torch.int32, device=dev)
+    table[0, :nb] = torch.randperm(nb, generator=gen, device=dev).int()
+    lens = torch.tensor([start], dtype=torch.int32, device=dev)
+    return dict(q=q, k_pool=kp, v_pool=vp, k_scale=None, v_scale=None,
+                table=table, lengths=lens, layer=1, span_blocks=nb)
 
 
 def _sdpa_yardstick(name: str, case) -> None:
     """SDPA on the rows case's q over the slot's K/V rows below its
-    length, gathered beforehand: a library yardstick line only, since
-    no PyTorch call returns the unnormalized stats."""
+    length, gathered beforehand (int8 rows cast to bf16, scales left
+    out): a library yardstick line only, since no PyTorch call returns
+    the unnormalized stats."""
     import torch
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops import paged_attention as pa
     n = int(case["lengths"][0])
-    k = pa.gather_kv_layer(case["k_pool"], case["layer"], case["table"],
-                           n).transpose(1, 2).contiguous()
-    v = pa.gather_kv_layer(case["v_pool"], case["layer"], case["table"],
-                           n).transpose(1, 2).contiguous()
     q = case["q"]
+    k = pa.gather_kv_layer(case["k_pool"], case["layer"], case["table"],
+                           n).transpose(1, 2).to(q.dtype).contiguous()
+    v = pa.gather_kv_layer(case["v_pool"], case["layer"], case["table"],
+                           n).transpose(1, 2).to(q.dtype).contiguous()
     ms = _time_ms(lambda i: F.scaled_dot_product_attention(q, k, v), 20)
     _log(f"kernel {name}: yardstick, not a library equivalent: SDPA of "
          f"the same q over the {n} rows gathered ({tuple(k.shape)}) "
@@ -367,8 +426,14 @@ def _check_paged(name: str, case, fn=None) -> dict:
                + case["table"].numel() * 4 + B * 4
                + (B * G * R * hd + 2 * B * G * R) * 4)
     n_ops = 4 * rows * G * R * hd
-    bound_ms, bound_by = _bound_ms(
-        n_bytes, n_ops, "int8" if kv_item == 1 else "bf16")
+    # The wgmma multi-row body multiplies in bf16 on bf16 and int8 pools
+    # (int8 rows are widened to bf16); the decode body reads int8 as
+    # int8; float32 pools are bounded at the float32 peak, as the
+    # float32 flash rows are.
+    kind = ("fp32" if kv_item == 4
+            else "int8" if kv_item == 1 and fn is pa.paged_attention
+            else "bf16")
+    bound_ms, bound_by = _bound_ms(n_bytes, n_ops, kind)
     rates = _rates(ms, n_ops, bound_ms, None)
     _log(f"kernel {name}: max_abs_err={err:.3e} ms={ms:.4f} (graph "
          f"replay; eager loop {eager_ms:.4f}, host {host_ms:.4f} a call) "
@@ -569,6 +634,47 @@ def _check_bwd(name: str, case) -> dict:
     return dict(rows)
 
 
+def _rows_cases(gen, dev):
+    """K1's multi-row bodies, each against the plain version, with its
+    SDPA yardstick where the slot holds rows. The wgmma body: the serve
+    chunk (start 512), an empty slot (start 0), two chunks of a long
+    prompt (starts 3584 and 7680) and the serve chunk on int8 pools.
+    The mma.sync body: the serve chunk on float32 pools (bf16 q, as the
+    engine's float32 parity leg sends it). Returns (wgmma cases,
+    mma.sync cases); each case must move its own body's count only."""
+    import torch
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    fn = pa.paged_attention_rows
+    out = {"paged_attention_rows": [], "paged_attention_rows_mma": []}
+    for kname, label, make, start in (
+            ("paged_attention_rows", "bf16,start=512", _paged_rows_case, 512),
+            ("paged_attention_rows", "bf16,start=0", _paged_rows_case, 0),
+            ("paged_attention_rows", "bf16,start=3584",
+             _paged_rows_long_case, 3584),
+            ("paged_attention_rows", "bf16,start=7680",
+             _paged_rows_long_case, 7680),
+            ("paged_attention_rows", "int8,start=512",
+             functools.partial(_paged_rows_case, kv="int8"), 512),
+            ("paged_attention_rows_mma", "f32,start=512",
+             functools.partial(_paged_rows_case, kv="f32"), 512)):
+        case = make(start, gen, dev)
+        name = f"{kname}[{label}]"
+        before = (fn.launches, fn.mma_launches)
+        out[kname].append(_check_paged(name, case, fn))
+        moved = (fn.launches - before[0], fn.mma_launches - before[1])
+        mma = kname == "paged_attention_rows_mma"
+        if not moved[int(mma)] or moved[int(not mma)]:
+            raise AssertionError(f"{name}: launches (wgmma, mma.sync) "
+                                 f"{moved}; only the "
+                                 f"{'mma.sync' if mma else 'wgmma'} body "
+                                 f"should have run")
+        if int(case["lengths"][0]):
+            _sdpa_yardstick(name, case)
+        del case
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(dev):
     """Returns {kernel: [case results]}, the main-path case first."""
     import torch
@@ -580,21 +686,12 @@ def phase_kernels(dev):
              _check_paged("paged_attention[bf16,long]",
                           _paged_long_case(gen, dev))]
     torch.cuda.empty_cache()
-    from skypilot_tpu_torch.ops import paged_attention as pa
-    rows = []
-    for start in (512, 0):
-        case = _paged_rows_case(start, gen, dev)
-        name = f"paged_attention_rows[bf16,start={start}]"
-        rows.append(_check_paged(name, case, pa.paged_attention_rows))
-        if start:
-            _sdpa_yardstick(name, case)
-        del case
-        torch.cuda.empty_cache()
+    rows = _rows_cases(gen, dev)
     flash = [_check_flash(f"flash_attention_fwd[S={S},seg={int(s)}]",
                           _flash_case(S, s, gen, dev))
              for S, s in ((1024, False), (512, False), (1024, True),
                           (512, True))]
-    cases = {"paged_attention": paged, "paged_attention_rows": rows,
+    cases = {"paged_attention": paged, **rows,
              "flash_attention_fwd": flash,
              "flash_attention_bwd_dkv": [], "flash_attention_bwd_dq": []}
     for dtype, segs in ((torch.bfloat16, False), (torch.bfloat16, True),
@@ -687,8 +784,74 @@ def _kernel_vs_plain(params, cfg, like, dev, prompts, label):
     return runs[False][1], runs[True][1], runs[True][0]
 
 
+def _long_chunks(engine, dev, card: str) -> None:
+    """One 512-token ``prefill_chunk`` of llama3-8b at start 3584 and at
+    7680 on the served weights, through a one-slot cache of max_len 8192
+    (32 blocks of 256, ~1.1 GB): the chunk's wall time (after a warm-up
+    chunk) and, from one profiled chunk, the multi-row body's launches
+    and device time beside the matmuls' and the rest's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from skypilot_tpu_torch.infer import kvcache
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    cfg, C, bl, max_len = engine.cfg, 512, 256, 8192
+    nb = max_len // bl
+    cache = kvcache.init_paged_cache(cfg, 1, nb, bl, dev)
+    table = torch.full((1, nb + 1), nb, dtype=torch.int32, device=dev)
+    table[0, :nb] = torch.arange(nb, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(1, cfg.vocab_size, (C,), generator=gen, device=dev)
+
+    # The span is the rung of the engine's default ladder (max_len / 8,
+    # / 4, / 2, max_len) that covers the chunk's start.
+    def chunk(start):
+        cache["length"][0] = start
+        kvcache.prefill_chunk(
+            engine.params, cache, toks, start, C, 0, max_len, cfg,
+            engine.sampling_params, table, final=False,
+            span=4096 if start < 4096 else None)
+        torch.cuda.synchronize()
+
+    for start in (3584, 7680):
+        chunk(start)                                   # warm-up
+        t0 = time.perf_counter()
+        chunk(start)
+        wall = (time.perf_counter() - t0) * 1e3
+        n0 = pa.paged_attention_rows.launches
+        mma0 = pa.paged_attention_rows.mma_launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            chunk(start)
+        n = pa.paged_attention_rows.launches - n0
+        mma = pa.paged_attention_rows.mma_launches - mma0
+        by = {"rows": 0.0, "matmul": 0.0, "other": 0.0}
+        for evt in prof.events():
+            if getattr(evt, "device_type", None) != \
+                    torch.autograd.DeviceType.CUDA:
+                continue
+            name = evt.name.lower()
+            cls = ("rows" if "paged_rows_tc" in name else "matmul"
+                   if any(k in name for k in ("gemm", "xmma", "cutlass",
+                                              "cublas", "nvjet"))
+                   else "other")
+            by[cls] += evt.time_range.elapsed_us() / 1e3
+        rows_ms = by["rows"] / n if n else float("nan")
+        _log(f"serve[long chunk]: llama3-8b 512-token chunk at start "
+             f"{start}: wall {wall:.2f} ms; multi-row body {n} launches x "
+             f"{rows_ms:.4f} ms = {by['rows']:.2f} ms of device time, "
+             f"matmul {by['matmul']:.2f} ms, other {by['other']:.2f} ms "
+             f"(one profiled chunk); {card}")
+        if n != cfg.n_layers or mma:
+            raise AssertionError(f"long chunk: {n} launches of the wgmma "
+                                 f"multi-row body (expected "
+                                 f"{cfg.n_layers}), {mma} of the mma.sync "
+                                 f"one (expected 0)")
+    del cache
+
+
 def phase_serve(dev, card: str):
-    """Returns {kernel: launches} over the 9-request run."""
+    """Returns {kernel: launches} over the 9-request run, and over the
+    float32 leg's kernel engine."""
     import numpy as np
     import torch
     from skypilot_tpu_torch.infer import server as srv
@@ -749,6 +912,7 @@ def phase_serve(dev, card: str):
         fa.flash_attention_fwd.launches = 0
         pa.paged_attention.launches = 0
         pa.paged_attention_rows.launches = 0
+        pa.paged_attention_rows.mma_launches = 0
         t1 = time.time()
         threads = [threading.Thread(target=one, args=(i,))
                    for i in range(len(bodies))]
@@ -761,6 +925,7 @@ def phase_serve(dev, card: str):
                     "paged_attention": pa.paged_attention.launches,
                     "paged_attention_rows":
                         pa.paged_attention_rows.launches}
+        mma_launches = pa.paged_attention_rows.mma_launches
         if errors or any(r is None for r in results):
             raise AssertionError(f"requests failed: {errors}")
     finally:
@@ -783,10 +948,11 @@ def phase_serve(dev, card: str):
     _log(f"serve: chunked prompts {chunked} ({sum(want_chunks)} chunks): "
          f"multi-row launches {launches['paged_attention_rows']}, "
          f"expected {want_rows}")
-    if launches["paged_attention_rows"] != want_rows:
-        raise AssertionError(f"multi-row body launched "
-                             f"{launches['paged_attention_rows']} times, "
-                             f"expected {want_rows}")
+    if launches["paged_attention_rows"] != want_rows or mma_launches:
+        raise AssertionError(f"the wgmma multi-row body launched "
+                             f"{launches['paged_attention_rows']} times "
+                             f"(expected {want_rows}), the mma.sync body "
+                             f"{mma_launches} (expected 0 on bf16 pools)")
     trailers = [r.get("prefill_chunks") for r in results[:len(prompts)]]
     if trailers != want_chunks[:len(prompts)]:
         raise AssertionError(f"trailers report prefill_chunks {trailers}, "
@@ -823,6 +989,8 @@ def phase_serve(dev, card: str):
         _log(f"serve: TTFT ms of the {len(part)} {label} requests: "
              + ", ".join(f"{t:.1f}" for t in part))
 
+    _long_chunks(engine, dev, card)
+
     # Kernels against plain attention, same card, same weights, the
     # shortest and the longest prompt. In bf16, the served numbers,
     # any fp32 summation-order difference flips some bf16 roundings and
@@ -852,8 +1020,30 @@ def phase_serve(dev, card: str):
     params32 = {k: ({n: w.float() for n, w in v.items()}
                     if isinstance(v, dict) else v.float())
                 for k, v in engine.params.items()}
+    # The float32 leg's kernel engine reads float32 pools: its chunks
+    # run the mma.sync multi-row body, counted from 0 here.
+    counted = (fa.flash_attention_fwd, pa.paged_attention,
+               pa.paged_attention_rows)
+    for f in counted:
+        f.launches = 0
+    pa.paged_attention_rows.mma_launches = 0
     got, want, ref = _kernel_vs_plain(params32, cfg32, engine, dev, picked,
                                       "fp32")
+    launches32 = {f.__name__: f.launches for f in counted}
+    launches32["paged_attention_rows_mma"] = \
+        pa.paged_attention_rows.mma_launches
+    want_mma = sum(-(-len(p) // chunk) for p in picked
+                   if len(p) > chunk) * cfg.n_layers
+    _log(f"serve[fp32]: launches {launches32}; the mma.sync multi-row "
+         f"body expected {want_mma}")
+    if launches32["paged_attention_rows_mma"] != want_mma or not want_mma \
+            or launches32["paged_attention_rows"]:
+        raise AssertionError(
+            f"fp32 leg: the mma.sync multi-row body launched "
+            f"{launches32['paged_attention_rows_mma']} times (expected "
+            f"{want_mma} > 0), the wgmma body "
+            f"{launches32['paged_attention_rows']} (expected 0 on float32 "
+            f"pools)")
     for i, g, w in zip(pick, got, want):
         t, gap = _divergence(ref, prompts[i], g, w)
         if t is not None and gap > 1e-2:
@@ -864,17 +1054,22 @@ def phase_serve(dev, card: str):
             "kernel and plain paths agree over 32 steps" if t is None
             else f"paths diverge at step {t} on a near-tie (plain top-2 "
                  f"gap {gap:.3e} <= 1e-2)"))
-    return launches
+    return launches, launches32
 
 
 # name: (route, source, the TPU kernel it replaces)
 KERNELS = {
     "paged_attention": ("cuda", "skypilot_tpu_torch/csrc/paged_attention.cu",
                         "skypilot_tpu/ops/paged_attention.py:67"),
-    # The same TPU kernel's chunk-path use (C * rep rows a kv-head).
+    # The same TPU kernel's chunk-path use (C * rep rows a kv-head):
+    # the wgmma + TMA body (bf16 q on bf16 or int8 pools) and the
+    # mma.sync body (float32 pools).
     "paged_attention_rows": ("cuda",
                              "skypilot_tpu_torch/csrc/paged_attention.cu",
                              "skypilot_tpu/ops/paged_attention.py:67"),
+    "paged_attention_rows_mma": ("cuda",
+                                 "skypilot_tpu_torch/csrc/paged_attention.cu",
+                                 "skypilot_tpu/ops/paged_attention.py:67"),
     "flash_attention_fwd": ("cuda", "skypilot_tpu_torch/csrc/flash_fwd.cu",
                             "skypilot_tpu/ops/flash_attention.py:58"),
     "flash_attention_bwd_dkv": ("cuda",
@@ -1103,7 +1298,8 @@ def phase_train(dev, card: str):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "serve", "train"),
+    ap.add_argument("--phase",
+                    choices=("all", "kernels", "serve", "train"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -1153,7 +1349,7 @@ def main() -> int:
     # before that path runs and read just after it.
     by_path = {}
     if args.phase in ("all", "serve"):
-        by_path["serve"] = phase_serve(dev, smi)
+        by_path["serve"], by_path["serve[fp32]"] = phase_serve(dev, smi)
         free()
     if args.phase in ("all", "train"):
         by_path["train"] = phase_train(dev, smi)

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the bf16 bodies of the flash
-// kernels (flash_fwd.cu; flash_bwd.cu, K3 and K4): bf16 operands from
-// fp32 registers, mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and the wgmma products themselves.
+// kernels (flash_fwd.cu; flash_bwd.cu, K3 and K4) and the wgmma
+// multi-row body of the paged kernel (paged_attention.cu, K1): bf16
+// operands from fp32 registers, mbarriers, TMA tile loads (bf16 and
+// int8 tensor maps), wgmma shared-memory descriptors and the wgmma
+// products themselves.
 //
 // Shared tiles are written by TMA with a 128-byte swizzle (64-byte for a
 // head dim of 32): a [rows][D] bf16 tile is stored as D / BC boxes of
@@ -316,6 +318,31 @@ inline int bf16_map(CUtensorMap* map, const void* ptr, int D, int heads,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A tensor map over an int8 [B][S][heads][D] tensor whose boxes are
+// box_rows consecutive positions of one head and all D columns,
+// unswizzled (K1's multi-row body widens them to bf16 row by row before
+// wgmma reads them); rows past S read as zeros. 0 or a cudaError_t.
+inline int int8_map(CUtensorMap* map, const void* ptr, int D, int heads,
+                    int S, int B, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(D);
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,4 +1,4 @@
-"""Paged attention over the block-table KV pool: the CUDA kernel's two
+"""Paged attention over the block-table KV pool: the CUDA kernel's
 bodies, their plain version and their launch counts.
 
 Counterpart of ``skypilot_tpu/ops/paged_attention.py``: the kernel
@@ -12,9 +12,12 @@ staged rows, or a prefill chunk's own rows.
 
 :func:`paged_attention` picks the body by shape. The decode body takes
 ``R * hd <= 4096`` (the GQA rows of a decode step); above that
-:func:`paged_attention_rows` runs the multi-row body, which takes the
-``C * rep`` rows of a prefill chunk on tensor cores (its source notes
-its design). Each body counts its own launches.
+:func:`paged_attention_rows` takes the ``C * rep`` rows of a prefill
+chunk on tensor cores, in one of two multi-row bodies (its docstring
+states which runs what): the ``wgmma`` + TMA body for a bfloat16 q on
+bfloat16 or int8 pools, the chunk path's dtypes, and the ``mma.sync``
+body for float32 pools. Each body counts its own launches. The kernel
+source notes each body's design.
 
 What bounds the decode body: the bytes of the K/V rows below each
 slot's length. Decode reads every cached row once per step and does
@@ -122,9 +125,11 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 class Int8RowsUnsupportedError(TypeError):
-    """An int8 pool reached the multi-row body, which reads float32 and
-    bfloat16 pools only (int8 there is ROADMAP Queue 1 item 5, with the
-    int8 KV cache)."""
+    """An int8 pool reached the multi-row bodies with what neither takes.
+    Only the ``wgmma`` body reads int8 pools, and it refuses two cases: a
+    float32 q, which the chunk path never sends (it casts q to bfloat16
+    first), and a block length other than 8, 16, 32 or a multiple of
+    64."""
 
 
 def _lib() -> ctypes.CDLL:
@@ -140,6 +145,10 @@ def _lib() -> ctypes.CDLL:
         rows.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                          + [ctypes.c_void_p])
         rows.restype = ctypes.c_int
+        tc = lib.paged_attention_rows_tc_launch
+        tc.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
+        tc.restype = ctypes.c_int
         lib.chunk_rows = lib.paged_attention_chunk_rows()
     return lib
 
@@ -217,7 +226,8 @@ def _check(q, k_pool, v_pool, k_scale, v_scale, table, lengths, layer,
                          "(the kernel reads rows as 16-byte vectors)")
     if rows and q.data_ptr() % 16:
         raise ValueError("paged_attention_rows: q must be 16-byte aligned "
-                         "(the multi-row body reads it in pairs)")
+                         "(the multi-row bodies read it in pairs or by "
+                         "TMA)")
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -269,44 +279,80 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return acc, m, l
 
 
+def _tma_body(q: torch.Tensor, k_pool: torch.Tensor) -> bool:
+    """Whether the ``wgmma`` + TMA multi-row body takes these inputs: a
+    bfloat16 q on bfloat16 or int8 pools whose block length is 8, 16,
+    32 (several blocks a 64-key tile) or a multiple of 64 (one)."""
+    bl = k_pool.shape[2]
+    return (q.dtype == torch.bfloat16
+            and k_pool.dtype in (torch.bfloat16, torch.int8)
+            and (bl % 64 == 0 or bl in (8, 16, 32)))
+
+
 def paged_attention_rows(q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor,
                          k_scale: Optional[torch.Tensor],
                          v_scale: Optional[torch.Tensor],
                          table: torch.Tensor, lengths: torch.Tensor,
                          layer: int, *, span_blocks: int) -> Stats:
-    """:func:`paged_attention` through the multi-row body at any ``R``
-    (the chunk path's ``C * rep`` rows): float32 or bfloat16 pools,
-    ``hd`` 32, 64 or 128. An int8 pool on the card raises
+    """:func:`paged_attention` through a multi-row body at any ``R``
+    (the chunk path's ``C * rep`` rows), ``hd`` 32, 64 or 128.
+
+    Dispatch: a bfloat16 q on bfloat16 or int8 pools with a block length
+    of 8, 16, 32 or a multiple of 64 runs the ``wgmma`` + TMA body
+    (counted in ``paged_attention_rows.launches``); every other float
+    case (float32 pools, which the engine's float32 parity leg sends, a
+    float32 q, or a bfloat16 pool of another block length) runs the
+    ``mma.sync`` body (``paged_attention_rows.mma_launches``). The
+    dtypes and the block length alone pick the body; a failed build or
+    launch raises, and neither body stands in for the other. An int8
+    pool that the ``wgmma`` body does not take raises
     :class:`Int8RowsUnsupportedError`."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, k_scale, v_scale,
                                    table, lengths, layer, span_blocks)
     _check(q, k_pool, v_pool, k_scale, v_scale, table, lengths, layer,
            span_blocks, rows=True)
-    if k_pool.dtype == torch.int8:
+    tma = _tma_body(q, k_pool)
+    if k_pool.dtype == torch.int8 and not tma:
         raise Int8RowsUnsupportedError(
-            "paged_attention_rows: int8 pools are not supported by the "
-            "multi-row body (R*hd > 4096); see ROADMAP Queue 1 item 5")
+            f"paged_attention_rows: an int8 pool needs a bfloat16 q and a "
+            f"block length of 8, 16, 32 or a multiple of 64 (got q "
+            f"{q.dtype}, block length {k_pool.shape[2]})")
     B, G, R, hd = q.shape
     dev = q.device
     acc = torch.empty((B, G, R, hd), dtype=torch.float32, device=dev)
     m = torch.empty((B, G, R), dtype=torch.float32, device=dev)
     l = torch.empty((B, G, R), dtype=torch.float32, device=dev)
+    quant = k_scale is not None
     lib = _lib()
+    shape = (B, G, R, hd, layer, k_pool.shape[1], k_pool.shape[2],
+             table.shape[1], span_blocks)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.paged_attention_rows_launch(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            table.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), B, G, R, hd, layer,
-            k_pool.shape[1], k_pool.shape[2], table.shape[1], span_blocks,
-            _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], stream)
+        if tma:
+            err = lib.paged_attention_rows_tc_launch(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                k_scale.data_ptr() if quant else None,
+                v_scale.data_ptr() if quant else None,
+                table.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
+                m.data_ptr(), l.data_ptr(), *shape,
+                _KV_DTYPES[k_pool.dtype], stream)
+        else:
+            err = lib.paged_attention_rows_launch(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                table.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
+                m.data_ptr(), l.data_ptr(), *shape, _Q_DTYPES[q.dtype],
+                _KV_DTYPES[k_pool.dtype], stream)
     _build.check(err, "paged_attention_rows")
-    paged_attention_rows.launches += 1
+    if tma:
+        paged_attention_rows.launches += 1
+    else:
+        paged_attention_rows.mma_launches += 1
     return acc, m, l
 
 
 # Kernel launches since the count was last set to 0, per body.
 paged_attention.launches = 0
-paged_attention_rows.launches = 0
+paged_attention_rows.launches = 0        # the wgmma + TMA body
+paged_attention_rows.mma_launches = 0    # the mma.sync body

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from skypilot_tpu_torch.infer import engine as te
+from skypilot_tpu_torch.infer import kvcache as tkv
 from skypilot_tpu_torch.models import llama as tl
 from skypilot_tpu_torch.ops import attention as tattn
 from skypilot_tpu_torch.ops import flash_attention as tfa
@@ -394,7 +395,7 @@ def test_paged_wrapper_raises_instead_of_falling_back():
                             kp.shape[0], span_blocks=1)
 
 
-# -- K1's multi-row body (chunked prefill) ----------------------------------
+# -- K1's multi-row bodies (chunked prefill) --------------------------------
 
 # The engine's layout at max_len 1024: a pool of real blocks plus the trash
 # block, whose id is the sentinel of every table entry past a slot's
@@ -405,20 +406,35 @@ _ROWS_MAX_LEN = 1024
 _ROWS_SPAN = 512
 
 
-def _rows_inputs(dev, q_dtype, kv_dtype, hd, R, bl, start, seed=0):
+def _rows_inputs(dev, q_dtype, kv_dtype, hd, R, bl, start, seed=0,
+                 max_len=_ROWS_MAX_LEN):
     gen = torch.Generator(device=dev).manual_seed(seed)
     L, G = 2, 2
-    nb = _ROWS_MAX_LEN // bl
+    nb = max_len // bl
     lengths = [start, 0, 700]
     alloc = [-(-(start + 64) // bl), 2, -(-700 // bl)]
     n = sum(alloc)
     trash = n
     shape = (L, n + 1, bl, G, hd)
-    kp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
-    vp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+    ks = vs = None
+    if kv_dtype == torch.int8:
+        kp = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        sshape = (L, n + 1, G, bl)
+        ks = (torch.rand(sshape, generator=gen, device=dev) * 0.02
+              + 1e-3).bfloat16()
+        vs = (torch.rand(sshape, generator=gen, device=dev) * 0.02
+              + 1e-3).bfloat16()
+        ks[:, trash] = 1.0
+        vs[:, trash] = 1.0
+    else:
+        kp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+        vp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
     # Rows no mask admits hold large values: a leak shows at once.
-    kp[:, trash] = 100.0
-    vp[:, trash] = 100.0
+    kp[:, trash] = 100
+    vp[:, trash] = 100
     q = torch.randn((len(lengths), G, R, hd), generator=gen,
                     device=dev).to(q_dtype)
     perm = torch.randperm(n, generator=gen, device=dev).tolist()
@@ -426,35 +442,36 @@ def _rows_inputs(dev, q_dtype, kv_dtype, hd, R, bl, start, seed=0):
     for b, have in enumerate(alloc):
         table[b, :have] = torch.tensor(perm[:have])
         perm = perm[have:]
-    return (q, kp, vp, None, None, table.to(dev),
+    return (q, kp, vp, ks, vs, table.to(dev),
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
 _ROWS_DTYPES = pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
-    (torch.float32, torch.float32)], ids=["bf16", "bf16q-f32kv", "f32"])
+    (torch.float32, torch.float32), (torch.bfloat16, torch.int8)],
+    ids=["bf16", "bf16q-f32kv", "f32", "int8"])
 
 
-@pytest.mark.gpu
-@_ROWS_DTYPES
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("R", [64, 512, 2048])
-@pytest.mark.parametrize("bl", [16, 64, 256])
-@pytest.mark.parametrize("start", [0, 1, 255, 256, 512])
-def test_paged_rows_kernel_matches_plain(q_dtype, kv_dtype, hd, R, bl,
-                                         start):
-    """The multi-row body against the plain version under K1's rule,
-    tiles crossing blocks of 16 and 64 rows, the engine's sentinel (the
-    trash block, inside the pool) past every length; length-0 slots
-    exactly."""
-    dev = _cuda()
-    args = _rows_inputs(dev, q_dtype, kv_dtype, hd, R, bl, start)
-    span_blocks = _ROWS_SPAN // bl
-    layer = 1
-    before = tpa.paged_attention_rows.launches
+def _rows_launches():
+    return (tpa.paged_attention_rows.launches,
+            tpa.paged_attention_rows.mma_launches)
+
+
+def _check_rows(args, layer, span_blocks):
+    """One multi-row call against the plain version under K1's rule;
+    length-0 slots exactly; one launch, of the body the dtypes and the
+    block length pick (the wgmma body for bf16 q on bf16 or int8 pools
+    with blocks of 8, 16, 32 or a multiple of 64, else mma.sync)."""
+    before = _rows_launches()
     got = tpa.paged_attention_rows(*args, layer, span_blocks=span_blocks)
     torch.cuda.synchronize()
-    assert tpa.paged_attention_rows.launches == before + 1
+    q, kp = args[0], args[1]
+    bl = kp.shape[2]
+    tma = (q.dtype == torch.bfloat16 and kp.dtype != torch.float32
+           and (bl % 64 == 0 or bl in (8, 16, 32)))
+    after = _rows_launches()
+    assert (after[0] - before[0], after[1] - before[1]) == \
+        ((1, 0) if tma else (0, 1))
     want = tpa.paged_attention_ref(*args, layer, span_blocks)
     live = args[-1] > 0
     for g, w in zip(got, want):
@@ -466,13 +483,52 @@ def test_paged_rows_kernel_matches_plain(q_dtype, kv_dtype, hd, R, bl,
 
 @pytest.mark.gpu
 @_ROWS_DTYPES
-def test_paged_rows_kernel_is_deterministic(q_dtype, kv_dtype):
-    """No split across the sweep and no atomics: equal bits on a second
-    call at the serve chunk's row count."""
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("R", [64, 512, 1052, 2048])
+@pytest.mark.parametrize("bl", [8, 16, 32, 64, 256])
+@pytest.mark.parametrize("start", [0, 1, 255, 256, 512])
+def test_paged_rows_kernel_matches_plain(q_dtype, kv_dtype, hd, R, bl,
+                                         start):
+    """The multi-row bodies against the plain version under K1's rule,
+    at every head dim they take (32 is llama3-tiny's) and every block
+    length the wgmma body loads (8, 16 and 32 several blocks a 64-key
+    tile, 64 and 256 one), the engine's sentinel (the trash block,
+    inside the pool) past every length, R not a multiple of the 128-row
+    tile (1052, the 775-token prompt's last chunk); length-0 slots
+    exactly."""
     dev = _cuda()
-    args = _rows_inputs(dev, q_dtype, kv_dtype, 128, 2048, 256, 512)
-    first = tpa.paged_attention_rows(*args, 0, span_blocks=2)
-    second = tpa.paged_attention_rows(*args, 0, span_blocks=2)
+    args = _rows_inputs(dev, q_dtype, kv_dtype, hd, R, bl, start)
+    _check_rows(args, 1, _ROWS_SPAN // bl)
+
+
+@pytest.mark.gpu
+@_ROWS_DTYPES
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("R", [64, 2048])
+def test_paged_rows_kernel_matches_plain_long_span(q_dtype, kv_dtype, hd,
+                                                   R):
+    """A long prompt's chunk: start 3584 over a 4096-row span of blocks
+    of 256 (the engine's rung at max_len 8192)."""
+    dev = _cuda()
+    args = _rows_inputs(dev, q_dtype, kv_dtype, hd, R, 256, 3584,
+                        max_len=8192)
+    _check_rows(args, 1, 4096 // 256)
+
+
+@pytest.mark.gpu
+@_ROWS_DTYPES
+@pytest.mark.parametrize("start,span", [(512, 512), (3584, 4096)],
+                         ids=["serve", "long"])
+def test_paged_rows_kernel_is_deterministic(q_dtype, kv_dtype, start,
+                                            span):
+    """No split across the sweep and no atomics: equal bits on a second
+    call at the serve chunk's row count, at the serve chunk and at a
+    long prompt's."""
+    dev = _cuda()
+    args = _rows_inputs(dev, q_dtype, kv_dtype, 128, 2048, 256, start,
+                        max_len=max(_ROWS_MAX_LEN, 2 * span))
+    first = tpa.paged_attention_rows(*args, 0, span_blocks=span // 256)
+    second = tpa.paged_attention_rows(*args, 0, span_blocks=span // 256)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
@@ -481,8 +537,9 @@ def test_paged_rows_kernel_is_deterministic(q_dtype, kv_dtype):
 @pytest.mark.gpu
 def test_paged_attention_dispatches_by_rows():
     """paged_attention keeps the decode body up to R*hd 4096 and runs
-    the multi-row body above it, each counting its own launches; an
-    int8 pool above it raises the typed error."""
+    the multi-row bodies above it, each counting its own launches; an
+    int8 pool above it runs the wgmma body and matches the plain
+    version, and a float32 q on an int8 pool raises the typed error."""
     dev = _cuda()
     for R, rows in ((32, False), (33, True)):
         args = _rows_inputs(dev, torch.bfloat16, torch.bfloat16, 128, R,
@@ -498,13 +555,74 @@ def test_paged_attention_dispatches_by_rows():
         live = args[-1] > 0
         for g, w in zip(got, want):
             _close(g[live], w[live], 2e-3)
-    q, kp, vp, _, _, table, lengths = _rows_inputs(
-        dev, torch.bfloat16, torch.bfloat16, 128, 64, 64, 255)
-    L, n, bl, G, _ = kp.shape
-    scale = torch.full((L, n, G, bl), 0.01, device=dev).bfloat16()
+    args = _rows_inputs(dev, torch.bfloat16, torch.int8, 128, 64, 64, 255)
+    r0 = tpa.paged_attention_rows.launches
+    got = tpa.paged_attention(*args, 0, span_blocks=8)
+    want = tpa.paged_attention_ref(*args, 0, 8)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention_rows.launches - r0 == 1
+    live = args[-1] > 0
+    for g, w in zip(got, want):
+        _close(g[live], w[live], 2e-3)
+    q, *rest = args
     with pytest.raises(tpa.Int8RowsUnsupportedError):
-        tpa.paged_attention(q, kp.to(torch.int8), vp.to(torch.int8), scale,
-                            scale, table, lengths, 0, span_blocks=8)
+        tpa.paged_attention(q.float(), *rest, 0, span_blocks=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,kv_dtype,bl,body", [
+    (torch.bfloat16, torch.bfloat16, 8, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 16, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, torch.int8, 8, "wgmma"),
+    (torch.bfloat16, torch.int8, 32, "wgmma"),
+    (torch.bfloat16, torch.int8, 256, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 48, "mma"),
+    (torch.bfloat16, torch.bfloat16, 24, "mma"),
+    (torch.bfloat16, torch.bfloat16, 96, "mma"),
+    (torch.bfloat16, torch.float32, 64, "mma"),
+    (torch.bfloat16, torch.float32, 256, "mma"),
+    (torch.float32, torch.float32, 256, "mma"),
+    (torch.float32, torch.bfloat16, 256, "mma")],
+    ids=lambda v: str(v).replace("torch.", ""))
+def test_paged_rows_dispatch_by_dtype_and_block_length(q_dtype, kv_dtype,
+                                                       bl, body):
+    """Which multi-row body runs, by dtypes and block length alone, and
+    which counter moves: the wgmma body for a bf16 q on bf16 or int8
+    pools with blocks of 8, 16, 32 or a multiple of 64; the mma.sync
+    body for float32 pools, a float32 q and any other block length
+    (48, 24, 96). Each result matches the plain version."""
+    dev = _cuda()
+    args = _rows_inputs(dev, q_dtype, kv_dtype, 64, 512, bl, 255)
+    before = _rows_launches()
+    got = tpa.paged_attention_rows(*args, 0, span_blocks=_ROWS_SPAN // bl)
+    torch.cuda.synchronize()
+    after = _rows_launches()
+    assert (after[0] - before[0], after[1] - before[1]) == \
+        ((1, 0) if body == "wgmma" else (0, 1))
+    want = tpa.paged_attention_ref(*args, 0, _ROWS_SPAN // bl)
+    live = args[-1] > 0
+    for g, w in zip(got, want):
+        _close(g[live], w[live], 2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,bl", [
+    (torch.float32, 64), (torch.float32, 256), (torch.bfloat16, 48),
+    (torch.bfloat16, 24)], ids=["f32q-bl64", "f32q-bl256", "bl48", "bl24"])
+def test_paged_rows_int8_without_a_body_raises(q_dtype, bl):
+    """An int8 pool that no multi-row body takes (a float32 q, or a
+    block length the wgmma body refuses) raises the typed error and
+    launches nothing; no body stands in for the other."""
+    dev = _cuda()
+    args = _rows_inputs(dev, q_dtype, torch.int8, 64, 512, bl, 255)
+    before = _rows_launches()
+    with pytest.raises(tpa.Int8RowsUnsupportedError):
+        tpa.paged_attention_rows(*args, 0, span_blocks=_ROWS_SPAN // bl)
+    assert _rows_launches() == before
 
 
 # -- the engine on the card -------------------------------------------------
@@ -537,15 +655,46 @@ def test_engine_kernel_path_matches_plain_path_on_card():
     assert out[False] == out[True]
 
 
+# llama3-tiny's bf16 logits differ from its float32 ones by at most ~0.05
+# on these prompts (the plain path on the CPU); the kernel and plain bf16
+# paths round at mostly the same places and differ by less. A broken
+# kernel parts the paths at the first token, on gaps of order 1.
+_BF16_TIE_GAP = 0.1
+
+
+def _first_divergence(params, cfg, dev, prompt, got, want):
+    """The first step where greedy tokens ``got`` and ``want`` differ,
+    with the plain path's top-2 logit gap on the context they share
+    there: (step, gap), or (None, None) when they agree throughout."""
+    for t, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        ctx = list(prompt) + list(want[:t])
+        toks = torch.tensor([ctx], dtype=torch.long, device=dev)
+        lens = torch.tensor([len(ctx)], device=dev)
+        _, logits = tkv.prefill_batch(params, toks, lens, cfg,
+                                      plain_attention=True)
+        top2 = logits[0].float().topk(2).values
+        return t, (top2[0] - top2[1]).item()
+    return None, None
+
+
 @pytest.mark.gpu
-def test_engine_chunk_path_matches_plain_path_on_card():
-    """llama3-tiny in float32 with chunks of 128 (R = 128 * rep rows a
-    kv-head, the multi-row body): the kernel engine's greedy tokens and
-    chunk counts equal the plain-attention engine's."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_engine_chunk_path_matches_plain_path_on_card(dtype):
+    """llama3-tiny (head_dim 32) with chunks of 128 (R = 128 * rep rows a
+    kv-head): the kernel engine's chunk counts equal the plain-attention
+    engine's, and its chunks run the multi-row body its pools pick, the
+    mma.sync body on float32 pools and the wgmma body on bf16 ones. In
+    float32 the greedy tokens are equal. In bf16 the two paths round
+    other intermediates to bf16 (the flash forward kernel rounds P), so
+    they may part on a near-tie: the tokens agree up to the first step
+    where they differ, and there the plain logits' top-2 gap is at most
+    _BF16_TIE_GAP."""
     import dataclasses
     dev = _cuda()
-    cfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"],
-                              dtype=torch.float32)
+    cfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"], dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = tl.init_params(cfg, gen, device=dev)
     rng = np.random.default_rng(1)
@@ -557,10 +706,21 @@ def test_engine_chunk_path_matches_plain_path_on_card():
                                prompt_buckets=(64, 256), kv_block=16,
                                prefill_chunk=128, device=dev,
                                plain_attention=plain)
-        r0 = tpa.paged_attention_rows.launches
+        r0 = _rows_launches()
         toks = e.generate(prompts, max_new_tokens=8)
-        ran = tpa.paged_attention_rows.launches > r0
-        assert ran == (not plain)
+        r1 = _rows_launches()
+        moved = (r1[0] > r0[0], r1[1] > r0[1])
+        if plain:
+            assert moved == (False, False)
+        else:
+            assert moved == ((False, True) if dtype == torch.float32
+                             else (True, False))
         out[plain] = (toks, sorted((r.rid, r.n_chunks) for r in e.finished))
-    assert out[False] == out[True]
+    assert out[False][1] == out[True][1]
     assert [c for _, c in out[True][1]] == [2, 0, 2, 2, 0]
+    if dtype == torch.float32:
+        assert out[False][0] == out[True][0]
+        return
+    for p, got, want in zip(prompts, out[False][0], out[True][0]):
+        t, gap = _first_divergence(params, cfg, dev, p, got, want)
+        assert t is None or gap <= _BF16_TIE_GAP, (t, gap)

@@ -3,9 +3,10 @@ against the JAX package's Pallas kernel in interpret mode, on the fuzz
 of ``tests/test_paged_attention.py`` (float and int8 pools, length-0
 slots, partial final blocks, scattered block ids, sentinel entries, a
 layer index > 0, span-bounded sweeps), and at the chunk path's
-multi-row shapes (``C * rep`` rows per kv-head) over the engine's pool
-layout, whose sentinel is the trash block inside the pool. The CUDA
-kernel's card tests are in ``test_torch_kernels_gpu.py``."""
+multi-row shapes (``C * rep`` rows per kv-head, float and int8 pools)
+over the engine's pool layout, whose sentinel is the trash block inside
+the pool. The CUDA kernel's card tests are in
+``test_torch_kernels_gpu.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -128,43 +129,56 @@ M_L, M_G, M_REP, M_HD, M_MAX_LEN = 2, 2, 2, 32, 64
 _M_LENGTHS = (0, 11, 16, 40, 64)
 
 
-def _rows_trial(rng, C, bl):
+def _rows_trial(rng, C, bl, quant=False):
     """Inputs laid out as the engine lays them: every slot's allocated
     blocks scattered over the pool, the rest of its table (and the
     sentinel column) pointing at the trash block, id n_real, which lies
-    inside the pool and holds large values no mask may admit."""
+    inside the pool and holds large values no mask may admit. ``quant``:
+    int8 pools with bf16 scales, as ``_pools`` builds them (the trash
+    block's scales are 1)."""
     nb = M_MAX_LEN // bl
     B = len(_M_LENGTHS)
     alloc = [min(nb, -(-(n + 8) // bl)) for n in _M_LENGTHS]
     n_real = sum(alloc)
     shape = (M_L, n_real + 1, bl, M_G, M_HD)
-    kp = rng.standard_normal(shape).astype(np.float32)
-    vp = rng.standard_normal(shape).astype(np.float32)
-    kp[:, n_real] = 100.0
-    vp[:, n_real] = 100.0
+    ks = vs = None
+    if quant:
+        kp = rng.integers(-127, 128, shape).astype(np.int8)
+        vp = rng.integers(-127, 128, shape).astype(np.int8)
+        sshape = (M_L, n_real + 1, M_G, bl)
+        ks, vs = ((rng.random(sshape) * 0.02 + 1e-3).astype(np.float32)
+                  for _ in range(2))
+        ks[:, n_real] = vs[:, n_real] = 1.0
+        ks, vs = (torch.from_numpy(x).bfloat16() for x in (ks, vs))
+    else:
+        kp = rng.standard_normal(shape).astype(np.float32)
+        vp = rng.standard_normal(shape).astype(np.float32)
+    kp[:, n_real] = 100
+    vp[:, n_real] = 100
     table = np.full((B, nb + 1), n_real, np.int32)
     ids = rng.permutation(n_real)
     for b, have in enumerate(alloc):
         table[b, :have] = ids[:have]
         ids = ids[have:]
     q = rng.standard_normal((B, M_G, C * M_REP, M_HD)).astype(np.float32)
-    return q, kp, vp, table, np.array(_M_LENGTHS, np.int32)
+    return q, kp, vp, ks, vs, table, np.array(_M_LENGTHS, np.int32)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("C", [8, 32])
 @pytest.mark.parametrize("bl", [8, 16])
 @pytest.mark.parametrize("span", [None, 32], ids=["full", "span32"])
-def test_rows_plain_matches_pallas_interpret(C, bl, span):
+def test_rows_plain_matches_pallas_interpret(C, bl, span, quant):
     rng = np.random.default_rng(C * 100 + bl)
-    q, kp, vp, table, lengths = _rows_trial(rng, C, bl)
+    q, kp, vp, ks, vs, table, lengths = _rows_trial(rng, C, bl, quant)
     sb = -(-(span or M_MAX_LEN) // bl)
     layer = 1
     want = jpa.paged_attention(
-        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), None, None,
-        jnp.asarray(table), jnp.asarray(lengths), jnp.int32(layer),
-        span_blocks=sb, interpret=True)
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), _jnp_scale(ks),
+        _jnp_scale(vs), jnp.asarray(table), jnp.asarray(lengths),
+        jnp.int32(layer), span_blocks=sb, interpret=True)
     args = (torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
-            None, None, torch.from_numpy(table), torch.from_numpy(lengths),
+            ks, vs, torch.from_numpy(table), torch.from_numpy(lengths),
             layer)
     # On CPU tensors both entry points run the plain version.
     for fn in (tpa.paged_attention_rows, tpa.paged_attention):
@@ -181,12 +195,42 @@ def test_rows_plain_matches_pallas_interpret(C, bl, span):
 
 def test_rows_cpu_tensors_run_the_plain_version():
     rng = np.random.default_rng(5)
-    q, kp, vp, table, lengths = _rows_trial(rng, 32, 16)
+    q, kp, vp, _, _, table, lengths = _rows_trial(rng, 32, 16)
     before = (tpa.paged_attention.launches,
-              tpa.paged_attention_rows.launches)
+              tpa.paged_attention_rows.launches,
+              tpa.paged_attention_rows.mma_launches)
     tpa.paged_attention_rows(
         torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
         None, None, torch.from_numpy(table), torch.from_numpy(lengths), 0,
         span_blocks=4)
     assert (tpa.paged_attention.launches,
-            tpa.paged_attention_rows.launches) == before
+            tpa.paged_attention_rows.launches,
+            tpa.paged_attention_rows.mma_launches) == before
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,bl,wgmma", [
+    (torch.bfloat16, torch.bfloat16, 8, True),
+    (torch.bfloat16, torch.bfloat16, 16, True),
+    (torch.bfloat16, torch.bfloat16, 32, True),
+    (torch.bfloat16, torch.bfloat16, 64, True),
+    (torch.bfloat16, torch.bfloat16, 256, True),
+    (torch.bfloat16, torch.int8, 8, True),
+    (torch.bfloat16, torch.int8, 256, True),
+    (torch.bfloat16, torch.bfloat16, 24, False),
+    (torch.bfloat16, torch.bfloat16, 48, False),
+    (torch.bfloat16, torch.int8, 48, False),
+    (torch.bfloat16, torch.float32, 256, False),
+    (torch.float32, torch.float32, 256, False),
+    (torch.float32, torch.bfloat16, 256, False),
+    (torch.float32, torch.int8, 256, False)],
+    ids=lambda v: str(v).replace("torch.", ""))
+def test_rows_body_is_picked_by_dtype_and_block_length(q_dtype, kv_dtype,
+                                                       bl, wgmma):
+    """The multi-row dispatch reads the dtypes and the block length and
+    nothing else: the wgmma body takes a bfloat16 q on bfloat16 or int8
+    pools with blocks of 8, 16, 32 or a multiple of 64; every other case
+    goes to the mma.sync body (float) or raises (int8). The card tests
+    check that the counter of the body picked here moves."""
+    q = torch.zeros((1, 2, 64, 32), dtype=q_dtype)
+    kp = torch.zeros((2, 3, bl, 2, 32), dtype=kv_dtype)
+    assert tpa._tma_body(q, kp) == wgmma
