@@ -37,13 +37,22 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    eager loop's time and the host's time per call are printed beside
    it.
 4. Serve: the port's HTTP server (``infer/server.py``) at llama3-8b
-   full width and depth with random bf16 weights from a fixed seed
-   answers 9 concurrent ``/generate`` requests, two of them streamed
-   twins of a chunked and of a wave prompt; prompts longer than 512
-   tokens go through chunked prefill. The kernels' launch counts are
-   set to 0 just before and read just after (the ``wgmma`` multi-row
-   body must launch once a layer per chunk and the ``mma.sync`` one
-   never, and trailers report the chunks); one 512-token chunk of a
+   full width and depth with random bf16 weights from a fixed seed, in
+   the reference server's default configuration (chunks of 512, a
+   prefix pool of 8, n-gram speculation at K = 4), answers 9 concurrent
+   ``/generate`` requests, two of them streamed twins of a chunked and
+   of a wave prompt; prompts longer than 512 tokens go through chunked
+   prefill. The kernels' launch counts and the engine's drafted,
+   accepted and verify counts are set to 0 just before and read just
+   after (at least one verify round must run; the ``wgmma`` multi-row
+   body must launch once a layer per chunk not skipped by a prefix hit
+   and the ``mma.sync`` one never, and trailers report the chunks).
+   Then a shared-prefix pair (820 and 760 tokens sharing 600), one
+   after the other: the first reports no hit and 2 chunks, the second
+   a 512-token hit and 1 chunk (32 multi-row launches from start 512
+   over the first's blocks); the second again after
+   ``clear_prefix_cache()`` is its cold rerun (TTFT and any bf16
+   divergence reported). One 512-token chunk of a
    long prompt at starts 3584 and 7680 of a one-slot cache of max_len
    8192 is timed (wall, and from one profiled chunk the device time of
    the multi-row body, of matmul and of the rest); two
@@ -54,7 +63,11 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    wherever the plain logits' top-2 gap exceeds 1e-2. The float32 leg
    reads float32 pools, so its chunks run the ``mma.sync`` multi-row
    body: counts set to 0 before that leg and read after it, that body
-   must launch once a layer per chunk and the ``wgmma`` one never.
+   must launch once a layer per chunk and the ``wgmma`` one never. On
+   the same float32 weights, kernel path: spec K 4 with an oracle
+   drafter (every position accepts) and with an anti-oracle (none
+   does) must give the spec-off tokens, and the prefix pair's warm
+   request its cold rerun's, under the same 1e-2 rule.
 5. Train: gradient parity of the kernels against the plain versions at
    llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
    ``train.run`` at llama3-1b full width and depth for 6 steps on a
@@ -720,7 +733,7 @@ def _post(url: str, payload: dict):
             done = chunks[-1]
             if not done.get("done"):
                 raise AssertionError(f"stream ended without done: {done}")
-            return {"tokens": toks, "ttft_ms": done["ttft_ms"]}
+            return {**done, "tokens": toks}
         return json.loads(r.read())
 
 
@@ -755,6 +768,18 @@ def _divergence(ref_engine, prompt, got, want):
     return None, None
 
 
+def _engine_like(params, cfg, like, dev, **kw):
+    """An engine on ``params`` shaped like the server's engine ``like``
+    (slots, max_len, buckets, wave cap, KV blocks, chunk); ``kw`` picks
+    the attention path, the prefix pool and speculation."""
+    from skypilot_tpu_torch.infer import engine as eng
+    return eng.InferenceEngine(
+        params, cfg, n_slots=like.n_slots, max_len=like.max_len,
+        prompt_buckets=like.buckets, max_wave=like.max_wave,
+        kv_block=like.kv_block, prefill_chunk=like.prefill_chunk,
+        device=dev, **kw)
+
+
 def _kernel_vs_plain(params, cfg, like, dev, prompts, label):
     """Greedy tokens of ``prompts`` through two engines configured like
     the server's engine ``like`` that differ only in the attention path
@@ -762,15 +787,10 @@ def _kernel_vs_plain(params, cfg, like, dev, prompts, label):
     plus the prefill logits' largest difference on the longest prompt.
     Returns (kernel tokens, plain tokens, the plain engine)."""
     import torch
-    from skypilot_tpu_torch.infer import engine as eng
     from skypilot_tpu_torch.infer import kvcache
     runs = {}
     for plain in (False, True):
-        e = eng.InferenceEngine(
-            params, cfg, n_slots=like.n_slots, max_len=like.max_len,
-            prompt_buckets=like.buckets, max_wave=like.max_wave,
-            kv_block=like.kv_block, prefill_chunk=like.prefill_chunk,
-            device=dev, plain_attention=plain)
+        e = _engine_like(params, cfg, like, dev, plain_attention=plain)
         runs[plain] = (e, e.generate(prompts, max_new_tokens=32))
     p = max(prompts, key=len)
     toks = torch.zeros((1, like.max_len), dtype=torch.long, device=dev)
@@ -880,9 +900,12 @@ def phase_serve(dev, card: str):
     # decode in the same bursts. The cap never binds on these waves (at
     # most 5 prompts share a bucket). Decode runs every slot at every
     # step, so it is batch-invariant.
+    # The reference server's defaults: chunks of 512, a prefix pool of 8
+    # and n-gram speculation at K = 4.
     engine = srv.make_engine("llama3-8b", slots=16, max_len=1024,
                              admit_wave=len(bodies), kv_block=256,
-                             prefill_chunk=chunk, device=dev, seed=SEED)
+                             prefill_chunk=chunk, prefix_pool=8, spec_k=4,
+                             device=dev, seed=SEED)
     cfg = engine.cfg
     torch.cuda.synchronize()
     _log(f"serve: llama3-8b {cfg.n_layers} layers d_model {cfg.d_model} "
@@ -913,6 +936,9 @@ def phase_serve(dev, card: str):
         pa.paged_attention.launches = 0
         pa.paged_attention_rows.launches = 0
         pa.paged_attention_rows.mma_launches = 0
+        # The engine's own counters, read while the server is idle.
+        spec0 = (engine._spec_drafted_total, engine._spec_accepted_total,
+                 engine.verify_calls)
         t1 = time.time()
         threads = [threading.Thread(target=one, args=(i,))
                    for i in range(len(bodies))]
@@ -926,8 +952,12 @@ def phase_serve(dev, card: str):
                     "paged_attention_rows":
                         pa.paged_attention_rows.launches}
         mma_launches = pa.paged_attention_rows.mma_launches
+        spec = [n - n0 for n, n0 in zip(
+            (engine._spec_drafted_total, engine._spec_accepted_total,
+             engine.verify_calls), spec0)]
         if errors or any(r is None for r in results):
             raise AssertionError(f"requests failed: {errors}")
+        pair = _prefix_pair(model, engine, url, cfg, chunk)
     finally:
         httpd.shutdown()
         model.shutdown()
@@ -939,15 +969,28 @@ def phase_serve(dev, card: str):
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"main path")
+    _log(f"serve[spec]: {spec[2]} verify calls (K+1 = 5 decode-body "
+         f"launches a layer each, {5 * cfg.n_layers * spec[2]} of the "
+         f"{launches['paged_attention']} K1 decode launches); drafted "
+         f"{spec[0]}, accepted {spec[1]} tokens; per request (drafted, "
+         f"accepted, drafter): "
+         + ", ".join(f"({r['spec_drafted']}, {r['spec_accepted']}, "
+                     f"{r['drafter']})" for r in results))
+    if spec[2] <= 0:
+        raise AssertionError("no verify round ran: speculation was never "
+                             "attempted on the main path")
     # Chunked prefill: one multi-row launch a layer per chunk of every
-    # prompt longer than the chunk (the repeated prompt counts twice).
-    want_chunks = [-(-len(b["tokens"]) // chunk)
-                   if len(b["tokens"]) > chunk else 0 for b in bodies]
+    # prompt longer than the chunk (the repeated prompt counts twice),
+    # less the chunks a prefix hit skipped (its trailer's cached_tokens).
+    cached = [r["cached_tokens"] for r in results]
+    want_chunks = [-(-(len(b["tokens"]) - c) // chunk)
+                   if len(b["tokens"]) > chunk else 0
+                   for b, c in zip(bodies, cached)]
     want_rows = sum(want_chunks) * cfg.n_layers
     chunked = [len(b["tokens"]) for b, c in zip(bodies, want_chunks) if c]
-    _log(f"serve: chunked prompts {chunked} ({sum(want_chunks)} chunks): "
-         f"multi-row launches {launches['paged_attention_rows']}, "
-         f"expected {want_rows}")
+    _log(f"serve: chunked prompts {chunked} ({sum(want_chunks)} chunks; "
+         f"cached tokens {cached}): multi-row launches "
+         f"{launches['paged_attention_rows']}, expected {want_rows}")
     if launches["paged_attention_rows"] != want_rows or mma_launches:
         raise AssertionError(f"the wgmma multi-row body launched "
                              f"{launches['paged_attention_rows']} times "
@@ -988,6 +1031,16 @@ def phase_serve(dev, card: str):
                       if bool(c) == chunked)
         _log(f"serve: TTFT ms of the {len(part)} {label} requests: "
              + ", ".join(f"{t:.1f}" for t in part))
+
+    _log(f"serve[prefix]: cold {pair['cold_ttft']:.1f} ms TTFT, warm "
+         f"{pair['warm_ttft']:.1f} ms, the warm prompt cold after "
+         f"clear_prefix_cache() {pair['recold_ttft']:.1f} ms; {card}")
+    t, gap = _divergence(engine, pair["prompt"], pair["warm"],
+                         pair["recold"])
+    _log("serve[prefix, bf16]: the warm request's tokens " + (
+        "equal its cold rerun's over 32 steps" if t is None
+        else f"part from its cold rerun's at step {t}, plain top-2 gap "
+             f"{gap:.3e} (its bursts start at other times)"))
 
     _long_chunks(engine, dev, card)
 
@@ -1045,16 +1098,162 @@ def phase_serve(dev, card: str):
             f"{launches32['paged_attention_rows']} (expected 0 on float32 "
             f"pools)")
     for i, g, w in zip(pick, got, want):
-        t, gap = _divergence(ref, prompts[i], g, w)
-        if t is not None and gap > 1e-2:
-            raise AssertionError(
-                f"fp32: greedy tokens of prompt {i} differ at step {t} "
-                f"where the plain top-2 logit gap is {gap:.4f} > 1e-2")
-        _log(f"serve[fp32]: prompt {i} ({lens[i]} tokens): " + (
-            "kernel and plain paths agree over 32 steps" if t is None
-            else f"paths diverge at step {t} on a near-tie (plain top-2 "
-                 f"gap {gap:.3e} <= 1e-2)"))
+        _agree(ref, prompts[i], g, w, f"prompt {i} ({lens[i]} tokens)",
+               "kernel and plain paths")
+    _spec_and_prefix_fp32(params32, cfg32, engine, dev, picked, got, ref,
+                          chunk)
     return launches, launches32
+
+
+def _agree(ref, prompt, got, want, what: str, paths: str) -> None:
+    """Greedy tokens ``got`` and ``want`` of ``prompt`` agree, or part
+    only where the plain logits' top-2 gap is at most 1e-2 (a near-tie,
+    which fp32 summation order may flip)."""
+    t, gap = _divergence(ref, prompt, got, want)
+    if t is not None and gap > 1e-2:
+        raise AssertionError(
+            f"fp32: {paths} differ on {what} at step {t} where the plain "
+            f"top-2 logit gap is {gap:.4f} > 1e-2")
+    _log(f"serve[fp32]: {what}: " + (
+        f"{paths} agree over {len(got)} steps" if t is None
+        else f"{paths} diverge at step {t} on a near-tie (plain top-2 gap "
+             f"{gap:.3e} <= 1e-2)"))
+
+
+class _Replay:
+    """Drafter factory (the engine's ``spec_drafter`` seam) that replays
+    each prompt's known greedy continuation: the oracle, or with
+    ``shift`` an anti-oracle whose every draft token is wrong."""
+
+    def __init__(self, outputs, shift: int = 0, vocab: int = 0):
+        self.outputs, self.shift, self.vocab = outputs, shift, vocab
+
+    def __call__(self, req):
+        return _Replay._Drafter(self, self.outputs[tuple(req.prompt)])
+
+    class _Drafter:
+        def __init__(self, factory, out):
+            self.f, self.out, self.seen = factory, out, 0
+
+        def catch_up(self, prompt, generated):
+            self.seen = len(generated)
+
+        def draft(self, k):
+            nxt = self.out[self.seen:self.seen + k]
+            if not self.f.shift:
+                return list(nxt)
+            return [(t + self.f.shift) % self.f.vocab for t in nxt]
+
+
+def _spec_and_prefix_fp32(params, cfg, like, dev, prompts, spec_off, ref,
+                          chunk) -> None:
+    """The float32 leg's speculation and prefix checks, on the kernel
+    path with the server engine's shapes: greedy tokens with spec_k 4
+    and an oracle drafter (every verify position accepts, so K1's decode
+    body runs at every window position) and with an anti-oracle (every
+    draft rejected, none accepted) equal the spec-off tokens; a warm
+    prefix hit equals its cold run after clear_prefix_cache(). Tokens
+    that differ are held to the 1e-2 top-2 gap rule."""
+    import torch
+    from skypilot_tpu_torch.ops import paged_attention as pa
+
+    def engine(**kw):
+        return _engine_like(params, cfg, like, dev, **kw)
+
+    outputs = {tuple(p): t for p, t in zip(prompts, spec_off)}
+    for label, factory in (
+            ("oracle", _Replay(outputs)),
+            ("anti-oracle", _Replay(outputs, 1, cfg.vocab_size))):
+        e = engine(spec_k=4, spec_drafter=factory)
+        e.spec_min_rate = 0.0         # keep drafting to the end
+        d0 = pa.paged_attention.launches
+        got = e.generate(prompts, max_new_tokens=32)
+        drafted, accepted = e._spec_drafted_total, e._spec_accepted_total
+        _log(f"serve[fp32, spec {label}]: {e.verify_calls} verify calls, "
+             f"drafted {drafted}, accepted {accepted}; K1 decode launches "
+             f"{pa.paged_attention.launches - d0}")
+        if not e.verify_calls or not drafted:
+            raise AssertionError(f"fp32 {label}: no verify round ran")
+        if label == "anti-oracle" and accepted:
+            raise AssertionError(f"fp32 anti-oracle accepted {accepted}")
+        if label == "oracle" and got == spec_off and accepted != drafted:
+            raise AssertionError(f"fp32 oracle accepted {accepted} of "
+                                 f"{drafted}")
+        for p, g, w in zip(prompts, got, spec_off):
+            _agree(ref, p, g, w, f"{len(p)}-token prompt, {label}",
+                   "spec-on and spec-off tokens")
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+    cold_p, warm_p = _pair_prompts(cfg, chunk)
+    e = engine(prefix_pool=8, spec_k=4)
+    e.generate([cold_p], max_new_tokens=32)
+    e.finished.clear()
+    warm = e.generate([warm_p], max_new_tokens=32)[0]
+    cached = e.finished[0].cached_len
+    e.finished.clear()
+    e.clear_prefix_cache()
+    cold = e.generate([warm_p], max_new_tokens=32)[0]
+    if cached != chunk or e.finished[0].cached_len:
+        raise AssertionError(f"fp32 prefix pair: cached {cached} warm, "
+                             f"{e.finished[0].cached_len} cold")
+    _agree(ref, warm_p, warm, cold, f"{len(warm_p)}-token prompt",
+           "warm (512 cached) and cold tokens")
+    del e
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _pair_prompts(cfg, chunk):
+    """Two prompts sharing a 600-token prefix, 820 and 760 tokens long:
+    the first stores its first 512 tokens, the second hits them."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 1)
+    shared = rng.integers(1, cfg.vocab_size, 600).tolist()
+    return (shared + rng.integers(1, cfg.vocab_size, 220).tolist(),
+            shared + rng.integers(1, cfg.vocab_size, 160).tolist())
+
+
+def _prefix_pair(model, engine, url, cfg, chunk) -> dict:
+    """The shared-prefix pair through the server, one after the other,
+    then the second again after clear_prefix_cache(): the first reports
+    no hit and 2 chunks, the second a 512-token hit and 1 chunk whose
+    multi-row launches (32) read the first's shared blocks from start
+    512, and the rerun no hit again."""
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    # One request at a time: the server's default admission window
+    # (12 ms), not the batch's 0.5 s, so TTFT is the prefill's.
+    model.coalesce_s = 0.012
+    cold_p, warm_p = _pair_prompts(cfg, chunk)
+    out = {}
+    for label, prompt, want in (
+            ("cold", cold_p, (False, 0, 2)), ("warm", warm_p,
+                                              (True, chunk, 1)),
+            ("recold", warm_p, (False, 0, 2))):
+        if label == "recold":
+            # The loop thread touches the engine only while a request is
+            # in flight; none is.
+            engine.clear_prefix_cache()
+        pa.paged_attention_rows.launches = 0
+        hits = engine.prefix_hits
+        r = _post(url, {"tokens": prompt, "max_new_tokens": 32})
+        rows = pa.paged_attention_rows.launches
+        got = (r["cache_hit"], r["cached_tokens"], r["prefill_chunks"])
+        _log(f"serve[prefix]: {label} {len(prompt)}-token prompt: "
+             f"cache_hit {got[0]}, cached_tokens {got[1]}, prefill_chunks "
+             f"{got[2]}, multi-row launches {rows}, TTFT {r['ttft_ms']} "
+             f"ms, spec drafted {r['spec_drafted']} accepted "
+             f"{r['spec_accepted']}")
+        if got != want or rows != want[2] * cfg.n_layers \
+                or engine.prefix_hits - hits != int(want[0]):
+            raise AssertionError(
+                f"prefix pair, {label}: (cache_hit, cached_tokens, "
+                f"prefill_chunks) {got}, expected {want}; multi-row "
+                f"launches {rows}, expected {want[2] * cfg.n_layers}")
+        out[label] = r["tokens"]
+        out[f"{label}_ttft"] = r["ttft_ms"]
+    out["prompt"] = warm_p
+    return out
 
 
 # name: (route, source, the TPU kernel it replaces)

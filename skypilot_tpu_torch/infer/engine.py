@@ -19,9 +19,19 @@ engine) claim a slot and prefill in chunks, one chunk between decode
 bursts, so a long prompt never stalls the decoding slots for its whole
 length; shorter prompts ride waves.
 
-Left for later slices of the port: the prefix cache, speculative
-verify, int8 KV and weights, LoRA adapters, QoS, the flight recorder,
-metrics, tracing and crash recovery. The JAX engine padded
+The prefix cache (``prefix_pool`` entries, off by default) keeps a
+chunk path prompt's chunk-aligned prefix as ref-counted shared blocks:
+a later prompt that shares it maps those blocks into its table row and
+prefills only the suffix, copying a partially filled shared block on
+write. Speculative decoding (``spec_k`` draft tokens, off by default)
+replaces a plain burst with one verify round whenever some slot has a
+draft: an n-gram drafter proposes up to K tokens per slot and
+:func:`kvcache.verify_draft_staged` commits the matched run plus one
+correction token, so greedy output is unchanged.
+
+Left for later slices of the port: the KV handoff, preemption, the
+draft model, int8 KV and weights, LoRA adapters, QoS, the flight
+recorder, metrics, tracing and crash recovery. The JAX engine padded
 admission waves to fixed row counts to avoid recompiles; PyTorch runs
 eagerly, so the port dispatches each wave at its own size and keeps no
 spare slot for padding rows.
@@ -31,8 +41,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import time
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,12 +65,25 @@ class Request:
     done: bool = False
     eos_id: Optional[int] = None
     n_chunks: int = 0                 # prefill chunks run for this request
+    cached_len: int = 0               # prompt rows reused from the cache
+    # Speculative decoding: lifetime drafted/accepted tokens (the
+    # response trailer) and the drafter state. ``spec_mode`` is the
+    # drafter rung ("ngram", then "off" once acceptance collapses);
+    # ``spec_mode_drafted``/``_accepted`` count since the last demotion.
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_off: bool = False
+    drafter: Optional[Any] = None
+    spec_mode: Optional[str] = None
+    spec_mode_drafted: int = 0
+    spec_mode_accepted: int = 0
 
 
 @dataclasses.dataclass
 class _ChunkState:
     """A request mid-chunked-prefill: slot claimed, rows [0, pos)
-    resident (completed chunks), first token not yet produced."""
+    resident (reused prefix and/or completed chunks), first token not
+    yet produced."""
     req: Request
     pos: int            # next row offset to prefill
     total: int          # len(prompt)
@@ -120,6 +144,197 @@ def _span_ladder(buckets, max_len: int) -> Tuple[int, ...]:
     return tuple(sorted(rungs))
 
 
+class PrefixIndex:
+    """Host-side index over resident prompt prefixes.
+
+    Hash granularity is the prefill chunk: a prompt's prefix is
+    cacheable at every multiple of ``block`` tokens, keyed by a
+    blake2b-128 digest of the token bytes (content-addressed — a
+    Python ``hash`` collision would silently serve the wrong prefix).
+    ``salt`` prefixes every digest: the JAX engine feeds the request's
+    ADAPTER identity through it, because stored K/V rows carry the
+    fine-tune's wk/wv deltas — without the salt, two adapters sharing
+    a prompt prefix would share cached K/V computed under whichever
+    stored first (silently serving the wrong model). The port serves
+    no adapters yet, so its engine keeps the empty salt, the key space
+    of the reference's base-model requests and of the load balancer's
+    ``prefix_affinity_key``.
+    One ENTRY holds one stored prefix; every chunk-multiple key of
+    that prefix points at the entry, so a shorter shared prefix hits
+    it too. Eviction is LRU over entries (a hit or a store bumps the
+    entry); evicting drops all of its keys.
+
+    An entry's *payload* is a TUPLE of ref-counted block ids
+    (``insert_entry`` — the caller owns the ref-count bookkeeping and
+    decrefs whatever ``evict_lru``/``clear``/``insert_entry`` report
+    as evicted). ``rows`` caps resident entries. (The JAX engine's
+    contiguous layout also stores pool-row payloads through
+    ``acquire_row``; the port serves the paged layout only.)
+    """
+
+    def __init__(self, rows: int, block: int):
+        self.rows = rows
+        self.block = block
+        self.clear()
+
+    def clear(self) -> None:
+        self._tick = 0
+        self._keys: Dict[bytes, Tuple[Any, int]] = {}  # -> (payload, n)
+        self._ent_keys: Dict[Any, set] = {}
+        self._ent_used: Dict[Any, int] = {}            # payload -> LRU
+
+    def _digest(self, prompt: List[int], n: int,
+                salt: bytes = b"") -> bytes:
+        return hashlib.blake2b(
+            salt + np.asarray(prompt[:n], np.int64).tobytes(),
+            digest_size=16).digest()
+
+    def eligible(self, prompt: List[int]) -> bool:
+        # The shortest cacheable prefix is one block, and at least one
+        # suffix token must remain to produce the first-token logits.
+        return len(prompt) > self.block
+
+    def payloads(self) -> List[Any]:
+        return list(self._ent_used)
+
+    def lookup(self, prompt: List[int],
+               salt: bytes = b"") -> Optional[Tuple[Any, int]]:
+        """Longest resident chunk-aligned proper prefix of ``prompt``
+        (under ``salt`` — the adapter-identity namespace); returns
+        (payload, cached_len) and bumps the entry's LRU stamp."""
+        for k in range((len(prompt) - 1) // self.block, 0, -1):
+            ent = self._keys.get(
+                self._digest(prompt, k * self.block, salt))
+            if ent is not None:
+                self._tick += 1
+                self._ent_used[ent[0]] = self._tick
+                return ent
+        return None
+
+    def _drop(self, payload) -> None:
+        for key in self._ent_keys.pop(payload, ()):
+            del self._keys[key]
+        self._ent_used.pop(payload, None)
+
+    def evict_lru(self) -> Optional[Any]:
+        """Drop the least-recently-used entry; returns its payload (the
+        caller releases the storage) or None when empty."""
+        if not self._ent_used:
+            return None
+        payload = min(self._ent_used, key=self._ent_used.get)
+        self._drop(payload)
+        return payload
+
+    def payloads_lru(self) -> List[Any]:
+        """Resident payloads, least-recently-used first."""
+        return sorted(self._ent_used, key=self._ent_used.get)
+
+    def evict_entry(self, payload) -> None:
+        """Drop one specific entry (the caller releases its storage)."""
+        self._drop(payload)
+
+    def insert_entry(self, prompt: List[int], n_tokens: int,
+                     payload, salt: bytes = b"") -> List[Any]:
+        """Paged payloads: admit a new entry, evicting LRU entries past
+        the ``rows`` cap. Returns the evicted payloads (caller decrefs
+        their blocks)."""
+        evicted: List[Any] = []
+        while len(self._ent_used) >= self.rows:
+            p = self.evict_lru()
+            if p is None:
+                break
+            evicted.append(p)
+        self._tick += 1
+        self._ent_used[payload] = self._tick
+        self.register(prompt, n_tokens, payload, salt)
+        return evicted
+
+    def register(self, prompt: List[int], n_tokens: int,
+                 payload, salt: bytes = b"") -> None:
+        """Point every not-yet-resident chunk multiple <= n_tokens at
+        ``payload`` (shorter multiples already resident keep their
+        entry — both copies hold identical bytes)."""
+        for k in range(1, n_tokens // self.block + 1):
+            d = self._digest(prompt, k * self.block, salt)
+            if d not in self._keys:
+                self._keys[d] = (payload, k * self.block)
+                self._ent_keys.setdefault(payload, set()).add(d)
+
+
+class NGramDrafter:
+    """Prompt-lookup speculative drafter (host-side, zero device work).
+
+    The request's context (prompt + committed tokens) is indexed by
+    trailing n-gram: ``_index`` maps each n-gram to the START of its
+    most recent occurrence that already has a continuation. Drafting
+    looks up the context's last n tokens and proposes the up-to-k
+    tokens that followed that earlier occurrence — the prompt-lookup
+    heuristic: repeated spans (shared boilerplate, quoted input, a
+    generation that has entered a cycle) verify at near-full
+    acceptance, and a miss costs nothing (empty draft).
+
+    No second model, no trained weights: correctness never depends on
+    draft quality because verification is greedy-exact — a bad draft
+    only wastes the verify burst's spare positions.
+    """
+
+    def __init__(self, tokens: List[int], n: int = 2):
+        self.n = max(int(n), 1)
+        self.tokens: List[int] = []
+        self._index: Dict[Tuple[int, ...], int] = {}
+        self.extend(tokens)
+
+    def extend(self, toks) -> None:
+        """Append committed tokens, indexing each n-gram the moment it
+        gains a continuation (the trailing n-gram itself is never
+        indexed — it has nothing after it to draft)."""
+        for t in toks:
+            self.tokens.append(int(t))
+            j = len(self.tokens) - self.n - 1
+            if j >= 0:
+                self._index[tuple(self.tokens[j:j + self.n])] = j
+
+    def catch_up(self, prompt: List[int], generated: List[int]) -> None:
+        """Sync with the request after tokens committed through any
+        path (verify bursts, a plain-decode fallback burst, the
+        admission first token)."""
+        missing = len(prompt) + len(generated) - len(self.tokens)
+        if missing > 0:
+            self.extend(generated[len(generated) - missing:])
+
+    def draft(self, k: int) -> List[int]:
+        """Up to ``k`` proposed continuation tokens ([] on a miss or a
+        context shorter than one n-gram — degenerate prompts draft
+        nothing rather than guessing).
+
+        Self-extending: when the matched continuation runs into the
+        end of the context (the most recent occurrence is near the
+        tail — ALWAYS the case once generation enters a cycle), the
+        lookup continues from the draft's own tail n-gram, which by
+        construction re-matches an earlier occurrence. A tight loop
+        therefore drafts the full K instead of the 1-2 tokens left
+        after the nearest match."""
+        if k <= 0 or len(self.tokens) < self.n:
+            return []
+        out: List[int] = []
+        # Only the trailing n tokens ever feed the key — keep the
+        # lookup O(n + k), not O(context): drafting runs per slot per
+        # burst on the verify hot path.
+        tail = self.tokens[-self.n:]
+        while len(out) < k:
+            key = tuple((tail + out)[-self.n:])
+            j = self._index.get(key)
+            if j is None:
+                break
+            take = self.tokens[j + self.n:j + self.n + k - len(out)]
+            if not take:
+                break
+            out.extend(take)
+        return out
+
+
+
+
 class InferenceEngine:
     """Single-model continuous-batching engine on one device.
 
@@ -128,6 +343,13 @@ class InferenceEngine:
     ``cfg.dtype``. ``device`` defaults to the CUDA card and raises when
     there is none; tests pass ``"cpu"``. ``plain_attention`` runs the
     kernels' plain versions, the reference the kernel path is held to.
+
+    ``prefix_pool``: resident prompt prefixes (0 disables; needs
+    chunking). ``spec_k``: draft tokens per slot per verify round,
+    clamped to [0, 16] and forced to 0 under temperature sampling (0
+    disables). ``spec_drafter``: request -> drafter factory (the
+    :class:`NGramDrafter` protocol, ``catch_up``/``draft``); None is
+    the n-gram drafter over the prompt.
     """
 
     def __init__(self, params: llama.Params, cfg: llama.LlamaConfig,
@@ -138,6 +360,8 @@ class InferenceEngine:
                  max_wave: Optional[int] = None, kv_block: int = 256,
                  kv_blocks: Optional[int] = None, span_buckets=None,
                  prefill_chunk: Optional[int] = 512,
+                 prefix_pool: int = 0, spec_k: int = 0,
+                 spec_drafter: Optional[Callable] = None,
                  device: DeviceLike = None,
                  plain_attention: bool = False):
         self.device = resolve_device(device)
@@ -159,6 +383,37 @@ class InferenceEngine:
         self.prefill_chunk = (prefill_chunk
                               if prefill_chunk and prefill_chunk > 0
                               else None)
+        # Prefix reuse rides the chunk path (a hit prefills the suffix
+        # through the chunk program), so it needs chunking.
+        self.prefix_pool = (max(prefix_pool, 0)
+                            if self.prefill_chunk else 0)
+        self._prefix_index = (PrefixIndex(self.prefix_pool,
+                                          self.prefill_chunk)
+                              if self.prefix_pool else None)
+        # Greedy-exact only: verification preserves argmax output, not a
+        # sampled stream.
+        spec_k = max(0, min(int(spec_k), 16))
+        if sampling_params.temperature > 0.0:
+            spec_k = 0
+        self.spec_k = spec_k
+        self._spec_drafter_factory = (
+            spec_drafter if spec_drafter is not None
+            else (lambda req: NGramDrafter(req.prompt)))
+        # Acceptance-collapse ladder: a request that has drafted at
+        # least spec_min_drafted tokens below spec_min_rate acceptance
+        # stops drafting.
+        self.spec_min_drafted = 16
+        self.spec_min_rate = 0.2
+        # Counters the JAX engine keeps as metrics: copy-on-write block
+        # copies, prefix hits/misses/evictions, drafted and accepted
+        # tokens, verify program calls.
+        self.cow_copies = 0
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_evictions = 0
+        self._spec_drafted_total = 0
+        self._spec_accepted_total = 0
+        self.verify_calls = 0
         if kv_block <= 0:
             raise ValueError("the port serves the paged KV layout only: "
                              "kv_block must be > 0")
@@ -239,13 +494,36 @@ class InferenceEngine:
         need = min(len(req.prompt) + req.max_new_tokens, self.max_len)
         return -(-need // self.kv_block)
 
+    def _alloc_blocks(self, n: int) -> Optional[List[int]]:
+        """n fresh blocks, evicting LRU prefix-cache entries on a dry
+        pool (their blocks free unless still shared with live slots).
+        None when the pool stays too dry: the caller leaves the request
+        queued and admission retries after retirements."""
+        alloc = self.allocator
+        idx = self._prefix_index
+        while alloc.available < n and idx is not None:
+            # Evict only an entry that would actually FREE a block: one
+            # whose blocks are all shared with live slots (or pinned by
+            # the claim in progress) frees nothing, and dropping it would
+            # only lose the warm prefix.
+            victim = next((p for p in idx.payloads_lru()
+                           if any(alloc.ref(b) == 1 for b in p)), None)
+            if victim is None:
+                break
+            idx.evict_entry(victim)
+            self.prefix_evictions += 1
+            for b in victim:
+                alloc.decref(b)
+        if alloc.available < n:
+            return None
+        return [alloc.alloc() for _ in range(n)]
+
     def _wave_claim(self, req: Request) -> Optional[int]:
         """Claim a slot and its KV blocks; None when the pool is too
         dry (the caller re-queues and stalls admission)."""
-        n = self._need_blocks(req)
-        if self.allocator.available < n:
+        blocks = self._alloc_blocks(self._need_blocks(req))
+        if blocks is None:
             return None
-        blocks = [self.allocator.alloc() for _ in range(n)]
         slot = self.free_slots.pop(0)
         row = self.block_table[slot]
         row[:] = self.n_kv_blocks
@@ -254,9 +532,9 @@ class InferenceEngine:
         return slot
 
     def _free_slot_blocks(self, slot: int) -> None:
-        """Release a slot's blocks and clear its table row to the
-        sentinel: later bursts' writes for the dead slot land in the
-        trash block."""
+        """Release a slot's block references and clear its table row to
+        the sentinel: later bursts' writes for the dead slot land in the
+        trash block. A block a prefix entry still holds survives."""
         row = self.block_table[slot]
         for b in row[row < self.n_kv_blocks].tolist():
             self.allocator.decref(b)
@@ -389,19 +667,57 @@ class InferenceEngine:
                 and len(req.prompt) > self.prefill_chunk)
 
     def _claim_chunked(self, req: Request) -> bool:
-        """Claim a slot and its KV blocks for an incremental prefill and
-        queue its chunks; the claim stamps the slot's length to max_len
+        """Claim a slot for an incremental prefill: look up the prefix
+        cache, map a hit's shared blocks into the slot's table row (no
+        row copies; a partially filled shared block is copied on write
+        first, since the suffix prefill writes into it), and queue the
+        remaining chunks. The claim stamps the slot's length to max_len
         (:func:`kvcache.claim_slot`), so interleaved bursts' writes for
         this not-yet-active slot land in the trash block. False when the
         pool is too dry: the request goes back to the queue's head."""
-        slot = self._wave_claim(req)
-        if slot is None:
+        prompt = req.prompt
+        idx = self._prefix_index
+        hit = idx.lookup(prompt) if idx is not None else None
+        cached = n_shared = partial = 0
+        shared: List[int] = []
+        if hit is not None:
+            payload, cached = hit
+            n_shared, partial = divmod(cached, self.kv_block)
+            # Pin the shared blocks BEFORE any dry-pool eviction:
+            # _alloc_blocks may evict the hit's own entry, and an
+            # unpinned block could come straight back as a fresh one,
+            # aliased at two table positions.
+            shared = list(payload[:n_shared])
+            for b in shared:
+                self.allocator.incref(b)
+        new_blocks = self._alloc_blocks(
+            max(self._need_blocks(req) - n_shared, 0))
+        if new_blocks is None:
+            for b in shared:                  # unpin; retry next pass
+                self.allocator.decref(b)
             self.waiting.appendleft(req)
             return False
+        slot = self.free_slots.pop(0)
         req.slot = slot
+        row = self.block_table[slot]
+        row[:] = self.n_kv_blocks
+        if hit is not None:
+            self.prefix_hits += 1
+            row[:n_shared] = shared
+            if partial:
+                # Copy the partial shared block before the suffix
+                # prefill writes into it (its owner keeps ref > 1).
+                kvcache.copy_block(self.cache, payload[n_shared],
+                                   new_blocks[0])
+                self.cow_copies += 1
+        elif idx is not None and idx.eligible(prompt):
+            self.prefix_misses += 1
+        row[n_shared:n_shared + len(new_blocks)] = new_blocks
+        self._table_dirty = True
         kvcache.claim_slot(self.cache, slot, self.max_len)
-        self.chunking.append(_ChunkState(req=req, pos=0,
-                                         total=len(req.prompt)))
+        req.cached_len = cached
+        self.chunking.append(_ChunkState(req=req, pos=cached,
+                                         total=len(prompt)))
         return True
 
     def prefill_chunk_step(self) -> bool:
@@ -436,9 +752,64 @@ class InferenceEngine:
         if req.first_token_s is None:
             req.first_token_s = time.time()
         self.slot_req[req.slot] = req
+        self._store_prefix(req.prompt, req.slot)
         if self._req_finished(req, tok):
             self._retire(req)
         return True
+
+    # -- prefix cache ------------------------------------------------------
+
+    def _store_prefix(self, prompt: List[int], slot: int) -> int:
+        """Install ``prompt``'s chunk-aligned prefix, over the slot's
+        resident rows, into the prefix cache unless it is already
+        resident. Returns the rows installed (0 on every skip: no index,
+        a prefix shorter than one chunk, already covered, a dry pool).
+        Only chunk-path prompts are stored, so a later hit replays the
+        chunk program's own rows.
+
+        The slot's full blocks over the prefix are increfed and become
+        the entry's payload; a trailing partial block is copied on share,
+        since the slot (still alive) keeps writing into its own copy
+        past the prefix."""
+        idx = self._prefix_index
+        if idx is None:
+            return 0
+        n = (len(prompt) // idx.block) * idx.block
+        if n < idx.block:
+            return 0
+        covered = idx.lookup(prompt)
+        if covered is not None and covered[1] >= n:
+            return 0
+        n_full, partial = divmod(n, self.kv_block)
+        blocks = self.block_table[slot, :n_full + (1 if partial else 0)
+                                  ].tolist()
+        if partial:
+            cow = self._alloc_blocks(1)
+            if cow is None:                    # pool dry: skip storing
+                return 0
+            kvcache.copy_block(self.cache, blocks[n_full], cow[0])
+            self.cow_copies += 1
+            blocks[n_full] = cow[0]
+        for b in blocks[:n_full]:
+            self.allocator.incref(b)
+        for payload in idx.insert_entry(prompt, n, tuple(blocks)):
+            self.prefix_evictions += 1
+            for b in payload:
+                self.allocator.decref(b)
+        return n
+
+    def clear_prefix_cache(self) -> None:
+        """Drop every resident prefix and release its block references
+        (blocks still mapped into live slots stay until those retire).
+        Benchmarks use this to measure a cold pass against a warm one on
+        the same engine."""
+        idx = self._prefix_index
+        if idx is None:
+            return
+        for payload in idx.payloads():
+            for b in payload:
+                self.allocator.decref(b)
+        idx.clear()
 
     # -- decoding ----------------------------------------------------------
 
@@ -519,11 +890,124 @@ class InferenceEngine:
 
     def decode_burst(self, max_burst: int = 8) -> Dict[int, List[int]]:
         """Decode up to ``max_burst`` tokens per active slot, no
-        admission."""
+        admission. With speculation on, a verify round replaces the
+        plain burst whenever some active slot drafted."""
+        if self.spec_k:
+            out = self.spec_decode_burst()
+            if out is not None:
+                return out
         handle = self.dispatch_decode_burst(max_burst)
         if handle is None:
             return {}
         return self.complete_decode_burst(handle)
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _spec_mode(self, req: Request) -> str:
+        """Resolve (and advance) this request's drafter rung: "ngram"
+        (the factory seam; test drafters ride it too) until acceptance
+        collapses in that mode (>= spec_min_drafted drafted below
+        spec_min_rate accepted), then "off" for good."""
+        if req.spec_off:
+            return "off"
+        if req.spec_mode is None:
+            req.spec_mode = "ngram"
+        if (req.spec_mode_drafted >= self.spec_min_drafted
+                and req.spec_mode_accepted
+                < self.spec_min_rate * req.spec_mode_drafted):
+            req.spec_mode = "off"
+            req.spec_off = True
+        return req.spec_mode
+
+    def _draft_for(self, req: Request) -> List[int]:
+        """This request's draft through the per-request factory seam.
+        Host-only: builds the drafter lazily and syncs it with tokens
+        committed through any path."""
+        if req.drafter is None:
+            req.drafter = self._spec_drafter_factory(req)
+            if req.drafter is None:          # factory opted this one out
+                req.spec_off = True
+                req.spec_mode = "off"
+                return []
+        req.drafter.catch_up(req.prompt, req.tokens)
+        return req.drafter.draft(self.spec_k)
+
+    def spec_decode_burst(self) -> Optional[Dict[int, List[int]]]:
+        """One draft-and-verify round for every active slot: the drafter
+        proposes up to K tokens per slot, one verify call per span group
+        scores the K+1 window positions, and each slot commits its
+        matched run plus the correction token (fetched at once: the next
+        round's window needs them). Returns {rid: [tokens...]}, or None
+        when no active slot drafted (all missed, collapsed or without
+        K+1 rows of headroom): a plain burst then does the same work
+        cheaper."""
+        K = self.spec_k
+        if not self.slot_req or K <= 0:
+            return None
+        draft = np.zeros((self.n_slots, K), np.int64)
+        n_draft = np.zeros((self.n_slots,), np.int64)
+        dlen: Dict[int, int] = {}
+        for slot, req in self.slot_req.items():
+            # A slot within K+1 rows of max_len drafts nothing: its one
+            # correction row stays in bounds and its spare window rows
+            # land in the trash block, while other slots keep drafting.
+            if len(req.prompt) + len(req.tokens) + K + 1 > self.max_len:
+                continue
+            if self._spec_mode(req) == "off":
+                continue
+            d = self._draft_for(req)
+            if d:
+                n_draft[slot] = len(d)
+                draft[slot, :len(d)] = d
+                dlen[slot] = len(d)
+        if not dlen:
+            return None
+        draft_dev = self._upload(draft)
+        n_draft_dev = self._upload(n_draft)
+        parts = []
+        for span, slots in self._span_groups():
+            active = np.zeros((self.n_slots,), bool)
+            active[slots] = True
+            toks, n_commit = kvcache.verify_draft_staged(
+                self.params, self.cache, draft_dev, n_draft_dev,
+                self._upload(active), K, self.cfg, self.table_device(),
+                span=self._span_arg(span),
+                plain_attention=self.plain_attention)
+            self.verify_calls += 1
+            parts.append((slots, toks, n_commit))
+        out: Dict[int, List[int]] = {}
+        drafted = accepted = 0
+        for slots, toks_dev, commit_dev in parts:
+            toks = toks_dev.cpu().numpy()               # host sync
+            n_commit = commit_dev.cpu().numpy()
+            for slot in slots:
+                req = self.slot_req.get(slot)
+                if req is None or req.done:
+                    continue
+                nd = dlen.get(slot, 0)
+                nc = int(n_commit[slot])
+                emitted: List[int] = []
+                for i in range(nc):
+                    tok = int(toks[slot, i])
+                    emitted.append(tok)
+                    req.tokens.append(tok)
+                    if self._req_finished(req, tok):
+                        self._retire(req)
+                        break
+                # Accepted = matched draft tokens actually emitted: the
+                # first nc - 1 outputs are the matched run, the nc-th the
+                # correction; an EOS or budget retirement drops the rest.
+                acc = min(len(emitted), nc - 1)
+                req.spec_drafted += nd
+                req.spec_accepted += acc
+                req.spec_mode_drafted += nd
+                req.spec_mode_accepted += acc
+                drafted += nd
+                accepted += acc
+                out[req.rid] = emitted
+        self._spec_drafted_total += drafted
+        self._spec_accepted_total += accepted
+        return out
 
     def step_burst(self, max_burst: int = 8,
                    on_wave=None) -> Dict[int, List[int]]:
@@ -552,6 +1036,11 @@ class InferenceEngine:
         self.slot_req.clear()
         self.free_slots = list(range(self.n_slots))
         self._inflight_tokens = 0
+        # The prefix entries' block refs die with the allocator's reset:
+        # a failure mid-claim may have left the counts inconsistent, so
+        # the index is cleared without per-block decrefs.
+        if self._prefix_index is not None:
+            self._prefix_index.clear()
         self.allocator.reset()
         self.block_table[:] = self.n_kv_blocks
         self._table_dirty = True

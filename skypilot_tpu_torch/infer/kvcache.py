@@ -6,11 +6,13 @@ Counterpart of the paged serving subset of
 ``[L, n_blocks, block_len, G, hd]``, a per-slot block table mapping
 logical block j to a physical block id, wave prefill
 (:func:`prefill_batch` + :func:`insert`), chunked prefill
-(:func:`claim_slot` + :func:`prefill_chunk`) and the staged decode burst
-(:func:`decode_burst_staged`). The chunk's and the burst's big-cache
-attention goes through the paged-attention kernel and merges with the
-columns they hold outside the cache (the chunk's own rows, the burst's
-staged rows).
+(:func:`claim_slot` + :func:`prefill_chunk`), the prefix cache's
+copy-on-write (:func:`copy_block`), the staged decode burst
+(:func:`decode_burst_staged`) and the speculative verify round
+(:func:`verify_draft_staged`). The chunk's, the burst's and the verify
+round's big-cache attention goes through the paged-attention kernel and
+merges with the columns they hold outside the cache (the chunk's own
+rows, the staged rows).
 
 Two differences from the JAX module, both about mutation:
 
@@ -125,6 +127,17 @@ class BlockAllocator:
     def writable(self, block: int) -> bool:
         """Safe to scatter into: exactly one owner."""
         return self._ref[block] == 1
+
+
+@torch.no_grad()
+def copy_block(cache: Cache, src: int, dst: int) -> None:
+    """Copy-on-write (in place): duplicate physical block ``src``'s rows
+    into block ``dst`` in every layer of every cache array. All
+    ``block_len`` rows copy; rows past the shared prefix are garbage in
+    both blocks and stay unreadable until the new owner overwrites
+    them."""
+    for name in ("k", "v"):
+        cache[name][:, dst] = cache[name][:, src]
 
 
 def _logical_rows(cache: Cache, table: torch.Tensor) -> int:
@@ -366,8 +379,10 @@ def _staged_attn_layer(cfg, cache, table, layer, x, cos, sin, i, s, sk,
     (rows below the burst-start lengths ``pos0``, ``span``-bounded)
     merged with the staged-columns dot (columns masked by
     ``stage_valid``), and the big cache stays untouched. The one body
-    the burst runs, as ``kvcache.py:1307-1331`` of the JAX package asks
-    of the burst and verify programs. Returns x'."""
+    the burst and the verify round run (:func:`decode_burst_staged`,
+    :func:`verify_draft_staged`), as ``kvcache.py:1307-1331`` of the JAX
+    package asks of its burst and verify programs, so an accepted verify
+    position sees the inputs a plain decode step would. Returns x'."""
     B = x.shape[0]
     G, hd = cfg.n_kv_heads, cfg.head_dim
     rep = cfg.n_heads // G
@@ -450,3 +465,73 @@ def decode_burst_staged(params: llama.Params, cache: Cache,
     cache["last_token"].copy_(last)
     return torch.stack(toks)
 
+
+@torch.no_grad()
+def verify_draft_staged(params: llama.Params, cache: Cache,
+                        draft: torch.Tensor, n_draft: torch.Tensor,
+                        active: torch.Tensor, k: int,
+                        cfg: llama.LlamaConfig, table: torch.Tensor,
+                        span: Optional[int] = None,
+                        plain_attention: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Speculative verify: score ``k`` drafted tokens per slot plus the
+    correction position in one call; the cache is updated in place.
+
+    draft: [B, k] proposed tokens; n_draft: [B] real draft tokens per
+    slot (the rest pad and never match). The window is ``k + 1``
+    positions: position 0 consumes the slot's pending ``last_token``,
+    positions 1..k the draft. The K+1 positions scan one after another
+    through :func:`_staged_attn_layer`, as a plain burst's steps do
+    (big-cache stats below the round-start lengths, merged with the
+    staged columns), with the window's tokens in place of sampled
+    feedback and greedy argmax outputs.
+
+    Acceptance: out[s] is the argmax after consuming window position
+    s; the matched run is the longest prefix over which out[s] ==
+    draft[s] at real draft positions, and ``n_commit = n_match + 1`` on
+    active slots (the matched draft tokens plus the correction or bonus
+    token), 0 on the rest. All K+1 window rows flush at rows
+    length..length+k, but ``length`` advances by ``n_commit`` only:
+    rejected rows sit past the committed length, unread, until the next
+    round overwrites them. ``last_token`` becomes out[n_match].
+
+    Returns (toks [B, k+1], the window's argmax outputs, whose first
+    ``n_commit[b]`` of row b are committed; n_commit [B] int32)."""
+    B = cache["length"].shape[0]
+    W = k + 1
+    L, G, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    dev = cache["k"].device
+    kdt = cache["k"].dtype
+    pos0 = cache["length"].clone()                     # round-start rows
+    window = torch.cat([cache["last_token"][:, None], draft.long()], dim=1)
+    stage_k = torch.zeros((L, B, W, G, hd), dtype=kdt, device=dev)
+    stage_v = torch.zeros_like(stage_k)
+    embed = params["embed"].to(cfg.dtype)
+    layers = [llama.layer_slice(params, i) for i in range(L)]
+    toks = []
+    for s in range(W):
+        x = embed[window[:, s]][:, None]
+        cos, sin = llama.rope_frequencies(cfg, (pos0 + s)[:, None])
+        stage_valid = (torch.arange(W, device=dev) <= s)[None, :]
+        for i in range(L):
+            x = _staged_attn_layer(cfg, cache, table, layers[i], x, cos,
+                                   sin, i, s, stage_k, stage_v,
+                                   stage_valid, span, pos0,
+                                   plain_attention)
+        toks.append(sampling_mod.argmax_tokens(
+            _decode_head(cfg, params, x)))
+    toks = torch.stack(toks, dim=1)                    # [B, W]
+    # Padding positions (>= n_draft) never match: a pad that equals the
+    # argmax must not commit a token computed from a garbage input.
+    match = ((toks[:, :k] == draft.long())
+             & (torch.arange(k, device=dev)[None, :]
+                < n_draft.long()[:, None]))
+    n_match = match.int().cumprod(dim=1).sum(dim=1)
+    n_commit = torch.where(active, n_match + 1,
+                           torch.zeros_like(n_match)).int()
+    _flush_staged_rows(cache, table, pos0, stage_k, stage_v)
+    cache["length"] += n_commit
+    last = toks[torch.arange(B, device=dev), n_match.long()]
+    cache["last_token"].copy_(torch.where(active, last,
+                                          cache["last_token"]))
+    return toks, n_commit

@@ -18,6 +18,12 @@ A prompt longer than the largest bucket gets HTTP 400 with the
 reference's typed body (``PromptTooLongError.typed_error``). Prompts
 longer than ``--prefill-chunk`` (512) prefill in chunks, one chunk
 between decode bursts; the trailer's ``prefill_chunks`` counts them.
+The reference server's other two defaults are on as well: a prefix
+cache of ``--prefix-pool`` (8) shared prompt prefixes (trailer:
+``cache_hit``, ``cached_tokens``) and n-gram speculation at ``--spec-k``
+(4) draft tokens (trailer: ``spec_drafted``, ``spec_accepted``,
+``drafter``); ``SKYTPU_PREFIX_POOL`` and ``SKYTPU_SPEC_K`` set the
+defaults, the flags win.
 
     python -m skypilot_tpu_torch.infer.server --config llama3-8b
 
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import queue
 import sys
 import threading
@@ -83,8 +90,12 @@ class ModelServer:
         self.open_window_s = open_window_s
         self._last_arrival = 0.0      # guarded-by: _inbox_lock
         # Double-buffered decode: burst k+1 is dispatched before burst
-        # k's tokens are fetched and streamed.
+        # k's tokens are fetched and streamed. Speculative engines run
+        # the synchronous path instead: the next verify round's window
+        # needs the tokens this one commits, and decode_burst routes to
+        # the verify round there.
         self._burst: Optional[eng.BurstHandle] = None
+        self._async_decode = not engine.spec_k
         self._inbox_lock = threading.Lock()
         self._inbox: list = []        # guarded-by: _inbox_lock
         self._pending: Dict[int, _Pending] = {}   # loop-thread only
@@ -253,9 +264,13 @@ class ModelServer:
             k = (self.max_burst
                  if (not e.free_slots or quiet) and not e.chunking
                  else self.open_burst)
-            nxt = e.dispatch_decode_burst(max_burst=k)
-            self._complete_burst()
-            self._burst = nxt
+            if self._async_decode:
+                nxt = e.dispatch_decode_burst(max_burst=k)
+                self._complete_burst()
+                self._burst = nxt
+            else:
+                e.decode_burst(max_burst=k)
+                self._flush_streams()
         else:
             self._complete_burst()
         for req in e.finished:
@@ -266,22 +281,20 @@ class ModelServer:
                     if req.first_token_s is not None else None)
             ttft = round(ttft, 2) if ttft is not None else None
             # The reference trailer's keys; the features behind the
-            # zero-valued ones (prefix cache, speculation, QoS, recovery,
-            # adapters) are later slices.
-            p.result = {
-                "tokens": req.tokens, "ttft_ms": ttft,
-                "cache_hit": False, "cached_tokens": 0,
-                "prefill_chunks": req.n_chunks, "spec_drafted": 0,
-                "spec_accepted": 0, "drafter": "off", "preemptions": 0,
-                "recoveries": 0, "model": None,
-            }
+            # zero-valued ones (QoS, recovery, adapters) are later
+            # slices.
+            stats = {"cache_hit": bool(req.cached_len),
+                     "cached_tokens": req.cached_len,
+                     "spec_drafted": req.spec_drafted,
+                     "spec_accepted": req.spec_accepted,
+                     "drafter": req.spec_mode or "off",
+                     "preemptions": 0, "recoveries": 0}
+            p.result = {"tokens": req.tokens, "ttft_ms": ttft,
+                        "prefill_chunks": req.n_chunks, "model": None,
+                        **stats}
             if p.stream:
                 p.chunks.put({"done": True, "ttft_ms": ttft,
-                              "n_tokens": len(req.tokens),
-                              "cache_hit": False, "cached_tokens": 0,
-                              "spec_drafted": 0, "spec_accepted": 0,
-                              "drafter": "off", "preemptions": 0,
-                              "recoveries": 0})
+                              "n_tokens": len(req.tokens), **stats})
             p.event.set()
         e.finished.clear()
         return True
@@ -380,12 +393,15 @@ def serve(engine: eng.InferenceEngine, host: str = "0.0.0.0",
 
 def make_engine(config: str, slots: int = 16, max_len: int = 1024,
                 admit_wave: int = 8, kv_block: int = 256,
-                prefill_chunk: int = 512, device: DeviceLike = None,
+                prefill_chunk: int = 512, prefix_pool: int = 8,
+                spec_k: int = 4, device: DeviceLike = None,
                 seed: int = 0) -> eng.InferenceEngine:
     """The serving engine ``main()`` runs: ``config``'s model with
     random weights drawn in ``cfg.dtype`` on ``device`` from ``seed``,
     greedy decoding, paged KV, prompt buckets (128, 512, max_len),
-    chunked prefill above ``prefill_chunk`` tokens (0 disables it)."""
+    chunked prefill above ``prefill_chunk`` tokens, a prefix cache of
+    ``prefix_pool`` entries and ``spec_k``-token n-gram speculation (0
+    disables each), the reference server's defaults."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[config]
     gen = torch.Generator(device=dev)
@@ -396,7 +412,8 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
     return eng.InferenceEngine(
         params, cfg, n_slots=slots, max_len=max_len,
         prompt_buckets=buckets, max_wave=admit_wave, kv_block=kv_block,
-        prefill_chunk=prefill_chunk, device=dev, seed=seed)
+        prefill_chunk=prefill_chunk, prefix_pool=prefix_pool,
+        spec_k=spec_k, device=dev, seed=seed)
 
 
 def main(argv=None) -> None:
@@ -416,6 +433,18 @@ def main(argv=None) -> None:
                     help="prefill prompts longer than this in chunks of "
                          "this many tokens between decode bursts "
                          "(0 = off)")
+    ap.add_argument("--prefix-pool", type=int,
+                    default=int(os.environ.get("SKYTPU_PREFIX_POOL", "8")
+                                or 0),
+                    help="prefix KV cache: resident prompt prefixes, kept "
+                         "as shared blocks, for suffix-only prefill "
+                         "(0 = off; default env SKYTPU_PREFIX_POOL or 8)")
+    ap.add_argument("--spec-k", type=int,
+                    default=int(os.environ.get("SKYTPU_SPEC_K", "4")
+                                or 0),
+                    help="speculative decoding: n-gram draft tokens per "
+                         "slot verified in one round (0 = off; default "
+                         "env SKYTPU_SPEC_K or 4)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default, the card) or cpu")
     args = ap.parse_args(argv)
@@ -423,7 +452,8 @@ def main(argv=None) -> None:
                          max_len=args.max_len, admit_wave=args.admit_wave,
                          kv_block=args.kv_block,
                          prefill_chunk=args.prefill_chunk,
-                         device=args.device)
+                         prefix_pool=args.prefix_pool,
+                         spec_k=args.spec_k, device=args.device)
     model, httpd = serve(engine, port=args.port, max_burst=args.max_burst)
     print(json.dumps({"event": "server.listening", "port": args.port,
                       "device": str(engine.device)}), file=sys.stderr,

@@ -395,6 +395,120 @@ def test_paged_wrapper_raises_instead_of_falling_back():
                             kp.shape[0], span_blocks=1)
 
 
+# -- K1 on the engine's layout: the trash block, shared prefix blocks --------
+
+def _shared_inputs(dev, kv_dtype, hd, R, bl, lengths, shared, seed=0):
+    """K1 inputs in the engine's layout with prefix sharing: a 2-layer
+    pool of real blocks plus the trash block (id ``n``, the sentinel of
+    every table entry past a slot's allocation, filled with 100.0, so a
+    leak shows at once); slots 0 and 1 map the same first ``shared``
+    physical blocks (two requests on one cached prefix), each with its
+    own blocks after them; every slot's allocation covers its length
+    plus 64 rows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, G = 2, 2
+    alloc = [-(-(m + 64) // bl) for m in lengths]
+    own = [a - (shared if b < 2 else 0) for b, a in enumerate(alloc)]
+    n = shared + sum(own)
+    shape = (L, n + 1, bl, G, hd)
+    ks = vs = None
+    if kv_dtype == torch.int8:
+        kp = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        ks, vs = ((torch.rand((L, n + 1, G, bl), generator=gen, device=dev)
+                   * 0.02 + 1e-3).bfloat16() for _ in range(2))
+        ks[:, n] = 1.0
+        vs[:, n] = 1.0
+    else:
+        kp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+        vp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+    kp[:, n] = 100
+    vp[:, n] = 100
+    q_dtype = torch.float32 if kv_dtype == torch.float32 else torch.bfloat16
+    q = torch.randn((len(lengths), G, R, hd), generator=gen,
+                    device=dev).to(q_dtype)
+    perm = torch.randperm(n, generator=gen, device=dev).tolist()
+    prefix, perm = perm[:shared], perm[shared:]
+    nb = max(alloc) + 2
+    table = torch.full((len(lengths), nb + 1), n, dtype=torch.int32)
+    for b, have in enumerate(own):
+        row = (prefix if b < 2 else []) + perm[:have]
+        perm = perm[have:]
+        table[b, :len(row)] = torch.tensor(row)
+    return (q, kp, vp, ks, vs, table.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+# Slots 0 and 1 share a cached prefix (both past it: decoding after a
+# warm hit), slot 2 is empty, slot 3 holds one row, slot 4 spans many of
+# the decode body's chunks.
+_SHARED_LENGTHS = (600, 530, 0, 1, 4100)
+
+
+@pytest.mark.gpu
+@_POOLS
+@pytest.mark.parametrize("hd,R", [(32, 2), (128, 4), (64, 8)])
+@pytest.mark.parametrize("bl", [16, 64, 256])
+def test_paged_decode_on_the_engine_layout_with_shared_blocks(kv_dtype, hd,
+                                                              R, bl):
+    """K1's decode body on the engine's own layout: the sentinel is the
+    trash block inside the pool (filled with 100.0 past every slot's
+    allocation) and two slots' table rows name the same physical blocks;
+    the full span and a short one, against the plain version under K1's
+    rule, length-0 slots exactly, equal bits on a second call (the
+    per-(slot, kv-head) merge counters do not care that blocks alias)."""
+    dev = _cuda()
+    shared = 512 // bl
+    args = _shared_inputs(dev, kv_dtype, hd, R, bl, _SHARED_LENGTHS, shared)
+    assert torch.equal(args[5][0, :shared], args[5][1, :shared])
+    assert int(args[5][0, -1]) == args[1].shape[1] - 1     # the trash id
+    for span_blocks in (args[5].shape[1] - 1, -(-1000 // bl)):
+        before = tpa.paged_attention.launches
+        got = tpa.paged_attention(*args, 1, span_blocks=span_blocks)
+        again = tpa.paged_attention(*args, 1, span_blocks=span_blocks)
+        torch.cuda.synchronize()
+        assert tpa.paged_attention.launches == before + 2
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        want = tpa.paged_attention_ref(*args, 1, span_blocks)
+        live = args[-1] > 0
+        for g, w in zip(got, want):
+            _close(g[live], w[live], 2e-3)
+        assert torch.all(got[0][~live] == 0)
+        assert torch.all(got[1][~live] == -1e30)
+        assert torch.all(got[2][~live] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.int8)], ids=["bf16", "bf16q-f32kv", "int8"])
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("bl", [16, 64, 256])
+def test_paged_rows_at_a_warm_start_over_shared_blocks(q_dtype, kv_dtype,
+                                                       hd, bl):
+    """K1's multi-row bodies at a warm chunk's start: two slots whose
+    first blocks are one cached prefix, each starting its suffix chunk at
+    row 512 (a hit on a 512-token prefix), the trash block filled with
+    100.0 past the allocations; each slot alone (the chunk path's one-row
+    table) and both in one call, against the plain version under K1's
+    rule, on the body the dtypes and block length pick."""
+    dev = _cuda()
+    shared = 512 // bl
+    args = _shared_inputs(dev, kv_dtype, hd, 512, bl, (512, 512), shared)
+    q, kp, vp, ks, vs, table, lengths = args
+    if q_dtype != q.dtype:
+        q = q.to(q_dtype)
+    span_blocks = 512 // bl
+    _check_rows((q, kp, vp, ks, vs, table, lengths), 0, span_blocks)
+    for slot in (0, 1):
+        one = (q[slot:slot + 1].contiguous(), kp, vp, ks, vs,
+               table[slot:slot + 1].contiguous(), lengths[slot:slot + 1])
+        _check_rows(one, 0, span_blocks)
+
+
 # -- K1's multi-row bodies (chunked prefill) --------------------------------
 
 # The engine's layout at max_len 1024: a pool of real blocks plus the trash
@@ -724,3 +838,79 @@ def test_engine_chunk_path_matches_plain_path_on_card(dtype):
     for p, got, want in zip(prompts, out[False][0], out[True][0]):
         t, gap = _first_divergence(params, cfg, dev, p, got, want)
         assert t is None or gap <= _BF16_TIE_GAP, (t, gap)
+
+
+def _replay_drafter(outputs):
+    """An oracle drafter: replays each prompt's known continuation."""
+
+    class Replay:
+        def __init__(self, req):
+            self.out = outputs[tuple(req.prompt)]
+            self.seen = 0
+
+        def catch_up(self, prompt, generated):
+            self.seen = len(generated)
+
+        def draft(self, k):
+            return list(self.out[self.seen:self.seen + k])
+
+    return Replay
+
+
+@pytest.mark.gpu
+def test_engine_spec_and_prefix_on_card(monkeypatch):
+    """llama3-tiny in float32 on the card, kernel path: with an oracle
+    drafter every verify position accepts, and the spec tokens equal the
+    spec-off tokens (where they part, only on a near-tie: the plain top-2
+    gap at most 1e-2, the smoke's rule; a verify round splits the staged
+    and cached columns at other rows than a plain burst); the verify
+    rounds launch K1's decode body and never its plain version. A warm
+    prefix hit (chunks of 128 over blocks of 16, the hit at row 128)
+    gives the cold run's tokens exactly."""
+    import dataclasses
+    dev = _cuda()
+    cfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"],
+                              dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tl.init_params(cfg, gen, device=dev)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (40, 90, 13)]
+
+    def engine(**kw):
+        return te.InferenceEngine(params, cfg, n_slots=3, max_len=256,
+                                  prompt_buckets=(64, 256), kv_block=16,
+                                  prefill_chunk=128, device=dev, **kw)
+
+    want = engine().generate(prompts, max_new_tokens=24)
+    oracle = {tuple(p): w for p, w in zip(prompts, want)}
+    plain_calls = []
+    real_ref = tpa.paged_attention_ref
+    monkeypatch.setattr(tpa, "paged_attention_ref",
+                        lambda *a, **kw: plain_calls.append(1)
+                        or real_ref(*a, **kw))
+    e = engine(spec_k=4, spec_drafter=_replay_drafter(oracle))
+    d0 = tpa.paged_attention.launches
+    got = e.generate(prompts, max_new_tokens=24)
+    assert e.verify_calls > 0 and not plain_calls
+    assert tpa.paged_attention.launches - d0 >= \
+        e.verify_calls * 5 * cfg.n_layers
+    for p, g, w in zip(prompts, got, want):
+        t, gap = _first_divergence(params, cfg, dev, p, g, w)
+        assert t is None or gap <= 1e-2, (t, gap)
+    if got == want:
+        assert e._spec_accepted_total == e._spec_drafted_total > 0
+
+    system = rng.integers(1, cfg.vocab_size, 150).tolist()
+    pa, pb = system + [5, 6, 7], system + [9, 10]
+    e = engine(prefix_pool=4)
+    e.generate([pa], max_new_tokens=16)
+    e.finished.clear()
+    r0 = _rows_launches()
+    warm = e.generate([pb], max_new_tokens=16)[0]
+    assert e.finished[0].cached_len == 128 and e.prefix_hits == 1
+    assert _rows_launches()[1] - r0[1] == cfg.n_layers     # one chunk
+    e.finished.clear()
+    e.clear_prefix_cache()
+    assert warm == e.generate([pb], max_new_tokens=16)[0]
+    assert not plain_calls

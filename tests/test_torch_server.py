@@ -1,8 +1,10 @@
 """The port's HTTP server on the CPU: blocking and streamed /generate
 return the JAX engine's greedy tokens, the response keys are the
 reference server's, an oversize prompt gets the reference's typed 400
-body, and prompts longer than the prefill chunk go through chunks, with
-the reference trailer's ``prefill_chunks``."""
+body, prompts longer than the prefill chunk go through chunks, with
+the reference trailer's ``prefill_chunks``, and a shared-prefix pair
+through a server with the prefix cache and speculation on reports the
+JAX server's trailer values."""
 
 import dataclasses
 import json
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from skypilot_tpu.infer import engine as je
+from skypilot_tpu.infer import server as js
 from skypilot_tpu.models import llama as jl
 from skypilot_tpu_torch.infer import engine as te
 from skypilot_tpu_torch.infer import server as ts
@@ -241,3 +244,162 @@ def test_main_serves_on_the_cpu():
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+# -- the reference server's defaults: prefix cache and speculation ----------
+
+_TRAILER = ("tokens", "cache_hit", "cached_tokens", "prefill_chunks",
+            "spec_drafted", "spec_accepted", "drafter")
+# A 20-token shared prefix with two tails (27 and 23 tokens): chunks of
+# 8 and blocks of 16 store the first prompt's 24-token prefix (a partial
+# block, copied on share) and hit 16 of it, one whole block, for the
+# second. The shared
+# prefix repeats a span so the n-gram drafter finds matches.
+_SHARED = [7, 3, 9, 4, 8, 2, 7, 3, 9, 4, 8, 2, 7, 3, 9, 4, 11, 12, 13, 14]
+_PAIR = (_SHARED + [21, 22, 23, 24, 25, 26, 27], _SHARED + [31, 32, 33])
+_SPEC_KW = dict(n_slots=2, max_len=64, prompt_buckets=(16, 32),
+                kv_block=16, prefill_chunk=8, prefix_pool=2, spec_k=4)
+
+
+def _pair_trailers(submit):
+    return [{k: out[k] for k in _TRAILER}
+            for out in (submit(p, 12) for p in _PAIR)]
+
+
+@pytest.fixture(scope="module")
+def jax_pair_trailers():
+    """The pair, one after the other, through the JAX ModelServer (open
+    window pinned, so every plain burst is open_burst long)."""
+    jcfg = dataclasses.replace(jl.CONFIGS["llama3-tiny"], dtype=jnp.float32)
+    jp = jl.init_params(jax.random.key(0), jcfg)
+    model = js.ModelServer(je.InferenceEngine(jp, jcfg, kv_kernel=True,
+                                              **_SPEC_KW),
+                           open_window_s=600.0)
+    try:
+        return _pair_trailers(model.submit)
+    finally:
+        model.shutdown()
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["blocking",
+                                                       "stream"])
+def test_shared_prefix_pair_reports_the_reference_trailer(
+        jax_pair_trailers, stream):
+    """Through the port's HTTP server with prefix_pool 2 and spec_k 4:
+    the pair's tokens and trailer values (cache_hit, cached_tokens,
+    prefill_chunks, spec_drafted, spec_accepted, drafter) equal the JAX
+    server's; the streamed closing line carries the same values."""
+    jcfg = dataclasses.replace(jl.CONFIGS["llama3-tiny"], dtype=jnp.float32)
+    tcfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"],
+                               dtype=torch.float32)
+    tp = tl.params_from_numpy(
+        jax.tree.map(np.asarray, jl.init_params(jax.random.key(0), jcfg)),
+        tcfg, device="cpu")
+    engine = te.InferenceEngine(tp, tcfg, device="cpu", **_SPEC_KW)
+    port = _free_port()
+    model, httpd = ts.serve(engine, host="127.0.0.1", port=port,
+                            open_window_s=600.0)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        model.wait_ready(timeout=120)
+        assert not model._async_decode
+
+        def submit(tokens, max_new):
+            code, out = _post(f"http://127.0.0.1:{port}/generate",
+                              {"tokens": tokens, "max_new_tokens": max_new,
+                               "stream": stream})
+            assert code == 200
+            if not stream:
+                return out
+            done = dict(out[-1])
+            assert set(done) == _DONE_KEYS
+            done["tokens"] = [x for c in out[:-1] for x in c["tokens"]]
+            done["prefill_chunks"] = jax_pair_trailers[
+                len(seen)]["prefill_chunks"]      # not on the done line
+            seen.append(done)
+            return done
+
+        seen = []
+        got = _pair_trailers(submit)
+    finally:
+        httpd.shutdown()
+        model.shutdown()
+        t.join(timeout=30)
+    assert got == jax_pair_trailers
+    first, second = got
+    assert (first["cache_hit"], first["prefill_chunks"]) == (False, 4)
+    assert (second["cache_hit"], second["cached_tokens"],
+            second["prefill_chunks"]) == (True, 16, 1)
+    assert first["spec_drafted"] + second["spec_drafted"] > 0
+    assert {first["drafter"], second["drafter"]} <= {"ngram", "off"}
+    assert engine.cow_copies == 1 and engine.prefix_hits == 1
+
+
+def test_speculative_engine_runs_the_synchronous_path(monkeypatch):
+    """A spec engine's server never double-buffers: it decodes through
+    decode_burst (the verify round, or a plain burst fetched at once),
+    never dispatching a burst of its own."""
+    tcfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"],
+                               dtype=torch.float32)
+    params = tl.init_params(tcfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    engine = te.InferenceEngine(params, tcfg, device="cpu", **_SPEC_KW)
+
+    inside = []
+    real_dispatch, real_decode = (engine.dispatch_decode_burst,
+                                  engine.decode_burst)
+
+    def decode_burst(*a, **kw):
+        inside.append(True)
+        try:
+            return real_decode(*a, **kw)
+        finally:
+            inside.pop()
+
+    def dispatch(*a, **kw):
+        assert inside, "the server dispatched a burst of its own"
+        return real_dispatch(*a, **kw)
+
+    monkeypatch.setattr(engine, "decode_burst", decode_burst)
+    monkeypatch.setattr(engine, "dispatch_decode_burst", dispatch)
+    spec_rounds = []
+    real = engine.spec_decode_burst
+    monkeypatch.setattr(engine, "spec_decode_burst",
+                        lambda: spec_rounds.append(1) or real())
+    model = ts.ModelServer(engine)
+    try:
+        model.wait_ready(timeout=120)
+        out = model.submit(_PAIR[1], 8)
+    finally:
+        model.shutdown()
+    assert len(out["tokens"]) == 8 and spec_rounds
+
+
+@pytest.mark.parametrize("env,want", [
+    ({}, (8, 4)), ({"SKYTPU_PREFIX_POOL": "3", "SKYTPU_SPEC_K": "0"},
+                   (3, 0))], ids=["defaults", "env"])
+def test_main_defaults_prefix_pool_and_spec_k(monkeypatch, env, want):
+    """``main`` passes the reference server's defaults, prefix pool 8 and
+    spec K 4, to the engine; SKYTPU_PREFIX_POOL / SKYTPU_SPEC_K override
+    them, and the flags override the environment."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_make_engine(config, **kw):
+        seen.append((kw["prefix_pool"], kw["spec_k"]))
+        raise Stop
+
+    monkeypatch.delenv("SKYTPU_PREFIX_POOL", raising=False)
+    monkeypatch.delenv("SKYTPU_SPEC_K", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(ts, "make_engine", fake_make_engine)
+    with pytest.raises(Stop):
+        ts.main(["--config", "llama3-tiny", "--device", "cpu"])
+    with pytest.raises(Stop):
+        ts.main(["--config", "llama3-tiny", "--device", "cpu",
+                 "--prefix-pool", "5", "--spec-k", "2"])
+    assert seen == [want, (5, 2)]
