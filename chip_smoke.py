@@ -22,7 +22,9 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    1e-4 of it; K1's partial sums to 2e-3 of it, its length-0 slots
    exactly. K1 (which merges a slot's chunks inside its own launch) and
    the bf16 K3/K4 must give equal bits on a second call. K1 also runs a
-   long-context case after the main path's (16 slots of 3000-4096 rows).
+   long-context case after the main path's (16 slots of 3000-4096 rows)
+   and an int8 case at the int8 serve leg's shape (32 slots of int8
+   pools, spans to 1280).
    K1's multi-row bodies (``paged_attention_rows``): the ``wgmma`` one
    runs at the serve chunk's shape (2048 query rows of a kv-head over
    the 512 rows below the chunk), at a chunk's start of 0, at two
@@ -67,7 +69,26 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    the same float32 weights, kernel path: spec K 4 with an oracle
    drafter (every position accepts) and with an anti-oracle (none
    does) must give the spec-off tokens, and the prefix pair's warm
-   request its cold rerun's, under the same 1e-2 rule.
+   request its cold rerun's, under the same 1e-2 rule. Two float32 int8
+   legs repeat the kernel-against-plain, spec and prefix checks over int8
+   KV pools on the first 8 of the 32 layers (their chunks run the
+   ``wgmma`` body on int8 pools, counted from 0): on the float32
+   weights, under the 1e-2 rule, and on the same weights quantized once
+   (w8a8), where the bound is the larger of 1e-2 and the plain logits'
+   own shift on that context when the embedding moves by two float32
+   ulps (w8a8 rounds activations to int8, so float32-sized noise moves
+   its logits by ~0.2). The int8 leg (``serve[int8]``) then serves the
+   reference's int8 recipe, ``llm/serve-8b-w8a8.yaml`` (32 slots,
+   max_len 1280,
+   ``--kv-int8 --weights-int8``, max burst 32, waves of 4), at llama3-8b
+   full width and depth: int8 pools with bf16 scales, only the slim
+   float tree resident (``memory_allocated`` held to the slim weights,
+   the int8 weights and the int8 KV), the same 9 requests and prefix
+   pair under the same checks, TTFT and decode rate beside the bf16
+   leg's, one profiled decode burst over all 32 slots split into
+   ``torch._int_mm``, the quantizers, K1 and the rest, and
+   ``torch._int_mm`` timed at the recipe's shapes with the weight
+   column-major (as stored) and row-major.
 5. Train: gradient parity of the kernels against the plain versions at
    llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
    ``train.run`` at llama3-1b full width and depth for 6 steps on a
@@ -297,6 +318,29 @@ def _paged_long_case(gen, dev):
     table[:, :nb] = perm[:B * nb].reshape(B, nb).int()
     return dict(q=q, k_pool=kp, v_pool=vp, k_scale=None, v_scale=None,
                 table=table, lengths=lengths.int(), layer=2, span_blocks=nb)
+
+
+def _paged_int8_serve_case(gen, dev):
+    """K1's decode body at the int8 serve leg's shapes (``--slots 32
+    --max-len 1280 --kv-int8``): 32 slots of llama3-8b (8 kv-heads, 4
+    query rows, head_dim 128) over int8 pools with bf16 scales, blocks of
+    256 (5 a slot: 160 and the trash block), 32 layers read at layer 5,
+    lengths from 0 to 1280 swept at the full span."""
+    import torch
+    L, bl, G, hd, B, R, nb = 32, 256, 8, 128, 32, 4, 5
+    n_blocks = B * nb + 1
+    kp, vp, ks, vs = _rows_pools((L, n_blocks, bl, G, hd), "int8", gen,
+                                  dev)
+    q = torch.randn((B, G, R, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    lengths = torch.randint(1, nb * bl + 1, (B,), generator=gen, device=dev)
+    lengths[0], lengths[1] = 0, nb * bl
+    perm = torch.randperm(n_blocks - 1, generator=gen, device=dev)
+    table = torch.full((B, nb + 1), n_blocks - 1, dtype=torch.int32,
+                       device=dev)
+    table[:, :nb] = perm[:B * nb].reshape(B, nb).int()
+    return dict(q=q, k_pool=kp, v_pool=vp, k_scale=ks, v_scale=vs,
+                table=table, lengths=lengths.int(), layer=5, span_blocks=nb)
 
 
 def _paged_rows_case(start: int, gen, dev, kv: str = "bf16"):
@@ -697,7 +741,9 @@ def phase_kernels(dev):
              _check_paged("paged_attention[int8]",
                           _paged_case(True, gen, dev)),
              _check_paged("paged_attention[bf16,long]",
-                          _paged_long_case(gen, dev))]
+                          _paged_long_case(gen, dev)),
+             _check_paged("paged_attention[int8,32 slots,max_len 1280]",
+                          _paged_int8_serve_case(gen, dev))]
     torch.cuda.empty_cache()
     rows = _rows_cases(gen, dev)
     flash = [_check_flash(f"flash_attention_fwd[S={S},seg={int(s)}]",
@@ -743,35 +789,93 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _int8_step_logits(engine, params, ctx):
+    """The plain path's logits for the token after ``ctx`` on an int8 KV
+    engine, as its decode reads them: ``ctx[:-1]`` prefilled and inserted
+    (quantized) into a one-slot int8 cache, then the next decode step of
+    ``ctx[-1]`` over those rows (``kvcache.step_logits``, plain
+    attention)."""
+    import torch
+    from skypilot_tpu_torch.infer import kvcache
+    cfg, dev, bl, qw = engine.cfg, engine.device, engine.kv_block, \
+        engine.qweights
+    n = len(ctx) - 1
+    nb = -(-len(ctx) // bl)
+    cache = kvcache.init_paged_cache(cfg, 1, nb, bl, dev, kv_int8=True)
+    table = torch.arange(nb + 1, dtype=torch.int32, device=dev)[None]
+    toks = torch.tensor([ctx[:-1]], dtype=torch.long, device=dev)
+    prefix, _ = kvcache.prefill_batch(
+        params, toks, torch.tensor([n], device=dev), cfg,
+        plain_attention=True, qweights=qw)
+    kvcache.insert(cache, {k: prefix[k][:, 0] for k in ("k", "v")}, 0, n,
+                   ctx[-1], table)
+    return kvcache.step_logits(params, cache, cfg, table,
+                               plain_attention=True, qweights=qw)
+
+
+def _plain_logits(engine, params, prompt, ctx):
+    """The plain path's logits for the token after ``ctx`` (``prompt``
+    and the tokens that followed it): on an int8 KV engine, for a token
+    read from the cache (any but a wave prompt's first), those of one
+    decode step over the quantized context (:func:`_int8_step_logits`);
+    else the prefill's."""
+    import torch
+    from skypilot_tpu_torch.infer import kvcache
+    from_cache = len(ctx) > len(prompt) or len(prompt) > (
+        engine.prefill_chunk or len(prompt))
+    if "k_scale" in engine.cache and from_cache:
+        return _int8_step_logits(engine, params, ctx)
+    bucket = next(s for s in engine.buckets if s >= len(ctx))
+    toks = torch.zeros((1, bucket), dtype=torch.long, device=engine.device)
+    toks[0, :len(ctx)] = torch.tensor(ctx)
+    lens = torch.tensor([len(ctx)], device=engine.device)
+    return kvcache.prefill_batch(params, toks, lens, engine.cfg,
+                                 plain_attention=True,
+                                 qweights=engine.qweights)[1]
+
+
+# Depth of the float32 int8 legs (llama3-8b has 32 layers): w8a8's noise
+# floor is as large at 2 layers as at 32, and the legs hold the smoke's
+# time near half its limit.
+INT8_FP32_LAYERS = 8
+# A relative perturbation of two float32 ulps of the embedding: the size
+# of the summation-order noise between two correct attention paths.
+W8A8_PROBE = 2.0 ** -22
+
+
 def _divergence(ref_engine, prompt, got, want):
     """First step where tokens ``got`` (kernel path) and ``want`` (plain
     path) differ, with the plain path's top-2 logit gap there (read from
-    its logits on the shared context): (step, gap), or (None, None)
-    when they agree throughout. Past a divergence the contexts differ
-    and nothing more is comparable."""
-    import torch
-    from skypilot_tpu_torch.infer import kvcache
+    its logits on the shared context, :func:`_plain_logits`) and its
+    noise floor: (step, gap, noise), or (None, None, 0.0) when they agree
+    throughout. Past a divergence the contexts differ and nothing more
+    is comparable. The noise floor is 0 but on a w8a8 engine, where it
+    is the largest shift of the plain logits on the same context when
+    the embedding moves by two float32 ulps (``W8A8_PROBE``): w8a8
+    rounds every projection's activations to int8, so noise of that size
+    flips some roundings and moves the logits by far more than float32
+    noise does."""
     for t, (a, b) in enumerate(zip(got, want)):
         if a == b:
             continue
         ctx = list(prompt) + list(want[:t])
-        bucket = next(s for s in ref_engine.buckets if s >= len(ctx))
-        toks = torch.zeros((1, bucket), dtype=torch.long,
-                           device=ref_engine.device)
-        toks[0, :len(ctx)] = torch.tensor(ctx)
-        lens = torch.tensor([len(ctx)], device=ref_engine.device)
-        _, logits = kvcache.prefill_batch(
-            ref_engine.params, toks, lens, ref_engine.cfg,
-            plain_attention=True)
+        params = ref_engine.params
+        logits = _plain_logits(ref_engine, params, prompt, ctx)
         top2 = logits[0].topk(2).values
-        return t, (top2[0] - top2[1]).item()
-    return None, None
+        noise = 0.0
+        if ref_engine.qweights is not None:
+            probe = dict(params, embed=params["embed"] * (1 + W8A8_PROBE))
+            noise = (_plain_logits(ref_engine, probe, prompt, ctx)
+                     - logits).abs().max().item()
+        return t, (top2[0] - top2[1]).item(), noise
+    return None, None, 0.0
 
 
 def _engine_like(params, cfg, like, dev, **kw):
     """An engine on ``params`` shaped like the server's engine ``like``
     (slots, max_len, buckets, wave cap, KV blocks, chunk); ``kw`` picks
-    the attention path, the prefix pool and speculation."""
+    the attention path, the prefix pool, speculation and the int8
+    recipe."""
     from skypilot_tpu_torch.infer import engine as eng
     return eng.InferenceEngine(
         params, cfg, n_slots=like.n_slots, max_len=like.max_len,
@@ -780,24 +884,27 @@ def _engine_like(params, cfg, like, dev, **kw):
         device=dev, **kw)
 
 
-def _kernel_vs_plain(params, cfg, like, dev, prompts, label):
+def _kernel_vs_plain(params, cfg, like, dev, prompts, label, **kw):
     """Greedy tokens of ``prompts`` through two engines configured like
-    the server's engine ``like`` that differ only in the attention path
-    (batch shapes, and so the GEMMs' roundings, are the same in both),
-    plus the prefill logits' largest difference on the longest prompt.
-    Returns (kernel tokens, plain tokens, the plain engine)."""
+    the server's engine ``like`` (and ``kw``) that differ only in the
+    attention path (batch shapes, and so the GEMMs' roundings, are the
+    same in both), plus the prefill logits' largest difference on the
+    longest prompt. Returns (kernel tokens, plain tokens, the plain
+    engine)."""
     import torch
     from skypilot_tpu_torch.infer import kvcache
     runs = {}
     for plain in (False, True):
-        e = _engine_like(params, cfg, like, dev, plain_attention=plain)
+        e = _engine_like(params, cfg, like, dev, plain_attention=plain, **kw)
         runs[plain] = (e, e.generate(prompts, max_new_tokens=32))
     p = max(prompts, key=len)
     toks = torch.zeros((1, like.max_len), dtype=torch.long, device=dev)
     toks[0, :len(p)] = torch.tensor(p)
     n = torch.tensor([len(p)], device=dev)
-    lk = kvcache.prefill_batch(params, toks, n, cfg)[1]
-    lp = kvcache.prefill_batch(params, toks, n, cfg, plain_attention=True)[1]
+    qw = kw.get("qweights")
+    lk = kvcache.prefill_batch(params, toks, n, cfg, qweights=qw)[1]
+    lp = kvcache.prefill_batch(params, toks, n, cfg, plain_attention=True,
+                               qweights=qw)[1]
     _log(f"serve[{label}]: prefill logits max |kernel - plain| = "
          f"{(lk - lp).abs().max().item():.4e} (max |logit| "
          f"{lp.abs().max().item():.3f})")
@@ -869,51 +976,54 @@ def _long_chunks(engine, dev, card: str) -> None:
     del cache
 
 
-def phase_serve(dev, card: str):
-    """Returns {kernel: launches} over the 9-request run, and over the
-    float32 leg's kernel engine."""
+def _batch_bodies(chunk):
+    """The serve legs' 9 requests: 7 prompts of 64-900 tokens (seed 0)
+    and streamed twins of the first chunked and the first wave prompt.
+    Returns (bodies, prompts, twins)."""
     import numpy as np
-    import torch
-    from skypilot_tpu_torch.infer import server as srv
     from skypilot_tpu_torch.models import llama
-    from skypilot_tpu_torch.ops import flash_attention as fa
-    from skypilot_tpu_torch.ops import paged_attention as pa
-
-    chunk = 512
     rng = np.random.default_rng(SEED)
     lens = rng.integers(64, 901, 7).tolist()
     prompts = [rng.integers(1, llama.CONFIGS["llama3-8b"].vocab_size,
                             n).tolist() for n in lens]
     bodies = [{"tokens": p, "max_new_tokens": 32} for p in prompts]
-    # Streamed twins of the first chunked and the first wave prompt.
     twins = [next(i for i, n in enumerate(lens) if n > chunk),
              next(i for i, n in enumerate(lens) if n <= chunk)]
     bodies += [{"tokens": prompts[i], "max_new_tokens": 32,
                 "stream": True} for i in twins]
+    return bodies, prompts, twins
 
-    t0 = time.time()
-    # The server coalesces arrivals until a full wave's worth is queued
-    # (or they pause for coalesce_s): with the wave cap at the run's
-    # request count, admission starts once all of them are queued, and
-    # the wave prompt's twins share one prefill wave, whose GEMM shapes,
-    # and so roundings, the streamed twin must reproduce; the twins then
-    # decode in the same bursts. The cap never binds on these waves (at
-    # most 5 prompts share a bucket). Decode runs every slot at every
-    # step, so it is batch-invariant.
-    # The reference server's defaults: chunks of 512, a prefix pool of 8
-    # and n-gram speculation at K = 4.
-    engine = srv.make_engine("llama3-8b", slots=16, max_len=1024,
-                             admit_wave=len(bodies), kv_block=256,
-                             prefill_chunk=chunk, prefix_pool=8, spec_k=4,
-                             device=dev, seed=SEED)
+
+def _sub(tag: str, what: str) -> str:
+    """A line tag: ``serve[what]`` on the bf16 leg, ``serve[int8, what]``
+    on the int8 one."""
+    return f"serve[{what}]" if tag == "serve" else f"{tag[:-1]}, {what}]"
+
+
+def _serve_leg(engine, tag: str, card: str, chunk: int,
+               max_burst: int = 8) -> dict:
+    """The port's HTTP server over ``engine`` answers the 9 requests
+    (:func:`_batch_bodies`) concurrently, then the shared-prefix pair.
+    The kernels' launch counts and the engine's spec counters are set to
+    0 just before the batch and read just after. Checked: every kernel
+    of the path launched, at least one verify round, the wgmma multi-row
+    body once a layer per chunk not skipped by a prefix hit and the
+    mma.sync one never, the trailers' chunk counts, every request's
+    budget. Returns the batch's launches, results, wall time, TTFTs and
+    decode rate, and the pair's."""
+    from skypilot_tpu_torch.infer import server as srv
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
     cfg = engine.cfg
-    torch.cuda.synchronize()
-    _log(f"serve: llama3-8b {cfg.n_layers} layers d_model {cfg.d_model} "
-         f"({cfg.num_params() / 1e9:.2f}B params, bf16) built in "
-         f"{time.time() - t0:.1f} s")
+    bodies, prompts, twins = _batch_bodies(chunk)
     port = _free_port()
+    # The server coalesces arrivals (for coalesce_s) until a full wave's
+    # worth is queued: with the bf16 leg's wave cap at the run's request
+    # count, admission starts once all of them are queued, so the wave
+    # prompt's twins share one prefill wave, whose GEMM shapes, and so
+    # roundings, the streamed twin must reproduce.
     model, httpd = srv.serve(engine, host="127.0.0.1", port=port,
-                             coalesce_s=0.5)
+                             max_burst=max_burst, coalesce_s=0.5)
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
     th.start()
     try:
@@ -922,7 +1032,7 @@ def phase_serve(dev, card: str):
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
                                     timeout=30) as r:
             if json.loads(r.read())["status"] != "ok":
-                raise AssertionError("/health is not ok")
+                raise AssertionError(f"{tag}: /health is not ok")
         results = [None] * len(bodies)
         errors = []
 
@@ -956,29 +1066,30 @@ def phase_serve(dev, card: str):
             (engine._spec_drafted_total, engine._spec_accepted_total,
              engine.verify_calls), spec0)]
         if errors or any(r is None for r in results):
-            raise AssertionError(f"requests failed: {errors}")
-        pair = _prefix_pair(model, engine, url, cfg, chunk)
+            raise AssertionError(f"{tag}: requests failed: {errors}")
+        pair = _prefix_pair(model, engine, url, cfg, chunk, tag)
     finally:
         httpd.shutdown()
         model.shutdown()
         th.join(timeout=30)
-    _log(f"serve: {len(bodies)} requests in {wall:.2f} s; launches "
+    _log(f"{tag}: {len(bodies)} requests in {wall:.2f} s; launches "
          f"{launches} (K1 merges a slot's chunks inside its own launch: "
          f"no merge kernel, 0 merge launches)")
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"main path")
-    _log(f"serve[spec]: {spec[2]} verify calls (K+1 = 5 decode-body "
-         f"launches a layer each, {5 * cfg.n_layers * spec[2]} of the "
+            raise AssertionError(f"{tag}: kernel {name} never launched on "
+                                 f"the main path")
+    _log(f"{_sub(tag, 'spec')}: {spec[2]} verify calls (K+1 = 5 "
+         f"decode-body launches a layer each, "
+         f"{5 * cfg.n_layers * spec[2]} of the "
          f"{launches['paged_attention']} K1 decode launches); drafted "
          f"{spec[0]}, accepted {spec[1]} tokens; per request (drafted, "
          f"accepted, drafter): "
          + ", ".join(f"({r['spec_drafted']}, {r['spec_accepted']}, "
                      f"{r['drafter']})" for r in results))
     if spec[2] <= 0:
-        raise AssertionError("no verify round ran: speculation was never "
-                             "attempted on the main path")
+        raise AssertionError(f"{tag}: no verify round ran: speculation was "
+                             f"never attempted on the main path")
     # Chunked prefill: one multi-row launch a layer per chunk of every
     # prompt longer than the chunk (the repeated prompt counts twice),
     # less the chunks a prefix hit skipped (its trailer's cached_tokens).
@@ -988,24 +1099,78 @@ def phase_serve(dev, card: str):
                    for b, c in zip(bodies, cached)]
     want_rows = sum(want_chunks) * cfg.n_layers
     chunked = [len(b["tokens"]) for b, c in zip(bodies, want_chunks) if c]
-    _log(f"serve: chunked prompts {chunked} ({sum(want_chunks)} chunks; "
+    _log(f"{tag}: chunked prompts {chunked} ({sum(want_chunks)} chunks; "
          f"cached tokens {cached}): multi-row launches "
          f"{launches['paged_attention_rows']}, expected {want_rows}")
     if launches["paged_attention_rows"] != want_rows or mma_launches:
-        raise AssertionError(f"the wgmma multi-row body launched "
+        raise AssertionError(f"{tag}: the wgmma multi-row body launched "
                              f"{launches['paged_attention_rows']} times "
                              f"(expected {want_rows}), the mma.sync body "
-                             f"{mma_launches} (expected 0 on bf16 pools)")
+                             f"{mma_launches} (expected 0)")
     trailers = [r.get("prefill_chunks") for r in results[:len(prompts)]]
     if trailers != want_chunks[:len(prompts)]:
-        raise AssertionError(f"trailers report prefill_chunks {trailers}, "
-                             f"expected {want_chunks[:len(prompts)]}")
+        raise AssertionError(f"{tag}: trailers report prefill_chunks "
+                             f"{trailers}, expected "
+                             f"{want_chunks[:len(prompts)]}")
     for i, r in enumerate(results):
         toks = r["tokens"]
         if len(toks) != 32 and not (toks and toks[-1] == engine.eos_id):
-            raise AssertionError(f"request {i}: {len(toks)} tokens")
+            raise AssertionError(f"{tag}: request {i}: {len(toks)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"request {i}: token outside the vocab")
+            raise AssertionError(f"{tag}: request {i}: token outside the "
+                                 f"vocab")
+    ttft = sorted(r["ttft_ms"] for r in results)
+    n_tok = sum(len(r["tokens"]) for r in results)
+    decode_s = wall - ttft[0] / 1e3
+    tps = (n_tok - len(results)) / decode_s
+    _log(f"{tag}: TTFT ms min {ttft[0]:.1f} median "
+         f"{ttft[len(ttft) // 2]:.1f} max {ttft[-1]:.1f}; decode "
+         f"{tps:.1f} tokens/s over {len(results)} requests on {card}")
+    for label, is_chunked in (("chunked", True), ("wave", False)):
+        part = sorted(r["ttft_ms"] for r, c in zip(results, want_chunks)
+                      if bool(c) == is_chunked)
+        _log(f"{tag}: TTFT ms of the {len(part)} {label} requests: "
+             + ", ".join(f"{t:.1f}" for t in part))
+    _log(f"{_sub(tag, 'prefix')}: cold {pair['cold_ttft']:.1f} ms TTFT, "
+         f"warm {pair['warm_ttft']:.1f} ms, the warm prompt cold after "
+         f"clear_prefix_cache() {pair['recold_ttft']:.1f} ms; {card}")
+    return dict(launches=launches, results=results, prompts=prompts,
+                twins=twins, wall=wall, ttft=ttft, tps=tps, pair=pair)
+
+
+def phase_serve(dev, card: str):
+    """Returns {path: {kernel: launches}}: the bf16 leg's 9-request run
+    (``serve``), the float32 leg's kernel engine (``serve[fp32]``), the
+    float32 int8 legs' (``serve[fp32,int8 KV]`` on the float32 weights,
+    ``serve[fp32,int8]`` on them quantized) and the int8 leg's 9-request
+    run (``serve[int8]``)."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import kvcache
+    from skypilot_tpu_torch.infer import server as srv
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+
+    chunk = 512
+    t0 = time.time()
+    # The reference server's defaults: chunks of 512, a prefix pool of 8
+    # and n-gram speculation at K = 4. The wave cap is the batch's
+    # request count (see _serve_leg); it never binds on these waves (at
+    # most 5 prompts share a bucket). Decode runs every slot at every
+    # step, so it is batch-invariant.
+    engine = srv.make_engine("llama3-8b", slots=16, max_len=1024,
+                             admit_wave=len(_batch_bodies(chunk)[0]),
+                             kv_block=256,
+                             prefill_chunk=chunk, prefix_pool=8, spec_k=4,
+                             device=dev, seed=SEED)
+    cfg = engine.cfg
+    torch.cuda.synchronize()
+    _log(f"serve: llama3-8b {cfg.n_layers} layers d_model {cfg.d_model} "
+         f"({cfg.num_params() / 1e9:.2f}B params, bf16) built in "
+         f"{time.time() - t0:.1f} s")
+    bf16 = _serve_leg(engine, "serve", card, chunk)
+    results, prompts, twins = bf16["results"], bf16["prompts"], bf16["twins"]
+    lens = [len(p) for p in prompts]
     # The wave prompt's twins share every program: equal tokens. The
     # chunked prompt's twins share their chunk programs, so their first
     # tokens are equal; they start decoding at different times, so
@@ -1019,24 +1184,9 @@ def phase_serve(dev, card: str):
     if stream_chunk["tokens"][0] != results[twins[0]]["tokens"][0]:
         raise AssertionError("the streamed twin of a chunked prompt has "
                              "another first token than the blocking one")
-    ttft = sorted(r["ttft_ms"] for r in results)
-    n_tok = sum(len(r["tokens"]) for r in results)
-    decode_s = wall - ttft[0] / 1e3
-    _log(f"serve: TTFT ms min {ttft[0]:.1f} median "
-         f"{ttft[len(ttft) // 2]:.1f} max {ttft[-1]:.1f}; decode "
-         f"{(n_tok - len(results)) / decode_s:.1f} tokens/s over "
-         f"{len(results)} requests on {card}")
-    for label, chunked in (("chunked", True), ("wave", False)):
-        part = sorted(r["ttft_ms"] for r, c in zip(results, want_chunks)
-                      if bool(c) == chunked)
-        _log(f"serve: TTFT ms of the {len(part)} {label} requests: "
-             + ", ".join(f"{t:.1f}" for t in part))
-
-    _log(f"serve[prefix]: cold {pair['cold_ttft']:.1f} ms TTFT, warm "
-         f"{pair['warm_ttft']:.1f} ms, the warm prompt cold after "
-         f"clear_prefix_cache() {pair['recold_ttft']:.1f} ms; {card}")
-    t, gap = _divergence(engine, pair["prompt"], pair["warm"],
-                         pair["recold"])
+    pair = bf16["pair"]
+    t, gap, _ = _divergence(engine, pair["prompt"], pair["warm"],
+                            pair["recold"])
     _log("serve[prefix, bf16]: the warm request's tokens " + (
         "equal its cold rerun's over 32 steps" if t is None
         else f"part from its cold rerun's at step {t}, plain top-2 gap "
@@ -1055,15 +1205,15 @@ def phase_serve(dev, card: str):
     got, want, ref = _kernel_vs_plain(engine.params, cfg, engine, dev,
                                       picked, "bf16")
     for i, g, w in zip(pick, got, want):
-        t, gap = _divergence(ref, prompts[i], g, w)
+        t, gap, _ = _divergence(ref, prompts[i], g, w)
         _log(f"serve[bf16]: prompt {i} ({lens[i]} tokens): " + (
             "kernel and plain paths agree over 32 steps" if t is None
             else f"paths diverge at step {t}, plain top-2 gap "
                  f"{gap:.3e}") + "; the server gave "
              f"{'the same' if results[i]['tokens'] == g else 'other'} "
              f"tokens as the kernel path")
-    t, gap = _divergence(ref, prompts[twins[0]], stream_chunk["tokens"],
-                         results[twins[0]]["tokens"])
+    t, gap, _ = _divergence(ref, prompts[twins[0]], stream_chunk["tokens"],
+                            results[twins[0]]["tokens"])
     _log(f"serve[bf16]: the streamed twin of chunked prompt {twins[0]} " + (
         "equals the blocking one over 32 steps" if t is None
         else f"parts from the blocking one at step {t}, plain top-2 gap "
@@ -1073,28 +1223,35 @@ def phase_serve(dev, card: str):
     params32 = {k: ({n: w.float() for n, w in v.items()}
                     if isinstance(v, dict) else v.float())
                 for k, v in engine.params.items()}
-    # The float32 leg's kernel engine reads float32 pools: its chunks
-    # run the mma.sync multi-row body, counted from 0 here.
     counted = (fa.flash_attention_fwd, pa.paged_attention,
                pa.paged_attention_rows)
-    for f in counted:
-        f.launches = 0
-    pa.paged_attention_rows.mma_launches = 0
+
+    def zero():
+        for f in counted:
+            f.launches = 0
+        pa.paged_attention_rows.mma_launches = 0
+
+    def read():
+        n = {f.__name__: f.launches for f in counted}
+        n["paged_attention_rows_mma"] = pa.paged_attention_rows.mma_launches
+        return n
+
+    want_rows = sum(-(-len(p) // chunk) for p in picked
+                    if len(p) > chunk) * cfg.n_layers
+    # The float32 leg's kernel engine reads float32 pools: its chunks
+    # run the mma.sync multi-row body, counted from 0 here.
+    zero()
     got, want, ref = _kernel_vs_plain(params32, cfg32, engine, dev, picked,
                                       "fp32")
-    launches32 = {f.__name__: f.launches for f in counted}
-    launches32["paged_attention_rows_mma"] = \
-        pa.paged_attention_rows.mma_launches
-    want_mma = sum(-(-len(p) // chunk) for p in picked
-                   if len(p) > chunk) * cfg.n_layers
+    launches32 = read()
     _log(f"serve[fp32]: launches {launches32}; the mma.sync multi-row "
-         f"body expected {want_mma}")
-    if launches32["paged_attention_rows_mma"] != want_mma or not want_mma \
+         f"body expected {want_rows}")
+    if launches32["paged_attention_rows_mma"] != want_rows or not want_rows \
             or launches32["paged_attention_rows"]:
         raise AssertionError(
             f"fp32 leg: the mma.sync multi-row body launched "
             f"{launches32['paged_attention_rows_mma']} times (expected "
-            f"{want_mma} > 0), the wgmma body "
+            f"{want_rows} > 0), the wgmma body "
             f"{launches32['paged_attention_rows']} (expected 0 on float32 "
             f"pools)")
     for i, g, w in zip(pick, got, want):
@@ -1102,22 +1259,306 @@ def phase_serve(dev, card: str):
                "kernel and plain paths")
     _spec_and_prefix_fp32(params32, cfg32, engine, dev, picked, got, ref,
                           chunk)
-    return launches, launches32
+    del ref
+
+    # The float32 int8 legs, on int8 KV pools and the first
+    # INT8_FP32_LAYERS layers of the same weights (the serve[int8] leg
+    # runs the recipe at full depth): their chunks send bf16 q to int8
+    # pools, so they run the wgmma multi-row body, and their decode the
+    # decode body on int8 pools. First on the float32 weights (int8 KV
+    # alone leaves the paths' logits as close as float32 pools do), then
+    # on them quantized once (w8a8), whose activation rounding sets its
+    # own noise floor (_divergence), as large at 2 layers as at 32.
+    cfg_i8 = dataclasses.replace(cfg32, n_layers=INT8_FP32_LAYERS)
+    params_i8 = dict(params32, blocks={
+        n: w[:INT8_FP32_LAYERS].clone()
+        for n, w in params32["blocks"].items()})
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_chunks = want_rows // cfg.n_layers
+    launches_kv8 = _fp32_int8_leg(params_i8, cfg_i8, engine, dev, prompts,
+                                  pick, chunk, want_chunks, zero, read,
+                                  "fp32, int8 KV", kv_int8=True)
+    t0 = time.time()
+    w8 = {"blocks": kvcache.quantize_block_weights(params_i8),
+          "head": kvcache.quantize_head(params_i8, cfg_i8)}
+    params_i8 = kvcache.slim_params(params_i8)
+    _log(f"serve[fp32, int8]: llama3-8b float32 weights quantized in "
+         f"{time.time() - t0:.1f} s ({INT8_FP32_LAYERS} of {cfg.n_layers} "
+         f"layers)")
+    launches32i = _fp32_int8_leg(params_i8, cfg_i8, engine, dev, prompts,
+                                 pick, chunk, want_chunks, zero, read,
+                                 "fp32, int8", kv_int8=True, qweights=w8)
+    del params_i8, w8, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches8 = _serve_int8(dev, card, chunk, bf16)
+    return {"serve": bf16["launches"], "serve[fp32]": launches32,
+            "serve[fp32,int8 KV]": launches_kv8,
+            "serve[fp32,int8]": launches32i, "serve[int8]": launches8}
 
 
-def _agree(ref, prompt, got, want, what: str, paths: str) -> None:
+def _fp32_int8_leg(params, cfg, like, dev, prompts, pick, chunk,
+                   want_chunks, zero, read, leg: str, **kw) -> dict:
+    """A float32 int8 leg (``kw``: the int8 recipe's engine options):
+    the kernel engine against the plain-attention engine on the shortest
+    and the longest prompt, launches counted from 0 (the wgmma
+    multi-row body once a layer per chunk, the mma.sync one never, the
+    decode body on int8 pools), then speculation and the prefix pair
+    (:func:`_spec_and_prefix_fp32`), every token comparison under
+    :func:`_agree`. Returns the kernel engine's launches."""
+    picked = [prompts[i] for i in pick]
+    want_rows = want_chunks * cfg.n_layers
+    zero()
+    got, want, ref = _kernel_vs_plain(params, cfg, like, dev, picked, leg,
+                                      **kw)
+    launches = read()
+    _log(f"serve[{leg}]: launches {launches}; the wgmma multi-row body "
+         f"expected {want_rows}, on int8 pools")
+    if launches["paged_attention_rows"] != want_rows \
+            or launches["paged_attention_rows_mma"] \
+            or not launches["paged_attention"]:
+        raise AssertionError(
+            f"{leg} leg: the wgmma multi-row body launched "
+            f"{launches['paged_attention_rows']} times (expected "
+            f"{want_rows}), the mma.sync one "
+            f"{launches['paged_attention_rows_mma']} (expected 0), the "
+            f"decode body {launches['paged_attention']} (expected > 0)")
+    for i, g, w in zip(pick, got, want):
+        _agree(ref, prompts[i], g, w,
+               f"prompt {i} ({len(prompts[i])} tokens)",
+               "kernel and plain paths", leg)
+    _spec_and_prefix_fp32(params, cfg, like, dev, picked, got, ref, chunk,
+                          leg, **kw)
+    del ref
+    gc.collect()
+    return launches
+
+
+def _serve_int8(dev, card: str, chunk: int, bf16: dict) -> dict:
+    """The ``serve[int8]`` leg: the recipe of ``llm/serve-8b-w8a8.yaml``
+    as far as the port's server has its flags (``--slots 32 --max-len
+    1280 --weights-int8 --kv-int8 --max-burst 32 --admit-wave 4``, with
+    the reference server's defaults: chunks of 512, a prefix pool of 8,
+    spec K 4; its ``--open-burst`` waits for the rest of the server,
+    ROADMAP Queue 1 item 7) at llama3-8b full width and depth, random
+    bf16 weights from seed 0 quantized once on the card. Checks the int8
+    pools and bf16 scales, the slim weight tree and the device memory
+    after the build, then serves the bf16 leg's 9 requests and the
+    shared-prefix pair (:func:`_serve_leg`) and profiles one decode
+    burst over all 32 slots. Returns the batch's launches."""
+    import torch
+    from skypilot_tpu_torch.infer import server as srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.time()
+    engine = srv.make_engine("llama3-8b", slots=32, max_len=1280,
+                             admit_wave=4, kv_block=256,
+                             prefill_chunk=chunk, prefix_pool=8, spec_k=4,
+                             kv_int8=True, weights_int8=True, device=dev,
+                             seed=SEED)
+    torch.cuda.synchronize()
+    gc.collect()
+    built = time.time() - t0
+    cfg = engine.cfg
+    c = engine.cache
+    if (c["k"].dtype, c["v"].dtype) != (torch.int8, torch.int8) or \
+            (c["k_scale"].dtype, c["v_scale"].dtype) != (torch.bfloat16,
+                                                         torch.bfloat16):
+        raise AssertionError(f"serve[int8]: pools {c['k'].dtype}, scales "
+                             f"{c['k_scale'].dtype}; int8 and bf16 "
+                             f"expected")
+    if set(engine.params) != {"embed", "final_norm", "blocks"} or \
+            set(engine.params["blocks"]) != {"ln1", "ln2"}:
+        raise AssertionError("serve[int8]: the engine kept float block "
+                             "matrices or a float head")
+    d, ff, v, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    # The int8 weights, the bf16 embedding and the int8 KV by the config,
+    # and the bytes of every tensor the engine holds (those plus the
+    # scales, norms and slot state).
+    blocks = L * (2 * d * nh * hd + 2 * d * nkv * hd + 3 * d * ff)
+    head, embed = d * v, 2 * v * d
+    kv = c["k"].numel() * 2
+    scales = c["k_scale"].numel() * 2 * 2
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(t) for t in tree.values())
+        return tree.numel() * tree.element_size()
+
+    held = nbytes(engine.params) + nbytes(engine.qweights) + nbytes(c)
+    small = held - (blocks + head + embed + kv + scales)
+    got = torch.cuda.memory_allocated(dev) - base
+    gb = 1e9
+    _log(f"serve[int8]: llama3-8b w8a8 + int8 KV built in {built:.1f} s; "
+         f"memory_allocated after the build {got / gb:.3f} GB above the "
+         f"baseline: weights {(blocks + head + embed + small) / gb:.3f} GB "
+         f"(int8 block matrices {blocks / gb:.3f}, int8 head "
+         f"{head / gb:.3f}, bf16 embedding {embed / gb:.3f}; scales, "
+         f"norms and slot state {small / gb:.4f}), KV int8 "
+         f"{kv / gb:.3f} GB + scales {scales / 1e6:.1f} MB "
+         f"({c['k'].shape[1]} blocks of 256 rows); "
+         f"the bf16 tree would be {cfg.num_params() * 2 / gb:.2f} GB; "
+         f"{card}")
+    # The smallest float block matrix (wk in bf16) is 0.27 GB.
+    if not 0 <= small < 0.01 * gb or not held <= got <= held + 0.1 * gb:
+        raise AssertionError(f"serve[int8]: {got / gb:.3f} GB allocated, "
+                             f"the engine holds {held / gb:.3f} GB, "
+                             f"{(held - small) / gb:.3f} GB of int8 "
+                             f"weights, bf16 embedding and int8 KV: a "
+                             f"float copy stayed resident")
+    int8 = _serve_leg(engine, "serve[int8]", card, chunk, max_burst=32)
+    med = [r['ttft'][len(r['ttft']) // 2] for r in (int8, bf16)]
+    _log(f"serve[int8] beside serve (one call, {card}): TTFT ms median "
+         f"{med[0]:.1f} (max {int8['ttft'][-1]:.1f}) against {med[1]:.1f} "
+         f"(max {bf16['ttft'][-1]:.1f}); decode {int8['tps']:.1f} against "
+         f"{bf16['tps']:.1f} tokens/s; wall {int8['wall']:.2f} against "
+         f"{bf16['wall']:.2f} s; prefix pair warm/cold TTFT "
+         f"{int8['pair']['warm_ttft']:.1f}/{int8['pair']['recold_ttft']:.1f} "
+         f"against {bf16['pair']['warm_ttft']:.1f}/"
+         f"{bf16['pair']['recold_ttft']:.1f} ms")
+    _profile_int8_burst(engine, card)
+    del engine
+    _int_mm_layouts(dev, card)
+    return int8["launches"]
+
+
+def _int_mm_layouts(dev, card: str) -> None:
+    """``torch._int_mm`` at llama3-8b's w8a8 shapes with the weight
+    column-major (``kvcache.int8_layout``, what the port stores) and
+    row-major: the time of each (CUDA events), or the error that refuses
+    it."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for m, k, n in ((17, 4096, 4096), (17, 4096, 14336), (17, 14336, 4096),
+                    (512, 4096, 14336), (17, 4096, 128256)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        times = []
+        for b in (w.t().contiguous().t(), w):
+            try:
+                ms = _time_ms(lambda i: torch._int_mm(a, b), 20)
+                times.append(f"{ms:.4f} ms")
+            except RuntimeError as e:
+                times.append(f"refused ({str(e).splitlines()[0][:60]})")
+        _log(f"serve[int8, _int_mm]: {m}x{k}x{n}: column-major weight "
+             f"{times[0]}, row-major {times[1]}; {card}")
+
+
+def _profile_int8_burst(engine, card: str) -> None:
+    """All 32 slots decoding (prompts of 330-500 tokens, so every slot
+    sits on the span rung of 640 rows and a burst is one group): one
+    8-step decode burst timed on the host, then one profiled, its device
+    time
+    split by class: ``torch._int_mm`` (the kernels the
+    ``aten::_int_mm`` op launched), the quantizers (the kernels of ops
+    run inside ``_act_quant`` and ``quantize_rows``, marked for this
+    burst by ``record_function``), K1's decode body (by kernel name) and
+    the rest."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from skypilot_tpu_torch.infer import kvcache
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    rng = np.random.default_rng(SEED + 2)
+    for n in rng.integers(330, 501, engine.n_slots):
+        engine.add_request(
+            rng.integers(1, engine.cfg.vocab_size, n).tolist(), 64)
+    engine.admit()
+    if len(engine.slot_req) != engine.n_slots:
+        raise AssertionError(f"serve[int8, decode burst]: "
+                             f"{len(engine.slot_req)} of {engine.n_slots} "
+                             f"slots admitted")
+    k = 8
+    engine.complete_decode_burst(engine.dispatch_decode_burst(k))   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.complete_decode_burst(engine.dispatch_decode_burst(k))
+    wall = (time.perf_counter() - t0) * 1e3
+    label = "w8a8.quantize"
+    real = (kvcache._act_quant, kvcache.quantize_rows)
+
+    def marked(fn):
+        def inner(*a):
+            with record_function(label):
+                return fn(*a)
+        return inner
+
+    n0 = pa.paged_attention.launches
+    kvcache._act_quant, kvcache.quantize_rows = map(marked, real)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            handle = engine.dispatch_decode_burst(k)
+            engine.complete_decode_burst(handle)
+            torch.cuda.synchronize()
+    finally:
+        kvcache._act_quant, kvcache.quantize_rows = real
+    n_k1 = pa.paged_attention.launches - n0
+    groups = len(handle.parts)
+    by = {"int_mm": 0.0, "quantizers": 0.0, "K1": 0.0, "total": 0.0}
+    cuda = torch.autograd.DeviceType.CUDA
+    for evt in prof.events():
+        if getattr(evt, "device_type", None) == cuda:
+            if evt.name != label:
+                ms = evt.time_range.elapsed_us() / 1e3
+                by["total"] += ms
+                if "paged_attention_kernel" in evt.name:
+                    by["K1"] += ms
+            continue
+        kernels = sum(kn.duration for kn in getattr(evt, "kernels", ())
+                      ) / 1e3
+        # A kernel belongs to the innermost op that launched it; its
+        # class is that of the nearest marked ancestor, itself included.
+        up = evt
+        while kernels and up is not None and up.name not in (
+                "aten::_int_mm", label):
+            up = up.cpu_parent
+        if kernels and up is not None:
+            by["int_mm" if up.name == "aten::_int_mm"
+               else "quantizers"] += kernels
+    rest = by["total"] - by["int_mm"] - by["quantizers"] - by["K1"]
+    _log(f"serve[int8, decode burst]: {engine.n_slots} slots x {k} steps "
+         f"in {groups} span group(s): "
+         f"wall {wall:.2f} ms unprofiled ({wall / k:.2f} ms a step); one "
+         f"profiled burst's device time {by['total']:.2f} ms: _int_mm "
+         f"{by['int_mm']:.2f}, quantizers {by['quantizers']:.2f}, K1 "
+         f"decode body {by['K1']:.2f} ({n_k1} launches), rest {rest:.2f}; "
+         f"{card}")
+    want = k * engine.cfg.n_layers * groups
+    if n_k1 != want or groups != 1 or not by["int_mm"] or \
+            not by["quantizers"] or not by["K1"]:
+        raise AssertionError(f"serve[int8, decode burst]: {n_k1} K1 "
+                             f"launches (expected {want}) in {groups} span "
+                             f"groups (expected 1), or a class with no "
+                             f"device time: {by}")
+    engine.reset()
+
+
+def _agree(ref, prompt, got, want, what: str, paths: str,
+           leg: str = "fp32") -> None:
     """Greedy tokens ``got`` and ``want`` of ``prompt`` agree, or part
     only where the plain logits' top-2 gap is at most 1e-2 (a near-tie,
-    which fp32 summation order may flip)."""
-    t, gap = _divergence(ref, prompt, got, want)
-    if t is not None and gap > 1e-2:
+    which fp32 summation order may flip) or, on a w8a8 engine, at most
+    the plain logits' own noise floor there (:func:`_divergence`)."""
+    t, gap, noise = _divergence(ref, prompt, got, want)
+    bound = max(1e-2, noise)
+    floor = f", w8a8 noise floor {noise:.3e}" if ref.qweights is not None \
+        else ""
+    if t is not None and gap > bound:
         raise AssertionError(
-            f"fp32: {paths} differ on {what} at step {t} where the plain "
-            f"top-2 logit gap is {gap:.4f} > 1e-2")
-    _log(f"serve[fp32]: {what}: " + (
+            f"{leg}: {paths} differ on {what} at step {t} where the plain "
+            f"top-2 logit gap is {gap:.4f} > {bound:.4f} (1e-2{floor})")
+    _log(f"serve[{leg}]: {what}: " + (
         f"{paths} agree over {len(got)} steps" if t is None
         else f"{paths} diverge at step {t} on a near-tie (plain top-2 gap "
-             f"{gap:.3e} <= 1e-2)"))
+             f"{gap:.3e} <= {bound:.3e}: 1e-2{floor})"))
 
 
 class _Replay:
@@ -1146,19 +1587,21 @@ class _Replay:
 
 
 def _spec_and_prefix_fp32(params, cfg, like, dev, prompts, spec_off, ref,
-                          chunk) -> None:
-    """The float32 leg's speculation and prefix checks, on the kernel
-    path with the server engine's shapes: greedy tokens with spec_k 4
-    and an oracle drafter (every verify position accepts, so K1's decode
-    body runs at every window position) and with an anti-oracle (every
-    draft rejected, none accepted) equal the spec-off tokens; a warm
-    prefix hit equals its cold run after clear_prefix_cache(). Tokens
-    that differ are held to the 1e-2 top-2 gap rule."""
+                          chunk, leg: str = "fp32", **kw) -> None:
+    """The float32 legs' speculation and prefix checks, on the kernel
+    path with the server engine's shapes (and ``kw``, the int8 recipe's
+    options on the int8 legs; ``leg`` names the leg): greedy tokens with
+    spec_k 4 and an oracle drafter (every verify position accepts, so
+    K1's decode body runs at every window position) and with an
+    anti-oracle (every draft rejected, none accepted) equal the spec-off
+    tokens; a warm prefix hit equals its cold run after
+    clear_prefix_cache(). Tokens that differ are held to :func:`_agree`'s
+    rule."""
     import torch
     from skypilot_tpu_torch.ops import paged_attention as pa
 
-    def engine(**kw):
-        return _engine_like(params, cfg, like, dev, **kw)
+    def engine(**more):
+        return _engine_like(params, cfg, like, dev, **kw, **more)
 
     outputs = {tuple(p): t for p, t in zip(prompts, spec_off)}
     for label, factory in (
@@ -1169,19 +1612,19 @@ def _spec_and_prefix_fp32(params, cfg, like, dev, prompts, spec_off, ref,
         d0 = pa.paged_attention.launches
         got = e.generate(prompts, max_new_tokens=32)
         drafted, accepted = e._spec_drafted_total, e._spec_accepted_total
-        _log(f"serve[fp32, spec {label}]: {e.verify_calls} verify calls, "
+        _log(f"serve[{leg}, spec {label}]: {e.verify_calls} verify calls, "
              f"drafted {drafted}, accepted {accepted}; K1 decode launches "
              f"{pa.paged_attention.launches - d0}")
         if not e.verify_calls or not drafted:
-            raise AssertionError(f"fp32 {label}: no verify round ran")
+            raise AssertionError(f"{leg} {label}: no verify round ran")
         if label == "anti-oracle" and accepted:
-            raise AssertionError(f"fp32 anti-oracle accepted {accepted}")
+            raise AssertionError(f"{leg} anti-oracle accepted {accepted}")
         if label == "oracle" and got == spec_off and accepted != drafted:
-            raise AssertionError(f"fp32 oracle accepted {accepted} of "
+            raise AssertionError(f"{leg} oracle accepted {accepted} of "
                                  f"{drafted}")
         for p, g, w in zip(prompts, got, spec_off):
             _agree(ref, p, g, w, f"{len(p)}-token prompt, {label}",
-                   "spec-on and spec-off tokens")
+                   "spec-on and spec-off tokens", leg)
         del e
         gc.collect()
         torch.cuda.empty_cache()
@@ -1195,10 +1638,10 @@ def _spec_and_prefix_fp32(params, cfg, like, dev, prompts, spec_off, ref,
     e.clear_prefix_cache()
     cold = e.generate([warm_p], max_new_tokens=32)[0]
     if cached != chunk or e.finished[0].cached_len:
-        raise AssertionError(f"fp32 prefix pair: cached {cached} warm, "
+        raise AssertionError(f"{leg} prefix pair: cached {cached} warm, "
                              f"{e.finished[0].cached_len} cold")
     _agree(ref, warm_p, warm, cold, f"{len(warm_p)}-token prompt",
-           "warm (512 cached) and cold tokens")
+           "warm (512 cached) and cold tokens", leg)
     del e
     gc.collect()
     torch.cuda.empty_cache()
@@ -1214,7 +1657,7 @@ def _pair_prompts(cfg, chunk):
             shared + rng.integers(1, cfg.vocab_size, 160).tolist())
 
 
-def _prefix_pair(model, engine, url, cfg, chunk) -> dict:
+def _prefix_pair(model, engine, url, cfg, chunk, tag: str) -> dict:
     """The shared-prefix pair through the server, one after the other,
     then the second again after clear_prefix_cache(): the first reports
     no hit and 2 chunks, the second a 512-token hit and 1 chunk whose
@@ -1239,7 +1682,7 @@ def _prefix_pair(model, engine, url, cfg, chunk) -> dict:
         r = _post(url, {"tokens": prompt, "max_new_tokens": 32})
         rows = pa.paged_attention_rows.launches
         got = (r["cache_hit"], r["cached_tokens"], r["prefill_chunks"])
-        _log(f"serve[prefix]: {label} {len(prompt)}-token prompt: "
+        _log(f"{_sub(tag, 'prefix')}: {label} {len(prompt)}-token prompt: "
              f"cache_hit {got[0]}, cached_tokens {got[1]}, prefill_chunks "
              f"{got[2]}, multi-row launches {rows}, TTFT {r['ttft_ms']} "
              f"ms, spec drafted {r['spec_drafted']} accepted "
@@ -1247,7 +1690,7 @@ def _prefix_pair(model, engine, url, cfg, chunk) -> dict:
         if got != want or rows != want[2] * cfg.n_layers \
                 or engine.prefix_hits - hits != int(want[0]):
             raise AssertionError(
-                f"prefix pair, {label}: (cache_hit, cached_tokens, "
+                f"{tag} prefix pair, {label}: (cache_hit, cached_tokens, "
                 f"prefill_chunks) {got}, expected {want}; multi-row "
                 f"launches {rows}, expected {want[2] * cfg.n_layers}")
         out[label] = r["tokens"]
@@ -1548,7 +1991,7 @@ def main() -> int:
     # before that path runs and read just after it.
     by_path = {}
     if args.phase in ("all", "serve"):
-        by_path["serve"], by_path["serve[fp32]"] = phase_serve(dev, smi)
+        by_path.update(phase_serve(dev, smi))
         free()
     if args.phase in ("all", "train"):
         by_path["train"] = phase_train(dev, smi)

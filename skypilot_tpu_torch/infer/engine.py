@@ -29,9 +29,15 @@ draft: an n-gram drafter proposes up to K tokens per slot and
 :func:`kvcache.verify_draft_staged` commits the matched run plus one
 correction token, so greedy output is unchanged.
 
+The reference's int8 recipe is an option of the engine: ``kv_int8``
+keeps the KV pool in int8 with per-row bfloat16 scales, and
+``weights_int8`` quantizes the block matrices and the LM head once, on
+the device, and drops their float copies (w8a8 products in every
+program).
+
 Left for later slices of the port: the KV handoff, preemption, the
-draft model, int8 KV and weights, LoRA adapters, QoS, the flight
-recorder, metrics, tracing and crash recovery. The JAX engine padded
+draft model, LoRA adapters, QoS, the flight recorder, metrics, tracing
+and crash recovery. The JAX engine padded
 admission waves to fixed row counts to avoid recompiles; PyTorch runs
 eagerly, so the port dispatches each wave at its own size and keeps no
 spare slot for padding rows.
@@ -344,6 +350,13 @@ class InferenceEngine:
     there is none; tests pass ``"cpu"``. ``plain_attention`` runs the
     kernels' plain versions, the reference the kernel path is held to.
 
+    ``kv_int8``: int8 KV pools with bfloat16 scales, whatever
+    ``cfg.dtype`` is. ``weights_int8``: quantize the seven block matrices
+    and the head once, on ``device`` (``kvcache.quantize_block_weights``,
+    ``quantize_head``), and keep only the slim float tree (embedding and
+    norms); ``qweights`` passes that int8 tree pre-built (``params`` may
+    then be slim already).
+
     ``prefix_pool``: resident prompt prefixes (0 disables; needs
     chunking). ``spec_k``: draft tokens per slot per verify round,
     clamped to [0, 16] and forced to 0 under temperature sampling (0
@@ -362,10 +375,22 @@ class InferenceEngine:
                  prefill_chunk: Optional[int] = 512,
                  prefix_pool: int = 0, spec_k: int = 0,
                  spec_drafter: Optional[Callable] = None,
+                 kv_int8: bool = False, weights_int8: bool = False,
+                 qweights: Optional[kvcache.QWeights] = None,
                  device: DeviceLike = None,
                  plain_attention: bool = False):
         self.device = resolve_device(device)
-        self.params = _to_device(params, self.device)
+        params = _to_device(params, self.device)
+        if qweights is not None:
+            qweights = _to_device(qweights, self.device)
+        elif weights_int8:
+            qweights = {"blocks": kvcache.quantize_block_weights(params),
+                        "head": kvcache.quantize_head(params, cfg)}
+        # w8a8: no float copy of the block matrices or the head stays
+        # resident (the caller drops its own reference to the float tree).
+        self.qweights = qweights
+        self.params = (kvcache.slim_params(params) if qweights is not None
+                       else params)
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
@@ -443,7 +468,8 @@ class InferenceEngine:
         # first ``span`` logical rows of the rung covering its slots.
         self.span_ladder = _span_ladder(span_buckets, max_len)
         self.cache = kvcache.init_paged_cache(
-            cfg, n_slots, self.n_kv_blocks, self.kv_block, self.device)
+            cfg, n_slots, self.n_kv_blocks, self.kv_block, self.device,
+            kv_int8=kv_int8)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.free_slots: List[int] = list(range(n_slots))
@@ -637,7 +663,7 @@ class InferenceEngine:
         lens = self._upload(true_lens)
         prefix, logits = kvcache.prefill_batch(
             self.params, tokens, lens, self.cfg,
-            plain_attention=self.plain_attention)
+            plain_attention=self.plain_attention, qweights=self.qweights)
         first = sampling.sample(logits, self.sampling_params,
                                 self.generator)
         table = self.table_device()
@@ -741,7 +767,8 @@ class InferenceEngine:
             req.slot, st.total if final else self.max_len, self.cfg,
             self.sampling_params, self.table_device(), final=final,
             span=self._span_arg(self._span_for(start)),
-            generator=self.generator, plain_attention=self.plain_attention)
+            generator=self.generator, plain_attention=self.plain_attention,
+            qweights=self.qweights)
         req.n_chunks += 1
         st.pos += n_valid
         if not final:
@@ -857,7 +884,7 @@ class InferenceEngine:
                 self.params, self.cache, self._upload(active), k,
                 self.cfg, self.sampling_params, self.table_device(),
                 span=self._span_arg(span), generator=self.generator,
-                plain_attention=self.plain_attention)
+                plain_attention=self.plain_attention, qweights=self.qweights)
             parts.append((toks, slots))
         self._inflight_tokens += k
         return BurstHandle(parts=parts, k=k, slot_req=dict(self.slot_req))
@@ -972,7 +999,7 @@ class InferenceEngine:
                 self.params, self.cache, draft_dev, n_draft_dev,
                 self._upload(active), K, self.cfg, self.table_device(),
                 span=self._span_arg(span),
-                plain_attention=self.plain_attention)
+                plain_attention=self.plain_attention, qweights=self.qweights)
             self.verify_calls += 1
             parts.append((slots, toks, n_commit))
         out: Dict[int, List[int]] = {}

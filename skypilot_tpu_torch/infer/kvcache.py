@@ -14,6 +14,14 @@ round's big-cache attention goes through the paged-attention kernel and
 merges with the columns they hold outside the cache (the chunk's own
 rows, the staged rows).
 
+The int8 recipe (the reference's ``--kv-int8 --weights-int8``): an int8
+cache stores each K/V row as int8 values with one bfloat16 absmax scale
+per (row, kv-head) (:func:`quantize_rows`), and w8a8 weights run every
+block projection and the LM head as an s8 x s8 -> s32 product of
+per-output-channel int8 weights (:func:`quantize_weight`) and per-token
+int8 activations (:func:`qeinsum`). Both give the reference's bits on
+the same inputs: see :func:`_scale`.
+
 Two differences from the JAX module, both about mutation:
 
 * JAX donated the cache buffers and got updated copies back; the port
@@ -36,23 +44,281 @@ plain versions on any device, as the reference the kernels are held to.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
+from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.infer import sampling as sampling_mod
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.ops import attention as attn_ops
 from skypilot_tpu_torch.ops import flash_attention as flash_ops
 from skypilot_tpu_torch.ops import paged_attention as paged_attn_ops
 
 Cache = Dict[str, torch.Tensor]
+QWeights = Dict[str, Dict]
 NEG_INF = -1e30
 
 
-def _ffn(cfg: llama.LlamaConfig, h: torch.Tensor, layer: Dict
-         ) -> torch.Tensor:
-    """Post-norm dense SwiGLU FFN. h: [B, S, D]."""
-    return llama.ffn(h, layer, cfg.dtype)
+# ---------------------------------------------------------------------------
+# int8 weights and activations (w8a8) and int8 KV rows
+# ---------------------------------------------------------------------------
+# Weights are quantized per OUTPUT channel once, at engine init;
+# activations per token inside every program; a product rescales its
+# int32 accumulator by (activation scale x weight scale). Prefill runs
+# the same w8a8 path as decode, so a w8a8 engine keeps no float copy of
+# the seven block matrices or of the head (:func:`slim_params`).
+
+def _scale(absmax: torch.Tensor) -> torch.Tensor:
+    """The int8 scale of an absmax: ``max(absmax, 1e-8) / 127``. The
+    reference's programs run under ``jax.jit``, where XLA folds the
+    division by the constant 127 into a multiply by its float32
+    reciprocal; the port multiplies by the same float32 number, so every
+    scale has the reference's bits. The values are then divided by the
+    scale (a true division, as in the reference)."""
+    return absmax.clamp_min(1e-8) * (1.0 / 127.0)
+
+
+def _to_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """round(x / scale) clipped to +-127: ``torch.round`` rounds half to
+    even, as ``jnp.round`` does."""
+    return torch.round(x / scale).clamp(-127, 127).to(torch.int8)
+
+
+def int8_layout(w: torch.Tensor, contract_ndim: int,
+                lead_ndim: int = 0) -> torch.Tensor:
+    """``w`` (``[lead..., contract..., out...]``) with the same shape and
+    values, stored output-major: memory order ``[lead..., out...,
+    contract...]``, so each product's 2-D weight view ``[K, N]`` is
+    column-major. That is the int8 GEMM's native layout in cuBLASLt,
+    which ``torch._int_mm`` calls: with a row-major weight it reports
+    CUBLAS_STATUS_NOT_SUPPORTED at some shapes."""
+    n = w.dim()
+    c = range(lead_ndim, lead_ndim + contract_ndim)
+    o = range(lead_ndim + contract_ndim, n)
+    order = [*range(lead_ndim), *o, *c]
+    inverse = [order.index(i) for i in range(n)]
+    return w.permute(order).contiguous().permute(inverse)
+
+
+def quantize_weight(w: torch.Tensor, contract_ndim: int
+                    ) -> Dict[str, torch.Tensor]:
+    """Per-output-channel absmax int8. ``contract_ndim``: how many
+    LEADING dims the consuming product contracts; the rest are output
+    channels. Returns {"w": int8 like ``w`` (stored output-major,
+    :func:`int8_layout`), "s": float32 [out...]}."""
+    wf = w.float()
+    s = _scale(wf.abs().amax(dim=tuple(range(contract_ndim))))
+    return {"w": int8_layout(_to_int8(wf, s), contract_ndim), "s": s}
+
+
+# How many leading dims (after the layer dim) each block weight
+# contracts in its consuming product.
+QUANT_CONTRACT = {"wq": 1, "wk": 1, "wv": 1, "wo": 2,
+                  "w_gate": 1, "w_up": 1, "w_down": 1}
+
+
+@torch.no_grad()
+def quantize_block_weights(params: llama.Params) -> Dict[str, Dict]:
+    """int8 copies of the stacked per-layer matmul weights (the norms and
+    the embedding stay float), quantized one layer at a time on the
+    weights' device, so the float32 temporaries stay one layer's size."""
+    blocks = params["blocks"]
+    out = {}
+    for name, nd in QUANT_CONTRACT.items():
+        w = blocks[name]
+        L = w.shape[0]
+        q = int8_layout(torch.empty(w.shape, dtype=torch.int8,
+                                    device=w.device), nd, lead_ndim=1)
+        s = torch.empty((L,) + tuple(w.shape[1 + nd:]),
+                        dtype=torch.float32, device=w.device)
+        for i in range(L):
+            one = quantize_weight(w[i], nd)
+            q[i], s[i] = one["w"], one["s"]
+        out[name] = {"w": q, "s": s}
+    return out
+
+
+@torch.no_grad()
+def quantize_head(params: llama.Params, cfg: llama.LlamaConfig
+                  ) -> Dict[str, torch.Tensor]:
+    return quantize_weight(llama.lm_head(params, cfg), 1)
+
+
+def slim_params(params: llama.Params) -> llama.Params:
+    """Drop the float copies of quantized weights: blocks keep only the
+    norms; the head is the quantized one."""
+    return {
+        "embed": params["embed"],
+        "final_norm": params["final_norm"],
+        "blocks": {"ln1": params["blocks"]["ln1"],
+                   "ln2": params["blocks"]["ln2"]},
+    }
+
+
+@torch.no_grad()
+def random_quantized_params(cfg: llama.LlamaConfig, seed: int = 0,
+                            device: DeviceLike = None
+                            ) -> Tuple[llama.Params, QWeights]:
+    """(slim float params, qweights) with random int8 weights, drawn from
+    a ``torch.Generator`` on ``device`` without ever materializing the
+    float tree (the reference's recipe for an 8B benchmark). The
+    distributions are the reference's (int8 uniform in [-127, 127],
+    scales 0.02 / 127, embedding N(0, 0.02) in bfloat16); the draws are
+    torch's, not JAX's."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d, ff, v, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    def q(shape, out_ndim):
+        w = torch.randint(-127, 128, shape, generator=gen, device=device,
+                          dtype=torch.int8)
+        lead = 1 if len(shape) > out_ndim + 1 else 0       # layer dim
+        w = int8_layout(w, len(shape) - out_ndim - lead, lead)
+        return {"w": w, "s": torch.full(shape[:lead] + shape[-out_ndim:],
+                                        0.02 / 127.0, dtype=torch.float32,
+                                        device=device)}
+
+    blocks = {
+        "wq": q((L, d, nh, hd), 2),
+        "wk": q((L, d, nkv, hd), 2),
+        "wv": q((L, d, nkv, hd), 2),
+        "wo": q((L, nh, hd, d), 1),
+        "w_gate": q((L, d, ff), 1),
+        "w_up": q((L, d, ff), 1),
+        "w_down": q((L, ff, d), 1),
+    }
+    params = {
+        "embed": (torch.randn((v, d), generator=gen, device=device,
+                              dtype=torch.bfloat16) * 0.02),
+        "final_norm": torch.ones((d,), dtype=torch.float32, device=device),
+        "blocks": {"ln1": torch.ones((L, d), dtype=torch.float32,
+                                     device=device),
+                   "ln2": torch.ones((L, d), dtype=torch.float32,
+                                     device=device)},
+    }
+    return params, {"blocks": blocks, "head": q((d, v), 1)}
+
+
+def qweights_from_numpy(tree: Dict, device: DeviceLike = None
+                        ) -> QWeights:
+    """A JAX qweights tree (``{"blocks": {name: {"w", "s"}}, "head":
+    {"w", "s"}}`` of numpy arrays) -> the port's tensors: int8 values
+    (stored output-major, :func:`int8_layout`) and float32 scales, the
+    values copied one to one (the counterpart of ``models/llama.py``
+    ``params_from_numpy``)."""
+    device = resolve_device(device)
+
+    def conv(x, nd=None, lead=0):
+        t = torch.from_numpy(np.array(x)).to(device)
+        return t if nd is None else int8_layout(t, nd, lead)
+
+    blocks = {name: {"w": conv(qw["w"], QUANT_CONTRACT[name], 1),
+                     "s": conv(qw["s"])}
+              for name, qw in tree["blocks"].items()}
+    head = {"w": conv(tree["head"]["w"], 1), "s": conv(tree["head"]["s"])}
+    return {"blocks": blocks, "head": head}
+
+
+def qlayer_slice(qweights: Optional[QWeights], i: int) -> Optional[Dict]:
+    """Layer ``i`` of the stacked int8 block weights (views), or None."""
+    if qweights is None:
+        return None
+    return {name: {"w": qw["w"][i], "s": qw["s"][i]}
+            for name, qw in qweights["blocks"].items()}
+
+
+# The CUDA build of ``torch._int_mm`` takes more than 16 rows and K and N
+# that are multiples of 8.
+_INT_MM_MIN_ROWS = 17
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """s8 ``a`` [M, K] @ s8 ``b`` [K, N] -> s32 [M, N] through
+    ``torch._int_mm``, the one place the port calls it. Fewer than 17
+    rows are padded with zero rows (a zero row changes no other row: the
+    scales are per row) and sliced off; K and N must be multiples of 8
+    on every device, so a shape the card's build would refuse fails on
+    the CPU too. ``b`` is expected column-major (:func:`int8_layout`).
+    There is no float fallback."""
+    M, K = a.shape
+    if K % 8 or b.shape[1] % 8:
+        raise ValueError(f"int8_matmul: K={K} and N={b.shape[1]} must be "
+                         f"multiples of 8")
+    if M < _INT_MM_MIN_ROWS:
+        a = torch.cat([a, a.new_zeros((_INT_MM_MIN_ROWS - M, K))])
+    return torch._int_mm(a.contiguous(), b)[:M]
+
+
+def _act_quant(x: torch.Tensor, n_contract: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token int8: absmax over the TRAILING ``n_contract`` dims.
+    Returns (int8 like ``x``, float32 scales ``x.shape[:-n_contract]``)."""
+    xf = x.float()
+    dims = tuple(range(x.dim() - n_contract, x.dim()))
+    s = _scale(xf.abs().amax(dim=dims))
+    return _to_int8(xf, s[(...,) + (None,) * n_contract]), s
+
+
+def qeinsum(x: torch.Tensor, qw: Dict[str, torch.Tensor], n_contract: int,
+            out_dtype) -> torch.Tensor:
+    """w8a8 product: x's trailing ``n_contract`` dims against the int8
+    weight's leading ones (the reference's ``bsd,dhk->bshk``,
+    ``bshk,hkd->bsd``, ``bsd,df->bsf``, ``d,dv->v`` ... all have that
+    form), as one :func:`int8_matmul` over 2-D views. The int32
+    accumulator widens to float32 and is multiplied by the scale product
+    ``sx (x) s``, formed first, then cast: the reference's order, and so
+    its bits."""
+    xq, sx = _act_quant(x, n_contract)
+    w, s = qw["w"], qw["s"]
+    lead = x.shape[:x.dim() - n_contract]
+    out = w.shape[n_contract:]
+    k = math.prod(w.shape[:n_contract])
+    acc = int8_matmul(xq.reshape(-1, k), w.reshape(k, -1))
+    acc = acc.reshape(*lead, *out).float()
+    scale = sx[(...,) + (None,) * s.dim()] * s
+    return (acc * scale).to(out_dtype)
+
+
+def proj(x: torch.Tensor, layer: Dict, qlayer: Optional[Dict], name: str,
+         n_contract: int, dtype) -> torch.Tensor:
+    """One weight product: w8a8 (:func:`qeinsum`) when ``qlayer`` holds
+    the weights, else x's trailing ``n_contract`` dims against
+    ``layer[name]`` in ``dtype``. Prefill and decode share it, so a w8a8
+    engine needs no float copy of the block matrices."""
+    if qlayer is not None:
+        return qeinsum(x, qlayer[name], n_contract, dtype)
+    w = layer[name].to(dtype)
+    lead = x.shape[:x.dim() - n_contract]
+    k = math.prod(w.shape[:n_contract])
+    y = x.reshape(*lead, k) @ w.reshape(k, -1)
+    return y.reshape(*lead, *w.shape[n_contract:])
+
+
+def _head(cfg: llama.LlamaConfig, params: llama.Params,
+          qweights: Optional[QWeights], x: torch.Tensor) -> torch.Tensor:
+    """LM head on final-norm hidden states [..., D] -> float32 logits:
+    w8a8 with ``qweights``, else :func:`llama.logits`."""
+    if qweights is not None:
+        return qeinsum(x, qweights["head"], 1, torch.float32)
+    return llama.logits(x, params, cfg)
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., G, hd] -> (int8 values, float32 [..., G] absmax scales)."""
+    xf = x.float()
+    s = _scale(xf.abs().amax(dim=-1))
+    return _to_int8(xf, s[..., None]), s
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    return (q.float() * scale.float()[..., None]).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -60,19 +326,31 @@ def _ffn(cfg: llama.LlamaConfig, h: torch.Tensor, layer: Dict
 # ---------------------------------------------------------------------------
 
 def init_paged_cache(cfg: llama.LlamaConfig, n_slots: int, n_blocks: int,
-                     block_len: int, device: torch.device) -> Cache:
+                     block_len: int, device: torch.device,
+                     kv_int8: bool = False) -> Cache:
     """Block-pool decode state: ``n_blocks`` physical blocks of
     ``block_len`` rows shared by ``n_slots`` slots, plus the trash
-    block (id ``n_blocks``) that sentinel writes land in."""
+    block (id ``n_blocks``) that sentinel writes land in. ``kv_int8``:
+    int8 pools with bfloat16 scales ``[L, n_blocks + 1, G, block_len]``
+    (the row dim last, as the reference lays them out and the kernel
+    reads them), whatever ``cfg.dtype`` is."""
     L, G, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     shape = (L, n_blocks + 1, block_len, G, hd)
-    return {
+    kdt = torch.int8 if kv_int8 else cfg.dtype
+    cache = {
         "length": torch.zeros((n_slots,), dtype=torch.int32, device=device),
         "last_token": torch.zeros((n_slots,), dtype=torch.long,
                                   device=device),
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "k": torch.zeros(shape, dtype=kdt, device=device),
+        "v": torch.zeros(shape, dtype=kdt, device=device),
     }
+    if kv_int8:
+        sshape = (L, n_blocks + 1, G, block_len)
+        cache["k_scale"] = torch.zeros(sshape, dtype=torch.bfloat16,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(sshape, dtype=torch.bfloat16,
+                                       device=device)
+    return cache
 
 
 class BlockAllocator:
@@ -131,13 +409,14 @@ class BlockAllocator:
 
 @torch.no_grad()
 def copy_block(cache: Cache, src: int, dst: int) -> None:
-    """Copy-on-write (in place): duplicate physical block ``src``'s rows
-    into block ``dst`` in every layer of every cache array. All
-    ``block_len`` rows copy; rows past the shared prefix are garbage in
-    both blocks and stay unreadable until the new owner overwrites
+    """Copy-on-write (in place): duplicate physical block ``src``'s rows,
+    and on an int8 cache their scales, into block ``dst`` in every layer.
+    All ``block_len`` rows copy; rows past the shared prefix are garbage
+    in both blocks and stay unreadable until the new owner overwrites
     them."""
-    for name in ("k", "v"):
-        cache[name][:, dst] = cache[name][:, src]
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in cache:
+            cache[name][:, dst] = cache[name][:, src]
 
 
 def _logical_rows(cache: Cache, table: torch.Tensor) -> int:
@@ -156,12 +435,36 @@ def _phys(cache: Cache, table: torch.Tensor, slots, idx: torch.Tensor
     return table[slots, col].long(), idx % bl
 
 
+Rows = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+             Optional[torch.Tensor]]
+
+
+def _stored_rows(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Rows:
+    """K/V rows ``[..., G, hd]`` in the cache's storage: ``(k, v, k_scale,
+    v_scale)``, int8 values with bfloat16 scales ``[..., G]`` on an int8
+    cache (:func:`quantize_rows`), the pool's dtype and no scales on a
+    float one."""
+    if "k_scale" not in cache:
+        return k.to(cache["k"].dtype), v.to(cache["v"].dtype), None, None
+    sdt = cache["k_scale"].dtype
+    kq, ks = quantize_rows(k)
+    vq, vs = quantize_rows(v)
+    return kq, vq, ks.to(sdt), vs.to(sdt)
+
+
 def _write_rows(cache: Cache, blk: torch.Tensor, off: torch.Tensor,
-                k_rows: torch.Tensor, v_rows: torch.Tensor) -> None:
-    """In-place scatter of every layer's rows: ``k_rows``/``v_rows``
-    ``[L, *blk.shape, G, hd]`` land at ``[:, blk, off]``."""
-    cache["k"][:, blk, off] = k_rows.to(cache["k"].dtype)
-    cache["v"][:, blk, off] = v_rows.to(cache["v"].dtype)
+                rows: Rows) -> None:
+    """In-place scatter of every layer's stored rows (:func:`_stored_rows`):
+    k/v ``[L, *blk.shape, G, hd]`` land at ``[:, blk, off]``, scales
+    ``[L, *blk.shape, G]`` at ``[:, blk, :, off]``."""
+    k, v, ks, vs = rows
+    cache["k"][:, blk, off] = k
+    cache["v"][:, blk, off] = v
+    if ks is not None:
+        # Non-adjacent advanced indices put the broadcast dims first:
+        # the update is [*blk.shape, L, G].
+        cache["k_scale"][:, blk, :, off] = ks.movedim(0, -2)
+        cache["v_scale"][:, blk, :, off] = vs.movedim(0, -2)
 
 
 def _paged_attn_stats(cache: Cache, i: int, table: torch.Tensor,
@@ -169,14 +472,15 @@ def _paged_attn_stats(cache: Cache, i: int, table: torch.Tensor,
                       span: Optional[int], plain: bool = False):
     """Big-cache attention stats of layer ``i`` through the paged
     kernel: per (slot, kv-head) it walks the slot's block table over
-    ``ceil(span / block_len)`` blocks and masks ``col < lengths``.
-    Returns the unnormalized ``(acc, m, l)`` for
-    :func:`_merge_attn_parts`."""
+    ``ceil(span / block_len)`` blocks and masks ``col < lengths``; on an
+    int8 cache it folds the rows' scales in. Returns the unnormalized
+    ``(acc, m, l)`` for :func:`_merge_attn_parts`."""
     bl = cache["k"].shape[2]
     M = span if span is not None else _logical_rows(cache, table)
     fn = (paged_attn_ops.paged_attention_ref if plain
           else paged_attn_ops.paged_attention)
-    return fn(qh, cache["k"], cache["v"], None, None, table, lengths, i,
+    return fn(qh, cache["k"], cache["v"], cache.get("k_scale"),
+              cache.get("v_scale"), table, lengths, i,
               span_blocks=-(-M // bl))
 
 
@@ -208,7 +512,8 @@ def _bf16_dot(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def prefill_batch(params: llama.Params, tokens: torch.Tensor,
                   true_lens: torch.Tensor, cfg: llama.LlamaConfig,
-                  plain_attention: bool = False
+                  plain_attention: bool = False,
+                  qweights: Optional[QWeights] = None
                   ) -> Tuple[Cache, torch.Tensor]:
     """Causal forward over a WAVE of right-padded prompts.
 
@@ -216,8 +521,10 @@ def prefill_batch(params: llama.Params, tokens: torch.Tensor,
     [L, W, S_bucket, G, hd] post-rope rows, logits at each request's
     last real position [W, vocab] float32). Attention is the flash
     kernel (``ops/attention.py``), or with ``plain_attention`` its
-    plain version."""
-    attention = None
+    plain version. With ``qweights`` the block products and the head
+    run w8a8, so ``params`` may be the slim tree (embedding and norms
+    only)."""
+    attention = attn_ops.gqa_attention
     if plain_attention:
         def attention(q, k, v):
             return flash_ops.flash_attention_fwd_ref(q, k, v)[0]
@@ -227,14 +534,16 @@ def prefill_batch(params: llama.Params, tokens: torch.Tensor,
         cfg, torch.arange(S, device=tokens.device))
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, k, v = llama.decoder_layer(cfg, x, llama.layer_slice(params, i),
-                                      cos, sin, attention)
+        layer = llama.layer_slice(params, i)
+        qlayer = qlayer_slice(qweights, i)
+        q, k, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin)
+        x = _decode_out_ffn(cfg, layer, qlayer, x, attention(q, k, v))
         ks.append(k)
         vs.append(v)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = x[torch.arange(W, device=x.device), true_lens.long() - 1]
     return ({"k": torch.stack(ks), "v": torch.stack(vs)},
-            llama.logits(last, params, cfg))
+            _head(cfg, params, qweights, last))
 
 
 @torch.no_grad()
@@ -243,13 +552,14 @@ def insert(cache: Cache, prefix: Cache, slot: int, true_len,
     """Install a prefilled prompt into decode slot ``slot`` (in place).
 
     prefix k/v: [L, S_bucket, G, hd]; the rows scatter through the
-    slot's block table. Rows >= true_len are padding but harmless —
-    decode masks by ``length``; rows past the slot's allocation land
-    in the trash block."""
+    slot's block table, quantized first on an int8 cache. Rows >=
+    true_len are padding but harmless — decode masks by ``length``; rows
+    past the slot's allocation land in the trash block."""
     S = prefix["k"].shape[1]
     blk, off = _phys(cache, table, slot,
                      torch.arange(S, device=prefix["k"].device))
-    _write_rows(cache, blk, off, prefix["k"], prefix["v"])
+    _write_rows(cache, blk, off,
+                _stored_rows(cache, prefix["k"], prefix["v"]))
     cache["length"][slot] = true_len
     cache["last_token"][slot] = first_token
 
@@ -275,7 +585,8 @@ def prefill_chunk(params: llama.Params, cache: Cache,
                   sp: sampling_mod.SamplingParams, table: torch.Tensor, *,
                   final: bool, span: Optional[int] = None,
                   generator: Optional[torch.Generator] = None,
-                  plain_attention: bool = False) -> torch.Tensor:
+                  plain_attention: bool = False,
+                  qweights: Optional[QWeights] = None) -> torch.Tensor:
     """One chunk of an incremental prefill into decode slot ``slot``.
 
     tokens_c: [C] right-padded chunk; ``start``: the chunk's first row
@@ -288,9 +599,12 @@ def prefill_chunk(params: llama.Params, cache: Cache,
     the causal intra-chunk block, which stays a plain bf16 product as
     the JAX program leaves it to XLA. The chunk's rows then scatter
     through the table (rows past max_len land in the trash block) and
-    ``length`` is stamped, in place. Returns the first token sampled
-    at the last valid position on the ``final`` chunk, else 0 (device
-    tensors)."""
+    ``length`` is stamped, in place. On an int8 cache the big-cache read
+    folds the stored rows' scales in, the intra-chunk block scores the
+    chunk's own unquantized rows (as the reference does), and the rows
+    are quantized as they are written. ``qweights``: w8a8 products and
+    head. Returns the first token sampled at the last valid position on
+    the ``final`` chunk, else 0 (device tensors)."""
     C = tokens_c.shape[0]
     G, hd = cfg.n_kv_heads, cfg.head_dim
     rep = cfg.n_heads // G
@@ -309,7 +623,8 @@ def prefill_chunk(params: llama.Params, cache: Cache,
     ks, vs = [], []
     for i in range(cfg.n_layers):
         layer = llama.layer_slice(params, i)
-        q, k, v = _decode_qkv(cfg, layer, x, cos, sin)
+        qlayer = qlayer_slice(qweights, i)
+        q, k, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin)
         kr, vr = k[0], v[0]                                    # [C, G, hd]
         ks.append(kr)
         vs.append(vr)
@@ -326,15 +641,16 @@ def prefill_chunk(params: llama.Params, cache: Cache,
         l = l.reshape(G, C, rep).permute(1, 0, 2)
         alpha, w_s, l_tot = _merge_attn_parts(acc, m, l, ss)
         o = acc * alpha[..., None] + _bf16_dot("cgrj,jgk->cgrk", w_s, vr)
-        x = _decode_out_ffn(cfg, layer, x, o / l_tot[..., None])
+        x = _decode_out_ffn(cfg, layer, qlayer, x, o / l_tot[..., None])
     if final:
         x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = llama.logits(x[:, n_valid - 1], params, cfg)
+        logits = _head(cfg, params, qweights, x[:, n_valid - 1])
         tok = sampling_mod.sample(logits, sp, generator)[0]
     else:
         tok = torch.zeros((), dtype=torch.long, device=dev)
     blk, off = _phys(cache, table, slot, start + j)
-    _write_rows(cache, blk, off, torch.stack(ks), torch.stack(vs))
+    _write_rows(cache, blk, off,
+                _stored_rows(cache, torch.stack(ks), torch.stack(vs)))
     cache["length"][slot] = new_len
     if final:
         cache["last_token"][slot] = tok
@@ -345,75 +661,140 @@ def prefill_chunk(params: llama.Params, cache: Cache,
 # Decode
 # ---------------------------------------------------------------------------
 
-def _decode_qkv(cfg, layer, x, cos, sin):
-    """Decode-layer front half: norm + q/k/v projections + rope."""
+def _decode_qkv(cfg, layer, qlayer, x, cos, sin):
+    """Layer front half: norm + q/k/v projections (w8a8 with ``qlayer``)
+    + rope. x: [B, S, D]."""
+    dt = cfg.dtype
     h = llama.rms_norm(x, layer["ln1"], cfg.norm_eps)
-    q = llama.apply_rope(llama.project_in(h, layer["wq"].to(cfg.dtype)),
-                         cos, sin)
-    k = llama.apply_rope(llama.project_in(h, layer["wk"].to(cfg.dtype)),
-                         cos, sin)
-    v = llama.project_in(h, layer["wv"].to(cfg.dtype))
+    q = llama.apply_rope(proj(h, layer, qlayer, "wq", 1, dt), cos, sin)
+    k = llama.apply_rope(proj(h, layer, qlayer, "wk", 1, dt), cos, sin)
+    v = proj(h, layer, qlayer, "wv", 1, dt)
     return q, k, v
 
 
-def _decode_out_ffn(cfg, layer, x, o):
-    """Layer back half: output projection + residual + FFN. x: [B, S,
-    D]; o: the attention output, B * S rows of every head."""
-    o = o.reshape(*x.shape[:2], cfg.n_heads, cfg.head_dim).to(cfg.dtype)
-    x = x + llama.project_out(o, layer["wo"].to(cfg.dtype))
+def _decode_out_ffn(cfg, layer, qlayer, x, o):
+    """Layer back half: output projection + residual + dense SwiGLU FFN
+    (w8a8 with ``qlayer``). x: [B, S, D]; o: the attention output, B * S
+    rows of every head."""
+    dt = cfg.dtype
+    o = o.reshape(*x.shape[:2], cfg.n_heads, cfg.head_dim).to(dt)
+    x = x + proj(o, layer, qlayer, "wo", 2, dt)
     h = llama.rms_norm(x, layer["ln2"], cfg.norm_eps)
-    return x + _ffn(cfg, h, layer)
+    g = proj(h, layer, qlayer, "w_gate", 1, dt)
+    u = proj(h, layer, qlayer, "w_up", 1, dt)
+    return x + proj(F.silu(g) * u, layer, qlayer, "w_down", 1, dt)
 
 
-def _decode_head(cfg, params, x):
+def _decode_head(cfg, params, qweights, x):
     """Final norm + LM head: x [B, 1, D] -> logits [B, vocab] float32."""
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return llama.logits(x[:, 0], params, cfg)
+    return _head(cfg, params, qweights, x[:, 0])
 
 
-def _staged_attn_layer(cfg, cache, table, layer, x, cos, sin, i, s, sk,
-                       sv, stage_valid, span, pos0, plain=False):
-    """One decoder layer of a staged-burst step: the step's K/V rows
-    land in the staging buffers ``sk``/``sv`` [L, B, k, G, hd] (in
+def _staged_attn_layer(cfg, cache, table, layer, qlayer, x, cos, sin, i,
+                       s, stage, stage_valid, span, pos0, plain=False):
+    """One decoder layer of a staged-burst step: the step's K/V rows land
+    in the staging buffers ``stage = (sk, sv, sks, svs)`` ([L, B, k, G,
+    hd], and on an int8 cache int8 with bfloat16 scales [L, B, k, G]; in
     place), attention runs as the big-cache stats of the paged kernel
     (rows below the burst-start lengths ``pos0``, ``span``-bounded)
     merged with the staged-columns dot (columns masked by
-    ``stage_valid``), and the big cache stays untouched. The one body
-    the burst and the verify round run (:func:`decode_burst_staged`,
-    :func:`verify_draft_staged`), as ``kvcache.py:1307-1331`` of the JAX
-    package asks of its burst and verify programs, so an accepted verify
-    position sees the inputs a plain decode step would. Returns x'."""
+    ``stage_valid``), and the big cache stays untouched. On an int8
+    cache the staged columns are quantized too: their K scales multiply
+    the staged scores before the mask, their V scales the staged weights
+    after the merge. The one body the burst and the verify round run
+    (:func:`decode_burst_staged`, :func:`verify_draft_staged`), as
+    ``kvcache.py:1307-1331`` of the JAX package asks of its burst and
+    verify programs, so an accepted verify position sees the inputs a
+    plain decode step would. Returns x'."""
     B = x.shape[0]
     G, hd = cfg.n_kv_heads, cfg.head_dim
     rep = cfg.n_heads // G
     scale = hd ** -0.5
-    q, kk, v = _decode_qkv(cfg, layer, x, cos, sin)
-    sk[i, :, s] = kk[:, 0].to(sk.dtype)
-    sv[i, :, s] = v[:, 0].to(sv.dtype)
+    sk, sv, sks, svs = stage
+    q, kk, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin)
+    kq, vq, ksc, vsc = _stored_rows(cache, kk[:, 0], v[:, 0])
+    sk[i, :, s] = kq
+    sv[i, :, s] = vq
+    if sks is not None:
+        sks[i, :, s] = ksc
+        svs[i, :, s] = vsc
     lk, lv = sk[i], sv[i]                              # [B, k, G, hd]
     qh = q[:, 0].reshape(B, G, rep, hd).to(torch.bfloat16).contiguous()
     ss = _bf16_dot("bgrk,bjgk->bgrj", qh, lk) * scale
+    if sks is not None:
+        ss = ss * sks[i].transpose(1, 2)[:, :, None, :].float()
     ss = ss.masked_fill(~stage_valid[:, None, None, :], NEG_INF)
     acc, m, l = _paged_attn_stats(cache, i, table, qh, pos0, span, plain)
     alpha, w_s, l_tot = _merge_attn_parts(acc, m, l, ss)
+    if svs is not None:
+        w_s = w_s * svs[i].transpose(1, 2)[:, :, None, :].float()
     o = acc * alpha[..., None] + _bf16_dot("bgrj,bjgk->bgrk", w_s, lv)
     o = o / l_tot[..., None]
-    return _decode_out_ffn(cfg, layer, x, o)
+    return _decode_out_ffn(cfg, layer, qlayer, x, o)
+
+
+def _staging(cache: Cache, B: int, W: int):
+    """Zeroed staging buffers for ``W`` rows of ``B`` slots in every
+    layer, in the cache's storage: (k, v, k_scale, v_scale), the scales
+    None on a float cache."""
+    L, _, _, G, hd = cache["k"].shape
+    dev = cache["k"].device
+    sk = torch.zeros((L, B, W, G, hd), dtype=cache["k"].dtype, device=dev)
+    if "k_scale" not in cache:
+        return sk, torch.zeros_like(sk), None, None
+    sks = torch.zeros((L, B, W, G), dtype=cache["k_scale"].dtype,
+                      device=dev)
+    return sk, torch.zeros_like(sk), sks, torch.zeros_like(sks)
 
 
 def _flush_staged_rows(cache: Cache, table: torch.Tensor,
-                       pos0: torch.Tensor, sk: torch.Tensor,
-                       sv: torch.Tensor) -> None:
-    """One scatter per cache array: every staged row lands at logical
-    [b, pos0[b] + j] through the block table (rows of dead slots or past
-    an allocation land in the trash block). The caller updates
+                       pos0: torch.Tensor, stage: Rows) -> None:
+    """One scatter per cache array: every staged row (and scale) lands at
+    logical [b, pos0[b] + j] through the block table (rows of dead slots
+    or past an allocation land in the trash block). The caller updates
     length/last_token."""
-    B, W = sk.shape[1], sk.shape[2]
+    B, W = stage[0].shape[1], stage[0].shape[2]
     dev = pos0.device
     idx = pos0.long()[:, None] + torch.arange(W, device=dev)[None, :]
     blk, off = _phys(cache, table,
                      torch.arange(B, device=dev)[:, None], idx)
-    _write_rows(cache, blk, off, sk, sv)
+    _write_rows(cache, blk, off, stage)
+
+
+def _staged_step(cfg, params, qweights, layers, qlayers, cache, table, tok,
+                 pos0, s, stage, stage_valid, span, plain):
+    """Step ``s`` of a staged burst or verify round: ``tok`` [B] enters at
+    row ``pos0 + s`` of every slot through every layer
+    (:func:`_staged_attn_layer`, ``layers``/``qlayers`` the per-layer
+    slices). Returns the logits [B, vocab] float32."""
+    x = params["embed"][tok].to(cfg.dtype)[:, None]
+    cos, sin = llama.rope_frequencies(cfg, (pos0 + s)[:, None])
+    for i in range(cfg.n_layers):
+        x = _staged_attn_layer(cfg, cache, table, layers[i], qlayers[i], x,
+                               cos, sin, i, s, stage, stage_valid, span,
+                               pos0, plain)
+    return _decode_head(cfg, params, qweights, x)
+
+
+@torch.no_grad()
+def step_logits(params: llama.Params, cache: Cache, cfg: llama.LlamaConfig,
+                table: torch.Tensor, span: Optional[int] = None,
+                plain_attention: bool = False,
+                qweights: Optional[QWeights] = None) -> torch.Tensor:
+    """The logits [slots, vocab] of the next decode step of every slot
+    (its ``last_token`` at row ``length``), as a staged burst computes
+    them, without writing the cache: the logits the engine's next token
+    is read from."""
+    B = cache["length"].shape[0]
+    pos0 = cache["length"].clone()
+    valid = torch.ones((1, 1), dtype=torch.bool, device=pos0.device)
+    layers = range(cfg.n_layers)
+    return _staged_step(
+        cfg, params, qweights, [llama.layer_slice(params, i) for i in layers],
+        [qlayer_slice(qweights, i) for i in layers], cache, table,
+        cache["last_token"], pos0, 0, _staging(cache, B, 1), valid, span,
+        plain_attention)
 
 
 @torch.no_grad()
@@ -423,44 +804,40 @@ def decode_burst_staged(params: llama.Params, cache: Cache,
                         sp: sampling_mod.SamplingParams,
                         table: torch.Tensor, span: Optional[int] = None,
                         generator: Optional[torch.Generator] = None,
-                        plain_attention: bool = False) -> torch.Tensor:
+                        plain_attention: bool = False,
+                        qweights: Optional[QWeights] = None
+                        ) -> torch.Tensor:
     """k decode steps with one cache flush per burst. Returns the
     sampled tokens [k, slots]; the cache is updated in place (rows,
     ``length += k`` on active slots, ``last_token``).
 
     Within the burst each step's K/V rows land in a small staging
-    buffer [L, slots, k, G, hd] and attention runs as big-cache stats
-    (rows below the burst-start lengths, a constant mask) merged with
-    the staged columns (cols <= step), so the big cache is read-only
-    until the flush. Inactive slots compute rows that are never
-    committed. ``span``: the big-cache read covers the first ``span``
-    logical rows — valid whenever every active slot's burst-start
-    length is at most ``span``."""
+    buffer [L, slots, k, G, hd] (int8 with scales on an int8 cache) and
+    attention runs as big-cache stats (rows below the burst-start
+    lengths, a constant mask) merged with the staged columns (cols <=
+    step), so the big cache is read-only until the flush. Inactive
+    slots compute rows that are never committed. ``span``: the big-cache
+    read covers the first ``span`` logical rows — valid whenever every
+    active slot's burst-start length is at most ``span``. ``qweights``:
+    w8a8 products and head."""
     B = cache["length"].shape[0]
-    L, G, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    L = cfg.n_layers
     dev = cache["k"].device
-    kdt = cache["k"].dtype
     pos0 = cache["length"].clone()                     # burst-start rows
-    stage_k = torch.zeros((L, B, k, G, hd), dtype=kdt, device=dev)
-    stage_v = torch.zeros_like(stage_k)
+    stage = _staging(cache, B, k)
     last = cache["last_token"].clone()
-    embed = params["embed"].to(cfg.dtype)
     layers = [llama.layer_slice(params, i) for i in range(L)]
+    qlayers = [qlayer_slice(qweights, i) for i in range(L)]
     toks = []
     for s in range(k):
-        x = embed[last][:, None]
-        cos, sin = llama.rope_frequencies(cfg, (pos0 + s)[:, None])
         stage_valid = (torch.arange(k, device=dev) <= s)[None, :]
-        for i in range(L):
-            x = _staged_attn_layer(cfg, cache, table, layers[i], x, cos,
-                                   sin, i, s, stage_k, stage_v,
-                                   stage_valid, span, pos0,
-                                   plain_attention)
-        tok = sampling_mod.sample(_decode_head(cfg, params, x), sp,
-                                  generator)
+        logits = _staged_step(cfg, params, qweights, layers, qlayers, cache,
+                              table, last, pos0, s, stage, stage_valid,
+                              span, plain_attention)
+        tok = sampling_mod.sample(logits, sp, generator)
         last = torch.where(active, tok, last)
         toks.append(tok)
-    _flush_staged_rows(cache, table, pos0, stage_k, stage_v)
+    _flush_staged_rows(cache, table, pos0, stage)
     cache["length"] += k * active.to(torch.int32)
     cache["last_token"].copy_(last)
     return torch.stack(toks)
@@ -472,7 +849,8 @@ def verify_draft_staged(params: llama.Params, cache: Cache,
                         active: torch.Tensor, k: int,
                         cfg: llama.LlamaConfig, table: torch.Tensor,
                         span: Optional[int] = None,
-                        plain_attention: bool = False
+                        plain_attention: bool = False,
+                        qweights: Optional[QWeights] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Speculative verify: score ``k`` drafted tokens per slot plus the
     correction position in one call; the cache is updated in place.
@@ -499,27 +877,20 @@ def verify_draft_staged(params: llama.Params, cache: Cache,
     ``n_commit[b]`` of row b are committed; n_commit [B] int32)."""
     B = cache["length"].shape[0]
     W = k + 1
-    L, G, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    L = cfg.n_layers
     dev = cache["k"].device
-    kdt = cache["k"].dtype
     pos0 = cache["length"].clone()                     # round-start rows
     window = torch.cat([cache["last_token"][:, None], draft.long()], dim=1)
-    stage_k = torch.zeros((L, B, W, G, hd), dtype=kdt, device=dev)
-    stage_v = torch.zeros_like(stage_k)
-    embed = params["embed"].to(cfg.dtype)
+    stage = _staging(cache, B, W)
     layers = [llama.layer_slice(params, i) for i in range(L)]
+    qlayers = [qlayer_slice(qweights, i) for i in range(L)]
     toks = []
     for s in range(W):
-        x = embed[window[:, s]][:, None]
-        cos, sin = llama.rope_frequencies(cfg, (pos0 + s)[:, None])
         stage_valid = (torch.arange(W, device=dev) <= s)[None, :]
-        for i in range(L):
-            x = _staged_attn_layer(cfg, cache, table, layers[i], x, cos,
-                                   sin, i, s, stage_k, stage_v,
-                                   stage_valid, span, pos0,
-                                   plain_attention)
-        toks.append(sampling_mod.argmax_tokens(
-            _decode_head(cfg, params, x)))
+        toks.append(sampling_mod.argmax_tokens(_staged_step(
+            cfg, params, qweights, layers, qlayers, cache, table,
+            window[:, s], pos0, s, stage, stage_valid, span,
+            plain_attention)))
     toks = torch.stack(toks, dim=1)                    # [B, W]
     # Padding positions (>= n_draft) never match: a pad that equals the
     # argmax must not commit a token computed from a garbage input.
@@ -529,7 +900,7 @@ def verify_draft_staged(params: llama.Params, cache: Cache,
     n_match = match.int().cumprod(dim=1).sum(dim=1)
     n_commit = torch.where(active, n_match + 1,
                            torch.zeros_like(n_match)).int()
-    _flush_staged_rows(cache, table, pos0, stage_k, stage_v)
+    _flush_staged_rows(cache, table, pos0, stage)
     cache["length"] += n_commit
     last = toks[torch.arange(B, device=dev), n_match.long()]
     cache["last_token"].copy_(torch.where(active, last,

@@ -23,9 +23,13 @@ cache of ``--prefix-pool`` (8) shared prompt prefixes (trailer:
 ``cache_hit``, ``cached_tokens``) and n-gram speculation at ``--spec-k``
 (4) draft tokens (trailer: ``spec_drafted``, ``spec_accepted``,
 ``drafter``); ``SKYTPU_PREFIX_POOL`` and ``SKYTPU_SPEC_K`` set the
-defaults, the flags win.
+defaults, the flags win. ``--kv-int8 --weights-int8`` serve the
+reference's int8 recipe (``llm/serve-8b-w8a8.yaml``): an int8 KV cache
+and w8a8 weights.
 
     python -m skypilot_tpu_torch.infer.server --config llama3-8b
+    python -m skypilot_tpu_torch.infer.server --config llama3-8b \
+        --kv-int8 --weights-int8
 
 serves greedy decoding on the CUDA card (``--device cpu`` runs the
 plain PyTorch versions on the CPU).
@@ -394,14 +398,18 @@ def serve(engine: eng.InferenceEngine, host: str = "0.0.0.0",
 def make_engine(config: str, slots: int = 16, max_len: int = 1024,
                 admit_wave: int = 8, kv_block: int = 256,
                 prefill_chunk: int = 512, prefix_pool: int = 8,
-                spec_k: int = 4, device: DeviceLike = None,
+                spec_k: int = 4, kv_int8: bool = False,
+                weights_int8: bool = False, device: DeviceLike = None,
                 seed: int = 0) -> eng.InferenceEngine:
     """The serving engine ``main()`` runs: ``config``'s model with
     random weights drawn in ``cfg.dtype`` on ``device`` from ``seed``,
     greedy decoding, paged KV, prompt buckets (128, 512, max_len),
     chunked prefill above ``prefill_chunk`` tokens, a prefix cache of
     ``prefix_pool`` entries and ``spec_k``-token n-gram speculation (0
-    disables each), the reference server's defaults."""
+    disables each), the reference server's defaults. ``kv_int8``: an
+    int8 KV cache; ``weights_int8``: w8a8 weights, quantized once on
+    ``device`` from the drawn weights, whose float copies are then
+    dropped."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[config]
     gen = torch.Generator(device=dev)
@@ -409,11 +417,16 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
     params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
     buckets = tuple(sorted({min(128, max_len), min(512, max_len),
                             max_len}))
-    return eng.InferenceEngine(
+    engine = eng.InferenceEngine(
         params, cfg, n_slots=slots, max_len=max_len,
         prompt_buckets=buckets, max_wave=admit_wave, kv_block=kv_block,
         prefill_chunk=prefill_chunk, prefix_pool=prefix_pool,
-        spec_k=spec_k, device=dev, seed=seed)
+        spec_k=spec_k, kv_int8=kv_int8, weights_int8=weights_int8,
+        device=dev, seed=seed)
+    # Under weights_int8 the engine keeps only the slim tree; this
+    # reference must go too, or the float block matrices stay resident.
+    del params
+    return engine
 
 
 def main(argv=None) -> None:
@@ -445,6 +458,12 @@ def main(argv=None) -> None:
                     help="speculative decoding: n-gram draft tokens per "
                          "slot verified in one round (0 = off; default "
                          "env SKYTPU_SPEC_K or 4)")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="int8 KV cache: int8 rows with a bfloat16 scale "
+                         "per row and kv-head")
+    ap.add_argument("--weights-int8", action="store_true",
+                    help="w8a8: int8 block matrices and head, int8 "
+                         "activations per token")
     ap.add_argument("--device", default=None,
                     help="cuda (the default, the card) or cpu")
     args = ap.parse_args(argv)
@@ -453,7 +472,8 @@ def main(argv=None) -> None:
                          kv_block=args.kv_block,
                          prefill_chunk=args.prefill_chunk,
                          prefix_pool=args.prefix_pool,
-                         spec_k=args.spec_k, device=args.device)
+                         spec_k=args.spec_k, kv_int8=args.kv_int8,
+                         weights_int8=args.weights_int8, device=args.device)
     model, httpd = serve(engine, port=args.port, max_burst=args.max_burst)
     print(json.dumps({"event": "server.listening", "port": args.port,
                       "device": str(engine.device)}), file=sys.stderr,

@@ -793,6 +793,37 @@ def _first_divergence(params, cfg, dev, prompt, got, want):
     return None, None
 
 
+def _int8_plain_logits(params, qweights, cfg, dev, ctx, bl=256):
+    """The plain path's logits after ``ctx`` as an int8 KV engine's decode
+    reads them: ``ctx[:-1]`` prefilled and inserted (quantized) into a
+    one-slot int8 cache, then ``kvcache.step_logits`` for ``ctx[-1]``."""
+    n, nb = len(ctx) - 1, -(-len(ctx) // bl)
+    cache = tkv.init_paged_cache(cfg, 1, nb, bl, dev, kv_int8=True)
+    table = torch.arange(nb + 1, dtype=torch.int32, device=dev)[None]
+    prefix, _ = tkv.prefill_batch(
+        params, torch.tensor([ctx[:-1]], device=dev),
+        torch.tensor([n], device=dev), cfg, plain_attention=True,
+        qweights=qweights)
+    tkv.insert(cache, {k: prefix[k][:, 0] for k in ("k", "v")}, 0, n,
+               ctx[-1], table)
+    return tkv.step_logits(params, cache, cfg, table, plain_attention=True,
+                           qweights=qweights)
+
+
+def _plain_gap(params, qweights, cfg, dev, ctx):
+    """The int8 KV plain path's top-2 logit gap after ``ctx`` and its
+    noise floor: 0 on float weights; on w8a8 ones the logits' largest
+    shift when the embedding moves by two float32 ulps (w8a8 rounds every
+    projection's activations to int8, so noise of summation-order size
+    flips some roundings and moves its logits by this much)."""
+    out = [_int8_plain_logits(dict(params, embed=params["embed"] * s),
+                              qweights, cfg, dev, ctx)
+           for s in ((1.0, 1 + 2.0 ** -22) if qweights else (1.0,))]
+    top2 = out[0][0].topk(2).values
+    noise = (out[-1] - out[0]).abs().max().item()
+    return (top2[0] - top2[1]).item(), noise
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -914,3 +945,162 @@ def test_engine_spec_and_prefix_on_card(monkeypatch):
     e.clear_prefix_cache()
     assert warm == e.generate([pb], max_new_tokens=16)[0]
     assert not plain_calls
+
+
+# -- the int8 recipe on the card --------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,k,n", [(16, 4096, 14336), (16, 14336, 4096),
+                                      (16, 4096, 1024), (1, 4096, 128256),
+                                      (17, 4096, 4096), (32, 4096, 6144),
+                                      (3, 128, 64), (512, 256, 512)],
+                         ids=["decode-gate", "decode-down", "decode-kv",
+                              "head-1row", "17rows", "32rows", "tiny-kv",
+                              "tiny-chunk"])
+def test_int8_matmul_on_card_is_exact(rows, k, n):
+    """``torch._int_mm`` through the port's padding helper at llama3-8b's
+    shapes: a 16-slot decode step's projections (16 rows, padded to 17),
+    a final chunk's head (1 row over the 128256-token vocabulary) and
+    unpadded row counts, on a weight that is one layer of a stacked
+    tensor stored output-major, as the engine passes it; the int32
+    product equals a float64 product of the same integers (exact below
+    2**53) bit for bit."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(rows + k)
+    a = torch.randint(-127, 128, (rows, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = tkv.int8_layout(torch.randint(-127, 128, (2, k, n), generator=gen,
+                                      device=dev, dtype=torch.int8), 1, 1)
+    got = tkv.int8_matmul(a, w[1])
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (rows, n)
+    want = (a.double() @ w[1].double()).long()
+    assert torch.equal(got.long(), want)
+    assert torch.equal(tkv.int8_matmul(a[:1], w[1]), got[:1])
+
+
+def _hd128_config(dtype):
+    """llama3-tiny's proportions at head_dim 128 (the served models'):
+    d_model 512, 4 q-heads over 2 kv-heads, 2 layers."""
+    import dataclasses
+    return dataclasses.replace(tl.CONFIGS["llama3-tiny"], d_model=512,
+                               n_heads=4, n_kv_heads=2, d_ff=512,
+                               max_seq_len=1024, dtype=dtype)
+
+
+def _fill_trash(engine):
+    """The trash block (every table entry past an allocation) holds
+    100.0: a row that leaks into a read shows at once."""
+    n = engine.n_kv_blocks
+    for name in ("k", "v"):
+        engine.cache[name][:, n] = 100
+        if name + "_scale" in engine.cache:
+            engine.cache[name + "_scale"][:, n] = 100.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w8", [False, True], ids=["f32-weights", "w8a8"])
+def test_engine_int8_chunk_and_burst_path_on_card(w8):
+    """The int8 recipe's path at head_dim 128 with blocks of 256 on the
+    engine's own layout (the trash block filled with 100.0): a 600-token
+    prompt stores its first 512 tokens, a second prompt sharing them hits
+    (two slots' tables name the same two blocks) and prefills its suffix
+    at start 512. On that live cache K1's decode body (int8 pools) and
+    its wgmma multi-row body (bf16 q on int8 pools) run as their dtypes
+    pick them, equal bits on a second call and K1's rule against the
+    plain version; the mma.sync body never runs. Then the kernel
+    engine's float32 greedy tokens (int8 KV, spec K 4 with an oracle
+    drafter, so verify rounds run) equal the plain-attention engine's
+    spec-off tokens, or part only where the plain top-2 gap is at most
+    1e-2 on float32 weights; on w8a8 weights at most the larger of 1e-2
+    and the plain logits' own shift under two float32 ulps of input
+    noise (``_plain_gap``; w8a8's activation rounding turns that noise
+    into logit shifts of ~0.1)."""
+    dev = _cuda()
+    cfg = _hd128_config(torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tl.init_params(cfg, gen, device=dev)
+    qw = slim = None
+    if w8:
+        qw = {"blocks": tkv.quantize_block_weights(params),
+              "head": tkv.quantize_head(params, cfg)}
+        slim = tkv.slim_params(params)
+    rng = np.random.default_rng(3)
+    system = rng.integers(1, cfg.vocab_size, 600).tolist()
+    pa = system + rng.integers(1, cfg.vocab_size, 60).tolist()
+    pb = system + rng.integers(1, cfg.vocab_size, 40).tolist()
+    short = rng.integers(1, cfg.vocab_size, 90).tolist()
+
+    def engine(plain, **kw):
+        e = te.InferenceEngine(slim or params, cfg, n_slots=3, max_len=1024,
+                               prompt_buckets=(128, 1024), kv_block=256,
+                               prefill_chunk=512, prefix_pool=4,
+                               kv_int8=True, qweights=qw, device=dev,
+                               plain_attention=plain, **kw)
+        _fill_trash(e)
+        return e
+
+    e = engine(False)
+    assert e.cache["k"].dtype == torch.int8
+    assert e.cache["k_scale"].dtype == torch.bfloat16
+    e.add_request(pa, max_new_tokens=8)
+    e.admit()
+    while e.chunking:                 # pa stores its 512-token prefix
+        e.prefill_chunk_step()
+    e.add_request(pb, max_new_tokens=8)
+    e.add_request(short, max_new_tokens=8)
+    r0 = _rows_launches()
+    e.admit()
+    while e.chunking:
+        e.prefill_chunk_step()
+    assert _rows_launches()[0] - r0[0] == cfg.n_layers    # one warm chunk
+    by_prompt = {len(r.prompt): r for r in e.slot_req.values()}
+    cold, warm = by_prompt[len(pa)], by_prompt[len(pb)]
+    assert warm.cached_len == 512 and e.cow_copies == 0
+    table = e.table_device()
+    lengths = e.cache["length"].clone()
+    assert torch.equal(table[cold.slot, :2], table[warm.slot, :2])
+    G, hd, rep = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    pools = (e.cache["k"], e.cache["v"], e.cache["k_scale"],
+             e.cache["v_scale"])
+    q = torch.randn((3, G, rep, hd), generator=gen, device=dev).bfloat16()
+    qr = torch.randn((1, G, 512 * rep, hd), generator=gen,
+                     device=dev).bfloat16()
+    for fn, args, launches in (
+            (tpa.paged_attention, (q, *pools, table, lengths),
+             lambda: tpa.paged_attention.launches),
+            (tpa.paged_attention_rows,
+             (qr, *pools, table[warm.slot:warm.slot + 1].contiguous(),
+              torch.full((1,), 512, dtype=torch.int32, device=dev)),
+             lambda: _rows_launches()[0])):
+        before, mma = launches(), _rows_launches()[1]
+        got = fn(*args, 1, span_blocks=4)
+        again = fn(*args, 1, span_blocks=4)
+        torch.cuda.synchronize()
+        assert launches() - before == 2 and _rows_launches()[1] == mma
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        want = tpa.paged_attention_ref(*args, 1, 4)
+        live = args[-1] > 0
+        for g, w in zip(got, want):
+            _close(g[live], w[live], 2e-3)
+    e.run_to_completion()
+    assert not e.slot_req and not e.chunking
+
+    prompts = [pa, pb, short]
+    e = engine(True)
+    want = [e.generate([p], max_new_tokens=24)[0] for p in prompts]
+    assert e.prefix_hits == 1
+    oracle = {tuple(p): w for p, w in zip(prompts, want)}
+    e = engine(False, spec_k=4, spec_drafter=_replay_drafter(oracle))
+    r0, d0 = _rows_launches(), tpa.paged_attention.launches
+    got = [e.generate([p], max_new_tokens=24)[0] for p in prompts]
+    r1 = _rows_launches()
+    assert (r1[0] > r0[0], r1[1] > r0[1],
+            tpa.paged_attention.launches > d0) == (True, False, True)
+    assert e.prefix_hits == 1 and e.verify_calls > 0
+    for p, g, w in zip(prompts, got, want):
+        t = next((t for t, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if t is not None:
+            gap, noise = _plain_gap(slim or params, qw, cfg, dev, p + w[:t])
+            assert gap <= max(1e-2, noise), (t, gap, noise)
