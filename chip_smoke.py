@@ -89,7 +89,29 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    ``torch._int_mm``, the quantizers, K1 and the rest, and
    ``torch._int_mm`` timed at the recipe's shapes with the weight
    column-major (as stored) and row-major.
-5. Train: gradient parity of the kernels against the plain versions at
+5. Bench: the port's serving bench (``infer/bench_serve.py``) at
+   llama3-8b full width and depth, bf16, random weights from seed 0,
+   through its own functions, launch counts set to 0 before each leg
+   and read after it: ``run_http`` (8 streamed requests of mixed
+   512-1024-token prompts over HTTP, 32 new tokens, three timed waves
+   after a warmup wave; every response 200 with 32 tokens, finite
+   positive TTFT, p99 TTFT, tokens/s and TPOT), ``run`` (16 requests of
+   96 tokens on the engine alone, 64 tokens each) and
+   ``run_prefix_share`` at its full-size defaults (a 768-token system
+   prompt, 48-token tails, chunks of 256, 12 requests: no cold hit,
+   every warm request a hit of one suffix chunk, fewer chunks than
+   cold, interference bursts run; where warm and cold tokens part,
+   each divergence is held to the serve phase's 1e-2 top-2 gap rule,
+   the gap read from the plain path on the weights in float32 and the
+   floor raised to the bf16 noise on that context). The bench keeps
+   the reference's max_len, so on the card its KV blocks are 8 rows
+   (the engine's choice for K1). Each leg prints its report line; K1's
+   decode and ``wgmma`` multi-row bodies and K2 must launch, the
+   ``mma.sync`` body never; after each leg, K1 and K2 are held against
+   their plain versions at every shape the leg gave them (random
+   inputs, the leg's tables, lengths and spans). The kernels phase
+   times K1 and K2 at the bench's main shapes.
+6. Train: gradient parity of the kernels against the plain versions at
    llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
    ``train.run`` at llama3-1b full width and depth for 6 steps on a
    repeated batch (counts set to 0 before, read after: K2 32, K3 16 and
@@ -98,13 +120,15 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    uninterrupted run bit for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. ``--phase kernels``, ``serve`` or
-``train`` runs one of phases 3-5 alone (the build always runs).
+``{"ok": true, "device": {...}}``. ``--phase kernels``, ``serve``,
+``bench`` or ``train`` runs one of phases 3-6 alone (the build always
+runs).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -365,6 +389,56 @@ def _paged_rows_case(start: int, gen, dev, kv: str = "bf16"):
                 table=table, lengths=lens, layer=5, span_blocks=2)
 
 
+def _paged_bench_case(gen, dev):
+    """K1's decode body at bench[http]'s shapes (llama3-8b, 16 slots,
+    max_len 1064 = 1024 + 32 + 8): bf16 pools in blocks of 8, the one
+    block length that tiles 1064 and that K1's multi-row body reads
+    (``engine.kv_block_len``), 133 a slot and the trash block, 32
+    layers read at layer 5, table columns scattered, lengths 512-1064
+    with one empty and one full slot, swept at the full span."""
+    import torch
+    L, bl, G, hd, B, R, nb = 32, 8, 8, 128, 16, 4, 133
+    n_blocks = B * nb + 1
+    kp, vp, _, _ = _rows_pools((L, n_blocks, bl, G, hd), "bf16", gen, dev)
+    q = torch.randn((B, G, R, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    lengths = torch.randint(512, nb * bl + 1, (B,), generator=gen,
+                            device=dev)
+    lengths[0], lengths[1] = 0, nb * bl
+    perm = torch.randperm(n_blocks - 1, generator=gen, device=dev)
+    table = torch.full((B, nb + 1), n_blocks - 1, dtype=torch.int32,
+                       device=dev)
+    table[:, :nb] = perm.reshape(B, nb).int()
+    return dict(q=q, k_pool=kp, v_pool=vp, k_scale=None, v_scale=None,
+                table=table, lengths=lengths.int(), layer=5, span_blocks=nb)
+
+
+def _paged_rows_bench_case(start: int, gen, dev):
+    """K1's multi-row body at bench[prefix]'s chunk shapes (llama3-8b,
+    chunks of 256 tokens: 1024 query rows a kv-head; max_len 872 = 768 +
+    48 + 48 + 8, so blocks of 8, 109 a slot): one slot of a 16-slot
+    pool (32 layers, read at layer 5) whose length is the chunk's
+    ``start``, swept to the engine's span rung covering it (the ladder
+    109, 218, 436, 872 rows: 436 for 256, which is 54.5 blocks and so
+    ends inside a block; all 872 for 768)."""
+    import torch
+    from skypilot_tpu_torch.infer import engine as eng
+    L, bl, G, hd, nb = 32, 8, 8, 128, 109
+    n_blocks = 16 * nb + 1
+    kp, vp, _, _ = _rows_pools((L, n_blocks, bl, G, hd), "bf16", gen, dev)
+    q = torch.randn((1, G, 256 * 4, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    perm = torch.randperm(n_blocks - 1, generator=gen, device=dev)
+    table = torch.full((1, nb + 1), n_blocks - 1, dtype=torch.int32,
+                       device=dev)
+    table[0, :nb] = perm[:nb].int()
+    span = next(r for r in eng._span_ladder(None, nb * bl) if start <= r)
+    lens = torch.tensor([start], dtype=torch.int32, device=dev)
+    return dict(q=q, k_pool=kp, v_pool=vp, k_scale=None, v_scale=None,
+                table=table, lengths=lens, layer=5,
+                span_blocks=-(-span // bl))
+
+
 def _rows_pools(shape, kv: str, gen, dev):
     """K and V pools of ``shape`` (bf16 or f32, or int8 with bf16 scales
     ``[L, n_blocks, G, bl]``) and their scales (None but for int8)."""
@@ -426,10 +500,13 @@ def _sdpa_yardstick(name: str, case) -> None:
          f"{ms:.4f} ms")
 
 
-def _check_paged(name: str, case, fn=None) -> dict:
+def _paged_err(name: str, case, fn) -> float:
+    """The largest error of K1 through ``fn`` against the plain version
+    on ``case``, held to 2e-3 of each output's largest magnitude; a
+    second call must give the same bits and a length-0 slot the empty
+    stats."""
     import torch
     from skypilot_tpu_torch.ops import paged_attention as pa
-    fn = fn or pa.paged_attention
     args = (case["q"], case["k_pool"], case["v_pool"], case["k_scale"],
             case["v_scale"], case["table"], case["lengths"])
     lay, sb = case["layer"], case["span_blocks"]
@@ -452,6 +529,17 @@ def _check_paged(name: str, case, fn=None) -> dict:
         err = max(_err(acc[live], racc[live], f"{name} acc", rel),
                   _err(m[live], rm[live], f"{name} m", rel),
                   _err(l[live], rl[live], f"{name} l", rel))
+    return err
+
+
+def _check_paged(name: str, case, fn=None) -> dict:
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    fn = fn or pa.paged_attention
+    err = _paged_err(name, case, fn)
+    args = (case["q"], case["k_pool"], case["v_pool"], case["k_scale"],
+            case["v_scale"], case["table"], case["lengths"])
+    sb = case["span_blocks"]
+    live = case["lengths"] != 0
     L = case["k_pool"].shape[0]
 
     # Cycle the layer so each launch reads blocks no earlier launch left
@@ -501,11 +589,11 @@ def _check_paged(name: str, case, fn=None) -> dict:
                 bound_by=bound_by, library_ms=None, **rates)
 
 
-def _flash_case(S: int, segments: bool, gen, dev):
-    """K2 inputs at the wave prefill's shapes: a wave of 8 prompts, 32
-    q-heads over 8 kv-heads, head_dim 128, bf16."""
+def _flash_case(S: int, segments: bool, gen, dev, B: int = 8):
+    """K2 inputs at the wave prefill's shapes: a wave of ``B`` prompts,
+    32 q-heads over 8 kv-heads, head_dim 128, bf16."""
     import torch
-    B, H, Hkv, D = 8, 32, 8, 128
+    H, Hkv, D = 32, 8, 128
     q = torch.randn((B, S, H, D), generator=gen, device=dev,
                     dtype=torch.bfloat16)
     k = torch.randn((B, S, Hkv, D), generator=gen, device=dev,
@@ -520,19 +608,30 @@ def _flash_case(S: int, segments: bool, gen, dev):
     return dict(q=q, k=k, v=v, seg=seg)
 
 
-def _check_flash(name: str, case) -> dict:
+def _flash_err(name: str, case):
+    """K2 against the plain version on ``case``: (largest error, O,
+    lse)."""
     import torch
-    import torch.nn.functional as F
     from skypilot_tpu_torch.ops import flash_attention as fa
     q, k, v, seg = case["q"], case["k"], case["v"], case["seg"]
-    o, lse = fa.flash_attention_fwd(q, k, v, seg, causal=True)
+    causal = case.get("causal", True)
+    o, lse = fa.flash_attention_fwd(q, k, v, seg, causal=causal)
     torch.cuda.synchronize()
-    ro, rlse = fa.flash_attention_fwd_ref(q, k, v, seg, causal=True)
+    ro, rlse = fa.flash_attention_fwd_ref(q, k, v, seg, causal=causal)
     # O is bf16 (P is rounded to bf16 before P V, as the plain version's
     # fp32 P is not): the bf16-ulp rule of K3/K4. lse is float32 on both
     # sides and differs only in the order of fp32 sums.
     err = max(_bf16_ulp_err(o, ro, f"{name} O"),
               _err(lse, rlse, f"{name} lse", 1e-4))
+    return err, o, lse
+
+
+def _check_flash(name: str, case) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    q, k, v, seg = case["q"], case["k"], case["v"], case["seg"]
+    err, o, lse = _flash_err(name, case)
     B, S, H, D = q.shape
     ms = _time_ms(lambda i: fa.flash_attention_fwd(q, k, v, seg), 5)
     plain_ms = _time_ms(
@@ -695,8 +794,9 @@ def _rows_cases(gen, dev):
     """K1's multi-row bodies, each against the plain version, with its
     SDPA yardstick where the slot holds rows. The wgmma body: the serve
     chunk (start 512), an empty slot (start 0), two chunks of a long
-    prompt (starts 3584 and 7680) and the serve chunk on int8 pools.
-    The mma.sync body: the serve chunk on float32 pools (bf16 q, as the
+    prompt (starts 3584 and 7680), the serve chunk on int8 pools and
+    two of bench[prefix]'s 256-token chunks on blocks of 8 (starts 256
+    and 768). The mma.sync body: the serve chunk on float32 pools (bf16 q, as the
     engine's float32 parity leg sends it). Returns (wgmma cases,
     mma.sync cases); each case must move its own body's count only."""
     import torch
@@ -712,6 +812,10 @@ def _rows_cases(gen, dev):
              _paged_rows_long_case, 7680),
             ("paged_attention_rows", "int8,start=512",
              functools.partial(_paged_rows_case, kv="int8"), 512),
+            ("paged_attention_rows", "bf16,blocks of 8,R=1024,start=256",
+             _paged_rows_bench_case, 256),
+            ("paged_attention_rows", "bf16,blocks of 8,R=1024,start=768",
+             _paged_rows_bench_case, 768),
             ("paged_attention_rows_mma", "f32,start=512",
              functools.partial(_paged_rows_case, kv="f32"), 512)):
         case = make(start, gen, dev)
@@ -743,13 +847,21 @@ def phase_kernels(dev):
              _check_paged("paged_attention[bf16,long]",
                           _paged_long_case(gen, dev)),
              _check_paged("paged_attention[int8,32 slots,max_len 1280]",
-                          _paged_int8_serve_case(gen, dev))]
+                          _paged_int8_serve_case(gen, dev)),
+             _check_paged("paged_attention[bf16,blocks of 8,max_len 1064]",
+                          _paged_bench_case(gen, dev))]
     torch.cuda.empty_cache()
     rows = _rows_cases(gen, dev)
-    flash = [_check_flash(f"flash_attention_fwd[S={S},seg={int(s)}]",
-                          _flash_case(S, s, gen, dev))
-             for S, s in ((1024, False), (512, False), (1024, True),
-                          (512, True))]
+    # The serve phase's waves (8 prompts), then the bench's: 16 x 96
+    # (bench[engine]), and the monolith's 4 x 816 and 8 x 32
+    # (bench[prefix]), whose last tiles are partial.
+    flash = [_check_flash(f"flash_attention_fwd[S={S},seg={int(s)}]"
+                          + (f"[B={B}]" if B != 8 else ""),
+                          _flash_case(S, s, gen, dev, B))
+             for B, S, s in ((8, 1024, False), (8, 512, False),
+                             (8, 1024, True), (8, 512, True),
+                             (16, 96, False), (4, 816, False),
+                             (8, 32, False))]
     cases = {"paged_attention": paged, **rows,
              "flash_attention_fwd": flash,
              "flash_attention_bwd_dkv": [], "flash_attention_bwd_dq": []}
@@ -843,7 +955,7 @@ INT8_FP32_LAYERS = 8
 W8A8_PROBE = 2.0 ** -22
 
 
-def _divergence(ref_engine, prompt, got, want):
+def _divergence(ref_engine, prompt, got, want, low=None):
     """First step where tokens ``got`` (kernel path) and ``want`` (plain
     path) differ, with the plain path's top-2 logit gap there (read from
     its logits on the shared context, :func:`_plain_logits`) and its
@@ -854,7 +966,10 @@ def _divergence(ref_engine, prompt, got, want):
     the embedding moves by two float32 ulps (``W8A8_PROBE``): w8a8
     rounds every projection's activations to int8, so noise of that size
     flips some roundings and moves the logits by far more than float32
-    noise does."""
+    noise does. ``low``, a plain engine on the same weights in bf16
+    (``ref_engine`` then holds them in float32): the floor is twice the
+    largest difference between its logits and ``ref_engine``'s on the
+    context."""
     for t, (a, b) in enumerate(zip(got, want)):
         if a == b:
             continue
@@ -867,6 +982,9 @@ def _divergence(ref_engine, prompt, got, want):
             probe = dict(params, embed=params["embed"] * (1 + W8A8_PROBE))
             noise = (_plain_logits(ref_engine, probe, prompt, ctx)
                      - logits).abs().max().item()
+        if low is not None:
+            noise = 2 * (_plain_logits(low, low.params, prompt, ctx).float()
+                         - logits).abs().max().item()
         return t, (top2[0] - top2[1]).item(), noise
     return None, None, 0.0
 
@@ -1012,8 +1130,6 @@ def _serve_leg(engine, tag: str, card: str, chunk: int,
     budget. Returns the batch's launches, results, wall time, TTFTs and
     decode rate, and the pair's."""
     from skypilot_tpu_torch.infer import server as srv
-    from skypilot_tpu_torch.ops import flash_attention as fa
-    from skypilot_tpu_torch.ops import paged_attention as pa
     cfg = engine.cfg
     bodies, prompts, twins = _batch_bodies(chunk)
     port = _free_port()
@@ -1042,10 +1158,7 @@ def _serve_leg(engine, tag: str, card: str, chunk: int,
             except Exception as e:  # noqa: BLE001 — reported below
                 errors.append(f"request {i}: {e!r}")
 
-        fa.flash_attention_fwd.launches = 0
-        pa.paged_attention.launches = 0
-        pa.paged_attention_rows.launches = 0
-        pa.paged_attention_rows.mma_launches = 0
+        _zero_launches()
         # The engine's own counters, read while the server is idle.
         spec0 = (engine._spec_drafted_total, engine._spec_accepted_total,
                  engine.verify_calls)
@@ -1057,11 +1170,8 @@ def _serve_leg(engine, tag: str, card: str, chunk: int,
         for t in threads:
             t.join(timeout=900)
         wall = time.time() - t1
-        launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                    "paged_attention": pa.paged_attention.launches,
-                    "paged_attention_rows":
-                        pa.paged_attention_rows.launches}
-        mma_launches = pa.paged_attention_rows.mma_launches
+        launches = _read_launches()
+        mma_launches = launches.pop("paged_attention_rows_mma")
         spec = [n - n0 for n, n0 in zip(
             (engine._spec_drafted_total, engine._spec_accepted_total,
              engine.verify_calls), spec0)]
@@ -1138,6 +1248,27 @@ def _serve_leg(engine, tag: str, card: str, chunk: int,
                 twins=twins, wall=wall, ttft=ttft, tps=tps, pair=pair)
 
 
+def _zero_launches() -> None:
+    """Set the serving kernels' launch counts to 0: K2, K1's decode body
+    and its two multi-row bodies."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    for f in (fa.flash_attention_fwd, pa.paged_attention,
+              pa.paged_attention_rows):
+        f.launches = 0
+    pa.paged_attention_rows.mma_launches = 0
+
+
+def _read_launches() -> dict:
+    """The counts :func:`_zero_launches` sets, by ``KERNELS`` name."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    n = {f.__name__: f.launches for f in (
+        fa.flash_attention_fwd, pa.paged_attention, pa.paged_attention_rows)}
+    n["paged_attention_rows_mma"] = pa.paged_attention_rows.mma_launches
+    return n
+
+
 def phase_serve(dev, card: str):
     """Returns {path: {kernel: launches}}: the bf16 leg's 9-request run
     (``serve``), the float32 leg's kernel engine (``serve[fp32]``), the
@@ -1148,8 +1279,6 @@ def phase_serve(dev, card: str):
     import torch
     from skypilot_tpu_torch.infer import kvcache
     from skypilot_tpu_torch.infer import server as srv
-    from skypilot_tpu_torch.ops import flash_attention as fa
-    from skypilot_tpu_torch.ops import paged_attention as pa
 
     chunk = 512
     t0 = time.time()
@@ -1223,27 +1352,14 @@ def phase_serve(dev, card: str):
     params32 = {k: ({n: w.float() for n, w in v.items()}
                     if isinstance(v, dict) else v.float())
                 for k, v in engine.params.items()}
-    counted = (fa.flash_attention_fwd, pa.paged_attention,
-               pa.paged_attention_rows)
-
-    def zero():
-        for f in counted:
-            f.launches = 0
-        pa.paged_attention_rows.mma_launches = 0
-
-    def read():
-        n = {f.__name__: f.launches for f in counted}
-        n["paged_attention_rows_mma"] = pa.paged_attention_rows.mma_launches
-        return n
-
     want_rows = sum(-(-len(p) // chunk) for p in picked
                     if len(p) > chunk) * cfg.n_layers
     # The float32 leg's kernel engine reads float32 pools: its chunks
     # run the mma.sync multi-row body, counted from 0 here.
-    zero()
+    _zero_launches()
     got, want, ref = _kernel_vs_plain(params32, cfg32, engine, dev, picked,
                                       "fp32")
-    launches32 = read()
+    launches32 = _read_launches()
     _log(f"serve[fp32]: launches {launches32}; the mma.sync multi-row "
          f"body expected {want_rows}")
     if launches32["paged_attention_rows_mma"] != want_rows or not want_rows \
@@ -1278,7 +1394,7 @@ def phase_serve(dev, card: str):
     torch.cuda.empty_cache()
     want_chunks = want_rows // cfg.n_layers
     launches_kv8 = _fp32_int8_leg(params_i8, cfg_i8, engine, dev, prompts,
-                                  pick, chunk, want_chunks, zero, read,
+                                  pick, chunk, want_chunks,
                                   "fp32, int8 KV", kv_int8=True)
     t0 = time.time()
     w8 = {"blocks": kvcache.quantize_block_weights(params_i8),
@@ -1288,7 +1404,7 @@ def phase_serve(dev, card: str):
          f"{time.time() - t0:.1f} s ({INT8_FP32_LAYERS} of {cfg.n_layers} "
          f"layers)")
     launches32i = _fp32_int8_leg(params_i8, cfg_i8, engine, dev, prompts,
-                                 pick, chunk, want_chunks, zero, read,
+                                 pick, chunk, want_chunks,
                                  "fp32, int8", kv_int8=True, qweights=w8)
     del params_i8, w8, engine
     gc.collect()
@@ -1301,7 +1417,7 @@ def phase_serve(dev, card: str):
 
 
 def _fp32_int8_leg(params, cfg, like, dev, prompts, pick, chunk,
-                   want_chunks, zero, read, leg: str, **kw) -> dict:
+                   want_chunks, leg: str, **kw) -> dict:
     """A float32 int8 leg (``kw``: the int8 recipe's engine options):
     the kernel engine against the plain-attention engine on the shortest
     and the longest prompt, launches counted from 0 (the wgmma
@@ -1311,10 +1427,10 @@ def _fp32_int8_leg(params, cfg, like, dev, prompts, pick, chunk,
     :func:`_agree`. Returns the kernel engine's launches."""
     picked = [prompts[i] for i in pick]
     want_rows = want_chunks * cfg.n_layers
-    zero()
+    _zero_launches()
     got, want, ref = _kernel_vs_plain(params, cfg, like, dev, picked, leg,
                                       **kw)
-    launches = read()
+    launches = _read_launches()
     _log(f"serve[{leg}]: launches {launches}; the wgmma multi-row body "
          f"expected {want_rows}, on int8 pools")
     if launches["paged_attention_rows"] != want_rows \
@@ -1542,15 +1658,17 @@ def _profile_int8_burst(engine, card: str) -> None:
 
 
 def _agree(ref, prompt, got, want, what: str, paths: str,
-           leg: str = "fp32") -> None:
+           leg: str = "fp32", low=None) -> None:
     """Greedy tokens ``got`` and ``want`` of ``prompt`` agree, or part
     only where the plain logits' top-2 gap is at most 1e-2 (a near-tie,
-    which fp32 summation order may flip) or, on a w8a8 engine, at most
-    the plain logits' own noise floor there (:func:`_divergence`)."""
-    t, gap, noise = _divergence(ref, prompt, got, want)
+    which fp32 summation order may flip) or, on a w8a8 engine or with
+    ``low`` (bf16 tokens), at most the noise floor there
+    (:func:`_divergence`)."""
+    t, gap, noise = _divergence(ref, prompt, got, want, low)
     bound = max(1e-2, noise)
-    floor = f", w8a8 noise floor {noise:.3e}" if ref.qweights is not None \
-        else ""
+    kind = ("w8a8" if ref.qweights is not None
+            else "bf16" if low is not None else None)
+    floor = f", {kind} noise floor {noise:.3e}" if kind else ""
     if t is not None and gap > bound:
         raise AssertionError(
             f"{leg}: {paths} differ on {what} at step {t} where the plain "
@@ -1846,6 +1964,257 @@ def _profile_train_step(dev, card: str) -> None:
          + "; ".join(f"{t:.1f} {name[:90]}" for name, t in top))
 
 
+@contextlib.contextmanager
+def _tap(module, name: str, seen: list, keep=None):
+    """Wrap ``module.name`` for the block: each call's result (or
+    ``keep`` of it) is appended to ``seen``; the result is returned."""
+    real = getattr(module, name)
+
+    def tapped(*a, **kw):
+        out = real(*a, **kw)
+        seen.append(keep(out) if keep else out)
+        return out
+
+    setattr(module, name, tapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def _path_shapes(seen: dict):
+    """Record, for the block, each distinct shape at which the serving
+    path reaches K1 (``kvcache._paged_attn_stats`` off the plain path)
+    and K2 (``attention.gqa_attention``). ``seen`` maps each shape to
+    [calls, inputs to rebuild it]: K1's table and lengths (cloned at the
+    first call), K2's segment ids and causal flag. It records only: the
+    wrappers and their launch counts are untouched."""
+    from skypilot_tpu_torch.infer import kvcache
+    from skypilot_tpu_torch.ops import attention as attn_ops
+    real_k1, real_k2 = kvcache._paged_attn_stats, attn_ops.gqa_attention
+
+    def note(key, make):
+        if key not in seen:
+            seen[key] = [0, make()]
+        seen[key][0] += 1
+
+    def k1(cache, i, table, qh, lengths, span, plain=False):
+        if not plain:
+            k = cache["k"]
+            M = span if span is not None else kvcache._logical_rows(
+                cache, table)
+            note(("K1", tuple(qh.shape), qh.dtype, tuple(k.shape[1:]),
+                  k.dtype, tuple(table.shape), -(-M // k.shape[2])),
+                 lambda: (table.clone(), lengths.clone()))
+        return real_k1(cache, i, table, qh, lengths, span, plain)
+
+    def k2(q, k, v, causal=True, segment_ids=None):
+        note(("K2", tuple(q.shape), tuple(k.shape), q.dtype, causal,
+              segment_ids is not None),
+             lambda: (None if segment_ids is None
+                      else segment_ids.clone()))
+        return real_k2(q, k, v, causal, segment_ids)
+
+    kvcache._paged_attn_stats, attn_ops.gqa_attention = k1, k2
+    try:
+        yield
+    finally:
+        kvcache._paged_attn_stats, attn_ops.gqa_attention = real_k1, real_k2
+
+
+def _check_path_shapes(seen: dict, leg: str, dev) -> None:
+    """K1 and K2 against their plain versions at every shape that
+    :func:`_path_shapes` recorded, under the kernel phase's tolerances:
+    random q, K and V (pools of two layers, read at layer 1) at the
+    path's shapes, with its recorded table, lengths and span, or
+    segment ids. Run after a leg's launches are read, so they count on
+    no path."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    kv_name = {torch.bfloat16: "bf16", torch.int8: "int8",
+               torch.float32: "f32"}
+    pools, errs, shapes = {}, {"K1": 0.0, "K2": 0.0}, []
+    for key, (n, saved) in seen.items():
+        if key[0] == "K1":
+            _, qshape, qdtype, pshape, kvdtype, tshape, sb = key
+            B, G, R, hd = qshape
+            name = (f"bench[{leg}] K1 B={B} R={R} blocks of {pshape[1]} "
+                    f"x {tshape[1] - 1} span {sb}")
+            if (pshape, kvdtype) not in pools:
+                pools[(pshape, kvdtype)] = _rows_pools(
+                    (2,) + pshape, kv_name[kvdtype], gen, dev)
+            kp, vp, ks, vs = pools[(pshape, kvdtype)]
+            table, lengths = saved
+            case = dict(q=torch.randn(qshape, generator=gen, device=dev,
+                                      dtype=qdtype),
+                        k_pool=kp, v_pool=vp, k_scale=ks, v_scale=vs,
+                        table=table, lengths=lengths, layer=1,
+                        span_blocks=sb)
+            from skypilot_tpu_torch.ops import paged_attention as pa
+            err = _paged_err(name, case, pa.paged_attention)
+            shapes.append(f"K1 B={B} R={R} bl={pshape[1]} span={sb} x{n}")
+        else:
+            _, qshape, kshape, dtype, causal, _ = key
+            name = f"bench[{leg}] K2 {qshape}"
+
+            def randn(shape):
+                return torch.randn(shape, generator=gen, device=dev,
+                                   dtype=dtype)
+
+            err = _flash_err(name, dict(q=randn(qshape), k=randn(kshape),
+                                        v=randn(kshape), seg=saved,
+                                        causal=causal))[0]
+            shapes.append(f"K2 B={qshape[0]} S={qshape[1]} x{n}")
+        errs[key[0]] = max(errs[key[0]], err)
+    del pools
+    torch.cuda.empty_cache()
+    _log(f"bench[{leg}]: the kernels agree with their plain versions at "
+         f"all {len(seen)} shapes of the leg (max err K1 "
+         f"{errs['K1']:.3e}, K2 {errs['K2']:.3e}): " + "; ".join(shapes))
+
+
+def _bf16_divergence(dev, config: str, chunk: int, cold: dict,
+                     warm: dict) -> None:
+    """Hold each prompt whose warm tokens part from its cold ones to
+    :func:`_agree`'s rule, with the top-2 gap taken from a plain engine
+    on a float32 copy of the bench's weights (seed 0) and the noise
+    floor from the same context in bf16: twice the largest difference
+    between the bf16 and float32 plain logits there, since each bf16
+    pass may move that far from the float32 logits."""
+    import torch
+    from skypilot_tpu_torch.infer import engine as eng
+    from skypilot_tpu_torch.models import llama
+    cfg = llama.CONFIGS[config]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+    refs = {}
+    for c, p in ((cfg, params), (dataclasses.replace(
+            cfg, dtype=torch.float32), {k: ({n: w.float() for n, w in
+                                             v.items()}
+                                            if isinstance(v, dict)
+                                            else v.float())
+                                        for k, v in params.items()})):
+        refs[c.dtype] = eng.InferenceEngine(
+            p, c, n_slots=1, max_len=1024, prompt_buckets=(1024,),
+            prefill_chunk=chunk, device=dev, plain_attention=True)
+    del params
+    for i, (prompt, c) in enumerate(cold.items()):
+        if warm[prompt] != c:
+            _agree(refs[torch.float32], list(prompt), warm[prompt], c,
+                   f"request {i}", "warm and cold passes", "bench",
+                   low=refs[torch.bfloat16])
+    del refs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _positive(report: dict, keys, leg: str) -> None:
+    for k in keys:
+        v = report[k]
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            raise AssertionError(f"bench[{leg}]: {k} = {v!r}, expected a "
+                                 f"finite positive number")
+
+
+def phase_bench(dev, card: str) -> dict:
+    """The port's serving bench (``infer/bench_serve.py``) at llama3-8b,
+    full width and depth, bf16, random weights from seed 0, through its
+    own functions: ``run_http`` (8 streamed requests of mixed 512-1024
+    tokens, three timed waves), ``run`` (16 requests of 96 tokens on the
+    engine alone) and ``run_prefix_share`` at its full-size defaults.
+    The launch counts are set to 0 just before each leg and read just
+    after; then the kernels are held against their plain versions at
+    each shape the leg gave them. Returns the launches by kernel,
+    summed over the legs."""
+    import torch
+    from skypilot_tpu_torch.infer import bench_serve as bs
+    from skypilot_tpu_torch.infer import engine as eng
+
+    config, total = "llama3-8b", {}
+
+    def leg(name: str, fn):
+        seen = {}
+        with _path_shapes(seen):
+            _zero_launches()
+            t0 = time.time()
+            out = fn()
+            n = _read_launches()
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        _log(f"bench[{name}]: {json.dumps(out)}")
+        _log(f"bench[{name}]: {time.time() - t0:.1f} s, launches {n}; "
+             f"{card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        _check_path_shapes(seen, name, dev)
+        return out
+
+    # 1. HTTP: every response 200 (the client raises otherwise) with its
+    # 32 tokens, in the warmup wave and the three timed ones.
+    waves = []
+    with _tap(bs, "_client_wave", waves):
+        http = leg("http", lambda: bs.run_http(
+            config=config, requests=8, slots=16, new_tokens=32,
+            max_burst=8, open_burst=4, admit_wave=4, repeats=3,
+            device=dev))
+    counts = [[n for _, n, _ in res] for res in waves]
+    if counts != [[32] * 8] * 4:
+        raise AssertionError(f"bench[http]: tokens per response {counts}, "
+                             f"expected 4 waves of 8 x 32")
+    _positive(http, ("median_ttft_ms", "p99_ttft_ms", "out_tok_s",
+                     "tpot_ms"), "http")
+    if http["transport"] != "http_streaming":
+        raise AssertionError(f"bench[http]: transport {http['transport']}")
+
+    # 2. The engine alone: 16 requests finished, 64 tokens each.
+    built = []
+    with _tap(bs, "_build_engine", built):
+        engine_only = leg("engine", lambda: bs.run(
+            config=config, requests=16, slots=16, prompt_len=96,
+            new_tokens=64, max_burst=32, device=dev))
+    done = [len(r.tokens) for r in built[0][1].finished]
+    del built
+    if done != [64] * 16:
+        raise AssertionError(f"bench[engine]: tokens per request {done}, "
+                             f"expected 16 x 64")
+    _positive(engine_only, ("median_ttft_ms", "out_tok_s"), "engine")
+
+    # 3. Prefix share at the reference's full-size defaults: a system
+    # prompt of 768 tokens and tails of 48, chunks of 256, 12 requests.
+    # The engine's drains, as token maps by prompt: two one-request
+    # warmups, then the cold and the warm pass.
+    passes = []
+    with _tap(eng.InferenceEngine, "run_to_completion", passes,
+              keep=lambda done: {tuple(r.prompt): list(r.tokens)
+                                 for r in done}):
+        pfx = leg("prefix", lambda: bs.run_prefix_share(
+            config=config, device=dev))
+    if not (pfx["cold_hits"] == 0 and pfx["hit_rate"] == 1.0
+            and pfx["warm_chunks"] == pfx["requests"] < pfx["cold_chunks"]
+            and pfx["interference"]["admission_bursts"] > 0):
+        raise AssertionError(f"bench[prefix]: structure {pfx}")
+    cold, warm = [p for p in passes if len(p) == pfx["requests"]][:2]
+    if (cold == warm) != pfx["parity_ok"]:
+        raise AssertionError("bench[prefix]: the drains read here are not "
+                             "the passes the report compared")
+    if not pfx["parity_ok"]:
+        # bf16 batches differ between the passes.
+        _bf16_divergence(dev, config, pfx["prefill_chunk"], cold, warm)
+
+    for k in ("paged_attention", "paged_attention_rows",
+              "flash_attention_fwd"):
+        if not total.get(k):
+            raise AssertionError(f"bench: {k} never launched ({total})")
+    if total["paged_attention_rows_mma"]:
+        raise AssertionError(f"bench: bf16 chunks ran the mma.sync "
+                             f"multi-row body ({total}): the engine chose "
+                             f"a block length the wgmma body does not "
+                             f"read")
+    return total
+
+
 def phase_train(dev, card: str):
     """Returns {kernel: launches} over the llama3-1b run."""
     import os
@@ -1941,7 +2310,7 @@ def phase_train(dev, card: str):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
-                    choices=("all", "kernels", "serve", "train"),
+                    choices=("all", "kernels", "serve", "bench", "train"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -1992,6 +2361,9 @@ def main() -> int:
     by_path = {}
     if args.phase in ("all", "serve"):
         by_path.update(phase_serve(dev, smi))
+        free()
+    if args.phase in ("all", "bench"):
+        by_path["bench"] = phase_bench(dev, smi)
         free()
     if args.phase in ("all", "train"):
         by_path["train"] = phase_train(dev, smi)

@@ -57,6 +57,7 @@ import torch
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.infer import kvcache, sampling
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.ops import paged_attention as pa
 
 
 @dataclasses.dataclass
@@ -131,6 +132,26 @@ def _bucket(n: int, buckets) -> int:
         if n <= b:
             return b
     raise PromptTooLongError(n, buckets[-1])
+
+
+def kv_block_len(max_len: int, kv_block: int, on_card: bool) -> int:
+    """The KV block length: the largest divisor of ``max_len`` no larger
+    than ``kv_block`` (the block axis must tile ``max_len`` exactly), as
+    in the JAX engine. ``on_card`` (an engine whose pools K1 reads on the
+    card): the largest such divisor that K1's ``wgmma`` multi-row body
+    also reads (:func:`ops.paged_attention.tma_block_len`), so that bf16
+    chunks never fall to the ``mma.sync`` body and int8 chunks run at
+    all; a ``max_len`` such as 1064 gives 8 there, not the JAX engine's
+    152. Where no divisor qualifies (``max_len`` not a multiple of 8) the
+    JAX engine's block stands."""
+    b = min(kv_block, max_len)
+    while max_len % b:
+        b -= 1
+    if on_card:
+        k1 = next((d for d in range(b, 0, -1)
+                   if max_len % d == 0 and pa.tma_block_len(d)), None)
+        b = k1 or b
+    return b
 
 
 def _span_ladder(buckets, max_len: int) -> Tuple[int, ...]:
@@ -442,11 +463,13 @@ class InferenceEngine:
         if kv_block <= 0:
             raise ValueError("the port serves the paged KV layout only: "
                              "kv_block must be > 0")
-        # Largest divisor of max_len <= the requested block: the block
-        # axis must tile max_len exactly.
-        b = min(kv_block, max_len)
-        while max_len % b:
-            b -= 1
+        b = kv_block_len(max_len, kv_block, self.device.type == "cuda")
+        if kv_int8 and self.device.type == "cuda" and not (
+                pa.tma_block_len(b)):
+            raise ValueError(
+                f"an int8 KV cache on the card needs a max_len that is a "
+                f"multiple of 8 (got {max_len}): K1 reads int8 pools in "
+                f"chunks only in blocks of 8, 16, 32 or a multiple of 64")
         self.kv_block = b
         nb = max_len // b
         self.n_kv_blocks = (kv_blocks if kv_blocks and kv_blocks > 0

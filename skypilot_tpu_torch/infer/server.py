@@ -25,7 +25,9 @@ cache of ``--prefix-pool`` (8) shared prompt prefixes (trailer:
 ``drafter``); ``SKYTPU_PREFIX_POOL`` and ``SKYTPU_SPEC_K`` set the
 defaults, the flags win. ``--kv-int8 --weights-int8`` serve the
 reference's int8 recipe (``llm/serve-8b-w8a8.yaml``): an int8 KV cache
-and w8a8 weights.
+and w8a8 weights. ``--open-burst``, ``--open-window`` and ``--coalesce``
+are the reference's burst and admission-coalescing knobs, so the
+recipe's command line runs as it stands.
 
     python -m skypilot_tpu_torch.infer.server --config llama3-8b
     python -m skypilot_tpu_torch.infer.server --config llama3-8b \
@@ -438,8 +440,22 @@ def main(argv=None) -> None:
     ap.add_argument("--max-len", type=int, default=1024)
     ap.add_argument("--max-burst", type=int, default=8,
                     help="decode tokens per device call")
+    ap.add_argument("--open-burst", type=int, default=4,
+                    help="decode burst while free slots remain AND "
+                         "traffic arrived within --open-window — keeps "
+                         "late arrivals from waiting out a full burst "
+                         "before their prefill")
+    ap.add_argument("--open-window", type=float, default=1.0,
+                    help="seconds since the last arrival during which "
+                         "bursts stay short when slots are free; after "
+                         "a quiet spell bursts go long (dispatch "
+                         "amortization on a partially loaded server)")
     ap.add_argument("--admit-wave", type=int, default=8,
                     help="admission wave cap (0 = uncapped)")
+    ap.add_argument("--coalesce", type=float, default=0.012,
+                    help="seconds to wait for a filling admission wave "
+                         "when the newest arrival is fresher than this "
+                         "(prevents 1-row waves on bursts)")
     ap.add_argument("--kv-block", type=int, default=256,
                     help="paged KV cache block length")
     ap.add_argument("--prefill-chunk", type=int, default=512,
@@ -474,7 +490,10 @@ def main(argv=None) -> None:
                          prefix_pool=args.prefix_pool,
                          spec_k=args.spec_k, kv_int8=args.kv_int8,
                          weights_int8=args.weights_int8, device=args.device)
-    model, httpd = serve(engine, port=args.port, max_burst=args.max_burst)
+    model, httpd = serve(engine, port=args.port, max_burst=args.max_burst,
+                         open_burst=args.open_burst,
+                         open_window_s=args.open_window,
+                         coalesce_s=args.coalesce)
     print(json.dumps({"event": "server.listening", "port": args.port,
                       "device": str(engine.device)}), file=sys.stderr,
           flush=True)

@@ -279,14 +279,20 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return acc, m, l
 
 
+def tma_block_len(block_len: int) -> bool:
+    """Whether the ``wgmma`` + TMA multi-row body reads pools of this
+    block length: 8, 16, 32 (several blocks a 64-key tile) or a multiple
+    of 64 (one)."""
+    return block_len % 64 == 0 or block_len in (8, 16, 32)
+
+
 def _tma_body(q: torch.Tensor, k_pool: torch.Tensor) -> bool:
     """Whether the ``wgmma`` + TMA multi-row body takes these inputs: a
-    bfloat16 q on bfloat16 or int8 pools whose block length is 8, 16,
-    32 (several blocks a 64-key tile) or a multiple of 64 (one)."""
-    bl = k_pool.shape[2]
+    bfloat16 q on bfloat16 or int8 pools of a block length it reads
+    (:func:`tma_block_len`)."""
     return (q.dtype == torch.bfloat16
             and k_pool.dtype in (torch.bfloat16, torch.int8)
-            and (bl % 64 == 0 or bl in (8, 16, 32)))
+            and tma_block_len(k_pool.shape[2]))
 
 
 def paged_attention_rows(q: torch.Tensor, k_pool: torch.Tensor,

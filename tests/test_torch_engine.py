@@ -221,3 +221,26 @@ def test_no_device_raises_without_a_card():
     from skypilot_tpu_torch import resolve_device
     with pytest.raises(RuntimeError):
         resolve_device(None)
+
+
+# (max_len, the JAX engine's block = the port's on the CPU, the port's
+# on the card). The card's is the largest divisor no larger than 256
+# that K1's wgmma multi-row body reads (8, 16, 32 or a multiple of 64);
+# 1001 has none, so the JAX engine's block stands there.
+_BLOCKS = [(1064, 152, 8), (872, 218, 8), (168, 168, 8), (1024, 256, 256),
+           (1280, 256, 256), (96, 96, 32), (48, 48, 16), (1001, 143, 143)]
+
+
+@pytest.mark.parametrize("max_len,cpu,card", _BLOCKS,
+                         ids=[str(b[0]) for b in _BLOCKS])
+def test_kv_block_len(models, max_len, cpu, card):
+    jcfg, tcfg, jp, tp = models
+    ref = je.InferenceEngine(jp, jcfg, n_slots=1, max_len=max_len,
+                             prompt_buckets=(16,), kv_block=256)
+    e = te.InferenceEngine(tp, tcfg, n_slots=1, max_len=max_len,
+                           prompt_buckets=(16,), kv_block=256,
+                           device="cpu")
+    assert e.kv_block == ref.kv_block == cpu
+    assert te.kv_block_len(max_len, 256, False) == cpu
+    assert te.kv_block_len(max_len, 256, True) == card
+    assert max_len % card == 0

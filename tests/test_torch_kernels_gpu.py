@@ -1104,3 +1104,63 @@ def test_engine_int8_chunk_and_burst_path_on_card(w8):
         if t is not None:
             gap, noise = _plain_gap(slim or params, qw, cfg, dev, p + w[:t])
             assert gap <= max(1e-2, noise), (t, gap, noise)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["bf16-kv", "int8-kv"])
+def test_engine_at_max_len_1064_chunks_on_the_wgmma_body(kv_int8):
+    """At max_len 1064 (prompts of up to 1024 tokens, 32 new, 8 spare:
+    the serving bench's mixed prompts) the JAX engine's block is 152
+    rows, which K1's wgmma multi-row body does not read: bf16 chunks
+    would run the mma.sync body and int8 chunks would raise. On the card
+    the engine takes blocks of 8, so a 900-token prompt prefills in two
+    chunks of 512 through the wgmma body only, on bf16 pools (bf16
+    weights) and on int8 pools (float32 weights, q cast to bf16 for the
+    chunks). On int8 pools the greedy tokens equal the plain-attention
+    engine's, or part only where the plain top-2 gap is at most 1e-2."""
+    import dataclasses
+    dev = _cuda()
+    cfg = _hd128_config(torch.float32 if kv_int8 else torch.bfloat16)
+    cfg = dataclasses.replace(cfg, max_seq_len=1064)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tl.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+    prompt = np.random.default_rng(4).integers(
+        1, cfg.vocab_size, 900).tolist()
+
+    def engine(plain):
+        e = te.InferenceEngine(params, cfg, n_slots=2, max_len=1064,
+                               prompt_buckets=(512, 1024), kv_block=256,
+                               prefill_chunk=512, kv_int8=kv_int8,
+                               device=dev, plain_attention=plain)
+        assert e.kv_block == 8 and e.blocks_per_slot == 133
+        return e
+
+    r0 = _rows_launches()
+    got = engine(False).generate([prompt], max_new_tokens=32)[0]
+    r1 = _rows_launches()
+    assert (r1[0] - r0[0], r1[1] - r0[1]) == (2 * cfg.n_layers, 0)
+    assert len(got) == 32
+    if not kv_int8:
+        return
+    want = engine(True).generate([prompt], max_new_tokens=32)[0]
+    t = next((t for t, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if t is not None:
+        gap, _ = _plain_gap(params, None, cfg, dev, prompt + want[:t])
+        assert gap <= 1e-2, (t, gap)
+
+
+@pytest.mark.gpu
+def test_engine_refuses_int8_kv_where_no_block_suits_k1():
+    """A max_len that is not a multiple of 8 has no divisor that K1's
+    wgmma multi-row body reads, the only body that reads int8 pools: the
+    engine refuses an int8 KV cache there when it is built, not at its
+    first chunk. A bf16 cache keeps the JAX engine's block."""
+    dev = _cuda()
+    cfg = _hd128_config(torch.bfloat16)
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, dtype=cfg.dtype)
+    kw = dict(n_slots=1, max_len=1001, prompt_buckets=(512,), kv_block=256,
+              device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        te.InferenceEngine(params, cfg, kv_int8=True, **kw)
+    assert te.InferenceEngine(params, cfg, **kw).kv_block == 143

@@ -403,3 +403,119 @@ def test_main_defaults_prefix_pool_and_spec_k(monkeypatch, env, want):
         ts.main(["--config", "llama3-tiny", "--device", "cpu",
                  "--prefix-pool", "5", "--spec-k", "2"])
     assert seen == [want, (5, 2)]
+
+
+# -- the fleet path and the repo's w8a8 recipe line ---------------------------
+
+def _unchunk(body: bytes) -> bytes:
+    """Decode a chunked transfer-encoded body."""
+    out, pos = b"", 0
+    while True:
+        eol = body.index(b"\r\n", pos)
+        size = int(body[pos:eol].split(b";")[0], 16)
+        if size == 0:
+            return out
+        out += body[eol + 2:eol + 2 + size]
+        pos = eol + 2 + size + 2
+
+
+def _streamed_tokens(body: bytes):
+    lines = [json.loads(x) for x in _unchunk(body).splitlines() if x.strip()]
+    return [t for c in lines for t in c.get("tokens", [])]
+
+
+def test_client_wave_through_the_reference_lb_equals_direct(
+        served, tmp_path, monkeypatch):
+    """A port server behind the JAX package's own load balancer, wired as
+    the reference bench wires its replica
+    (``skypilot_tpu/infer/bench_serve.py::run_http``): the port's bench
+    client gets the same ``n_tokens`` and the same streamed tokens (the
+    JAX engine's) through the LB as straight from the server. This is
+    the fleet path that the port's ``run_http`` leaves out."""
+    from skypilot_tpu.serve import load_balancer, serve_state
+    from skypilot_tpu_torch.infer import bench_serve as tb
+    monkeypatch.setenv("SKYPILOT_TPU_HOME", str(tmp_path / "home"))
+    url, prompts, want = served
+    model_port = int(url.rsplit(":", 1)[1])
+    lb_port = _free_port()
+    serve_state.add_service("bench", {}, {}, lb_port)
+    serve_state.upsert_replica("bench", 1, "bench-replica",
+                               serve_state.ReplicaStatus.READY, url)
+    lb = load_balancer._ThreadingServer(
+        ("127.0.0.1", lb_port),
+        load_balancer.make_handler("bench",
+                                   load_balancer.LeastLoadPolicy()))
+    t = threading.Thread(target=lb.serve_forever, daemon=True)
+    t.start()
+    payloads = [json.dumps({"tokens": p, "max_new_tokens": 6,
+                            "stream": True}).encode() for p in prompts]
+    try:
+        direct_bodies, lb_bodies = [], []
+        direct = tb._client_wave("127.0.0.1", model_port, payloads,
+                                 timeout=120, bodies=direct_bodies)
+        via_lb = tb._client_wave("127.0.0.1", lb_port, payloads,
+                                 timeout=120, bodies=lb_bodies)
+    finally:
+        lb.shutdown()
+        lb.server_close()
+        t.join(timeout=30)
+    assert [n for _, n, _ in via_lb] == [n for _, n, _ in direct] == [6] * 3
+    assert [_streamed_tokens(b) for b in lb_bodies] == \
+        [_streamed_tokens(b) for b in direct_bodies] == want
+
+
+def _recipe_argv():
+    """The run line of ``llm/serve-8b-w8a8.yaml`` with the port's server
+    in place of the reference's."""
+    import shlex
+
+    import yaml
+    with open(os.path.join(ROOT, "llm", "serve-8b-w8a8.yaml")) as f:
+        # The shell drops each backslash-newline line continuation.
+        argv = shlex.split(yaml.safe_load(f)["run"].replace("\\\n", " "))
+    mod = argv.index("-m") + 1
+    assert argv[mod] == "skypilot_tpu.infer.server"
+    return argv[mod + 1:]
+
+
+@pytest.mark.parametrize("argv,want", [
+    (None, (4, 1.0, 0.012)),
+    (["--config", "llama3-tiny", "--device", "cpu", "--slots", "32",
+      "--max-len", "1280", "--weights-int8", "--kv-int8", "--max-burst",
+      "32", "--open-burst", "4", "--admit-wave", "4"], (4, 1.0, 0.012)),
+    (["--config", "llama3-tiny", "--device", "cpu", "--open-burst", "2",
+      "--open-window", "2.5", "--coalesce", "0.02"], (2, 2.5, 0.02))],
+    ids=["recipe", "recipe_flags", "explicit"])
+def test_main_takes_the_w8a8_recipe_line(monkeypatch, argv, want):
+    """``main`` parses the repo's w8a8 recipe command line as it stands
+    (``--open-burst`` included) and hands ``--open-burst``,
+    ``--open-window`` and ``--coalesce`` to ``serve()`` (engine build
+    stubbed)."""
+    made, served_kw = [], []
+
+    class Stop(Exception):
+        pass
+
+    def fake_make_engine(config, **kw):
+        made.append(dict(kw, config=config))
+        return object()
+
+    def fake_serve(engine, **kw):
+        served_kw.append(kw)
+        raise Stop
+
+    monkeypatch.setattr(ts, "make_engine", fake_make_engine)
+    monkeypatch.setattr(ts, "serve", fake_serve)
+    recipe = argv is None
+    with pytest.raises(Stop):
+        ts.main(_recipe_argv() if recipe else argv)
+    kw = served_kw[0]
+    assert (kw["open_burst"], kw["open_window_s"], kw["coalesce_s"]) == want
+    if argv is None or "--weights-int8" in argv:
+        assert kw["max_burst"] == 32
+        assert {k: made[0][k] for k in ("slots", "max_len", "admit_wave",
+                                        "kv_int8", "weights_int8")} == {
+            "slots": 32, "max_len": 1280, "admit_wave": 4,
+            "kv_int8": True, "weights_int8": True}
+    if recipe:
+        assert made[0]["config"] == "llama3-8b" and kw["port"] == 8080
