@@ -89,7 +89,27 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    ``torch._int_mm``, the quantizers, K1 and the rest, and
    ``torch._int_mm`` timed at the recipe's shapes with the weight
    column-major (as stored) and row-major.
-5. Bench: the port's serving bench (``infer/bench_serve.py``) at
+5. Handoff: the cross-replica KV handoff of disaggregated serving
+   between two HTTP servers on the card, a prefill tier P and a decode
+   tier D on one params tree: llama3-8b bf16 at full depth in the serve
+   phase's settings, the int8 recipe at full depth (32 slots, max_len
+   1280, quantized once) and float32 on the first 8 layers. The single
+   tier first (prompts of 775 and 597 tokens, 32 new tokens, on D's
+   ``/generate``), then, launch counts set to 0, each prompt's
+   ``/prefill`` on P and its ``/handoff`` on D, blocking and streamed,
+   D's prefix cache cleared before each: every handoff imports the
+   512-row prefix and resumes over it (``resumed_len`` 512, one prefix
+   hit), the tokens agree with the single tier's under the serve
+   phase's rules, a 491-token prompt gets the typed 409, each tier
+   holds only its resident entries' blocks, K1's decode body and the
+   multi-row body the pools pick launch (``wgmma`` on bf16 and int8,
+   ``mma.sync`` on float32, never the other), K1 is held against its
+   plain version at every shape of the leg and, with the trash block
+   filled with 100.0, on D's imported blocks. Export, encode, wire,
+   decode and import times, ``/prefill`` wall and the time to the
+   first streamed decode token are printed beside the single tier's
+   TTFT and decode rate.
+6. Bench: the port's serving bench (``infer/bench_serve.py``) at
    llama3-8b full width and depth, bf16, random weights from seed 0,
    through its own functions, launch counts set to 0 before each leg
    and read after it: ``run_http`` (8 streamed requests of mixed
@@ -111,7 +131,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    their plain versions at every shape the leg gave them (random
    inputs, the leg's tables, lengths and spans). The kernels phase
    times K1 and K2 at the bench's main shapes.
-6. Train: gradient parity of the kernels against the plain versions at
+7. Train: gradient parity of the kernels against the plain versions at
    llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
    ``train.run`` at llama3-1b full width and depth for 6 steps on a
    repeated batch (counts set to 0 before, read after: K2 32, K3 16 and
@@ -121,8 +141,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--phase kernels``, ``serve``,
-``bench`` or ``train`` runs one of phases 3-6 alone (the build always
-runs).
+``handoff``, ``bench`` or ``train`` runs one of phases 3-7 alone (the
+build always runs).
 """
 
 from __future__ import annotations
@@ -139,6 +159,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense peak rates.
@@ -967,9 +988,9 @@ def _divergence(ref_engine, prompt, got, want, low=None):
     rounds every projection's activations to int8, so noise of that size
     flips some roundings and moves the logits by far more than float32
     noise does. ``low``, a plain engine on the same weights in bf16
-    (``ref_engine`` then holds them in float32): the floor is twice the
-    largest difference between its logits and ``ref_engine``'s on the
-    context."""
+    (``ref_engine`` then holds them in float32): the floor is at least
+    twice the largest difference between its logits and
+    ``ref_engine``'s on the context."""
     for t, (a, b) in enumerate(zip(got, want)):
         if a == b:
             continue
@@ -983,8 +1004,9 @@ def _divergence(ref_engine, prompt, got, want, low=None):
             noise = (_plain_logits(ref_engine, probe, prompt, ctx)
                      - logits).abs().max().item()
         if low is not None:
-            noise = 2 * (_plain_logits(low, low.params, prompt, ctx).float()
-                         - logits).abs().max().item()
+            noise = max(noise, 2 * (
+                _plain_logits(low, low.params, prompt, ctx).float()
+                - logits).abs().max().item())
         return t, (top2[0] - top2[1]).item(), noise
     return None, None, 0.0
 
@@ -2039,7 +2061,7 @@ def _check_path_shapes(seen: dict, leg: str, dev) -> None:
         if key[0] == "K1":
             _, qshape, qdtype, pshape, kvdtype, tshape, sb = key
             B, G, R, hd = qshape
-            name = (f"bench[{leg}] K1 B={B} R={R} blocks of {pshape[1]} "
+            name = (f"{leg} K1 B={B} R={R} blocks of {pshape[1]} "
                     f"x {tshape[1] - 1} span {sb}")
             if (pshape, kvdtype) not in pools:
                 pools[(pshape, kvdtype)] = _rows_pools(
@@ -2056,7 +2078,7 @@ def _check_path_shapes(seen: dict, leg: str, dev) -> None:
             shapes.append(f"K1 B={B} R={R} bl={pshape[1]} span={sb} x{n}")
         else:
             _, qshape, kshape, dtype, causal, _ = key
-            name = f"bench[{leg}] K2 {qshape}"
+            name = f"{leg} K2 {qshape}"
 
             def randn(shape):
                 return torch.randn(shape, generator=gen, device=dev,
@@ -2069,15 +2091,16 @@ def _check_path_shapes(seen: dict, leg: str, dev) -> None:
         errs[key[0]] = max(errs[key[0]], err)
     del pools
     torch.cuda.empty_cache()
-    _log(f"bench[{leg}]: the kernels agree with their plain versions at "
+    _log(f"{leg}: the kernels agree with their plain versions at "
          f"all {len(seen)} shapes of the leg (max err K1 "
          f"{errs['K1']:.3e}, K2 {errs['K2']:.3e}): " + "; ".join(shapes))
 
 
 def _bf16_divergence(dev, config: str, chunk: int, cold: dict,
-                     warm: dict) -> None:
-    """Hold each prompt whose warm tokens part from its cold ones to
-    :func:`_agree`'s rule, with the top-2 gap taken from a plain engine
+                     passes, leg: str = "bench") -> None:
+    """Hold each prompt whose tokens in a pass of ``passes`` ((what the
+    two paths are, {prompt: tokens}) pairs) part from its ``cold`` ones
+    to :func:`_agree`'s rule, with the top-2 gap taken from a plain engine
     on a float32 copy of the bench's weights (seed 0) and the noise
     floor from the same context in bf16: twice the largest difference
     between the bf16 and float32 plain logits there, since each bf16
@@ -2085,6 +2108,8 @@ def _bf16_divergence(dev, config: str, chunk: int, cold: dict,
     import torch
     from skypilot_tpu_torch.infer import engine as eng
     from skypilot_tpu_torch.models import llama
+    if all(warm[p] == c for _, warm in passes for p, c in cold.items()):
+        return
     cfg = llama.CONFIGS[config]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -2100,11 +2125,11 @@ def _bf16_divergence(dev, config: str, chunk: int, cold: dict,
             p, c, n_slots=1, max_len=1024, prompt_buckets=(1024,),
             prefill_chunk=chunk, device=dev, plain_attention=True)
     del params
-    for i, (prompt, c) in enumerate(cold.items()):
-        if warm[prompt] != c:
-            _agree(refs[torch.float32], list(prompt), warm[prompt], c,
-                   f"request {i}", "warm and cold passes", "bench",
-                   low=refs[torch.bfloat16])
+    for paths, warm in passes:
+        for i, (prompt, c) in enumerate(cold.items()):
+            if warm[prompt] != c:
+                _agree(refs[torch.float32], list(prompt), warm[prompt], c,
+                       f"request {i}", paths, leg, low=refs[torch.bfloat16])
     del refs
     gc.collect()
     torch.cuda.empty_cache()
@@ -2148,7 +2173,7 @@ def phase_bench(dev, card: str) -> dict:
              f"{card}")
         gc.collect()
         torch.cuda.empty_cache()
-        _check_path_shapes(seen, name, dev)
+        _check_path_shapes(seen, f"bench[{name}]", dev)
         return out
 
     # 1. HTTP: every response 200 (the client raises otherwise) with its
@@ -2201,7 +2226,8 @@ def phase_bench(dev, card: str) -> dict:
                              "the passes the report compared")
     if not pfx["parity_ok"]:
         # bf16 batches differ between the passes.
-        _bf16_divergence(dev, config, pfx["prefill_chunk"], cold, warm)
+        _bf16_divergence(dev, config, pfx["prefill_chunk"], cold,
+                         [("warm and cold passes", warm)])
 
     for k in ("paged_attention", "paged_attention_rows",
               "flash_attention_fwd"):
@@ -2213,6 +2239,422 @@ def phase_bench(dev, card: str) -> dict:
                              f"a block length the wgmma body does not "
                              f"read")
     return total
+
+
+# ---------------------------------------------------------------------------
+# The cross-replica KV handoff
+# ---------------------------------------------------------------------------
+
+def _handoff_prompts(cfg):
+    """The handoff legs' prompts (seed 0): 775 and 597 tokens, both
+    handed off over a 512-row prefix, and 491, which cannot hand off
+    (its context plus one token does not pass one chunk)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 3)
+    return [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in (775, 597, 491)]
+
+
+def _tiers(params, cfg, dev, slots: int, max_len: int, **kw):
+    """A prefill tier P and a decode tier D: two engines on one params
+    tree with the serving defaults ``make_engine`` gives them (prompt
+    buckets, waves of 8, blocks of 256, chunks of 512, a prefix pool of
+    8, spec K 4); ``kw``: the int8 recipe's options."""
+    from skypilot_tpu_torch.infer import engine as eng
+    buckets = tuple(sorted({128, 512, max_len}))
+    return [eng.InferenceEngine(
+        params, cfg, n_slots=slots, max_len=max_len, prompt_buckets=buckets,
+        max_wave=8, kv_block=256, prefill_chunk=512, prefix_pool=8,
+        spec_k=4, device=dev, seed=SEED, **kw) for _ in "PD"]
+
+
+def _fill_trash(engine) -> None:
+    """The trash block (every table entry past a slot's blocks) holds
+    100.0: a read that leaks past a slot's rows shows at once."""
+    n = engine.n_kv_blocks
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in engine.cache:
+            engine.cache[name][:, n] = 100
+
+
+@contextlib.contextmanager
+def _timed(obj, name: str, out: list, sync: bool = False):
+    """Wrap ``obj.name`` (a module's function or an instance's method)
+    for the block: each call appends (ms, args, result)."""
+    import torch
+    real = getattr(obj, name)
+    own = name in vars(obj)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        res = real(*a, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        out.append(((time.perf_counter() - t0) * 1e3, a, res))
+        return res
+
+    setattr(obj, name, timed)
+    try:
+        yield
+    finally:
+        if own:
+            setattr(obj, name, real)
+        else:
+            delattr(obj, name)
+
+
+def _post_raw(url: str, body: bytes):
+    """POST ``body``; returns (status, response bytes)."""
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _stream_timed(url: str, body: bytes, n_seeds: int):
+    """POST a streamed ``body``; returns (tokens, the done line, ms from
+    the send to the first token past the ``n_seeds`` committed ones, ms
+    from that token to the done line)."""
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json"})
+    toks, first = [], None
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            if not line.strip():
+                continue
+            obj = json.loads(line)
+            if "error" in obj:
+                raise AssertionError(f"handoff stream error: {obj}")
+            if obj.get("done"):
+                now = time.perf_counter()
+                return toks, obj, (first - t0) * 1e3, (now - first) * 1e3
+            toks.extend(obj.get("tokens") or [])
+            if first is None and len(toks) > n_seeds:
+                first = time.perf_counter()
+    raise AssertionError("handoff stream ended without done")
+
+
+@contextlib.contextmanager
+def _first_rows_call(engine, out: list):
+    """Record, for the block, the inputs of the first multi-row K1 call
+    on ``engine``'s cache: (layer, table, q, lengths, span)."""
+    from skypilot_tpu_torch.infer import kvcache
+    real = kvcache._paged_attn_stats
+    rep = engine.cfg.n_heads // engine.cfg.n_kv_heads
+
+    def keep(cache, i, table, qh, lengths, span, plain=False):
+        if cache is engine.cache and qh.shape[2] > rep and not out:
+            out.append((i, table.clone(), qh.clone(), lengths.clone(),
+                        span))
+        return real(cache, i, table, qh, lengths, span, plain)
+
+    kvcache._paged_attn_stats = keep
+    try:
+        yield
+    finally:
+        kvcache._paged_attn_stats = real
+
+
+def _handoff_leg(P, D, tag: str, card: str, new: int = 32) -> dict:
+    """P (prefill tier) and D (decode tier) behind two HTTP servers on
+    one card. First the single-tier reference: each handoff prompt on
+    D's ``/generate``, then ``clear_prefix_cache()``. Then, launch
+    counts set to 0 and K1's shapes recorded: each prompt's ``/prefill``
+    on P (one committed token and the export, on the reference's wire)
+    and, D's prefix cache cleared before each, its ``/handoff`` on D,
+    blocking and then streamed. Checked: the committed token is the
+    single tier's first; every handoff imported the 512-row prefix (the
+    import's rows, D's ``prefix_hits`` up by one, the request's
+    ``resumed_len`` 512); the stream starts with the committed token;
+    ``/prefill`` of the 491-token prompt gets the typed 409; afterwards
+    each tier's blocks are its resident entries'. D's trash block holds
+    100.0 before the leg and again when K1 is held against its plain
+    version on D's own cache (the imported blocks) at the first resume
+    chunk's inputs. Returns the launches and the token maps."""
+    import torch
+    from skypilot_tpu_torch.infer import server as srv
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    prompts = _handoff_prompts(D.cfg)
+    handed, short = prompts[:2], prompts[2]
+    _fill_trash(D)
+    servers = []
+    for e in (P, D):
+        port = _free_port()
+        model, httpd = srv.serve(e, host="127.0.0.1", port=port)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        servers.append((model, httpd, th, f"http://127.0.0.1:{port}"))
+    purl, durl = servers[0][3], servers[1][3]
+    out = {"single": {}, "blocking": {}, "stream": {}}
+    seen, resume = {}, []
+    calls = {k: [] for k in ("export", "encode", "decode", "import",
+                             "retire")}
+    try:
+        for model, *_ in servers:
+            model.wait_ready(timeout=600)
+        for p in handed:
+            r = _post(f"{durl}/generate", {"tokens": p,
+                                           "max_new_tokens": new})
+            out["single"][tuple(p)] = r["tokens"]
+            tps = (len(r["tokens"]) - 1) / (
+                (r["total_ms"] - r["ttft_ms"]) / 1e3)
+            _log(f"{tag}: single tier, {len(p)}-token prompt on D: TTFT "
+                 f"{r['ttft_ms']:.1f} ms, decode {tps:.1f} tokens/s; "
+                 f"{card}")
+        D.clear_prefix_cache()           # idle: no request in flight
+        with contextlib.ExitStack() as stack:
+            for ctx in (_path_shapes(seen), _first_rows_call(D, resume),
+                        _timed(P, "export_prefix_for", calls["export"],
+                               sync=True),
+                        _timed(srv, "encode_export", calls["encode"]),
+                        _timed(srv, "decode_export", calls["decode"]),
+                        _timed(D, "import_prefix", calls["import"],
+                               sync=True),
+                        _timed(D, "_retire", calls["retire"])):
+                stack.enter_context(ctx)
+            _zero_launches()
+            for p in handed:
+                _handoff_one(p, purl, durl, D, calls, out, tag, card, new)
+            launches = _read_launches()
+        code, body = _post_raw(f"{purl}/prefill", json.dumps(
+            {"tokens": short, "max_new_tokens": new}).encode())
+        err = json.loads(body).get("error")
+        if code != 409 or not isinstance(err, dict) or \
+                err.get("type") != "handoff_ineligible":
+            raise AssertionError(f"{tag}: /prefill of {len(short)} tokens "
+                                 f"gave {code} {body[:200]!r}, the typed "
+                                 f"409 expected")
+    finally:
+        for model, httpd, th, _ in servers:
+            httpd.shutdown()
+            model.shutdown()
+            th.join(timeout=30)
+    for name, e in (("P", P), ("D", D)):
+        held = sum(len(p) for p in e._prefix_index.payloads())
+        if e.blocks_used() != held:
+            raise AssertionError(f"{tag}: {name} holds {e.blocks_used()} "
+                                 f"blocks, its resident entries {held}")
+    _log(f"{tag}: /prefill of the {len(short)}-token prompt: typed 409 "
+         f"handoff_ineligible; blocks held after the leg: P "
+         f"{P.blocks_used()}, D {D.blocks_used()}, each its resident "
+         f"entries'; launches {launches}")
+    if not (launches["paged_attention"] > 0
+            and launches["paged_attention_rows"]
+            + launches["paged_attention_rows_mma"] > 0):
+        raise AssertionError(f"{tag}: K1's decode or multi-row body never "
+                             f"launched: {launches}")
+    _check_path_shapes(seen, tag, dev=D.device)
+    # K1 on the imported blocks: the first resume chunk's inputs, D's
+    # own pools, the trash block refilled with 100.0 (decode bursts
+    # write dead slots' rows there).
+    _fill_trash(D)
+    i, table, qh, lengths, span = resume[0]
+    c = D.cache
+    sb = -(-(span or (table.shape[1] - 1) * D.kv_block) // D.kv_block)
+    err = _paged_err(f"{tag} K1 resume over imported blocks", dict(
+        q=qh, k_pool=c["k"], v_pool=c["v"], k_scale=c.get("k_scale"),
+        v_scale=c.get("v_scale"), table=table, lengths=lengths, layer=i,
+        span_blocks=sb), pa.paged_attention)
+    _log(f"{tag}: K1 agrees with its plain version on D's imported blocks "
+         f"at the first resume chunk (R={qh.shape[2]}, start "
+         f"{int(lengths[0])}, {sb} blocks, trash block 100.0): max err "
+         f"{err:.3e}")
+    del resume
+    torch.cuda.empty_cache()
+    return dict(launches=launches, **out)
+
+
+def _handoff_one(p, purl, durl, D, calls, out, tag, card, new) -> None:
+    """One prompt through ``/prefill`` on P, then ``/handoff`` on D,
+    blocking and streamed; see :func:`_handoff_leg`."""
+    t0 = time.perf_counter()
+    code, body = _post_raw(f"{purl}/prefill", json.dumps(
+        {"tokens": p, "max_new_tokens": new}).encode())
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    if code != 200:
+        raise AssertionError(f"{tag}: /prefill {code}: {body[:300]!r}")
+    pre = json.loads(body)
+    committed = pre["committed"]
+    want = out["single"][tuple(p)]
+    if committed != want[:1] or pre["export"]["cached_len"] != 512:
+        raise AssertionError(
+            f"{tag}: /prefill committed {committed} over "
+            f"{pre['export']['cached_len']} rows; the single tier's first "
+            f"token {want[:1]} over 512 expected")
+    exp_ms, _, exp = calls["export"][-1]
+    _log(f"{tag}: {len(p)}-token prompt, /prefill on P: wall {pre_ms:.1f} "
+         f"ms (TTFT {pre['ttft_ms']:.1f} ms), export {exp_ms:.1f} ms, "
+         f"encode {calls['encode'][-1][0]:.1f} ms, wire "
+         f"{len(body) / 2 ** 20:.1f} MiB ("
+         + ", ".join(f"{n} {v.dtype}{list(v.shape)}"
+                     for n, v in exp["tensors"].items()) + f"); {card}")
+    for mode in ("blocking", "stream"):
+        D.clear_prefix_cache()
+        hits, n_ret = D.prefix_hits, len(calls["retire"])
+        hbody = json.dumps({"tokens": p, "committed": committed,
+                            "export": pre["export"], "max_new_tokens": new,
+                            "stream": mode == "stream"}).encode()
+        t0 = time.perf_counter()
+        first_ms = None
+        if mode == "stream":
+            toks, done, first_ms, decode_ms = _stream_timed(
+                f"{durl}/handoff", hbody, len(committed))
+            ttft = done["ttft_ms"]
+            if toks[:len(committed)] != committed or \
+                    done["n_tokens"] != len(toks):
+                raise AssertionError(f"{tag}: the stream did not start "
+                                     f"with the committed token or its "
+                                     f"done line miscounts")
+        else:
+            code, rb = _post_raw(f"{durl}/handoff", hbody)
+            if code != 200:
+                raise AssertionError(f"{tag}: /handoff {code}: "
+                                     f"{rb[:300]!r}")
+            r = json.loads(rb)
+            toks, ttft = r["tokens"], r["ttft_ms"]
+            decode_ms = r["total_ms"] - ttft
+        wall = (time.perf_counter() - t0) * 1e3
+        out[mode][tuple(p)] = toks
+        req = next(a[0] for _, a, _ in calls["retire"][n_ret:]
+                   if a[0].prompt == p)
+        dec_ms = calls["decode"][-1][0]
+        imp_ms, _, imp_rows = calls["import"][-1]
+        # After D's first token, as the single tier's rate is read.
+        tps = (len(toks) - len(committed) - 1) / (decode_ms / 1e3)
+        _log(f"{tag}: {len(p)}-token prompt, /handoff {mode} on D: "
+             f"decode+import {dec_ms + imp_ms:.1f} ms (decode_export "
+             f"{dec_ms:.1f}, import {imp_ms:.1f}: {imp_rows} rows), TTFT "
+             f"on D {ttft:.1f} ms (from the parsed request)"
+             + (f", first streamed decode token at {first_ms:.1f} ms"
+                if first_ms is not None else "")
+             + f", decode {tps:.1f} tokens/s, wall {wall:.1f} ms; {card}")
+        if (imp_rows, req.resumed_len, D.prefix_hits - hits) != (512, 512,
+                                                                 1) \
+                or len(toks) != new:
+            raise AssertionError(
+                f"{tag}: {mode} handoff of {len(p)} tokens: import "
+                f"{imp_rows} rows, resumed_len {req.resumed_len}, D's "
+                f"prefix hits +{D.prefix_hits - hits}, {len(toks)} tokens "
+                f"(512, 512, +1 and {new} expected)")
+
+
+def _plain_tier(params, cfg, dev, max_len: int, **kw):
+    """A one-slot plain-attention engine shaped like a tier: the
+    reference whose logits hold a leg's divergences."""
+    from skypilot_tpu_torch.infer import engine as eng
+    return eng.InferenceEngine(
+        params, cfg, n_slots=1, max_len=max_len,
+        prompt_buckets=tuple(sorted({128, 512, max_len})), kv_block=256,
+        prefill_chunk=512, device=dev, plain_attention=True, **kw)
+
+
+def _free_card() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_handoff(dev, card: str) -> dict:
+    """The cross-replica KV handoff (:func:`_handoff_leg`) at llama3-8b:
+    bf16 at full depth (16 slots, max_len 1024), the int8 recipe at full
+    depth (``--kv-int8 --weights-int8``, 32 slots, max_len 1280, the
+    weights quantized once and shared by both tiers) and float32 on the
+    first 8 layers. Two-tier tokens are held to the single tier's: in
+    float32 equal wherever the plain top-2 gap exceeds 1e-2; in bf16 and
+    int8 the gap is read from the plain path on the weights in float32
+    (the int8 recipe's float32 embedding beside the same int8 weights)
+    and the floor raised to the bf16 noise on that context, and on the
+    int8 recipe to w8a8's (:func:`_agree`). Returns {path: launches}."""
+    import torch
+    from skypilot_tpu_torch.infer import kvcache
+    from skypilot_tpu_torch.models import llama
+    config = "llama3-8b"
+    cfg = llama.CONFIGS[config]
+
+    def weights(c):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        return llama.init_params(c, gen, device=dev, dtype=c.dtype)
+
+    def modes(leg):
+        return [(f"single-tier and two-tier ({m}) tokens", leg[m])
+                for m in ("blocking", "stream")]
+
+    def wgmma_only(leg, tag):
+        n = leg["launches"]
+        if not n["paged_attention_rows"] or n["paged_attention_rows_mma"]:
+            raise AssertionError(f"{tag}: the wgmma multi-row body "
+                                 f"launched {n['paged_attention_rows']} "
+                                 f"times (> 0 expected), the mma.sync one "
+                                 f"{n['paged_attention_rows_mma']} (0)")
+
+    # bf16, full depth, the serve phase's engine settings.
+    t0 = time.time()
+    params = weights(cfg)
+    P, D = _tiers(params, cfg, dev, 16, 1024)
+    _log(f"handoff: llama3-8b bf16 tiers P and D on one params tree in "
+         f"{time.time() - t0:.1f} s")
+    bf16 = _handoff_leg(P, D, "handoff", card)
+    wgmma_only(bf16, "handoff")
+    del P, D, params
+    _free_card()
+    _bf16_divergence(dev, config, 512, bf16["single"], modes(bf16),
+                     leg="handoff")
+    _free_card()
+
+    # The int8 recipe, full depth: quantized once, shared by P and D.
+    t0 = time.time()
+    params = weights(cfg)
+    w8 = {"blocks": kvcache.quantize_block_weights(params),
+          "head": kvcache.quantize_head(params, cfg)}
+    slim = kvcache.slim_params(params)
+    del params
+    _free_card()
+    P, D = _tiers(slim, cfg, dev, 32, 1280, kv_int8=True, qweights=w8)
+    _log(f"handoff[int8]: llama3-8b w8a8 + int8 KV tiers on one int8 tree "
+         f"in {time.time() - t0:.1f} s")
+    int8 = _handoff_leg(P, D, "handoff[int8]", card)
+    wgmma_only(int8, "handoff[int8]")
+    del P, D
+    _free_card()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = _plain_tier({k: v.float() if torch.is_tensor(v) else
+                       {n: w.float() for n, w in v.items()}
+                       for k, v in slim.items()}, cfg32, dev, 1280,
+                      kv_int8=True, qweights=w8)
+    low = _plain_tier(slim, cfg, dev, 1280, kv_int8=True, qweights=w8)
+    for paths, got in modes(int8):
+        for i, (p, want) in enumerate(int8["single"].items()):
+            _agree(ref, list(p), got[p], want, f"prompt {i}", paths,
+                   "handoff[int8]", low=low)
+    del ref, low, slim, w8
+    _free_card()
+
+    # float32, the first 8 layers at full width.
+    cfg8 = dataclasses.replace(cfg, dtype=torch.float32,
+                               n_layers=INT8_FP32_LAYERS)
+    params = weights(cfg8)
+    P, D = _tiers(params, cfg8, dev, 16, 1024)
+    fp32 = _handoff_leg(P, D, "handoff[fp32]", card)
+    n = fp32["launches"]
+    if not n["paged_attention_rows_mma"] or n["paged_attention_rows"]:
+        raise AssertionError(f"handoff[fp32]: float32 pools ran the wgmma "
+                             f"body or never the mma.sync one: {n}")
+    del P, D
+    ref = _plain_tier(params, cfg8, dev, 1024)
+    for paths, got in modes(fp32):
+        for i, (p, want) in enumerate(fp32["single"].items()):
+            _agree(ref, list(p), got[p], want, f"prompt {i}", paths,
+                   "handoff[fp32]")
+    del ref, params
+    _free_card()
+    return {"handoff": bf16["launches"],
+            "handoff[int8]": int8["launches"],
+            "handoff[fp32]": fp32["launches"]}
 
 
 def phase_train(dev, card: str):
@@ -2310,7 +2752,8 @@ def phase_train(dev, card: str):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
-                    choices=("all", "kernels", "serve", "bench", "train"),
+                    choices=("all", "kernels", "serve", "handoff", "bench",
+                             "train"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -2361,6 +2804,9 @@ def main() -> int:
     by_path = {}
     if args.phase in ("all", "serve"):
         by_path.update(phase_serve(dev, smi))
+        free()
+    if args.phase in ("all", "handoff"):
+        by_path.update(phase_handoff(dev, smi))
         free()
     if args.phase in ("all", "bench"):
         by_path["bench"] = phase_bench(dev, smi)

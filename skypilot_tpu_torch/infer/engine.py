@@ -35,12 +35,20 @@ keeps the KV pool in int8 with per-row bfloat16 scales, and
 the device, and drops their float copies (w8a8 products in every
 program).
 
-Left for later slices of the port: the KV handoff, preemption, the
-draft model, LoRA adapters, QoS, the flight recorder, metrics, tracing
-and crash recovery. The JAX engine padded
-admission waves to fixed row counts to avoid recompiles; PyTorch runs
-eagerly, so the port dispatches each wave at its own size and keeps no
-spare slot for padding rows.
+The cross-replica KV handoff of disaggregated serving is the engine's
+side of a two-tier service: :meth:`InferenceEngine.export_prefix_for`
+snapshots a retired request's stored prefix blocks on the prefill tier,
+:meth:`InferenceEngine.import_prefix` installs them into the decode
+tier's pool and prefix index, and ``add_request(..., committed=...)``
+admits the prompt plus its committed tokens through the resume context
+(``_ctx``), whose chunked prefill reads the imported blocks as a prefix
+hit.
+
+Left for later slices of the port: preemption, the draft model, LoRA
+adapters, QoS, the flight recorder, metrics, tracing and crash
+recovery. The JAX engine padded admission waves to fixed row counts
+to avoid recompiles; PyTorch runs eagerly, so the port dispatches each
+wave at its own size and keeps no spare slot for padding rows.
 """
 
 from __future__ import annotations
@@ -73,6 +81,10 @@ class Request:
     eos_id: Optional[int] = None
     n_chunks: int = 0                 # prefill chunks run for this request
     cached_len: int = 0               # prompt rows reused from the cache
+    # A resume (admitted with committed tokens, as a KV handoff is):
+    # the context rows its claim reused from the prefix cache (the
+    # imported blocks); ``cached_len`` stays the first admission's.
+    resumed_len: int = 0
     # Speculative decoding: lifetime drafted/accepted tokens (the
     # response trailer) and the drafter state. ``spec_mode`` is the
     # drafter rung ("ngram", then "off" once acceptance collapses);
@@ -89,11 +101,14 @@ class Request:
 @dataclasses.dataclass
 class _ChunkState:
     """A request mid-chunked-prefill: slot claimed, rows [0, pos)
-    resident (reused prefix and/or completed chunks), first token not
-    yet produced."""
+    resident (reused prefix and/or completed chunks), first token (or,
+    on a resume, the next token) not yet produced. ``ctx`` is the
+    admission-time context: the prompt, or prompt + committed tokens on
+    a resume."""
     req: Request
     pos: int            # next row offset to prefill
-    total: int          # len(prompt)
+    total: int          # len(ctx)
+    ctx: List[int]
 
 
 @dataclasses.dataclass
@@ -508,11 +523,18 @@ class InferenceEngine:
     # -- requests ----------------------------------------------------------
 
     def add_request(self, prompt: List[int],
-                    max_new_tokens: int = 128) -> int:
+                    max_new_tokens: int = 128,
+                    committed: Optional[List[int]] = None) -> int:
+        """Queue a request; returns its id. ``committed``: tokens another
+        replica already committed (a KV handoff's decode tier): they are
+        pre-seeded, so the request admits through the resume context
+        (prompt + committed) and ``max_new_tokens`` still counts them."""
         _bucket(len(prompt), self.buckets)   # validate length up front
         req = Request(rid=self._next_rid, prompt=list(prompt),
                       max_new_tokens=max_new_tokens,
                       submit_s=time.time(), eos_id=self.eos_id)
+        if committed:
+            req.tokens = [int(t) for t in committed]
         self._next_rid += 1
         self.waiting.append(req)
         return req.rid
@@ -641,7 +663,8 @@ class InferenceEngine:
                     stalled = not self._claim_chunked(
                         self.waiting.popleft())
                     continue
-                bucket = _bucket(len(self.waiting[0].prompt), self.buckets)
+                bucket = _bucket(self._ctx_len(self.waiting[0]),
+                                 self.buckets)
                 wave: List[Request] = []
                 slots: List[int] = []
                 rest: List[Request] = []
@@ -652,7 +675,7 @@ class InferenceEngine:
                     if self._use_chunked(req):
                         stalled = not self._claim_chunked(req)
                         continue
-                    if _bucket(len(req.prompt), self.buckets) != bucket:
+                    if _bucket(self._ctx_len(req), self.buckets) != bucket:
                         rest.append(req)
                         continue
                     slot = self._wave_claim(req)
@@ -680,8 +703,9 @@ class InferenceEngine:
         tokens_b = np.zeros((n, bucket), np.int64)
         true_lens = np.ones((n,), np.int64)
         for i, req in enumerate(wave):
-            tokens_b[i, :len(req.prompt)] = req.prompt
-            true_lens[i] = len(req.prompt)
+            ctx = self._ctx(req)
+            tokens_b[i, :len(ctx)] = ctx
+            true_lens[i] = len(ctx)
         tokens = self._upload(tokens_b)
         lens = self._upload(true_lens)
         prefix, logits = kvcache.prefill_batch(
@@ -711,9 +735,32 @@ class InferenceEngine:
 
     # -- chunked prefill ---------------------------------------------------
 
+    def _ctx(self, req: Request) -> List[int]:
+        """A queued request's admission context: its prompt, extended by
+        the tokens it already committed when it resumes (a KV handoff);
+        the resume prefills (or prefix-cache-reuses) the whole context
+        and the final chunk's sample is the next token."""
+        if not req.tokens:
+            return req.prompt
+        return req.prompt + req.tokens
+
+    def _ctx_len(self, req: Request) -> int:
+        """``len(self._ctx(req))`` without building the list."""
+        return len(req.prompt) + len(req.tokens)
+
+    def _resumable(self, ctx_len: int) -> bool:
+        """Whether a context of this length resumes through the chunk
+        path, the only resume held token for token to an uninterrupted
+        run (a wave would sample the next token from the wave program's
+        logits where the uninterrupted run used the decode program's)."""
+        if ctx_len >= self.max_len:
+            return False
+        return (self.prefill_chunk is not None
+                and ctx_len > self.prefill_chunk)
+
     def _use_chunked(self, req: Request) -> bool:
         return (self.prefill_chunk is not None
-                and len(req.prompt) > self.prefill_chunk)
+                and self._ctx_len(req) > self.prefill_chunk)
 
     def _claim_chunked(self, req: Request) -> bool:
         """Claim a slot for an incremental prefill: look up the prefix
@@ -723,10 +770,11 @@ class InferenceEngine:
         remaining chunks. The claim stamps the slot's length to max_len
         (:func:`kvcache.claim_slot`), so interleaved bursts' writes for
         this not-yet-active slot land in the trash block. False when the
-        pool is too dry: the request goes back to the queue's head."""
-        prompt = req.prompt
+        pool is too dry: the request goes back to the queue's head. A
+        resume looks up and prefills its whole context (:meth:`_ctx`)."""
+        ctx = self._ctx(req)
         idx = self._prefix_index
-        hit = idx.lookup(prompt) if idx is not None else None
+        hit = idx.lookup(ctx) if idx is not None else None
         cached = n_shared = partial = 0
         shared: List[int] = []
         if hit is not None:
@@ -759,14 +807,17 @@ class InferenceEngine:
                 kvcache.copy_block(self.cache, payload[n_shared],
                                    new_blocks[0])
                 self.cow_copies += 1
-        elif idx is not None and idx.eligible(prompt):
+        elif idx is not None and idx.eligible(ctx):
             self.prefix_misses += 1
         row[n_shared:n_shared + len(new_blocks)] = new_blocks
         self._table_dirty = True
         kvcache.claim_slot(self.cache, slot, self.max_len)
-        req.cached_len = cached
+        if req.tokens:
+            req.resumed_len = cached
+        else:
+            req.cached_len = cached
         self.chunking.append(_ChunkState(req=req, pos=cached,
-                                         total=len(prompt)))
+                                         total=len(ctx), ctx=ctx))
         return True
 
     def prefill_chunk_step(self) -> bool:
@@ -784,7 +835,7 @@ class InferenceEngine:
         n_valid = min(C, st.total - start)
         final = start + n_valid >= st.total
         chunk = np.zeros((C,), np.int64)
-        chunk[:n_valid] = req.prompt[start:start + n_valid]
+        chunk[:n_valid] = st.ctx[start:start + n_valid]
         tok_dev = kvcache.prefill_chunk(
             self.params, self.cache, self._upload(chunk), start, n_valid,
             req.slot, st.total if final else self.max_len, self.cfg,
@@ -799,21 +850,22 @@ class InferenceEngine:
         tok = int(tok_dev)                     # host sync
         self.chunking.popleft()
         req.tokens.append(tok)
-        if req.first_token_s is None:
+        if req.first_token_s is None:          # once per request
             req.first_token_s = time.time()
         self.slot_req[req.slot] = req
-        self._store_prefix(req.prompt, req.slot)
+        self._store_prefix(st.ctx, req.slot)
         if self._req_finished(req, tok):
             self._retire(req)
         return True
 
     # -- prefix cache ------------------------------------------------------
 
-    def _store_prefix(self, prompt: List[int], slot: int) -> int:
-        """Install ``prompt``'s chunk-aligned prefix, over the slot's
-        resident rows, into the prefix cache unless it is already
-        resident. Returns the rows installed (0 on every skip: no index,
-        a prefix shorter than one chunk, already covered, a dry pool).
+    def _store_prefix(self, ctx: List[int], slot: int) -> int:
+        """Install ``ctx``'s chunk-aligned prefix (a prompt, or a
+        resume's prompt + committed tokens), over the slot's resident
+        rows, into the prefix cache unless it is already resident.
+        Returns the rows installed (0 on every skip: no index, a prefix
+        shorter than one chunk, already covered, a dry pool).
         Only chunk-path prompts are stored, so a later hit replays the
         chunk program's own rows.
 
@@ -824,10 +876,10 @@ class InferenceEngine:
         idx = self._prefix_index
         if idx is None:
             return 0
-        n = (len(prompt) // idx.block) * idx.block
+        n = (len(ctx) // idx.block) * idx.block
         if n < idx.block:
             return 0
-        covered = idx.lookup(prompt)
+        covered = idx.lookup(ctx)
         if covered is not None and covered[1] >= n:
             return 0
         n_full, partial = divmod(n, self.kv_block)
@@ -842,7 +894,7 @@ class InferenceEngine:
             blocks[n_full] = cow[0]
         for b in blocks[:n_full]:
             self.allocator.incref(b)
-        for payload in idx.insert_entry(prompt, n, tuple(blocks)):
+        for payload in idx.insert_entry(ctx, n, tuple(blocks)):
             self.prefix_evictions += 1
             for b in payload:
                 self.allocator.decref(b)
@@ -861,6 +913,98 @@ class InferenceEngine:
                 self.allocator.decref(b)
         idx.clear()
 
+    # -- cross-replica KV handoff (disaggregated serving) ------------------
+
+    def handoff_eligible(self, prompt: List[int],
+                         max_new_tokens: int) -> bool:
+        """Whether a request prefilled here can hand its KV off to
+        another replica: a prefix cache, a prompt with a cacheable
+        prefix, more than one token to generate, and a resumed context
+        (prompt + the one committed token) that the receiving tier
+        admits through the chunk path (:meth:`_resumable`)."""
+        return (self._prefix_index is not None
+                and self._prefix_index.eligible(prompt)
+                and max_new_tokens > 1
+                and self._resumable(len(prompt) + 1))
+
+    def export_prefix_for(self, req: Request) -> Optional[Dict[str, Any]]:
+        """Host copy of the retired request's stored prefix, for a
+        decode-tier replica: ``cached_len``, ``kv_block``, ``n_blocks``,
+        ``salt`` and ``tensors`` (numpy, [L, nb, ...] per pool,
+        :func:`kvcache.export_blocks`). The entry's blocks stay resident
+        here, ref-counted and LRU like any stored prefix. Float planes
+        are widened to float32 on the device before the host copy (as
+        the reference widens bfloat16 at encode: the wire bytes are the
+        same, and numpy needs no bfloat16 type). None when no prefix of
+        the request is resident (the caller serves it single-tier)."""
+        idx = self._prefix_index
+        if idx is None:
+            return None
+        hit = idx.lookup(self._ctx(req))
+        if hit is None:
+            return None
+        payload, cached = hit
+        ids = torch.tensor(payload, dtype=torch.long, device=self.device)
+        tensors = {}
+        for name, v in kvcache.export_blocks(self.cache, ids).items():
+            if v.is_floating_point():
+                v = v.float()
+            tensors[name] = v.cpu().numpy()
+        return {"cached_len": cached, "kv_block": self.kv_block,
+                "n_blocks": len(payload), "salt": b"", "tensors": tensors}
+
+    def import_prefix(self, ctx: List[int], export: Dict[str, Any],
+                      salt: bytes = b"") -> int:
+        """Install another replica's exported prefix (the dict
+        :meth:`export_prefix_for` returns, from this port or the
+        reference) into fresh blocks of this pool and the prefix index
+        under ``salt``, so the handed-off request resumes through an
+        ordinary prefix hit. Returns the rows of ``ctx`` now resident:
+        0 when nothing was imported (another block length, model or
+        shape, an int8 export into a float pool or the reverse, a dry
+        pool: the request then resumes cold, with the same tokens), or
+        the rows already resident when this engine is at least as warm.
+        """
+        idx = self._prefix_index
+        if idx is None:
+            return 0
+        if export.get("kv_block") != self.kv_block:
+            return 0            # geometry mismatch: resume cold
+        cached = int(export["cached_len"])
+        nb = int(export["n_blocks"])
+        tensors = export["tensors"]
+        if nb != -(-cached // self.kv_block) or nb < 1 or set(tensors) != {
+                n for n in ("k", "v", "k_scale", "v_scale")
+                if n in self.cache}:
+            return 0            # int8 against float, or a torn export
+        for name, have in tensors.items():
+            want = self.cache[name]
+            # The wire carries float planes as float32 (exact; the
+            # scatter casts back); int8 against float is a real
+            # quantization mismatch.
+            hdt = str(have.dtype)
+            ok_dtype = (hdt == str(want.dtype).removeprefix("torch.")
+                        or (hdt == "float32" and want.is_floating_point()))
+            if tuple(have.shape) != (want.shape[0], nb) + tuple(
+                    want.shape[2:]) or not ok_dtype:
+                return 0        # model/dtype mismatch: resume cold
+        covered = idx.lookup(ctx, salt)
+        if covered is not None and covered[1] >= cached:
+            return covered[1]   # already at least as warm
+        blocks = self._alloc_blocks(nb)
+        if blocks is None:
+            return 0            # pool dry: resume cold
+        ids = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        kvcache.import_blocks(self.cache, ids, {
+            name: torch.from_numpy(np.require(arr, requirements="CW")).to(
+                self.device)
+            for name, arr in tensors.items()})
+        for payload in idx.insert_entry(ctx, cached, tuple(blocks), salt):
+            self.prefix_evictions += 1
+            for b in payload:
+                self.allocator.decref(b)
+        return cached
+
     # -- decoding ----------------------------------------------------------
 
     def _req_finished(self, req: Request, tok: int) -> bool:
@@ -868,7 +1012,7 @@ class InferenceEngine:
             return True
         if len(req.tokens) >= req.max_new_tokens:
             return True
-        return len(req.prompt) + len(req.tokens) >= self.max_len
+        return self._ctx_len(req) >= self.max_len
 
     def _retire(self, req: Request) -> None:
         req.done = True

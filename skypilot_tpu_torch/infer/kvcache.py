@@ -419,6 +419,33 @@ def copy_block(cache: Cache, src: int, dst: int) -> None:
             cache[name][:, dst] = cache[name][:, src]
 
 
+def export_blocks(cache: Cache, ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Gather the physical blocks ``ids`` ([nb] int) out of the paged
+    pool: ``k``/``v`` as [L, nb, block_len, G, hd] and, on an int8
+    cache, ``k_scale``/``v_scale`` as [L, nb, G, block_len] — the
+    device half of a cross-replica KV handoff.
+
+    Deliberate difference from the reference: it gathers a fixed-width
+    id vector padded with the sentinel (one jitted program whatever the
+    block count) and the host slices ``[:, :nb]`` before the wire. Eager
+    torch compiles nothing, and the port's sentinel is a real block (the
+    trash block), so only the ``nb`` real ids are gathered; the wire is
+    the same."""
+    return {name: cache[name][:, ids]
+            for name in ("k", "v", "k_scale", "v_scale") if name in cache}
+
+
+def import_blocks(cache: Cache, ids: torch.Tensor,
+                  vals: Dict[str, torch.Tensor]) -> None:
+    """Scatter exported block rows into the freshly allocated physical
+    blocks ``ids`` ([nb] int), in place, cast to each pool's dtype — the
+    receive half of a cross-replica KV handoff. As in
+    :func:`export_blocks`, only the ``nb`` real ids are written (the
+    reference pads with the sentinel and drops those writes)."""
+    for name, v in vals.items():
+        cache[name][:, ids] = v.to(cache[name].dtype)
+
+
 def _logical_rows(cache: Cache, table: torch.Tensor) -> int:
     """Rows a slot's attention spans: blocks_per_slot * block_len (the
     table's last column is the sentinel and holds no rows)."""

@@ -13,6 +13,20 @@ and response JSON keys:
                             -> Transfer-Encoding: chunked, one JSON
                                line per emission ({"tokens": [...]}),
                                closing line {"done": true, ...}
+  POST /prefill             {"tokens": [...], "max_new_tokens": N}
+                            -> {"committed": [t], "export": {...}, ...}
+                               (409 {"type": "handoff_ineligible"})
+  POST /handoff             {"tokens", "committed", "export",
+                             "max_new_tokens"[, "stream"]} -> as
+                            /generate, the committed tokens first
+
+``/prefill`` and ``/handoff`` are the two tiers of the reference's
+disaggregated serving, driven by its load balancer: a prefill-tier
+replica runs the prompt to one committed token and exports the stored
+prefix's KV blocks (:func:`encode_export`, the reference's wire form); a
+decode-tier replica imports them (:func:`decode_export`) and resumes
+the prompt plus the committed token through its prefix cache. A port
+replica serves either tier, beside the reference's replicas.
 
 A prompt longer than the largest bucket gets HTTP 400 with the
 reference's typed body (``PromptTooLongError.typed_error``). Prompts
@@ -68,6 +82,9 @@ class _Pending:
         self.req: Optional[eng.Request] = None
         self.cursor = 0           # tokens already pushed to the stream
         self.chunks: queue.Queue = queue.Queue()
+        # /prefill: the finished pass attaches the retired request's
+        # stored-prefix export to the result.
+        self.export_prefix = False
 
 
 class ModelServer:
@@ -111,32 +128,44 @@ class ModelServer:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
-    def _add(self, tokens, max_new_tokens: int,
-             stream: bool = False) -> _Pending:
+    def _add(self, tokens, max_new_tokens: int, stream: bool = False,
+             export_prefix: bool = False,
+             handoff: Optional[Dict] = None) -> _Pending:
         # Validate eagerly (oversized prompt -> clean 400) without
         # touching the engine's mutable state from this thread.
         eng._bucket(len(tokens), self.engine.buckets)
         p = _Pending()
         p.stream = stream
+        p.export_prefix = export_prefix
         with self._inbox_lock:
-            self._inbox.append((list(tokens), max_new_tokens, p))
+            self._inbox.append((list(tokens), max_new_tokens, p, handoff))
             self._last_arrival = time.monotonic()
         return p
 
-    def submit(self, tokens, max_new_tokens: int) -> Dict:
-        p = self._add(tokens, max_new_tokens)
+    def submit(self, tokens, max_new_tokens: int,
+               export_prefix: bool = False,
+               handoff: Optional[Dict] = None) -> Dict:
+        """Blocking: the result dict once the request finishes.
+        ``export_prefix`` (``/prefill``) adds the engine's prefix export
+        under ``"export"`` (None when none is resident); ``handoff``
+        (``/handoff``: ``{"committed": [...], "export": {...} or None}``)
+        imports the export and resumes after the committed tokens."""
+        p = self._add(tokens, max_new_tokens, export_prefix=export_prefix,
+                      handoff=handoff)
         t0 = time.time()
         p.event.wait()
         out = dict(p.result or {})
         out["total_ms"] = round((time.time() - t0) * 1e3, 2)
         return out
 
-    def submit_stream(self, tokens, max_new_tokens: int):
+    def submit_stream(self, tokens, max_new_tokens: int,
+                      handoff: Optional[Dict] = None):
         """Iterator of chunk dicts: {"tokens": [...]} as decoded, then
         one {"done": true, "ttft_ms": ...} (or {"error": ...}).
         Validation happens before any bytes are written, so an
-        oversized prompt raises here as a clean 400."""
-        p = self._add(tokens, max_new_tokens, stream=True)
+        oversized prompt raises here as a clean 400. ``handoff`` as in
+        :meth:`submit`; the committed tokens stream first."""
+        p = self._add(tokens, max_new_tokens, stream=True, handoff=handoff)
 
         def gen():
             while True:
@@ -199,8 +228,27 @@ class ModelServer:
     def _drain_inbox(self) -> None:
         with self._inbox_lock:
             new, self._inbox = self._inbox, []
-        for tokens, max_new, p in new:
-            rid = self.engine.add_request(tokens, max_new)
+        for tokens, max_new, p, handoff in new:
+            committed = None
+            if handoff is not None:
+                # Decode tier: install the prefill tier's blocks here
+                # (the loop thread is the engine's only user), then
+                # admit prompt + committed through the resume path. A
+                # failed or skipped import resumes cold, with the same
+                # tokens: never an error.
+                committed = list(handoff.get("committed") or [])
+                export = handoff.get("export")
+                if export is not None:
+                    try:
+                        self.engine.import_prefix(
+                            list(tokens) + committed, export,
+                            salt=export.get("salt", b""))
+                    except Exception as e:  # noqa: BLE001 — cold resume
+                        print(f"model server: handoff import failed, "
+                              f"resuming cold: {e!r}", file=sys.stderr,
+                              flush=True)
+            rid = self.engine.add_request(tokens, max_new,
+                                          committed=committed)
             p.req = self.engine.waiting[-1]
             # TTFT counts from when the handler enqueued the request.
             p.req.submit_s = p.enqueued_s
@@ -298,6 +346,11 @@ class ModelServer:
             p.result = {"tokens": req.tokens, "ttft_ms": ttft,
                         "prefill_chunks": req.n_chunks, "model": None,
                         **stats}
+            if p.export_prefix:
+                # /prefill: the stored prefix stays a ref-counted LRU
+                # resident here, so a lost handoff leaks nothing; None
+                # when it was evicted before the request retired.
+                p.result["export"] = e.export_prefix_for(req)
             if p.stream:
                 p.chunks.put({"done": True, "ttft_ms": ttft,
                               "n_tokens": len(req.tokens), **stats})
@@ -308,6 +361,53 @@ class ModelServer:
     def shutdown(self) -> None:
         self._stop.set()
         self._thread.join(timeout=30)
+
+
+def encode_export(export: Dict) -> Dict:
+    """JSON-safe wire form of an engine prefix export (the /prefill
+    response body's ``export`` field): block tensors as base64 raw
+    bytes + shape/dtype, the adapter salt as base64. bfloat16 scale
+    planes widen to float32 on the wire (exact, and the receiver's
+    scatter casts back), so every wire dtype is plain numpy."""
+    import base64
+
+    import numpy as np
+    tensors = {}
+    for name, arr in export["tensors"].items():
+        arr = np.ascontiguousarray(arr)
+        if str(arr.dtype) == "bfloat16":
+            arr = arr.astype(np.float32)
+        tensors[name] = {
+            "shape": list(arr.shape), "dtype": str(arr.dtype),
+            "data": base64.b64encode(arr.tobytes()).decode()}
+    return {"cached_len": int(export["cached_len"]),
+            "kv_block": int(export["kv_block"]),
+            "n_blocks": int(export["n_blocks"]),
+            "salt": base64.b64encode(export.get("salt")
+                                     or b"").decode(),
+            "tensors": tensors}
+
+
+def decode_export(wire: Dict) -> Dict:
+    """Inverse of :func:`encode_export` — the dict
+    ``InferenceEngine.import_prefix`` consumes. Raises ValueError /
+    KeyError / TypeError on malformed wire payloads (the /handoff
+    handler maps those to a 400)."""
+    import base64
+
+    import numpy as np
+    tensors = {}
+    for name, spec in wire["tensors"].items():
+        arr = np.frombuffer(
+            base64.b64decode(spec["data"]),
+            dtype=np.dtype(str(spec["dtype"]))).reshape(
+                [int(d) for d in spec["shape"]])
+        tensors[str(name)] = arr
+    return {"cached_len": int(wire["cached_len"]),
+            "kv_block": int(wire["kv_block"]),
+            "n_blocks": int(wire["n_blocks"]),
+            "salt": base64.b64decode(wire.get("salt") or ""),
+            "tensors": tensors}
 
 
 class _Threading(ThreadingMixIn, HTTPServer):
@@ -362,7 +462,7 @@ def make_handler(model: ModelServer):
                                "supported; send Content-Length"}})
             length = int(self.headers.get("Content-Length") or 0)
             body_bytes = self.rfile.read(length)
-            if self.path != "/generate":
+            if self.path not in ("/generate", "/prefill", "/handoff"):
                 return self._json(404, {"error": "not found"})
             try:
                 body = json.loads(body_bytes or b"{}")
@@ -371,15 +471,62 @@ def make_handler(model: ModelServer):
                 stream = bool(body.get("stream", False))
             except (ValueError, TypeError, KeyError) as e:
                 return self._json(400, {"error": f"bad request: {e}"})
+            if self.path == "/prefill":
+                return self._prefill(tokens, max_new)
+            handoff = None
+            if self.path == "/handoff":
+                # Decode tier: import the prefill tier's blocks, then
+                # resume prompt + committed; the committed tokens
+                # stream first (cursor 0), so the client's TTFT is the
+                # prefill tier's.
+                try:
+                    handoff = {
+                        "committed": [int(t) for t in
+                                      body.get("committed") or []],
+                        "export": (decode_export(body["export"])
+                                   if body.get("export") else None)}
+                except (ValueError, TypeError, KeyError) as e:
+                    return self._json(400,
+                                      {"error": f"bad handoff: {e}"})
             try:
                 if stream:
-                    return self._stream(model.submit_stream(tokens,
-                                                            max_new))
-                out = model.submit(tokens, max_new)
+                    return self._stream(model.submit_stream(
+                        tokens, max_new, handoff=handoff))
+                out = model.submit(tokens, max_new, handoff=handoff)
             except eng.PromptTooLongError as e:
                 return self._json(400, {"error": e.typed_error})
             if "error" in out:
                 return self._json(500, out)
+            return self._json(200, out)
+
+        def _prefill(self, tokens, max_new):
+            """Prefill tier: run the request to ONE committed token and
+            return it with the stored prefix's export; the load
+            balancer hands both to a decode replica. A request that
+            cannot hand off, or whose prefix was evicted before the
+            export, gets the typed 409 the balancer answers by serving
+            it single-tier."""
+            if not model.engine.handoff_eligible(tokens, max_new):
+                return self._json(409, {"error": {
+                    "type": "handoff_ineligible",
+                    "message": "request cannot hand off (prompt "
+                               "shorter than one prefill chunk, "
+                               "single-token budget, or prefix "
+                               "cache off); route single-tier"}})
+            try:
+                out = model.submit(tokens, 1, export_prefix=True)
+            except eng.PromptTooLongError as e:
+                return self._json(400, {"error": e.typed_error})
+            if "error" in out:
+                return self._json(500, out)
+            export = out.pop("export", None)
+            if export is None:
+                return self._json(409, {"error": {
+                    "type": "handoff_ineligible",
+                    "message": "prefix evicted before export "
+                               "(pool pressure); route single-tier"}})
+            out["committed"] = out.pop("tokens")
+            out["export"] = encode_export(export)
             return self._json(200, out)
 
         def log_message(self, *a):

@@ -1164,3 +1164,127 @@ def test_engine_refuses_int8_kv_where_no_block_suits_k1():
     with pytest.raises(ValueError, match="multiple of 8"):
         te.InferenceEngine(params, cfg, kv_int8=True, **kw)
     assert te.InferenceEngine(params, cfg, **kw).kv_block == 143
+
+
+# -- the cross-replica KV handoff on the card ---------------------------------
+
+def _handoff_setup(dtype):
+    """Weights at head_dim 128 in ``dtype``, a 600-token prompt, and a
+    maker of one tier of a two-tier service: max_len 1024 over blocks
+    of 256, chunks of 512, a prefix pool."""
+    dev = _cuda()
+    cfg = _hd128_config(dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tl.init_params(cfg, gen, device=dev)
+    rng = np.random.default_rng(4)
+
+    def tier(plain=False, **kw):
+        return te.InferenceEngine(params, cfg, n_slots=2, max_len=1024,
+                                  prompt_buckets=(128, 1024), kv_block=256,
+                                  prefill_chunk=512, prefix_pool=4,
+                                  device=dev, plain_attention=plain, **kw)
+
+    return dev, cfg, params, tier, rng.integers(1, cfg.vocab_size,
+                                                600).tolist()
+
+
+def _prefill_export(engine, prompt):
+    """The prefill tier's half: one committed token, then the export
+    through the wire (encoded, as JSON text, decoded)."""
+    import json
+    from skypilot_tpu_torch.infer import server as ts
+    engine.add_request(prompt, 1)
+    engine.run_to_completion()
+    (req,) = engine.finished
+    engine.finished.clear()
+    export = engine.export_prefix_for(req)
+    wire = ts.decode_export(json.loads(json.dumps(
+        ts.encode_export(export))))
+    return req.tokens, export, wire
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["bf16-kv", "int8-kv"])
+def test_handoff_wire_round_trip_is_bit_exact_on_card(kv_int8):
+    """A 600-token prompt's stored 512-row prefix, exported from a bf16
+    or int8 pool on the card, through the reference's wire (bf16 widened
+    to float32; int8 rows with float32 scales) and imported into a
+    second engine's pool: the imported blocks hold the prefill tier's
+    bits, scales included."""
+    dev, _, _, tier, prompt = _handoff_setup(torch.bfloat16)
+    p, d = tier(kv_int8=kv_int8), tier(kv_int8=kv_int8)
+    committed, export, wire = _prefill_export(p, prompt)
+    assert (export["cached_len"], export["n_blocks"]) == (512, 2)
+    want = {"k": "int8" if kv_int8 else "float32"}
+    assert {n: str(a.dtype) for n, a in wire["tensors"].items()} == (
+        {"k": want["k"], "v": want["k"], "k_scale": "float32",
+         "v_scale": "float32"} if kv_int8 else
+        {"k": "float32", "v": "float32"})
+    assert d.import_prefix(prompt + committed, wire) == 512
+    src = torch.tensor(p._prefix_index.lookup(prompt)[0], device=dev)
+    dst = torch.tensor(d._prefix_index.lookup(prompt)[0], device=dev)
+    assert d.blocks_used() == 2
+    for name in p.cache:
+        if name in ("length", "last_token"):
+            continue
+        assert d.cache[name].dtype == p.cache[name].dtype
+        assert torch.equal(d.cache[name][:, dst], p.cache[name][:, src])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_resume_over_imported_blocks_on_card(dtype, monkeypatch):
+    """The decode tier's resume over imported blocks, the trash block
+    filled with 100.0: every K1 call of the resume (its final chunk on
+    the multi-row body the pools pick, then decode on the decode body)
+    agrees with K1's plain version on the same inputs under K1's rule
+    (2e-3 of the largest magnitude, live slots); the resume reused the
+    512 imported rows; in float32 its greedy tokens equal the
+    plain-attention engine's resume, and the single-tier run's tokens
+    or part from them only where the plain top-2 gap is at most 1e-2
+    (the resume samples the committed token's successor from a chunk
+    program, the single-tier run from a decode step)."""
+    dev, cfg, params, tier, prompt = _handoff_setup(dtype)
+    p = tier()
+    committed, _, wire = _prefill_export(p, prompt)
+    real = tkv._paged_attn_stats
+    checked = []
+
+    def held(cache, i, table, qh, lengths, span, plain=False):
+        out = real(cache, i, table, qh, lengths, span, plain)
+        if not plain:
+            want = real(cache, i, table, qh, lengths, span, True)
+            live = lengths > 0
+            for g, w in zip(out, want):
+                _close(g[live], w[live], 2e-3)
+            checked.append(qh.shape[2])
+        return out
+
+    monkeypatch.setattr(tkv, "_paged_attn_stats", held)
+    out = {}
+    for plain in (False, True):
+        d = tier(plain)
+        _fill_trash(d)
+        assert d.import_prefix(prompt + committed, wire) == 512
+        r0, d0 = _rows_launches(), tpa.paged_attention.launches
+        d.add_request(prompt, 24, committed=committed)
+        d.run_to_completion()
+        (req,) = d.finished
+        assert req.resumed_len == 512 and d.prefix_hits == 1
+        assert req.n_chunks == 1
+        r1 = _rows_launches()
+        ran = (r1[0] > r0[0], r1[1] > r0[1],
+               tpa.paged_attention.launches > d0)
+        assert ran == ((False, False, False) if plain else
+                       (dtype == torch.bfloat16, dtype == torch.float32,
+                        True))
+        out[plain] = req.tokens
+    rep = cfg.n_heads // cfg.n_kv_heads
+    assert set(checked) == {512 * rep, rep}, set(checked)
+    if dtype == torch.float32:
+        assert out[False] == out[True]
+        single = p.generate([prompt], 24)[0]
+        t, gap = _first_divergence(params, cfg, dev, prompt, out[False],
+                                   single)
+        assert t is None or gap <= 1e-2, (t, gap)

@@ -217,6 +217,38 @@ def test_bad_requests(served):
     assert code == 404
 
 
+@pytest.mark.parametrize("stream", [False, True], ids=["blocking",
+                                                       "stream"])
+def test_handoff_routes_answer_typed_errors(served_chunked, stream):
+    """``/prefill`` on a request that cannot hand off (here: no prefix
+    cache) gets the reference's typed 409, which the load balancer
+    answers by serving the request single-tier; ``/handoff`` with a
+    malformed export gets a 400 before any bytes stream; a handoff with
+    no export resumes cold after its committed token, which streams
+    first; other paths stay 404."""
+    url, prompts, want, _ = served_chunked
+    code, out = _post(f"{url}/prefill", {"tokens": prompts[0],
+                                         "max_new_tokens": 6})
+    assert code == 409 and out["error"]["type"] == "handoff_ineligible"
+    bad = {"tensors": {"k": {"shape": [2], "dtype": "float32",
+                             "data": "!!"}}}
+    code, out = _post(f"{url}/handoff", {
+        "tokens": prompts[0], "committed": want[0][:1], "export": bad,
+        "max_new_tokens": 6, "stream": stream})
+    assert code == 400 and "bad handoff" in out["error"]
+    code, out = _post(f"{url}/handoff", {
+        "tokens": prompts[0], "committed": want[0][:1],
+        "max_new_tokens": 6, "stream": stream})
+    assert code == 200
+    if stream:
+        assert out[0]["tokens"] == want[0][:1]
+        assert out[-1]["done"] and out[-1]["n_tokens"] == 6
+        out = {"tokens": [t for c in out for t in c.get("tokens", [])]}
+    assert out["tokens"] == want[0]
+    code, _ = _post(f"{url}/drain", {"tokens": [1]})
+    assert code == 404
+
+
 def test_main_serves_on_the_cpu():
     port = _free_port()
     proc = subprocess.Popen(
