@@ -131,7 +131,30 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    their plain versions at every shape the leg gave them (random
    inputs, the leg's tables, lengths and spans). The kernels phase
    times K1 and K2 at the bench's main shapes.
-7. Train: gradient parity of the kernels against the plain versions at
+7. QoS: multi-tenant scheduling, preemption, per-tenant KV quotas,
+   lazy KV growth and the operator routes at llama3-8b, launch counts
+   set to 0 before each leg and read after it. (a) The port's
+   ``bench_serve.run_qos`` at the reference's chip defaults (8 slots,
+   max_len 256, 64 new tokens, 24 hot requests against 2 background
+   ones; bf16, full depth): its report line; every preemption cycle
+   preempts and resumes warm, WFQ admits the background tenant ahead of
+   the flood where FIFO strands it, and wherever its scheduling or
+   preemption parity parts, the tokens part under the bf16 floor rule.
+   (b) The HTTP server at the reference server's defaults plus
+   ``--kv-lazy``, with ``SKYTPU_QOS=1`` and two tenants (``hog``:
+   burst 2 and one KV block; ``vip``: a lane above the default), in
+   bf16 at full depth and in float32 on the first 8 layers: a quota
+   stall, a typed 429 with Retry-After, a preemption of one of 16
+   streamed 740-token requests whose tokens agree with its unpreempted
+   twin's (float32: wherever the plain top-2 gap exceeds 1e-2; bf16:
+   the bf16 floor rule), a ``/drain`` lifecycle (typed 503, /healthz
+   draining, the in-flight request finishes), and ``/metrics`` deltas:
+   the TTFT count grows by the requests answered, the shed,
+   quota-stall, preemption and lazy-growth counters by what the leg
+   caused. (c) K1 against its plain version, the trash block at 100.0,
+   at the first resume chunk after a preemption and on a decode burst
+   over lazily grown tables with a slot sitting out.
+8. Train: gradient parity of the kernels against the plain versions at
    llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
    ``train.run`` at llama3-1b full width and depth for 6 steps on a
    repeated batch (counts set to 0 before, read after: K2 32, K3 16 and
@@ -141,8 +164,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--phase kernels``, ``serve``,
-``handoff``, ``bench`` or ``train`` runs one of phases 3-7 alone (the
-build always runs).
+``handoff``, ``bench``, ``qos`` or ``train`` runs one of phases 3-8
+alone (the build always runs).
 """
 
 from __future__ import annotations
@@ -2100,15 +2123,26 @@ def _bf16_divergence(dev, config: str, chunk: int, cold: dict,
                      passes, leg: str = "bench") -> None:
     """Hold each prompt whose tokens in a pass of ``passes`` ((what the
     two paths are, {prompt: tokens}) pairs) part from its ``cold`` ones
-    to :func:`_agree`'s rule, with the top-2 gap taken from a plain engine
-    on a float32 copy of the bench's weights (seed 0) and the noise
-    floor from the same context in bf16: twice the largest difference
-    between the bf16 and float32 plain logits there, since each bf16
-    pass may move that far from the float32 logits."""
+    to :func:`_bf16_hold`'s rule."""
+    _bf16_hold(dev, config, chunk, [
+        (f"request {i}", paths, prompt, warm[prompt], c)
+        for paths, warm in passes
+        for i, (prompt, c) in enumerate(cold.items())], leg)
+
+
+def _bf16_hold(dev, config: str, chunk: int, cases, leg: str) -> None:
+    """Hold each case (what, the two paths, prompt, tokens, reference
+    tokens) whose tokens part to :func:`_agree`'s rule, with the top-2
+    gap taken from a plain engine on a float32 copy of the weights
+    (seed 0) and the noise floor from the same context in bf16: twice
+    the largest difference between the bf16 and float32 plain logits
+    there, since each bf16 run may move that far from the float32
+    logits."""
     import torch
     from skypilot_tpu_torch.infer import engine as eng
     from skypilot_tpu_torch.models import llama
-    if all(warm[p] == c for _, warm in passes for p, c in cold.items()):
+    cases = [c for c in cases if list(c[3]) != list(c[4])]
+    if not cases:
         return
     cfg = llama.CONFIGS[config]
     gen = torch.Generator(device=dev)
@@ -2125,11 +2159,9 @@ def _bf16_divergence(dev, config: str, chunk: int, cold: dict,
             p, c, n_slots=1, max_len=1024, prompt_buckets=(1024,),
             prefill_chunk=chunk, device=dev, plain_attention=True)
     del params
-    for paths, warm in passes:
-        for i, (prompt, c) in enumerate(cold.items()):
-            if warm[prompt] != c:
-                _agree(refs[torch.float32], list(prompt), warm[prompt], c,
-                       f"request {i}", paths, leg, low=refs[torch.bfloat16])
+    for what, paths, prompt, got, want in cases:
+        _agree(refs[torch.float32], list(prompt), got, want, what, paths,
+               leg, low=refs[torch.bfloat16])
     del refs
     gc.collect()
     torch.cuda.empty_cache()
@@ -2657,6 +2689,425 @@ def phase_handoff(dev, card: str) -> dict:
             "handoff[fp32]": fp32["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase: QoS, preemption, KV quota, lazy growth and the operator routes
+# ---------------------------------------------------------------------------
+
+# The HTTP leg's tenants (SKYTPU_QOS_TENANTS): "hog" is rate-limited
+# (burst 2, then a typed 429) and capped at one KV block, so its second
+# concurrent request stalls on its quota; "vip" is configured a lane
+# above the default tenant and preempts it.
+QOS_TENANTS = {"hog": {"rate": 0.001, "burst": 2, "max_kv_blocks": 1},
+               "vip": {"priority": 1}}
+
+
+def _qos_bench(dev, card: str) -> dict:
+    """(a) ``bench_serve.run_qos`` at llama3-8b, the reference's chip
+    defaults (8 slots, max_len 256, 64 new tokens, a flood of 24 hot
+    requests against 2 background ones), bf16 at full depth. The
+    report's structure is held (every preemption cycle preempted, WFQ
+    admits the background tenant ahead of the flood where FIFO strands
+    it); its two parity verdicts are held token by token: where bf16
+    tokens part, at the bf16 floor rule (:func:`_bf16_hold`)."""
+    from skypilot_tpu_torch.infer import bench_serve
+    toks = {}
+    _zero_launches()
+    t0 = time.time()
+    r = bench_serve.run_qos(config="llama3-8b", device=dev,
+                            tokens_out=toks)
+    launches = _read_launches()
+    _log(f"qos[bench]: run_qos(llama3-8b) in {time.time() - t0:.1f} s: "
+         f"{json.dumps(r)}; launches {launches}; {card}")
+    if r["preemptions"] < 4 or r["preempt_resumed_rows"] <= 0:
+        raise AssertionError(f"qos[bench]: {r['preemptions']} preemptions "
+                             f"in 4 cycles, {r['preempt_resumed_rows']} "
+                             f"rows resumed warm")
+    if not r["bg_ttft_wfq_ratio"] < r["bg_ttft_fifo_ratio"]:
+        raise AssertionError("qos[bench]: WFQ did not admit the background "
+                             "tenant ahead of the flood")
+    _positive(r, ("fairness_ratio", "bg_tpot_idle_p99_ms",
+                  "bg_tpot_contended_p99_ms", "bg_ttft_wfq_ratio",
+                  "bg_ttft_fifo_ratio"), "qos[bench]")
+    prompts, idle, wfq, fifo = toks["sched"]
+    cases = [(f"background request {i}", f"idle and {name}", p, got[i],
+              idle[i])
+             for name, got in (("WFQ", wfq), ("FIFO", fifo))
+             for i, p in enumerate(prompts)]
+    cases += [(f"spec {k}, {'int8' if i8 else 'bf16'} KV", "unpreempted "
+               "and preempted", p, got, want)
+              for k, i8, p, want, got in toks["preempt"]]
+    _free_card()
+    _bf16_hold(dev, "llama3-8b", 8, cases, "qos[bench]")
+    return launches
+
+
+def _post_status(url: str, payload, headers=None):
+    """POST JSON; returns (status, body, Retry-After)."""
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read()), r.headers.get(
+                "Retry-After")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers.get("Retry-After")
+
+
+def _scrape(url: str) -> dict:
+    """{(family, sample labels): value} of one ``GET /metrics``."""
+    from skypilot_tpu_torch.observability import metrics
+    with urllib.request.urlopen(f"{url}/metrics", timeout=60) as r:
+        fams = metrics.parse_exposition(r.read().decode())
+    return {(name, tuple(sorted(lab.items()))): v
+            for name, fam in fams.items() for lab, v in fam["samples"]}
+
+
+def _delta(after: dict, before: dict, name: str, **labels) -> float:
+    key = (name, tuple(sorted(labels.items())))
+    return after.get(key, 0.0) - before.get(key, 0.0)
+
+
+def _qos_server_leg(params, cfg, dev, tag: str, card: str) -> dict:
+    """(b) The port's HTTP server at the reference server's defaults (16
+    slots, max_len 1024, chunks of 512, a prefix pool of 8, spec K 4,
+    blocks of 256) plus ``--kv-lazy``, with ``SKYTPU_QOS=1`` and
+    :data:`QOS_TENANTS`, the engine's fair scheduler and the server's
+    admission controller built from the environment as ``main`` builds
+    them. In order: two concurrent "hog" requests (the second stalls on
+    the quota), a third (the typed 429 with Retry-After); 16 streamed
+    740-token requests of the default tenant fill the slots (their lazy
+    tables grow while they decode) and a "vip" request preempts one of
+    them; the victim's unpreempted twin (its
+    prompt again, alone); a ``/drain`` lifecycle around one in-flight
+    request. A ``/metrics`` scrape before and after: the TTFT count grows
+    by the requests answered, the shed, quota-stall and preemption
+    counters by what the leg caused. Returns launches and the victim's
+    (prompt, preempted tokens, twin tokens)."""
+    import os
+    from skypilot_tpu_torch.infer import engine as eng
+    from skypilot_tpu_torch.infer import qos as qos_lib
+    from skypilot_tpu_torch.infer import server as srv
+    saved = {k: os.environ.get(k) for k in ("SKYTPU_QOS",
+                                            "SKYTPU_QOS_TENANTS")}
+    os.environ["SKYTPU_QOS"] = "1"
+    os.environ["SKYTPU_QOS_TENANTS"] = json.dumps(QOS_TENANTS)
+    try:
+        engine = eng.InferenceEngine(
+            params, cfg, n_slots=16, max_len=1024,
+            prompt_buckets=(128, 512, 1024), max_wave=8, kv_block=256,
+            prefill_chunk=512, prefix_pool=8, spec_k=4, device=dev,
+            seed=SEED, kv_lazy=True, qos=qos_lib.scheduler_from_env())
+        ac = qos_lib.admission_from_env("server")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    import numpy as np
+    rng = np.random.default_rng(SEED + 5)
+    # 740 tokens: two chunks; the lazy reservation (740 + 16 rows, three
+    # blocks) must grow once the context passes 763 rows.
+    fill = [rng.integers(1, cfg.vocab_size, 740).tolist() for _ in range(16)]
+    hog = [rng.integers(1, cfg.vocab_size, 100).tolist() for _ in range(3)]
+    port = _free_port()
+    model, httpd = srv.serve(engine, host="127.0.0.1", port=port, qos=ac)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{port}"
+    answered = 0
+    try:
+        model.wait_ready(timeout=600)
+        before = _scrape(url)
+        _zero_launches()
+        # Quota: hog's two requests at once; each needs one block of 256
+        # rows (prompt + lazy headroom), its quota is one.
+        res = [None, None]
+
+        def hog_req(i):
+            res[i] = _post_status(f"{url}/generate",
+                                  {"tokens": hog[i], "max_new_tokens": 16},
+                                  {"x-skytpu-tenant": "hog"})
+
+        ths = [threading.Thread(target=hog_req, args=(i,)) for i in (0, 1)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=600)
+        if [r[0] for r in res] != [200, 200]:
+            raise AssertionError(f"{tag}: hog requests {res}")
+        answered += 2
+        code, body, retry = _post_status(
+            f"{url}/generate", {"tokens": hog[2], "max_new_tokens": 16},
+            {"x-skytpu-tenant": "hog"})
+        if code != 429 or body["error"]["type"] != "rate_limited" or \
+                int(retry) < 1:
+            raise AssertionError(f"{tag}: third hog request gave {code} "
+                                 f"{body} (Retry-After {retry}), the typed "
+                                 f"429 expected")
+        _log(f"{tag}: hog's third request: typed 429 {body['error']['type']}"
+             f", Retry-After {retry} s")
+        # Preemption: 16 streamed requests fill the slots, then vip.
+        outs = [None] * 16
+        preempted = []
+
+        def fill_req(i):
+            outs[i] = _post(f"{url}/generate", {
+                "tokens": fill[i], "max_new_tokens": 64, "stream": True})
+
+        real_preempt = engine.preempt_slot
+
+        def spy(slot):
+            req = engine.slot_req.get(slot)
+            ok = real_preempt(slot)
+            if ok:
+                preempted.append(req.prompt)
+            return ok
+
+        engine.preempt_slot = spy
+        ths = [threading.Thread(target=fill_req, args=(i,))
+               for i in range(16)]
+        for t in ths:
+            t.start()
+        # Every slot claimed and one decoding: the vip finds no free
+        # slot and a resident it outranks.
+        deadline = time.time() + 600
+        while (engine.free_slots or not engine.slot_req) and \
+                time.time() < deadline:
+            time.sleep(0.005)
+        code, vip, _ = _post_status(
+            f"{url}/generate", {"tokens": hog[2][:40], "max_new_tokens": 8},
+            {"x-skytpu-tenant": "vip"})
+        for t in ths:
+            t.join(timeout=600)
+        engine.preempt_slot = real_preempt
+        if code != 200 or any(o is None or len(o["tokens"]) != 64
+                              for o in outs):
+            raise AssertionError(f"{tag}: vip {code}, fill "
+                                 f"{[o and len(o['tokens']) for o in outs]}")
+        answered += 17
+        victims = [i for i, o in enumerate(outs) if o["preemptions"]]
+        if not preempted or not victims or \
+                fill[victims[0]] != preempted[0]:
+            raise AssertionError(f"{tag}: no preemption reported "
+                                 f"(trailers {victims}, engine "
+                                 f"{len(preempted)})")
+        v = victims[0]
+        twin = _post(f"{url}/generate", {"tokens": fill[v],
+                                         "max_new_tokens": 64,
+                                         "stream": True})["tokens"]
+        answered += 1
+        _log(f"{tag}: vip preempted fill request {v} (trailer preemptions "
+             f"{outs[v]['preemptions']}), resumed; its tokens "
+             + ("equal" if outs[v]["tokens"] == twin else "part from")
+             + " its unpreempted twin's; vip TTFT "
+             f"{vip['ttft_ms']:.1f} ms")
+        # Drain around one in-flight request.
+        drain_res = {}
+        t = threading.Thread(target=lambda: drain_res.update(
+            r=_post_status(f"{url}/generate",
+                           {"tokens": fill[0], "max_new_tokens": 32})))
+        t.start()
+        while model.queue_depth() == 0 and t.is_alive():
+            time.sleep(0.005)
+        code, st, _ = _post_status(f"{url}/drain", {"grace_s": 60})
+        if code != 200 or not st["draining"] or st["in_flight"] < 1:
+            raise AssertionError(f"{tag}: /drain gave {code} {st}")
+        code, body, retry = _post_status(f"{url}/generate",
+                                         {"tokens": [1, 2]})
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            hz = json.loads(r.read())
+        if (code, body["error"]["type"], retry, hz["status"]) != (
+                503, "draining", "1", "draining"):
+            raise AssertionError(f"{tag}: draining replica gave {code} "
+                                 f"{body} {retry}, /healthz {hz}")
+        t.join(timeout=600)
+        if drain_res["r"][0] != 200:
+            raise AssertionError(f"{tag}: in-flight request during the "
+                                 f"drain gave {drain_res['r']}")
+        answered += 1
+        while not st["drained"]:
+            time.sleep(0.05)
+            code, st, _ = _post_status(f"{url}/drain", {"grace_s": 60})
+        launches = _read_launches()
+        after = _scrape(url)
+    finally:
+        httpd.shutdown()
+        model.shutdown()
+        th.join(timeout=30)
+    n_ttft = _delta(after, before, "skytpu_ttft_seconds",
+                    __name__="skytpu_ttft_seconds_count")
+    counts = {
+        "ttft": n_ttft,
+        "shed": _delta(after, before, "skytpu_qos_shed_total",
+                       tenant="hog", reason="rate_limited", where="server"),
+        "quota_stalls": _delta(after, before,
+                               "skytpu_qos_kv_quota_stalls_total",
+                               tenant="hog"),
+        "preemptions": _delta(after, before, "skytpu_qos_preemptions_total",
+                              tenant="default"),
+        "lazy_grows": _delta(after, before, "skytpu_kv_lazy_grows_total"),
+    }
+    _log(f"{tag}: /drain lifecycle: in-flight request finished, drained; "
+         f"/metrics deltas {counts} over {answered} requests answered; "
+         f"launches {launches}; {card}")
+    if counts["ttft"] != answered or counts["shed"] != 1 or \
+            counts["quota_stalls"] < 1 or counts["preemptions"] < 1 or \
+            counts["lazy_grows"] < 1:
+        raise AssertionError(f"{tag}: /metrics deltas {counts} "
+                             f"({answered} answered)")
+    if not launches["paged_attention"] or not (
+            launches["paged_attention_rows"]
+            + launches["paged_attention_rows_mma"]):
+        raise AssertionError(f"{tag}: K1 never launched: {launches}")
+    return {"launches": launches,
+            "victim": (fill[v], outs[v]["tokens"], twin)}
+
+
+def _k1_on_qos_tables(params, cfg, dev, tag: str) -> None:
+    """(c) K1 against its plain version, the trash block filled with
+    100.0: at the first resume chunk after a preemption (a 600-token
+    request on a one-slot engine, evicted after a burst, resuming with a
+    chunk at start 512 over its two stored blocks; the multi-row body),
+    and on a decode burst over a lazily grown table in which one slot
+    sits out (2 slots, blocks of 16 rows, a pool of 16 blocks: a
+    190-token request grows until the pool is dry while a 20-token one
+    finishes; the decode body)."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as eng
+    from skypilot_tpu_torch.infer import kvcache
+    from skypilot_tpu_torch.infer import qos as qos_lib
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    rng = np.random.default_rng(SEED + 6)
+    e = eng.InferenceEngine(
+        params, cfg, n_slots=1, max_len=1024, prompt_buckets=(128, 1024),
+        kv_block=256, kv_blocks=8, prefill_chunk=512, prefix_pool=4,
+        device=dev, qos=qos_lib.FairScheduler())
+    _fill_trash(e)
+    rid = e.add_request(rng.integers(1, cfg.vocab_size, 600).tolist(), 24)
+    while not e.slot_req:
+        e.step_burst(max_burst=4)
+    e.decode_burst(max_burst=4)
+    e.add_request([3, 1, 4], 4, priority=1)
+    resume = []
+    with _first_rows_call(e, resume):
+        e.run_to_completion(max_burst=4)
+    low = {r.rid: r for r in e.finished}[rid]
+    if (low.preemptions, low.resumed_len) != (1, 512) or not resume:
+        raise AssertionError(f"{tag}: preemptions {low.preemptions}, "
+                             f"resumed_len {low.resumed_len}")
+    _fill_trash(e)
+    i, table, qh, lengths, span = resume[0]
+    sb = -(-(span or (table.shape[1] - 1) * e.kv_block) // e.kv_block)
+    c = e.cache
+    err = _paged_err(f"{tag} K1 at the resume chunk", dict(
+        q=qh, k_pool=c["k"], v_pool=c["v"], k_scale=c.get("k_scale"),
+        v_scale=c.get("v_scale"), table=table, lengths=lengths, layer=i,
+        span_blocks=sb), pa.paged_attention)
+    _log(f"{tag}: K1 agrees with its plain version at the first resume "
+         f"chunk after a preemption (R={qh.shape[2]}, start "
+         f"{int(lengths[0])}, {sb} blocks, trash block 100.0): max err "
+         f"{err:.3e}")
+    del e, resume
+    # Lazy growth with a slot sitting out.
+    e = eng.InferenceEngine(
+        params, cfg, n_slots=2, max_len=256, prompt_buckets=(256,),
+        kv_block=16, kv_blocks=16, kv_lazy=True, device=dev)
+    _fill_trash(e)
+    for n, new in ((190, 50), (20, 20)):
+        e.add_request(rng.integers(1, cfg.vocab_size, n).tolist(), new)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    real = kvcache._paged_attn_stats
+    calls, kept = [], None
+
+    def keep(cache, i, table, qh, lengths, span, plain=False):
+        if cache is e.cache and qh.shape[2] == rep and not calls:
+            calls.append((i, table.clone(), qh.clone(), lengths.clone(),
+                          span))
+        return real(cache, i, table, qh, lengths, span, plain)
+
+    kvcache._paged_attn_stats = keep
+    try:
+        while (e.waiting or e.slot_req) and kept is None:
+            e.admit()
+            calls.clear()
+            lens = e.cache["length"].clone()
+            e.decode_burst(max_burst=1)
+            sat = [s for s in e.slot_req
+                   if int(e.cache["length"][s]) == int(lens[s])]
+            if sat and calls:
+                kept = (sat[0], calls[0])
+    finally:
+        kvcache._paged_attn_stats = real
+    if kept is None:
+        raise AssertionError(f"{tag}: no slot sat a burst out")
+    slot, (i, table, qh, lengths, span) = kept
+    _fill_trash(e)
+    sb = -(-(span or (table.shape[1] - 1) * e.kv_block) // e.kv_block)
+    c = e.cache
+    err = _paged_err(f"{tag} K1 decode over a lazily grown table", dict(
+        q=qh, k_pool=c["k"], v_pool=c["v"], k_scale=c.get("k_scale"),
+        v_scale=c.get("v_scale"), table=table, lengths=lengths, layer=i,
+        span_blocks=sb), pa.paged_attention)
+    grown = int((table[slot] < e.n_kv_blocks).sum())
+    _log(f"{tag}: K1 agrees with its plain version on a decode burst over "
+         f"lazily grown tables (slot {slot} sat the burst out at length "
+         f"{int(lengths[slot])} over {grown} grown blocks of 16, trash "
+         f"block 100.0): max err {err:.3e}")
+    e.run_to_completion(max_burst=1)
+    del e
+    torch.cuda.empty_cache()
+
+
+def phase_qos(dev, card: str) -> dict:
+    """QoS, preemption, per-tenant KV quota, lazy growth and the operator
+    routes at llama3-8b: (a) :func:`_qos_bench`; (b)
+    :func:`_qos_server_leg` in bf16 at full depth and in float32 on the
+    first 8 layers, the preempted request's tokens held to its
+    unpreempted twin's (float32: equal wherever the plain top-2 gap
+    exceeds 1e-2; bf16: the bf16 floor rule); (c)
+    :func:`_k1_on_qos_tables` on the bf16 weights. Returns {path:
+    launches}."""
+    import torch
+    from skypilot_tpu_torch.models import llama
+    out = {"qos[bench]": _qos_bench(dev, card)}
+    _free_card()
+    config = "llama3-8b"
+    cfg = llama.CONFIGS[config]
+
+    def weights(c):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        return llama.init_params(c, gen, device=dev, dtype=c.dtype)
+
+    params = weights(cfg)
+    leg = _qos_server_leg(params, cfg, dev, "qos", card)
+    out["qos"] = leg["launches"]
+    _free_card()
+    _k1_on_qos_tables(params, cfg, dev, "qos[K1]")
+    del params
+    _free_card()
+    prompt, got, twin = leg["victim"]
+    _bf16_hold(dev, config, 512, [("the preempted request", "preempted "
+                                   "and unpreempted", prompt, got, twin)],
+               "qos")
+    _free_card()
+    cfg8 = dataclasses.replace(cfg, dtype=torch.float32,
+                               n_layers=INT8_FP32_LAYERS)
+    params = weights(cfg8)
+    leg = _qos_server_leg(params, cfg8, dev, "qos[fp32]", card)
+    out["qos[fp32]"] = leg["launches"]
+    prompt, got, twin = leg["victim"]
+    ref = _plain_tier(params, cfg8, dev, 1024)
+    _agree(ref, prompt, got, twin, "the preempted request",
+           "preempted and unpreempted", "qos[fp32]")
+    del ref, params
+    _free_card()
+    return out
+
+
 def phase_train(dev, card: str):
     """Returns {kernel: launches} over the llama3-1b run."""
     import os
@@ -2753,7 +3204,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "serve", "handoff", "bench",
-                             "train"),
+                             "qos", "train"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -2810,6 +3261,9 @@ def main() -> int:
         free()
     if args.phase in ("all", "bench"):
         by_path["bench"] = phase_bench(dev, smi)
+        free()
+    if args.phase in ("all", "qos"):
+        by_path.update(phase_qos(dev, smi))
         free()
     if args.phase in ("all", "train"):
         by_path["train"] = phase_train(dev, smi)

@@ -1,7 +1,8 @@
 """Serving benchmark of the port: TTFT and token throughput on the card.
 
 Counterpart of ``skypilot_tpu/infer/bench_serve.py`` for its engine,
-HTTP and prefix-share sections, with the reference's function names,
+HTTP, prefix-share and QoS (``run_qos``: WFQ fairness against FIFO,
+preemption parity) sections, with the reference's function names,
 defaults and report keys. Prints ONE JSON line on stdout (chatter on
 stderr):
 
@@ -11,7 +12,7 @@ stderr):
 Usage: python -m skypilot_tpu_torch.infer.bench_serve
        [--config llama3-8b] [--requests 16] [--slots 16]
        [--new-tokens 64] [--repeats 3] [--kv-int8] [--weights-int8]
-       [--engine-only | --prefix-share | --smoke] [--device cpu]
+       [--engine-only | --prefix-share | --qos | --smoke] [--device cpu]
 
 Everything runs on the CUDA card. Without one it raises, unless
 ``--device cpu`` asks for the kernels' plain versions on the CPU;
@@ -737,6 +738,201 @@ def run_prefix_share(config=None, requests=12, slots=16,
     }
 
 
+def run_qos(config=None, slots=None, bg_requests=None,
+            hot_requests=None, new_tokens=None, max_burst=8,
+            kv_int8=False, weights_int8=False, smoke=False,
+            device: DeviceLike = None, tokens_out=None) -> dict:
+    """Multi-tenant QoS bench: weighted-fair-queueing isolation under a
+    hot tenant, and preemption-by-eviction greedy parity.
+
+    1. **Fairness**: a background tenant's requests run (a) alone
+       (idle), (b) behind a hot tenant's flood under WFQ, and (c) the
+       same flood under plain FIFO (the control). The reference's
+       docstring gates (background TPOT p99 under contention <= 1.3x
+       idle; WFQ admits the background tenant ahead of the flood while
+       FIFO strands it, ``bg_ttft_fifo_ratio``) were set on a TPU; here
+       they are reported, not targets.
+    2. **Preemption parity**: a low-priority request is evicted
+       mid-decode by a high-priority arrival (one-slot engine), resumes
+       warm from the prefix cache, and must give its unpreempted run's
+       greedy tokens, over {fp32 KV, int8 KV} x {spec 0, 4}
+       (``smoke=True``, or ``kv_int8``, runs that dtype's spec pair).
+       Zero leaked blocks after retire + cache clear is asserted.
+
+    The reference's names, defaults and report keys; on the CPU (or
+    ``smoke``) the sizes shrink as the reference's do. Every engine
+    shares one weight tree (random, seed 0), as the reference's rebuilds
+    from one key do, and the reference's pool size (one max_len row of
+    blocks per slot and one spare). ``tokens_out``, a dict, receives the
+    token lists behind the two parity verdicts: ``"sched"`` (background
+    prompts; idle, WFQ and FIFO tokens) and ``"preempt"`` ([(spec_k,
+    kv_int8, prompt, unpreempted, preempted)]), so that a caller can
+    hold a bf16 divergence to its own rule."""
+    from skypilot_tpu_torch.infer import qos as qos_lib
+    dev = resolve_device(device)
+    on_cpu = dev.type == "cpu"
+    if config is None:
+        config = "llama3-tiny" if on_cpu else "llama3-400m"
+    small = smoke or on_cpu
+    slots = slots or (4 if small else 8)
+    bg_requests = bg_requests or 2
+    hot_requests = hot_requests or (3 * slots)
+    new_tokens = new_tokens or (16 if small else 64)
+    prompt_len = 12
+    max_len = 64 if small else 256
+    cfg = llama.CONFIGS[config]
+    log(f"qos bench: {config} on {_device_kind(dev)} slots={slots} "
+        f"bg={bg_requests} hot={hot_requests} new_tokens={new_tokens}")
+    if weights_int8:
+        params, qw = kvcache.random_quantized_params(cfg, device=dev)
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+        qw = None
+    block = eng.kv_block_len(max_len, 256, dev.type == "cuda")
+
+    def build(n_slots, qos=None, spec_k=0, chunk=0, pool=0,
+              buckets=None, kv_int8=kv_int8):
+        return eng.InferenceEngine(
+            params, cfg, n_slots=n_slots, max_len=max_len,
+            prompt_buckets=buckets or (prompt_len,), kv_int8=kv_int8,
+            prefill_chunk=chunk, prefix_pool=pool, max_wave=n_slots,
+            spec_k=spec_k, qos=qos, qweights=qw,
+            kv_blocks=(n_slots + 1) * (max_len // block), device=dev)
+
+    rng = np.random.default_rng(0)
+    bg_prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist()
+                  for _ in range(bg_requests)]
+    hot_prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist()
+                   for _ in range(hot_requests)]
+
+    def fairness_pass(e, with_hot):
+        """Hot flood enqueued FIRST (worst case for the background
+        tenant), then background; per-background-request TTFT and TPOT
+        collected at retirement."""
+        ids = []
+        if with_hot:
+            for p in hot_prompts:
+                e.add_request(p, max_new_tokens=new_tokens, tenant="hot")
+        for p in bg_prompts:
+            ids.append(e.add_request(p, max_new_tokens=new_tokens,
+                                     tenant="background"))
+        done_s: dict = {}
+        while e.waiting or e.chunking or e.slot_req:
+            e.step_burst(max_burst)
+            _sync(dev)
+            now = time.time()
+            for r in e.finished:
+                done_s.setdefault(r.rid, now)
+        by_rid = {r.rid: r for r in e.finished}
+        ttfts, tpots = [], []
+        for rid in ids:
+            r = by_rid[rid]
+            ttfts.append(r.first_token_s - r.submit_s)
+            if len(r.tokens) > 1:
+                tpots.append((done_s[rid] - r.first_token_s)
+                             / (len(r.tokens) - 1))
+        outs = [by_rid[i].tokens for i in ids]
+        e.finished.clear()
+        return ttfts, tpots, outs
+
+    # Warmup (kernel builds, allocator), then idle / WFQ-contended /
+    # FIFO-contended on fresh schedulers.
+    e = build(slots, qos=qos_lib.FairScheduler())
+    fairness_pass(e, with_hot=False)
+    idle_ttft, idle_tpot, idle_out = fairness_pass(e, with_hot=False)
+    e.qos = qos_lib.FairScheduler()
+    wfq_ttft, wfq_tpot, wfq_out = fairness_pass(e, with_hot=True)
+    e.qos = None
+    fifo_ttft, _fifo_tpot, fifo_out = fairness_pass(e, with_hot=True)
+    del e
+    if tokens_out is not None:
+        tokens_out["sched"] = (bg_prompts, idle_out, wfq_out, fifo_out)
+
+    # Scheduling must never change tokens: same engine, same greedy
+    # stream per request.
+    sched_parity = (idle_out == wfq_out == fifo_out)
+    fairness_ratio = _p99(wfq_tpot) / max(_p99(idle_tpot), 1e-9)
+    ttft_wfq_ratio = _p99(wfq_ttft) / max(_p99(idle_ttft), 1e-9)
+    ttft_fifo_ratio = _p99(fifo_ttft) / max(_p99(idle_ttft), 1e-9)
+    log(f"qos fairness: bg TPOT p99 x{fairness_ratio:.2f} vs idle "
+        f"(bg TTFT p99 x{ttft_wfq_ratio:.1f} wfq / "
+        f"x{ttft_fifo_ratio:.1f} fifo), sched parity={sched_parity}")
+
+    # Phase 2: preemption-by-eviction parity on one-slot engines,
+    # chunked prefill + prefix cache on (the warm-resume path).
+    dtypes = [kv_int8] if (smoke or kv_int8) else [False, True]
+    combos = [(k, i8) for i8 in dtypes for k in (0, 4)]
+    parity_ok = True
+    preemptions = 0
+    resumed_rows = 0
+    low_prompt = list(range(5, 5 + prompt_len))
+    hi_prompt = [3, 1, 4]
+    preempt_tokens = []
+    for spec_k, i8 in combos:
+        ref = build(1, chunk=8, pool=4, spec_k=spec_k, kv_int8=i8,
+                    buckets=(prompt_len + new_tokens + 8,))
+        want = ref.generate([low_prompt], max_new_tokens=new_tokens)[0]
+        del ref
+        e2 = build(1, qos=qos_lib.FairScheduler(), chunk=8, pool=4,
+                   spec_k=spec_k, kv_int8=i8,
+                   buckets=(prompt_len + new_tokens + 8,))
+        rid_low = e2.add_request(low_prompt, max_new_tokens=new_tokens,
+                                 priority=0)
+        while not e2.slot_req:
+            e2.step_burst(max_burst=2)
+        for _ in range(2):
+            e2.decode_burst(max_burst=2)
+        e2.add_request(hi_prompt, max_new_tokens=4, priority=1)
+        e2.run_to_completion(max_burst=2)
+        by_rid = {r.rid: r for r in e2.finished}
+        low = by_rid[rid_low]
+        parity_ok = parity_ok and (low.tokens == want
+                                   and low.preemptions >= 1)
+        preemptions += low.preemptions
+        resumed_rows += low.resumed_len
+        preempt_tokens.append((spec_k, i8, low_prompt, want, low.tokens))
+        e2.clear_prefix_cache()
+        assert e2.allocator.used == 0, (
+            f"block leak after preemption cycle: {e2.allocator.used}")
+        del e2
+    if tokens_out is not None:
+        tokens_out["preempt"] = preempt_tokens
+    log(f"qos preempt: parity={parity_ok} preemptions={preemptions} "
+        f"resumed_rows={resumed_rows}")
+    del params, qw
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    return {
+        "fairness_ratio": round(fairness_ratio, 3),
+        "bg_tpot_idle_p99_ms": round(_p99(idle_tpot) * 1e3, 3),
+        "bg_tpot_contended_p99_ms": round(_p99(wfq_tpot) * 1e3, 3),
+        "bg_ttft_wfq_ratio": round(ttft_wfq_ratio, 3),
+        "bg_ttft_fifo_ratio": round(ttft_fifo_ratio, 3),
+        "sched_parity_ok": bool(sched_parity),
+        "preempt_parity_ok": bool(parity_ok),
+        "preemptions": int(preemptions),
+        "preempt_resumed_rows": int(resumed_rows),
+        "slots": slots,
+        "bg_requests": bg_requests,
+        "hot_requests": hot_requests,
+        "new_tokens": new_tokens,
+        "config": config,
+        "kv_int8": kv_int8,
+        "weights_int8": weights_int8,
+    }
+
+
+def run_qos_smoke(device: DeviceLike = None) -> dict:
+    """CI-sized QoS pass: scheduling and preemption parity and the
+    fairness structure are asserted by tests/test_torch_bench_serve.py;
+    wall-clock ratios are reported."""
+    return run_qos(smoke=True, device=device)
+
+
 def run_smoke(device: DeviceLike = None) -> dict:
     """CI-sized prefix-share + interference pass (the regression guard
     for the chunk scheduler; see tests/test_torch_bench_serve.py)."""
@@ -777,13 +973,36 @@ def main(argv=None) -> None:
                          "parity, and the decode-interference report")
     ap.add_argument("--prefix-pool", type=int, default=8)
     ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--qos", action="store_true",
+                    help="multi-tenant QoS bench: background-tenant "
+                         "TPOT/TTFT isolation under a hot tenant "
+                         "(WFQ vs FIFO control) and preemption-by-"
+                         "eviction greedy parity with the allocator "
+                         "audit")
     ap.add_argument("--smoke", action="store_true",
-                    help="CI-sized prefix-share pass (regression guard "
-                         "for the chunk scheduler)")
+                    help="CI-sized pass of --qos or of the prefix-share "
+                         "workload (regression guard for the chunk "
+                         "scheduler)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default, the card) or cpu")
     args = ap.parse_args(argv)
     device = _device_kind(resolve_device(args.device))
+    if args.qos:
+        r = run_qos(config=args.config, kv_int8=args.kv_int8,
+                    weights_int8=args.weights_int8, smoke=args.smoke,
+                    device=args.device)
+        print(json.dumps({
+            "metric": "serve_qos_fairness_ratio",
+            "value": r["fairness_ratio"],
+            "unit": "x_bg_tpot_p99_vs_idle",
+            **{k: r[k] for k in (
+                "bg_tpot_idle_p99_ms", "bg_tpot_contended_p99_ms",
+                "bg_ttft_wfq_ratio", "bg_ttft_fifo_ratio",
+                "sched_parity_ok", "preempt_parity_ok",
+                "preemptions", "preempt_resumed_rows", "config")},
+            "device": device,
+        }))
+        return
     if args.smoke or args.prefix_share:
         if args.smoke:
             r = run_smoke(device=args.device)

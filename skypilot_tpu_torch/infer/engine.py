@@ -9,10 +9,11 @@ is the contract; temperature and top-k sample from the engine's own
 
 A fixed pool of decode slots advances a burst of tokens per device call
 for every active request, while new requests prefill into free slots
-between bursts. Every request reserves its worst-case KV blocks (prompt
-plus token budget, capped by ``max_len``) at admission, so decode never
-runs out of backing mid-flight; the pool, not a fault path, limits
-admission.
+between bursts. By default every request reserves its worst-case KV
+blocks (prompt plus token budget, capped by ``max_len``) at admission,
+so decode never runs out of backing mid-flight; the pool, not a fault
+path, limits admission (lazy growth, below, trades that for smaller
+reservations).
 
 Prompts longer than ``prefill_chunk`` (512 by default, as in the JAX
 engine) claim a slot and prefill in chunks, one chunk between decode
@@ -44,11 +45,28 @@ admits the prompt plus its committed tokens through the resume context
 (``_ctx``), whose chunked prefill reads the imported blocks as a prefix
 hit.
 
-Left for later slices of the port: preemption, the draft model, LoRA
-adapters, QoS, the flight recorder, metrics, tracing and crash
-recovery. The JAX engine padded admission waves to fixed row counts
-to avoid recompiles; PyTorch runs eagerly, so the port dispatches each
-wave at its own size and keeps no spare slot for padding rows.
+Multi-tenant QoS (``qos``, a :class:`qos.FairScheduler`): before each
+admission pass the waiting queue is reordered into priority lanes with
+weighted fair queueing across tenants, and a queued request that
+outranks a resident evicts it (:meth:`InferenceEngine.preempt_slot`):
+the victim's committed rows retire into the prefix cache and it resumes
+through the same ``_ctx`` seam a handoff uses, with the same greedy
+tokens. A tenant's ``max_kv_blocks`` caps the blocks its slots
+reference; a tenant at its cap steps aside while others admit. Lazy KV
+growth (``kv_lazy``, env ``SKYTPU_KV_LAZY=1``) reserves the context plus
+one burst of headroom at admission and grows each slot's table as its
+bursts need rows; a slot the pool cannot grow sits the burst out.
+
+The engine records the reference's serving metrics under its names
+(``observability/metrics.py``): TTFT, TPOT, queue depth, slots, prefill
+and decode timings, prefix-cache, speculation, lazy-growth and quota
+counters.
+
+Left for later slices of the port: the draft model, LoRA adapters, the
+flight recorder, tracing and crash recovery. The JAX engine padded
+admission waves to fixed row counts to avoid recompiles; PyTorch runs
+eagerly, so the port dispatches each wave at its own size and keeps no
+spare slot for padding rows.
 """
 
 from __future__ import annotations
@@ -56,6 +74,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import os
 import time
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
@@ -64,8 +83,124 @@ import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.infer import kvcache, sampling
+from skypilot_tpu_torch.infer import qos as qos_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import metrics
 from skypilot_tpu_torch.ops import paged_attention as pa
+
+# The reference engine's serving metrics (``skypilot_tpu/infer/
+# engine.py``), same names, types, labels and help, for the quantities
+# the port computes.
+PREFILL_SECONDS = metrics.histogram(
+    "skytpu_prefill_seconds",
+    "Admission-wave prefill latency, dispatch to first-token fetch, "
+    "by prompt bucket", labelnames=("bucket",))
+PREFILL_REQUESTS = metrics.counter(
+    "skytpu_prefill_requests_total",
+    "Requests prefilled, by prompt bucket", labelnames=("bucket",))
+WAVE_SIZE = metrics.histogram(
+    "skytpu_admission_wave_size",
+    "Real (pre-padding) requests per admission wave",
+    buckets=(1, 2, 4, 8, 16, 32, 64))
+DECODE_STEP_SECONDS = metrics.histogram(
+    "skytpu_decode_step_seconds",
+    "Decode device-call latency, dispatch to token fetch (one call "
+    "decodes a burst of k tokens per active slot)")
+DECODE_TOKENS = metrics.counter(
+    "skytpu_decode_tokens_total",
+    "Output tokens committed to requests by decode")
+TTFT_SECONDS = metrics.histogram(
+    "skytpu_ttft_seconds",
+    "Per-request time to first token (submit/enqueue to first token)",
+    buckets=metrics.latency_buckets())
+TPOT_SECONDS = metrics.histogram(
+    "skytpu_tpot_seconds",
+    "Per-request mean time per output token after the first",
+    buckets=metrics.latency_buckets())
+SLOTS_ACTIVE = metrics.gauge(
+    "skytpu_slots_active", "Decode slots currently serving a request")
+SLOTS_TOTAL = metrics.gauge(
+    "skytpu_slots_total", "Configured decode slot pool size")
+ENGINE_WAITING = metrics.gauge(
+    "skytpu_engine_waiting",
+    "Requests accepted by the engine but not yet prefilled")
+REQUESTS_FINISHED = metrics.counter(
+    "skytpu_requests_finished_total", "Requests fully generated")
+PREFIX_HITS = metrics.counter(
+    "skytpu_prefix_cache_hits_total",
+    "Admissions that reused a resident prompt-prefix's KV rows "
+    "(suffix-only prefill)")
+PREFIX_MISSES = metrics.counter(
+    "skytpu_prefix_cache_misses_total",
+    "Admissions eligible for prefix reuse (pool enabled, prompt longer "
+    "than one chunk) that found no resident prefix")
+PREFIX_EVICTIONS = metrics.counter(
+    "skytpu_prefix_cache_evictions_total",
+    "Prefix-pool rows evicted (LRU) to admit a new prefix")
+PREFIX_HIT_RATIO = metrics.gauge(
+    "skytpu_prefix_cache_hit_ratio",
+    "Lifetime fraction of prefix-eligible admissions that reused a "
+    "resident prefix (hits / (hits + misses); 0 until the first "
+    "eligible admission) — a gauge so fleet aggregation keeps the "
+    "per-replica spread affinity routing is supposed to close")
+PREFILL_CHUNKS = metrics.counter(
+    "skytpu_prefill_chunks_total",
+    "Chunked-prefill device calls (one fixed-size chunk each, "
+    "interleaved with decode bursts)")
+KV_BLOCKS_TOTAL = metrics.gauge(
+    "skytpu_kv_blocks_total",
+    "Paged KV cache: physical blocks in the pool (0 when the engine "
+    "runs the contiguous layout)")
+KV_BLOCKS_USED = metrics.gauge(
+    "skytpu_kv_blocks_used",
+    "Paged KV cache: blocks currently referenced by decode slots "
+    "and/or resident prefix-cache entries")
+KV_COW_COPIES = metrics.counter(
+    "skytpu_kv_cow_copies_total",
+    "Paged KV cache copy-on-write block copies (partial shared blocks "
+    "duplicated on prefix store/hit before a writer touches them)")
+SPEC_DRAFTED = metrics.counter(
+    "skytpu_spec_drafted_total",
+    "Speculative-decode draft tokens proposed (n-gram/prompt-lookup) "
+    "and scored by a verify burst")
+SPEC_ACCEPTED = metrics.counter(
+    "skytpu_spec_accepted_total",
+    "Speculative-decode draft tokens accepted (matched the model's "
+    "greedy argmax and were committed)")
+SPEC_ROLLBACKS = metrics.counter(
+    "skytpu_spec_rollbacks_total",
+    "Speculative-decode draft tokens not committed — rejected by "
+    "verification, or discarded when the request retired mid-run "
+    "(their KV rows sit past the committed length and are never read)")
+SPEC_ACCEPT_RATE = metrics.gauge(
+    "skytpu_spec_acceptance_rate",
+    "Speculative-decode lifetime acceptance rate "
+    "(accepted / drafted; 0 until the first draft)")
+DECODE_ATTN_ROWS = metrics.histogram(
+    "skytpu_decode_attn_rows",
+    "Span bucket (logical KV rows gathered per slot) actually "
+    "dispatched for a decode/verify burst — decode attention "
+    "bandwidth tracks this, not max_len (the full-view fallback)",
+    buckets=(32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384,
+             32768))
+KV_LAZY_GROWS = metrics.counter(
+    "skytpu_kv_lazy_grows_total",
+    "Paged KV blocks allocated by lazy per-burst growth "
+    "(SKYTPU_KV_LAZY=1: admission reserves prompt + one burst of "
+    "rows; the rest allocates at burst dispatch)")
+QOS_KV_QUOTA_STALLS = metrics.counter(
+    "skytpu_qos_kv_quota_stalls_total",
+    "Admissions stalled because the request's tenant is at its "
+    "per-tenant KV-block quota (qos tenant spec max_kv_blocks) — a "
+    "typed wait for the tenant's own retirements, never a 503; other "
+    "tenants keep admitting",
+    labelnames=("tenant",))
+QOS_KV_BLOCKS = metrics.gauge(
+    "skytpu_qos_kv_blocks_used",
+    "Paged KV blocks currently charged to each tenant (table "
+    "references, shared prefix blocks charged to every referencing "
+    "tenant) — the quantity max_kv_blocks caps",
+    labelnames=("tenant",))
 
 
 @dataclasses.dataclass
@@ -96,6 +231,22 @@ class Request:
     spec_mode: Optional[str] = None
     spec_mode_drafted: int = 0
     spec_mode_accepted: int = 0
+    # Multi-tenant QoS: ``tenant`` feeds the fair scheduler and the
+    # per-tenant KV quota; ``priority`` picks the lane (higher preempts
+    # lower); ``preemptions`` counts evictions mid-decode (the trailer).
+    tenant: str = qos_lib.DEFAULT_TENANT
+    priority: int = 0
+    preemptions: int = 0
+    # True while the request sits queued because its tenant is at its
+    # max_kv_blocks quota: the stall counter fires once per episode.
+    kv_quota_stalled: bool = False
+    # Admission-stall episodes: ``stall_ms`` accumulates closed episodes
+    # by cause (pool_dry / kv_quota); an open one is (stall_cause,
+    # stall_begin_s), closed at the successful claim.
+    stall_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
+    stall_cause: Optional[str] = None
+    stall_begin_s: float = 0.0
+    prefill_begin_s: float = 0.0      # chunk path: claim time
 
 
 @dataclasses.dataclass
@@ -121,6 +272,7 @@ class BurstHandle:
     parts: List[Tuple[torch.Tensor, List[int]]]
     k: int
     slot_req: Dict[int, Request]      # slot->request snapshot at dispatch
+    begin_s: float = 0.0              # dispatch start (decode-step span)
 
 
 class PromptTooLongError(ValueError):
@@ -139,6 +291,39 @@ class PromptTooLongError(ValueError):
             "message": str(self),
             "prompt_len": prompt_len,
             "max_prompt_len": max_prompt_len,
+        }
+
+
+class KvQuotaUnsatisfiableError(ValueError):
+    """The request's own worst-case KV-block need exceeds its tenant's
+    ``max_kv_blocks`` quota, so no amount of the tenant's retirements
+    could ever admit it: a client error (HTTP 400, typed body), never a
+    stall or a 500."""
+
+    def __init__(self, tenant: str, need: int, quota: int):
+        super().__init__(
+            f"request needs {need} KV blocks but tenant "
+            f"{tenant!r} is capped at max_kv_blocks={quota}")
+        self.typed_error = {
+            "type": "kv_quota_unsatisfiable",
+            "message": str(self),
+            "tenant": tenant,
+            "need_blocks": need,
+            "max_kv_blocks": quota,
+        }
+
+
+class KvPoolWedgedError(RuntimeError):
+    """The paged KV pool is exhausted and nothing can make progress:
+    every block is held by an active slot (lazy growth has no victim to
+    evict). The pool is undersized for the configured slot count, an
+    operator error, not a transient."""
+
+    def __init__(self, detail: str):
+        super().__init__(detail)
+        self.typed_error = {
+            "type": "kv_pool_wedged",
+            "message": detail,
         }
 
 
@@ -399,6 +584,10 @@ class InferenceEngine:
     disables). ``spec_drafter``: request -> drafter factory (the
     :class:`NGramDrafter` protocol, ``catch_up``/``draft``); None is
     the n-gram drafter over the prompt.
+
+    ``qos``: a :class:`qos.FairScheduler` (None: FIFO admission, no
+    preemption, no KV quota). ``kv_lazy``: lazy KV growth (None reads
+    ``SKYTPU_KV_LAZY``).
     """
 
     def __init__(self, params: llama.Params, cfg: llama.LlamaConfig,
@@ -414,8 +603,11 @@ class InferenceEngine:
                  kv_int8: bool = False, weights_int8: bool = False,
                  qweights: Optional[kvcache.QWeights] = None,
                  device: DeviceLike = None,
-                 plain_attention: bool = False):
+                 plain_attention: bool = False,
+                 kv_lazy: Optional[bool] = None,
+                 qos: Optional[qos_lib.FairScheduler] = None):
         self.device = resolve_device(device)
+        self.qos = qos
         params = _to_device(params, self.device)
         if qweights is not None:
             qweights = _to_device(qweights, self.device)
@@ -508,6 +700,19 @@ class InferenceEngine:
         self.cache = kvcache.init_paged_cache(
             cfg, n_slots, self.n_kv_blocks, self.kv_block, self.device,
             kv_int8=kv_int8)
+        # Lazy per-burst block growth: admission reserves the context
+        # plus one burst of headroom instead of the full token budget;
+        # the rest allocates at burst dispatch (_ensure_headroom).
+        if kv_lazy is None:
+            kv_lazy = os.environ.get("SKYTPU_KV_LAZY", "") == "1"
+        self.kv_lazy = bool(kv_lazy)
+        self._lazy_headroom = max(16, self.spec_k + 1)
+        # Per-tenant KV-block charges: a slot's table references are
+        # charged to its tenant at claim and growth, refunded at free.
+        self._slot_kv_charge: Dict[int, Tuple[str, int]] = {}
+        self._tenant_kv: Dict[str, int] = {}
+        KV_BLOCKS_TOTAL.set(self.n_kv_blocks)
+        SLOTS_TOTAL.set(n_slots)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.free_slots: List[int] = list(range(n_slots))
@@ -524,20 +729,35 @@ class InferenceEngine:
 
     def add_request(self, prompt: List[int],
                     max_new_tokens: int = 128,
+                    tenant: str = qos_lib.DEFAULT_TENANT,
+                    priority: int = 0,
                     committed: Optional[List[int]] = None) -> int:
-        """Queue a request; returns its id. ``committed``: tokens another
-        replica already committed (a KV handoff's decode tier): they are
-        pre-seeded, so the request admits through the resume context
-        (prompt + committed) and ``max_new_tokens`` still counts them."""
+        """Queue a request; returns its id. ``tenant``/``priority``: its
+        QoS identity (fair-scheduler lane, KV quota). ``committed``:
+        tokens another replica already committed (a KV handoff's decode
+        tier): they are pre-seeded, so the request admits through the
+        resume context (prompt + committed) and ``max_new_tokens`` still
+        counts them."""
         _bucket(len(prompt), self.buckets)   # validate length up front
+        self.check_kv_quota(tenant, len(prompt), max_new_tokens)
         req = Request(rid=self._next_rid, prompt=list(prompt),
                       max_new_tokens=max_new_tokens,
-                      submit_s=time.time(), eos_id=self.eos_id)
+                      submit_s=time.time(), eos_id=self.eos_id,
+                      tenant=tenant, priority=priority)
         if committed:
             req.tokens = [int(t) for t in committed]
         self._next_rid += 1
         self.waiting.append(req)
+        ENGINE_WAITING.set(len(self.waiting))
         return req.rid
+
+    def _update_gauges(self) -> None:
+        SLOTS_ACTIVE.set(len(self.slot_req))
+        ENGINE_WAITING.set(len(self.waiting))
+        seen = self.prefix_hits + self.prefix_misses
+        if seen:
+            PREFIX_HIT_RATIO.set(self.prefix_hits / seen)
+        KV_BLOCKS_USED.set(self.allocator.used)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without a blocking copy."""
@@ -559,11 +779,46 @@ class InferenceEngine:
 
     # -- KV blocks ---------------------------------------------------------
 
-    def _need_blocks(self, req: Request) -> int:
-        """Blocks reserved at admission: the worst case, prompt plus the
-        full token budget capped by max_len."""
+    def _need_blocks(self, req: Request,
+                     ctx_len: Optional[int] = None) -> int:
+        """Blocks to reserve at admission. Eager (default): the worst
+        case, prompt plus the full token budget capped by max_len, so
+        decode never runs out of backing mid-flight (the formula is
+        total-shaped, so a resume reserves the same). Lazy: the
+        admission context (``ctx_len``, else the prompt) plus one burst
+        of headroom; the rest grows per burst in
+        :meth:`_ensure_headroom`."""
         need = min(len(req.prompt) + req.max_new_tokens, self.max_len)
+        if self.kv_lazy:
+            base = ctx_len if ctx_len is not None else len(req.prompt)
+            need = min(base + self._lazy_headroom, need)
         return -(-need // self.kv_block)
+
+    def _ensure_headroom(self, slot: int, req: Request,
+                         need_rows: int) -> bool:
+        """Lazy mode: grow the slot's block allocation to back
+        ``need_rows`` cache rows before a burst writes them (eager
+        engines reserved the worst case at admission and always pass).
+        Growth rides admission's dry-pool path (LRU prefix entries evict
+        first); a pool that stays dry returns False and the slot sits
+        this burst out, inactive, its device length unchanged."""
+        if not self.kv_lazy:
+            return True
+        cap = min(len(req.prompt) + req.max_new_tokens, self.max_len)
+        need_rows = min(need_rows, cap)
+        row = self.block_table[slot]
+        have = len(row[row < self.n_kv_blocks])
+        grow = -(-need_rows // self.kv_block) - have
+        if grow <= 0:
+            return True
+        blocks = self._alloc_blocks(grow)
+        if blocks is None:
+            return False
+        row[have:have + len(blocks)] = blocks
+        self._table_dirty = True
+        self._sync_kv_charge(slot, req.tenant)
+        KV_LAZY_GROWS.inc(len(blocks))
+        return True
 
     def _alloc_blocks(self, n: int) -> Optional[List[int]]:
         """n fresh blocks, evicting LRU prefix-cache entries on a dry
@@ -582,24 +837,121 @@ class InferenceEngine:
             if victim is None:
                 break
             idx.evict_entry(victim)
-            self.prefix_evictions += 1
+            self._count_eviction()
             for b in victim:
                 alloc.decref(b)
         if alloc.available < n:
             return None
         return [alloc.alloc() for _ in range(n)]
 
+    def _count_eviction(self) -> None:
+        self.prefix_evictions += 1
+        PREFIX_EVICTIONS.inc()
+
+    def _count_cow(self) -> None:
+        self.cow_copies += 1
+        KV_COW_COPIES.inc()
+
+    # -- per-tenant KV-block quotas (qos max_kv_blocks) --------------------
+
+    def _kv_quota(self, tenant: str) -> int:
+        """The tenant's ``max_kv_blocks`` quota (0 = unlimited); only
+        with a QoS config."""
+        if self.qos is None:
+            return 0
+        return max(self.qos.cfg.tenant(tenant).max_kv_blocks, 0)
+
+    def check_kv_quota(self, tenant: str, prompt_len: int,
+                       max_new_tokens: int) -> None:
+        """Submit-time guard: a request whose OWN worst-case block need
+        exceeds its tenant's quota can never admit (the need never
+        shrinks), so stalling it would hang the client forever: raise
+        the typed error instead. Reads only engine constants, so the
+        server's handler threads call it eagerly (a clean 400 before the
+        request reaches the loop thread)."""
+        quota = self._kv_quota(tenant)
+        if not quota:
+            return
+        need = min(prompt_len + max_new_tokens, self.max_len)
+        if self.kv_lazy:
+            need = min(prompt_len + self._lazy_headroom, need)
+        need = -(-need // self.kv_block)
+        if need > quota:
+            raise KvQuotaUnsatisfiableError(tenant, need, quota)
+
+    def _kv_quota_blocked(self, req: Request) -> bool:
+        """Admission-time quota check: True holds THIS request back (the
+        stall counter fires once per episode) while other tenants keep
+        admitting. The quota gates admission only: in-flight lazy growth
+        is never blocked (it is still charged, which holds the tenant's
+        next admission)."""
+        quota = self._kv_quota(req.tenant)
+        if not quota:
+            return False
+        need = self._need_blocks(req, self._ctx_len(req))
+        used = self._tenant_kv.get(req.tenant, 0)
+        if used + need <= quota:
+            req.kv_quota_stalled = False
+            if req.stall_cause == "kv_quota":
+                self._end_stall(req)
+            return False
+        self._mark_stall(req, "kv_quota")
+        if not req.kv_quota_stalled:
+            req.kv_quota_stalled = True
+            QOS_KV_QUOTA_STALLS.labels(
+                tenant=qos_lib.tenant_label(req.tenant,
+                                            self.qos.cfg)).inc()
+        return True
+
+    def _set_tenant_kv(self, tenant: str, n: int) -> None:
+        # Entries pop at zero: tenant names are client-supplied.
+        if n > 0:
+            self._tenant_kv[tenant] = n
+        else:
+            self._tenant_kv.pop(tenant, None)
+        # The gauge's label cap collapses overflow tenants into "other":
+        # publish the label's sum, not this tenant's count.
+        cfg = self.qos.cfg if self.qos is not None else None
+        label = qos_lib.tenant_label(tenant, cfg)
+        total = sum(v for t, v in self._tenant_kv.items()
+                    if qos_lib.tenant_label(t, cfg) == label)
+        QOS_KV_BLOCKS.labels(tenant=label).set(total)
+
+    def _sync_kv_charge(self, slot: int,
+                        tenant: Optional[str] = None) -> None:
+        """Re-point the tenant accounting at the slot's CURRENT table
+        occupancy (at claim, growth and free): the charge is the blocks
+        the slot's table references, so shared prefix blocks charge every
+        referencing tenant and the refund is exact by construction."""
+        old_tenant, old_n = self._slot_kv_charge.get(slot, (None, 0))
+        tenant = tenant if tenant is not None else old_tenant
+        row = self.block_table[slot]
+        have = len(row[row < self.n_kv_blocks])
+        if old_tenant is not None and old_n:
+            self._set_tenant_kv(
+                old_tenant, self._tenant_kv.get(old_tenant, 0) - old_n)
+        if tenant is not None and have:
+            self._slot_kv_charge[slot] = (tenant, have)
+            self._set_tenant_kv(
+                tenant, self._tenant_kv.get(tenant, 0) + have)
+        else:
+            self._slot_kv_charge.pop(slot, None)
+
     def _wave_claim(self, req: Request) -> Optional[int]:
         """Claim a slot and its KV blocks; None when the pool is too
         dry (the caller re-queues and stalls admission)."""
-        blocks = self._alloc_blocks(self._need_blocks(req))
+        blocks = self._alloc_blocks(
+            self._need_blocks(req, self._ctx_len(req)))
         if blocks is None:
+            self._mark_stall(req, "pool_dry")
             return None
         slot = self.free_slots.pop(0)
         row = self.block_table[slot]
         row[:] = self.n_kv_blocks
         row[:len(blocks)] = blocks
         self._table_dirty = True
+        self._sync_kv_charge(slot, req.tenant)
+        self._end_stall(req)
         return slot
 
     def _free_slot_blocks(self, slot: int) -> None:
@@ -611,6 +963,7 @@ class InferenceEngine:
             self.allocator.decref(b)
         row[:] = self.n_kv_blocks
         self._table_dirty = True
+        self._sync_kv_charge(slot)      # refund the tenant's charge
 
     # -- span buckets ------------------------------------------------------
 
@@ -631,17 +984,133 @@ class InferenceEngine:
         return (len(req.prompt) + len(req.tokens)
                 + self._inflight_tokens)
 
-    def _span_groups(self) -> List[Tuple[int, List[int]]]:
+    def _span_groups(self, width: int) -> List[Tuple[int, List[int]]]:
         """Active slots grouped by the span rung covering their rows,
         so one long conversation does not drag its short neighbours to
         its rung. Each group dispatches its own burst; a group's writes
         for other groups' slots land past their committed lengths and
-        are overwritten before any read. Ascending spans."""
+        are overwritten before any read. ``width``: rows the burst will
+        write per slot, which lazy growth must back; a slot the pool
+        cannot grow is left out of every group (inactive in the burst,
+        its device length unchanged) and retries once retirements free
+        blocks. Ascending spans."""
         groups: Dict[int, List[int]] = {}
         for slot, req in self.slot_req.items():
-            groups.setdefault(self._span_for(self._slot_rows(req)),
-                              []).append(slot)
+            rows = self._slot_rows(req)
+            if not self._ensure_headroom(slot, req, rows + width):
+                continue
+            groups.setdefault(self._span_for(rows), []).append(slot)
         return sorted(groups.items())
+
+    # -- QoS: re-queue, stall episodes, preemption-by-eviction -------------
+
+    def _mark_stall(self, req: Request, cause: str) -> None:
+        """Open (or re-assert) an admission-stall episode on ``req``:
+        idempotent per cause; a cause change closes the old episode into
+        ``stall_ms`` and opens the new one."""
+        now = time.time()
+        if req.stall_cause is not None:
+            if req.stall_cause == cause:
+                return
+            req.stall_ms[req.stall_cause] = (
+                req.stall_ms.get(req.stall_cause, 0.0)
+                + (now - req.stall_begin_s) * 1e3)
+        req.stall_cause = cause
+        req.stall_begin_s = now
+
+    def _end_stall(self, req: Request) -> None:
+        """Close an open stall episode (claim, quota unblock,
+        retirement); no-op when none is open."""
+        if req.stall_cause is None:
+            return
+        req.stall_ms[req.stall_cause] = (
+            req.stall_ms.get(req.stall_cause, 0.0)
+            + max(time.time() - req.stall_begin_s, 0.0) * 1e3)
+        req.stall_cause = None
+        req.stall_begin_s = 0.0
+
+    def _requeue(self, req: Request) -> None:
+        """THE re-queue path: every request going back to the queue head
+        (dry-pool stall, chunk-claim stall, preemption) passes here, so
+        the queue-depth gauge never goes stale."""
+        self.waiting.appendleft(req)
+        ENGINE_WAITING.set(len(self.waiting))
+
+    def preempt_slot(self, slot: int) -> bool:
+        """Preemption-by-eviction of one decode slot.
+
+        The victim's committed KV rows [0, prompt + tokens - 1) are the
+        bytes its prefill and decode wrote; their chunk-aligned prefix
+        retires into the prefix cache as ref-counted shared blocks
+        (increfs only: the dying slot never writes again, so even a
+        trailing partial block is shared without a copy). The slot's
+        table row goes to the sentinel at once (``_free_slot_blocks``),
+        and the device table is re-uploaded before the next dispatch, so
+        the next burst's flush for the freed slot lands in the trash
+        block, never in the shared block. The request re-queues with its
+        tokens and resumes through the ordinary prefix-hit admission
+        over its extended context (:meth:`_ctx`), re-prefilling only the
+        sub-chunk tail: greedy output equals an unpreempted run's.
+
+        Refuses while a dispatched burst is un-fetched (its completion
+        would commit tokens into a request already back in the queue)
+        and for contexts the engine could not re-admit through the chunk
+        path (:meth:`_resumable`). Host bookkeeping only."""
+        req = self.slot_req.get(slot)
+        if req is None or self._inflight_tokens:
+            return False
+        ctx = req.prompt + req.tokens
+        if not self._resumable(len(ctx)):
+            return False
+        if self._prefix_index is not None and req.n_chunks:
+            # Committed rows stop one short of the context: the last
+            # token's row is written by the burst that decodes its
+            # successor, which never ran. Only a chunk-admitted victim's
+            # rows may enter the shared cache (it promises chunk-program
+            # bytes to every sharer); a wave-admitted victim resumes
+            # cold.
+            self._store_prefix(ctx, slot, len(ctx) - 1, donor_live=False)
+        self.slot_req.pop(slot, None)
+        self.free_slots.append(slot)
+        self._free_slot_blocks(slot)
+        req.slot = None
+        req.preemptions += 1
+        qos_lib.QOS_PREEMPTIONS.labels(
+            tenant=qos_lib.tenant_label(
+                req.tenant,
+                self.qos.cfg if self.qos is not None else None)).inc()
+        self._requeue(req)
+        self._update_gauges()
+        return True
+
+    def _preempt_for_waiting(self) -> bool:
+        """For each queued request that outranks a running one and
+        cannot get a free slot, evict the lowest-priority active slot
+        (ties: the youngest, least sunk decode work). Runs before
+        admission claims slots; victims re-queue behind the lanes that
+        outrank them on the next reorder. Returns whether anything was
+        evicted."""
+        if self._inflight_tokens or not self.slot_req:
+            return False
+        evicted_any = False
+        avail = len(self.free_slots)
+        for w in list(self.waiting)[:self.n_slots]:
+            if avail > 0:
+                avail -= 1          # a free slot already covers it
+                continue
+            # Outranked residents, best victim first; a refusal (an
+            # un-resumable context) falls through to the next one.
+            candidates = sorted(
+                (r.priority, -r.rid, slot)
+                for slot, r in self.slot_req.items()
+                if r.priority < w.priority)
+            for _, _, slot in candidates:
+                if self.preempt_slot(slot):
+                    evicted_any = True
+                    break
+            else:
+                break               # nothing outranked (or evictable)
+        return evicted_any
 
     # -- admission ---------------------------------------------------------
 
@@ -654,11 +1123,26 @@ class InferenceEngine:
         dispatched first, then each wave's first tokens are fetched in
         order; ``on_wave`` fires as each wave's tokens land. A dry
         block pool stalls admission with the request back at the
-        queue's head."""
+        queue's head.
+
+        With a fair scheduler the queue is first reordered into priority
+        lanes and DRR order, outranked residents are evicted for queued
+        higher-priority work, and the queue is reordered again (victims
+        go behind the lanes that outrank them). A request whose tenant
+        is at its KV quota steps aside for this pass while everyone
+        behind it admits."""
+        if self.qos is not None and self.waiting:
+            self.qos.reorder(self.waiting)
+            if self._preempt_for_waiting() and self.waiting:
+                self.qos.reorder(self.waiting)
         stalled = False
+        quota_held: List[Request] = []
         while self.waiting and self.free_slots and not stalled:
             dispatched = []
             while self.waiting and self.free_slots and not stalled:
+                if self._kv_quota_blocked(self.waiting[0]):
+                    quota_held.append(self.waiting.popleft())
+                    continue
                 if self._use_chunked(self.waiting[0]):
                     stalled = not self._claim_chunked(
                         self.waiting.popleft())
@@ -672,33 +1156,41 @@ class InferenceEngine:
                         and (self.max_wave is None
                              or len(wave) < self.max_wave):
                     req = self.waiting.popleft()
-                    if self._use_chunked(req):
+                    if self._kv_quota_blocked(req):
+                        quota_held.append(req)
+                    elif self._use_chunked(req):
                         stalled = not self._claim_chunked(req)
-                        continue
-                    if _bucket(self._ctx_len(req), self.buckets) != bucket:
+                    elif _bucket(self._ctx_len(req),
+                                 self.buckets) != bucket:
                         rest.append(req)
-                        continue
-                    slot = self._wave_claim(req)
-                    if slot is None:          # block pool dry
-                        self.waiting.appendleft(req)
-                        stalled = True
                     else:
-                        wave.append(req)
-                        slots.append(slot)
+                        slot = self._wave_claim(req)
+                        if slot is None:          # block pool dry
+                            self._requeue(req)
+                            stalled = True
+                        else:
+                            wave.append(req)
+                            slots.append(slot)
                 self.waiting.extendleft(reversed(rest))
                 if wave:
                     dispatched.append(
-                        (wave, slots,
+                        (wave, slots, bucket,
                          self._dispatch_wave(wave, slots, bucket)))
-            for wave, slots, first in dispatched:
-                self._complete_wave(wave, slots, first)
+            for wave, slots, bucket, (first, t0) in dispatched:
+                self._complete_wave(wave, slots, first, bucket, t0)
                 if on_wave is not None:
                     on_wave()
+        if quota_held:
+            self.waiting.extendleft(reversed(quota_held))
+        self._update_gauges()
 
     def _dispatch_wave(self, wave: List[Request], slots: List[int],
-                       bucket: int) -> torch.Tensor:
+                       bucket: int) -> Tuple[torch.Tensor, float]:
         """Enqueue one wave's prefill + inserts; returns the first
-        tokens as a device tensor, not yet fetched."""
+        tokens as a device tensor, not yet fetched, and the dispatch
+        time."""
+        WAVE_SIZE.observe(len(wave))
+        t0 = time.time()
         n = len(wave)
         tokens_b = np.zeros((n, bucket), np.int64)
         true_lens = np.ones((n,), np.int64)
@@ -718,17 +1210,22 @@ class InferenceEngine:
             kvcache.insert(self.cache,
                            {"k": prefix["k"][:, w], "v": prefix["v"][:, w]},
                            slot, lens[w], first[w], table)
-        return first
+        return first, t0
 
     def _complete_wave(self, wave: List[Request], slots: List[int],
-                       first_dev: torch.Tensor) -> None:
+                       first_dev: torch.Tensor, bucket: int,
+                       t0: float) -> None:
         first = first_dev.tolist()             # host sync for THIS wave
         now = time.time()
+        PREFILL_SECONDS.labels(bucket=str(bucket)).observe(
+            max(now - t0, 0.0))
         for req, slot, tok in zip(wave, slots, first):
             req.slot = slot
             req.tokens.append(tok)
-            if req.first_token_s is None:
+            if req.first_token_s is None:      # not a resume
                 req.first_token_s = now
+                TTFT_SECONDS.observe(max(now - req.submit_s, 0.0))
+            PREFILL_REQUESTS.labels(bucket=str(bucket)).inc()
             self.slot_req[slot] = req
             if self._req_finished(req, tok):
                 self._retire(req)
@@ -787,30 +1284,38 @@ class InferenceEngine:
             shared = list(payload[:n_shared])
             for b in shared:
                 self.allocator.incref(b)
+        # A lazy reservation can be smaller than the shared prefix
+        # rounds to; never ask for a negative count.
         new_blocks = self._alloc_blocks(
-            max(self._need_blocks(req) - n_shared, 0))
+            max(self._need_blocks(req, len(ctx)) - n_shared, 0))
         if new_blocks is None:
             for b in shared:                  # unpin; retry next pass
                 self.allocator.decref(b)
-            self.waiting.appendleft(req)
+            self._mark_stall(req, "pool_dry")
+            self._requeue(req)
             return False
         slot = self.free_slots.pop(0)
         req.slot = slot
+        self._end_stall(req)
+        req.prefill_begin_s = time.time()
         row = self.block_table[slot]
         row[:] = self.n_kv_blocks
         if hit is not None:
             self.prefix_hits += 1
+            PREFIX_HITS.inc()
             row[:n_shared] = shared
             if partial:
                 # Copy the partial shared block before the suffix
                 # prefill writes into it (its owner keeps ref > 1).
                 kvcache.copy_block(self.cache, payload[n_shared],
                                    new_blocks[0])
-                self.cow_copies += 1
+                self._count_cow()
         elif idx is not None and idx.eligible(ctx):
             self.prefix_misses += 1
+            PREFIX_MISSES.inc()
         row[n_shared:n_shared + len(new_blocks)] = new_blocks
         self._table_dirty = True
+        self._sync_kv_charge(slot, req.tenant)
         kvcache.claim_slot(self.cache, slot, self.max_len)
         if req.tokens:
             req.resumed_len = cached
@@ -818,6 +1323,7 @@ class InferenceEngine:
             req.cached_len = cached
         self.chunking.append(_ChunkState(req=req, pos=cached,
                                          total=len(ctx), ctx=ctx))
+        self._update_gauges()
         return True
 
     def prefill_chunk_step(self) -> bool:
@@ -844,39 +1350,49 @@ class InferenceEngine:
             generator=self.generator, plain_attention=self.plain_attention,
             qweights=self.qweights)
         req.n_chunks += 1
+        PREFILL_CHUNKS.inc()
         st.pos += n_valid
         if not final:
             return True
         tok = int(tok_dev)                     # host sync
+        now = time.time()
         self.chunking.popleft()
         req.tokens.append(tok)
         if req.first_token_s is None:          # once per request
-            req.first_token_s = time.time()
+            req.first_token_s = now
+            TTFT_SECONDS.observe(max(now - req.submit_s, 0.0))
+        PREFILL_SECONDS.labels(bucket="chunked").observe(
+            max(now - req.prefill_begin_s, 0.0))
+        PREFILL_REQUESTS.labels(bucket="chunked").inc()
         self.slot_req[req.slot] = req
-        self._store_prefix(st.ctx, req.slot)
+        self._store_prefix(st.ctx, req.slot, len(st.ctx))
         if self._req_finished(req, tok):
             self._retire(req)
+        self._update_gauges()
         return True
 
     # -- prefix cache ------------------------------------------------------
 
-    def _store_prefix(self, ctx: List[int], slot: int) -> int:
+    def _store_prefix(self, ctx: List[int], slot: int, rows: int,
+                      donor_live: bool = True) -> int:
         """Install ``ctx``'s chunk-aligned prefix (a prompt, or a
-        resume's prompt + committed tokens), over the slot's resident
-        rows, into the prefix cache unless it is already resident.
-        Returns the rows installed (0 on every skip: no index, a prefix
-        shorter than one chunk, already covered, a dry pool).
-        Only chunk-path prompts are stored, so a later hit replays the
-        chunk program's own rows.
+        resume's prompt + committed tokens), over the slot's first
+        ``rows`` resident rows, into the prefix cache unless it is
+        already resident. Returns the rows installed (0 on every skip:
+        no index, a prefix shorter than one chunk, already covered, a
+        dry pool). Only chunk-path sequences are stored, so a later hit
+        replays the chunk program's own rows (or, from a preempted slot,
+        the literal bytes decode committed).
 
         The slot's full blocks over the prefix are increfed and become
-        the entry's payload; a trailing partial block is copied on share,
-        since the slot (still alive) keeps writing into its own copy
-        past the prefix."""
+        the entry's payload. A trailing partial block is copied on share
+        while the donor lives (it keeps writing into its own copy past
+        the prefix); a dying donor (preemption) shares it by incref
+        alone, since no writer remains."""
         idx = self._prefix_index
         if idx is None:
             return 0
-        n = (len(ctx) // idx.block) * idx.block
+        n = (rows // idx.block) * idx.block
         if n < idx.block:
             return 0
         covered = idx.lookup(ctx)
@@ -885,17 +1401,19 @@ class InferenceEngine:
         n_full, partial = divmod(n, self.kv_block)
         blocks = self.block_table[slot, :n_full + (1 if partial else 0)
                                   ].tolist()
-        if partial:
+        if partial and donor_live:
             cow = self._alloc_blocks(1)
             if cow is None:                    # pool dry: skip storing
                 return 0
             kvcache.copy_block(self.cache, blocks[n_full], cow[0])
-            self.cow_copies += 1
+            self._count_cow()
             blocks[n_full] = cow[0]
         for b in blocks[:n_full]:
             self.allocator.incref(b)
+        if partial and not donor_live:
+            self.allocator.incref(blocks[n_full])
         for payload in idx.insert_entry(ctx, n, tuple(blocks)):
-            self.prefix_evictions += 1
+            self._count_eviction()
             for b in payload:
                 self.allocator.decref(b)
         return n
@@ -1000,7 +1518,7 @@ class InferenceEngine:
                 self.device)
             for name, arr in tensors.items()})
         for payload in idx.insert_entry(ctx, cached, tuple(blocks), salt):
-            self.prefix_evictions += 1
+            self._count_eviction()
             for b in payload:
                 self.allocator.decref(b)
         return cached
@@ -1017,11 +1535,19 @@ class InferenceEngine:
     def _retire(self, req: Request) -> None:
         req.done = True
         self.finished.append(req)
+        REQUESTS_FINISHED.inc()
+        self._end_stall(req)
+        if req.first_token_s is not None and len(req.tokens) > 1:
+            TPOT_SECONDS.observe(
+                max(time.time() - req.first_token_s, 0.0)
+                / (len(req.tokens) - 1))
         if req.slot is not None:
             self.slot_req.pop(req.slot, None)
             self.free_slots.append(req.slot)
             self._free_slot_blocks(req.slot)
             req.slot = None
+        SLOTS_ACTIVE.set(len(self.slot_req))
+        KV_BLOCKS_USED.set(self.allocator.used)
 
     def dispatch_decode_burst(self, max_burst: int = 8
                               ) -> Optional[BurstHandle]:
@@ -1043,8 +1569,15 @@ class InferenceEngine:
         if k < 1 or need < 1:
             return None
         k = 1 << (k.bit_length() - 1)
+        # Lazy mode grows each slot's blocks here; a slot the pool
+        # cannot grow sits the round out.
+        groups = self._span_groups(k)
+        if not groups:
+            return None            # lazy: pool dry, retry next round
+        t0 = time.time()
         parts: List[Tuple[torch.Tensor, List[int]]] = []
-        for span, slots in self._span_groups():
+        for span, slots in groups:
+            DECODE_ATTN_ROWS.observe(span)
             active = np.zeros((self.n_slots,), bool)
             active[slots] = True
             toks = kvcache.decode_burst_staged(
@@ -1054,16 +1587,19 @@ class InferenceEngine:
                 plain_attention=self.plain_attention, qweights=self.qweights)
             parts.append((toks, slots))
         self._inflight_tokens += k
-        return BurstHandle(parts=parts, k=k, slot_req=dict(self.slot_req))
+        return BurstHandle(parts=parts, k=k, slot_req=dict(self.slot_req),
+                           begin_s=t0)
 
     def complete_decode_burst(self, handle: BurstHandle
                               ) -> Dict[int, List[int]]:
         """Fetch a dispatched burst's tokens (host sync) and append or
         retire per request, using the slot->request snapshot taken at
         dispatch. Tokens past a request's EOS or budget are discarded.
-        Returns {rid: [tokens...]}."""
+        Slots a lazy dry pool kept out of the burst have no part and
+        emit nothing this round. Returns {rid: [tokens...]}."""
         fetched = [(toks.cpu().numpy(), slots)
                    for toks, slots in handle.parts]
+        DECODE_STEP_SECONDS.observe(max(time.time() - handle.begin_s, 0.0))
         self._inflight_tokens -= handle.k
         out: Dict[int, List[int]] = {}
         for toks, slots in fetched:
@@ -1080,6 +1616,9 @@ class InferenceEngine:
                         self._retire(req)
                         break
                 out[req.rid] = emitted
+        n = sum(len(v) for v in out.values())
+        if n:
+            DECODE_TOKENS.inc(n)
         return out
 
     def decode_burst(self, max_burst: int = 8) -> Dict[int, List[int]]:
@@ -1156,10 +1695,18 @@ class InferenceEngine:
                 dlen[slot] = len(d)
         if not dlen:
             return None
+        groups = self._span_groups(K + 1)
+        if not sum(dlen.get(s, 0) for _, slots in groups for s in slots):
+            # Every drafting slot was kept out (lazy dry pool): a
+            # K+1-wide verify for the rest would be strictly worse than
+            # the plain burst the caller falls back to.
+            return None
+        t0 = time.time()
         draft_dev = self._upload(draft)
         n_draft_dev = self._upload(n_draft)
         parts = []
-        for span, slots in self._span_groups():
+        for span, slots in groups:
+            DECODE_ATTN_ROWS.observe(span)
             active = np.zeros((self.n_slots,), bool)
             active[slots] = True
             toks, n_commit = kvcache.verify_draft_staged(
@@ -1171,9 +1718,10 @@ class InferenceEngine:
             parts.append((slots, toks, n_commit))
         out: Dict[int, List[int]] = {}
         drafted = accepted = 0
-        for slots, toks_dev, commit_dev in parts:
-            toks = toks_dev.cpu().numpy()               # host sync
-            n_commit = commit_dev.cpu().numpy()
+        fetched = [(slots, toks_dev.cpu().numpy(), commit_dev.cpu().numpy())
+                   for slots, toks_dev, commit_dev in parts]   # host sync
+        DECODE_STEP_SECONDS.observe(max(time.time() - t0, 0.0))
+        for slots, toks, n_commit in fetched:
             for slot in slots:
                 req = self.slot_req.get(slot)
                 if req is None or req.done:
@@ -1201,6 +1749,17 @@ class InferenceEngine:
                 out[req.rid] = emitted
         self._spec_drafted_total += drafted
         self._spec_accepted_total += accepted
+        SPEC_DRAFTED.inc(drafted)
+        if accepted:
+            SPEC_ACCEPTED.inc(accepted)
+        if drafted > accepted:
+            SPEC_ROLLBACKS.inc(drafted - accepted)
+        if self._spec_drafted_total:
+            SPEC_ACCEPT_RATE.set(self._spec_accepted_total
+                                 / self._spec_drafted_total)
+        n = sum(len(v) for v in out.values())
+        if n:
+            DECODE_TOKENS.inc(n)
         return out
 
     def step_burst(self, max_burst: int = 8,
@@ -1215,9 +1774,24 @@ class InferenceEngine:
 
     def run_to_completion(self, max_burst: int = 8) -> List[Request]:
         """Drain all waiting, chunking and active requests; returns the
-        finished list."""
+        finished list. Lazy mode can genuinely wedge (every active slot
+        needs blocks the pool cannot grow and nothing can retire):
+        eager admission makes that impossible by construction; here it
+        is detected and raised instead of spinning forever."""
+        stalled = 0
         while self.waiting or self.chunking or self.slot_req:
-            self.step_burst(max_burst)
+            had_chunks = bool(self.chunking)
+            before = len(self.finished)
+            out = self.step_burst(max_burst)
+            progress = (bool(out) or had_chunks
+                        or len(self.finished) > before)
+            stalled = 0 if progress else stalled + 1
+            if self.kv_lazy and self.slot_req and stalled > 2:
+                raise KvPoolWedgedError(
+                    "KV block pool exhausted: lazy growth cannot back "
+                    "any active slot and nothing can retire — size "
+                    "SKYTPU_KV_BLOCKS for the live working set or "
+                    "disable SKYTPU_KV_LAZY")
         return self.finished
 
     def reset(self) -> None:
@@ -1238,7 +1812,11 @@ class InferenceEngine:
         self.allocator.reset()
         self.block_table[:] = self.n_kv_blocks
         self._table_dirty = True
+        self._slot_kv_charge.clear()
+        for t in list(self._tenant_kv):
+            self._set_tenant_kv(t, 0)
         self.cache["length"].zero_()
+        self._update_gauges()
 
     def generate(self, prompts: List[List[int]],
                  max_new_tokens: int = 128) -> List[List[int]]:

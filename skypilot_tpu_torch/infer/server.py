@@ -6,7 +6,17 @@ replica serves in this slice of the port, with the reference's request
 and response JSON keys:
 
   GET  /health              -> 200 {"status": "ok"} once warm,
-                               503 {"status": "warming"} before
+                               503 {"status": "warming"} before,
+                               503 {"status": "draining"} while draining
+  GET  /healthz             -> 200 {"status": "healthy" | "draining" |
+                               "degraded", "reason", "last_seen_s"}
+  GET  /metrics             -> Prometheus text exposition of the
+                               process registry, the reference's metric
+                               names (TTFT/TPOT histograms, queue depth,
+                               slots, HTTP latencies, QoS counters)
+  POST /drain               {"grace_s": s} -> {"draining", "in_flight",
+                               "drained", "deadline_s"}; idempotent, the
+                               controller polls it until drained
   POST /generate            {"tokens": [...], "max_new_tokens": N}
                             -> {"tokens": [...], "ttft_ms": ..., ...}
   POST /generate + "stream": true
@@ -28,12 +38,22 @@ decode-tier replica imports them (:func:`decode_export`) and resumes
 the prompt plus the committed token through its prefix cache. A port
 replica serves either tier, beside the reference's replicas.
 
-A prompt longer than the largest bucket gets HTTP 400 with the
-reference's typed body (``PromptTooLongError.typed_error``). Prompts
-longer than ``--prefill-chunk`` (512) prefill in chunks, one chunk
-between decode bursts; the trailer's ``prefill_chunks`` counts them.
-The reference server's other two defaults are on as well: a prefix
-cache of ``--prefix-pool`` (8) shared prompt prefixes (trailer:
+Typed errors carry the reference's bodies: 400 ``prompt_too_long`` and
+``kv_quota_unsatisfiable``, 409 ``handoff_ineligible``, 411
+``length_required``, 429 ``rate_limited`` and 503 ``overloaded`` (QoS
+admission, with ``Retry-After``) and 503 ``draining``. With
+``SKYTPU_QOS=1`` the handler sheds by tenant before a request reaches
+the engine (``x-skytpu-tenant``, ``x-skytpu-priority`` or the body's
+``tenant``/``priority``; ``SKYTPU_QOS_TENANTS`` sets per-tenant rate,
+weight, priority and ``max_kv_blocks``), and the engine schedules its
+queue by weighted fair queueing and priority lanes, preempting
+lower-priority slots. ``--kv-lazy`` grows each slot's KV blocks as its
+bursts need rows.
+
+Prompts longer than ``--prefill-chunk`` (512) prefill in chunks, one
+chunk between decode bursts; the trailer's ``prefill_chunks`` counts
+them. The reference server's other two defaults are on as well: a
+prefix cache of ``--prefix-pool`` (8) shared prompt prefixes (trailer:
 ``cache_hit``, ``cached_tokens``) and n-gram speculation at ``--spec-k``
 (4) draft tokens (trailer: ``spec_drafted``, ``spec_accepted``,
 ``drafter``); ``SKYTPU_PREFIX_POOL`` and ``SKYTPU_SPEC_K`` set the
@@ -46,9 +66,13 @@ recipe's command line runs as it stands.
     python -m skypilot_tpu_torch.infer.server --config llama3-8b
     python -m skypilot_tpu_torch.infer.server --config llama3-8b \
         --kv-int8 --weights-int8
+    SKYTPU_QOS=1 SKYTPU_QOS_TENANTS='{"free": {"rate": 2}}' \
+        python -m skypilot_tpu_torch.infer.server --config llama3-8b \
+        --kv-lazy
 
 serves greedy decoding on the CUDA card (``--device cpu`` runs the
-plain PyTorch versions on the CPU).
+plain PyTorch versions on the CPU). ``/debug/flight`` and
+``/debug/forensics`` are later slices of the port.
 """
 
 from __future__ import annotations
@@ -68,7 +92,46 @@ import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.infer import engine as eng
+from skypilot_tpu_torch.infer import qos as qos_lib
+from skypilot_tpu_torch.infer import sampling
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import health as health_lib
+from skypilot_tpu_torch.observability import metrics
+
+# The reference server's metric families (``skypilot_tpu/infer/
+# server.py``), same names, types, labels and help.
+HTTP_SECONDS = metrics.histogram(
+    "skytpu_http_request_seconds",
+    "Model-server HTTP request latency (streaming requests span the "
+    "full generation)", labelnames=("route",),
+    buckets=metrics.latency_buckets())
+HTTP_REQUESTS = metrics.counter(
+    "skytpu_http_requests_total",
+    "Model-server HTTP requests by route and status code",
+    labelnames=("route", "code"))
+INBOX_DEPTH = metrics.gauge(
+    "skytpu_server_inbox_depth",
+    "Requests accepted by handler threads, not yet drained into the "
+    "engine (queue depth ahead of admission)")
+PENDING_REQUESTS = metrics.gauge(
+    "skytpu_server_pending_requests",
+    "Requests in flight in the serving loop (drained, not finished)")
+BURST_FLUSHES = metrics.counter(
+    "skytpu_server_burst_flushes_total",
+    "Async decode bursts landed (fetched + streamed) by the loop")
+WAVE_FLUSH_SECONDS = metrics.histogram(
+    "skytpu_server_wave_flush_seconds",
+    "Post-admission-wave flush (stream first tokens + re-drain inbox)")
+SERVER_DRAINING = metrics.gauge(
+    "skytpu_server_draining",
+    "1 while this replica is draining (POST /drain received: new "
+    "admissions get a typed 503, in-flight requests finish, /healthz "
+    "reports 'draining' so the LB and controller stop routing here)")
+
+_KNOWN_ROUTES = frozenset({"/health", "/healthz", "/metrics",
+                           "/generate", "/prefill", "/handoff",
+                           "/drain", "/debug/flight",
+                           "/debug/forensics"})
 
 
 class _Pending:
@@ -97,9 +160,14 @@ class ModelServer:
 
     def __init__(self, engine: eng.InferenceEngine, max_burst: int = 8,
                  open_burst: int = 4, open_window_s: float = 1.0,
-                 coalesce_s: float = 0.012):
+                 coalesce_s: float = 0.012,
+                 qos: Optional[qos_lib.AdmissionController] = None):
         self.engine = engine
         self.max_burst = max_burst
+        # Multi-tenant QoS admission: handler threads run the
+        # token-bucket and overload check before a request reaches the
+        # inbox; None is the zero-cost path.
+        self.qos = qos
         # Admission coalescing: when the inbox yields less than a full
         # wave but a request arrived within ``coalesce_s``, wait a beat
         # (2 ms slices, re-draining) so a burst of arrivals shares one
@@ -125,32 +193,82 @@ class ModelServer:
         self._ready = threading.Event()
         self._stop = threading.Event()
         self.warmup_error: Optional[BaseException] = None
+        # /healthz detail: "warming" until the warmup ends, "" while
+        # serving, a reason after a failed engine reset.
+        self.health_reason = "warming"
+        # Graceful drain: once draining, new admissions get a typed 503
+        # and in-flight requests run to completion; past the deadline
+        # the replica self-reports degraded. Written by handler threads,
+        # read everywhere (benign unlocked reads, as queue_depth()).
+        self._draining = False
+        self._drain_deadline_s = 0.0
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
+    def queue_depth(self) -> int:
+        """Inbox + in-flight requests, the overload-shed input (benign
+        racy len() reads from handler threads)."""
+        return len(self._inbox) + len(self._pending)
+
+    # -- graceful drain ----------------------------------------------------
+
+    def start_drain(self, grace_s: float = 30.0) -> Dict:
+        """Enter (or re-poll) the draining state: the first call stamps
+        the deadline, repeats report progress, so the controller polls
+        ``POST /drain`` until ``drained``."""
+        if not self._draining:
+            self._draining = True
+            self._drain_deadline_s = time.time() + max(grace_s, 0.0)
+            SERVER_DRAINING.set(1)
+            print(json.dumps({"event": "server.draining",
+                              "in_flight": self.queue_depth(),
+                              "grace_s": grace_s}), file=sys.stderr,
+                  flush=True)
+        return self.drain_status()
+
+    def draining(self) -> bool:
+        return self._draining
+
+    def drain_status(self) -> Dict:
+        depth = self.queue_depth()
+        return {
+            "draining": self._draining,
+            "in_flight": depth,
+            "drained": self._draining and depth == 0,
+            "deadline_s": round(self._drain_deadline_s, 3),
+        }
+
     def _add(self, tokens, max_new_tokens: int, stream: bool = False,
+             tenant: str = qos_lib.DEFAULT_TENANT, priority: int = 0,
              export_prefix: bool = False,
              handoff: Optional[Dict] = None) -> _Pending:
-        # Validate eagerly (oversized prompt -> clean 400) without
-        # touching the engine's mutable state from this thread.
+        # Validate eagerly (oversized prompt, unsatisfiable KV quota ->
+        # clean 400) without touching the engine's mutable state from
+        # this thread.
         eng._bucket(len(tokens), self.engine.buckets)
+        self.engine.check_kv_quota(tenant, len(tokens), max_new_tokens)
         p = _Pending()
         p.stream = stream
         p.export_prefix = export_prefix
         with self._inbox_lock:
-            self._inbox.append((list(tokens), max_new_tokens, p, handoff))
+            self._inbox.append((list(tokens), max_new_tokens, p, tenant,
+                                priority, handoff))
             self._last_arrival = time.monotonic()
+            INBOX_DEPTH.set(len(self._inbox))
         return p
 
     def submit(self, tokens, max_new_tokens: int,
+               tenant: str = qos_lib.DEFAULT_TENANT, priority: int = 0,
                export_prefix: bool = False,
                handoff: Optional[Dict] = None) -> Dict:
         """Blocking: the result dict once the request finishes.
+        ``tenant``/``priority``: the request's QoS identity.
         ``export_prefix`` (``/prefill``) adds the engine's prefix export
         under ``"export"`` (None when none is resident); ``handoff``
         (``/handoff``: ``{"committed": [...], "export": {...} or None}``)
         imports the export and resumes after the committed tokens."""
-        p = self._add(tokens, max_new_tokens, export_prefix=export_prefix,
+        p = self._add(tokens, max_new_tokens, tenant=tenant,
+                      priority=priority, export_prefix=export_prefix,
                       handoff=handoff)
         t0 = time.time()
         p.event.wait()
@@ -159,13 +277,15 @@ class ModelServer:
         return out
 
     def submit_stream(self, tokens, max_new_tokens: int,
-                      handoff: Optional[Dict] = None):
+                      tenant: str = qos_lib.DEFAULT_TENANT,
+                      priority: int = 0, handoff: Optional[Dict] = None):
         """Iterator of chunk dicts: {"tokens": [...]} as decoded, then
         one {"done": true, "ttft_ms": ...} (or {"error": ...}).
         Validation happens before any bytes are written, so an
         oversized prompt raises here as a clean 400. ``handoff`` as in
         :meth:`submit`; the committed tokens stream first."""
-        p = self._add(tokens, max_new_tokens, stream=True, handoff=handoff)
+        p = self._add(tokens, max_new_tokens, stream=True, tenant=tenant,
+                      priority=priority, handoff=handoff)
 
         def gen():
             while True:
@@ -192,14 +312,19 @@ class ModelServer:
         # build. A failed warmup (a kernel that does not build or
         # launch) stops the loop with /health at 503 and the error kept
         # in ``warmup_error``.
+        # The warmup records nothing: its one sample (a kernel build)
+        # would skew the serving histograms for the process's life.
         try:
-            self.engine.generate([[1]], max_new_tokens=2)
+            with metrics.suppress():
+                self.engine.generate([[1]], max_new_tokens=2)
         except Exception as e:  # noqa: BLE001 — reported, then stop
             self.warmup_error = e
+            self.health_reason = "warmup failed"
             print(f"model server warmup failed: {e!r}", file=sys.stderr,
                   flush=True)
             return
         self.engine.finished.clear()
+        self.health_reason = ""
         self._ready.set()
         while not self._stop.is_set():
             try:
@@ -214,6 +339,7 @@ class ModelServer:
                 try:
                     self.engine.reset()
                 except Exception:  # noqa: BLE001
+                    self.health_reason = "engine reset failed"
                     self._ready.clear()
                 for p in self._pending.values():
                     p.result = {"error": f"engine failure: {e!r}"}
@@ -221,6 +347,7 @@ class ModelServer:
                         p.chunks.put({"error": p.result["error"]})
                     p.event.set()
                 self._pending.clear()
+                PENDING_REQUESTS.set(0)
                 busy = False
             if not busy:
                 time.sleep(0.002)
@@ -228,7 +355,8 @@ class ModelServer:
     def _drain_inbox(self) -> None:
         with self._inbox_lock:
             new, self._inbox = self._inbox, []
-        for tokens, max_new, p, handoff in new:
+            INBOX_DEPTH.set(0)
+        for tokens, max_new, p, tenant, priority, handoff in new:
             committed = None
             if handoff is not None:
                 # Decode tier: install the prefill tier's blocks here
@@ -247,12 +375,15 @@ class ModelServer:
                         print(f"model server: handoff import failed, "
                               f"resuming cold: {e!r}", file=sys.stderr,
                               flush=True)
-            rid = self.engine.add_request(tokens, max_new,
+            rid = self.engine.add_request(tokens, max_new, tenant=tenant,
+                                          priority=priority,
                                           committed=committed)
             p.req = self.engine.waiting[-1]
             # TTFT counts from when the handler enqueued the request.
             p.req.submit_s = p.enqueued_s
             self._pending[rid] = p
+        if new:
+            PENDING_REQUESTS.set(len(self._pending))
 
     def _flush_streams(self) -> None:
         """Push newly decoded tokens to every pending stream (diffs
@@ -269,13 +400,16 @@ class ModelServer:
         # After each admission wave: stream its first tokens, then pull
         # requests that arrived during the wave's prefill into this
         # admission pass.
+        t0 = time.monotonic()
         self._flush_streams()
         self._drain_inbox()
+        WAVE_FLUSH_SECONDS.observe(time.monotonic() - t0)
 
     def _complete_burst(self) -> None:
         if self._burst is not None:
             handle, self._burst = self._burst, None
             self.engine.complete_decode_burst(handle)
+            BURST_FLUSHES.inc()
             self._flush_streams()
 
     def _step(self) -> bool:
@@ -299,7 +433,14 @@ class ModelServer:
         # retirements may free the slots admission wants).
         if e.waiting:
             self._complete_burst()
-            if e.free_slots:
+            admit = bool(e.free_slots)
+            if not admit and e.slot_req and e.qos is not None:
+                # Saturated replica: admission is the only path into the
+                # engine's priority-preemption pass, so it still runs
+                # when a queued request outranks a resident.
+                floor = min(r.priority for r in e.slot_req.values())
+                admit = any(w.priority > floor for w in e.waiting)
+            if admit:
                 e.admit(on_wave=self._on_wave)
                 self._flush_streams()
         if e.chunking:
@@ -335,14 +476,13 @@ class ModelServer:
                     if req.first_token_s is not None else None)
             ttft = round(ttft, 2) if ttft is not None else None
             # The reference trailer's keys; the features behind the
-            # zero-valued ones (QoS, recovery, adapters) are later
-            # slices.
+            # zero-valued ones (recovery, adapters) are later slices.
             stats = {"cache_hit": bool(req.cached_len),
                      "cached_tokens": req.cached_len,
                      "spec_drafted": req.spec_drafted,
                      "spec_accepted": req.spec_accepted,
                      "drafter": req.spec_mode or "off",
-                     "preemptions": 0, "recoveries": 0}
+                     "preemptions": req.preemptions, "recoveries": 0}
             p.result = {"tokens": req.tokens, "ttft_ms": ttft,
                         "prefill_chunks": req.n_chunks, "model": None,
                         **stats}
@@ -355,6 +495,8 @@ class ModelServer:
                 p.chunks.put({"done": True, "ttft_ms": ttft,
                               "n_tokens": len(req.tokens), **stats})
             p.event.set()
+        if e.finished:
+            PENDING_REQUESTS.set(len(self._pending))
         e.finished.clear()
         return True
 
@@ -421,19 +563,65 @@ def make_handler(model: ModelServer):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
-        def _json(self, code, obj):
+        def _observe(self, code: int) -> None:
+            route = self.path.split("?", 1)[0]
+            if route not in _KNOWN_ROUTES:
+                # Label children are never evicted; scanner paths must
+                # not mint unbounded series.
+                route = "other"
+            HTTP_REQUESTS.labels(route=route, code=str(code)).inc()
+            t0 = getattr(self, "_t0", None)
+            if t0 is not None:
+                HTTP_SECONDS.labels(route=route).observe(
+                    time.monotonic() - t0)
+                self._t0 = None
+
+        def _json(self, code, obj, headers=None):
             body = json.dumps(obj).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
+            self._observe(code)
 
         def do_GET(self):
+            self._t0 = time.monotonic()
             if self.path == "/health":
+                if model._draining:
+                    # 503 stops the LB and controller routing here; the
+                    # in-flight work continues.
+                    return self._json(503, {"status": "draining"},
+                                      headers={"Retry-After": "1"})
                 if model._ready.is_set():
                     return self._json(200, {"status": "ok"})
                 return self._json(503, {"status": "warming"})
+            if self.path == "/healthz":
+                # Always 200 (the probe succeeded); the status carries
+                # the verdict.
+                if model._draining:
+                    depth = model.queue_depth()
+                    past = (depth > 0
+                            and time.time() > model._drain_deadline_s)
+                    health_lib.write_healthz(
+                        self,
+                        health_lib.DEGRADED if past
+                        else health_lib.DRAINING,
+                        reason=(f"draining past deadline "
+                                f"({depth} in flight)" if past
+                                else f"draining ({depth} in flight)"))
+                    return self._observe(200)
+                ready = model._ready.is_set()
+                health_lib.write_healthz(
+                    self,
+                    health_lib.HEALTHY if ready else health_lib.DEGRADED,
+                    reason=model.health_reason)
+                return self._observe(200)
+            if self.path == "/metrics":
+                metrics.write_exposition(self)
+                return self._observe(200)
             return self._json(404, {"error": "not found"})
 
         def _stream(self, chunks):
@@ -442,15 +630,32 @@ def make_handler(model: ModelServer):
             self.send_header("Content-Type", "application/x-ndjson")
             self.send_header("Transfer-Encoding", "chunked")
             self.end_headers()
+            code = 200
             try:
                 for chunk in chunks:
                     data = json.dumps(chunk).encode() + b"\n"
                     self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+            except ConnectionError:
+                # Client went away mid-stream: 499 (client closed
+                # request), not a success.
+                code = 499
+                return
+            finally:
+                self._observe(code)
+            try:
                 self.wfile.write(b"0\r\n\r\n")
             except ConnectionError:
-                return        # client went away mid-stream
+                pass
+
+        def _bad_request(self, e):
+            # Client errors carry a typed body where the engine minted
+            # one (prompt too long, unsatisfiable KV quota).
+            return self._json(
+                getattr(e, "http_status", 400),
+                {"error": getattr(e, "typed_error", None) or str(e)})
 
         def do_POST(self):
+            self._t0 = time.monotonic()
             if "chunked" in (self.headers.get("Transfer-Encoding")
                              or "").lower():
                 # No Content-Length: the body cannot be read, and an
@@ -462,8 +667,27 @@ def make_handler(model: ModelServer):
                                "supported; send Content-Length"}})
             length = int(self.headers.get("Content-Length") or 0)
             body_bytes = self.rfile.read(length)
+            if self.path == "/drain":
+                try:
+                    body = json.loads(body_bytes or b"{}")
+                    grace = float(body.get("grace_s", 30.0))
+                except (ValueError, TypeError, AttributeError):
+                    return self._json(400,
+                                      {"error": "bad drain request"})
+                return self._json(200, model.start_drain(grace))
             if self.path not in ("/generate", "/prefill", "/handoff"):
                 return self._json(404, {"error": "not found"})
+            if model._draining:
+                # Typed drain shed (the body was consumed above): the
+                # LB retries on a surviving replica, direct clients back
+                # off per Retry-After.
+                return self._json(
+                    503,
+                    {"error": {
+                        "type": "draining",
+                        "message": "replica is draining; retry "
+                                   "against another replica"}},
+                    headers={"Retry-After": "1"})
             try:
                 body = json.loads(body_bytes or b"{}")
                 tokens = [int(t) for t in body["tokens"]]
@@ -471,8 +695,22 @@ def make_handler(model: ModelServer):
                 stream = bool(body.get("stream", False))
             except (ValueError, TypeError, KeyError) as e:
                 return self._json(400, {"error": f"bad request: {e}"})
+            # QoS: identity from header or body, then the token-bucket
+            # and overload check before any engine state is touched; a
+            # shed is a typed 429/503 with Retry-After.
+            tenant, priority = qos_lib.request_identity(
+                self.headers, body,
+                cfg=model.qos.cfg if model.qos is not None else None)
+            if model.qos is not None:
+                try:
+                    model.qos.admit(tenant, depth=model.queue_depth())
+                except qos_lib.ShedError as e:
+                    return self._json(
+                        e.http_status, {"error": e.typed_error},
+                        headers={"Retry-After": e.retry_after_header()})
+            who = {"tenant": tenant, "priority": priority}
             if self.path == "/prefill":
-                return self._prefill(tokens, max_new)
+                return self._prefill(tokens, max_new, who)
             handoff = None
             if self.path == "/handoff":
                 # Decode tier: import the prefill tier's blocks, then
@@ -491,15 +729,15 @@ def make_handler(model: ModelServer):
             try:
                 if stream:
                     return self._stream(model.submit_stream(
-                        tokens, max_new, handoff=handoff))
-                out = model.submit(tokens, max_new, handoff=handoff)
-            except eng.PromptTooLongError as e:
-                return self._json(400, {"error": e.typed_error})
+                        tokens, max_new, handoff=handoff, **who))
+                out = model.submit(tokens, max_new, handoff=handoff, **who)
+            except ValueError as e:       # oversized prompt, KV quota
+                return self._bad_request(e)
             if "error" in out:
                 return self._json(500, out)
             return self._json(200, out)
 
-        def _prefill(self, tokens, max_new):
+        def _prefill(self, tokens, max_new, who):
             """Prefill tier: run the request to ONE committed token and
             return it with the stored prefix's export; the load
             balancer hands both to a decode replica. A request that
@@ -514,9 +752,9 @@ def make_handler(model: ModelServer):
                                "single-token budget, or prefix "
                                "cache off); route single-tier"}})
             try:
-                out = model.submit(tokens, 1, export_prefix=True)
-            except eng.PromptTooLongError as e:
-                return self._json(400, {"error": e.typed_error})
+                out = model.submit(tokens, 1, export_prefix=True, **who)
+            except ValueError as e:
+                return self._bad_request(e)
             if "error" in out:
                 return self._json(500, out)
             export = out.pop("export", None)
@@ -537,28 +775,37 @@ def make_handler(model: ModelServer):
 
 def serve(engine: eng.InferenceEngine, host: str = "0.0.0.0",
           port: int = 8080, max_burst: int = 8, open_burst: int = 4,
-          open_window_s: float = 1.0, coalesce_s: float = 0.012):
+          open_window_s: float = 1.0, coalesce_s: float = 0.012,
+          qos: Optional[qos_lib.AdmissionController] = None):
     model = ModelServer(engine, max_burst=max_burst, open_burst=open_burst,
-                        open_window_s=open_window_s, coalesce_s=coalesce_s)
+                        open_window_s=open_window_s, coalesce_s=coalesce_s,
+                        qos=qos)
     httpd = _Threading((host, port), make_handler(model))
     return model, httpd
 
 
 def make_engine(config: str, slots: int = 16, max_len: int = 1024,
                 admit_wave: int = 8, kv_block: int = 256,
+                kv_blocks: Optional[int] = None, span_buckets=None,
                 prefill_chunk: int = 512, prefix_pool: int = 8,
-                spec_k: int = 4, kv_int8: bool = False,
-                weights_int8: bool = False, device: DeviceLike = None,
+                spec_k: int = 4, temperature: float = 0.0,
+                kv_int8: bool = False, weights_int8: bool = False,
+                kv_lazy: Optional[bool] = None,
+                qos: Optional[qos_lib.FairScheduler] = None,
+                device: DeviceLike = None,
                 seed: int = 0) -> eng.InferenceEngine:
     """The serving engine ``main()`` runs: ``config``'s model with
     random weights drawn in ``cfg.dtype`` on ``device`` from ``seed``,
-    greedy decoding, paged KV, prompt buckets (128, 512, max_len),
-    chunked prefill above ``prefill_chunk`` tokens, a prefix cache of
-    ``prefix_pool`` entries and ``spec_k``-token n-gram speculation (0
-    disables each), the reference server's defaults. ``kv_int8``: an
-    int8 KV cache; ``weights_int8``: w8a8 weights, quantized once on
-    ``device`` from the drawn weights, whose float copies are then
-    dropped."""
+    paged KV (``kv_blocks`` blocks, None for one max_len row per slot),
+    prompt buckets (128, 512, max_len), chunked prefill above
+    ``prefill_chunk`` tokens, a prefix cache of ``prefix_pool`` entries
+    and ``spec_k``-token n-gram speculation (0 disables each), the
+    reference server's defaults; ``temperature`` 0 decodes greedily.
+    ``span_buckets``: the span ladder (None the default, 0 off).
+    ``kv_int8``: an int8 KV cache; ``weights_int8``: w8a8 weights,
+    quantized once on ``device`` from the drawn weights, whose float
+    copies are then dropped. ``kv_lazy``: lazy KV growth (None reads
+    ``SKYTPU_KV_LAZY``); ``qos``: the engine's fair scheduler."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[config]
     gen = torch.Generator(device=dev)
@@ -568,14 +815,30 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
                             max_len}))
     engine = eng.InferenceEngine(
         params, cfg, n_slots=slots, max_len=max_len,
-        prompt_buckets=buckets, max_wave=admit_wave, kv_block=kv_block,
-        prefill_chunk=prefill_chunk, prefix_pool=prefix_pool,
-        spec_k=spec_k, kv_int8=kv_int8, weights_int8=weights_int8,
-        device=dev, seed=seed)
+        prompt_buckets=buckets,
+        sampling_params=sampling.SamplingParams(temperature=temperature),
+        max_wave=admit_wave, kv_block=kv_block, kv_blocks=kv_blocks,
+        span_buckets=span_buckets, prefill_chunk=prefill_chunk,
+        prefix_pool=prefix_pool, spec_k=spec_k, kv_int8=kv_int8,
+        weights_int8=weights_int8, device=dev, seed=seed,
+        kv_lazy=kv_lazy, qos=qos)
     # Under weights_int8 the engine keeps only the slim tree; this
     # reference must go too, or the float block matrices stay resident.
     del params
     return engine
+
+
+def _span_buckets(arg: Optional[str]):
+    """``--span-buckets``: None (unset) -> the engine's default ladder
+    (or ``SKYTPU_SPAN_BUCKETS``); "0" -> off; a comma list -> that
+    ladder."""
+    if arg is None:
+        env = os.environ.get("SKYTPU_SPAN_BUCKETS", "").strip()
+        if not env:
+            return None
+        arg = env
+    rungs = [int(t) for t in arg.replace(",", " ").split()]
+    return [r for r in rungs if r > 0] or 0
 
 
 def main(argv=None) -> None:
@@ -585,6 +848,7 @@ def main(argv=None) -> None:
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--slots", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=1024)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--max-burst", type=int, default=8,
                     help="decode tokens per device call")
     ap.add_argument("--open-burst", type=int, default=4,
@@ -605,6 +869,26 @@ def main(argv=None) -> None:
                          "(prevents 1-row waves on bursts)")
     ap.add_argument("--kv-block", type=int, default=256,
                     help="paged KV cache block length")
+    ap.add_argument("--kv-blocks", type=int, default=None,
+                    help="paged KV pool size in blocks (default env "
+                         "SKYTPU_KV_BLOCKS, or one max-len row per "
+                         "slot: slots*max_len/block)")
+    ap.add_argument("--span-buckets", default=None,
+                    help="span-bucketed decode attention: comma-"
+                         "separated ladder of KV-row spans (each "
+                         "decode/verify/chunk call reads only that many "
+                         "rows, so decode bandwidth tracks the active "
+                         "span, not --max-len). Default: max_len/8,/4,/2 "
+                         "ladder (env SKYTPU_SPAN_BUCKETS); 0 disables "
+                         "(full-view reads only)")
+    ap.add_argument("--kv-lazy", action="store_true", default=None,
+                    help="lazy paged-KV growth: admission reserves "
+                         "prompt + one burst of blocks instead of "
+                         "the full max_new_tokens worst case; the "
+                         "rest allocates at burst dispatch (dry pool "
+                         "= the slot sits a burst out). Default env "
+                         "SKYTPU_KV_LAZY; eager reservation is the "
+                         "default")
     ap.add_argument("--prefill-chunk", type=int, default=512,
                     help="prefill prompts longer than this in chunks of "
                          "this many tokens between decode bursts "
@@ -630,17 +914,26 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="cuda (the default, the card) or cpu")
     args = ap.parse_args(argv)
+    kv_blocks = args.kv_blocks
+    if kv_blocks is None:
+        kv_blocks = int(os.environ.get("SKYTPU_KV_BLOCKS", "0") or 0)
     engine = make_engine(args.config, slots=args.slots,
                          max_len=args.max_len, admit_wave=args.admit_wave,
-                         kv_block=args.kv_block,
+                         kv_block=args.kv_block, kv_blocks=kv_blocks,
+                         span_buckets=_span_buckets(args.span_buckets),
                          prefill_chunk=args.prefill_chunk,
                          prefix_pool=args.prefix_pool,
-                         spec_k=args.spec_k, kv_int8=args.kv_int8,
-                         weights_int8=args.weights_int8, device=args.device)
+                         spec_k=args.spec_k, temperature=args.temperature,
+                         kv_int8=args.kv_int8,
+                         weights_int8=args.weights_int8,
+                         kv_lazy=args.kv_lazy,
+                         qos=qos_lib.scheduler_from_env(),
+                         device=args.device)
     model, httpd = serve(engine, port=args.port, max_burst=args.max_burst,
                          open_burst=args.open_burst,
                          open_window_s=args.open_window,
-                         coalesce_s=args.coalesce)
+                         coalesce_s=args.coalesce,
+                         qos=qos_lib.admission_from_env("server"))
     print(json.dumps({"event": "server.listening", "port": args.port,
                       "device": str(engine.device)}), file=sys.stderr,
           flush=True)

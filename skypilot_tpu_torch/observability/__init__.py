@@ -1,0 +1,23 @@
+"""Live observability of the port: the process-global metrics registry
+and its exposition (:mod:`.metrics`), and the ``/healthz`` answer
+(:mod:`.health`), copies of the reference's stdlib-only modules under
+``skypilot_tpu/observability/``.
+
+``from skypilot_tpu_torch.observability import metrics`` is the one
+import an instrumentation site needs; declare families at module import
+with ``metrics.counter/gauge/histogram`` and record on the hot path.
+"""
+
+from skypilot_tpu_torch.observability.metrics import (  # noqa: F401
+    CONTENT_TYPE,
+    Counter,
+    Gauge,
+    Histogram,
+    Metric,
+    REGISTRY,
+    Registry,
+    counter,
+    gauge,
+    histogram,
+    render,
+)

@@ -1288,3 +1288,130 @@ def test_resume_over_imported_blocks_on_card(dtype, monkeypatch):
         t, gap = _first_divergence(params, cfg, dev, prompt, out[False],
                                    single)
         assert t is None or gap <= 1e-2, (t, gap)
+
+
+# -- QoS preemption and lazy KV growth on the card ----------------------------
+
+def _held_k1(checked, tag):
+    """A ``kvcache._paged_attn_stats`` that runs the kernel and holds
+    every kernel call with a slot of length > 0 (a first chunk at start
+    0 reads nothing) to the plain version on the same inputs under K1's
+    rule (2e-3 of the largest magnitude, those slots), recording
+    (tag(), R, longest length) per call."""
+    real = tkv._paged_attn_stats
+
+    def held(cache, i, table, qh, lengths, span, plain=False):
+        out = real(cache, i, table, qh, lengths, span, plain)
+        live = lengths > 0
+        if not plain and live.any():
+            want = real(cache, i, table, qh, lengths, span, True)
+            for g, w in zip(out, want):
+                _close(g[live], w[live], 2e-3)
+            checked.append((tag(), qh.shape[2], int(lengths.max())))
+        return out
+
+    return held
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_preempt_resume_on_card(dtype, monkeypatch):
+    """A 600-token low-priority request on a one-slot QoS engine (max_len
+    1024, blocks of 256, chunks of 512, a prefix pool) is preempted
+    mid-decode by a priority-1 request: its committed rows retire into
+    the prefix cache (512 rows, two blocks shared by reference) and it
+    resumes with one chunk at start 512 over them. The trash
+    block holds 100.0; every K1 call, the resume chunk's multi-row call
+    included, agrees with the plain version under K1's rule; in float32
+    the kernel engine's tokens equal the plain-attention engine's."""
+    from skypilot_tpu_torch.infer import qos as tq
+    dev = _cuda()
+    cfg = _hd128_config(dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tl.init_params(cfg, gen, device=dev)
+    prompt = np.random.default_rng(4).integers(1, cfg.vocab_size,
+                                               600).tolist()
+    phase = {"v": "admit"}
+    checked = []
+    monkeypatch.setattr(tkv, "_paged_attn_stats",
+                        _held_k1(checked, lambda: phase["v"]))
+    out = {}
+    for plain in (False, True):
+        e = te.InferenceEngine(
+            params, cfg, n_slots=1, max_len=1024, prompt_buckets=(128, 1024),
+            kv_block=256, kv_blocks=8, prefill_chunk=512, prefix_pool=4,
+            device=dev, plain_attention=plain, qos=tq.FairScheduler())
+        _fill_trash(e)
+        rid = e.add_request(prompt, 24)
+        while not e.slot_req:
+            e.step_burst(max_burst=4)
+        e.decode_burst(max_burst=4)
+        e.add_request([3, 1, 4], 4, priority=1)
+        phase["v"] = "preempted"
+        e.run_to_completion(max_burst=4)
+        phase["v"] = "admit"
+        low = {r.rid: r for r in e.finished}[rid]
+        assert (low.preemptions, low.resumed_len) == (1, 512)
+        e.clear_prefix_cache()
+        assert e.blocks_used() == 0
+        out[plain] = low.tokens
+    rep = cfg.n_heads // cfg.n_kv_heads
+    resume = [c for c in checked if c[0] == "preempted" and c[1] > rep]
+    assert resume and resume[0][2] == 512, checked
+    if dtype == torch.float32:
+        assert out[False] == out[True]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_lazy_growth_on_card(dtype, monkeypatch):
+    """Lazy KV growth on a pool of 16 blocks of 16 rows (max_len 256):
+    a 190-token request grows its table burst by burst until the pool is
+    dry and sits bursts out (its device length unchanged) while a
+    20-token request finishes, then grows again. The trash block holds
+    100.0; every K1 decode call, those of the bursts with a slot sitting
+    out included, agrees with the plain version under K1's rule on the
+    grown tables; no active slot has a row below its length without a
+    block; in float32 the lazy tokens equal the eager engine's (bursts
+    of one token, so sitting out moves no token between the staged and
+    the cached columns)."""
+    dev = _cuda()
+    cfg = _hd128_config(dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tl.init_params(cfg, gen, device=dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (190, 20)]
+    burst = {"v": 0}
+    checked = []
+    monkeypatch.setattr(tkv, "_paged_attn_stats",
+                        _held_k1(checked, lambda: burst["v"]))
+    out, sat_out = {}, []
+    for lazy in (True, False):
+        e = te.InferenceEngine(
+            params, cfg, n_slots=2, max_len=256, prompt_buckets=(256,),
+            kv_block=16, kv_blocks=16, kv_lazy=lazy, device=dev)
+        _fill_trash(e)
+        for p, n in zip(prompts, (50, 20)):
+            e.add_request(p, max_new_tokens=n)
+        while e.waiting or e.slot_req:
+            e.admit()
+            burst["v"] += 1
+            lens = e.cache["length"].clone()
+            e.decode_burst(max_burst=1)
+            for slot in e.slot_req:
+                n = int(e.cache["length"][slot])
+                if lazy and n == int(lens[slot]):
+                    sat_out.append(burst["v"])
+                have = int((e.block_table[slot] < e.n_kv_blocks).sum())
+                assert have * e.kv_block >= n
+        assert e.blocks_used() == 0
+        out[lazy] = [r.tokens for r in sorted(e.finished,
+                                              key=lambda r: r.rid)]
+    rep = cfg.n_heads // cfg.n_kv_heads
+    assert sat_out
+    assert any(b in sat_out and r == rep for b, r, _ in checked), checked
+    if dtype == torch.float32:
+        assert out[True] == out[False]

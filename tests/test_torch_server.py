@@ -4,7 +4,12 @@ reference server's, an oversize prompt gets the reference's typed 400
 body, prompts longer than the prefill chunk go through chunks, with
 the reference trailer's ``prefill_chunks``, and a shared-prefix pair
 through a server with the prefix cache and speculation on reports the
-JAX server's trailer values."""
+JAX server's trailer values. The operator surface: ``/healthz``,
+``/metrics`` (parsed by the reference's ``parse_exposition``, under the
+reference registry's names) and ``POST /drain`` (the reference's drain
+lifecycle, and its controller's drain poll, against a port replica),
+and the typed 400/409/411/429/503 bodies and ``Retry-After`` beside the
+reference server's."""
 
 import dataclasses
 import json
@@ -24,9 +29,11 @@ import pytest
 import torch
 
 from skypilot_tpu.infer import engine as je
+from skypilot_tpu.infer import qos as jq
 from skypilot_tpu.infer import server as js
 from skypilot_tpu.models import llama as jl
 from skypilot_tpu_torch.infer import engine as te
+from skypilot_tpu_torch.infer import qos as tq
 from skypilot_tpu_torch.infer import server as ts
 from skypilot_tpu_torch.models import llama as tl
 
@@ -225,7 +232,8 @@ def test_handoff_routes_answer_typed_errors(served_chunked, stream):
     answers by serving the request single-tier; ``/handoff`` with a
     malformed export gets a 400 before any bytes stream; a handoff with
     no export resumes cold after its committed token, which streams
-    first; other paths stay 404."""
+    first; an unknown path is a 404 (``/drain`` is a route now: see
+    ``test_drain_lifecycle``)."""
     url, prompts, want, _ = served_chunked
     code, out = _post(f"{url}/prefill", {"tokens": prompts[0],
                                          "max_new_tokens": 6})
@@ -245,7 +253,7 @@ def test_handoff_routes_answer_typed_errors(served_chunked, stream):
         assert out[-1]["done"] and out[-1]["n_tokens"] == 6
         out = {"tokens": [t for c in out for t in c.get("tokens", [])]}
     assert out["tokens"] == want[0]
-    code, _ = _post(f"{url}/drain", {"tokens": [1]})
+    code, _ = _post(f"{url}/nope", {"tokens": [1]})
     assert code == 404
 
 
@@ -551,3 +559,389 @@ def test_main_takes_the_w8a8_recipe_line(monkeypatch, argv, want):
             "kv_int8": True, "weights_int8": True}
     if recipe:
         assert made[0]["config"] == "llama3-8b" and kw["port"] == 8080
+
+
+# -- the operator surface: drain, health, metrics, typed sheds ----------------
+
+@pytest.fixture(scope="module")
+def tiny():
+    tcfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"],
+                               dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    return tcfg, tl.init_params(tcfg, gen, device="cpu",
+                                dtype=torch.float32)
+
+
+class _SlowEngine(te.InferenceEngine):
+    """A port engine whose decode bursts take ``delay_s`` more, so that
+    requests stay in flight while a test walks a drain around them."""
+
+    delay_s = 0.02
+
+    def dispatch_decode_burst(self, max_burst: int = 8):
+        time.sleep(self.delay_s)
+        return super().dispatch_decode_burst(max_burst)
+
+
+def _port_replica(tiny, engine_cls=te.InferenceEngine, qos=None,
+                  sched=None, **kw):
+    tcfg, tp = tiny
+    engine = engine_cls(tp, tcfg, n_slots=2, max_len=64,
+                        prompt_buckets=(16,), kv_block=16, device="cpu",
+                        qos=sched)
+    port = _free_port()
+    model, httpd = ts.serve(engine, host="127.0.0.1", port=port, qos=qos,
+                            **kw)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    model.wait_ready(timeout=120)
+    return model, httpd, f"http://127.0.0.1:{port}"
+
+
+def _get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def test_drain_lifecycle(tiny):
+    """``tests/test_serve_recovery.py::test_drain_lifecycle`` against a
+    port replica: healthy; a malformed drain body is a typed 400 that
+    leaves the state alone; drain requested with a request in flight;
+    admissions shed with the typed 503 on a keep-alive connection that
+    stays parseable; /health 503 draining with Retry-After and /healthz
+    draining; the in-flight request finishes; /drain polls to drained
+    with its first deadline."""
+    import http.client
+    from urllib.parse import urlsplit
+    model, httpd, url = _port_replica(tiny, _SlowEngine, max_burst=1)
+    try:
+        code, body, _ = _get(f"{url}/healthz")
+        assert code == 200 and json.loads(body)["status"] == "healthy"
+        code, out = _post(f"{url}/drain", [1, 2])
+        assert code == 400 and not model.draining()
+        result = {}
+
+        def client():
+            result["resp"] = _post(f"{url}/generate",
+                                   {"tokens": [1, 2], "max_new_tokens": 40})
+
+        t = threading.Thread(target=client)
+        t.start()
+        deadline = time.time() + 30
+        while model.queue_depth() == 0 and time.time() < deadline:
+            time.sleep(0.005)
+        assert model.queue_depth() > 0
+        code, st = _post(f"{url}/drain", {"grace_s": 20})
+        assert code == 200 and st["draining"] and not st["drained"]
+        assert st["in_flight"] >= 1
+        deadline_s = st["deadline_s"]
+        parts = urlsplit(url)
+        conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                          timeout=30)
+        conn.request("POST", "/generate", body=json.dumps(
+            {"tokens": [3], "max_new_tokens": 4}).encode(),
+            headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        assert r.status == 503 and r.getheader("Retry-After") == "1"
+        assert json.loads(r.read())["error"]["type"] == "draining"
+        conn.request("GET", "/healthz")
+        hz = json.loads(conn.getresponse().read())
+        assert hz["status"] == "draining" and "in flight" in hz["reason"]
+        conn.close()
+        code, body, hdrs = _get(f"{url}/health")
+        assert code == 503 and hdrs["Retry-After"] == "1"
+        assert json.loads(body)["status"] == "draining"
+        t.join(timeout=60)
+        code, out = result["resp"]
+        assert code == 200 and len(out["tokens"]) == 40
+        deadline = time.time() + 30
+        st = model.drain_status()
+        while not st["drained"] and time.time() < deadline:
+            time.sleep(0.02)
+            code, st = _post(f"{url}/drain", {"grace_s": 20})
+        assert st["drained"] and st["in_flight"] == 0
+        assert st["deadline_s"] == deadline_s
+    finally:
+        model.shutdown()
+        httpd.shutdown()
+
+
+def test_drain_past_deadline_degrades_healthz(tiny):
+    """A drain that cannot finish inside its grace window reports
+    degraded on /healthz (``tests/test_serve_recovery.py:464``)."""
+    model, httpd, url = _port_replica(tiny, _SlowEngine, max_burst=1)
+    try:
+        p = model._add([1], 10 ** 6)        # runs to max_len
+        deadline = time.time() + 30
+        while model.queue_depth() == 0 and time.time() < deadline:
+            time.sleep(0.005)
+        code, st = _post(f"{url}/drain", {"grace_s": 0})
+        assert code == 200 and st["draining"]
+        time.sleep(0.05)
+        code, body, _ = _get(f"{url}/healthz")
+        hz = json.loads(body)
+        assert hz["status"] == "degraded" and "past deadline" in hz["reason"]
+        assert p.event.wait(timeout=60)
+    finally:
+        model.shutdown()
+        httpd.shutdown()
+
+
+def test_reference_controller_drains_a_port_replica(tiny, tmp_path,
+                                                    monkeypatch):
+    """The reference replica manager's drain poll
+    (``serve/replica_managers.py::ReplicaManager._drain_replica``)
+    drains a port replica with a request in flight: it returns True once
+    the request finished, and the replica then sheds."""
+    from skypilot_tpu.serve import replica_managers, serve_state
+    from skypilot_tpu.serve.service_spec import SkyServiceSpec
+    monkeypatch.setenv("SKYPILOT_TPU_HOME", str(tmp_path / "home"))
+    monkeypatch.setenv("SKYTPU_SERVE_DRAIN_GRACE_S", "30")
+    serve_state.add_service("portsvc", {}, {}, 0)
+    mgr = replica_managers.ReplicaManager("portsvc", SkyServiceSpec(), {})
+    model, httpd, url = _port_replica(tiny, _SlowEngine, max_burst=1)
+    try:
+        p = model._add([1, 2], 30)
+        deadline = time.time() + 30
+        while model.queue_depth() == 0 and time.time() < deadline:
+            time.sleep(0.005)
+        assert mgr._drain_replica(url) is True
+        assert p.event.is_set() and len(p.result["tokens"]) == 30
+        code, out = _post(f"{url}/generate", {"tokens": [1]})
+        assert code == 503 and out["error"]["type"] == "draining"
+    finally:
+        model.shutdown()
+        httpd.shutdown()
+        mgr._pool.shutdown(wait=False)
+
+
+def test_metrics_parse_under_the_reference_names(tiny):
+    """``GET /metrics`` parses with the reference's ``parse_exposition``;
+    every family the port declares is one of the reference registry's,
+    with its type, labels and help; TTFT, the QoS shed counter and the
+    draining gauge are present; and the TTFT count grows by the requests
+    answered (the warmup records nothing)."""
+    from skypilot_tpu.infer import server as js_
+    from skypilot_tpu.observability import metrics as jm
+    from skypilot_tpu_torch.observability import metrics as tm
+    del js_                          # registers the reference's families
+    model, httpd, url = _port_replica(tiny)
+    try:
+        def ttft_count():
+            code, body, hdrs = _get(f"{url}/metrics")
+            assert code == 200
+            assert hdrs["Content-Type"] == jm.CONTENT_TYPE
+            fams = jm.parse_exposition(body.decode())
+            for name in ("skytpu_ttft_seconds", "skytpu_qos_shed_total",
+                         "skytpu_server_draining"):
+                assert name in fams, name
+            return fams, sum(v for lab, v in
+                             fams["skytpu_ttft_seconds"]["samples"]
+                             if lab.get("__name__") ==
+                             "skytpu_ttft_seconds_count")
+
+        fams, n0 = ttft_count()
+        for i in range(2):
+            assert _post(f"{url}/generate", {"tokens": [1, 2 + i],
+                                             "max_new_tokens": 3})[0] == 200
+        fams, n1 = ttft_count()
+        assert n1 - n0 == 2
+        ref = jm.REGISTRY.snapshot()
+        for name, fam in tm.REGISTRY.snapshot().items():
+            assert name in ref, name
+            have = jm.REGISTRY.get(name)
+            mine = tm.REGISTRY.get(name)
+            assert (mine.type, mine.labelnames, mine.help) == \
+                (have.type, have.labelnames, have.help), name
+            assert getattr(mine, "buckets", None) == \
+                getattr(have, "buckets", None), name
+        assert set(fams) <= set(ref)
+    finally:
+        model.shutdown()
+        httpd.shutdown()
+
+
+class _FakeEngine:
+    """A reference-server engine double (``tests/test_qos.py``): instant
+    admission, one token per burst; its KV-quota check is a JAX engine's
+    (built, never run) and it cannot hand off."""
+
+    def __init__(self, quota_engine, n_slots=4):
+        self.n_slots = n_slots
+        self.waiting, self.slot_req, self.finished = [], {}, []
+        self.free_slots = list(range(n_slots))
+        self.buckets = (16,)
+        self._rid = 0
+        self.check_kv_quota = quota_engine.check_kv_quota
+
+    def handoff_eligible(self, tokens, max_new):
+        return False
+
+    def add_request(self, tokens, max_new, **kw):
+        r = je.Request(rid=self._rid, prompt=list(tokens),
+                       max_new_tokens=max_new)
+        self._rid += 1
+        self.waiting.append(r)
+        return r.rid
+
+    def admit(self, on_wave=None):
+        while self.waiting and self.free_slots:
+            r = self.waiting.pop(0)
+            r.slot = self.free_slots.pop(0)
+            r.tokens.append(7)
+            r.first_token_s = time.time()
+            self.slot_req[r.slot] = r
+
+    def decode_burst(self, max_burst=8):
+        for slot, r in list(self.slot_req.items()):
+            r.tokens.append(8)
+            if len(r.tokens) >= r.max_new_tokens:
+                self.slot_req.pop(slot)
+                self.free_slots.append(slot)
+                self.finished.append(r)
+        return {}
+
+    def generate(self, prompts, max_new_tokens=2):
+        return [[1] * max_new_tokens for _ in prompts]
+
+    def reset(self):
+        self.waiting.clear()
+        self.slot_req.clear()
+        self.free_slots = list(range(self.n_slots))
+
+
+def _raw(url, path, body: bytes, headers):
+    import http.client
+    from urllib.parse import urlsplit
+    parts = urlsplit(url)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                      timeout=60)
+    try:
+        conn.request("POST", path, body=body, headers=headers)
+        r = conn.getresponse()
+        return r.status, json.loads(r.read()), r.getheader("Retry-After")
+    finally:
+        conn.close()
+
+
+def test_typed_errors_equal_the_reference_servers(tiny):
+    """The same requests against a port replica and the reference server,
+    each with ``AdmissionController`` rate 0.001/s, burst 1: a tenant's
+    second request is the typed 429 with ``Retry-After``; a tenant whose
+    ``max_kv_blocks`` cannot hold the request gets the 400
+    ``kv_quota_unsatisfiable`` body; ``/prefill`` of an ineligible
+    request the 409; a chunked body the 411; a queue past
+    ``max_waiting`` the 503 ``overloaded``; a draining replica the 503
+    ``draining`` with ``Retry-After: 1``. Bodies equal but for the 429's
+    time-dependent ``retry_after_ms`` and message."""
+    tcfg, tp = tiny
+    jcfg = jl.CONFIGS["llama3-tiny"]
+    servers = []
+    for side in ("port", "ref"):
+        mod = tq if side == "port" else jq
+        qcfg = mod.QosConfig(enabled=True, default_rate=0.001,
+                             default_burst=1.0, max_waiting=50,
+                             tenants={"hog": mod.TenantSpec(
+                                 rate=1000.0, max_kv_blocks=1)})
+        ac = mod.AdmissionController(qcfg, where="server")
+        if side == "port":
+            model, httpd, url = _port_replica(
+                tiny, qos=ac, sched=tq.FairScheduler(qcfg))
+        else:
+            quota = je.InferenceEngine(
+                jl.init_params(jax.random.key(0), jcfg), jcfg, n_slots=2,
+                max_len=64, prompt_buckets=(16,), kv_block=16,
+                prefix_pool=0, qos=jq.FairScheduler(qcfg))
+            model = js.ModelServer(_FakeEngine(quota), qos=ac)
+            port = _free_port()
+            httpd = js._Threading(("127.0.0.1", port),
+                                  js.make_handler(model))
+            threading.Thread(target=httpd.serve_forever,
+                             daemon=True).start()
+            url = f"http://127.0.0.1:{port}"
+            assert model._ready.wait(timeout=60)
+        servers.append((model, httpd, url, ac))
+    got = []
+    try:
+        for model, httpd, url, ac in servers:
+            seen = []
+            js_hdr = {"Content-Type": "application/json"}
+
+            def post(path, payload, tenant):
+                return _raw(url, path, json.dumps(payload).encode(),
+                            dict(js_hdr, **{"x-skytpu-tenant": tenant}))
+
+            gen = {"tokens": [1, 2], "max_new_tokens": 3}
+            code, out, _ = post("/generate", gen, "hot")
+            seen.append(code)
+            code, out, ra = post("/generate", gen, "hot")
+            err = dict(out["error"])
+            assert err.pop("retry_after_ms") > 0 and int(ra) >= 1
+            err.pop("message")
+            seen.append((code, err))
+            seen.append(post("/generate", {"tokens": [1, 2, 3],
+                                           "max_new_tokens": 60}, "hog"))
+            seen.append(post("/prefill", gen, "p1"))
+            seen.append(_raw(url, "/generate", b"2\r\n{}\r\n0\r\n\r\n",
+                             dict(js_hdr, **{"Transfer-Encoding":
+                                             "chunked"})))
+            ac.cfg.max_waiting = 1
+            model._pending[10_000] = object()       # a backlog
+            try:
+                seen.append(post("/generate", gen, "bg"))
+            finally:
+                model._pending.pop(10_000, None)
+            model.start_drain(5.0)
+            seen.append(post("/generate", gen, "late"))
+            got.append(seen)
+    finally:
+        for model, httpd, _, _ in servers:
+            httpd.shutdown()
+            model.shutdown()
+    assert got[0] == got[1]
+    assert [x if isinstance(x, int) else x[0] for x in got[0]] == \
+        [200, 429, 400, 409, 411, 503, 503]
+    assert got[0][2][1]["error"]["type"] == "kv_quota_unsatisfiable"
+    assert got[0][5][2] == "1" and got[0][6][2] == "1"
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], dict(temperature=0.0, kv_blocks=0, span_buckets=None,
+              kv_lazy=None)),
+    (["--temperature", "0.7", "--kv-blocks", "40", "--span-buckets",
+      "16,32", "--kv-lazy"], dict(temperature=0.7, kv_blocks=40,
+                                  span_buckets=[16, 32], kv_lazy=True)),
+    (["--span-buckets", "0"], dict(temperature=0.0, kv_blocks=0,
+                                   span_buckets=0, kv_lazy=None))],
+    ids=["defaults", "flags", "spans_off"])
+def test_main_takes_the_control_flags(monkeypatch, argv, want):
+    """``main`` parses ``--temperature``, ``--kv-blocks``,
+    ``--span-buckets`` (``0`` = off, a comma ladder) and ``--kv-lazy``
+    with the reference's defaults, hands them to the engine, and builds
+    the engine's fair scheduler and the server's admission controller
+    from ``SKYTPU_QOS``."""
+    made, served_kw = [], []
+
+    class Stop(Exception):
+        pass
+
+    def fake_make_engine(config, **kw):
+        made.append(kw)
+        return object()
+
+    def fake_serve(engine, **kw):
+        served_kw.append(kw)
+        raise Stop
+
+    for k in ("SKYTPU_KV_BLOCKS", "SKYTPU_SPAN_BUCKETS", "SKYTPU_KV_LAZY"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("SKYTPU_QOS", "1")
+    monkeypatch.setattr(ts, "make_engine", fake_make_engine)
+    monkeypatch.setattr(ts, "serve", fake_serve)
+    with pytest.raises(Stop):
+        ts.main(["--config", "llama3-tiny", "--device", "cpu"] + argv)
+    assert {k: made[0][k] for k in want} == want
+    assert isinstance(made[0]["qos"], tq.FairScheduler)
+    assert isinstance(served_kw[0]["qos"], tq.AdmissionController)
