@@ -154,7 +154,35 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    caused. (c) K1 against its plain version, the trash block at 100.0,
    at the first resume chunk after a preemption and on a decode burst
    over lazily grown tables with a slot sitting out.
-8. Train: gradient parity of the kernels against the plain versions at
+8. Adapters: multi-LoRA serving at llama3-8b, launch counts set to 0
+   before each leg and read after it. Eight rank-16 fine-tunes from
+   seeded numpy (``bench_serve.adapter_tree``) are written by the port's
+   ``save_adapter`` into a temporary directory (~55 MB each), with one
+   corrupt entry. (a) The HTTP server through ``make_engine`` (bf16,
+   full depth, the reference server's defaults) with ``--adapters`` and
+   ``--adapter-slots 5`` (four fine-tunes resident, so the traffic
+   evicts): 16 concurrent ``/generate`` requests, 12 under the eight
+   fine-tunes (the body's ``model`` or the ``x-skytpu-model`` header)
+   and 4 of the base model, 16 new tokens each; every trailer names
+   its model and a fine-tune parts from the base on a shared prompt; an
+   unknown name is the typed 404 blocking and streamed; the corrupt entry the typed 503
+   and, streamed, a typed error chunk; ``/metrics`` counts at least 8
+   loads and 4 evictions. Then K1 is held against its plain version
+   (trash block at 100.0) at an adapter request's first chunk over
+   cached rows and on a decode burst whose slots run two fine-tunes and
+   the base, and K2 on a wave mixing them. (b) ``/prefill`` then
+   ``/handoff`` under one fine-tune between two port replicas: the
+   wire's salt is the fine-tune's content digest, D imports 512 rows
+   under it and hits. (c) ``bench_serve.run_adapters`` (rank 16, 8
+   fine-tunes, 16 requests of 128 tokens, 32 new): TPOT single and
+   mixed, ``overhead_ratio`` (recorded, not gated), hot loads and
+   evictions. Where (b) or (c)'s bf16 tokens part from their reference
+   (single tier; sequential runs), the serve phase's bf16 floor rule
+   holds them, the references carrying the fine-tunes. (d) Float32 on
+   the first 8 layers: zero-adapter tokens equal the adapterless
+   engine's, and a mixed batch under the base, ft-0 and ft-1 agrees with
+   the sequential runs wherever the plain top-2 gap exceeds 1e-2.
+9. Train: gradient parity of the kernels against the plain versions at
    llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
    ``train.run`` at llama3-1b full width and depth for 6 steps on a
    repeated batch (counts set to 0 before, read after: K2 32, K3 16 and
@@ -164,8 +192,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--phase kernels``, ``serve``,
-``handoff``, ``bench``, ``qos`` or ``train`` runs one of phases 3-8
-alone (the build always runs).
+``handoff``, ``bench``, ``qos``, ``adapters`` or ``train`` runs one of
+phases 3-9 alone (the build always runs).
 """
 
 from __future__ import annotations
@@ -969,17 +997,26 @@ def _int8_step_logits(engine, params, ctx):
                                plain_attention=True, qweights=qw)
 
 
-def _plain_logits(engine, params, prompt, ctx):
+def _plain_logits(engine, params, prompt, ctx, adapter=None):
     """The plain path's logits for the token after ``ctx`` (``prompt``
     and the tokens that followed it): on an int8 KV engine, for a token
     read from the cache (any but a wave prompt's first), those of one
     decode step over the quantized context (:func:`_int8_step_logits`);
-    else the prefill's."""
+    else the prefill's. ``adapter``: a fine-tune of ``engine``'s catalog,
+    whose deltas the prefill adds (float pools only)."""
     import torch
     from skypilot_tpu_torch.infer import kvcache
     from_cache = len(ctx) > len(prompt) or len(prompt) > (
         engine.prefill_chunk or len(prompt))
+    lora = {}
+    if adapter is not None:
+        slot = engine.adapters.acquire(adapter)
+        engine.adapters.release(slot)          # stays resident
+        lora = {"lora": engine.adapters.pool,
+                "aid": torch.tensor([slot], device=engine.device)}
     if "k_scale" in engine.cache and from_cache:
+        if lora:
+            raise AssertionError("adapter logits on int8 pools")
         return _int8_step_logits(engine, params, ctx)
     bucket = next(s for s in engine.buckets if s >= len(ctx))
     toks = torch.zeros((1, bucket), dtype=torch.long, device=engine.device)
@@ -987,7 +1024,7 @@ def _plain_logits(engine, params, prompt, ctx):
     lens = torch.tensor([len(ctx)], device=engine.device)
     return kvcache.prefill_batch(params, toks, lens, engine.cfg,
                                  plain_attention=True,
-                                 qweights=engine.qweights)[1]
+                                 qweights=engine.qweights, **lora)[1]
 
 
 # Depth of the float32 int8 legs (llama3-8b has 32 layers): w8a8's noise
@@ -999,7 +1036,7 @@ INT8_FP32_LAYERS = 8
 W8A8_PROBE = 2.0 ** -22
 
 
-def _divergence(ref_engine, prompt, got, want, low=None):
+def _divergence(ref_engine, prompt, got, want, low=None, adapter=None):
     """First step where tokens ``got`` (kernel path) and ``want`` (plain
     path) differ, with the plain path's top-2 logit gap there (read from
     its logits on the shared context, :func:`_plain_logits`) and its
@@ -1013,13 +1050,14 @@ def _divergence(ref_engine, prompt, got, want, low=None):
     noise does. ``low``, a plain engine on the same weights in bf16
     (``ref_engine`` then holds them in float32): the floor is at least
     twice the largest difference between its logits and
-    ``ref_engine``'s on the context."""
+    ``ref_engine``'s on the context. ``adapter``: the fine-tune both
+    paths ran under (both reference engines carry it)."""
     for t, (a, b) in enumerate(zip(got, want)):
         if a == b:
             continue
         ctx = list(prompt) + list(want[:t])
         params = ref_engine.params
-        logits = _plain_logits(ref_engine, params, prompt, ctx)
+        logits = _plain_logits(ref_engine, params, prompt, ctx, adapter)
         top2 = logits[0].topk(2).values
         noise = 0.0
         if ref_engine.qweights is not None:
@@ -1028,7 +1066,8 @@ def _divergence(ref_engine, prompt, got, want, low=None):
                      - logits).abs().max().item()
         if low is not None:
             noise = max(noise, 2 * (
-                _plain_logits(low, low.params, prompt, ctx).float()
+                _plain_logits(low, low.params, prompt, ctx,
+                              adapter).float()
                 - logits).abs().max().item())
         return t, (top2[0] - top2[1]).item(), noise
     return None, None, 0.0
@@ -1703,13 +1742,13 @@ def _profile_int8_burst(engine, card: str) -> None:
 
 
 def _agree(ref, prompt, got, want, what: str, paths: str,
-           leg: str = "fp32", low=None) -> None:
+           leg: str = "fp32", low=None, adapter=None) -> None:
     """Greedy tokens ``got`` and ``want`` of ``prompt`` agree, or part
     only where the plain logits' top-2 gap is at most 1e-2 (a near-tie,
     which fp32 summation order may flip) or, on a w8a8 engine or with
     ``low`` (bf16 tokens), at most the noise floor there
-    (:func:`_divergence`)."""
-    t, gap, noise = _divergence(ref, prompt, got, want, low)
+    (:func:`_divergence`; ``adapter``: the fine-tune they ran under)."""
+    t, gap, noise = _divergence(ref, prompt, got, want, low, adapter)
     bound = max(1e-2, noise)
     kind = ("w8a8" if ref.qweights is not None
             else "bf16" if low is not None else None)
@@ -2130,15 +2169,18 @@ def _bf16_divergence(dev, config: str, chunk: int, cold: dict,
         for i, (prompt, c) in enumerate(cold.items())], leg)
 
 
-def _bf16_hold(dev, config: str, chunk: int, cases, leg: str) -> None:
+def _bf16_hold(dev, config: str, chunk: int, cases, leg: str,
+               adapters=None) -> None:
     """Hold each case (what, the two paths, prompt, tokens, reference
-    tokens) whose tokens part to :func:`_agree`'s rule, with the top-2
-    gap taken from a plain engine on a float32 copy of the weights
-    (seed 0) and the noise floor from the same context in bf16: twice
-    the largest difference between the bf16 and float32 plain logits
-    there, since each bf16 run may move that far from the float32
-    logits."""
+    tokens[, adapter name]) whose tokens part to :func:`_agree`'s rule,
+    with the top-2 gap taken from a plain engine on a float32 copy of
+    the weights (seed 0) and the noise floor from the same context in
+    bf16: twice the largest difference between the bf16 and float32
+    plain logits there, since each bf16 run may move that far from the
+    float32 logits. ``adapters`` ({name: rank-16 tree}, alpha 32): the
+    fine-tunes the cases name, registered on both references."""
     import torch
+    from skypilot_tpu_torch.infer import adapters as ad_lib
     from skypilot_tpu_torch.infer import engine as eng
     from skypilot_tpu_torch.models import llama
     cases = [c for c in cases if list(c[3]) != list(c[4])]
@@ -2155,13 +2197,21 @@ def _bf16_hold(dev, config: str, chunk: int, cases, leg: str) -> None:
                                             if isinstance(v, dict)
                                             else v.float())
                                         for k, v in params.items()})):
+        cat = None
+        if adapters:
+            cat = ad_lib.AdapterCatalog(c, n_adapters=len(adapters) + 1,
+                                        rank=ADAPTER_RANK, device=dev)
+            for name, tree in adapters.items():
+                cat.register(name, params=tree)
         refs[c.dtype] = eng.InferenceEngine(
             p, c, n_slots=1, max_len=1024, prompt_buckets=(1024,),
-            prefill_chunk=chunk, device=dev, plain_attention=True)
+            prefill_chunk=chunk, device=dev, plain_attention=True,
+            adapters=cat)
     del params
-    for what, paths, prompt, got, want in cases:
+    for what, paths, prompt, got, want, *ad in cases:
         _agree(refs[torch.float32], list(prompt), got, want, what, paths,
-               leg, low=refs[torch.bfloat16])
+               leg, low=refs[torch.bfloat16],
+               adapter=ad[0] if ad else None)
     del refs
     gc.collect()
     torch.cuda.empty_cache()
@@ -3108,6 +3158,464 @@ def phase_qos(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: multi-LoRA adapters
+# ---------------------------------------------------------------------------
+
+# The phase's fine-tunes: ``bench_serve.adapter_tree`` at rank 16 with
+# seeds 100.., the trees ``run_adapters`` registers under the same names.
+ADAPTER_RANK = 16
+ADAPTER_NAMES = tuple(f"ft-{i}" for i in range(8))
+# New tokens per request of the HTTP leg: enough to part a fine-tune from
+# the base, few enough that requests held on pinned pool slots wait
+# seconds, not tens of seconds.
+ADAPTER_NEW = 16
+
+
+def _adapter_trees(cfg, names=ADAPTER_NAMES) -> dict:
+    from skypilot_tpu_torch.infer import bench_serve
+    return {n: bench_serve.adapter_tree(cfg, ADAPTER_RANK,
+                                        100 + int(n.split("-")[1]))
+            for n in names}
+
+
+def _write_catalog(tmp: str, trees: dict) -> str:
+    """The trees as ``save_adapter`` .npz files in ``tmp`` plus one
+    corrupt entry (``broken``); returns the ``--adapters`` JSON."""
+    import os
+    from skypilot_tpu_torch.infer import adapters as ad_lib
+    paths = {}
+    for name, tree in trees.items():
+        paths[name] = os.path.join(tmp, f"{name}.npz")
+        ad_lib.save_adapter(paths[name], tree)
+    paths["broken"] = os.path.join(tmp, "broken.npz")
+    with open(paths["broken"], "wb") as f:
+        f.write(b"\x93NUMPY-not-a-checkpoint" * 64)
+    return json.dumps(paths)
+
+
+@contextlib.contextmanager
+def _adapter_kernel_inputs(engine, rows: list, dec: list, wave: list):
+    """Record, for the block, on ``engine``'s cache: the first multi-row
+    K1 call that reads rows (``rows``), the first decode K1 call while
+    the active slots run at least three pool ids (two fine-tunes and the
+    base; ``dec``), and the first K2 call (``wave``)."""
+    from skypilot_tpu_torch.infer import kvcache
+    from skypilot_tpu_torch.ops import attention as attn_ops
+    real_k1, real_k2 = kvcache._paged_attn_stats, attn_ops.gqa_attention
+    rep = engine.cfg.n_heads // engine.cfg.n_kv_heads
+
+    def k1(cache, i, table, qh, lengths, span, plain=False):
+        if cache is engine.cache and not plain:
+            keep = (i, table.clone(), qh.clone(), lengths.clone(), span)
+            ids = {int(engine.adapter_ids[s]) for s in engine.slot_req}
+            if qh.shape[2] > rep and not rows and bool(
+                    (lengths > 0).any()):
+                rows.append(keep)
+            elif qh.shape[2] == rep and not dec and len(ids) >= 3:
+                dec.append(keep)
+        return real_k1(cache, i, table, qh, lengths, span, plain)
+
+    def k2(q, k, v, causal=True, segment_ids=None):
+        if not wave:
+            wave.append((q.clone(), k.clone(), v.clone()))
+        return real_k2(q, k, v, causal, segment_ids)
+
+    kvcache._paged_attn_stats, attn_ops.gqa_attention = k1, k2
+    try:
+        yield
+    finally:
+        kvcache._paged_attn_stats, attn_ops.gqa_attention = real_k1, real_k2
+
+
+def _hold_adapter_kernels(engine, tag: str) -> None:
+    """K1 and K2 against their plain versions on adapter inputs, the
+    trash block at 100.0: an adapter request's first chunk that reads
+    rows (a 600-token prompt under ft-3, chunk 2 at start 512), a decode
+    burst whose slots run ft-1, ft-2 and the base, and the K2 call of a
+    wave mixing them."""
+    import numpy as np
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    rng = np.random.default_rng(SEED + 8)
+    engine.reset()
+    _fill_trash(engine)
+    rows, dec, wave = [], [], []
+    with _adapter_kernel_inputs(engine, rows, dec, wave):
+        for n, name in ((600, "ft-3"), (90, "ft-1"), (70, "ft-2"),
+                        (50, None)):
+            engine.add_request(rng.integers(1, engine.cfg.vocab_size,
+                                            n).tolist(), 24, adapter=name)
+        engine.run_to_completion(max_burst=4)
+    if not (rows and dec and wave) or any(
+            r.error for r in engine.finished):
+        raise AssertionError(f"{tag}: adapter kernel inputs not recorded "
+                             f"({len(rows)}, {len(dec)}, {len(wave)})")
+    engine.finished.clear()
+    _fill_trash(engine)
+    c = engine.cache
+    for what, (i, table, qh, lengths, span) in (
+            ("the adapter request's first chunk over cached rows", rows[0]),
+            ("a decode burst mixing ft-1, ft-2 and the base", dec[0])):
+        sb = -(-(span or (table.shape[1] - 1) * engine.kv_block)
+               // engine.kv_block)
+        err = _paged_err(f"{tag} K1 {what}", dict(
+            q=qh, k_pool=c["k"], v_pool=c["v"], k_scale=c.get("k_scale"),
+            v_scale=c.get("v_scale"), table=table, lengths=lengths,
+            layer=i, span_blocks=sb), pa.paged_attention)
+        _log(f"{tag}: K1 agrees with its plain version on {what} (R="
+             f"{qh.shape[2]}, B={qh.shape[0]}, lengths up to "
+             f"{int(lengths.max())}, {sb} blocks, trash block 100.0): max "
+             f"err {err:.3e}")
+    q, k, v = wave[0]
+    err = _flash_err(f"{tag} K2 adapter wave", dict(q=q, k=k, v=v, seg=None,
+                                                   causal=True))[0]
+    _log(f"{tag}: K2 agrees with its plain version on the wave mixing "
+         f"ft-1, ft-2 and the base ({tuple(q.shape)}): max err {err:.3e}")
+
+
+def _adapter_server_leg(dev, card: str, catalog: str) -> dict:
+    """The port's server through ``make_engine`` at llama3-8b (bf16, the
+    reference server's defaults: 16 slots, max_len 1024, chunks of 512,
+    a prefix pool of 8, spec K 4) with ``--adapters`` (8 fine-tunes and
+    a corrupt entry) and ``--adapter-slots 5`` (4 fine-tunes resident,
+    so the traffic evicts). Launch counts set to 0, then 16 concurrent
+    ``/generate`` requests: 12 under ft-0..ft-7 (the body's ``model`` or
+    the header), 4 of the base model, one of them ft-0's prompt;
+    ``ADAPTER_NEW`` new tokens each, prompts of 33-700 tokens (three
+    chunked). Every answer
+    has its budget and a trailer naming its model, ft-0 and the base
+    part on the shared prompt; then the typed 404 (blocking, streamed),
+    the typed 503 and stream error chunk of the corrupt entry, and the
+    catalog's loads and evictions from ``/metrics`` before and after.
+    Returns (engine, launches, trailers)."""
+    import numpy as np
+    from skypilot_tpu_torch.infer import adapters as ad_lib
+    from skypilot_tpu_torch.infer import server as srv
+    engine = srv.make_engine("llama3-8b", device=dev, seed=SEED,
+                             adapters=catalog, adapter_slots=5)
+    _fill_trash(engine)
+    port = _free_port()
+    model, httpd = srv.serve(engine, host="127.0.0.1", port=port)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{port}"
+    rng = np.random.default_rng(SEED + 7)
+    lens = (600, 97, 240, 33, 589, 150, 61, 300, 128, 45, 700, 90)
+    jobs = []
+    for i, n in enumerate(lens):
+        name = ADAPTER_NAMES[i % len(ADAPTER_NAMES)]
+        jobs.append((rng.integers(1, engine.cfg.vocab_size, n).tolist(),
+                     name, "header" if i % 2 else "body"))
+    jobs += [(jobs[0][0], None, "none")] + [
+        (rng.integers(1, engine.cfg.vocab_size, n).tolist(), None, "none")
+        for n in (410, 77, 200)]
+    results = [None] * len(jobs)
+    try:
+        model.wait_ready(timeout=900)
+
+        def send(k):
+            p, name, via = jobs[k]
+            body = {"tokens": p, "max_new_tokens": ADAPTER_NEW}
+            hdr = {}
+            if via == "body":
+                body["model"] = name
+            elif via == "header":
+                hdr[ad_lib.MODEL_HEADER] = name
+            results[k] = _post_status(f"{url}/generate", body, hdr)
+
+        before = _scrape(url)
+        _zero_launches()
+        t0 = time.time()
+        threads = [threading.Thread(target=send, args=(k,))
+                   for k in range(len(jobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.time() - t0
+        launches = _read_launches()
+        after = _scrape(url)
+        for (p, name, via), (code, out, _) in zip(jobs, results):
+            if code != 200 or len(out.get("tokens", [])) != ADAPTER_NEW \
+                    or out.get("model") != name:
+                raise AssertionError(f"adapters: {name} via {via}: {code} "
+                                     f"{str(out)[:300]}")
+        if results[0][1]["tokens"] == results[12][1]["tokens"]:
+            raise AssertionError("adapters: ft-0 gave the base model's "
+                                 "tokens on the shared prompt")
+        loads = _delta(after, before, "skytpu_adapter_loads_total")
+        evictions = _delta(after, before, "skytpu_adapter_evictions_total")
+        ttfts = sorted(r[1]["ttft_ms"] for r in results)
+        _log(f"adapters: 16 concurrent requests (12 under 8 fine-tunes "
+             f"through 4 pool slots, 4 base) in {wall:.2f} s, TTFT median "
+             f"{ttfts[len(ttfts) // 2]:.1f} ms (max {ttfts[-1]:.1f}); "
+             f"/metrics: loads +{loads:g}, evictions +{evictions:g}, "
+             f"slots {after.get(('skytpu_adapter_slots', ()))}; every "
+             f"trailer names its model; launches {launches}; {card}")
+        if loads < len(ADAPTER_NAMES) or evictions < 4 or after.get(
+                ("skytpu_adapter_slots", ())) != 4:
+            raise AssertionError(f"adapters: loads +{loads}, evictions "
+                                 f"+{evictions}")
+        for stream in (False, True):
+            code, out, _ = _post_status(f"{url}/generate", {
+                "tokens": [1, 2, 3], "max_new_tokens": 4, "model": "nope",
+                "stream": stream})
+            err = out.get("error") if isinstance(out, dict) else None
+            if code != 404 or not isinstance(err, dict) or \
+                    err.get("type") != "unknown_adapter":
+                raise AssertionError(f"adapters: unknown name (stream="
+                                     f"{stream}): {code} {out}")
+        code, out, _ = _post_status(f"{url}/generate", {
+            "tokens": [1, 2, 3], "max_new_tokens": 4}, {
+                ad_lib.MODEL_HEADER: "broken"})
+        if code != 503 or out["error"]["type"] != "adapter_load_failed" \
+                or "tokens" in out:
+            raise AssertionError(f"adapters: corrupt entry: {code} {out}")
+        code, body = _post_raw(f"{url}/generate", json.dumps({
+            "tokens": [1, 2, 3], "max_new_tokens": 4, "stream": True,
+            "model": "broken"}).encode())
+        lines = [json.loads(x) for x in body.splitlines() if x.strip()]
+        if code != 200 or not lines or lines[-1].get("error", {}).get(
+                "type") != "adapter_load_failed" or any(
+                "tokens" in c for c in lines):
+            raise AssertionError(f"adapters: corrupt entry streamed: {code} "
+                                 f"{lines}")
+        _log("adapters: unknown name -> typed 404 blocking and streamed "
+             "(no stream bytes); corrupt checkpoint -> typed 503 "
+             "adapter_load_failed, and on a stream a typed error chunk "
+             "with no tokens")
+    finally:
+        httpd.shutdown()
+        model.shutdown()
+        th.join(timeout=30)
+    if not (launches["paged_attention"] > 0
+            and launches["paged_attention_rows"] > 0
+            and launches["flash_attention_fwd"] > 0
+            and launches["paged_attention_rows_mma"] == 0):
+        raise AssertionError(f"adapters: kernel launches {launches}")
+    return engine, launches
+
+
+def _adapter_handoff_leg(params, cfg, dev, card: str, catalog: str,
+                         trees: dict) -> tuple:
+    """``/prefill`` on a port replica P and ``/handoff`` on a replica D,
+    each with its own catalog (the same files), ft-1 named by the
+    header: D's single-tier tokens first, then P's committed token and
+    export, whose wire salt must be ft-1's content digest; D imports
+    512 rows under it (its prefix hits +1) and resumes. Returns the
+    launches of the two-tier leg and the (what, paths, prompt, handoff
+    tokens, single tokens, adapter) case for the bf16 floor rule."""
+    import base64
+    from skypilot_tpu_torch.infer import adapters as ad_lib
+    from skypilot_tpu_torch.infer import engine as eng
+    from skypilot_tpu_torch.infer import server as srv
+    tiers = [eng.InferenceEngine(
+        params, cfg, n_slots=16, max_len=1024, prompt_buckets=(128, 512,
+                                                               1024),
+        max_wave=8, kv_block=256, prefill_chunk=512, prefix_pool=8,
+        spec_k=4, device=dev, seed=SEED,
+        adapters=ad_lib.catalog_from_env(cfg, adapters_json=catalog,
+                                         slots=5, device=dev))
+        for _ in "PD"]
+    P, D = tiers
+    servers = []
+    for e in tiers:
+        port = _free_port()
+        model, httpd = srv.serve(e, host="127.0.0.1", port=port)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        servers.append((model, httpd, th, f"http://127.0.0.1:{port}"))
+    purl, durl = servers[0][3], servers[1][3]
+    prompt = _handoff_prompts(cfg)[0]                   # 775 tokens
+    hdr = {ad_lib.MODEL_HEADER: "ft-1"}
+    imports = []
+    try:
+        for model, *_ in servers:
+            model.wait_ready(timeout=900)
+        code, single, _ = _post_status(f"{durl}/generate", {
+            "tokens": prompt, "max_new_tokens": 32}, hdr)
+        if code != 200 or single["model"] != "ft-1":
+            raise AssertionError(f"adapters[handoff]: single tier {code}")
+        D.clear_prefix_cache()
+        hits = D.prefix_hits
+        _zero_launches()
+        with _timed(D, "import_prefix", imports):
+            code, pre, _ = _post_status(f"{purl}/prefill", {
+                "tokens": prompt, "max_new_tokens": 32}, hdr)
+            salt = base64.b64decode(pre["export"]["salt"])
+            want = ad_lib._content_digest(trees["ft-1"], 32.0)
+            if code != 200 or salt != want or pre["model"] != "ft-1":
+                raise AssertionError(f"adapters[handoff]: /prefill {code}, "
+                                     f"salt {salt.hex()} (want "
+                                     f"{want.hex()})")
+            code, got, _ = _post_status(f"{durl}/handoff", {
+                "tokens": prompt, "max_new_tokens": 32,
+                "committed": pre["committed"], "export": pre["export"]},
+                hdr)
+        launches = _read_launches()
+    finally:
+        for model, httpd, th, _ in servers:
+            httpd.shutdown()
+            model.shutdown()
+            th.join(timeout=30)
+    if code != 200 or got["model"] != "ft-1" or len(got["tokens"]) != 32:
+        raise AssertionError(f"adapters[handoff]: /handoff {code}")
+    if [r for _, _, r in imports] != [512] or D.prefix_hits != hits + 1:
+        raise AssertionError(f"adapters[handoff]: import rows "
+                             f"{[r for _, _, r in imports]}, D's hits "
+                             f"+{D.prefix_hits - hits}")
+    same = got["tokens"] == single["tokens"]
+    _log(f"adapters[handoff]: /prefill under ft-1 (x-skytpu-model) on P, "
+         f"the wire's salt = ft-1's content digest {salt.hex()}, D "
+         f"imported 512 rows under it and hit (prefix hits +1); the "
+         f"handoff's 32 tokens {'equal' if same else 'part from'} the "
+         f"single tier's; launches {launches}; {card}")
+    del P, D, tiers
+    return launches, [("the 775-token prompt under ft-1",
+                       "handoff and single tier", prompt, got["tokens"],
+                       single["tokens"], "ft-1")]
+
+
+def _adapter_bench(dev, card: str) -> tuple:
+    """``bench_serve.run_adapters`` at llama3-8b bf16, full depth: rank
+    16, 8 fine-tunes, 16 requests of 128 tokens, 32 new (the reference's
+    256 cut to hold the phase near 150 s; 64 took it to 199 s on a slow
+    host), max burst 8. Its report line
+    and launches; the TPOT keys positive, the churn loaded and evicted.
+    Returns (launches, parity cases for the bf16 floor rule)."""
+    from skypilot_tpu_torch.infer import bench_serve
+    toks = {}
+    _zero_launches()
+    t0 = time.time()
+    r = bench_serve.run_adapters(config="llama3-8b", n_adapters=8,
+                                 requests=16, prompt_len=128, new_tokens=32,
+                                 device=dev, tokens_out=toks)
+    launches = _read_launches()
+    _log(f"adapters[bench]: run_adapters(llama3-8b) in "
+         f"{time.time() - t0:.1f} s: {json.dumps(r)}; launches {launches}; "
+         f"{card}")
+    _positive(r, ("tpot_single_ms", "tpot_mixed_ms", "overhead_ratio"),
+              "adapters[bench]")
+    if r["hot_loads"] <= 0 or r["evictions"] <= 0 or not (
+            launches["paged_attention"] and launches["flash_attention_fwd"]):
+        raise AssertionError(f"adapters[bench]: {r}, launches {launches}")
+    cases = [(f"request {i} under {a}", "mixed batch and sequential", p,
+              got, want, a)
+             for i, (p, a, got, want) in enumerate(toks["parity"])]
+    return launches, cases
+
+
+def _adapter_fp32_leg(dev, card: str) -> dict:
+    """Float32 on the first 8 layers of llama3-8b, rank-16 fine-tunes
+    ft-0 and ft-1 (8-layer trees), the server's engine settings at 4
+    slots, kernel path: for the base, ft-0 and ft-1, zero-adapter tokens
+    (an adapter engine with no request naming one) equal the adapterless
+    engine's bit for bit, and a mixed batch (a 600-token chunked prompt
+    and a 97-token wave prompt under each) equals the sequential runs
+    wherever the plain top-2 gap exceeds 1e-2. Returns the launches of
+    the mixed batch."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import adapters as ad_lib
+    from skypilot_tpu_torch.infer import engine as eng
+    from skypilot_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"],
+                              dtype=torch.float32,
+                              n_layers=INT8_FP32_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+    trees = _adapter_trees(cfg, ("ft-0", "ft-1"))
+
+    def catalog():
+        cat = ad_lib.AdapterCatalog(cfg, n_adapters=3, rank=ADAPTER_RANK,
+                                    device=dev)
+        for name, tree in trees.items():
+            cat.register(name, params=tree)
+        return cat
+
+    def engine(cat, plain=False):
+        return eng.InferenceEngine(
+            params, cfg, n_slots=4, max_len=1024,
+            prompt_buckets=(128, 512, 1024), max_wave=8, kv_block=256,
+            prefill_chunk=512, prefix_pool=8, spec_k=4, device=dev,
+            seed=SEED, adapters=cat, plain_attention=plain)
+
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (600, 97)]
+    base = engine(None).generate(prompts, 32)
+    zero = engine(catalog()).generate(prompts, 32)
+    if zero != base:
+        raise AssertionError("adapters[fp32]: zero-adapter tokens differ "
+                             "from the adapterless engine's")
+    jobs = [(p, n) for n in (None, "ft-0", "ft-1") for p in prompts]
+    e = engine(catalog())
+    _zero_launches()
+    ids = [e.add_request(p, 32, adapter=n) for p, n in jobs]
+    e.run_to_completion()
+    launches = _read_launches()
+    mixed = {r.rid: r.tokens for r in e.finished}
+    ref = engine(catalog(), plain=True)
+    for rid, (p, n) in zip(ids, jobs):
+        solo = engine(catalog())
+        want = solo.generate([p], 32) if n is None else None
+        if n is not None:
+            srid = solo.add_request(p, 32, adapter=n)
+            solo.run_to_completion()
+            want = [r.tokens for r in solo.finished if r.rid == srid]
+        _agree(ref, p, mixed[rid], want[0], f"a {len(p)}-token prompt "
+               f"under {n or 'the base'}", "mixed batch and sequential",
+               "adapters[fp32]", adapter=n)
+        if n is not None and mixed[rid] == base[prompts.index(p)]:
+            raise AssertionError(f"adapters[fp32]: {n} gave the base "
+                                 f"model's tokens")
+    _log(f"adapters[fp32]: zero-adapter tokens equal the adapterless "
+         f"engine's on both prompts; the mixed batch (6 requests) agrees "
+         f"with the sequential runs; launches {launches}; {card}")
+    if not (launches["paged_attention_rows_mma"] > 0
+            and launches["paged_attention_rows"] == 0):
+        raise AssertionError(f"adapters[fp32]: launches {launches}")
+    return launches
+
+
+def phase_adapters(dev, card: str) -> dict:
+    """Multi-LoRA serving at llama3-8b: the fine-tunes written as
+    ``save_adapter`` files (8 rank-16 trees from seeded numpy, ~55 MB
+    each on disk, and a corrupt entry) into a temporary directory; (a)
+    :func:`_adapter_server_leg`, then :func:`_hold_adapter_kernels` on
+    its engine; (b) :func:`_adapter_handoff_leg` on its weights; (c)
+    :func:`_adapter_bench`; (d) :func:`_adapter_fp32_leg`; every bf16
+    divergence of (b) and (c) under the bf16 floor rule. Returns {path:
+    launches}."""
+    import tempfile
+    from skypilot_tpu_torch.models import llama
+    t0 = time.time()
+    cfg = llama.CONFIGS["llama3-8b"]
+    trees = _adapter_trees(cfg)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        catalog = _write_catalog(tmp, trees)
+        engine, out["adapters"] = _adapter_server_leg(dev, card, catalog)
+        _hold_adapter_kernels(engine, "adapters")
+        params = engine.params
+        del engine
+        _free_card()
+        out["adapters[handoff]"], cases = _adapter_handoff_leg(
+            params, cfg, dev, card, catalog, trees)
+    del params
+    _free_card()
+    out["adapters[bench]"], more = _adapter_bench(dev, card)
+    _free_card()
+    _bf16_hold(dev, "llama3-8b", 512, cases + more, "adapters",
+               adapters=trees)
+    _free_card()
+    out["adapters[fp32]"] = _adapter_fp32_leg(dev, card)
+    _free_card()
+    _log(f"adapters: phase in {time.time() - t0:.1f} s; {card}")
+    return out
+
+
 def phase_train(dev, card: str):
     """Returns {kernel: launches} over the llama3-1b run."""
     import os
@@ -3204,7 +3712,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "serve", "handoff", "bench",
-                             "qos", "train"),
+                             "qos", "adapters", "train"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -3264,6 +3772,9 @@ def main() -> int:
         free()
     if args.phase in ("all", "qos"):
         by_path.update(phase_qos(dev, smi))
+        free()
+    if args.phase in ("all", "adapters"):
+        by_path.update(phase_adapters(dev, smi))
         free()
     if args.phase in ("all", "train"):
         by_path["train"] = phase_train(dev, smi)

@@ -1,9 +1,10 @@
 """Serving benchmark of the port: TTFT and token throughput on the card.
 
 Counterpart of ``skypilot_tpu/infer/bench_serve.py`` for its engine,
-HTTP, prefix-share and QoS (``run_qos``: WFQ fairness against FIFO,
-preemption parity) sections, with the reference's function names,
-defaults and report keys. Prints ONE JSON line on stdout (chatter on
+HTTP, prefix-share, QoS (``run_qos``: WFQ fairness against FIFO,
+preemption parity) and adapter (``run_adapters``: mixed-adapter decode
+TPOT against one adapter, greedy parity, hot-load churn) sections, with
+the reference's function names, defaults and report keys. Prints ONE JSON line on stdout (chatter on
 stderr):
 
   {"metric": "serve_median_ttft", "value": ..., "unit": "ms",
@@ -12,7 +13,8 @@ stderr):
 Usage: python -m skypilot_tpu_torch.infer.bench_serve
        [--config llama3-8b] [--requests 16] [--slots 16]
        [--new-tokens 64] [--repeats 3] [--kv-int8] [--weights-int8]
-       [--engine-only | --prefix-share | --qos | --smoke] [--device cpu]
+       [--engine-only | --prefix-share | --qos | --adapters | --smoke]
+       [--device cpu]
 
 Everything runs on the CUDA card. Without one it raises, unless
 ``--device cpu`` asks for the kernels' plain versions on the CPU;
@@ -42,6 +44,12 @@ Deliberate differences from the reference:
 - No wave padding. The port's engine dispatches each wave at its own
   size (``ROADMAP.md``, deliberate differences), so ``_build_engine``
   takes no ``pad_waves``.
+- No compile watch. The reference's ``run_adapters`` arms its compile
+  watch and reports ``unexpected_compiles``; PyTorch runs eagerly and the
+  port has no compile watch yet (``ROADMAP.md`` Queue 1, item 7), so the
+  key is ``null``. Its churn phase asserts instead that the adapter
+  pool's tensors keep their addresses (``data_ptr()``) across every hot
+  load and eviction: installs write in place.
 - Other KV blocks. The bench keeps the reference's ``max_len``
   (prompt + new tokens + 8), but on the card the engine picks the
   largest block that tiles it AND that K1's multi-row body reads
@@ -926,6 +934,193 @@ def run_qos(config=None, slots=None, bg_requests=None,
     }
 
 
+def adapter_tree(cfg, rank: int, seed: int) -> dict:
+    """The bench's fine-tune ``seed``: a random rank-``rank`` adapter
+    tree (normal * 0.02, from numpy seed ``seed``), registered at the
+    default alpha (32)."""
+    from skypilot_tpu_torch.infer import adapters as ad_lib
+    r = np.random.default_rng(seed)
+    L = cfg.n_layers
+    return {t: {"a": r.normal(size=(L,) + sa).astype(np.float32) * 0.02,
+                "b": r.normal(size=(L,) + sb).astype(np.float32) * 0.02}
+            for t, (sa, sb) in ad_lib.target_shapes(cfg, rank).items()}
+
+
+def run_adapters(config=None, n_adapters=8, requests=None,
+                 prompt_len=None, new_tokens=None, max_burst=8,
+                 kv_int8=False, weights_int8=False, spec_k=0,
+                 smoke=False, device: DeviceLike = None,
+                 tokens_out=None) -> dict:
+    """Multi-LoRA adapter-catalog bench: N-adapters-vs-1 decode TPOT
+    overhead on the SAME engine.
+
+    Three phases, one engine:
+
+    1. BASELINE — every request generates under ONE fine-tune (decode
+       gathers one pool slot's (A, B) per layer).
+    2. MIXED — the same requests spread over ``n_adapters`` fine-tunes
+       in one continuous batch. The gather indexes differ; the code is
+       the same (the adapter id is slot data), so the overhead is the
+       gather's cost (the reference's hardware gate is
+       ``overhead_ratio`` <= 1.15; reported here, not a target). Greedy
+       parity is checked against per-request sequential runs.
+    3. HOT-LOAD CHURN — twice the pool's fine-tunes cycle through
+       traffic: every demand load is an LRU evict + install. The
+       reference counts unexpected compiles here; the port has no
+       compile watch (``unexpected_compiles`` is null) and asserts that
+       the pool's tensors keep their addresses instead.
+
+    ``smoke=True`` / CPU: CI-sized (rank 4, ``n_adapters`` requests of
+    16 tokens, 32 new, max_len 256); else rank 16, ``2 * n_adapters``
+    requests of 128 tokens, 256 new, max_len 2048. Random weights from
+    seed 0 (``weights_int8``: ``kvcache.random_quantized_params``), the
+    fine-tunes from :func:`adapter_tree` with seeds 100, 101, ...
+    ``tokens_out``, a dict, receives ``"parity"``: [(prompt, adapter,
+    mixed tokens, sequential tokens)], so that a caller can hold a
+    bf16 divergence to its own rule."""
+    from skypilot_tpu_torch.infer import adapters as ad_lib
+    dev = resolve_device(device)
+    on_cpu = dev.type == "cpu"
+    if config is None:
+        config = "llama3-tiny" if on_cpu else "llama3-400m"
+    small = smoke or on_cpu
+    cfg = llama.CONFIGS[config]
+    rank = 4 if small else 16
+    if requests is None:
+        requests = n_adapters if small else 2 * n_adapters
+    if prompt_len is None:
+        prompt_len = 16 if small else 128
+    if new_tokens is None:
+        new_tokens = 32 if small else 256
+    slots = requests
+    max_len = 256 if small else 2048
+    log(f"adapter bench: {config} on {_device_kind(dev)} rank={rank} "
+        f"n_adapters={n_adapters} requests={requests}")
+
+    catalog = ad_lib.AdapterCatalog(cfg, n_adapters=n_adapters + 1,
+                                    rank=rank, device=dev)
+    # Registered fine-tunes: n_adapters for the mixed phase plus as many
+    # again for the churn phase (they cannot all be resident).
+    names = [f"ft-{i}" for i in range(2 * n_adapters)]
+    for i, name in enumerate(names):
+        catalog.register(name, params=adapter_tree(cfg, rank, 100 + i))
+
+    kw = dict(n_slots=slots, max_len=max_len,
+              prompt_buckets=(prompt_len,), kv_int8=kv_int8,
+              prefill_chunk=0, prefix_pool=0, max_wave=slots,
+              spec_k=spec_k, adapters=catalog, device=dev)
+    if weights_int8:
+        params, qw = kvcache.random_quantized_params(cfg, device=dev)
+        e = eng.InferenceEngine(params, cfg, qweights=qw, **kw)
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+        e = eng.InferenceEngine(params, cfg, **kw)
+    del params
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist()
+               for _ in range(requests)]
+
+    def decode_pass(adapter_names):
+        ids = [e.add_request(p, max_new_tokens=new_tokens, adapter=a)
+               for p, a in zip(prompts, adapter_names)]
+        e.admit()
+        _sync(dev)
+        t0 = time.time()
+        while e.slot_req:
+            e.decode_burst(max_burst)
+        _sync(dev)
+        wall = time.time() - t0
+        by_rid = {r.rid: list(r.tokens) for r in e.finished}
+        outs = [by_rid[i] for i in ids]
+        e.finished.clear()
+        dtoks = sum(len(o) for o in outs) - len(outs)
+        return outs, wall / max(dtoks, 1)
+
+    single = [names[0]] * requests
+    mixed = [names[i % n_adapters] for i in range(requests)]
+
+    # Warm both gather patterns (and the adapters) outside the window.
+    decode_pass(single)
+    decode_pass(mixed)
+
+    out_single, tpot_single = decode_pass(single)
+    out_mixed, tpot_mixed = decode_pass(mixed)
+
+    # Greedy parity: the mixed batch must emit exactly what each
+    # fine-tune emits alone (sequential single-request passes).
+    parity_ok = True
+    seq = []
+    for p, a, want in zip(prompts, mixed, out_mixed):
+        rid = e.add_request(p, max_new_tokens=new_tokens, adapter=a)
+        e.admit()
+        while e.slot_req:
+            e.decode_burst(max_burst)
+        got = {r.rid: list(r.tokens) for r in e.finished}[rid]
+        e.finished.clear()
+        seq.append((p, a, want, got))
+        if got != want:
+            parity_ok = False
+            if tokens_out is None:
+                break
+    if tokens_out is not None:
+        tokens_out["parity"] = seq
+
+    # Hot-load churn: cycle through 2x the pool's fine-tunes under live
+    # decode; every wave demand-loads (LRU evict + install) into the
+    # same tensors.
+    ptrs = [ab[k].data_ptr() for ab in catalog.pool.values() for k in ab]
+    loads_before = catalog.loads
+    for i in range(0, len(names), n_adapters):
+        batch = [names[(i + j) % len(names)]
+                 for j in range(min(n_adapters, requests))]
+        for p, a in zip(prompts, batch):
+            e.add_request(p, max_new_tokens=4, adapter=a)
+        e.run_to_completion()
+        e.finished.clear()
+    churn_loads = catalog.loads - loads_before
+    if [ab[k].data_ptr() for ab in catalog.pool.values()
+            for k in ab] != ptrs:
+        raise AssertionError("an adapter install moved the pool's tensors")
+
+    overhead = tpot_mixed / max(tpot_single, 1e-9)
+    log(f"adapters: single {tpot_single * 1e3:.2f}ms/tok mixed "
+        f"{tpot_mixed * 1e3:.2f}ms/tok (x{overhead:.3f}) "
+        f"parity={parity_ok} churn_loads={churn_loads} "
+        f"evictions={catalog.evictions}")
+    del e
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {
+        "tpot_single_ms": round(tpot_single * 1e3, 3),
+        "tpot_mixed_ms": round(tpot_mixed * 1e3, 3),
+        # The reference's regression-gate input (<= 1.15x on a TPU).
+        "overhead_ratio": round(overhead, 3),
+        "parity_ok": bool(parity_ok),
+        "hot_loads": int(churn_loads),
+        "evictions": int(catalog.evictions),
+        # No compile watch in the port (module docstring).
+        "unexpected_compiles": None,
+        "n_adapters": n_adapters,
+        "rank": rank,
+        "requests": requests,
+        "new_tokens": new_tokens,
+        "spec_k": spec_k,
+        "backend": dev.type,
+        "config": config,
+        "kv_int8": kv_int8,
+        "weights_int8": weights_int8,
+    }
+
+
+def run_adapters_smoke(device: DeviceLike = None) -> dict:
+    """CI-sized adapter-catalog pass: parity and churn are asserted by
+    tests/test_torch_bench_serve.py; wall-clock is reported."""
+    return run_adapters(smoke=True, n_adapters=4, device=device)
+
+
 def run_qos_smoke(device: DeviceLike = None) -> dict:
     """CI-sized QoS pass: scheduling and preemption parity and the
     fairness structure are asserted by tests/test_torch_bench_serve.py;
@@ -979,14 +1174,42 @@ def main(argv=None) -> None:
                          "(WFQ vs FIFO control) and preemption-by-"
                          "eviction greedy parity with the allocator "
                          "audit")
+    ap.add_argument("--adapters", action="store_true",
+                    help="multi-LoRA adapter-catalog bench: N-adapter "
+                         "mixed-workload decode TPOT vs a single-"
+                         "adapter baseline on the same engine, greedy "
+                         "parity vs per-adapter sequential runs, and "
+                         "the pool's addresses kept while adapters "
+                         "hot-load/evict mid-traffic (combine with "
+                         "--smoke for the CI-sized pass)")
+    ap.add_argument("--n-adapters", type=int, default=8,
+                    help="fine-tunes in the mixed workload for "
+                         "--adapters (pool sized to hold them; the "
+                         "churn phase registers 2x as many)")
     ap.add_argument("--smoke", action="store_true",
-                    help="CI-sized pass of --qos or of the prefix-share "
-                         "workload (regression guard for the chunk "
-                         "scheduler)")
+                    help="CI-sized pass of --qos, --adapters or of the "
+                         "prefix-share workload (regression guard for "
+                         "the chunk scheduler)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default, the card) or cpu")
     args = ap.parse_args(argv)
     device = _device_kind(resolve_device(args.device))
+    if args.adapters:
+        r = run_adapters(config=args.config, n_adapters=args.n_adapters,
+                         kv_int8=args.kv_int8,
+                         weights_int8=args.weights_int8, smoke=args.smoke,
+                         device=args.device)
+        print(json.dumps({
+            "metric": "serve_adapter_overhead",
+            "value": r["overhead_ratio"],
+            "unit": "x_mixed_decode_tpot_vs_single",
+            **{k: r[k] for k in (
+                "tpot_single_ms", "tpot_mixed_ms", "parity_ok",
+                "hot_loads", "evictions", "unexpected_compiles",
+                "n_adapters", "rank", "backend", "config")},
+            "device": device,
+        }))
+        return
     if args.qos:
         r = run_qos(config=args.config, kv_int8=args.kv_int8,
                     weights_int8=args.weights_int8, smoke=args.smoke,

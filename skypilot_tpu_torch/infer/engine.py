@@ -62,8 +62,21 @@ The engine records the reference's serving metrics under its names
 and decode timings, prefix-cache, speculation, lazy-growth and quota
 counters.
 
-Left for later slices of the port: the draft model, LoRA adapters, the
-flight recorder, tracing and crash recovery. The JAX engine padded
+Multi-LoRA serving (``adapters``, an :class:`adapters.AdapterCatalog`):
+one base model serves a catalog of fine-tunes in one continuous batch.
+A request naming a fine-tune (``add_request(..., adapter=name)``) pins
+its adapter into the device pool at claim (hot-loading and evicting
+LRU unpinned residents), every program gathers each row's (A, B) pair
+from the per-slot id vector (:meth:`InferenceEngine.aid_device`), and
+the prefix cache is keyed per adapter content (:meth:`_prefix_salt`).
+An unknown name is a typed 404 at submit; a checkpoint that fails to
+load fails its request typed (``Request.error``, 503), and the base
+weights are never served under a fine-tune's name. A request whose
+adapter cannot load because every pool slot is pinned steps aside
+while the traffic behind it admits.
+
+Left for later slices of the port: the draft model, the flight
+recorder, tracing and crash recovery. The JAX engine padded
 admission waves to fixed row counts to avoid recompiles; PyTorch runs
 eagerly, so the port dispatches each wave at its own size and keeps no
 spare slot for padding rows.
@@ -82,6 +95,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
+from skypilot_tpu_torch.infer import adapters as adapters_lib
 from skypilot_tpu_torch.infer import kvcache, sampling
 from skypilot_tpu_torch.infer import qos as qos_lib
 from skypilot_tpu_torch.models import llama
@@ -240,9 +254,20 @@ class Request:
     # True while the request sits queued because its tenant is at its
     # max_kv_blocks quota: the stall counter fires once per episode.
     kv_quota_stalled: bool = False
+    # Multi-LoRA: ``adapter`` names the fine-tune this request generates
+    # under (None = the base model); ``adapter_slot`` is the device pool
+    # slot serving it (0 = the all-zeros base adapter), assigned at
+    # claim; ``adapter_pinned`` tracks the catalog's in-flight refcount
+    # so release happens exactly once per acquire; ``error`` carries a
+    # typed failure body (adapter load failure) the server returns
+    # instead of tokens.
+    adapter: Optional[str] = None
+    adapter_slot: int = 0
+    adapter_pinned: bool = False
+    error: Optional[Dict[str, Any]] = None
     # Admission-stall episodes: ``stall_ms`` accumulates closed episodes
-    # by cause (pool_dry / kv_quota); an open one is (stall_cause,
-    # stall_begin_s), closed at the successful claim.
+    # by cause (pool_dry / kv_quota / adapter_pin); an open one is
+    # (stall_cause, stall_begin_s), closed at the successful claim.
     stall_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
     stall_cause: Optional[str] = None
     stall_begin_s: float = 0.0
@@ -587,7 +612,9 @@ class InferenceEngine:
 
     ``qos``: a :class:`qos.FairScheduler` (None: FIFO admission, no
     preemption, no KV quota). ``kv_lazy``: lazy KV growth (None reads
-    ``SKYTPU_KV_LAZY``).
+    ``SKYTPU_KV_LAZY``). ``adapters``: the multi-LoRA catalog (None: the
+    adapterless path, whose programs run exactly as before); its pool
+    moves to ``device`` if it lives elsewhere.
     """
 
     def __init__(self, params: llama.Params, cfg: llama.LlamaConfig,
@@ -605,9 +632,25 @@ class InferenceEngine:
                  device: DeviceLike = None,
                  plain_attention: bool = False,
                  kv_lazy: Optional[bool] = None,
-                 qos: Optional[qos_lib.FairScheduler] = None):
+                 qos: Optional[qos_lib.FairScheduler] = None,
+                 adapters: Optional[adapters_lib.AdapterCatalog] = None):
         self.device = resolve_device(device)
         self.qos = qos
+        # Per-slot adapter pool ids live in a host numpy vector with a
+        # dirty-tracked device copy (the block table's idiom) and ride
+        # every program as data.
+        self.adapters = adapters
+        self.adapter_ids: Optional[np.ndarray] = None
+        self._aid_dev: Optional[torch.Tensor] = None
+        self._aid_dirty = True
+        # Composition {adapter name: slots} of the last decode or verify
+        # dispatch (base-model slots are not counted).
+        self.adapter_mix: Dict[str, int] = {}
+        if adapters is not None:
+            if adapters.device != self.device:
+                adapters.pool = _to_device(adapters.pool, self.device)
+            adapters.bind_loader(adapters_lib.pool_install)
+            self.adapter_ids = np.zeros((n_slots,), np.int64)
         params = _to_device(params, self.device)
         if qweights is not None:
             qweights = _to_device(qweights, self.device)
@@ -731,19 +774,23 @@ class InferenceEngine:
                     max_new_tokens: int = 128,
                     tenant: str = qos_lib.DEFAULT_TENANT,
                     priority: int = 0,
+                    adapter: Optional[str] = None,
                     committed: Optional[List[int]] = None) -> int:
         """Queue a request; returns its id. ``tenant``/``priority``: its
-        QoS identity (fair-scheduler lane, KV quota). ``committed``:
+        QoS identity (fair-scheduler lane, KV quota). ``adapter``: the
+        fine-tune it generates under (None: the base model; an unknown
+        name raises the typed 404 here). ``committed``:
         tokens another replica already committed (a KV handoff's decode
         tier): they are pre-seeded, so the request admits through the
         resume context (prompt + committed) and ``max_new_tokens`` still
         counts them."""
         _bucket(len(prompt), self.buckets)   # validate length up front
         self.check_kv_quota(tenant, len(prompt), max_new_tokens)
+        self.check_adapter(adapter)
         req = Request(rid=self._next_rid, prompt=list(prompt),
                       max_new_tokens=max_new_tokens,
                       submit_s=time.time(), eos_id=self.eos_id,
-                      tenant=tenant, priority=priority)
+                      tenant=tenant, priority=priority, adapter=adapter)
         if committed:
             req.tokens = [int(t) for t in committed]
         self._next_rid += 1
@@ -776,6 +823,106 @@ class InferenceEngine:
 
     def blocks_used(self) -> int:
         return self.allocator.used
+
+    # -- adapter catalog ---------------------------------------------------
+
+    def aid_device(self) -> Optional[torch.Tensor]:
+        """The per-slot adapter-id vector as a device tensor (None
+        without a catalog), re-uploaded only after a claim or retirement
+        changed it."""
+        if self.adapters is None:
+            return None
+        if self._aid_dirty or self._aid_dev is None:
+            self._aid_dev = self._upload(self.adapter_ids.copy())
+            self._aid_dirty = False
+        return self._aid_dev
+
+    def _lora_args(self) -> Dict[str, Any]:
+        """kwargs routing the adapter pool and per-slot ids into a
+        decode-family program ({} on the adapterless path)."""
+        if self.adapters is None:
+            return {}
+        return {"lora": self.adapters.pool, "aid": self.aid_device()}
+
+    def check_adapter(self, name: Optional[str]) -> None:
+        """Submit-time guard (server handler threads): an unknown
+        fine-tune is a clean typed 404 before the request reaches the
+        loop thread. An engine with no catalog knows no adapters."""
+        if name is None:
+            return
+        if self.adapters is None:
+            raise adapters_lib.UnknownAdapterError(name, [])
+        self.adapters.check(name)
+
+    def _acquire_adapter(self, req: Request) -> str:
+        """Pin the request's fine-tune into the device pool at claim.
+        Returns "ok" (``adapter_slot`` assigned, pin counted), "stall"
+        (every pool slot pinned by in-flight requests: the caller steps
+        the request aside until a retirement unpins one) or "failed"
+        (the checkpoint did not load: the request is failed typed and
+        consumed; it never falls through to the base weights)."""
+        if self.adapters is None or req.adapter is None:
+            req.adapter_slot = 0
+            return "ok"
+        try:
+            slot = self.adapters.acquire(req.adapter)
+        except (adapters_lib.AdapterLoadError,
+                adapters_lib.UnknownAdapterError) as e:
+            self._fail_request(req, e)
+            return "failed"
+        if slot is None:
+            return "stall"
+        req.adapter_slot = slot
+        req.adapter_pinned = slot > 0
+        return "ok"
+
+    def _release_adapter(self, req: Request) -> None:
+        """Drop the request's in-flight adapter pin (exactly once per
+        acquire: retirement, preemption, or an abandoned claim)."""
+        if req.adapter_pinned and self.adapters is not None:
+            self.adapters.release(req.adapter_slot)
+            req.adapter_pinned = False
+
+    def _set_slot_adapter(self, slot: int, pool_slot: int) -> None:
+        if self.adapters is None:
+            return
+        if self.adapter_ids[slot] != pool_slot:
+            self.adapter_ids[slot] = pool_slot
+            self._aid_dirty = True
+
+    def _prefix_salt(self, req: Request) -> bytes:
+        """The request's prefix-cache key namespace. Stored K/V rows
+        carry the fine-tune's wk/wv deltas, so cached prefixes are
+        adapter-specific: keyed by the adapter's CONTENT digest (warm
+        prefixes survive evict/reload and alias names); base-model
+        requests keep the empty salt, the key space of the load
+        balancer's ``prefix_affinity_key``."""
+        if self.adapters is None or not req.adapter_slot:
+            return b""
+        return self.adapters.slot_content(req.adapter_slot)
+
+    def _fail_request(self, req: Request, exc: Exception) -> None:
+        """Retire a request with a typed error instead of tokens (the
+        adapter-load failure path). The server returns the body with
+        the error's HTTP status."""
+        req.error = getattr(exc, "typed_error", None) or {
+            "type": "error", "message": str(exc)}
+        if getattr(exc, "http_status", None):
+            req.error = dict(req.error, http_status=exc.http_status)
+        req.done = True
+        self._end_stall(req)
+        self.finished.append(req)
+
+    def _note_adapter_mix(self, slots) -> None:
+        """Record the adapters a decode or verify dispatch serves."""
+        if self.adapters is None:
+            return
+        mix: Dict[str, int] = {}
+        for slot in slots:
+            name = self.slot_req[slot].adapter
+            if name:
+                mix[name] = mix.get(name, 0) + 1
+        self.adapter_mix = mix
 
     # -- KV blocks ---------------------------------------------------------
 
@@ -937,22 +1084,36 @@ class InferenceEngine:
         else:
             self._slot_kv_charge.pop(slot, None)
 
-    def _wave_claim(self, req: Request) -> Optional[int]:
-        """Claim a slot and its KV blocks; None when the pool is too
-        dry (the caller re-queues and stalls admission)."""
+    def _wave_claim(self, req: Request) -> Tuple[str, Optional[int]]:
+        """Claim a slot, its KV blocks and the pin of its adapter.
+        Returns ("ok", slot); ("dry", None) when the block pool is too
+        dry (the caller re-queues and stalls admission); ("held", None)
+        when every adapter-pool slot is pinned (the caller steps THIS
+        request aside, as a quota hold does); ("failed", None) when the
+        adapter failed to load (the request is failed typed)."""
+        st = self._acquire_adapter(req)
+        if st == "failed":
+            return "failed", None
+        if st == "stall":
+            self._mark_stall(req, "adapter_pin")
+            return "held", None
         blocks = self._alloc_blocks(
             self._need_blocks(req, self._ctx_len(req)))
         if blocks is None:
+            # The pin must not leak across the re-queue: the next pass
+            # re-acquires (a resident adapter is a warm hit).
+            self._release_adapter(req)
             self._mark_stall(req, "pool_dry")
-            return None
+            return "dry", None
         slot = self.free_slots.pop(0)
         row = self.block_table[slot]
         row[:] = self.n_kv_blocks
         row[:len(blocks)] = blocks
         self._table_dirty = True
         self._sync_kv_charge(slot, req.tenant)
+        self._set_slot_adapter(slot, req.adapter_slot)
         self._end_stall(req)
-        return slot
+        return "ok", slot
 
     def _free_slot_blocks(self, slot: int) -> None:
         """Release a slot's block references and clear its table row to
@@ -1069,10 +1230,14 @@ class InferenceEngine:
             # rows may enter the shared cache (it promises chunk-program
             # bytes to every sharer); a wave-admitted victim resumes
             # cold.
-            self._store_prefix(ctx, slot, len(ctx) - 1, donor_live=False)
+            self._store_prefix(ctx, slot, len(ctx) - 1, donor_live=False,
+                               salt=self._prefix_salt(req))
         self.slot_req.pop(slot, None)
         self.free_slots.append(slot)
         self._free_slot_blocks(slot)
+        self._set_slot_adapter(slot, 0)
+        # The resume re-acquires its adapter at the next claim.
+        self._release_adapter(req)
         req.slot = None
         req.preemptions += 1
         qos_lib.QOS_PREEMPTIONS.labels(
@@ -1130,7 +1295,8 @@ class InferenceEngine:
         higher-priority work, and the queue is reordered again (victims
         go behind the lanes that outrank them). A request whose tenant
         is at its KV quota steps aside for this pass while everyone
-        behind it admits."""
+        behind it admits, and so does one whose adapter cannot load
+        because every adapter-pool slot is pinned."""
         if self.qos is not None and self.waiting:
             self.qos.reorder(self.waiting)
             if self._preempt_for_waiting() and self.waiting:
@@ -1144,8 +1310,12 @@ class InferenceEngine:
                     quota_held.append(self.waiting.popleft())
                     continue
                 if self._use_chunked(self.waiting[0]):
-                    stalled = not self._claim_chunked(
-                        self.waiting.popleft())
+                    req = self.waiting.popleft()
+                    cst = self._claim_chunked(req)
+                    if cst == "stall":
+                        stalled = True
+                    elif cst == "held":
+                        quota_held.append(req)
                     continue
                 bucket = _bucket(self._ctx_len(self.waiting[0]),
                                  self.buckets)
@@ -1159,18 +1329,28 @@ class InferenceEngine:
                     if self._kv_quota_blocked(req):
                         quota_held.append(req)
                     elif self._use_chunked(req):
-                        stalled = not self._claim_chunked(req)
+                        cst = self._claim_chunked(req)
+                        if cst == "stall":
+                            stalled = True
+                        elif cst == "held":
+                            quota_held.append(req)
                     elif _bucket(self._ctx_len(req),
                                  self.buckets) != bucket:
                         rest.append(req)
                     else:
-                        slot = self._wave_claim(req)
-                        if slot is None:          # block pool dry
-                            self._requeue(req)
-                            stalled = True
-                        else:
+                        st, slot = self._wave_claim(req)
+                        if st == "ok":
                             wave.append(req)
                             slots.append(slot)
+                        elif st == "held":
+                            # Adapter pool fully pinned: step aside,
+                            # base and resident-adapter traffic behind
+                            # it keeps admitting.
+                            quota_held.append(req)
+                        elif st == "dry":         # block pool dry
+                            self._requeue(req)
+                            stalled = True
+                        # "failed": consumed (failed typed)
                 self.waiting.extendleft(reversed(rest))
                 if wave:
                     dispatched.append(
@@ -1200,9 +1380,17 @@ class InferenceEngine:
             true_lens[i] = len(ctx)
         tokens = self._upload(tokens_b)
         lens = self._upload(true_lens)
+        wave_lora = {}
+        if self.adapters is not None:
+            # Each wave row gathers its own fine-tune: mixed-adapter
+            # admission is one call.
+            aid_w = np.array([r.adapter_slot for r in wave], np.int64)
+            wave_lora = {"lora": self.adapters.pool,
+                         "aid": self._upload(aid_w)}
         prefix, logits = kvcache.prefill_batch(
             self.params, tokens, lens, self.cfg,
-            plain_attention=self.plain_attention, qweights=self.qweights)
+            plain_attention=self.plain_attention, qweights=self.qweights,
+            **wave_lora)
         first = sampling.sample(logits, self.sampling_params,
                                 self.generator)
         table = self.table_device()
@@ -1259,19 +1447,29 @@ class InferenceEngine:
         return (self.prefill_chunk is not None
                 and self._ctx_len(req) > self.prefill_chunk)
 
-    def _claim_chunked(self, req: Request) -> bool:
+    def _claim_chunked(self, req: Request) -> str:
         """Claim a slot for an incremental prefill: look up the prefix
         cache, map a hit's shared blocks into the slot's table row (no
         row copies; a partially filled shared block is copied on write
         first, since the suffix prefill writes into it), and queue the
         remaining chunks. The claim stamps the slot's length to max_len
         (:func:`kvcache.claim_slot`), so interleaved bursts' writes for
-        this not-yet-active slot land in the trash block. False when the
-        pool is too dry: the request goes back to the queue's head. A
-        resume looks up and prefills its whole context (:meth:`_ctx`)."""
+        this not-yet-active slot land in the trash block. A resume looks
+        up and prefills its whole context (:meth:`_ctx`). Returns "ok";
+        "stall" when the block pool is too dry (the request went back to
+        the queue's head); "held" when every adapter-pool slot is pinned
+        (the caller steps the request aside); "failed" when its adapter
+        failed to load (failed typed, consumed)."""
+        st = self._acquire_adapter(req)
+        if st == "failed":
+            return "failed"
+        if st == "stall":
+            self._mark_stall(req, "adapter_pin")
+            return "held"
         ctx = self._ctx(req)
         idx = self._prefix_index
-        hit = idx.lookup(ctx) if idx is not None else None
+        salt = self._prefix_salt(req)
+        hit = idx.lookup(ctx, salt) if idx is not None else None
         cached = n_shared = partial = 0
         shared: List[int] = []
         if hit is not None:
@@ -1291,10 +1489,12 @@ class InferenceEngine:
         if new_blocks is None:
             for b in shared:                  # unpin; retry next pass
                 self.allocator.decref(b)
+            self._release_adapter(req)
             self._mark_stall(req, "pool_dry")
             self._requeue(req)
-            return False
+            return "stall"
         slot = self.free_slots.pop(0)
+        self._set_slot_adapter(slot, req.adapter_slot)
         req.slot = slot
         self._end_stall(req)
         req.prefill_begin_s = time.time()
@@ -1324,7 +1524,7 @@ class InferenceEngine:
         self.chunking.append(_ChunkState(req=req, pos=cached,
                                          total=len(ctx), ctx=ctx))
         self._update_gauges()
-        return True
+        return "ok"
 
     def prefill_chunk_step(self) -> bool:
         """Run ONE chunk of the head chunked prefill. The big-cache read
@@ -1348,7 +1548,7 @@ class InferenceEngine:
             self.sampling_params, self.table_device(), final=final,
             span=self._span_arg(self._span_for(start)),
             generator=self.generator, plain_attention=self.plain_attention,
-            qweights=self.qweights)
+            qweights=self.qweights, **self._lora_args())
         req.n_chunks += 1
         PREFILL_CHUNKS.inc()
         st.pos += n_valid
@@ -1365,7 +1565,8 @@ class InferenceEngine:
             max(now - req.prefill_begin_s, 0.0))
         PREFILL_REQUESTS.labels(bucket="chunked").inc()
         self.slot_req[req.slot] = req
-        self._store_prefix(st.ctx, req.slot, len(st.ctx))
+        self._store_prefix(st.ctx, req.slot, len(st.ctx),
+                           salt=self._prefix_salt(req))
         if self._req_finished(req, tok):
             self._retire(req)
         self._update_gauges()
@@ -1374,7 +1575,7 @@ class InferenceEngine:
     # -- prefix cache ------------------------------------------------------
 
     def _store_prefix(self, ctx: List[int], slot: int, rows: int,
-                      donor_live: bool = True) -> int:
+                      donor_live: bool = True, salt: bytes = b"") -> int:
         """Install ``ctx``'s chunk-aligned prefix (a prompt, or a
         resume's prompt + committed tokens), over the slot's first
         ``rows`` resident rows, into the prefix cache unless it is
@@ -1388,14 +1589,15 @@ class InferenceEngine:
         the entry's payload. A trailing partial block is copied on share
         while the donor lives (it keeps writing into its own copy past
         the prefix); a dying donor (preemption) shares it by incref
-        alone, since no writer remains."""
+        alone, since no writer remains. ``salt``: the request's adapter
+        namespace (:meth:`_prefix_salt`)."""
         idx = self._prefix_index
         if idx is None:
             return 0
         n = (rows // idx.block) * idx.block
         if n < idx.block:
             return 0
-        covered = idx.lookup(ctx)
+        covered = idx.lookup(ctx, salt)
         if covered is not None and covered[1] >= n:
             return 0
         n_full, partial = divmod(n, self.kv_block)
@@ -1412,7 +1614,7 @@ class InferenceEngine:
             self.allocator.incref(b)
         if partial and not donor_live:
             self.allocator.incref(blocks[n_full])
-        for payload in idx.insert_entry(ctx, n, tuple(blocks)):
+        for payload in idx.insert_entry(ctx, n, tuple(blocks), salt):
             self._count_eviction()
             for b in payload:
                 self.allocator.decref(b)
@@ -1448,7 +1650,9 @@ class InferenceEngine:
     def export_prefix_for(self, req: Request) -> Optional[Dict[str, Any]]:
         """Host copy of the retired request's stored prefix, for a
         decode-tier replica: ``cached_len``, ``kv_block``, ``n_blocks``,
-        ``salt`` and ``tensors`` (numpy, [L, nb, ...] per pool,
+        ``salt`` (the request's adapter namespace, :meth:`_prefix_salt`:
+        the decode tier must key the import under it) and ``tensors``
+        (numpy, [L, nb, ...] per pool,
         :func:`kvcache.export_blocks`). The entry's blocks stay resident
         here, ref-counted and LRU like any stored prefix. Float planes
         are widened to float32 on the device before the host copy (as
@@ -1458,7 +1662,8 @@ class InferenceEngine:
         idx = self._prefix_index
         if idx is None:
             return None
-        hit = idx.lookup(self._ctx(req))
+        salt = self._prefix_salt(req)
+        hit = idx.lookup(self._ctx(req), salt)
         if hit is None:
             return None
         payload, cached = hit
@@ -1469,7 +1674,7 @@ class InferenceEngine:
                 v = v.float()
             tensors[name] = v.cpu().numpy()
         return {"cached_len": cached, "kv_block": self.kv_block,
-                "n_blocks": len(payload), "salt": b"", "tensors": tensors}
+                "n_blocks": len(payload), "salt": salt, "tensors": tensors}
 
     def import_prefix(self, ctx: List[int], export: Dict[str, Any],
                       salt: bytes = b"") -> int:
@@ -1545,7 +1750,9 @@ class InferenceEngine:
             self.slot_req.pop(req.slot, None)
             self.free_slots.append(req.slot)
             self._free_slot_blocks(req.slot)
+            self._set_slot_adapter(req.slot, 0)
             req.slot = None
+        self._release_adapter(req)
         SLOTS_ACTIVE.set(len(self.slot_req))
         KV_BLOCKS_USED.set(self.allocator.used)
 
@@ -1575,6 +1782,7 @@ class InferenceEngine:
         if not groups:
             return None            # lazy: pool dry, retry next round
         t0 = time.time()
+        self._note_adapter_mix(s for _, slots in groups for s in slots)
         parts: List[Tuple[torch.Tensor, List[int]]] = []
         for span, slots in groups:
             DECODE_ATTN_ROWS.observe(span)
@@ -1584,7 +1792,8 @@ class InferenceEngine:
                 self.params, self.cache, self._upload(active), k,
                 self.cfg, self.sampling_params, self.table_device(),
                 span=self._span_arg(span), generator=self.generator,
-                plain_attention=self.plain_attention, qweights=self.qweights)
+                plain_attention=self.plain_attention, qweights=self.qweights,
+                **self._lora_args())
             parts.append((toks, slots))
         self._inflight_tokens += k
         return BurstHandle(parts=parts, k=k, slot_req=dict(self.slot_req),
@@ -1702,6 +1911,7 @@ class InferenceEngine:
             # the plain burst the caller falls back to.
             return None
         t0 = time.time()
+        self._note_adapter_mix(s for _, slots in groups for s in slots)
         draft_dev = self._upload(draft)
         n_draft_dev = self._upload(n_draft)
         parts = []
@@ -1713,7 +1923,8 @@ class InferenceEngine:
                 self.params, self.cache, draft_dev, n_draft_dev,
                 self._upload(active), K, self.cfg, self.table_device(),
                 span=self._span_arg(span),
-                plain_attention=self.plain_attention, qweights=self.qweights)
+                plain_attention=self.plain_attention, qweights=self.qweights,
+                **self._lora_args())
             self.verify_calls += 1
             parts.append((slots, toks, n_commit))
         out: Dict[int, List[int]] = {}
@@ -1815,6 +2026,13 @@ class InferenceEngine:
         self._slot_kv_charge.clear()
         for t in list(self._tenant_kv):
             self._set_tenant_kv(t, 0)
+        if self.adapters is not None:
+            # A failure mid-load may have left pins inconsistent: drop
+            # all residency (the pool tensors stay; nothing maps to them
+            # until re-acquired).
+            self.adapters.reset()
+            self.adapter_ids[:] = 0
+            self._aid_dirty = True
         self.cache["length"].zero_()
         self._update_gauges()
 

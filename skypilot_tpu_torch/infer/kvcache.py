@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
+from skypilot_tpu_torch.infer import adapters as adapters_lib
 from skypilot_tpu_torch.infer import sampling as sampling_mod
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import attention as attn_ops
@@ -533,6 +534,45 @@ def _bf16_dot(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Multi-LoRA adapter deltas (infer/adapters.py)
+# ---------------------------------------------------------------------------
+# Every program below takes an optional ``lora`` pool (per target {"a":
+# [L, N, d_in..., r], "b": [L, N, r, d_out...]}) and an ``aid`` vector
+# of per-row adapter-pool slots. The delta is the factored pair
+# x @ A[aid] @ B[aid] (alpha/rank already folded into B at load), added
+# to the base projection in ``cfg.dtype`` (after the w8a8 product on an
+# int8 engine, as the reference's ``_layer_parts`` combines them): one
+# gather per layer per target, so requests for different fine-tunes
+# share one call. The reference leaves these products to XLA, so they
+# stay torch here. Pool slot 0 is all zeros: a base-model row adds an
+# exact-zero delta. A call without ``lora`` runs the code it ran before
+# adapters existed.
+
+def _lora_in_delta(h: torch.Tensor, ab: Dict[str, torch.Tensor],
+                   aid: torch.Tensor) -> torch.Tensor:
+    """Per-row delta for an embed->heads/kv target. h: [B, S, D]; ab:
+    ONE layer's pool slice {"a": [N, D, r], "b": [N, r, H, hd]}; aid:
+    [B] pool slots."""
+    a = ab["a"][aid].to(h.dtype)                       # [B, D, r]
+    b = ab["b"][aid].to(h.dtype)                       # [B, r, H, hd]
+    u = torch.bmm(h, a)                                # [B, S, r]
+    B, r, H, hd = b.shape
+    return torch.bmm(u, b.reshape(B, r, H * hd)).reshape(
+        *h.shape[:2], H, hd)
+
+
+def _lora_out_delta(o: torch.Tensor, ab: Dict[str, torch.Tensor],
+                    aid: torch.Tensor) -> torch.Tensor:
+    """Per-row delta for the wo target. o (the attention output before
+    the projection): [B, S, H, hd]; a: [N, H, hd, r]; b: [N, r, D]."""
+    a = ab["a"][aid].to(o.dtype)                       # [B, H, hd, r]
+    b = ab["b"][aid].to(o.dtype)                       # [B, r, D]
+    B, H, hd, r = a.shape
+    u = torch.bmm(o.reshape(B, -1, H * hd), a.reshape(B, H * hd, r))
+    return torch.bmm(u, b)                             # [B, S, D]
+
+
+# ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
 
@@ -540,7 +580,9 @@ def _bf16_dot(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def prefill_batch(params: llama.Params, tokens: torch.Tensor,
                   true_lens: torch.Tensor, cfg: llama.LlamaConfig,
                   plain_attention: bool = False,
-                  qweights: Optional[QWeights] = None
+                  qweights: Optional[QWeights] = None,
+                  lora: Optional[Dict] = None,
+                  aid: Optional[torch.Tensor] = None
                   ) -> Tuple[Cache, torch.Tensor]:
     """Causal forward over a WAVE of right-padded prompts.
 
@@ -550,7 +592,8 @@ def prefill_batch(params: llama.Params, tokens: torch.Tensor,
     kernel (``ops/attention.py``), or with ``plain_attention`` its
     plain version. With ``qweights`` the block products and the head
     run w8a8, so ``params`` may be the slim tree (embedding and norms
-    only)."""
+    only). ``lora``/``aid``: the adapter pool and each wave row's pool
+    slot."""
     attention = attn_ops.gqa_attention
     if plain_attention:
         def attention(q, k, v):
@@ -563,8 +606,10 @@ def prefill_batch(params: llama.Params, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         layer = llama.layer_slice(params, i)
         qlayer = qlayer_slice(qweights, i)
-        q, k, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin)
-        x = _decode_out_ffn(cfg, layer, qlayer, x, attention(q, k, v))
+        llayer = adapters_lib.lora_layer(lora, i)
+        q, k, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin, llayer, aid)
+        x = _decode_out_ffn(cfg, layer, qlayer, x, attention(q, k, v),
+                            llayer, aid)
         ks.append(k)
         vs.append(v)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -613,7 +658,9 @@ def prefill_chunk(params: llama.Params, cache: Cache,
                   final: bool, span: Optional[int] = None,
                   generator: Optional[torch.Generator] = None,
                   plain_attention: bool = False,
-                  qweights: Optional[QWeights] = None) -> torch.Tensor:
+                  qweights: Optional[QWeights] = None,
+                  lora: Optional[Dict] = None,
+                  aid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One chunk of an incremental prefill into decode slot ``slot``.
 
     tokens_c: [C] right-padded chunk; ``start``: the chunk's first row
@@ -630,8 +677,10 @@ def prefill_chunk(params: llama.Params, cache: Cache,
     folds the stored rows' scales in, the intra-chunk block scores the
     chunk's own unquantized rows (as the reference does), and the rows
     are quantized as they are written. ``qweights``: w8a8 products and
-    head. Returns the first token sampled at the last valid position on
-    the ``final`` chunk, else 0 (device tensors)."""
+    head. ``lora``/``aid``: the adapter pool and the per-slot pool
+    slots, of which the chunk reads ``aid[slot]``. Returns the first
+    token sampled at the last valid position on the ``final`` chunk,
+    else 0 (device tensors)."""
     C = tokens_c.shape[0]
     G, hd = cfg.n_kv_heads, cfg.head_dim
     rep = cfg.n_heads // G
@@ -647,11 +696,15 @@ def prefill_chunk(params: llama.Params, cache: Cache,
     intra = (j[None, :] <= j[:, None]) & (j[None, :] < n_valid)
     tbl = table[slot:slot + 1]
     lens = torch.full((1,), start, dtype=torch.int32, device=dev)
+    # The chunk runs ONE slot: its adapter id, aligned with x's batch.
+    aid_b = aid[slot:slot + 1] if lora is not None else None
     ks, vs = [], []
     for i in range(cfg.n_layers):
         layer = llama.layer_slice(params, i)
         qlayer = qlayer_slice(qweights, i)
-        q, k, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin)
+        llayer = adapters_lib.lora_layer(lora, i)
+        q, k, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin, llayer,
+                              aid_b)
         kr, vr = k[0], v[0]                                    # [C, G, hd]
         ks.append(kr)
         vs.append(vr)
@@ -668,7 +721,8 @@ def prefill_chunk(params: llama.Params, cache: Cache,
         l = l.reshape(G, C, rep).permute(1, 0, 2)
         alpha, w_s, l_tot = _merge_attn_parts(acc, m, l, ss)
         o = acc * alpha[..., None] + _bf16_dot("cgrj,jgk->cgrk", w_s, vr)
-        x = _decode_out_ffn(cfg, layer, qlayer, x, o / l_tot[..., None])
+        x = _decode_out_ffn(cfg, layer, qlayer, x, o / l_tot[..., None],
+                            llayer, aid_b)
     if final:
         x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = _head(cfg, params, qweights, x[:, n_valid - 1])
@@ -688,24 +742,34 @@ def prefill_chunk(params: llama.Params, cache: Cache,
 # Decode
 # ---------------------------------------------------------------------------
 
-def _decode_qkv(cfg, layer, qlayer, x, cos, sin):
+def _decode_qkv(cfg, layer, qlayer, x, cos, sin, llayer=None, aid=None):
     """Layer front half: norm + q/k/v projections (w8a8 with ``qlayer``)
-    + rope. x: [B, S, D]."""
+    + rope. x: [B, S, D]. ``llayer``/``aid``: one layer's adapter-pool
+    slice and the rows' pool slots; each row's delta is added before
+    rope, exactly as a merged weight would be."""
     dt = cfg.dtype
     h = llama.rms_norm(x, layer["ln1"], cfg.norm_eps)
-    q = llama.apply_rope(proj(h, layer, qlayer, "wq", 1, dt), cos, sin)
-    k = llama.apply_rope(proj(h, layer, qlayer, "wk", 1, dt), cos, sin)
+    q = proj(h, layer, qlayer, "wq", 1, dt)
+    k = proj(h, layer, qlayer, "wk", 1, dt)
     v = proj(h, layer, qlayer, "wv", 1, dt)
-    return q, k, v
+    if llayer is not None:
+        q = q + _lora_in_delta(h, llayer["wq"], aid)
+        k = k + _lora_in_delta(h, llayer["wk"], aid)
+        v = v + _lora_in_delta(h, llayer["wv"], aid)
+    return llama.apply_rope(q, cos, sin), llama.apply_rope(k, cos, sin), v
 
 
-def _decode_out_ffn(cfg, layer, qlayer, x, o):
-    """Layer back half: output projection + residual + dense SwiGLU FFN
-    (w8a8 with ``qlayer``). x: [B, S, D]; o: the attention output, B * S
-    rows of every head."""
+def _decode_out_ffn(cfg, layer, qlayer, x, o, llayer=None, aid=None):
+    """Layer back half: output projection (plus the rows' adapter delta
+    with ``llayer``/``aid``) + residual + dense SwiGLU FFN (w8a8 with
+    ``qlayer``). x: [B, S, D]; o: the attention output, B * S rows of
+    every head."""
     dt = cfg.dtype
     o = o.reshape(*x.shape[:2], cfg.n_heads, cfg.head_dim).to(dt)
-    x = x + proj(o, layer, qlayer, "wo", 2, dt)
+    y = proj(o, layer, qlayer, "wo", 2, dt)
+    if llayer is not None:
+        y = y + _lora_out_delta(o, llayer["wo"], aid)
+    x = x + y
     h = llama.rms_norm(x, layer["ln2"], cfg.norm_eps)
     g = proj(h, layer, qlayer, "w_gate", 1, dt)
     u = proj(h, layer, qlayer, "w_up", 1, dt)
@@ -719,7 +783,8 @@ def _decode_head(cfg, params, qweights, x):
 
 
 def _staged_attn_layer(cfg, cache, table, layer, qlayer, x, cos, sin, i,
-                       s, stage, stage_valid, span, pos0, plain=False):
+                       s, stage, stage_valid, span, pos0, plain=False,
+                       llayer=None, aid=None):
     """One decoder layer of a staged-burst step: the step's K/V rows land
     in the staging buffers ``stage = (sk, sv, sks, svs)`` ([L, B, k, G,
     hd], and on an int8 cache int8 with bfloat16 scales [L, B, k, G]; in
@@ -733,13 +798,14 @@ def _staged_attn_layer(cfg, cache, table, layer, qlayer, x, cos, sin, i,
     (:func:`decode_burst_staged`, :func:`verify_draft_staged`), as
     ``kvcache.py:1307-1331`` of the JAX package asks of its burst and
     verify programs, so an accepted verify position sees the inputs a
-    plain decode step would. Returns x'."""
+    plain decode step would. ``llayer``/``aid``: the layer's adapter
+    pool slice and each slot's pool slot. Returns x'."""
     B = x.shape[0]
     G, hd = cfg.n_kv_heads, cfg.head_dim
     rep = cfg.n_heads // G
     scale = hd ** -0.5
     sk, sv, sks, svs = stage
-    q, kk, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin)
+    q, kk, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin, llayer, aid)
     kq, vq, ksc, vsc = _stored_rows(cache, kk[:, 0], v[:, 0])
     sk[i, :, s] = kq
     sv[i, :, s] = vq
@@ -758,7 +824,7 @@ def _staged_attn_layer(cfg, cache, table, layer, qlayer, x, cos, sin, i,
         w_s = w_s * svs[i].transpose(1, 2)[:, :, None, :].float()
     o = acc * alpha[..., None] + _bf16_dot("bgrj,bjgk->bgrk", w_s, lv)
     o = o / l_tot[..., None]
-    return _decode_out_ffn(cfg, layer, qlayer, x, o)
+    return _decode_out_ffn(cfg, layer, qlayer, x, o, llayer, aid)
 
 
 def _staging(cache: Cache, B: int, W: int):
@@ -790,29 +856,42 @@ def _flush_staged_rows(cache: Cache, table: torch.Tensor,
 
 
 def _staged_step(cfg, params, qweights, layers, qlayers, cache, table, tok,
-                 pos0, s, stage, stage_valid, span, plain):
+                 pos0, s, stage, stage_valid, span, plain, llayers=None,
+                 aid=None):
     """Step ``s`` of a staged burst or verify round: ``tok`` [B] enters at
     row ``pos0 + s`` of every slot through every layer
-    (:func:`_staged_attn_layer`, ``layers``/``qlayers`` the per-layer
-    slices). Returns the logits [B, vocab] float32."""
+    (:func:`_staged_attn_layer`, ``layers``/``qlayers``/``llayers`` the
+    per-layer slices; ``llayers`` None without adapters). Returns the
+    logits [B, vocab] float32."""
     x = params["embed"][tok].to(cfg.dtype)[:, None]
     cos, sin = llama.rope_frequencies(cfg, (pos0 + s)[:, None])
     for i in range(cfg.n_layers):
         x = _staged_attn_layer(cfg, cache, table, layers[i], qlayers[i], x,
                                cos, sin, i, s, stage, stage_valid, span,
-                               pos0, plain)
+                               pos0, plain,
+                               llayers[i] if llayers else None, aid)
     return _decode_head(cfg, params, qweights, x)
+
+
+def _lora_layers(cfg, lora):
+    """Per-layer adapter pool slices, or None without a pool."""
+    if lora is None:
+        return None
+    return [adapters_lib.lora_layer(lora, i) for i in range(cfg.n_layers)]
 
 
 @torch.no_grad()
 def step_logits(params: llama.Params, cache: Cache, cfg: llama.LlamaConfig,
                 table: torch.Tensor, span: Optional[int] = None,
                 plain_attention: bool = False,
-                qweights: Optional[QWeights] = None) -> torch.Tensor:
+                qweights: Optional[QWeights] = None,
+                lora: Optional[Dict] = None,
+                aid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The logits [slots, vocab] of the next decode step of every slot
     (its ``last_token`` at row ``length``), as a staged burst computes
     them, without writing the cache: the logits the engine's next token
-    is read from."""
+    is read from. ``lora``/``aid``: the adapter pool and each slot's
+    pool slot."""
     B = cache["length"].shape[0]
     pos0 = cache["length"].clone()
     valid = torch.ones((1, 1), dtype=torch.bool, device=pos0.device)
@@ -821,7 +900,7 @@ def step_logits(params: llama.Params, cache: Cache, cfg: llama.LlamaConfig,
         cfg, params, qweights, [llama.layer_slice(params, i) for i in layers],
         [qlayer_slice(qweights, i) for i in layers], cache, table,
         cache["last_token"], pos0, 0, _staging(cache, B, 1), valid, span,
-        plain_attention)
+        plain_attention, _lora_layers(cfg, lora), aid)
 
 
 @torch.no_grad()
@@ -832,7 +911,9 @@ def decode_burst_staged(params: llama.Params, cache: Cache,
                         table: torch.Tensor, span: Optional[int] = None,
                         generator: Optional[torch.Generator] = None,
                         plain_attention: bool = False,
-                        qweights: Optional[QWeights] = None
+                        qweights: Optional[QWeights] = None,
+                        lora: Optional[Dict] = None,
+                        aid: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """k decode steps with one cache flush per burst. Returns the
     sampled tokens [k, slots]; the cache is updated in place (rows,
@@ -846,7 +927,8 @@ def decode_burst_staged(params: llama.Params, cache: Cache,
     slots compute rows that are never committed. ``span``: the big-cache
     read covers the first ``span`` logical rows — valid whenever every
     active slot's burst-start length is at most ``span``. ``qweights``:
-    w8a8 products and head."""
+    w8a8 products and head. ``lora``/``aid``: the adapter pool and each
+    slot's pool slot."""
     B = cache["length"].shape[0]
     L = cfg.n_layers
     dev = cache["k"].device
@@ -855,12 +937,13 @@ def decode_burst_staged(params: llama.Params, cache: Cache,
     last = cache["last_token"].clone()
     layers = [llama.layer_slice(params, i) for i in range(L)]
     qlayers = [qlayer_slice(qweights, i) for i in range(L)]
+    llayers = _lora_layers(cfg, lora)
     toks = []
     for s in range(k):
         stage_valid = (torch.arange(k, device=dev) <= s)[None, :]
         logits = _staged_step(cfg, params, qweights, layers, qlayers, cache,
                               table, last, pos0, s, stage, stage_valid,
-                              span, plain_attention)
+                              span, plain_attention, llayers, aid)
         tok = sampling_mod.sample(logits, sp, generator)
         last = torch.where(active, tok, last)
         toks.append(tok)
@@ -877,7 +960,9 @@ def verify_draft_staged(params: llama.Params, cache: Cache,
                         cfg: llama.LlamaConfig, table: torch.Tensor,
                         span: Optional[int] = None,
                         plain_attention: bool = False,
-                        qweights: Optional[QWeights] = None
+                        qweights: Optional[QWeights] = None,
+                        lora: Optional[Dict] = None,
+                        aid: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Speculative verify: score ``k`` drafted tokens per slot plus the
     correction position in one call; the cache is updated in place.
@@ -889,7 +974,8 @@ def verify_draft_staged(params: llama.Params, cache: Cache,
     through :func:`_staged_attn_layer`, as a plain burst's steps do
     (big-cache stats below the round-start lengths, merged with the
     staged columns), with the window's tokens in place of sampled
-    feedback and greedy argmax outputs.
+    feedback and greedy argmax outputs. ``lora``/``aid``: the adapter
+    pool and each slot's pool slot.
 
     Acceptance: out[s] is the argmax after consuming window position
     s; the matched run is the longest prefix over which out[s] ==
@@ -911,13 +997,14 @@ def verify_draft_staged(params: llama.Params, cache: Cache,
     stage = _staging(cache, B, W)
     layers = [llama.layer_slice(params, i) for i in range(L)]
     qlayers = [qlayer_slice(qweights, i) for i in range(L)]
+    llayers = _lora_layers(cfg, lora)
     toks = []
     for s in range(W):
         stage_valid = (torch.arange(W, device=dev) <= s)[None, :]
         toks.append(sampling_mod.argmax_tokens(_staged_step(
             cfg, params, qweights, layers, qlayers, cache, table,
             window[:, s], pos0, s, stage, stage_valid, span,
-            plain_attention)))
+            plain_attention, llayers, aid)))
     toks = torch.stack(toks, dim=1)                    # [B, W]
     # Padding positions (>= n_draft) never match: a pad that equals the
     # argmax must not commit a token computed from a garbage input.

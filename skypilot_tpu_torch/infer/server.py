@@ -39,9 +39,20 @@ the prompt plus the committed token through its prefix cache. A port
 replica serves either tier, beside the reference's replicas.
 
 Typed errors carry the reference's bodies: 400 ``prompt_too_long`` and
-``kv_quota_unsatisfiable``, 409 ``handoff_ineligible``, 411
-``length_required``, 429 ``rate_limited`` and 503 ``overloaded`` (QoS
-admission, with ``Retry-After``) and 503 ``draining``. With
+``kv_quota_unsatisfiable``, 404 ``unknown_adapter``, 409
+``handoff_ineligible``, 411 ``length_required``, 429 ``rate_limited``
+and 503 ``overloaded`` (QoS admission, with ``Retry-After``), 503
+``draining`` and 503 ``adapter_load_failed``.
+
+Multi-LoRA (``--adapters '{"name": "ckpt.npz"}'``, or
+``SKYTPU_ADAPTERS``): a request names its fine-tune in the
+``x-skytpu-model`` header or, failing that, the body's ``model`` (an
+empty or whitespace name is the base model) on ``/generate``,
+``/prefill`` and ``/handoff``. An unknown name is the typed 404 before
+any stream bytes go out; a checkpoint that fails to load is the typed
+503 on a blocking request and a typed error chunk on an open stream.
+The trailer's ``model`` names the fine-tune that generated the tokens,
+and ``/metrics`` carries the ``skytpu_adapter_*`` families. With
 ``SKYTPU_QOS=1`` the handler sheds by tenant before a request reaches
 the engine (``x-skytpu-tenant``, ``x-skytpu-priority`` or the body's
 ``tenant``/``priority``; ``SKYTPU_QOS_TENANTS`` sets per-tenant rate,
@@ -66,6 +77,8 @@ recipe's command line runs as it stands.
     python -m skypilot_tpu_torch.infer.server --config llama3-8b
     python -m skypilot_tpu_torch.infer.server --config llama3-8b \
         --kv-int8 --weights-int8
+    python -m skypilot_tpu_torch.infer.server --config llama3-8b \
+        --adapters '{"ft-a": "/ckpt/ft-a.npz"}' --adapter-slots 8
     SKYTPU_QOS=1 SKYTPU_QOS_TENANTS='{"free": {"rate": 2}}' \
         python -m skypilot_tpu_torch.infer.server --config llama3-8b \
         --kv-lazy
@@ -91,6 +104,7 @@ from typing import Dict, Optional
 import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
+from skypilot_tpu_torch.infer import adapters as ad_lib
 from skypilot_tpu_torch.infer import engine as eng
 from skypilot_tpu_torch.infer import qos as qos_lib
 from skypilot_tpu_torch.infer import sampling
@@ -240,36 +254,39 @@ class ModelServer:
 
     def _add(self, tokens, max_new_tokens: int, stream: bool = False,
              tenant: str = qos_lib.DEFAULT_TENANT, priority: int = 0,
-             export_prefix: bool = False,
+             adapter: Optional[str] = None, export_prefix: bool = False,
              handoff: Optional[Dict] = None) -> _Pending:
         # Validate eagerly (oversized prompt, unsatisfiable KV quota ->
-        # clean 400) without touching the engine's mutable state from
-        # this thread.
+        # clean 400, unknown adapter -> 404) without touching the
+        # engine's mutable state from this thread.
         eng._bucket(len(tokens), self.engine.buckets)
         self.engine.check_kv_quota(tenant, len(tokens), max_new_tokens)
+        self.engine.check_adapter(adapter)
         p = _Pending()
         p.stream = stream
         p.export_prefix = export_prefix
         with self._inbox_lock:
             self._inbox.append((list(tokens), max_new_tokens, p, tenant,
-                                priority, handoff))
+                                priority, adapter, handoff))
             self._last_arrival = time.monotonic()
             INBOX_DEPTH.set(len(self._inbox))
         return p
 
     def submit(self, tokens, max_new_tokens: int,
                tenant: str = qos_lib.DEFAULT_TENANT, priority: int = 0,
-               export_prefix: bool = False,
+               adapter: Optional[str] = None, export_prefix: bool = False,
                handoff: Optional[Dict] = None) -> Dict:
-        """Blocking: the result dict once the request finishes.
-        ``tenant``/``priority``: the request's QoS identity.
+        """Blocking: the result dict once the request finishes (or
+        ``{"error": {...}, "http_status": n}`` when it failed typed).
+        ``tenant``/``priority``: the request's QoS identity. ``adapter``:
+        the fine-tune (None: the base model).
         ``export_prefix`` (``/prefill``) adds the engine's prefix export
         under ``"export"`` (None when none is resident); ``handoff``
         (``/handoff``: ``{"committed": [...], "export": {...} or None}``)
         imports the export and resumes after the committed tokens."""
         p = self._add(tokens, max_new_tokens, tenant=tenant,
-                      priority=priority, export_prefix=export_prefix,
-                      handoff=handoff)
+                      priority=priority, adapter=adapter,
+                      export_prefix=export_prefix, handoff=handoff)
         t0 = time.time()
         p.event.wait()
         out = dict(p.result or {})
@@ -278,14 +295,16 @@ class ModelServer:
 
     def submit_stream(self, tokens, max_new_tokens: int,
                       tenant: str = qos_lib.DEFAULT_TENANT,
-                      priority: int = 0, handoff: Optional[Dict] = None):
+                      priority: int = 0, adapter: Optional[str] = None,
+                      handoff: Optional[Dict] = None):
         """Iterator of chunk dicts: {"tokens": [...]} as decoded, then
         one {"done": true, "ttft_ms": ...} (or {"error": ...}).
         Validation happens before any bytes are written, so an
-        oversized prompt raises here as a clean 400. ``handoff`` as in
-        :meth:`submit`; the committed tokens stream first."""
+        oversized prompt or an unknown adapter raises here as a clean
+        400/404. ``handoff`` as in :meth:`submit`; the committed tokens
+        stream first."""
         p = self._add(tokens, max_new_tokens, stream=True, tenant=tenant,
-                      priority=priority, handoff=handoff)
+                      priority=priority, adapter=adapter, handoff=handoff)
 
         def gen():
             while True:
@@ -356,7 +375,7 @@ class ModelServer:
         with self._inbox_lock:
             new, self._inbox = self._inbox, []
             INBOX_DEPTH.set(0)
-        for tokens, max_new, p, tenant, priority, handoff in new:
+        for tokens, max_new, p, tenant, priority, adapter, handoff in new:
             committed = None
             if handoff is not None:
                 # Decode tier: install the prefill tier's blocks here
@@ -376,7 +395,7 @@ class ModelServer:
                               f"resuming cold: {e!r}", file=sys.stderr,
                               flush=True)
             rid = self.engine.add_request(tokens, max_new, tenant=tenant,
-                                          priority=priority,
+                                          priority=priority, adapter=adapter,
                                           committed=committed)
             p.req = self.engine.waiting[-1]
             # TTFT counts from when the handler enqueued the request.
@@ -472,11 +491,22 @@ class ModelServer:
             p = self._pending.pop(req.rid, None)
             if p is None:
                 continue
+            if req.error is not None:
+                # Typed per-request failure (an adapter that did not
+                # load): the body rides with the error's HTTP status,
+                # and no base-model tokens are served in its place.
+                err = dict(req.error)
+                status = err.pop("http_status", 500)
+                p.result = {"error": err, "http_status": status}
+                if p.stream:
+                    p.chunks.put({"error": err})
+                p.event.set()
+                continue
             ttft = ((req.first_token_s - req.submit_s) * 1e3
                     if req.first_token_s is not None else None)
             ttft = round(ttft, 2) if ttft is not None else None
-            # The reference trailer's keys; the features behind the
-            # zero-valued ones (recovery, adapters) are later slices.
+            # The reference trailer's keys; crash recovery (the
+            # zero-valued ``recoveries``) is a later slice.
             stats = {"cache_hit": bool(req.cached_len),
                      "cached_tokens": req.cached_len,
                      "spec_drafted": req.spec_drafted,
@@ -484,7 +514,8 @@ class ModelServer:
                      "drafter": req.spec_mode or "off",
                      "preemptions": req.preemptions, "recoveries": 0}
             p.result = {"tokens": req.tokens, "ttft_ms": ttft,
-                        "prefill_chunks": req.n_chunks, "model": None,
+                        "prefill_chunks": req.n_chunks,
+                        "model": req.adapter,
                         **stats}
             if p.export_prefix:
                 # /prefill: the stored prefix stays a ref-counted LRU
@@ -648,8 +679,9 @@ def make_handler(model: ModelServer):
                 pass
 
         def _bad_request(self, e):
-            # Client errors carry a typed body where the engine minted
-            # one (prompt too long, unsatisfiable KV quota).
+            # Client errors carry a typed body and status where the
+            # engine minted one (prompt too long, unsatisfiable KV
+            # quota, unknown adapter).
             return self._json(
                 getattr(e, "http_status", 400),
                 {"error": getattr(e, "typed_error", None) or str(e)})
@@ -693,6 +725,14 @@ def make_handler(model: ModelServer):
                 tokens = [int(t) for t in body["tokens"]]
                 max_new = int(body.get("max_new_tokens", 64))
                 stream = bool(body.get("stream", False))
+                # The fine-tune: the header first, the body's ``model``
+                # (the SDK path) as the fallback, the order the LB
+                # resolves in. Stripped, cut to 128 characters; empty
+                # or whitespace is the base model at both tiers.
+                model_name = (self.headers.get(ad_lib.MODEL_HEADER)
+                              or body.get("model"))
+                model_name = (str(model_name).strip()[:128] or None
+                              if model_name else None)
             except (ValueError, TypeError, KeyError) as e:
                 return self._json(400, {"error": f"bad request: {e}"})
             # QoS: identity from header or body, then the token-bucket
@@ -708,7 +748,8 @@ def make_handler(model: ModelServer):
                     return self._json(
                         e.http_status, {"error": e.typed_error},
                         headers={"Retry-After": e.retry_after_header()})
-            who = {"tenant": tenant, "priority": priority}
+            who = {"tenant": tenant, "priority": priority,
+                   "adapter": model_name}
             if self.path == "/prefill":
                 return self._prefill(tokens, max_new, who)
             handoff = None
@@ -731,10 +772,10 @@ def make_handler(model: ModelServer):
                     return self._stream(model.submit_stream(
                         tokens, max_new, handoff=handoff, **who))
                 out = model.submit(tokens, max_new, handoff=handoff, **who)
-            except ValueError as e:       # oversized prompt, KV quota
+            except ValueError as e:   # oversized prompt, KV quota, 404
                 return self._bad_request(e)
             if "error" in out:
-                return self._json(500, out)
+                return self._json(out.pop("http_status", 500), out)
             return self._json(200, out)
 
         def _prefill(self, tokens, max_new, who):
@@ -756,7 +797,7 @@ def make_handler(model: ModelServer):
             except ValueError as e:
                 return self._bad_request(e)
             if "error" in out:
-                return self._json(500, out)
+                return self._json(out.pop("http_status", 500), out)
             export = out.pop("export", None)
             if export is None:
                 return self._json(409, {"error": {
@@ -793,7 +834,10 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
                 kv_lazy: Optional[bool] = None,
                 qos: Optional[qos_lib.FairScheduler] = None,
                 device: DeviceLike = None,
-                seed: int = 0) -> eng.InferenceEngine:
+                seed: int = 0, adapters: Optional[str] = None,
+                adapter_slots: Optional[int] = None,
+                adapter_rank: Optional[int] = None
+                ) -> eng.InferenceEngine:
     """The serving engine ``main()`` runs: ``config``'s model with
     random weights drawn in ``cfg.dtype`` on ``device`` from ``seed``,
     paged KV (``kv_blocks`` blocks, None for one max_len row per slot),
@@ -805,9 +849,16 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
     ``kv_int8``: an int8 KV cache; ``weights_int8``: w8a8 weights,
     quantized once on ``device`` from the drawn weights, whose float
     copies are then dropped. ``kv_lazy``: lazy KV growth (None reads
-    ``SKYTPU_KV_LAZY``); ``qos``: the engine's fair scheduler."""
+    ``SKYTPU_KV_LAZY``); ``qos``: the engine's fair scheduler.
+    ``adapters`` (JSON ``{name: checkpoint}``), ``adapter_slots`` and
+    ``adapter_rank``: the multi-LoRA catalog through
+    :func:`adapters.catalog_from_env` (None each: ``SKYTPU_ADAPTERS``,
+    ``SKYTPU_ADAPTER_SLOTS``, ``SKYTPU_ADAPTER_RANK``)."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[config]
+    catalog = ad_lib.catalog_from_env(cfg, adapters_json=adapters,
+                                      slots=adapter_slots,
+                                      rank=adapter_rank, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
@@ -821,7 +872,7 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
         span_buckets=span_buckets, prefill_chunk=prefill_chunk,
         prefix_pool=prefix_pool, spec_k=spec_k, kv_int8=kv_int8,
         weights_int8=weights_int8, device=dev, seed=seed,
-        kv_lazy=kv_lazy, qos=qos)
+        kv_lazy=kv_lazy, qos=qos, adapters=catalog)
     # Under weights_int8 the engine keeps only the slim tree; this
     # reference must go too, or the float block matrices stay resident.
     del params
@@ -911,6 +962,23 @@ def main(argv=None) -> None:
     ap.add_argument("--weights-int8", action="store_true",
                     help="w8a8: int8 block matrices and head, int8 "
                          "activations per token")
+    ap.add_argument("--adapters", default=None,
+                    help="multi-LoRA adapter catalog: JSON object of "
+                         "{name: checkpoint path} (adapters.save_"
+                         "adapter .npz files). Requests pick a "
+                         "fine-tune via the body's 'model' field or "
+                         "the x-skytpu-model header; unknown names "
+                         "get a typed 404. Default env "
+                         "SKYTPU_ADAPTERS (how the serve controller "
+                         "hands a replica its catalog)")
+    ap.add_argument("--adapter-slots", type=int, default=None,
+                    help="device adapter-pool capacity (fine-tunes "
+                         "resident at once; LRU hot-load/evict past "
+                         "it; default env SKYTPU_ADAPTER_SLOTS or 8)")
+    ap.add_argument("--adapter-rank", type=int, default=None,
+                    help="adapter-pool LoRA rank (lower-rank "
+                         "checkpoints zero-pad; default env "
+                         "SKYTPU_ADAPTER_RANK or 16)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default, the card) or cpu")
     args = ap.parse_args(argv)
@@ -928,7 +996,9 @@ def main(argv=None) -> None:
                          weights_int8=args.weights_int8,
                          kv_lazy=args.kv_lazy,
                          qos=qos_lib.scheduler_from_env(),
-                         device=args.device)
+                         device=args.device, adapters=args.adapters,
+                         adapter_slots=args.adapter_slots,
+                         adapter_rank=args.adapter_rank)
     model, httpd = serve(engine, port=args.port, max_burst=args.max_burst,
                          open_burst=args.open_burst,
                          open_window_s=args.open_window,

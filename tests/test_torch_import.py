@@ -53,3 +53,14 @@ def test_chip_smoke_imports_no_jax():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     for name in _imported(tree):
         assert name.split(".")[0] not in ("jax", "skypilot_tpu"), name
+
+
+def test_the_adapter_catalog_is_covered():
+    """``infer/adapters.py`` keeps its own copies of what it needs from
+    the reference's host-only modules (the metric families, the load
+    retry; there is no chaos layer): it is among the modules imported
+    with jax absent above, and its source names none of them."""
+    assert "skypilot_tpu_torch.infer.adapters" in MODULES
+    src = (PKG / "infer" / "adapters.py").read_text()
+    for name in ("chaos", "utils.retry", "observability.tracing"):
+        assert f"import {name}" not in src and f".{name} import" not in src

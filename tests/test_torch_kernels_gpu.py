@@ -1415,3 +1415,118 @@ def test_lazy_growth_on_card(dtype, monkeypatch):
     assert any(b in sat_out and r == rep for b, r, _ in checked), checked
     if dtype == torch.float32:
         assert out[True] == out[False]
+
+
+# -- multi-LoRA adapters on the card ------------------------------------------
+
+def _held_k2(checked):
+    """An ``ops.attention.gqa_attention`` that runs K2 and holds each
+    causal call to its plain version under K2's rule (float32: 1e-4 of
+    the largest magnitude; bf16: one bf16 ulp plus 1e-3 of it)."""
+    real = tattn.gqa_attention
+
+    def held(q, k, v, causal=True, segment_ids=None):
+        out = real(q, k, v, causal, segment_ids)
+        if causal and segment_ids is None:
+            want = tfa.flash_attention_fwd_ref(q, k, v)[0]
+            if q.dtype == torch.float32:
+                _close(out, want, 1e-4)
+            else:
+                _ulp_close(out, want)
+            checked.append(tuple(q.shape))
+        return out
+
+    return held
+
+
+def _adapter_catalog(cfg, dev, n_adapters=4, register=3, rank=8):
+    from skypilot_tpu_torch.infer import adapters as tad
+    cat = tad.AdapterCatalog(cfg, n_adapters=n_adapters, rank=rank,
+                             device=dev)
+    for i in range(register):
+        r = np.random.default_rng(100 + i)
+        cat.register(f"ft-{i}", params={
+            t: {"a": r.normal(size=(cfg.n_layers,) + sa).astype(
+                np.float32) * 0.05,
+                "b": r.normal(size=(cfg.n_layers,) + sb).astype(
+                    np.float32) * 0.05}
+            for t, (sa, sb) in tad.target_shapes(cfg, rank).items()})
+    return cat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_adapter_engine_on_card(dtype, monkeypatch):
+    """A mixed-adapter batch (two fine-tunes, the base, a third on a
+    chunked 150-token prompt) on the card, head_dim 128, 2 layers,
+    rank 8, the trash block at 100.0: every K1 call (decode and the
+    chunk's multi-row body) and every K2 wave call agrees with its
+    plain version under its rule on the adapters' inputs. In float32 a
+    zero-adapter batch equals the adapterless engine's tokens, and the
+    mixed batch equals the per-request sequential runs."""
+    dev = _cuda()
+    cfg = _hd128_config(dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tl.init_params(cfg, gen, device=dev)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (12, 20, 9, 150)]
+    names = ["ft-0", "ft-1", None, "ft-2"]
+    k1, k2 = [], []
+    monkeypatch.setattr(tkv, "_paged_attn_stats",
+                        _held_k1(k1, lambda: "adapters"))
+    monkeypatch.setattr(tattn, "gqa_attention", _held_k2(k2))
+
+    def engine(cat):
+        e = te.InferenceEngine(
+            params, cfg, n_slots=4, max_len=256, prompt_buckets=(32, 256),
+            kv_block=64, prefill_chunk=64, prefix_pool=2, spec_k=2,
+            device=dev, adapters=cat)
+        _fill_trash(e)
+        return e
+
+    base = engine(None).generate(prompts, 8)
+    zero = engine(_adapter_catalog(cfg, dev)).generate(prompts, 8)
+    e = engine(_adapter_catalog(cfg, dev))
+    ids = [e.add_request(p, 8, adapter=n) for p, n in zip(prompts, names)]
+    e.run_to_completion()
+    mixed = {r.rid: r.tokens for r in e.finished}
+    assert all(r.error is None for r in e.finished)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    assert any(r > rep for _, r, _ in k1) and any(r == rep for _, r, _ in k1)
+    assert k2
+    if dtype == torch.float32:
+        assert zero == base
+        for i, (p, n) in enumerate(zip(prompts, names)):
+            solo = engine(_adapter_catalog(cfg, dev))
+            rid = solo.add_request(p, 8, adapter=n)
+            solo.run_to_completion()
+            assert solo.finished[0].tokens == mixed[ids[i]], n
+        assert mixed[ids[0]] != base[0]
+
+
+@pytest.mark.gpu
+def test_adapter_installs_keep_the_pool_addresses_on_card():
+    """Five fine-tunes hot-load through a 2-slot pool on the card: the
+    pool's tensors keep their addresses, slot 0 stays zero, and each
+    resident slot holds its adapter's alpha-scaled weights."""
+    dev = _cuda()
+    cfg = _hd128_config(torch.bfloat16)
+    cat = _adapter_catalog(cfg, dev, n_adapters=3, register=5)
+    from skypilot_tpu_torch.infer import adapters as tad
+    cat.bind_loader(tad.pool_install)
+    ptrs = [ab[k].data_ptr() for ab in cat.pool.values() for k in ab]
+    for i in range(5):
+        slot = cat.acquire(f"ft-{i}")
+        cat.release(slot)
+        ent = cat._registry[f"ft-{i}"]
+        want = cat._stack(ent.params, ent.alpha, 8)
+        torch.testing.assert_close(
+            cat.pool["wq"]["b"][:, slot].float().cpu(),
+            want["wq"]["b"].to(torch.bfloat16).float())
+    assert cat.loads == 5 and cat.evictions == 3
+    assert [ab[k].data_ptr() for ab in cat.pool.values() for k in ab] \
+        == ptrs
+    assert all(not ab[k][:, 0].any() for ab in cat.pool.values()
+               for k in ab)
