@@ -117,8 +117,9 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    after a warmup wave; every response 200 with 32 tokens, finite
    positive TTFT, p99 TTFT, tokens/s and TPOT), ``run`` (16 requests of
    96 tokens on the engine alone, 64 tokens each) and
-   ``run_prefix_share`` at its full-size defaults (a 768-token system
-   prompt, 48-token tails, chunks of 256, 12 requests: no cold hit,
+   ``run_prefix_share`` at its full-size shapes (a 768-token system
+   prompt, 48-token tails, chunks of 256) with 6 requests of 24 new
+   tokens (the reference's 12 and 48, cut for time): no cold hit,
    every warm request a hit of one suffix chunk, fewer chunks than
    cold, interference bursts run; where warm and cold tokens part,
    each divergence is held to the serve phase's 1e-2 top-2 gap rule,
@@ -135,8 +136,9 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    lazy KV growth and the operator routes at llama3-8b, launch counts
    set to 0 before each leg and read after it. (a) The port's
    ``bench_serve.run_qos`` at the reference's chip defaults (8 slots,
-   max_len 256, 64 new tokens, 24 hot requests against 2 background
-   ones; bf16, full depth): its report line; every preemption cycle
+   max_len 256, 2 background requests; bf16, full depth) but for 12 hot
+   requests and 32 new tokens (the reference's 24 and 64, cut for
+   time): its report line; every preemption cycle
    preempts and resumes warm, WFQ admits the background tenant ahead of
    the flood where FIFO strands it, and wherever its scheduling or
    preemption parity parts, the tokens part under the bf16 floor rule.
@@ -174,7 +176,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    ``/handoff`` under one fine-tune between two port replicas: the
    wire's salt is the fine-tune's content digest, D imports 512 rows
    under it and hits. (c) ``bench_serve.run_adapters`` (rank 16, 8
-   fine-tunes, 16 requests of 128 tokens, 32 new): TPOT single and
+   fine-tunes, 8 requests of 128 tokens, 32 new): TPOT single and
    mixed, ``overhead_ratio`` (recorded, not gated), hot loads and
    evictions. Where (b) or (c)'s bf16 tokens part from their reference
    (single tier; sequential runs), the serve phase's bf16 floor rule
@@ -182,7 +184,39 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    the first 8 layers: zero-adapter tokens equal the adapterless
    engine's, and a mixed batch under the base, ft-0 and ft-1 agrees with
    the sequential runs wherever the plain top-2 gap exceeds 1e-2.
-9. Train: gradient parity of the kernels against the plain versions at
+9. Draft: the draft model and the async draft/verify pipeline, launch
+   counts set to 0 before each leg and read after it, K1's split into
+   the target's and the draft's. (a) llama3-8b full width and depth,
+   bf16, 16 slots, max_len 1024, spec K 4, target and draft from
+   ``draft.self_distilled_pair(params, cfg, 16)``: 8 requests of 98-775
+   tokens (two chunked), 64 new tokens each, spec-off, then the model
+   drafter pipelined, then synchronous; per leg acceptance (> 0.8 in
+   bf16), the draft engine's counters, TPOT and the overlap/verify wall
+   ratio, and, pipelined, whether each predraft had finished on the
+   card when the host fetched it and how long that fetch waited; every
+   request on the model rung, predrafts reused and dispatched before
+   every pipelined fetch, none synchronous, both pools drained; the
+   draft's rollouts and ingest chunks on K1's decode and ``wgmma``
+   bodies; tokens that part from spec-off held to the bf16 floor rule
+   on the distilled target. (b) float32 on the first 8 layers, the
+   draft ``self_distilled_pair(..., 4)``, pipelined and synchronous on
+   float32 and on int8 pools, and a random 1-layer draft (acceptance
+   near 0, rollbacks > 0): tokens equal spec-off wherever the plain
+   top-2 gap exceeds 1e-2. (c) The HTTP server through ``make_engine``
+   with ``--draft-model llama3-400m --spec-pipeline 1`` (the 400m at
+   full width and depth with the 8B's vocabulary): 4 requests, one
+   streamed; the trailers' drafter rungs (a random draft demotes) and
+   ``skytpu_spec_draft_tokens_total{drafter="model"}`` > 0 in
+   ``/metrics``. (d) K1 against its plain version on the draft engines'
+   own inputs (their trash blocks at 100.0): the 8B draft's rollout (8
+   kv-heads, 4 rows) and ingest chunk (1024 rows), the 400m's (4
+   kv-heads, 3 rows; 768 rows), timed as in the kernel phase. (e) K1
+   decode launches on two CUDA streams at once, each equal to its plain
+   version (the ticket counters are per stream). (f)
+   ``bench_serve.run_spec`` at llama3-8b, 8 requests of 64 new tokens
+   (the reference's 256, cut for time): its report line and its
+   pipeline structure.
+10. Train: gradient parity of the kernels against the plain versions at
    llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
    ``train.run`` at llama3-1b full width and depth for 6 steps on a
    repeated batch (counts set to 0 before, read after: K2 32, K3 16 and
@@ -192,8 +226,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--phase kernels``, ``serve``,
-``handoff``, ``bench``, ``qos``, ``adapters`` or ``train`` runs one of
-phases 3-9 alone (the build always runs).
+``handoff``, ``bench``, ``qos``, ``adapters``, ``draft`` or ``train``
+runs one of phases 3-10 alone (the build always runs).
 """
 
 from __future__ import annotations
@@ -2170,7 +2204,7 @@ def _bf16_divergence(dev, config: str, chunk: int, cold: dict,
 
 
 def _bf16_hold(dev, config: str, chunk: int, cases, leg: str,
-               adapters=None) -> None:
+               adapters=None, distill=None) -> None:
     """Hold each case (what, the two paths, prompt, tokens, reference
     tokens[, adapter name]) whose tokens part to :func:`_agree`'s rule,
     with the top-2 gap taken from a plain engine on a float32 copy of
@@ -2178,7 +2212,10 @@ def _bf16_hold(dev, config: str, chunk: int, cases, leg: str,
     bf16: twice the largest difference between the bf16 and float32
     plain logits there, since each bf16 run may move that far from the
     float32 logits. ``adapters`` ({name: rank-16 tree}, alpha 32): the
-    fine-tunes the cases name, registered on both references."""
+    fine-tunes the cases name, registered on both references.
+    ``distill``: the references are the self-distilled target
+    (``draft.self_distilled_pair``): ``wo`` and ``w_down`` zeroed past
+    that many layers."""
     import torch
     from skypilot_tpu_torch.infer import adapters as ad_lib
     from skypilot_tpu_torch.infer import engine as eng
@@ -2190,6 +2227,9 @@ def _bf16_hold(dev, config: str, chunk: int, cases, leg: str,
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+    if distill:
+        for name in ("wo", "w_down"):
+            params["blocks"][name][distill:] = 0
     refs = {}
     for c, p in ((cfg, params), (dataclasses.replace(
             cfg, dtype=torch.float32), {k: ({n: w.float() for n, w in
@@ -2230,8 +2270,8 @@ def phase_bench(dev, card: str) -> dict:
     full width and depth, bf16, random weights from seed 0, through its
     own functions: ``run_http`` (8 streamed requests of mixed 512-1024
     tokens, three timed waves), ``run`` (16 requests of 96 tokens on the
-    engine alone) and ``run_prefix_share`` at its full-size defaults.
-    The launch counts are set to 0 just before each leg and read just
+    engine alone) and ``run_prefix_share`` at its full-size shapes with
+    6 requests of 24 new tokens. The launch counts are set to 0 just before each leg and read just
     after; then the kernels are held against their plain versions at
     each shape the leg gave them. Returns the launches by kernel,
     summed over the legs."""
@@ -2288,16 +2328,17 @@ def phase_bench(dev, card: str) -> dict:
                              f"expected 16 x 64")
     _positive(engine_only, ("median_ttft_ms", "out_tok_s"), "engine")
 
-    # 3. Prefix share at the reference's full-size defaults: a system
-    # prompt of 768 tokens and tails of 48, chunks of 256, 12 requests.
-    # The engine's drains, as token maps by prompt: two one-request
-    # warmups, then the cold and the warm pass.
+    # 3. Prefix share at the reference's full-size shapes (a system
+    # prompt of 768 tokens and tails of 48, chunks of 256) with 6
+    # requests of 24 new tokens (its 12 and 48, cut for time). The
+    # engine's drains, as token maps by prompt: two one-request warmups,
+    # then the cold and the warm pass.
     passes = []
     with _tap(eng.InferenceEngine, "run_to_completion", passes,
               keep=lambda done: {tuple(r.prompt): list(r.tokens)
                                  for r in done}):
         pfx = leg("prefix", lambda: bs.run_prefix_share(
-            config=config, device=dev))
+            config=config, requests=6, new_tokens=24, device=dev))
     if not (pfx["cold_hits"] == 0 and pfx["hit_rate"] == 1.0
             and pfx["warm_chunks"] == pfx["requests"] < pfx["cold_chunks"]
             and pfx["interference"]["admission_bursts"] > 0):
@@ -2749,12 +2790,19 @@ def phase_handoff(dev, card: str) -> dict:
 # above the default tenant and preempts it.
 QOS_TENANTS = {"hog": {"rate": 0.001, "burst": 2, "max_kv_blocks": 1},
                "vip": {"priority": 1}}
+# ``run_qos``'s flood and budget on the card: the reference's chip
+# defaults (24 hot requests, 64 new tokens) cut in half for the smoke's
+# time limit.
+QOS_BENCH_HOT = 12
+QOS_BENCH_NEW = 32
 
 
 def _qos_bench(dev, card: str) -> dict:
     """(a) ``bench_serve.run_qos`` at llama3-8b, the reference's chip
-    defaults (8 slots, max_len 256, 64 new tokens, a flood of 24 hot
-    requests against 2 background ones), bf16 at full depth. The
+    defaults (8 slots, max_len 256, 2 background requests) but for a
+    flood of ``QOS_BENCH_HOT`` hot requests and ``QOS_BENCH_NEW`` new
+    tokens (the reference's 24 and 64, cut for time), bf16 at full
+    depth. The
     report's structure is held (every preemption cycle preempted, WFQ
     admits the background tenant ahead of the flood where FIFO strands
     it); its two parity verdicts are held token by token: where bf16
@@ -2764,7 +2812,8 @@ def _qos_bench(dev, card: str) -> dict:
     _zero_launches()
     t0 = time.time()
     r = bench_serve.run_qos(config="llama3-8b", device=dev,
-                            tokens_out=toks)
+                            hot_requests=QOS_BENCH_HOT,
+                            new_tokens=QOS_BENCH_NEW, tokens_out=toks)
     launches = _read_launches()
     _log(f"qos[bench]: run_qos(llama3-8b) in {time.time() - t0:.1f} s: "
          f"{json.dumps(r)}; launches {launches}; {card}")
@@ -3478,9 +3527,12 @@ def _adapter_handoff_leg(params, cfg, dev, card: str, catalog: str,
 
 def _adapter_bench(dev, card: str) -> tuple:
     """``bench_serve.run_adapters`` at llama3-8b bf16, full depth: rank
-    16, 8 fine-tunes, 16 requests of 128 tokens, 32 new (the reference's
-    256 cut to hold the phase near 150 s; 64 took it to 199 s on a slow
-    host), max burst 8. Its report line
+    16, 8 fine-tunes, 8 requests of 128 tokens (one under each
+    fine-tune in the mixed batch; the reference's 16 cut to make room
+    for the draft phase: the sequential parity runs, one a request,
+    take most of the time), 32 new (the reference's 256 cut to hold the
+    phase near 150 s; 64 took it to 199 s on a slow host), max burst 8.
+    Its report line
     and launches; the TPOT keys positive, the churn loaded and evicted.
     Returns (launches, parity cases for the bf16 floor rule)."""
     from skypilot_tpu_torch.infer import bench_serve
@@ -3488,7 +3540,7 @@ def _adapter_bench(dev, card: str) -> tuple:
     _zero_launches()
     t0 = time.time()
     r = bench_serve.run_adapters(config="llama3-8b", n_adapters=8,
-                                 requests=16, prompt_len=128, new_tokens=32,
+                                 requests=8, prompt_len=128, new_tokens=32,
                                  device=dev, tokens_out=toks)
     launches = _read_launches()
     _log(f"adapters[bench]: run_adapters(llama3-8b) in "
@@ -3616,6 +3668,562 @@ def phase_adapters(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The draft model and the async draft/verify pipeline
+# ---------------------------------------------------------------------------
+
+# The engine leg's 8 prompts (two of them chunked) and budget, the depth
+# of its self-distilled draft, and the float32 leg's depth and draft.
+DRAFT_LENS = (775, 597, 491, 289, 321, 98, 126, 400)
+DRAFT_NEW = 64
+DRAFT_LAYERS = 16
+DRAFT_FP32_LAYERS = 8
+DRAFT_FP32_DRAFT = 4
+# The engine leg's least acceptance in bf16. The distilled pair read
+# 0.903 pipelined and 0.924 synchronous on an H100 (bf16 near-ties flip
+# some drafts; a request's last round drafts past its budget); a draft
+# that has nothing to do with the target reads ~0. The float32 legs
+# hold > 0.9 (they read 0.96-0.98).
+DRAFT_BF16_ACCEPT = 0.8
+# ``run_spec``'s budget on the card: the reference's 256 cut for time.
+DRAFT_BENCH_NEW = 64
+_K1_NAMES = ("paged_attention", "paged_attention_rows",
+             "paged_attention_rows_mma")
+
+
+@contextlib.contextmanager
+def _draft_launches(de, into: dict, seen: dict):
+    """For the block: K1's launches made inside the draft engine ``de``'s
+    rollouts and ingest chunks, added to ``into`` by ``KERNELS`` name,
+    and, in ``seen`` (by q shape), the inputs of every one of its layer-0
+    K1 calls: q, table and lengths cloned on the device (no host sync),
+    the span in blocks, and the draft's cache. It records only: the
+    wrappers and their launch counts are untouched."""
+    from skypilot_tpu_torch.infer import kvcache
+    real_roll, real_ingest = de._dispatch_rollout, de._ingest
+    real_k1 = kvcache._paged_attn_stats
+
+    def k1(cache, i, table, qh, lengths, span, plain=False):
+        if i == 0 and not plain:
+            M = span if span is not None else kvcache._logical_rows(
+                cache, table)
+            seen.setdefault(tuple(qh.shape), []).append(dict(
+                q=qh.clone(), table=table.clone(),
+                lengths=lengths.clone(),
+                span_blocks=-(-M // cache["k"].shape[2]), cache=cache))
+        return real_k1(cache, i, table, qh, lengths, span, plain)
+
+    def counted(fn):
+        def run(*a, **kw):
+            before = _read_launches()
+            kvcache._paged_attn_stats = k1
+            try:
+                return fn(*a, **kw)
+            finally:
+                kvcache._paged_attn_stats = real_k1
+                after = _read_launches()
+                for k in _K1_NAMES:
+                    into[k] = into.get(k, 0) + after[k] - before[k]
+        return run
+
+    de._dispatch_rollout, de._ingest = counted(real_roll), counted(
+        real_ingest)
+    try:
+        yield
+    finally:
+        del de._dispatch_rollout, de._ingest
+
+
+def _hold_draft_k1(de, seen: dict, tag: str) -> list:
+    """(d) K1 against its plain version on the draft engine's own inputs
+    (:func:`_draft_launches`), with its trash block filled with 100.0:
+    for each q shape the draft gave K1 (its rollouts' decode shape and
+    its ingest chunks' multi-row shape), the recorded call that read the
+    most rows, over the draft's pools as they stand, under the kernel
+    phase's rule and timings (:func:`_check_paged`). Returns the checked
+    cases."""
+    _fill_trash(de)
+    out = []
+    for shape, calls in sorted(seen.items()):
+        call = max(calls, key=lambda c: c["lengths"].sum().item())
+        cache = call["cache"]
+        B, G, R, hd = shape
+        body = "rollout" if R * hd <= 4096 else "ingest chunk"
+        case = dict(q=call["q"], k_pool=cache["k"], v_pool=cache["v"],
+                    k_scale=cache.get("k_scale"),
+                    v_scale=cache.get("v_scale"), table=call["table"],
+                    lengths=call["lengths"], layer=0,
+                    span_blocks=call["span_blocks"])
+        rows = int(call["lengths"].max())
+        out.append(_check_paged(
+            f"paged_attention {tag} draft {body} (B={B}, G={G}, R={R}, "
+            f"blocks of {cache['k'].shape[2]}, longest {rows} rows, "
+            f"{len(calls)} calls)", case))
+    return out
+
+
+@contextlib.contextmanager
+def _predraft_fetches(de, into: list):
+    """For the block, on the card: for each pipelined predraft the draft
+    engine ``de`` dispatched, a CUDA event recorded on the current
+    stream just before and just after its enqueue, and, at its deferred
+    fetch (``DraftEngine._apply_pending`` with the rollout outstanding),
+    whether the end event had completed (``Event.query``, no sync) and
+    the host's wall in that fetch. Appends one dict per fetched predraft
+    to ``into``; ``span_ms`` is read after the block. Records only."""
+    import torch
+    real_roll, real_apply = de.rollout, de._apply_pending
+    events = []
+
+    def roll(slots, k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sent = real_roll(slots, k)
+        end.record()
+        if sent:
+            events.append((start, end))
+        return sent
+
+    def apply():
+        if de._pending_roll is None or not events:
+            return real_apply()
+        start, end = events[-1]
+        done = end.query()
+        t0 = time.perf_counter()
+        real_apply()
+        into.append(dict(done=done, wait_ms=(time.perf_counter() - t0)
+                         * 1e3, events=(start, end)))
+
+    de.rollout, de._apply_pending = roll, apply
+    try:
+        yield
+    finally:
+        del de.rollout, de._apply_pending
+        torch.cuda.synchronize()
+        for r in into:
+            start, end = r.pop("events")
+            r["span_ms"] = start.elapsed_time(end)
+
+
+def _predraft_report(fetches: list) -> dict:
+    """Sums of :func:`_predraft_fetches`: how many fetched predrafts had
+    finished on the card before the host asked for them, the fetches'
+    host waits, and the predrafts' spans on the stream (from the
+    verify's end to the predraft's: an upper bound of its device time,
+    host-bound enqueue gaps included)."""
+    if not fetches:
+        return {"fetched": 0}
+    waits = sorted(r["wait_ms"] for r in fetches)
+    spans = sorted(r["span_ms"] for r in fetches)
+    return {"fetched": len(fetches),
+            "done_at_fetch": sum(r["done"] for r in fetches),
+            "wait_ms_median": waits[len(waits) // 2],
+            "wait_ms_max": waits[-1],
+            "span_ms_median": spans[len(spans) // 2],
+            "span_ms_max": spans[-1]}
+
+
+def _spec_counters():
+    from skypilot_tpu_torch.infer import engine as eng
+    counts, total = eng.TPOT_SECONDS.labels().hist_state()
+    return (eng.SPEC_VERIFY_WALL.labels().value,
+            eng.SPEC_OVERLAP_WALL.labels().value, sum(counts), total)
+
+
+def _draft_run(engine, prompts, new: int, tag: str, card: str,
+               seen: dict) -> tuple:
+    """One drain of ``prompts`` through ``engine``, launches counted from
+    0 and split into the target's and the draft's; prints acceptance,
+    the draft engine's counters, TPOT and the pipeline's overlap ratio.
+    Returns (tokens, launches: {"target": ..., "draft": ..., "total":
+    every serving kernel's}, report)."""
+    de = engine.draft_engine
+    draft = {k: 0 for k in _K1_NAMES}
+    fetches = []
+    timed = (de is not None and engine.spec_pipeline
+             and engine.device.type == "cuda")
+    before = _spec_counters()
+    _zero_launches()
+    t0 = time.time()
+    with (_draft_launches(de, draft, seen) if de is not None
+          else contextlib.nullcontext()), (
+            _predraft_fetches(de, fetches) if timed
+            else contextlib.nullcontext()):
+        got = engine.generate(prompts, max_new_tokens=new)
+    wall = time.time() - t0
+    total = _read_launches()
+    after = _spec_counters()
+    target = {k: total[k] - draft[k] for k in _K1_NAMES}
+    drafted = engine._spec_drafted_total
+    rate = engine._spec_accepted_total / max(drafted, 1)
+    verify_s, overlap_s = after[0] - before[0], after[1] - before[1]
+    tpot_ms = (after[3] - before[3]) / max(after[2] - before[2], 1) * 1e3
+    report = dict(wall_s=round(wall, 2), tpot_ms=round(tpot_ms, 2),
+                  accept_rate=round(rate, 4), drafted=drafted,
+                  verify_calls=engine.verify_calls,
+                  overlap_ratio=round(overlap_s / verify_s, 4)
+                  if verify_s else 0.0,
+                  drafter=de.stats() if de is not None else None,
+                  predraft=_predraft_report(fetches) if timed else None,
+                  modes=sorted({r.spec_mode or "off"
+                                for r in engine.finished}))
+    _log(f"{tag}: {len(prompts)} requests x {new} tokens in {wall:.2f} s: "
+         f"{json.dumps(report)}; K1 launches target {target}, draft "
+         f"{draft}; {card}")
+    return got, {"target": target, "draft": draft, "total": total}, report
+
+
+def _draft_engine_leg(dev, card: str) -> tuple:
+    """(a) llama3-8b at full width and depth, bf16, 16 slots, max_len
+    1024, chunks of 512, spec K 4; target and draft from
+    ``self_distilled_pair(params, cfg, 16)``. The 8 requests (``DRAFT_LENS``,
+    two chunked) run spec-off, then with the model drafter pipelined,
+    then synchronous, each from a fresh engine. Held: acceptance above
+    ``DRAFT_BF16_ACCEPT``, every request on the model rung,
+    ``reuse_hits`` > 0 and a predraft dispatched before every fetch when
+    pipelined (structure: the predraft's device overlap is what
+    :func:`_predraft_fetches` reports, not what this holds) and no
+    predraft when synchronous, the draft's
+    rollouts and ingest chunks on K1's decode and ``wgmma`` multi-row
+    bodies (never ``mma.sync``), both pools drained; then K1 on the
+    pipelined draft's own inputs (:func:`_hold_draft_k1`). Returns
+    (launches, bf16 cases for :func:`_bf16_hold`, kernel cases)."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import draft as draft_lib
+    from skypilot_tpu_torch.infer import engine as eng
+    from skypilot_tpu_torch.models import llama
+    cfg = llama.CONFIGS["llama3-8b"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+    target, dparams, dcfg = draft_lib.self_distilled_pair(params, cfg,
+                                                          DRAFT_LAYERS)
+    del params
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in DRAFT_LENS]
+
+    def engine(**kw):
+        return eng.InferenceEngine(
+            target, cfg, n_slots=16, max_len=1024,
+            prompt_buckets=(128, 512, 1024), max_wave=8, prefill_chunk=512,
+            device=dev, **kw)
+
+    want, off_n, _ = _draft_run(engine(spec_k=0), prompts, DRAFT_NEW,
+                                "draft[off]", card, {})
+    launches = dict(off_n["total"])
+    cases, kcases = [], []
+    for name, pipeline in (("pipelined", True), ("sync", False)):
+        seen = {}
+        de = draft_lib.DraftEngine(dparams, dcfg, n_slots=16,
+                                   max_len=1024, device=dev)
+        e = engine(spec_k=4, draft_engine=de, spec_pipeline=pipeline)
+        got, n, rep = _draft_run(e, prompts, DRAFT_NEW,
+                                 f"draft[{name}]", card, seen)
+        for k, v in n["total"].items():
+            launches[k] += v
+        st = de.stats()
+        model_rounds = [r for r in e.spec_rounds if r["drafter"] == "model"]
+        if not (rep["accept_rate"] > DRAFT_BF16_ACCEPT
+                and rep["modes"] == ["model"]):
+            raise AssertionError(f"draft[{name}]: acceptance "
+                                 f"{rep['accept_rate']}, rungs "
+                                 f"{rep['modes']}")
+        if pipeline and not (st["reuse_hits"] > 0
+                             and rep["overlap_ratio"] > 0 and model_rounds
+                             and all(r["pending"] for r in model_rounds)):
+            raise AssertionError(f"draft[{name}]: no pipelined reuse or "
+                                 f"overlap: {st}, {rep}")
+        if not pipeline and any(r["draft_s"] is not None
+                                for r in e.spec_rounds):
+            raise AssertionError("draft[sync]: a predraft was dispatched")
+        if not (n["draft"]["paged_attention"] > 0
+                and n["draft"]["paged_attention_rows"] > 0
+                and n["target"]["paged_attention"] > 0
+                and n["target"]["paged_attention_rows"] > 0
+                and not n["draft"]["paged_attention_rows_mma"]
+                and not n["target"]["paged_attention_rows_mma"]):
+            raise AssertionError(f"draft[{name}]: launches {n}")
+        if de.blocks_used or e.blocks_used():
+            raise AssertionError(f"draft[{name}]: pools not drained")
+        cases += [(f"request {i} ({len(p)} tokens)",
+                   f"spec-off and model-drafted ({name})", p, g, w)
+                  for i, (p, g, w) in enumerate(zip(prompts, got, want))]
+        if pipeline:
+            kcases = _hold_draft_k1(de, seen, "8b")
+        del e, de, seen
+        _free_card()
+    del target, dparams
+    _free_card()
+    return launches, cases, kcases
+
+
+def _draft_fp32_leg(dev, card: str) -> dict:
+    """(b) llama3-8b's width on its first 8 layers in float32, the draft
+    ``self_distilled_pair(..., 4)``: pipelined and synchronous on float32
+    pools and on int8 pools, and a random 1-layer draft on float32 pools
+    (acceptance near 0, rollbacks > 0); 4 requests of ``DRAFT_NEW``
+    tokens (a request's last round drafts past its budget, so a short
+    budget caps the acceptance rate below 0.9). Every run's tokens equal the
+    spec-off engine's on the same pools wherever the plain top-2 gap
+    exceeds 1e-2 (:func:`_agree`). Returns the launches."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import draft as draft_lib
+    from skypilot_tpu_torch.infer import engine as eng
+    from skypilot_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"],
+                              n_layers=DRAFT_FP32_LAYERS,
+                              dtype=torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=dev, dtype=torch.float32)
+    target, dparams, dcfg = draft_lib.self_distilled_pair(
+        params, cfg, DRAFT_FP32_DRAFT)
+    del params
+    rcfg = dataclasses.replace(cfg, n_layers=1)
+    gen.manual_seed(SEED + 7)
+    rparams = llama.init_params(rcfg, gen, device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (775, 289, 98, 400)]
+
+    def engine(kv8, **kw):
+        return eng.InferenceEngine(
+            target, cfg, n_slots=8, max_len=1024,
+            prompt_buckets=(128, 512, 1024), max_wave=8, prefill_chunk=512,
+            kv_int8=kv8, device=dev, **kw)
+
+    launches = {}
+    for kv8 in (False, True):
+        pools = "int8" if kv8 else "fp32"
+        want, n, _ = _draft_run(engine(kv8, spec_k=0), prompts, DRAFT_NEW,
+                                f"draft[fp32, {pools} pools, off]", card,
+                                {})
+        for k, v in n["total"].items():
+            launches[k] = launches.get(k, 0) + v
+        ref = engine(kv8, spec_k=0, plain_attention=True)
+        runs = [("distilled", dparams, dcfg, True),
+                ("distilled", dparams, dcfg, False)]
+        if not kv8:
+            runs.append(("random 1-layer", rparams, rcfg, True))
+        for what, dp, dc, pipeline in runs:
+            de = draft_lib.DraftEngine(dp, dc, n_slots=8, max_len=1024,
+                                       kv_int8=kv8, device=dev)
+            e = engine(kv8, spec_k=4, draft_engine=de,
+                       spec_pipeline=pipeline)
+            mode = "pipelined" if pipeline else "sync"
+            tag = f"draft[fp32, {pools} pools, {what}, {mode}]"
+            got, n, rep = _draft_run(e, prompts, DRAFT_NEW, tag, card, {})
+            for k, v in n["total"].items():
+                launches[k] += v
+            if what == "distilled" and not rep["accept_rate"] > 0.9:
+                raise AssertionError(f"{tag}: acceptance "
+                                     f"{rep['accept_rate']}")
+            if what != "distilled" and not (
+                    rep["accept_rate"] < 0.2 and de.rollbacks > 0):
+                raise AssertionError(f"{tag}: acceptance "
+                                     f"{rep['accept_rate']}, rollbacks "
+                                     f"{de.rollbacks}")
+            for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+                _agree(ref, p, g, w, f"request {i} ({len(p)} tokens)",
+                       "spec-off and model-drafted", tag)
+            if de.blocks_used or e.blocks_used():
+                raise AssertionError(f"{tag}: pools not drained")
+            del e, de
+            _free_card()
+        del ref
+        _free_card()
+    return launches
+
+
+def _draft_server_leg(dev, card: str) -> tuple:
+    """(c) The port's server through ``make_engine`` at llama3-8b (bf16,
+    the reference server's defaults) with ``--draft-model llama3-400m
+    --spec-pipeline 1``: the 400m draft at its full width and depth (12
+    layers, d_model 1536, 4 kv-heads) with the target's 128256-token
+    vocabulary. 4 concurrent ``/generate`` requests (one streamed, one
+    chunked), 32 new tokens each: every answer has its budget; on random
+    weights the draft's acceptance collapses, so trailers read
+    ``model``, ``ngram`` or ``off`` (counts printed); ``/metrics`` counts
+    ``skytpu_spec_draft_tokens_total{drafter="model"}`` > 0; the draft's
+    K1 launches are split out, and K1 is then held on its own inputs
+    (:func:`_hold_draft_k1`). Returns (launches, kernel cases)."""
+    import numpy as np
+    from skypilot_tpu_torch.infer import server as srv
+    engine = srv.make_engine("llama3-8b", device=dev, seed=SEED,
+                             draft_model="llama3-400m", spec_pipeline=True)
+    from skypilot_tpu_torch.models import llama
+    de = engine.draft_engine
+    if de.cfg != dataclasses.replace(llama.CONFIGS["llama3-400m"],
+                                     vocab_size=engine.cfg.vocab_size):
+        raise AssertionError(f"draft[server]: draft config {de.cfg}")
+    _log(f"draft[server]: draft llama3-400m, {de.cfg.n_layers} layers, "
+         f"d_model {de.cfg.d_model}, {de.cfg.n_heads}/{de.cfg.n_kv_heads} "
+         f"heads, vocab {de.cfg.vocab_size}, blocks of {de.kv_block}")
+    _fill_trash(engine)
+    _fill_trash(de)
+    port = _free_port()
+    model, httpd = srv.serve(engine, host="127.0.0.1", port=port)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{port}"
+    rng = np.random.default_rng(SEED + 13)
+    prompts = [rng.integers(1, engine.cfg.vocab_size, n).tolist()
+               for n in (600, 300, 98, 200)]
+    results = [None] * len(prompts)
+    draft, seen = {k: 0 for k in _K1_NAMES}, {}
+    try:
+        model.wait_ready(timeout=900)
+
+        def send(k):
+            body = {"tokens": prompts[k], "max_new_tokens": 32}
+            if k == 3:
+                body["stream"] = True
+                code, raw = _post_raw(f"{url}/generate",
+                                      json.dumps(body).encode())
+                lines = [json.loads(x) for x in raw.splitlines()
+                         if x.strip()]
+                results[k] = (code, dict(lines[-1], tokens=[
+                    t for c in lines for t in c.get("tokens", [])]))
+            else:
+                results[k] = _post_status(f"{url}/generate", body)[:2]
+
+        before = _scrape(url)
+        _zero_launches()
+        t0 = time.time()
+        with _draft_launches(de, draft, seen):
+            threads = [threading.Thread(target=send, args=(k,))
+                       for k in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        wall = time.time() - t0
+        total = _read_launches()
+        after = _scrape(url)
+    finally:
+        httpd.shutdown()
+        model.shutdown()
+        th.join(timeout=30)
+    for code, out in results:
+        if code != 200 or len(out.get("tokens", [])) != 32 or out.get(
+                "drafter") not in ("model", "ngram", "off"):
+            raise AssertionError(f"draft[server]: {code} {str(out)[:300]}")
+    rungs = {}
+    for _, out in results:
+        rungs[out["drafter"]] = rungs.get(out["drafter"], 0) + 1
+    model_toks = _delta(after, before, "skytpu_spec_draft_tokens_total",
+                        drafter="model")
+    target = {k: total[k] - draft[k] for k in _K1_NAMES}
+    _log(f"draft[server]: 4 requests (one streamed, one chunked) through "
+         f"--draft-model llama3-400m --spec-pipeline 1 in {wall:.2f} s; "
+         f"trailers' drafter {rungs} (demoted from model: "
+         f"{sum(v for k, v in rungs.items() if k != 'model')}); /metrics "
+         f"draft tokens model +{model_toks:g}, ngram "
+         f"+{_delta(after, before, 'skytpu_spec_draft_tokens_total', drafter='ngram'):g}; "
+         f"drafter {de.stats()}; K1 launches target {target}, draft "
+         f"{draft}; {card}")
+    if not (model_toks > 0 and draft["paged_attention"] > 0
+            and draft["paged_attention_rows"] > 0
+            and not total["paged_attention_rows_mma"]):
+        raise AssertionError(f"draft[server]: model draft tokens "
+                             f"+{model_toks}, launches {total}, draft "
+                             f"{draft}")
+    kcases = _hold_draft_k1(de, seen, "400m")
+    del engine, de, seen
+    _free_card()
+    return total, kcases
+
+
+def _draft_two_streams(dev) -> list:
+    """(e) Two K1 decode launches at a time on two CUDA streams, 8 in
+    turn on each, at the engine leg's decode shape (16 slots, 8
+    kv-heads, 4 rows each): every result equals the plain version under
+    K1's rule, as each stream counts off its own ticket counters."""
+    import torch
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+    cases = [_paged_case(False, gen, dev), _paged_case(True, gen, dev)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for i, (s, c) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(s):
+                outs[i].append(pa.paged_attention(
+                    c["q"], c["k_pool"], c["v_pool"], c["k_scale"],
+                    c["v_scale"], c["table"], c["lengths"], c["layer"],
+                    span_blocks=c["span_blocks"]))
+    torch.cuda.synchronize()
+    errs = []
+    for c, got in zip(cases, outs):
+        want = pa.paged_attention_ref(
+            c["q"], c["k_pool"], c["v_pool"], c["k_scale"], c["v_scale"],
+            c["table"], c["lengths"], c["layer"], c["span_blocks"])
+        live = c["lengths"] > 0
+        for out in got:
+            errs.append(max(_err(g[live], w[live], "two streams", 2e-3)
+                            for g, w in zip(out, want)))
+    keys = {k for k in pa._tickets if k[0] == dev}
+    if not {(dev, s.cuda_stream) for s in streams} <= keys:
+        raise AssertionError(f"two streams: ticket counters {keys}")
+    _log(f"draft[streams]: 16 K1 decode launches (bf16 and int8 pools) on "
+         f"two CUDA streams in turn, each on its own ticket counters, "
+         f"agree with the plain version (max err {max(errs):.3e})")
+    return errs
+
+
+def phase_draft(dev, card: str) -> tuple:
+    """The draft model and the async draft/verify pipeline: (a)
+    :func:`_draft_engine_leg` (every bf16 divergence under the bf16
+    floor rule, the references the distilled target), (b)
+    :func:`_draft_fp32_leg`, (c) :func:`_draft_server_leg`, (d) K1 on the
+    draft engines' own inputs, held inside (a) and (c), (e)
+    :func:`_draft_two_streams`, (f) ``bench_serve.run_spec`` at
+    llama3-8b, 8 requests of ``DRAFT_BENCH_NEW`` new tokens (the
+    reference's 256 cut for time), its report printed and its overlap
+    structure held. Returns
+    ({path: launches}, {kernel: checked cases})."""
+    from skypilot_tpu_torch.infer import bench_serve
+    t0 = time.time()
+    out = {}
+    out["draft"], cases, k8 = _draft_engine_leg(dev, card)
+    _bf16_hold(dev, "llama3-8b", 512, cases, "draft", distill=DRAFT_LAYERS)
+    _free_card()
+    out["draft[fp32]"] = _draft_fp32_leg(dev, card)
+    _free_card()
+    out["draft[server]"], k400 = _draft_server_leg(dev, card)
+    kcases = {}
+    for c in k8 + k400:
+        name = ("paged_attention" if "rollout" in c["name"]
+                else "paged_attention_rows")
+        kcases.setdefault(name, []).append(c)
+    _draft_two_streams(dev)
+    _free_card()
+    _zero_launches()
+    t1 = time.time()
+    r = bench_serve.run_spec(config="llama3-8b", requests=8,
+                             new_tokens=DRAFT_BENCH_NEW, device=dev)
+    out["draft[bench]"] = _read_launches()
+    _log(f"draft[bench]: run_spec(llama3-8b, 8 requests, "
+         f"{DRAFT_BENCH_NEW} new) in "
+         f"{time.time() - t1:.1f} s: {json.dumps(r)}; launches "
+         f"{out['draft[bench]']}; {card}")
+    if not (r["overlap_ok"] and r["draft_records"] > 0
+            and r["draft_reuse_hits"] > 0):
+        raise AssertionError(f"draft[bench]: pipeline structure {r}")
+    _positive(r, ("model_tpot_off_ms", "tpot_model_ms",
+                  "tpot_model_sync_ms", "tpot_off_ms", "tpot_spec_ms",
+                  "tpot_oracle_ms"), "draft")
+    _free_card()
+    _log(f"draft: phase in {time.time() - t0:.1f} s; {card}")
+    return out, kcases
+
+
 def phase_train(dev, card: str):
     """Returns {kernel: launches} over the llama3-1b run."""
     import os
@@ -3712,7 +4320,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "serve", "handoff", "bench",
-                             "qos", "adapters", "train"),
+                             "qos", "adapters", "draft", "train"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -3775,6 +4383,14 @@ def main() -> int:
         free()
     if args.phase in ("all", "adapters"):
         by_path.update(phase_adapters(dev, smi))
+        free()
+    if args.phase in ("all", "draft"):
+        paths, draft_cases = phase_draft(dev, smi)
+        by_path.update(paths)
+        # K1 held on the draft engines' own inputs: after the kernel
+        # phase's cases, whose first case heads each entry.
+        for name, runs in draft_cases.items():
+            cases.setdefault(name, []).extend(runs)
         free()
     if args.phase in ("all", "train"):
         by_path["train"] = phase_train(dev, smi)

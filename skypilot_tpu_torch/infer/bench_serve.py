@@ -2,8 +2,10 @@
 
 Counterpart of ``skypilot_tpu/infer/bench_serve.py`` for its engine,
 HTTP, prefix-share, QoS (``run_qos``: WFQ fairness against FIFO,
-preemption parity) and adapter (``run_adapters``: mixed-adapter decode
-TPOT against one adapter, greedy parity, hot-load churn) sections, with
+preemption parity), adapter (``run_adapters``: mixed-adapter decode
+TPOT against one adapter, greedy parity, hot-load churn) and
+speculative-decoding (``run_spec``: the model drafter pipelined and
+synchronous, n-gram and oracle columns) sections, with
 the reference's function names, defaults and report keys. Prints ONE JSON line on stdout (chatter on
 stderr):
 
@@ -13,7 +15,8 @@ stderr):
 Usage: python -m skypilot_tpu_torch.infer.bench_serve
        [--config llama3-8b] [--requests 16] [--slots 16]
        [--new-tokens 64] [--repeats 3] [--kv-int8] [--weights-int8]
-       [--engine-only | --prefix-share | --qos | --adapters | --smoke]
+       [--engine-only | --prefix-share | --qos | --adapters | --spec
+        | --smoke]
        [--device cpu]
 
 Everything runs on the CUDA card. Without one it raises, unless
@@ -50,6 +53,10 @@ Deliberate differences from the reference:
   key is ``null``. Its churn phase asserts instead that the adapter
   pool's tensors keep their addresses (``data_ptr()``) across every hot
   load and eviction: installs write in place.
+- No flight recorder. The reference's ``run_spec`` proves the pipeline's
+  overlap from its flight records (a ``draft`` record inside a
+  ``verify`` record's window); the port's reads the rounds the engine
+  notes itself (``InferenceEngine.spec_rounds``), with the same keys.
 - Other KV blocks. The bench keeps the reference's ``max_len``
   (prompt + new tokens + 8), but on the card the engine picks the
   largest block that tiles it AND that K1's multi-row body reads
@@ -60,6 +67,7 @@ Deliberate differences from the reference:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -71,6 +79,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
+from skypilot_tpu_torch.infer import draft as draft_lib
 from skypilot_tpu_torch.infer import engine as eng
 from skypilot_tpu_torch.infer import kvcache
 from skypilot_tpu_torch.infer import server as srv
@@ -1134,6 +1143,309 @@ def run_smoke(device: DeviceLike = None) -> dict:
     return run_prefix_share(smoke=True, device=device)
 
 
+class _OracleDrafter:
+    """Replays a known-correct continuation as the draft: the acceptance
+    ceiling of the verify path, where every round accepts the full
+    draft, whatever the random-weight model's output looks like."""
+
+    def __init__(self, out):
+        self.out = list(out)
+        self._gen = 0
+
+    def catch_up(self, prompt, generated):
+        self._gen = len(generated)
+
+    def draft(self, k):
+        return self.out[self._gen:self._gen + k]
+
+
+def run_spec(config=None, spec_k=4, requests=None, prompt_len=16,
+             new_tokens=None, max_burst=8, kv_int8=False,
+             weights_int8=False, smoke=False, draft_layers=None,
+             device: DeviceLike = None, tokens_out=None) -> dict:
+    """Speculative-decoding bench, two workloads on two engines.
+
+    **Phase A, non-repetitive (the headline).** Random prompts at the
+    config's full vocabulary: the random-weight target's greedy output
+    does not cycle, so prompt lookup has nothing to find and any gain
+    must come from the model drafter. The draft model is the
+    truncated-layer draft of a self-distilled target
+    (``draft.self_distilled_pair``: the target's blocks past
+    ``draft_layers``, half its depth by default, carry zeroed output
+    projections), so acceptance is near 1.0 without a training run and
+    the zeroed layers still pay their matmuls. Passes on one engine
+    (only the routing flips): spec-off, model draft pipelined, model
+    draft synchronous (the pipeline's share), n-gram, and the pipeline's
+    structure: each pipelined round's predraft dispatched inside its
+    verify's dispatch-to-fetch window (``overlap_ok``).
+
+    **Phase B, repetition-heavy.** The reference's earlier workload:
+    vocabulary 16, so the random model's output cycles and prompt lookup
+    pays; n-gram and oracle-draft passes.
+
+    TTFT is out of scope: speculation replaces only decode bursts.
+    ``smoke=True`` (or the CPU) runs the reference's CI sizes; wall-clock
+    is reported, never gated. The reference's names, defaults and report
+    keys, but for two deliberate differences: the port has no flight
+    recorder, so ``overlap_ok`` and ``draft_records`` read the rounds the
+    engine notes itself (``InferenceEngine.spec_rounds``: its verify
+    calls' enqueue time, the predraft's dispatch time, the fetch time);
+    and ``backend`` is the torch device type. ``tokens_out``, a dict,
+    receives the token lists behind the parity verdicts: ``"a"``
+    (prompts; spec-off, model pipelined, model synchronous and n-gram
+    outputs) and ``"b"`` (prompts; spec-off, n-gram and oracle outputs),
+    so that a caller can hold a divergence to its own rule: the port's
+    kernel path computes a round's staged columns as bf16 products and
+    its cached ones in float32, as the reference's kernel path does, so
+    a verify round may flip a greedy token at a near-tie."""
+    dev = resolve_device(device)
+    on_cpu = dev.type == "cpu"
+    if config is None:
+        config = "llama3-tiny" if on_cpu else "llama3-400m"
+    small = smoke or on_cpu
+    if requests is None:
+        requests = 4 if small else 8
+    if new_tokens is None:
+        new_tokens = 96 if small else 256
+    spec_k = max(int(spec_k), 1)
+    slots = requests
+    max_len = 128 if small else 512
+    assert prompt_len + new_tokens + spec_k + 1 <= max_len
+    # Separate streams: phase B keeps the reference's earlier prompts.
+    rng_a = np.random.default_rng(1)
+    rng_b = np.random.default_rng(0)
+
+    def decode_pass(e, prompts, spec_on, factory=None,
+                    ngram_factory=None, draft_engine=None,
+                    pipeline=False):
+        """One admit-then-decode pass; TPOT over the decode loop only.
+        Returns (outputs, tpot_s, drafted, accepted, bursts)."""
+        e.spec_k = spec_k if spec_on else 0
+        e._spec_drafter_factory = factory or ngram_factory
+        e.draft_engine = draft_engine
+        e.spec_pipeline = bool(pipeline) and draft_engine is not None
+        d0, a0 = e._spec_drafted_total, e._spec_accepted_total
+        ids = [e.add_request(p, max_new_tokens=new_tokens)
+               for p in prompts]
+        e.admit()
+        _sync(dev)
+        t0 = time.time()
+        bursts = 0
+        while e.slot_req:
+            e.decode_burst(max_burst)
+            bursts += 1
+        _sync(dev)
+        wall = time.time() - t0
+        by_rid = {r.rid: list(r.tokens) for r in e.finished}
+        outs = [by_rid[i] for i in ids]
+        e.finished.clear()
+        dtoks = sum(len(o) for o in outs) - len(outs)
+        return (outs, wall / max(dtoks, 1),
+                e._spec_drafted_total - d0,
+                e._spec_accepted_total - a0, bursts)
+
+    def params_for(cfg):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+
+    # -- Phase A: non-repetitive workload, model drafter ------------------
+    cfg_a = llama.CONFIGS[config]
+    if draft_layers is None:
+        draft_layers = max(cfg_a.n_layers // 2, 1)
+    params_a = params_for(cfg_a)
+    target, dparams, dcfg = draft_lib.self_distilled_pair(
+        params_a, cfg_a, draft_layers)
+    del params_a
+    qw_t = qw_d = None
+    if weights_int8:
+        # The draft's int8 tree is the layer slice of the target's: the
+        # zeroed upper blocks quantize to exact zeros, so the agreement
+        # survives quantization.
+        qw_t = {"blocks": kvcache.quantize_block_weights(target),
+                "head": kvcache.quantize_head(target, cfg_a)}
+        qw_d = {"blocks": {
+                    name: {k: v[:draft_layers]
+                           for k, v in qw_t["blocks"][name].items()}
+                    for name in qw_t["blocks"]},
+                "head": qw_t["head"]}
+        dparams = kvcache.slim_params(dparams)
+        target = kvcache.slim_params(target)
+    log(f"spec bench A: {config} (vocab {cfg_a.vocab_size}, "
+        f"non-repetitive) K={spec_k} draft={draft_layers}/"
+        f"{cfg_a.n_layers} layers requests={requests} "
+        f"new_tokens={new_tokens} w8a8={bool(weights_int8)} on "
+        f"{_device_kind(dev)}")
+    e_a = eng.InferenceEngine(
+        target, cfg_a, n_slots=slots, max_len=max_len,
+        prompt_buckets=(prompt_len,), kv_int8=kv_int8, qweights=qw_t,
+        prefill_chunk=0, prefix_pool=0, max_wave=slots, spec_k=spec_k,
+        device=dev)
+    ngram_factory_a = e_a._spec_drafter_factory
+    de = draft_lib.DraftEngine(dparams, dcfg, n_slots=slots,
+                               max_len=max_len, kv_int8=kv_int8,
+                               qweights=qw_d, device=dev)
+    prompts_a = [rng_a.integers(1, cfg_a.vocab_size,
+                                prompt_len).tolist()
+                 for _ in range(requests)]
+
+    def pass_a(spec_on, draft_engine=None, pipeline=False):
+        return decode_pass(e_a, prompts_a, spec_on,
+                           ngram_factory=ngram_factory_a,
+                           draft_engine=draft_engine, pipeline=pipeline)
+
+    # Warmups, as the reference's: the off pass, the pipelined and the
+    # synchronous model passes (allocator and kernel warmup here).
+    pass_a(False)
+    pass_a(True, draft_engine=de, pipeline=True)
+    de.reset()
+    pass_a(True, draft_engine=de, pipeline=False)
+    de.reset()
+
+    out_off_a, tpot_off_a, _, _, bursts_off_a = pass_a(False)
+    e_a.spec_rounds.clear()
+    out_m, tpot_m, dr_m, ac_m, bursts_m = pass_a(
+        True, draft_engine=de, pipeline=True)
+    rounds = list(e_a.spec_rounds)
+    reuse_hits, rollouts = de.reuse_hits, de.rollouts
+    de.reset()
+    out_ms, tpot_ms, dr_ms, ac_ms, bursts_ms = pass_a(
+        True, draft_engine=de, pipeline=False)
+    de.reset()
+    out_ng, tpot_ng, dr_ng, ac_ng, bursts_ng = pass_a(True)
+
+    # Structural overlap evidence: each predraft dispatched inside its
+    # verify's dispatch-to-fetch window, timing-free.
+    draft_recs = [r for r in rounds if r["draft_s"] is not None]
+    overlapped = sum(1 for r in draft_recs
+                     if r["begin_s"] <= r["draft_s"] <= r["fetch_s"]
+                     and r["pending"])
+    overlap_ok = bool(draft_recs) and overlapped == len(draft_recs)
+
+    model_parity = out_m == out_off_a
+    sync_parity = out_ms == out_off_a
+    ngram_parity = out_ng == out_off_a
+    rate_m = ac_m / max(dr_m, 1)
+    rate_ng = ac_ng / max(dr_ng, 1)
+    log(f"spec A: off {tpot_off_a * 1e3:.2f}ms/tok "
+        f"model(pipe) {tpot_m * 1e3:.2f}ms (accept {rate_m:.2f}, "
+        f"{overlapped}/{len(draft_recs)} draft dispatches "
+        f"overlapped, {reuse_hits} rounds predraft-served) "
+        f"model(sync) {tpot_ms * 1e3:.2f}ms "
+        f"ngram {tpot_ng * 1e3:.2f}ms (accept {rate_ng:.2f}) "
+        f"parity={model_parity}/{sync_parity}/{ngram_parity}")
+    if tokens_out is not None:
+        tokens_out["a"] = (prompts_a, out_off_a, out_m, out_ms, out_ng)
+    del e_a, de, target, dparams, qw_t, qw_d
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- Phase B: repetition-heavy workload, n-gram + oracle --------------
+    # Vocabulary 16: the random model's greedy decode cycles quickly;
+    # the block weights, the decode cost, keep the config's size.
+    cfg_b = dataclasses.replace(llama.CONFIGS[config], vocab_size=16)
+    log(f"spec bench B: {config} (vocab 16, repetition-heavy) "
+        f"K={spec_k}")
+    kw = dict(n_slots=slots, max_len=max_len,
+              prompt_buckets=(prompt_len,), kv_int8=kv_int8,
+              prefill_chunk=0, prefix_pool=0, max_wave=slots,
+              spec_k=spec_k, device=dev)
+    if weights_int8:
+        params_b, qw = kvcache.random_quantized_params(cfg_b, device=dev)
+        e_b = eng.InferenceEngine(params_b, cfg_b, qweights=qw, **kw)
+    else:
+        e_b = eng.InferenceEngine(params_for(cfg_b), cfg_b, **kw)
+    ngram_factory_b = e_b._spec_drafter_factory
+    prompts_b = [rng_b.integers(1, cfg_b.vocab_size,
+                                prompt_len).tolist()
+                 for _ in range(requests)]
+
+    def pass_b(spec_on, factory=None):
+        return decode_pass(e_b, prompts_b, spec_on, factory=factory,
+                           ngram_factory=ngram_factory_b)
+
+    pass_b(False)
+    pass_b(True)
+
+    out_off, tpot_off, _, _, bursts_off = pass_b(False)
+    out_on, tpot_on, drafted, accepted, bursts_on = pass_b(True)
+    oracle = {tuple(p): o for p, o in zip(prompts_b, out_off)}
+    out_or, tpot_or, dr_or, ac_or, bursts_or = pass_b(
+        True,
+        factory=lambda req: _OracleDrafter(oracle[tuple(req.prompt)]))
+
+    if tokens_out is not None:
+        tokens_out["b"] = (prompts_b, out_off, out_on, out_or)
+    parity_ok = out_on == out_off
+    oracle_parity_ok = out_or == out_off
+    rate = accepted / max(drafted, 1)
+    oracle_rate = ac_or / max(dr_or, 1)
+    dtoks = sum(len(o) for o in out_off) - len(out_off)
+    log(f"spec B: off {tpot_off * 1e3:.2f}ms/tok ({bursts_off} bursts) "
+        f"ngram {tpot_on * 1e3:.2f}ms ({bursts_on} bursts, "
+        f"accept {rate:.2f}) oracle {tpot_or * 1e3:.2f}ms "
+        f"({bursts_or} bursts, accept {oracle_rate:.2f}) "
+        f"parity={parity_ok}/{oracle_parity_ok}")
+    return {
+        # -- Phase A (non-repetitive, model drafter): the headline.
+        "backend": dev.type,
+        "model_tpot_off_ms": round(tpot_off_a * 1e3, 3),
+        "tpot_model_ms": round(tpot_m * 1e3, 3),
+        "tpot_model_sync_ms": round(tpot_ms * 1e3, 3),
+        "tpot_ngram_nonrep_ms": round(tpot_ng * 1e3, 3),
+        "model_speedup": round(tpot_off_a / max(tpot_m, 1e-9), 3),
+        "model_sync_speedup": round(tpot_off_a / max(tpot_ms, 1e-9),
+                                    3),
+        "pipeline_ratio": round(tpot_ms / max(tpot_m, 1e-9), 3),
+        "ngram_nonrep_speedup": round(tpot_off_a / max(tpot_ng, 1e-9),
+                                      3),
+        "model_accept_rate": round(rate_m, 3),
+        "model_sync_accept_rate": round(ac_ms / max(dr_ms, 1), 3),
+        "ngram_nonrep_accept_rate": round(rate_ng, 3),
+        "model_parity_ok": bool(model_parity),
+        "model_sync_parity_ok": bool(sync_parity),
+        "ngram_nonrep_parity_ok": bool(ngram_parity),
+        "overlap_ok": bool(overlap_ok),
+        "draft_records": len(draft_recs),
+        "draft_reuse_hits": int(reuse_hits),
+        "draft_rollouts": int(rollouts),
+        "draft_layers": int(draft_layers),
+        "bursts_model": int(bursts_m),
+        "bursts_model_sync": int(bursts_ms),
+        # -- Phase B (repetition-heavy, n-gram + oracle).
+        "tpot_off_ms": round(tpot_off * 1e3, 3),
+        "tpot_spec_ms": round(tpot_on * 1e3, 3),
+        "tpot_oracle_ms": round(tpot_or * 1e3, 3),
+        "speedup": round(tpot_off / max(tpot_on, 1e-9), 3),
+        "oracle_speedup": round(tpot_off / max(tpot_or, 1e-9), 3),
+        "accept_rate": round(rate, 3),
+        "oracle_accept_rate": round(oracle_rate, 3),
+        "drafted": int(drafted),
+        "accepted": int(accepted),
+        "parity_ok": bool(parity_ok),
+        "oracle_parity_ok": bool(oracle_parity_ok),
+        "bursts_off": int(bursts_off),
+        "bursts_spec": int(bursts_on),
+        "bursts_oracle": int(bursts_or),
+        "decode_tokens": int(dtoks),
+        "spec_k": spec_k,
+        "requests": requests,
+        "new_tokens": new_tokens,
+        "config": config,
+        "kv_int8": kv_int8,
+        "weights_int8": weights_int8,
+    }
+
+
+def run_spec_smoke(device: DeviceLike = None) -> dict:
+    """CI-sized spec pass: parity on every column, oracle acceptance
+    1.0, the model drafter's acceptance and the pipeline's structure are
+    asserted by tests/test_torch_bench_serve.py; wall-clock is
+    reported, never gated."""
+    return run_spec(smoke=True, device=device)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default=None,
@@ -1186,10 +1498,21 @@ def main(argv=None) -> None:
                     help="fine-tunes in the mixed workload for "
                          "--adapters (pool sized to hold them; the "
                          "churn phase registers 2x as many)")
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative-decoding bench: the NON-"
+                         "repetitive workload with the model-backed "
+                         "drafter (pipelined + sync + the honest "
+                         "n-gram wash column) as the headline, plus "
+                         "the repetition-heavy secondary n-gram "
+                         "column and the oracle-draft ceiling; greedy "
+                         "parity asserted everywhere (combine with "
+                         "--smoke for the CI-sized pass)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft length K for --spec")
     ap.add_argument("--smoke", action="store_true",
-                    help="CI-sized pass of --qos, --adapters or of the "
-                         "prefix-share workload (regression guard for "
-                         "the chunk scheduler)")
+                    help="CI-sized pass of --spec, --qos, --adapters or "
+                         "of the prefix-share workload (regression "
+                         "guard for the chunk scheduler)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default, the card) or cpu")
     args = ap.parse_args(argv)
@@ -1207,6 +1530,28 @@ def main(argv=None) -> None:
                 "tpot_single_ms", "tpot_mixed_ms", "parity_ok",
                 "hot_loads", "evictions", "unexpected_compiles",
                 "n_adapters", "rank", "backend", "config")},
+            "device": device,
+        }))
+        return
+    if args.spec:
+        r = run_spec(config=args.config, spec_k=args.spec_k,
+                     kv_int8=args.kv_int8,
+                     weights_int8=args.weights_int8, smoke=args.smoke,
+                     device=args.device)
+        print(json.dumps({
+            "metric": "serve_spec_model_speedup",
+            "value": r["model_speedup"],
+            "unit": "x_decode_tok_s_vs_spec_off",
+            **{k: r[k] for k in (
+                "model_tpot_off_ms", "tpot_model_ms",
+                "tpot_model_sync_ms", "pipeline_ratio",
+                "model_accept_rate", "model_parity_ok",
+                "overlap_ok", "draft_reuse_hits", "draft_layers",
+                "ngram_nonrep_speedup", "ngram_nonrep_accept_rate",
+                "tpot_off_ms", "tpot_spec_ms", "tpot_oracle_ms",
+                "speedup", "oracle_speedup", "accept_rate",
+                "oracle_accept_rate", "parity_ok",
+                "oracle_parity_ok", "spec_k", "config", "backend")},
             "device": device,
         }))
         return

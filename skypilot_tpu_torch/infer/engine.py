@@ -75,8 +75,18 @@ weights are never served under a fine-tune's name. A request whose
 adapter cannot load because every pool slot is pinned steps aside
 while the traffic behind it admits.
 
-Left for later slices of the port: the draft model, the flight
-recorder, tracing and crash recovery. The JAX engine padded
+A draft model (``draft_engine``, an :class:`infer.draft.DraftEngine`)
+puts a ``model`` rung above the n-gram drafter: its requests draft in
+one batched staged burst of the small model per verify round, on the
+draft engine's own paged pool, and with ``spec_pipeline`` (env
+``SKYTPU_SPEC_PIPELINE``, on by default) the next round's draft burst is
+enqueued behind the verify calls, before their tokens are fetched. A
+request whose acceptance collapses demotes ``model`` -> ``ngram`` ->
+``off``. The draft model drafts from the base weights: a fine-tune
+shapes only the target's verify.
+
+Left for later slices of the port: the flight recorder, tracing and
+crash recovery. The JAX engine padded
 admission waves to fixed row counts to avoid recompiles; PyTorch runs
 eagerly, so the port dispatches each wave at its own size and keeps no
 spare slot for padding rows.
@@ -190,6 +200,23 @@ SPEC_ACCEPT_RATE = metrics.gauge(
     "skytpu_spec_acceptance_rate",
     "Speculative-decode lifetime acceptance rate "
     "(accepted / drafted; 0 until the first draft)")
+SPEC_DRAFT_TOKENS = metrics.counter(
+    "skytpu_spec_draft_tokens_total",
+    "Speculative-decode draft tokens proposed, by drafter kind: "
+    "'model' = the draft-model engine (infer/draft.py), 'ngram' = "
+    "the host prompt-lookup drafter (also the demotion fallback) — "
+    "the fallback ladder model -> ngram -> off is observable per "
+    "window", labelnames=("drafter",))
+SPEC_VERIFY_WALL = metrics.counter(
+    "skytpu_spec_verify_wall_seconds_total",
+    "Host wall seconds spent per verify round, dispatch to fetch — "
+    "the window the async draft pipeline overlaps draft work into")
+SPEC_OVERLAP_WALL = metrics.counter(
+    "skytpu_spec_overlap_wall_seconds_total",
+    "Host wall seconds spent dispatching the NEXT round's draft "
+    "rollout while the current verify was in flight (the pipelined "
+    "predraft); overlap ratio = this over "
+    "skytpu_spec_verify_wall_seconds_total")
 DECODE_ATTN_ROWS = metrics.histogram(
     "skytpu_decode_attn_rows",
     "Span bucket (logical KV rows gathered per slot) actually "
@@ -236,7 +263,8 @@ class Request:
     resumed_len: int = 0
     # Speculative decoding: lifetime drafted/accepted tokens (the
     # response trailer) and the drafter state. ``spec_mode`` is the
-    # drafter rung ("ngram", then "off" once acceptance collapses);
+    # drafter rung ("model" with a draft engine, else "ngram"; each
+    # acceptance collapse demotes one rung, down to "off");
     # ``spec_mode_drafted``/``_accepted`` count since the last demotion.
     spec_drafted: int = 0
     spec_accepted: int = 0
@@ -377,6 +405,30 @@ def kv_block_len(max_len: int, kv_block: int, on_card: bool) -> int:
                    if max_len % d == 0 and pa.tma_block_len(d)), None)
         b = k1 or b
     return b
+
+
+def paged_block_len(max_len: int, kv_block: int, device: torch.device,
+                    kv_int8: bool) -> int:
+    """The block length of a paged pool on ``device``
+    (:func:`kv_block_len`). An int8 pool on the card whose block K1's
+    multi-row body cannot read raises ``ValueError`` here, when the
+    engine is built, not at its first chunk."""
+    on_card = device.type == "cuda"
+    b = kv_block_len(max_len, kv_block, on_card)
+    if kv_int8 and on_card and not pa.tma_block_len(b):
+        raise ValueError(
+            f"an int8 KV cache on the card needs a max_len that is a "
+            f"multiple of 8 (got {max_len}): K1 reads int8 pools in "
+            f"chunks only in blocks of 8, 16, 32 or a multiple of 64")
+    return b
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device tensor without a blocking copy."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def _span_ladder(buckets, max_len: int) -> Tuple[int, ...]:
@@ -608,7 +660,12 @@ class InferenceEngine:
     clamped to [0, 16] and forced to 0 under temperature sampling (0
     disables). ``spec_drafter``: request -> drafter factory (the
     :class:`NGramDrafter` protocol, ``catch_up``/``draft``); None is
-    the n-gram drafter over the prompt.
+    the n-gram drafter over the prompt. ``draft_engine``: a
+    :class:`infer.draft.DraftEngine` on the same device with
+    ``n_slots`` slots (None: no model rung); ``spec_pipeline``: enqueue
+    the next round's draft burst while the verify is in flight (None
+    reads ``SKYTPU_SPEC_PIPELINE``, default on; off without a draft
+    engine).
 
     ``qos``: a :class:`qos.FairScheduler` (None: FIFO admission, no
     preemption, no KV quota). ``kv_lazy``: lazy KV growth (None reads
@@ -627,6 +684,8 @@ class InferenceEngine:
                  prefill_chunk: Optional[int] = 512,
                  prefix_pool: int = 0, spec_k: int = 0,
                  spec_drafter: Optional[Callable] = None,
+                 draft_engine: Optional[Any] = None,
+                 spec_pipeline: Optional[bool] = None,
                  kv_int8: bool = False, weights_int8: bool = False,
                  qweights: Optional[kvcache.QWeights] = None,
                  device: DeviceLike = None,
@@ -692,12 +751,33 @@ class InferenceEngine:
         if sampling_params.temperature > 0.0:
             spec_k = 0
         self.spec_k = spec_k
+        # The per-request drafter factory (the n-gram rung, and the
+        # demotion target below the model rung).
         self._spec_drafter_factory = (
             spec_drafter if spec_drafter is not None
             else (lambda req: NGramDrafter(req.prompt)))
+        # The model rung: K tokens per slot per round from the draft
+        # model's staged burst, its paged KV advanced and rolled back in
+        # lockstep with the verifier's commits.
+        self.draft_engine = draft_engine
+        # The async draft/verify pipeline: the next round's draft burst
+        # is enqueued behind the verify calls, and its tokens are
+        # checked against what the verify committed at the next round.
+        if spec_pipeline is None:
+            spec_pipeline = (
+                os.environ.get("SKYTPU_SPEC_PIPELINE", "1") != "0")
+        self.spec_pipeline = bool(spec_pipeline) and draft_engine is not None
+        # What the engine notes of each verify round (newest last,
+        # bounded): when it began, when its verify calls were all
+        # enqueued, when the predraft was dispatched (None: none was),
+        # when the tokens were fetched, whether a predraft was pending
+        # then, and the drafter kind. The port has no flight recorder;
+        # the bench's overlap check reads these.
+        self.spec_rounds: Deque[Dict[str, Any]] = collections.deque(
+            maxlen=1024)
         # Acceptance-collapse ladder: a request that has drafted at
         # least spec_min_drafted tokens below spec_min_rate acceptance
-        # stops drafting.
+        # in its current rung demotes one rung.
         self.spec_min_drafted = 16
         self.spec_min_rate = 0.2
         # Counters the JAX engine keeps as metrics: copy-on-write block
@@ -713,13 +793,7 @@ class InferenceEngine:
         if kv_block <= 0:
             raise ValueError("the port serves the paged KV layout only: "
                              "kv_block must be > 0")
-        b = kv_block_len(max_len, kv_block, self.device.type == "cuda")
-        if kv_int8 and self.device.type == "cuda" and not (
-                pa.tma_block_len(b)):
-            raise ValueError(
-                f"an int8 KV cache on the card needs a max_len that is a "
-                f"multiple of 8 (got {max_len}): K1 reads int8 pools in "
-                f"chunks only in blocks of 8, 16, 32 or a multiple of 64")
+        b = paged_block_len(max_len, kv_block, self.device, kv_int8)
         self.kv_block = b
         nb = max_len // b
         self.n_kv_blocks = (kv_blocks if kv_blocks and kv_blocks > 0
@@ -743,6 +817,13 @@ class InferenceEngine:
         self.cache = kvcache.init_paged_cache(
             cfg, n_slots, self.n_kv_blocks, self.kv_block, self.device,
             kv_int8=kv_int8)
+        if draft_engine is not None and (
+                draft_engine.n_slots != n_slots
+                or draft_engine.cache["k"].device != self.cache["k"].device):
+            raise ValueError(
+                f"draft engine of {draft_engine.n_slots} slots on "
+                f"{draft_engine.device} for an engine of {n_slots} slots "
+                f"on {self.device}: slot s of the drafter mirrors slot s")
         # Lazy per-burst block growth: admission reserves the context
         # plus one burst of headroom instead of the full token budget;
         # the rest allocates at burst dispatch (_ensure_headroom).
@@ -806,18 +887,11 @@ class InferenceEngine:
             PREFIX_HIT_RATIO.set(self.prefix_hits / seen)
         KV_BLOCKS_USED.set(self.allocator.used)
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor without a blocking copy."""
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def table_device(self) -> torch.Tensor:
         """The block table as a device tensor, re-uploaded only after a
         claim or retirement changed it."""
         if self._table_dirty or self._table_dev is None:
-            self._table_dev = self._upload(self.block_table.copy())
+            self._table_dev = upload(self.block_table.copy(), self.device)
             self._table_dirty = False
         return self._table_dev
 
@@ -833,7 +907,7 @@ class InferenceEngine:
         if self.adapters is None:
             return None
         if self._aid_dirty or self._aid_dev is None:
-            self._aid_dev = self._upload(self.adapter_ids.copy())
+            self._aid_dev = upload(self.adapter_ids.copy(), self.device)
             self._aid_dirty = False
         return self._aid_dev
 
@@ -1236,6 +1310,9 @@ class InferenceEngine:
         self.free_slots.append(slot)
         self._free_slot_blocks(slot)
         self._set_slot_adapter(slot, 0)
+        if self.draft_engine is not None:
+            # The resume's draft slot re-ingests its context.
+            self.draft_engine.release(slot)
         # The resume re-acquires its adapter at the next claim.
         self._release_adapter(req)
         req.slot = None
@@ -1378,15 +1455,15 @@ class InferenceEngine:
             ctx = self._ctx(req)
             tokens_b[i, :len(ctx)] = ctx
             true_lens[i] = len(ctx)
-        tokens = self._upload(tokens_b)
-        lens = self._upload(true_lens)
+        tokens = upload(tokens_b, self.device)
+        lens = upload(true_lens, self.device)
         wave_lora = {}
         if self.adapters is not None:
             # Each wave row gathers its own fine-tune: mixed-adapter
             # admission is one call.
             aid_w = np.array([r.adapter_slot for r in wave], np.int64)
             wave_lora = {"lora": self.adapters.pool,
-                         "aid": self._upload(aid_w)}
+                         "aid": upload(aid_w, self.device)}
         prefix, logits = kvcache.prefill_batch(
             self.params, tokens, lens, self.cfg,
             plain_attention=self.plain_attention, qweights=self.qweights,
@@ -1543,8 +1620,8 @@ class InferenceEngine:
         chunk = np.zeros((C,), np.int64)
         chunk[:n_valid] = st.ctx[start:start + n_valid]
         tok_dev = kvcache.prefill_chunk(
-            self.params, self.cache, self._upload(chunk), start, n_valid,
-            req.slot, st.total if final else self.max_len, self.cfg,
+            self.params, self.cache, upload(chunk, self.device), start,
+            n_valid, req.slot, st.total if final else self.max_len, self.cfg,
             self.sampling_params, self.table_device(), final=final,
             span=self._span_arg(self._span_for(start)),
             generator=self.generator, plain_attention=self.plain_attention,
@@ -1751,6 +1828,10 @@ class InferenceEngine:
             self.free_slots.append(req.slot)
             self._free_slot_blocks(req.slot)
             self._set_slot_adapter(req.slot, 0)
+            if self.draft_engine is not None:
+                # The mirrored draft slot frees its blocks with the slot
+                # (the slot's next occupant re-ingests from zero).
+                self.draft_engine.release(req.slot)
             req.slot = None
         self._release_adapter(req)
         SLOTS_ACTIVE.set(len(self.slot_req))
@@ -1789,7 +1870,7 @@ class InferenceEngine:
             active = np.zeros((self.n_slots,), bool)
             active[slots] = True
             toks = kvcache.decode_burst_staged(
-                self.params, self.cache, self._upload(active), k,
+                self.params, self.cache, upload(active, self.device), k,
                 self.cfg, self.sampling_params, self.table_device(),
                 span=self._span_arg(span), generator=self.generator,
                 plain_attention=self.plain_attention, qweights=self.qweights,
@@ -1846,23 +1927,43 @@ class InferenceEngine:
     # -- speculative decoding ----------------------------------------------
 
     def _spec_mode(self, req: Request) -> str:
-        """Resolve (and advance) this request's drafter rung: "ngram"
-        (the factory seam; test drafters ride it too) until acceptance
-        collapses in that mode (>= spec_min_drafted drafted below
-        spec_min_rate accepted), then "off" for good."""
+        """Resolve (and advance) this request's drafter rung. Requests
+        start at "model" when the engine has a draft engine, else at
+        "ngram" (the factory seam; test drafters ride it too). An
+        acceptance collapse in the current rung (>= spec_min_drafted
+        drafted below spec_min_rate accepted since the last demotion)
+        demotes one rung: model -> ngram (a fresh window, a fresh factory
+        drafter, the draft slot released) -> off."""
         if req.spec_off:
             return "off"
         if req.spec_mode is None:
+            req.spec_mode = ("model" if self.draft_engine is not None
+                             else "ngram")
+        if req.spec_mode == "model" and self.draft_engine is None:
+            # The drafter was detached mid-flight (the bench toggles it
+            # between passes): the factory rung, with a fresh window.
             req.spec_mode = "ngram"
+            req.spec_mode_drafted = 0
+            req.spec_mode_accepted = 0
         if (req.spec_mode_drafted >= self.spec_min_drafted
                 and req.spec_mode_accepted
                 < self.spec_min_rate * req.spec_mode_drafted):
-            req.spec_mode = "off"
-            req.spec_off = True
+            if req.spec_mode == "model":
+                req.spec_mode = "ngram"
+                req.spec_mode_drafted = 0
+                req.spec_mode_accepted = 0
+                req.drafter = None       # the factory rebuilds it
+                if self.draft_engine is not None \
+                        and req.slot is not None:
+                    self.draft_engine.release(req.slot)
+            else:
+                req.spec_mode = "off"
+                req.spec_off = True
         return req.spec_mode
 
     def _draft_for(self, req: Request) -> List[int]:
-        """This request's draft through the per-request factory seam.
+        """This request's draft through the per-request factory seam
+        (n-gram by default; the rung below the model drafter).
         Host-only: builds the drafter lazily and syncs it with tokens
         committed through any path."""
         if req.drafter is None:
@@ -1875,33 +1976,53 @@ class InferenceEngine:
         return req.drafter.draft(self.spec_k)
 
     def spec_decode_burst(self) -> Optional[Dict[int, List[int]]]:
-        """One draft-and-verify round for every active slot: the drafter
-        proposes up to K tokens per slot, one verify call per span group
-        scores the K+1 window positions, and each slot commits its
-        matched run plus the correction token (fetched at once: the next
-        round's window needs them). Returns {rid: [tokens...]}, or None
-        when no active slot drafted (all missed, collapsed or without
-        K+1 rows of headroom): a plain burst then does the same work
-        cheaper."""
+        """One draft-and-verify round for every active slot: the drafters
+        propose up to K tokens per slot (model-rung slots in one batched
+        draft burst), one verify call per span group scores the K+1
+        window positions, and each slot commits its matched run plus the
+        correction token (fetched at once: the next round's window needs
+        them). With a draft engine and ``spec_pipeline``, the next
+        round's draft burst (K+1 steps: the drafter's guess at the
+        correction token, then the next K drafts) is enqueued after the
+        verify calls and before the fetch, so the card runs it behind
+        the verify while the host waits; the next round's
+        ``draft_batch`` checks it against what was committed. Returns
+        {rid: [tokens...]}, or None when no active slot drafted (all
+        missed, collapsed or without K+1 rows of headroom): a plain
+        burst then does the same work cheaper."""
         K = self.spec_k
         if not self.slot_req or K <= 0:
             return None
         draft = np.zeros((self.n_slots, K), np.int64)
         n_draft = np.zeros((self.n_slots,), np.int64)
         dlen: Dict[int, int] = {}
+        model_reqs: Dict[int, Request] = {}
         for slot, req in self.slot_req.items():
             # A slot within K+1 rows of max_len drafts nothing: its one
             # correction row stays in bounds and its spare window rows
             # land in the trash block, while other slots keep drafting.
             if len(req.prompt) + len(req.tokens) + K + 1 > self.max_len:
                 continue
-            if self._spec_mode(req) == "off":
+            mode = self._spec_mode(req)
+            if mode == "off":
+                continue
+            if mode == "model":
+                # Drafted below, in one draft burst for every such slot.
+                model_reqs[slot] = req
                 continue
             d = self._draft_for(req)
             if d:
                 n_draft[slot] = len(d)
                 draft[slot, :len(d)] = d
                 dlen[slot] = len(d)
+        if model_reqs:
+            batch = self.draft_engine.draft_batch(
+                {s: self._ctx(r) for s, r in model_reqs.items()}, K)
+            for slot, d in batch.items():
+                if d:
+                    n_draft[slot] = len(d)
+                    draft[slot, :len(d)] = d
+                    dlen[slot] = len(d)
         if not dlen:
             return None
         groups = self._span_groups(K + 1)
@@ -1912,8 +2033,8 @@ class InferenceEngine:
             return None
         t0 = time.time()
         self._note_adapter_mix(s for _, slots in groups for s in slots)
-        draft_dev = self._upload(draft)
-        n_draft_dev = self._upload(n_draft)
+        draft_dev = upload(draft, self.device)
+        n_draft_dev = upload(n_draft, self.device)
         parts = []
         for span, slots in groups:
             DECODE_ATTN_ROWS.observe(span)
@@ -1921,17 +2042,33 @@ class InferenceEngine:
             active[slots] = True
             toks, n_commit = kvcache.verify_draft_staged(
                 self.params, self.cache, draft_dev, n_draft_dev,
-                self._upload(active), K, self.cfg, self.table_device(),
-                span=self._span_arg(span),
+                upload(active, self.device), K, self.cfg,
+                self.table_device(), span=self._span_arg(span),
                 plain_attention=self.plain_attention, qweights=self.qweights,
                 **self._lora_args())
             self.verify_calls += 1
             parts.append((slots, toks, n_commit))
+        enqueued_s = time.time()            # every verify call enqueued
+        # The pipelined predraft, enqueued behind the verify calls.
+        draft_s = None
+        overlap_s = 0.0
+        pre_slots = [s for s in dlen if s in model_reqs]
+        if self.spec_pipeline and pre_slots:
+            t_d0 = time.time()
+            if self.draft_engine.rollout(pre_slots, K + 1):
+                draft_s = t_d0
+                overlap_s = time.time() - t_d0
+                SPEC_OVERLAP_WALL.inc(overlap_s)
+        pending = bool(self.draft_engine is not None
+                       and self.draft_engine.stats()["pending"])
         out: Dict[int, List[int]] = {}
         drafted = accepted = 0
+        model_drafted = ngram_drafted = 0
         fetched = [(slots, toks_dev.cpu().numpy(), commit_dev.cpu().numpy())
                    for slots, toks_dev, commit_dev in parts]   # host sync
-        DECODE_STEP_SECONDS.observe(max(time.time() - t0, 0.0))
+        end_s = time.time()
+        DECODE_STEP_SECONDS.observe(max(end_s - t0, 0.0))
+        SPEC_VERIFY_WALL.inc(max(end_s - t0, 0.0))
         for slots, toks, n_commit in fetched:
             for slot in slots:
                 req = self.slot_req.get(slot)
@@ -1955,9 +2092,24 @@ class InferenceEngine:
                 req.spec_accepted += acc
                 req.spec_mode_drafted += nd
                 req.spec_mode_accepted += acc
+                if slot in model_reqs:
+                    model_drafted += nd
+                else:
+                    ngram_drafted += nd
                 drafted += nd
                 accepted += acc
                 out[req.rid] = emitted
+        kinds = [k for k, n in (("model", model_drafted),
+                                ("ngram", ngram_drafted)) if n]
+        self.spec_rounds.append({
+            "begin_s": t0, "enqueued_s": enqueued_s, "draft_s": draft_s,
+            "overlap_s": overlap_s, "fetch_s": end_s, "pending": pending,
+            "drafter": ("mixed" if len(kinds) > 1
+                        else kinds[0] if kinds else None)})
+        if model_drafted:
+            SPEC_DRAFT_TOKENS.labels(drafter="model").inc(model_drafted)
+        if ngram_drafted:
+            SPEC_DRAFT_TOKENS.labels(drafter="ngram").inc(ngram_drafted)
         self._spec_drafted_total += drafted
         self._spec_accepted_total += accepted
         SPEC_DRAFTED.inc(drafted)
@@ -2033,6 +2185,9 @@ class InferenceEngine:
             self.adapters.reset()
             self.adapter_ids[:] = 0
             self._aid_dirty = True
+        if self.draft_engine is not None:
+            # Drafter state mirrors the slots just wiped.
+            self.draft_engine.reset()
         self.cache["length"].zero_()
         self._update_gauges()
 

@@ -7,7 +7,8 @@ Counterpart of the paged serving subset of
 logical block j to a physical block id, wave prefill
 (:func:`prefill_batch` + :func:`insert`), chunked prefill
 (:func:`claim_slot` + :func:`prefill_chunk`), the prefix cache's
-copy-on-write (:func:`copy_block`), the staged decode burst
+copy-on-write (:func:`copy_block`), the draft engine's lockstep write
+(:func:`sync_slots`), the staged decode burst
 (:func:`decode_burst_staged`) and the speculative verify round
 (:func:`verify_draft_staged`). The chunk's, the burst's and the verify
 round's big-cache attention goes through the paged-attention kernel and
@@ -445,6 +446,26 @@ def import_blocks(cache: Cache, ids: torch.Tensor,
     reference pads with the sentinel and drops those writes)."""
     for name, v in vals.items():
         cache[name][:, ids] = v.to(cache[name].dtype)
+
+
+@torch.no_grad()
+def sync_slots(cache: Cache, active: torch.Tensor, lengths: torch.Tensor,
+               tokens: torch.Tensor) -> None:
+    """Force the selected slots' ``length`` and ``last_token`` to the
+    given values, in place, in one batched write: the draft engine's
+    lockstep and rollback seam (``infer/draft.py``).
+
+    A mispredicted draft rollout's rows lie past the committed length by
+    construction (the free rollback the verify window's rows have too),
+    so rolling a draft slot back to the verifier's commit point, or
+    pointing its pending token at the correction token, is this
+    bookkeeping write alone: no K/V row and no block moves. ``active``
+    [slots] bool masks the slots that sync; the rest keep their values.
+    """
+    cache["length"].copy_(torch.where(active, lengths.to(torch.int32),
+                                      cache["length"]))
+    cache["last_token"].copy_(torch.where(
+        active, tokens.to(cache["last_token"].dtype), cache["last_token"]))
 
 
 def _logical_rows(cache: Cache, table: torch.Tensor) -> int:

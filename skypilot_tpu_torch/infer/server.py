@@ -72,11 +72,19 @@ defaults, the flags win. ``--kv-int8 --weights-int8`` serve the
 reference's int8 recipe (``llm/serve-8b-w8a8.yaml``): an int8 KV cache
 and w8a8 weights. ``--open-burst``, ``--open-window`` and ``--coalesce``
 are the reference's burst and admission-coalescing knobs, so the
-recipe's command line runs as it stands.
+recipe's command line runs as it stands. ``--draft-model`` (env
+``SKYTPU_DRAFT_MODEL``: ``self:N``, the target's first N layers, or a
+config name such as ``llama3-400m`` drawn at random with the target's
+vocabulary) puts a draft model's ``model`` rung above the n-gram
+drafter (trailer ``drafter``: ``model``, ``ngram`` after a demotion, or
+``off``), and ``--spec-pipeline`` (env ``SKYTPU_SPEC_PIPELINE``, default
+1) enqueues its next draft burst behind each verify.
 
     python -m skypilot_tpu_torch.infer.server --config llama3-8b
     python -m skypilot_tpu_torch.infer.server --config llama3-8b \
         --kv-int8 --weights-int8
+    python -m skypilot_tpu_torch.infer.server --config llama3-8b \
+        --draft-model llama3-400m --spec-pipeline 1
     python -m skypilot_tpu_torch.infer.server --config llama3-8b \
         --adapters '{"ft-a": "/ckpt/ft-a.npz"}' --adapter-slots 8
     SKYTPU_QOS=1 SKYTPU_QOS_TENANTS='{"free": {"rate": 2}}' \
@@ -105,6 +113,7 @@ import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.infer import adapters as ad_lib
+from skypilot_tpu_torch.infer import draft as draft_lib
 from skypilot_tpu_torch.infer import engine as eng
 from skypilot_tpu_torch.infer import qos as qos_lib
 from skypilot_tpu_torch.infer import sampling
@@ -836,7 +845,9 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
                 device: DeviceLike = None,
                 seed: int = 0, adapters: Optional[str] = None,
                 adapter_slots: Optional[int] = None,
-                adapter_rank: Optional[int] = None
+                adapter_rank: Optional[int] = None,
+                draft_model: Optional[str] = None,
+                spec_pipeline: Optional[bool] = None
                 ) -> eng.InferenceEngine:
     """The serving engine ``main()`` runs: ``config``'s model with
     random weights drawn in ``cfg.dtype`` on ``device`` from ``seed``,
@@ -853,7 +864,11 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
     ``adapters`` (JSON ``{name: checkpoint}``), ``adapter_slots`` and
     ``adapter_rank``: the multi-LoRA catalog through
     :func:`adapters.catalog_from_env` (None each: ``SKYTPU_ADAPTERS``,
-    ``SKYTPU_ADAPTER_SLOTS``, ``SKYTPU_ADAPTER_RANK``)."""
+    ``SKYTPU_ADAPTER_SLOTS``, ``SKYTPU_ADAPTER_RANK``). ``draft_model``:
+    the model drafter through :func:`draft.draft_engine_from_env` (None:
+    ``SKYTPU_DRAFT_MODEL``; its pool int8 under ``kv_int8``), built
+    before the engine drops the float tree, as the reference builds it;
+    ``spec_pipeline``: the engine's (None: ``SKYTPU_SPEC_PIPELINE``)."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[config]
     catalog = ad_lib.catalog_from_env(cfg, adapters_json=adapters,
@@ -862,6 +877,18 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+    spec = (draft_model if draft_model is not None
+            else os.environ.get("SKYTPU_DRAFT_MODEL", "")).strip()
+    draft = draft_lib.draft_engine_from_env(
+        params, cfg, n_slots=slots, max_len=max_len, spec=spec,
+        kv_int8=kv_int8, device=dev)
+    if weights_int8 and spec.startswith("self:"):
+        # A self:N draft keeps the float slices of its N layers, as the
+        # reference's does; as views they would keep the whole float
+        # tree resident after the engine drops it. A named config's
+        # draft owns its weights already.
+        draft.params = dict(draft.params, blocks={
+            n: w.clone() for n, w in draft.params["blocks"].items()})
     buckets = tuple(sorted({min(128, max_len), min(512, max_len),
                             max_len}))
     engine = eng.InferenceEngine(
@@ -872,7 +899,8 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
         span_buckets=span_buckets, prefill_chunk=prefill_chunk,
         prefix_pool=prefix_pool, spec_k=spec_k, kv_int8=kv_int8,
         weights_int8=weights_int8, device=dev, seed=seed,
-        kv_lazy=kv_lazy, qos=qos, adapters=catalog)
+        kv_lazy=kv_lazy, qos=qos, adapters=catalog, draft_engine=draft,
+        spec_pipeline=spec_pipeline)
     # Under weights_int8 the engine keeps only the slim tree; this
     # reference must go too, or the float block matrices stay resident.
     del params
@@ -956,6 +984,24 @@ def main(argv=None) -> None:
                     help="speculative decoding: n-gram draft tokens per "
                          "slot verified in one round (0 = off; default "
                          "env SKYTPU_SPEC_K or 4)")
+    ap.add_argument("--draft-model", default=None,
+                    help="model-backed speculative drafter: 'self:N' "
+                         "(truncated-layer draft sharing the target's "
+                         "first N blocks — zero extra weights) or a "
+                         "llama config name (e.g. llama3-400m; a "
+                         "distilled checkpoint's config). The draft "
+                         "model runs the engine's own staged-burst "
+                         "program on its own paged KV, advanced/"
+                         "rolled-back in lockstep with the verifier; "
+                         "unset = the n-gram drafter only (env "
+                         "SKYTPU_DRAFT_MODEL)")
+    ap.add_argument("--spec-pipeline", type=int, default=None,
+                    help="async draft/verify pipeline (model drafter "
+                         "only): 1 = dispatch the next round's draft "
+                         "rollout while the verify is in flight, "
+                         "reconciling on fetch; 0 = synchronous "
+                         "draft-then-verify (default env "
+                         "SKYTPU_SPEC_PIPELINE or 1)")
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8 KV cache: int8 rows with a bfloat16 scale "
                          "per row and kv-head")
@@ -998,7 +1044,11 @@ def main(argv=None) -> None:
                          qos=qos_lib.scheduler_from_env(),
                          device=args.device, adapters=args.adapters,
                          adapter_slots=args.adapter_slots,
-                         adapter_rank=args.adapter_rank)
+                         adapter_rank=args.adapter_rank,
+                         draft_model=args.draft_model,
+                         spec_pipeline=(bool(args.spec_pipeline)
+                                        if args.spec_pipeline is not None
+                                        else None))
     model, httpd = serve(engine, port=args.port, max_burst=args.max_burst,
                          open_burst=args.open_burst,
                          open_window_s=args.open_window,

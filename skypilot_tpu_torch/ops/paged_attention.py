@@ -28,9 +28,10 @@ each chunk's K/V tiles through a ring of asynchronous copies once for
 all ``R`` rows, so every cached byte crosses device memory once, and
 merges a slot's chunks in fixed order inside the same launch; its source
 notes the rest of the design. The wrapper hands it a workspace for the
-chunks' partial stats and a per-device array of zeroed counters, which
-the kernel leaves at zero; calls on one device are expected in one
-stream.
+chunks' partial stats and an array of zeroed counters of the launch's
+stream (one array per device and stream, so launches on two streams
+that overlap never count off each other's), which the kernel leaves at
+zero.
 
 Layouts: q ``[B, G, R, hd]`` (float32 or bfloat16); pools
 ``[L, n_blocks, block_len, G, hd]`` (float32, bfloat16 or int8);
@@ -153,16 +154,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# Per device: int32 counters, one per (slot, kv-head), that the kernel's
-# chunks count off and return to 0; zeroed once, grown as needed.
-_tickets: Dict[torch.device, torch.Tensor] = {}
+# Per (device, stream): int32 counters, one per (slot, kv-head), that the
+# kernel's chunks count off and return to 0; zeroed once, grown as
+# needed. Launches in one stream run one after another, so they may
+# share counters; launches in two streams may overlap, and counters
+# shared between them would merge one launch's chunks into the other's.
+_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
-    t = _tickets.get(device)
+def _ticket_counters(device: torch.device, stream: int,
+                     n: int) -> torch.Tensor:
+    """The counters of launches on ``stream`` (a ``cudaStream_t``
+    handle) of ``device``, at least ``n`` of them. A new array is zeroed
+    on that stream, ahead of the launch that first uses it."""
+    key = (device, stream)
+    t = _tickets.get(key)
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _tickets[device] = t
+        _tickets[key] = t
     return t
 
 
@@ -262,9 +271,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if n_chunks > 1:
         ws = torch.empty(B * G * n_chunks * (R * hd + 2 * R),
                          dtype=torch.float32, device=dev)
-    tickets = _ticket_counters(dev, B * G)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        tickets = _ticket_counters(dev, stream, B * G)
         err = lib.paged_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if quant else None,

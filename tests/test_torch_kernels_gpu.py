@@ -293,12 +293,14 @@ _PAGED_LENGTHS = (0, 1, 300, 4100, 2000)
 _PAGED_HOLE = (4, 3)
 
 
-def _paged_inputs(dev, kv_dtype, hd=128, R=4, bl=64, seed=0):
-    """Inputs of K1 over a 2-layer pool holding every slot's blocks in
-    scattered order; the table's last column is the sentinel."""
+def _paged_inputs(dev, kv_dtype, hd=128, R=4, bl=64, seed=0, G=2,
+                  lengths=_PAGED_LENGTHS):
+    """Inputs of K1 over a 2-layer pool of ``G`` kv-heads holding every
+    slot's blocks in scattered order; the table's last column is the
+    sentinel."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    L, G = 2, 2
-    lengths = list(_PAGED_LENGTHS)
+    L = 2
+    lengths = list(lengths)
     B = len(lengths)
     nb = -(-max(lengths) // bl)
     n = sum(-(-m // bl) for m in lengths) + 1
@@ -521,9 +523,9 @@ _ROWS_SPAN = 512
 
 
 def _rows_inputs(dev, q_dtype, kv_dtype, hd, R, bl, start, seed=0,
-                 max_len=_ROWS_MAX_LEN):
+                 max_len=_ROWS_MAX_LEN, G=2):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    L, G = 2, 2
+    L = 2
     nb = max_len // bl
     lengths = [start, 0, 700]
     alloc = [-(-(start + 64) // bl), 2, -(-700 // bl)]
@@ -1530,3 +1532,131 @@ def test_adapter_installs_keep_the_pool_addresses_on_card():
         == ptrs
     assert all(not ab[k][:, 0].any() for ab in cat.pool.values()
                for k in ab)
+
+
+# -- the draft model on the card ----------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_paged_kernel_on_two_streams_at_once(kv_dtype):
+    """K1 decode launches on two CUDA streams, enqueued in turn so that
+    they overlap: each stream counts off its own ticket counters, so
+    every result equals its plain version (counters shared between the
+    streams would merge one launch's chunks into the other's)."""
+    dev = _cuda()
+    lengths = (4100, 3000, 4096, 2500, 1, 0, 3900, 4000) * 4
+    cases = [_paged_inputs(dev, kv_dtype, 128, 4, 64, seed=s,
+                           lengths=lengths) for s in (1, 2)]
+    span_blocks = -(-max(lengths) // 64)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(8):
+        for i, (stream, args) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(stream):
+                got[i].append(tpa.paged_attention(*args, 1,
+                                                  span_blocks=span_blocks))
+    torch.cuda.synchronize()
+    q_dev = cases[0][0].device
+    keys = {k for k in tpa._tickets if k[0] == q_dev}
+    assert {(q_dev, s.cuda_stream) for s in streams} <= keys
+    for args, outs in zip(cases, got):
+        want = tpa.paged_attention_ref(*args, 1, span_blocks)
+        live = args[-1] > 0
+        for out in outs:
+            for g, w in zip(out, want):
+                _close(g[live], w[live], 2e-3)
+            assert torch.all(out[1][~live] == -1e30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_paged_kernel_at_the_400m_draft_shapes(kv_dtype):
+    """K1 at the shapes a llama3-400m draft model gives it (4 kv-heads
+    of head_dim 128, 3 q-heads each, blocks of 256 at max_len 1024):
+    the rollout's decode body at R = 3 and the ingest chunk's multi-row
+    body at R = 256 * 3 = 768, starts 0, 256 and 512, on the wgmma body
+    (bf16 q on bf16 or int8 pools; the multi-row cases with the trash
+    block at 100.0)."""
+    dev = _cuda()
+    args = _paged_inputs(dev, kv_dtype, 128, 3, 256, G=4,
+                         lengths=(900, 0, 1, 300, 1023, 512) * 3)
+    span_blocks = 4
+    before = tpa.paged_attention.launches
+    got = tpa.paged_attention(*args, 1, span_blocks=span_blocks)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention.launches == before + 1
+    want = tpa.paged_attention_ref(*args, 1, span_blocks)
+    live = args[-1] > 0
+    for g, w in zip(got, want):
+        _close(g[live], w[live], 2e-3)
+    for start in (0, 256, 512):
+        rows = _rows_inputs(dev, torch.bfloat16, kv_dtype, 128, 768, 256,
+                            start, G=4)
+        _check_rows(rows, 1, -(-max(start, 1) // 256))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["f32", "int8"])
+def test_draft_engine_on_card(kv_int8, monkeypatch):
+    """A self-distilled pair at head_dim 128 in float32 on the card (its
+    draft the target's first layer; a second, random 1-layer draft),
+    pipelined and synchronous, on float32 or int8 pools: every K1 call
+    of the target's and the draft's programs agrees with its plain
+    version (the trash blocks at 100.0); the draft's rollouts run the
+    decode body and its ingest chunks the multi-row one; tokens equal
+    spec-off wherever the plain top-2 gap exceeds 1e-2; the distilled
+    draft accepts > 0.9 and reuses predrafts when pipelined; the random
+    one rolls back; both pools drain."""
+    from skypilot_tpu_torch.infer import draft as td
+    import dataclasses
+    dev = _cuda()
+    cfg = _hd128_config(torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tl.init_params(cfg, gen, device=dev)
+    target, dparams, dcfg = td.self_distilled_pair(params, cfg, 1)
+    rcfg = dataclasses.replace(cfg, n_layers=1)
+    rparams = tl.init_params(rcfg, gen, device=dev)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (40, 300, 13)]
+    checked = []
+    monkeypatch.setattr(tkv, "_paged_attn_stats",
+                        _held_k1(checked, lambda: None))
+
+    def engine(**kw):
+        e = te.InferenceEngine(target, cfg, n_slots=3, max_len=512,
+                               prompt_buckets=(64, 512), kv_block=64,
+                               prefill_chunk=128, kv_int8=kv_int8,
+                               device=dev, **kw)
+        _fill_trash(e)
+        return e
+
+    want = engine().generate(prompts, max_new_tokens=24)
+    for dp, dc, pipeline in ((dparams, dcfg, True), (dparams, dcfg, False),
+                             (rparams, rcfg, True)):
+        de = td.DraftEngine(dp, dc, n_slots=3, max_len=512, kv_block=64,
+                            kv_int8=kv_int8, device=dev)
+        _fill_trash(de)
+        e = engine(spec_k=4, draft_engine=de, spec_pipeline=pipeline)
+        d0, r0 = tpa.paged_attention.launches, _rows_launches()
+        got = e.generate(prompts, max_new_tokens=24)
+        assert tpa.paged_attention.launches > d0
+        assert sum(_rows_launches()) > sum(r0)
+        for p, g, w in zip(prompts, got, want):
+            t, gap = _first_divergence(target, cfg, dev, p, g, w)
+            assert t is None or gap <= 1e-2, (t, gap)
+        rate = e._spec_accepted_total / max(e._spec_drafted_total, 1)
+        if dp is dparams:
+            assert rate > 0.9
+            assert all(r.spec_mode == "model" for r in e.finished)
+            if pipeline:
+                assert de.reuse_hits > 0
+        else:
+            assert de.rollbacks > 0
+        assert de.blocks_used == 0 and e.blocks_used() == 0
+    rep = cfg.n_heads // cfg.n_kv_heads
+    assert any(r == rep for _, r, _ in checked)
+    assert any(r == 128 * rep for _, r, _ in checked)

@@ -945,3 +945,142 @@ def test_main_takes_the_control_flags(monkeypatch, argv, want):
     assert {k: made[0][k] for k in want} == want
     assert isinstance(made[0]["qos"], tq.FairScheduler)
     assert isinstance(served_kw[0]["qos"], tq.AdmissionController)
+
+
+# -- the model drafter ----------------------------------------------------------
+
+def _parser_of(main, monkeypatch):
+    """The actions of the ``argparse`` parser that ``main()`` builds
+    (captured at its ``parse_args``, which then stops it), by dest."""
+    import argparse
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def capture(self, args=None, namespace=None):
+        seen.append(self)
+        raise Stop
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    monkeypatch.setattr(sys, "argv", ["server", "--config", "llama3-tiny"])
+    with pytest.raises(Stop):
+        main()
+    monkeypatch.undo()
+    (parser,) = seen
+    return {a.dest: a for a in parser._actions}
+
+
+@pytest.mark.parametrize("argv,env,want", [
+    ([], {}, dict(draft_model=None, spec_pipeline=None)),
+    (["--draft-model", "self:1", "--spec-pipeline", "0"], {},
+     dict(draft_model="self:1", spec_pipeline=False)),
+    (["--draft-model", "llama3-400m", "--spec-pipeline", "1"],
+     {"SKYTPU_DRAFT_MODEL": "self:2"},
+     dict(draft_model="llama3-400m", spec_pipeline=True))],
+    ids=["defaults", "self_sync", "config_pipelined"])
+def test_main_takes_the_draft_flags(monkeypatch, argv, env, want):
+    """``main`` declares ``--draft-model`` and ``--spec-pipeline`` with
+    the reference server's defaults, types and help, and hands them to
+    the engine's builder (None each: the environment decides, in
+    ``draft_engine_from_env`` and the engine)."""
+    from skypilot_tpu.infer import server as js_
+    mine = _parser_of(ts.main, monkeypatch)
+    ref = _parser_of(js_.main, monkeypatch)
+    for dest in ("draft_model", "spec_pipeline"):
+        assert (mine[dest].option_strings, mine[dest].default,
+                mine[dest].type, mine[dest].help) == \
+            (ref[dest].option_strings, ref[dest].default, ref[dest].type,
+             ref[dest].help), dest
+    made = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_make_engine(config, **kw):
+        made.append(kw)
+        raise Stop
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(ts, "make_engine", fake_make_engine)
+    with pytest.raises(Stop):
+        ts.main(["--config", "llama3-tiny", "--device", "cpu"] + argv)
+    assert {k: made[0][k] for k in want} == want
+
+
+def test_make_engine_builds_the_drafter(monkeypatch):
+    """``make_engine``'s drafter: ``self:N`` shares the target's blocks
+    (views) unless w8a8 drops the float tree, where its N layers are
+    copies; a config name gets the target's vocabulary; the draft pool
+    is int8 under ``kv_int8``; SKYTPU_DRAFT_MODEL stands in for the
+    argument."""
+    kw = dict(slots=2, max_len=64, device="cpu", prefill_chunk=0,
+              prefix_pool=0)
+    e = ts.make_engine("llama3-tiny", draft_model="self:1", **kw)
+    de = e.draft_engine
+    assert de.cfg.n_layers == 1 and de.n_slots == 2 and e.spec_pipeline
+    assert de.params["blocks"]["wq"].data_ptr() == \
+        e.params["blocks"]["wq"].data_ptr()
+    e = ts.make_engine("llama3-tiny", draft_model="self:1",
+                       weights_int8=True, kv_int8=True,
+                       spec_pipeline=False, **kw)
+    de = e.draft_engine
+    assert "wq" not in e.params.get("blocks", {})
+    assert de.params["blocks"]["wq"]._base is None
+    assert de.cache["k"].dtype == torch.int8 and not e.spec_pipeline
+    monkeypatch.setenv("SKYTPU_DRAFT_MODEL", "llama3-tiny")
+    de = ts.make_engine("llama3-tiny", **kw).draft_engine
+    assert de.cfg.n_layers == 2 and de.cfg.vocab_size == 512
+    monkeypatch.delenv("SKYTPU_DRAFT_MODEL")
+    assert ts.make_engine("llama3-tiny", **kw).draft_engine is None
+
+
+def test_trailer_reads_drafter_model():
+    """A replica drafting with ``self:2`` (the whole tiny target, so
+    acceptance holds and no request demotes): blocking and streamed
+    trailers say ``drafter: model`` with drafted tokens, and ``/metrics``
+    counts them under ``skytpu_spec_draft_tokens_total{drafter="model"}``
+    and the pipeline's wall counters."""
+    from skypilot_tpu.observability import metrics as jm
+    engine = ts.make_engine("llama3-tiny", slots=2, max_len=64,
+                            device="cpu", prefill_chunk=0, prefix_pool=0,
+                            draft_model="self:2", spec_pipeline=True)
+    port = _free_port()
+    model, httpd = ts.serve(engine, host="127.0.0.1", port=port)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{port}"
+    try:
+        model.wait_ready(timeout=120)
+
+        def drafted():
+            code, body, _ = _get(f"{url}/metrics")
+            assert code == 200
+            fams = jm.parse_exposition(body.decode())
+            return {n: sum(v for lab, v in fams[n]["samples"]
+                           if lab.get("drafter", "model") == "model")
+                    for n in ("skytpu_spec_draft_tokens_total",
+                              "skytpu_spec_verify_wall_seconds_total",
+                              "skytpu_spec_overlap_wall_seconds_total")
+                    if n in fams}
+
+        before = drafted()
+        code, out = _post(f"{url}/generate", {"tokens": [5, 9, 2, 6],
+                                              "max_new_tokens": 12})
+        assert code == 200 and out["drafter"] == "model"
+        assert out["spec_drafted"] > 0 and len(out["tokens"]) == 12
+        code, lines = _post(f"{url}/generate", {
+            "tokens": [7, 1, 8, 2, 8], "max_new_tokens": 12,
+            "stream": True})
+        assert code == 200 and lines[-1]["done"]
+        assert lines[-1]["drafter"] == "model"
+        after = drafted()
+        name = "skytpu_spec_draft_tokens_total"
+        assert after[name] - before.get(name, 0.0) >= out["spec_drafted"]
+        for name in ("skytpu_spec_verify_wall_seconds_total",
+                     "skytpu_spec_overlap_wall_seconds_total"):
+            assert after[name] > before.get(name, 0.0), name
+    finally:
+        model.shutdown()
+        httpd.shutdown()
+    assert engine.draft_engine.blocks_used == 0
