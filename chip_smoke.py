@@ -214,9 +214,29 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    decode launches on two CUDA streams at once, each equal to its plain
    version (the ticket counters are per stream). (f)
    ``bench_serve.run_spec`` at llama3-8b, 8 requests of 64 new tokens
-   (the reference's 256, cut for time): its report line and its
-   pipeline structure.
-10. Train: gradient parity of the kernels against the plain versions at
+   (the reference's 256, cut for time; its warm-up passes run 10 new
+   tokens): its report line and its pipeline structure.
+10. Recover: crash recovery on the serve engine at llama3-8b bf16 (16
+   slots, max_len 1024, blocks of 256, chunks of 512, a prefix pool of
+   8, n-gram spec K 4), launch counts set to 0 before each leg and read
+   after it: 8 requests (``RECOVER_LENS``, two chunked) of 32 new
+   tokens, the uninterrupted twin, then one run per seeded fault of
+   ``RECOVER_FAULTS`` (the admit, chunk, verify and decode dispatch
+   seams and a KV block claim), each recovered through
+   ``InferenceEngine.recover``: the fault fires and recovers once, a
+   victim counts its recovery, every request returns its budget, the
+   pool drains after ``clear_prefix_cache()``, and tokens that part
+   from the twin's are held to the bf16 floor rule. K1 is held against
+   its plain version (trash block 100.0) at the first resume chunk
+   after the verify crash that reads cached rows. The HTTP server
+   streams 4 requests through one verify fault: every stream ends with
+   its budget, the trailers count the recovery and ``/metrics``'
+   ``skytpu_engine_recoveries_total`` moves by exactly 1. Float32 on
+   the first 8 layers: chunk and verify faults, and a 4-layer
+   self-distilled draft pipelined with the fault at a verify while a
+   predraft is pending; tokens equal the twin's wherever the plain
+   top-2 gap exceeds 1e-2.
+11. Train: gradient parity of the kernels against the plain versions at
    llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
    ``train.run`` at llama3-1b full width and depth for 6 steps on a
    repeated batch (counts set to 0 before, read after: K2 32, K3 16 and
@@ -225,9 +245,10 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    uninterrupted run bit for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. ``--phase kernels``, ``serve``,
-``handoff``, ``bench``, ``qos``, ``adapters``, ``draft`` or ``train``
-runs one of phases 3-10 alone (the build always runs).
+``{"ok": true, "device": {...}}``; the line before them gives each
+phase's wall. ``--phase kernels``, ``serve``, ``handoff``, ``bench``,
+``qos``, ``adapters``, ``draft``, ``recover`` or ``train`` runs one of
+phases 3-11 alone (the build always runs).
 """
 
 from __future__ import annotations
@@ -2462,15 +2483,17 @@ def _stream_timed(url: str, body: bytes, n_seeds: int):
 
 
 @contextlib.contextmanager
-def _first_rows_call(engine, out: list):
+def _first_rows_call(engine, out: list, when=lambda lengths: True):
     """Record, for the block, the inputs of the first multi-row K1 call
-    on ``engine``'s cache: (layer, table, q, lengths, span)."""
+    on ``engine``'s cache for which ``when(lengths)`` holds: (layer,
+    table, q, lengths, span)."""
     from skypilot_tpu_torch.infer import kvcache
     real = kvcache._paged_attn_stats
     rep = engine.cfg.n_heads // engine.cfg.n_kv_heads
 
     def keep(cache, i, table, qh, lengths, span, plain=False):
-        if cache is engine.cache and qh.shape[2] > rep and not out:
+        if (cache is engine.cache and qh.shape[2] > rep and not out
+                and when(lengths)):
             out.append((i, table.clone(), qh.clone(), lengths.clone(),
                         span))
         return real(cache, i, table, qh, lengths, span, plain)
@@ -4224,6 +4247,314 @@ def phase_draft(dev, card: str) -> tuple:
     return out, kcases
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: crash recovery
+# ---------------------------------------------------------------------------
+
+# 8 requests of ``RECOVER_NEW`` new tokens, two chunked (775 and 597
+# tokens); one seeded fault a run. The six short prompts stay on one
+# span rung (their contexts below 512 rows), so a decode step runs two
+# span groups, each a forward pass of every layer on this host-bound
+# engine, where the serve phase's spread of lengths runs up to four.
+RECOVER_LENS = (775, 597, 290, 320, 350, 380, 410, 440)
+RECOVER_NEW = 32
+RECOVER_FAULTS = {
+    # The second admission pass: every request is resident or chunking.
+    "admit": {"point": "engine.dispatch", "match": {"seam": "admit"},
+              "after": 1},
+    # The second prefill chunk: the 775-token prompt is half prefilled.
+    "chunk": {"point": "engine.dispatch", "match": {"seam": "chunk"},
+              "after": 1},
+    "verify": {"point": "engine.dispatch", "match": {"seam": "verify"},
+               "after": 1},
+    # The second decode-seam hit: the first burst's completion, after
+    # its dispatch (none of its tokens may commit).
+    "decode": {"point": "engine.dispatch", "match": {"seam": "decode"},
+               "after": 1},
+    # The fourth block claim, in the middle of the first admission pass.
+    "kv.alloc": {"point": "kv.alloc", "after": 3},
+}
+
+
+def _recover_drive(engine, prompts, new: int, fault=None, on_crash=None):
+    """Drain ``prompts`` through ``engine`` under the chaos rule
+    ``fault`` (None: uninterrupted), recovering through every
+    ``EngineDispatchError`` as the server does; ``on_crash(ex)`` runs
+    before each recovery. Returns (tokens, the requests, recoveries,
+    faults fired)."""
+    from skypilot_tpu_torch import chaos
+    from skypilot_tpu_torch.infer import engine as eng
+    ids = [engine.add_request(p, max_new_tokens=new) for p in prompts]
+    chaos.configure({"seed": SEED, "faults": [dict(fault, times=1)]}
+                    if fault else {"faults": []})
+    recovered = 0
+    try:
+        while engine.waiting or engine.chunking or engine.slot_req:
+            try:
+                engine.step_burst(max_burst=8)
+            except eng.EngineDispatchError as ex:
+                if on_crash is not None:
+                    on_crash(ex)
+                engine.recover(ex)
+                recovered += 1
+        fired = len(chaos.injector().fired)
+    finally:
+        chaos.deactivate()
+    reqs = {r.rid: r for r in engine.finished}
+    engine.finished.clear()
+    return ([list(reqs[i].tokens) for i in ids], [reqs[i] for i in ids],
+            recovered, fired)
+
+
+def _recover_runs(engine, prompts, tag: str, card: str, faults,
+                  k1=None) -> tuple:
+    """The uninterrupted twin, then one run per fault of ``faults`` (a
+    name of ``RECOVER_FAULTS``), each from a reset engine with a cold
+    prefix cache: the fault fires once, the run recovers once, a victim
+    counts its recovery, every request returns its budget and the pool
+    drains. ``k1`` (a list): the inputs of the first multi-row K1 call
+    after the verify run's crash that reads cached rows. Returns (twin
+    tokens, {fault: tokens})."""
+    def fresh():
+        engine.reset()
+        engine.clear_prefix_cache()
+        _fill_trash(engine)
+
+    fresh()
+    t0 = time.time()
+    twin, _, _, _ = _recover_drive(engine, prompts, RECOVER_NEW)
+    _log(f"{tag}: uninterrupted twin, {len(prompts)} requests x "
+         f"{RECOVER_NEW} tokens in {time.time() - t0:.2f} s; {card}")
+    out = {}
+    for name in faults:
+        fresh()
+        crashed = []
+        keep = (k1 is not None and name == "verify")
+        t0 = time.time()
+        with (_first_rows_call(
+                engine, k1, lambda lens: bool(crashed)
+                and int(lens.max()) > 0) if keep
+              else contextlib.nullcontext()):
+            got, reqs, rec, fired = _recover_drive(
+                engine, prompts, RECOVER_NEW, RECOVER_FAULTS[name],
+                on_crash=lambda ex: crashed.append(ex.seam))
+        victims = sum(1 for r in reqs if r.recoveries)
+        engine.clear_prefix_cache()
+        if (fired, rec) != (1, 1) or not victims or any(
+                len(t) != RECOVER_NEW for t in got) \
+                or engine.blocks_used():
+            raise AssertionError(
+                f"{tag}[{name}]: fired {fired}, recoveries {rec}, victims "
+                f"{victims}, tokens {[len(t) for t in got]}, blocks "
+                f"{engine.blocks_used()}")
+        parted = sum(g != w for g, w in zip(got, twin))
+        _log(f"{tag}[{name}]: the fault at seam {crashed} recovered in "
+             f"{time.time() - t0:.2f} s; {victims} victims; {parted} of "
+             f"{len(prompts)} requests part from the twin; pool drained; "
+             f"{card}")
+        out[name] = got
+    return twin, out
+
+
+def _recover_server_leg(engine, prompts, twin, card: str) -> list:
+    """The HTTP server over ``engine``: ``prompts`` streamed at once, one
+    verify fault: every stream ends with its done line and the budget,
+    a trailer counts the recovery, and ``/metrics``'
+    ``skytpu_engine_recoveries_total`` moves by exactly 1. Returns the
+    bf16 cases (against ``twin``)."""
+    from skypilot_tpu_torch import chaos
+    from skypilot_tpu_torch.infer import server as srv
+    engine.reset()
+    engine.clear_prefix_cache()
+    port = _free_port()
+    model, httpd = srv.serve(engine, host="127.0.0.1", port=port)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{port}"
+    try:
+        model.wait_ready(timeout=300)
+
+        def recoveries():
+            return sum(v for (name, _), v in _scrape(url).items()
+                       if name == "skytpu_engine_recoveries_total")
+
+        before = recoveries()
+        chaos.configure({"seed": SEED, "faults": [
+            dict(RECOVER_FAULTS["verify"], times=1)]})
+        res = [None] * len(prompts)
+
+        def one(i):
+            body = json.dumps({"tokens": prompts[i], "stream": True,
+                               "max_new_tokens": RECOVER_NEW}).encode()
+            res[i] = _stream_timed(f"{url}/generate", body, 0)
+
+        t0 = time.time()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.time() - t0
+        fired = len(chaos.injector().fired)
+        delta = recoveries() - before
+    finally:
+        chaos.deactivate()
+        httpd.shutdown()
+        httpd.server_close()
+        model.shutdown()
+    done = [r[1] if r else None for r in res]
+    if (fired != 1 or delta != 1 or any(d is None for d in done)
+            or any(d["n_tokens"] != RECOVER_NEW for d in done)
+            or not sum(d["recoveries"] for d in done)):
+        raise AssertionError(f"recover[server]: fired {fired}, metric "
+                             f"delta {delta}, done lines {done}")
+    _log(f"recover[server]: {len(prompts)} streams through one verify "
+         f"fault in {wall:.2f} s, trailers' recoveries "
+         f"{[d['recoveries'] for d in done]}, "
+         f"skytpu_engine_recoveries_total +{delta:g}; {card}")
+    return [(f"streamed request {i}", "recovered and uninterrupted",
+             prompts[i], res[i][0], twin[i]) for i in range(len(prompts))]
+
+
+def _recover_fp32_leg(dev, card: str) -> dict:
+    """Float32 on llama3-8b's first 8 layers, the serve engine's shape:
+    chunk and verify faults against the uninterrupted twin, then the
+    self-distilled draft (4 layers) pipelined with the fault at a
+    verify while a predraft is pending (the drafter's pool and table
+    drained by the reset); tokens equal or part only where the plain
+    top-2 gap is at most 1e-2. Returns the launches."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import draft as draft_lib
+    from skypilot_tpu_torch.infer import engine as eng
+    from skypilot_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"],
+                              n_layers=INT8_FP32_LAYERS, dtype=torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=dev, dtype=torch.float32)
+    target, dparams, dcfg = draft_lib.self_distilled_pair(
+        params, cfg, DRAFT_FP32_DRAFT)
+    del params
+    rng = np.random.default_rng(SEED + 13)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in RECOVER_LENS]
+    kw = dict(n_slots=16, max_len=1024, prompt_buckets=(128, 512, 1024),
+              kv_block=256, prefill_chunk=512, device=dev)
+    ref = _plain_tier(target, cfg, dev, 1024)
+    _zero_launches()
+    e = eng.InferenceEngine(target, cfg, prefix_pool=8, spec_k=4, **kw)
+    twin, got = _recover_runs(e, prompts, "recover[fp32]", card,
+                              ("chunk", "verify"))
+    del e
+    de = draft_lib.DraftEngine(dparams, dcfg, n_slots=16, max_len=1024,
+                               device=dev)
+    e = eng.InferenceEngine(target, cfg, spec_k=4, draft_engine=de,
+                            spec_pipeline=True, **kw)
+    pending = []
+
+    def at_crash(ex):
+        pending.append(de.stats()["pending"])
+
+    dtwin, _, _, _ = _recover_drive(e, prompts, RECOVER_NEW)
+    e.reset()
+    dgot, _, rec, fired = _recover_drive(
+        e, prompts, RECOVER_NEW, dict(RECOVER_FAULTS["verify"], after=2),
+        on_crash=at_crash)
+    launches = _read_launches()
+    if (fired, rec, pending) != (1, 1, [1]) or de.blocks_used \
+            or e.blocks_used():
+        raise AssertionError(f"recover[fp32, draft]: fired {fired}, "
+                             f"recoveries {rec}, predraft pending at the "
+                             f"crash {pending}, blocks {de.blocks_used} / "
+                             f"{e.blocks_used()}")
+    _log(f"recover[fp32, draft]: a verify fault with the pipelined "
+         f"predraft pending recovered; drafter {de.stats()}; {card}")
+    for name, toks, want in ([(n, t, twin) for n, t in got.items()]
+                             + [("draft", dgot, dtwin)]):
+        for i, (p, g, w) in enumerate(zip(prompts, toks, want)):
+            _agree(ref, p, g, w, f"request {i} ({len(p)} tokens)",
+                   "recovered and uninterrupted", f"recover[fp32, {name}]")
+    del e, de, ref, target, dparams
+    _free_card()
+    return launches
+
+
+def phase_recover(dev, card: str) -> dict:
+    """Crash recovery on the serve engine at llama3-8b bf16 (16 slots,
+    max_len 1024, blocks of 256, chunks of 512, a prefix pool of 8, spec
+    K 4): 8 requests (two chunked) of 32 new tokens, uninterrupted, then
+    one seeded fault a run at each of ``RECOVER_FAULTS`` (the admit,
+    chunk, verify and decode seams and a block claim), held to the twin
+    under the bf16 floor rule; K1 against its plain version at the first
+    resume chunk after the verify crash that reads cached rows, the
+    trash block at 100.0; the HTTP server through one verify fault
+    (:func:`_recover_server_leg`); and :func:`_recover_fp32_leg`.
+    Returns {path: launches}."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as eng
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    t0 = time.time()
+    config = "llama3-8b"
+    cfg = llama.CONFIGS[config]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+    rng = np.random.default_rng(SEED + 12)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in RECOVER_LENS]
+    e = eng.InferenceEngine(
+        params, cfg, n_slots=16, max_len=1024,
+        prompt_buckets=(128, 512, 1024), kv_block=256, prefill_chunk=512,
+        prefix_pool=8, spec_k=4, device=dev)
+    out = {}
+    k1 = []
+    _zero_launches()
+    twin, got = _recover_runs(e, prompts, "recover", card,
+                              tuple(RECOVER_FAULTS), k1)
+    out["recover"] = _read_launches()
+    if not k1:
+        raise AssertionError("recover: no resume chunk read cached rows "
+                             "after the verify crash")
+    _fill_trash(e)
+    i, table, qh, lengths, span = k1[0]
+    sb = -(-(span or (table.shape[1] - 1) * e.kv_block) // e.kv_block)
+    c = e.cache
+    err = _paged_err("recover K1 at the resume chunk", dict(
+        q=qh, k_pool=c["k"], v_pool=c["v"], k_scale=c.get("k_scale"),
+        v_scale=c.get("v_scale"), table=table, lengths=lengths, layer=i,
+        span_blocks=sb), pa.paged_attention)
+    _log(f"recover: K1 agrees with its plain version at the first resume "
+         f"chunk after the verify crash (R={qh.shape[2]}, start "
+         f"{int(lengths.max())}, {sb} blocks, trash block 100.0): max err "
+         f"{err:.3e}")
+    del k1
+    _zero_launches()
+    cases = _recover_server_leg(e, prompts[:4], twin, card)
+    out["recover[server]"] = _read_launches()
+    del e, params
+    _free_card()
+    cases += [(f"request {i}", f"recovered at {name} and uninterrupted",
+               prompts[i], toks[i], twin[i])
+              for name, toks in got.items() for i in range(len(prompts))]
+    # A case is checked where it first parts, on the twin's context up
+    # to there: runs that part at the same place share one check.
+    unique = {}
+    for c in cases:
+        t = next((j for j, (a, b) in enumerate(zip(c[3], c[4]))
+                  if a != b), None)
+        if t is not None:
+            unique.setdefault((tuple(c[2]), tuple(c[4][:t])), c)
+    _bf16_hold(dev, config, 512, list(unique.values()), "recover")
+    _free_card()
+    out["recover[fp32]"] = _recover_fp32_leg(dev, card)
+    _log(f"recover: phase in {time.time() - t0:.1f} s; launches "
+         f"{json.dumps(out)}; {card}")
+    return out
+
+
 def phase_train(dev, card: str):
     """Returns {kernel: launches} over the llama3-1b run."""
     import os
@@ -4320,7 +4651,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "serve", "handoff", "bench",
-                             "qos", "adapters", "draft", "train"),
+                             "qos", "adapters", "draft", "recover",
+                             "train"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -4358,43 +4690,45 @@ def main() -> int:
         for line in _ptxas_summary(text):
             _log(f"  {name}: {line}")
 
-    def free():
+    walls = {}
+
+    def run(phase, fn):
+        """Run one phase if ``--phase`` asks for it; its wall into
+        ``walls``, then free the card."""
+        if args.phase not in ("all", phase):
+            return None
+        t = time.time()
+        out = fn(dev, smi) if phase != "kernels" else fn(dev)
+        walls[phase] = round(time.time() - t, 1)
         gc.collect()
         torch.cuda.empty_cache()
+        return out
 
-    cases = {}
-    if args.phase in ("all", "kernels"):
-        cases = phase_kernels(dev)
-        free()
+    cases = run("kernels", phase_kernels) or {}
     # Launches of each kernel on each main path, counted from 0 just
     # before that path runs and read just after it.
     by_path = {}
-    if args.phase in ("all", "serve"):
-        by_path.update(phase_serve(dev, smi))
-        free()
-    if args.phase in ("all", "handoff"):
-        by_path.update(phase_handoff(dev, smi))
-        free()
-    if args.phase in ("all", "bench"):
-        by_path["bench"] = phase_bench(dev, smi)
-        free()
-    if args.phase in ("all", "qos"):
-        by_path.update(phase_qos(dev, smi))
-        free()
-    if args.phase in ("all", "adapters"):
-        by_path.update(phase_adapters(dev, smi))
-        free()
-    if args.phase in ("all", "draft"):
-        paths, draft_cases = phase_draft(dev, smi)
+    by_path.update(run("serve", phase_serve) or {})
+    by_path.update(run("handoff", phase_handoff) or {})
+    bench = run("bench", phase_bench)
+    if bench is not None:
+        by_path["bench"] = bench
+    by_path.update(run("qos", phase_qos) or {})
+    by_path.update(run("adapters", phase_adapters) or {})
+    draft = run("draft", phase_draft)
+    if draft is not None:
+        paths, draft_cases = draft
         by_path.update(paths)
         # K1 held on the draft engines' own inputs: after the kernel
         # phase's cases, whose first case heads each entry.
         for name, runs in draft_cases.items():
             cases.setdefault(name, []).extend(runs)
-        free()
-    if args.phase in ("all", "train"):
-        by_path["train"] = phase_train(dev, smi)
-        free()
+    by_path.update(run("recover", phase_recover) or {})
+    train = run("train", phase_train)
+    if train is not None:
+        by_path["train"] = train
+    _log(f"phase walls (s): {json.dumps(walls)}; build and phases "
+         f"{time.time() - t0:.1f} s; {smi}")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -40,9 +40,8 @@ file written by either package's :func:`save_adapter`, whose format is
 the reference's, so files cross between the packages both ways. No
 other conversion function is needed.
 
-Deliberate differences from the reference: the port has no chaos layer,
-so the loader has no ``adapter.load`` fault point (a test breaks the
-checkpoint file instead), and no tracing layer, so the
+Each load attempt rides the ``adapter.load`` chaos point. Deliberate
+differences from the reference: the port has no tracing layer, so the
 ``adapter.load_failed`` and ``adapter.env_invalid`` events print one
 JSON line on stderr. The retry is a local copy of the reference's
 policy (2 attempts, backoff 0.05-0.25 s, retry on OSError,
@@ -56,7 +55,6 @@ import hashlib
 import json
 import os
 import random
-import sys
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -64,8 +62,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from skypilot_tpu_torch import DeviceLike, resolve_device
-from skypilot_tpu_torch.observability import metrics
+from skypilot_tpu_torch import DeviceLike, chaos, resolve_device
+from skypilot_tpu_torch.observability import events, metrics
 
 # The request header naming a fine-tune (the body's ``model`` field is
 # the SDK path) -- shared by the model server and the LB so the two
@@ -94,13 +92,6 @@ ADAPTER_SLOTS = metrics.gauge(
     "skytpu_adapter_slots",
     "Adapter-pool capacity: fine-tune slots available per engine "
     "(pool slot 0 is reserved for the all-zeros base adapter)")
-
-
-def _event(name: str, attrs: Dict[str, Any]) -> None:
-    """A typed event as one JSON line on stderr (the port has no
-    tracing layer)."""
-    print(json.dumps({"event": name, **attrs}), file=sys.stderr,
-          flush=True)
 
 
 class UnknownAdapterError(ValueError):
@@ -376,7 +367,7 @@ class AdapterCatalog:
             if not isinstance(entries, dict):
                 raise ValueError("expected a JSON object")
         except (ValueError, TypeError):
-            _event("adapter.env_invalid", {"raw": raw[:200]})
+            events.emit("adapter.env_invalid", raw=raw[:200])
             return 0
         n = 0
         for name, path in entries.items():
@@ -384,7 +375,7 @@ class AdapterCatalog:
                 self.register(str(name), path=str(path))
                 n += 1
             except ValueError:
-                _event("adapter.env_invalid", {"adapter": str(name)[:64]})
+                events.emit("adapter.env_invalid", adapter=str(name)[:64])
         return n
 
     def names(self) -> List[str]:
@@ -531,14 +522,16 @@ class AdapterCatalog:
         return victim
 
     def _hot_load(self, ent: _Entry, slot: int) -> None:
-        """Fetch + install one checkpoint into ``slot``. Transient
-        faults retry once (:func:`_load_with_retry`); exhaustion prints
+        """Fetch + install one checkpoint into ``slot``. Each attempt
+        rides the ``adapter.load`` chaos point; transient faults retry
+        once (:func:`_load_with_retry`); exhaustion prints
         the typed ``adapter.load_failed`` event and raises — the caller
         fails the request typed instead of serving base weights."""
         if self._loader is None:
             raise AdapterLoadError(ent.name, "no loader bound")
 
         def attempt():
+            chaos.point("adapter.load", adapter=ent.name)
             params = ent.params
             alpha = ent.alpha
             if params is None:
@@ -556,8 +549,8 @@ class AdapterCatalog:
             _load_with_retry(attempt)
         except Exception as e:  # noqa: BLE001 — typed terminal failure
             self._free.append(slot)     # slot never became resident
-            _event("adapter.load_failed",
-                   {"adapter": ent.name, "error": str(e)[:200]})
+            events.emit("adapter.load_failed", adapter=ent.name,
+                        error=str(e)[:200])
             raise AdapterLoadError(ent.name, str(e)) from e
 
     def _stack(self, params: Dict, alpha: float,

@@ -1186,11 +1186,14 @@ def run_spec(config=None, spec_k=4, requests=None, prompt_len=16,
     TTFT is out of scope: speculation replaces only decode bursts.
     ``smoke=True`` (or the CPU) runs the reference's CI sizes; wall-clock
     is reported, never gated. The reference's names, defaults and report
-    keys, but for two deliberate differences: the port has no flight
+    keys, but for three deliberate differences: the port has no flight
     recorder, so ``overlap_ok`` and ``draft_records`` read the rounds the
     engine notes itself (``InferenceEngine.spec_rounds``: its verify
     calls' enqueue time, the predraft's dispatch time, the fetch time);
-    and ``backend`` is the torch device type. ``tokens_out``, a dict,
+    ``backend`` is the torch device type; and the port compiles
+    nothing, so each warm-up pass runs two verify rounds' worth of
+    tokens (enough to launch every program of the pass once), not the
+    whole budget. ``tokens_out``, a dict,
     receives the token lists behind the parity verdicts: ``"a"``
     (prompts; spec-off, model pipelined, model synchronous and n-gram
     outputs) and ``"b"`` (prompts; spec-off, n-gram and oracle outputs),
@@ -1215,17 +1218,20 @@ def run_spec(config=None, spec_k=4, requests=None, prompt_len=16,
     rng_a = np.random.default_rng(1)
     rng_b = np.random.default_rng(0)
 
+    warmup_tokens = 2 * (spec_k + 1)
+
     def decode_pass(e, prompts, spec_on, factory=None,
                     ngram_factory=None, draft_engine=None,
-                    pipeline=False):
-        """One admit-then-decode pass; TPOT over the decode loop only.
-        Returns (outputs, tpot_s, drafted, accepted, bursts)."""
+                    pipeline=False, budget=None):
+        """One admit-then-decode pass of ``budget`` new tokens (default
+        ``new_tokens``); TPOT over the decode loop only. Returns
+        (outputs, tpot_s, drafted, accepted, bursts)."""
         e.spec_k = spec_k if spec_on else 0
         e._spec_drafter_factory = factory or ngram_factory
         e.draft_engine = draft_engine
         e.spec_pipeline = bool(pipeline) and draft_engine is not None
         d0, a0 = e._spec_drafted_total, e._spec_accepted_total
-        ids = [e.add_request(p, max_new_tokens=new_tokens)
+        ids = [e.add_request(p, max_new_tokens=budget or new_tokens)
                for p in prompts]
         e.admit()
         _sync(dev)
@@ -1289,17 +1295,18 @@ def run_spec(config=None, spec_k=4, requests=None, prompt_len=16,
                                 prompt_len).tolist()
                  for _ in range(requests)]
 
-    def pass_a(spec_on, draft_engine=None, pipeline=False):
+    def pass_a(spec_on, draft_engine=None, pipeline=False, budget=None):
         return decode_pass(e_a, prompts_a, spec_on,
                            ngram_factory=ngram_factory_a,
-                           draft_engine=draft_engine, pipeline=pipeline)
+                           draft_engine=draft_engine, pipeline=pipeline,
+                           budget=budget)
 
     # Warmups, as the reference's: the off pass, the pipelined and the
-    # synchronous model passes (allocator and kernel warmup here).
-    pass_a(False)
-    pass_a(True, draft_engine=de, pipeline=True)
+    # synchronous model passes (allocator and first launches here).
+    pass_a(False, budget=warmup_tokens)
+    pass_a(True, draft_engine=de, pipeline=True, budget=warmup_tokens)
     de.reset()
-    pass_a(True, draft_engine=de, pipeline=False)
+    pass_a(True, draft_engine=de, pipeline=False, budget=warmup_tokens)
     de.reset()
 
     out_off_a, tpot_off_a, _, _, bursts_off_a = pass_a(False)
@@ -1361,12 +1368,12 @@ def run_spec(config=None, spec_k=4, requests=None, prompt_len=16,
                                 prompt_len).tolist()
                  for _ in range(requests)]
 
-    def pass_b(spec_on, factory=None):
+    def pass_b(spec_on, factory=None, budget=None):
         return decode_pass(e_b, prompts_b, spec_on, factory=factory,
-                           ngram_factory=ngram_factory_b)
+                           ngram_factory=ngram_factory_b, budget=budget)
 
-    pass_b(False)
-    pass_b(True)
+    pass_b(False, budget=warmup_tokens)
+    pass_b(True, budget=warmup_tokens)
 
     out_off, tpot_off, _, _, bursts_off = pass_b(False)
     out_on, tpot_on, drafted, accepted, bursts_on = pass_b(True)

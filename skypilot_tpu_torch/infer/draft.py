@@ -145,6 +145,9 @@ class DraftEngine:
         # engine runs one verify round at a time.
         self._pending_roll: Optional[
             Tuple[torch.Tensor, List[int], int]] = None
+        # On the card, an event recorded behind the predraft's work: its
+        # pinned, non-blocking uploads and kernels may still be queued.
+        self._pending_done: Optional[torch.cuda.Event] = None
         # Introspection counters (tests and the bench's structure).
         self.rollouts = 0            # rollout bursts dispatched
         self.ingest_chunks = 0       # catch-up chunks
@@ -209,9 +212,17 @@ class DraftEngine:
 
     def reset(self) -> None:
         """Engine reset: drop all state wholesale (counts may be
-        inconsistent after a failure, as the engine's allocator's)."""
+        inconsistent after a failure, as the engine's allocator's). A
+        deferred predraft is dropped only once its queued uploads and
+        kernels have landed, so nothing the host rewrites next (the
+        table, the lengths, the staging buffers) races them; on a card
+        whose context a device fault poisoned that wait raises, and the
+        server's fail-all path takes over."""
+        if self._pending_done is not None:
+            self._pending_done.synchronize()
         self._state.clear()
         self._pending_roll = None
+        self._pending_done = None
         self.allocator.reset()
         self.block_table[:] = self.n_kv_blocks
         self._table_dirty = True
@@ -284,6 +295,9 @@ class DraftEngine:
             return False
         toks = self._dispatch_rollout(live, k)
         self._pending_roll = (toks, live, k)
+        if self.device.type == "cuda":
+            self._pending_done = torch.cuda.Event()
+            self._pending_done.record()
         return True
 
     # -- internals ---------------------------------------------------------
@@ -293,6 +307,7 @@ class DraftEngine:
             return
         toks, slots, k = self._pending_roll
         self._pending_roll = None
+        self._pending_done = None
         # The deferred fetch: the card ran this behind the verify while
         # the host fetched and committed that round.
         self._apply_rollout(toks.cpu().numpy(), slots, k)

@@ -85,8 +85,16 @@ request whose acceptance collapses demotes ``model`` -> ``ngram`` ->
 ``off``. The draft model drafts from the base weights: a fine-tune
 shapes only the target's verify.
 
-Left for later slices of the port: the flight recorder, tracing and
-crash recovery. The JAX engine padded
+Crash recovery: every device dispatch seam (the admission wave, a
+prefill chunk, both halves of a decode burst, a spec verify) runs
+behind a typed boundary (``_dispatch_boundary``, chaos point
+``engine.dispatch``): a failure there surfaces as a recoverable
+:class:`EngineDispatchError`, and :meth:`InferenceEngine.recover` resets
+the engine and re-admits every queued and in-flight request through the
+``_ctx`` resume seam preemption uses, with the same greedy tokens.
+
+Left for later slices of the port: the flight recorder and tracing. The
+JAX engine padded
 admission waves to fixed row counts to avoid recompiles; PyTorch runs
 eagerly, so the port dispatches each wave at its own size and keeps no
 spare slot for padding rows.
@@ -95,6 +103,7 @@ spare slot for padding rows.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -104,7 +113,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from skypilot_tpu_torch import DeviceLike, resolve_device
+from skypilot_tpu_torch import DeviceLike, chaos, resolve_device
 from skypilot_tpu_torch.infer import adapters as adapters_lib
 from skypilot_tpu_torch.infer import kvcache, sampling
 from skypilot_tpu_torch.infer import qos as qos_lib
@@ -242,6 +251,12 @@ QOS_KV_BLOCKS = metrics.gauge(
     "references, shared prefix blocks charged to every referencing "
     "tenant) — the quantity max_kv_blocks caps",
     labelnames=("tenant",))
+ENGINE_RECOVERIES = metrics.counter(
+    "skytpu_engine_recoveries_total",
+    "Engine crash recoveries: a device dispatch seam raised, the "
+    "engine reset (allocator/table/index wiped) and every in-flight "
+    "request was re-admitted through the preemption resume path, "
+    "by the seam that failed", labelnames=("seam",))
 
 
 @dataclasses.dataclass
@@ -279,6 +294,10 @@ class Request:
     tenant: str = qos_lib.DEFAULT_TENANT
     priority: int = 0
     preemptions: int = 0
+    # Engine crash recoveries this request survived: each is an
+    # involuntary preemption through the same resume context (the
+    # trailer).
+    recoveries: int = 0
     # True while the request sits queued because its tenant is at its
     # max_kv_blocks quota: the stall counter fires once per episode.
     kv_quota_stalled: bool = False
@@ -366,6 +385,28 @@ class KvQuotaUnsatisfiableError(ValueError):
         }
 
 
+class EngineDispatchError(RuntimeError):
+    """A device dispatch seam (admission wave, prefill chunk, decode
+    burst, spec verify) raised. The engine's host bookkeeping may
+    disagree with device state, so the only safe move is a full
+    ``reset()``, but every in-flight request is recoverable through the
+    preemption resume path (:meth:`InferenceEngine.recover`): a crash is
+    an involuntary preemption. ``recoverable`` is the flag the server
+    loop keys recovery on."""
+
+    recoverable = True
+
+    def __init__(self, seam: str, cause: BaseException):
+        super().__init__(f"engine dispatch failed at {seam}: {cause}")
+        self.seam = seam
+        self.cause = cause
+        self.typed_error = {
+            "type": "engine_dispatch_failed",
+            "message": str(self),
+            "seam": seam,
+        }
+
+
 class KvPoolWedgedError(RuntimeError):
     """The paged KV pool is exhausted and nothing can make progress:
     every block is held by an active slot (lazy growth has no victim to
@@ -378,6 +419,23 @@ class KvPoolWedgedError(RuntimeError):
             "type": "kv_pool_wedged",
             "message": detail,
         }
+
+
+@contextlib.contextmanager
+def _dispatch_boundary(seam: str):
+    """Typed failure boundary around one device dispatch seam. The
+    ``engine.dispatch`` chaos point fires inside it, so an injected
+    fault takes the path a real device error would. Typed client errors
+    (prompt too long, unsatisfiable quota) pass through unwrapped, as do
+    dispatch errors already wrapped by a nested seam."""
+    try:
+        chaos.point("engine.dispatch", seam=seam)
+        yield
+    except (EngineDispatchError, PromptTooLongError,
+            KvQuotaUnsatisfiableError):
+        raise
+    except Exception as e:
+        raise EngineDispatchError(seam, e) from e
 
 
 def _bucket(n: int, buckets) -> int:
@@ -845,6 +903,9 @@ class InferenceEngine:
         self.chunking: Deque[_ChunkState] = collections.deque()
         self.finished: List[Request] = []
         self._next_rid = 0
+        # Requests the admission pass in progress has popped off
+        # ``waiting`` and not yet landed where :meth:`recover` looks.
+        self._admit_limbo: List[Request] = []
         # Tokens dispatched to the device but not yet committed
         # host-side (one outstanding burst at a time; caps the next).
         self._inflight_tokens = 0
@@ -1045,7 +1106,9 @@ class InferenceEngine:
         """n fresh blocks, evicting LRU prefix-cache entries on a dry
         pool (their blocks free unless still shared with live slots).
         None when the pool stays too dry: the caller leaves the request
-        queued and admission retries after retirements."""
+        queued and admission retries after retirements. The ``kv.alloc``
+        chaos point fires here, inside the enclosing dispatch seam."""
+        chaos.point("kv.alloc", need=n)
         alloc = self.allocator
         idx = self._prefix_index
         while alloc.available < n and idx is not None:
@@ -1373,21 +1436,57 @@ class InferenceEngine:
         go behind the lanes that outrank them). A request whose tenant
         is at its KV quota steps aside for this pass while everyone
         behind it admits, and so does one whose adapter cannot load
-        because every adapter-pool slot is pinned."""
+        because every adapter-pool slot is pinned.
+
+        The pass runs behind the ``admit`` dispatch boundary. Requests it
+        had popped off the queue but not yet landed in ``chunking`` or
+        ``slot_req`` go back to the queue's head before the error
+        crosses the boundary, so :meth:`recover` sees them."""
+        self._admit_limbo = []
+        try:
+            with _dispatch_boundary("admit"):
+                self._admit_impl(on_wave)
+        except EngineDispatchError:
+            self._rescue_admit_limbo()
+            raise
+
+    def _rescue_admit_limbo(self) -> None:
+        """Re-queue every request the crashed admission pass held in
+        locals; one already reachable from ``waiting``, ``chunking``,
+        ``slot_req`` or ``finished`` stays put (never a duplicate)."""
+        reachable = {r.rid for r in self.waiting}
+        reachable.update(st.req.rid for st in self.chunking)
+        reachable.update(r.rid for r in self.slot_req.values())
+        reachable.update(r.rid for r in self.finished)
+        lost = [r for r in self._admit_limbo if r.rid not in reachable]
+        self._admit_limbo = []
+        for r in reversed(lost):     # the earliest pop back at the head
+            self.waiting.appendleft(r)
+
+    def _admit_impl(self, on_wave=None) -> None:
         if self.qos is not None and self.waiting:
             self.qos.reorder(self.waiting)
             if self._preempt_for_waiting() and self.waiting:
                 self.qos.reorder(self.waiting)
         stalled = False
         quota_held: List[Request] = []
+        limbo = self._admit_limbo
+
+        def pop_waiting() -> Request:
+            # Every pop is tracked until the request lands somewhere
+            # recover() can see (_rescue_admit_limbo).
+            req = self.waiting.popleft()
+            limbo.append(req)
+            return req
+
         while self.waiting and self.free_slots and not stalled:
             dispatched = []
             while self.waiting and self.free_slots and not stalled:
                 if self._kv_quota_blocked(self.waiting[0]):
-                    quota_held.append(self.waiting.popleft())
+                    quota_held.append(pop_waiting())
                     continue
                 if self._use_chunked(self.waiting[0]):
-                    req = self.waiting.popleft()
+                    req = pop_waiting()
                     cst = self._claim_chunked(req)
                     if cst == "stall":
                         stalled = True
@@ -1402,7 +1501,7 @@ class InferenceEngine:
                 while self.waiting and self.free_slots and not stalled \
                         and (self.max_wave is None
                              or len(wave) < self.max_wave):
-                    req = self.waiting.popleft()
+                    req = pop_waiting()
                     if self._kv_quota_blocked(req):
                         quota_held.append(req)
                     elif self._use_chunked(req):
@@ -1608,9 +1707,14 @@ class InferenceEngine:
         covers the span rung of the chunk's offset. On the final chunk
         the request's first token is fetched (host sync), the slot joins
         the decoding slots, and the request may retire at once. Returns
-        True if a chunk ran."""
+        True if a chunk ran. Runs behind the ``chunk`` dispatch
+        boundary."""
         if not self.chunking:
             return False
+        with _dispatch_boundary("chunk"):
+            return self._prefill_chunk_impl()
+
+    def _prefill_chunk_impl(self) -> bool:
         st = self.chunking[0]
         req = st.req
         C = self.prefill_chunk
@@ -1845,9 +1949,15 @@ class InferenceEngine:
         decodes while the host streams. The burst length is capped so
         no active slot's cache can overflow (counting tokens in flight)
         and rounded down to a power of two. Returns None when there is
-        nothing to decode."""
+        nothing to decode. Runs behind the ``decode`` dispatch
+        boundary."""
         if not self.slot_req:
             return None
+        with _dispatch_boundary("decode"):
+            return self._dispatch_decode_burst_impl(max_burst)
+
+    def _dispatch_decode_burst_impl(self, max_burst: int
+                                    ) -> Optional[BurstHandle]:
         k = max_burst
         need = 0
         for req in self.slot_req.values():
@@ -1886,7 +1996,14 @@ class InferenceEngine:
         retire per request, using the slot->request snapshot taken at
         dispatch. Tokens past a request's EOS or budget are discarded.
         Slots a lazy dry pool kept out of the burst have no part and
-        emit nothing this round. Returns {rid: [tokens...]}."""
+        emit nothing this round. Returns {rid: [tokens...]}. Runs behind
+        the ``decode`` dispatch boundary: a failure here commits none of
+        the burst's tokens."""
+        with _dispatch_boundary("decode"):
+            return self._complete_decode_burst_impl(handle)
+
+    def _complete_decode_burst_impl(self, handle: BurstHandle
+                                    ) -> Dict[int, List[int]]:
         fetched = [(toks.cpu().numpy(), slots)
                    for toks, slots in handle.parts]
         DECODE_STEP_SECONDS.observe(max(time.time() - handle.begin_s, 0.0))
@@ -1989,10 +2106,15 @@ class InferenceEngine:
         ``draft_batch`` checks it against what was committed. Returns
         {rid: [tokens...]}, or None when no active slot drafted (all
         missed, collapsed or without K+1 rows of headroom): a plain
-        burst then does the same work cheaper."""
-        K = self.spec_k
-        if not self.slot_req or K <= 0:
+        burst then does the same work cheaper. Runs behind the ``verify``
+        dispatch boundary."""
+        if not self.slot_req or self.spec_k <= 0:
             return None
+        with _dispatch_boundary("verify"):
+            return self._spec_decode_burst_impl()
+
+    def _spec_decode_burst_impl(self) -> Optional[Dict[int, List[int]]]:
+        K = self.spec_k
         draft = np.zeros((self.n_slots, K), np.int64)
         n_draft = np.zeros((self.n_slots,), np.int64)
         dlen: Dict[int, int] = {}
@@ -2190,6 +2312,52 @@ class InferenceEngine:
             self.draft_engine.reset()
         self.cache["length"].zero_()
         self._update_gauges()
+
+    def recover(self, exc: Optional[BaseException] = None) -> int:
+        """Crash recovery: a full :meth:`reset` (host and device state
+        may disagree after a failed dispatch; nothing narrower is safe),
+        then every queued or in-flight request re-queues through the
+        preemption resume path. A crash is an involuntary preemption of
+        every resident at once: each victim re-admits with its prompt
+        plus its committed tokens (:meth:`_ctx`), re-prefills that
+        context cold, and its greedy continuation equals an
+        uninterrupted run's. Finished requests stay finished; the server
+        keeps streaming the same Request objects. Returns the number of
+        requests re-queued."""
+        # Snapshot before the wipe, each class in arrival order:
+        # residents, chunkers (disjoint from residents until their final
+        # chunk) and the queue.
+        residents = sorted(self.slot_req.values(), key=lambda r: r.rid)
+        chunkers = [st.req for st in self.chunking]
+        chunker_rids = {r.rid for r in chunkers}
+        queued = list(self.waiting)
+        finished = list(self.finished)
+        self.reset()
+        self.finished.extend(finished)
+        seam = getattr(exc, "seam", None) or "unknown"
+        victims: List[Request] = []
+        seen = set()
+        for req in residents + chunkers + queued:
+            if req.done or req.rid in seen:
+                continue
+            seen.add(req.rid)
+            victims.append(req)
+        for req in victims:
+            in_flight = req.slot is not None or req.rid in chunker_rids
+            # reset() wiped the tables and pins wholesale: scrub the
+            # per-request mirrors without the release paths (a decref or
+            # an unpin now would double-free against the wiped state).
+            req.slot = None
+            req.adapter_pinned = False
+            req.adapter_slot = 0
+            if in_flight:
+                req.recoveries += 1
+                self._mark_stall(req, "recover")
+            self._requeue(req)
+        self.waiting.reverse()          # _requeue prepends: arrival order
+        ENGINE_RECOVERIES.labels(seam=seam).inc()
+        self._update_gauges()
+        return len(victims)
 
     def generate(self, prompts: List[List[int]],
                  max_new_tokens: int = 128) -> List[List[int]]:

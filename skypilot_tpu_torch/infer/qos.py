@@ -41,11 +41,12 @@ Config (env): ``SKYTPU_QOS=1`` enables, ``SKYTPU_QOS_RATE`` /
 "priority": -1}}``).
 
 Copy of ``skypilot_tpu/infer/qos.py`` with the reference's env names,
-typed bodies, headers and metric families. Two deliberate differences:
-the port has no chaos layer, so :meth:`AdmissionController.admit` has
-no ``qos.shed`` fault point (and no ``injected`` shed), and no tracing
-layer, so a malformed ``SKYTPU_QOS_TENANTS`` falls back to the defaults
-with a line on stderr instead of a ``qos.tenants_invalid`` event.
+typed bodies, headers and metric families; the ``qos.shed`` chaos point
+in :meth:`AdmissionController.admit` turns an injected fault into a
+typed shed with reason ``injected``. One deliberate difference: the
+port has no tracing layer, so a malformed ``SKYTPU_QOS_TENANTS`` falls
+back to the defaults with a line on stderr instead of a
+``qos.tenants_invalid`` event.
 """
 
 from __future__ import annotations
@@ -53,12 +54,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import sys
 import threading
 import time
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
-from skypilot_tpu_torch.observability import metrics
+from skypilot_tpu_torch import chaos
+from skypilot_tpu_torch.observability import events, metrics
 
 DEFAULT_TENANT = "default"
 TENANT_HEADER_ENV = "SKYTPU_TENANT_HEADER"
@@ -262,9 +263,7 @@ class QosConfig:
             except (ValueError, TypeError, AttributeError):
                 # A typo'd override must not silently disable QoS for
                 # every tenant; fall back to the defaults, loudly.
-                print(json.dumps({"event": "qos.tenants_invalid",
-                                  "raw": raw[:200]}), file=sys.stderr,
-                      flush=True)
+                events.emit("qos.tenants_invalid", raw=raw[:200])
                 tenants = {}
         return cls(
             enabled=os.environ.get("SKYTPU_QOS", "") == "1",
@@ -344,6 +343,11 @@ class AdmissionController:
         """Admit one request or raise the typed shed. ``depth`` is the
         caller's queue depth (inbox + in-flight) for the overload
         check; None skips it (the LB has no queue)."""
+        try:
+            chaos.point("qos.shed", tenant=tenant, where=self.where)
+        except Exception:  # noqa: BLE001 — an injected fault IS a shed
+            self._shed(tenant, "injected",
+                       RateLimitedError(tenant, 1.0, reason="injected"))
         if (self.cfg.max_waiting and depth is not None
                 and depth >= self.cfg.max_waiting):
             self._shed(tenant, "overloaded",

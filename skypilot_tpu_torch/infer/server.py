@@ -94,6 +94,21 @@ drafter (trailer ``drafter``: ``model``, ``ngram`` after a demotion, or
 serves greedy decoding on the CUDA card (``--device cpu`` runs the
 plain PyTorch versions on the CPU). ``/debug/flight`` and
 ``/debug/forensics`` are later slices of the port.
+
+Crash recovery: when a step of the serving loop raises the engine's
+recoverable :class:`engine.EngineDispatchError`, the loop calls
+``engine.recover()``, which resets the engine and re-admits every
+in-flight request through the preemption resume path; open streams
+continue with the same tokens, and the trailer's ``recoveries`` counts
+the crashes a request survived. A storm guard allows at most
+``SKYTPU_RECOVERY_STORM_LIMIT`` (3) recoveries per
+``SKYTPU_RECOVERY_STORM_WINDOW_S`` (30) seconds; past it, and for any
+other error, the in-flight requests fail and the engine resets (a
+failed reset turns ``/health`` to 503). Fault plans (``chaos``,
+``SKYTPU_CHAOS_PLAN_JSON`` or ``SKYTPU_CHAOS_PLAN``) reach the engine's
+seams, QoS admission, the adapter loader and, with ``replica.kill``,
+the NDJSON stream, which then drops the connection with no terminal
+chunk.
 """
 
 from __future__ import annotations
@@ -111,13 +126,14 @@ from typing import Dict, Optional
 
 import torch
 
-from skypilot_tpu_torch import DeviceLike, resolve_device
+from skypilot_tpu_torch import DeviceLike, chaos, resolve_device
 from skypilot_tpu_torch.infer import adapters as ad_lib
 from skypilot_tpu_torch.infer import draft as draft_lib
 from skypilot_tpu_torch.infer import engine as eng
 from skypilot_tpu_torch.infer import qos as qos_lib
 from skypilot_tpu_torch.infer import sampling
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import events
 from skypilot_tpu_torch.observability import health as health_lib
 from skypilot_tpu_torch.observability import metrics
 
@@ -225,6 +241,15 @@ class ModelServer:
         # read everywhere (benign unlocked reads, as queue_depth()).
         self._draining = False
         self._drain_deadline_s = 0.0
+        # Crash-recovery storm guard: at most ``_storm_limit``
+        # recoveries per rolling ``_storm_window_s``, then the fail-all
+        # path (a card that keeps crashing needs replacing, not a
+        # recover/crash loop that never fails a request visibly).
+        self._storm_limit = int(os.environ.get(
+            "SKYTPU_RECOVERY_STORM_LIMIT", "3"))
+        self._storm_window_s = float(os.environ.get(
+            "SKYTPU_RECOVERY_STORM_WINDOW_S", "30"))
+        self._recover_times: list = []    # loop-thread only
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -243,10 +268,8 @@ class ModelServer:
             self._draining = True
             self._drain_deadline_s = time.time() + max(grace_s, 0.0)
             SERVER_DRAINING.set(1)
-            print(json.dumps({"event": "server.draining",
-                              "in_flight": self.queue_depth(),
-                              "grace_s": grace_s}), file=sys.stderr,
-                  flush=True)
+            events.emit("server.draining", in_flight=self.queue_depth(),
+                        grace_s=grace_s)
         return self.drain_status()
 
     def draining(self) -> bool:
@@ -357,16 +380,24 @@ class ModelServer:
         while not self._stop.is_set():
             try:
                 busy = self._step()
-            except Exception as e:  # noqa: BLE001 — fail the in-flight
-                # requests loudly; never let the serving thread die
-                # while /health reports ok. The engine's slot state is
-                # reset so later requests do not re-drive the poisoned
-                # ones; if even the reset fails the card is gone and
-                # /health turns 503.
-                self._burst = None
+            except Exception as e:  # noqa: BLE001 — never let the
+                # serving thread die while /health reports ok.
+                self._burst = None    # a poisoned in-flight burst
+                # Recovery first: a typed recoverable dispatch failure
+                # resets the engine and re-queues every in-flight
+                # request; the _pending entries and their Request
+                # objects survive, so open streams continue.
+                if self._try_recover(e):
+                    continue
+                # Unrecoverable (or storming): fail the in-flight
+                # requests loudly. The engine's slot state is reset so
+                # later requests do not re-drive the poisoned ones; if
+                # even the reset fails the card is gone and /health
+                # turns 503 before the failures are delivered.
                 try:
                     self.engine.reset()
-                except Exception:  # noqa: BLE001
+                except Exception as e2:  # noqa: BLE001
+                    events.emit("server.engine_reset_failed", error=str(e2))
                     self.health_reason = "engine reset failed"
                     self._ready.clear()
                 for p in self._pending.values():
@@ -379,6 +410,34 @@ class ModelServer:
                 busy = False
             if not busy:
                 time.sleep(0.002)
+
+    def _try_recover(self, e: BaseException) -> bool:
+        """Engine crash recovery for a typed recoverable dispatch
+        failure (loop thread only). True when the engine reset and
+        re-queued its in-flight requests; False routes to the fail-all
+        path (not recoverable, the storm guard tripped, or recover()
+        itself failed)."""
+        if not (getattr(e, "recoverable", False)
+                and hasattr(self.engine, "recover")):
+            return False
+        now = time.monotonic()
+        self._recover_times = [t for t in self._recover_times
+                               if now - t < self._storm_window_s]
+        if len(self._recover_times) >= self._storm_limit:
+            events.emit("server.recovery_storm",
+                        recoveries=len(self._recover_times),
+                        window_s=self._storm_window_s, error=str(e))
+            return False
+        self._recover_times.append(now)
+        try:
+            n = self.engine.recover(e)
+        except Exception as e2:  # noqa: BLE001 — the reset failed; the
+            # fail-all path retries it and turns /health to 503.
+            events.emit("server.engine_recover_failed", error=str(e2))
+            return False
+        events.emit("server.engine_recovered",
+                    seam=getattr(e, "seam", None), victims=n, error=str(e))
+        return True
 
     def _drain_inbox(self) -> None:
         with self._inbox_lock:
@@ -514,14 +573,14 @@ class ModelServer:
             ttft = ((req.first_token_s - req.submit_s) * 1e3
                     if req.first_token_s is not None else None)
             ttft = round(ttft, 2) if ttft is not None else None
-            # The reference trailer's keys; crash recovery (the
-            # zero-valued ``recoveries``) is a later slice.
+            # The reference trailer's keys.
             stats = {"cache_hit": bool(req.cached_len),
                      "cached_tokens": req.cached_len,
                      "spec_drafted": req.spec_drafted,
                      "spec_accepted": req.spec_accepted,
                      "drafter": req.spec_mode or "off",
-                     "preemptions": req.preemptions, "recoveries": 0}
+                     "preemptions": req.preemptions,
+                     "recoveries": req.recoveries}
             p.result = {"tokens": req.tokens, "ttft_ms": ttft,
                         "prefill_chunks": req.n_chunks,
                         "model": req.adapter,
@@ -673,8 +732,17 @@ def make_handler(model: ModelServer):
             code = 200
             try:
                 for chunk in chunks:
+                    # Chaos: a replica.kill fault drops the connection
+                    # mid-stream with no terminal chunk; to the load
+                    # balancer the replica died, and it fails the stream
+                    # over to a survivor.
+                    chaos.point("replica.kill", route="/generate")
                     data = json.dumps(chunk).encode() + b"\n"
                     self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+            except chaos.ChaosError:
+                code = 500
+                self.close_connection = True
+                return
             except ConnectionError:
                 # Client went away mid-stream: 499 (client closed
                 # request), not a success.

@@ -12,8 +12,9 @@ load balancer before port replicas.
 
 The JAX engine runs its Pallas paged kernel in interpret mode
 (``kv_kernel=True``), the program the port's kernel path is held to.
-The port has no chaos layer, so a load failure is made by a checkpoint
-file that is missing or corrupt."""
+Here a load failure is made by a checkpoint file that is missing or
+corrupt; ``tests/test_torch_recovery.py`` injects it through the
+``adapter.load`` chaos point."""
 
 import dataclasses
 import json
@@ -42,6 +43,10 @@ from skypilot_tpu_torch.infer import qos as tq
 from skypilot_tpu_torch.infer import sampling as tsamp
 from skypilot_tpu_torch.infer import server as ts
 from skypilot_tpu_torch.models import llama as tl
+
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
 
 RANK = 4
 PROMPTS = [[3, 17, 42, 5], [7, 9, 11, 13, 2], [23, 29, 31]]

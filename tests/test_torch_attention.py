@@ -13,6 +13,10 @@ from skypilot_tpu.ops import flash_attention as jfa
 from skypilot_tpu_torch.ops import attention as tattn
 from skypilot_tpu_torch.ops import flash_attention as tfa
 
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
+
 B, S, H, D = 2, 256, 4, 32
 
 

@@ -8,10 +8,7 @@ on a typed 400, and without a card the bench raises instead of running
 on the CPU."""
 
 import ast
-import dataclasses
 import json
-import os
-import pathlib
 import socket
 import threading
 
@@ -25,47 +22,12 @@ from skypilot_tpu_torch.infer import bench_serve as tb
 from skypilot_tpu_torch.infer import engine as te
 from skypilot_tpu_torch.infer import server as ts
 from skypilot_tpu_torch.models import llama as tl
+from torch_bench_ref import (_ANCHOR_KEYS, _assigned_dict_keys, _dict_keys,
+                             _ref_function, _returned_keys)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REF_SOURCE = pathlib.Path(ROOT, "skypilot_tpu", "infer", "bench_serve.py")
-
-# Keys whose values compare with (or judge against) the reference's TPU
-# anchor; the port reports them as null.
-_ANCHOR_KEYS = ("vs_baseline_tpot", "vs_baseline_ttft",
-                "worst_run_vs_baseline_ttft", "worst_run_below_1p2x",
-                "regressed", "worst_run_regressed")
-
-
-def _ref_function(name):
-    tree = ast.parse(REF_SOURCE.read_text())
-    return next(n for n in tree.body
-                if isinstance(n, ast.FunctionDef) and n.name == name)
-
-
-def _dict_keys(node):
-    """The constant keys of a dict literal (``**`` expansions skipped)."""
-    return {k.value for k in node.keys if isinstance(k, ast.Constant)}
-
-
-def _returned_keys(name):
-    """Keys of the dict literal that the reference's ``name`` returns."""
-    fn = _ref_function(name)
-    ret = [n for n in ast.walk(fn) if isinstance(n, ast.Return)
-           and isinstance(n.value, ast.Dict)]
-    assert len(ret) == 1, name
-    return _dict_keys(ret[0].value)
-
-
-def _assigned_dict_keys(fn_name, var):
-    """Keys of the dict literal assigned to ``var`` in the reference's
-    ``fn_name`` (e.g. ``run_http``'s ``full``)."""
-    fn = _ref_function(fn_name)
-    for n in ast.walk(fn):
-        if (isinstance(n, ast.Assign) and isinstance(n.value, ast.Dict)
-                and any(isinstance(t, ast.Name) and t.id == var
-                        for t in n.targets)):
-            return _dict_keys(n.value)
-    raise AssertionError(f"{fn_name} assigns no dict to {var}")
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
 
 
 def _record_prompts(engine_cls):
@@ -290,205 +252,3 @@ def test_client_wave_raises_on_a_typed_400():
         httpd.shutdown()
         httpd.server_close()
         model.shutdown()
-
-
-# -- the QoS section ----------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def port_qos():
-    return tb.run_qos_smoke(device="cpu")
-
-
-def test_run_qos_report_has_the_reference_keys(port_qos):
-    """``run_qos``'s report has the reference's keys, and its smoke pass
-    meets the reference's own guard (``tests/test_qos.py::
-    test_bench_qos_smoke``): scheduling and preemption parity, at least
-    one preemption, and WFQ admitting the background tenant far ahead of
-    FIFO."""
-    assert set(port_qos) == _returned_keys("run_qos")
-    assert port_qos["preempt_parity_ok"] and port_qos["sched_parity_ok"]
-    assert port_qos["preemptions"] >= 1
-    assert port_qos["preempt_resumed_rows"] > 0
-    assert port_qos["bg_ttft_wfq_ratio"] < port_qos["bg_ttft_fifo_ratio"]
-    assert (port_qos["slots"], port_qos["hot_requests"],
-            port_qos["new_tokens"]) == (4, 12, 16)
-
-
-def test_main_qos_prints_the_reference_line(capsys, monkeypatch):
-    """``main --qos`` prints one JSON line with the keys of the
-    reference's ``--qos`` line, plus the device."""
-    fn = _ref_function("main")
-    line = next(d for d in ast.walk(fn) if isinstance(d, ast.Dict)
-                and "serve_qos_fairness_ratio" in
-                {getattr(v, "value", None) for v in d.values})
-    keys = _dict_keys(line) | {
-        c.value for comp in ast.walk(line)
-        if isinstance(comp, ast.DictComp)
-        for c in ast.walk(comp.generators[0].iter)
-        if isinstance(c, ast.Constant)}
-    report = {k: 0 for k in _returned_keys("run_qos")}
-    monkeypatch.setattr(tb, "run_qos", lambda **kw: report)
-    tb.main(["--device", "cpu", "--qos", "--smoke"])
-    lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 1
-    out = json.loads(lines[0])
-    assert set(out) == keys | {"device"}
-    assert out["metric"] == "serve_qos_fairness_ratio"
-
-
-# -- the adapter section ------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def port_adapters():
-    return tb.run_adapters_smoke(device="cpu")
-
-
-def test_run_adapters_report_has_the_reference_keys(port_adapters):
-    """``run_adapters_smoke()``'s report has the keys of the reference's
-    ``run_adapters`` and meets its own guard (``tests/test_adapters.py::
-    test_adapter_smoke_bench``): greedy parity, hot loads and evictions
-    in the churn, a positive overhead ratio. ``unexpected_compiles`` is
-    null: the port has no compile watch (its churn asserts the pool's
-    addresses instead)."""
-    r = port_adapters
-    assert set(r) == _returned_keys("run_adapters")
-    assert r["parity_ok"]
-    assert r["hot_loads"] > 0 and r["evictions"] > 0
-    assert r["overhead_ratio"] > 0 and r["unexpected_compiles"] is None
-    assert (r["n_adapters"], r["rank"], r["requests"],
-            r["new_tokens"]) == (4, 4, 4, 32)
-
-
-def test_main_adapters_prints_the_reference_line(capsys, monkeypatch):
-    """``main --adapters`` prints one JSON line with the keys of the
-    reference's ``--adapters`` line, plus the device."""
-    fn = _ref_function("main")
-    line = next(d for d in ast.walk(fn) if isinstance(d, ast.Dict)
-                and "serve_adapter_overhead" in
-                {getattr(v, "value", None) for v in d.values})
-    keys = _dict_keys(line) | {
-        c.value for comp in ast.walk(line)
-        if isinstance(comp, ast.DictComp)
-        for c in ast.walk(comp.generators[0].iter)
-        if isinstance(c, ast.Constant)}
-    report = {k: 0 for k in _returned_keys("run_adapters")}
-    seen = []
-    monkeypatch.setattr(tb, "run_adapters",
-                        lambda **kw: seen.append(kw) or report)
-    tb.main(["--device", "cpu", "--adapters", "--smoke", "--n-adapters",
-             "3"])
-    lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 1
-    out = json.loads(lines[0])
-    assert set(out) == keys | {"device"}
-    assert out["metric"] == "serve_adapter_overhead"
-    assert seen[0]["n_adapters"] == 3 and seen[0]["smoke"]
-
-
-# -- the speculative-decoding section ----------------------------------------
-
-def _first_gap(params, cfg, prompt, got, want):
-    """(step, the plain path's top-2 logit gap there) at the first step
-    where ``got`` and ``want`` part, or None where they agree."""
-    from skypilot_tpu_torch.infer import kvcache as tkv
-    t = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
-    if t is None:
-        return None
-    ctx = list(prompt) + list(want[:t])
-    _, logits = tkv.prefill_batch(params, torch.tensor([ctx]),
-                                  torch.tensor([len(ctx)]), cfg,
-                                  plain_attention=True)
-    top = logits[0].topk(2).values
-    return t, (top[0] - top[1]).item()
-
-
-@pytest.fixture(scope="module")
-def port_spec():
-    """``run_spec(smoke=True)`` on llama3-tiny in float32 (the tiny
-    config's bf16 puts near-ties everywhere), with the token lists
-    behind its parity verdicts."""
-    cfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"],
-                              dtype=torch.float32)
-    real = tl.CONFIGS["llama3-tiny"]
-    tl.CONFIGS["llama3-tiny"] = cfg
-    try:
-        toks = {}
-        r = tb.run_spec(smoke=True, device="cpu", tokens_out=toks)
-    finally:
-        tl.CONFIGS["llama3-tiny"] = real
-    return r, toks, cfg
-
-
-def test_run_spec_report_has_the_reference_keys(port_spec):
-    """``run_spec``'s smoke report has the reference's keys and meets
-    the structure of its guard (``tests/test_spec_decode.py::
-    test_spec_smoke_bench_wiring``): oracle acceptance exactly 1.0, the
-    distilled drafter accepting > 0.9 where n-gram lookup is a wash,
-    every pipelined predraft inside its verify's window with reuse, and
-    fewer oracle rounds than one-token decoding would need. Greedy
-    parity holds in every column, or a column parts only at a near-tie
-    (the plain path's top-2 gap at most 1e-2): the port's kernel path,
-    like the reference's, computes a verify round's staged columns as
-    bf16 products."""
-    from skypilot_tpu_torch.infer import draft as td
-    r, toks, cfg = port_spec
-    assert set(r) == _returned_keys("run_spec")
-    assert r["backend"] == "cpu" and r["config"] == "llama3-tiny"
-    assert (r["requests"], r["new_tokens"], r["spec_k"]) == (4, 96, 4)
-    assert r["oracle_accept_rate"] == 1.0
-    assert r["drafted"] > 0 and 0.0 <= r["accept_rate"] <= 1.0
-    assert r["bursts_spec"] > 0 and r["bursts_oracle"] > 0
-    assert (r["bursts_oracle"] * (r["spec_k"] + 1) * r["requests"]
-            >= r["decode_tokens"])
-    assert r["model_accept_rate"] > 0.9
-    assert r["ngram_nonrep_accept_rate"] < 0.5
-    assert r["overlap_ok"] and r["draft_records"] > 0
-    assert r["draft_reuse_hits"] > 0 and r["draft_layers"] == 1
-    gen = torch.Generator().manual_seed(0)
-    params = tl.init_params(cfg, gen, device="cpu", dtype=cfg.dtype)
-    target, _, _ = td.self_distilled_pair(params, cfg, 1)
-    b_cfg = dataclasses.replace(cfg, vocab_size=16)
-    gen = torch.Generator().manual_seed(0)
-    b_params = tl.init_params(b_cfg, gen, device="cpu", dtype=cfg.dtype)
-    prompts, off, *passes = toks["a"]
-    verdicts = ("model_parity_ok", "model_sync_parity_ok",
-                "ngram_nonrep_parity_ok")
-    cases = [(target, cfg, prompts, off, got, v)
-             for got, v in zip(passes, verdicts)]
-    prompts, off, *passes = toks["b"]
-    cases += [(b_params, b_cfg, prompts, off, got, v)
-              for got, v in zip(passes, ("parity_ok", "oracle_parity_ok"))]
-    for params_, cfg_, prompts, off, got, verdict in cases:
-        assert r[verdict] == (got == off), verdict
-        for p, a, b in zip(prompts, got, off):
-            gap = _first_gap(params_, cfg_, p, a, b)
-            assert gap is None or gap[1] <= 1e-2, (verdict, gap)
-    # The model drafter's columns and the oracle's keep exact parity.
-    assert r["model_parity_ok"] and r["model_sync_parity_ok"]
-    assert r["parity_ok"] and r["oracle_parity_ok"]
-
-
-def test_main_spec_prints_the_reference_line(capsys, monkeypatch):
-    """``main --spec`` prints one JSON line with the keys of the
-    reference's ``--spec`` line, plus the device, and passes
-    ``--spec-k``."""
-    fn = _ref_function("main")
-    line = next(d for d in ast.walk(fn) if isinstance(d, ast.Dict)
-                and "serve_spec_model_speedup" in
-                {getattr(v, "value", None) for v in d.values})
-    keys = _dict_keys(line) | {
-        c.value for comp in ast.walk(line)
-        if isinstance(comp, ast.DictComp)
-        for c in ast.walk(comp.generators[0].iter)
-        if isinstance(c, ast.Constant)}
-    report = {k: 0 for k in _returned_keys("run_spec")}
-    seen = []
-    monkeypatch.setattr(tb, "run_spec",
-                        lambda **kw: seen.append(kw) or report)
-    tb.main(["--device", "cpu", "--spec", "--smoke", "--spec-k", "3"])
-    lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 1
-    out = json.loads(lines[0])
-    assert set(out) == keys | {"device"}
-    assert out["metric"] == "serve_spec_model_speedup"
-    assert seen[0]["spec_k"] == 3 and seen[0]["smoke"]

@@ -19,6 +19,10 @@ from skypilot_tpu_torch.train import evaluate as ev
 from skypilot_tpu_torch.train import run
 from skypilot_tpu_torch.train import trainer as tt
 
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
+
 
 def _state(seed=0):
     return tt.create_train_state(tl.CONFIGS["llama3-tiny"],

@@ -17,6 +17,10 @@ from skypilot_tpu.models import llama as jl
 from skypilot_tpu_torch.infer import engine as te
 from skypilot_tpu_torch.models import llama as tl
 
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
+
 # Prompt lengths cross block boundaries (none block-aligned) and two
 # buckets; more prompts than slots, so slots recycle mid-run and span
 # regrouping sees several rungs.

@@ -14,6 +14,10 @@ from skypilot_tpu.ops import flash_attention as jfa
 from skypilot_tpu_torch.ops import attention as tattn
 from skypilot_tpu_torch.ops import flash_attention as tfa
 
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
+
 H, HKV, D = 4, 2, 32
 
 

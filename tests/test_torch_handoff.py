@@ -35,6 +35,10 @@ from skypilot_tpu_torch.infer import kvcache as tkv
 from skypilot_tpu_torch.infer import server as ts
 from skypilot_tpu_torch.models import llama as tl
 
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
+
 CHUNK = 8
 SYSTEM = list(range(5, 21))                 # 16 tokens = 2 chunks
 PROMPT = SYSTEM + [31, 32, 33]              # 19 tokens: 16 cached

@@ -58,9 +58,12 @@ def test_chip_smoke_imports_no_jax():
 def test_the_adapter_catalog_is_covered():
     """``infer/adapters.py`` keeps its own copies of what it needs from
     the reference's host-only modules (the metric families, the load
-    retry; there is no chaos layer): it is among the modules imported
-    with jax absent above, and its source names none of them."""
+    retry) and takes its fault point from the port's own chaos layer:
+    it is among the modules imported with jax absent above, and its
+    source names none of the reference's."""
     assert "skypilot_tpu_torch.infer.adapters" in MODULES
     src = (PKG / "infer" / "adapters.py").read_text()
-    for name in ("chaos", "utils.retry", "observability.tracing"):
+    for name in ("utils.retry", "observability.tracing"):
         assert f"import {name}" not in src and f".{name} import" not in src
+    assert "from skypilot_tpu_torch import DeviceLike, chaos," in src
+    assert "skypilot_tpu.chaos" not in src

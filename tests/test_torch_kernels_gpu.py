@@ -1660,3 +1660,99 @@ def test_draft_engine_on_card(kv_int8, monkeypatch):
     rep = cfg.n_heads // cfg.n_kv_heads
     assert any(r == rep for _, r, _ in checked)
     assert any(r == 128 * rep for _, r, _ in checked)
+
+
+# -- crash recovery on the card -----------------------------------------------
+
+def _drive_recovering(e, crashed):
+    """Drain ``e``, recovering through each dispatch crash (its seam
+    appended to ``crashed``) as the server does."""
+    while e.waiting or e.chunking or e.slot_req:
+        try:
+            e.step_burst(max_burst=4)
+        except te.EngineDispatchError as ex:
+            crashed.append(ex.seam)
+            e.recover(ex)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("seam", ["chunk", "verify"])
+def test_recover_on_card(dtype, seam, monkeypatch):
+    """A seeded fault at the second prefill chunk or the second verify
+    round on a two-slot engine (max_len 1024, blocks of 256, chunks of
+    512, a prefix pool, n-gram spec K 4) with a 600-token and a
+    300-token request: the engine resets and re-admits both through the
+    resume path. The trash block holds 100.0; every K1 call, the resume
+    chunks' multi-row calls over cached rows included, agrees with the
+    plain version under K1's rule; a victim counts its recovery, the
+    pool drains, and in float32 the recovered tokens equal the
+    uninterrupted run's or part only where the plain top-2 gap is at
+    most 1e-2."""
+    from skypilot_tpu_torch import chaos
+    dev = _cuda()
+    cfg = _hd128_config(dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tl.init_params(cfg, gen, device=dev)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (600, 300)]
+    phase = {"v": "run"}
+    checked = []
+    monkeypatch.setattr(tkv, "_paged_attn_stats",
+                        _held_k1(checked, lambda: phase["v"]))
+    e = te.InferenceEngine(
+        params, cfg, n_slots=2, max_len=1024, prompt_buckets=(512, 1024),
+        kv_block=256, prefill_chunk=512, prefix_pool=4, spec_k=4,
+        device=dev)
+    out = {}
+    for fault in (None, seam):
+        e.reset()
+        e.clear_prefix_cache()
+        _fill_trash(e)
+        ids = [e.add_request(p, max_new_tokens=24) for p in prompts]
+        chaos.configure({"seed": 0, "faults": [
+            {"point": "engine.dispatch", "match": {"seam": fault},
+             "after": 1, "times": 1}] if fault else []})
+        crashed = []
+        real = e.recover
+
+        def recover(ex):
+            n = real(ex)
+            phase["v"] = "recovered"
+            return n
+
+        e.recover = recover
+        try:
+            _drive_recovering(e, crashed)
+        finally:
+            chaos.deactivate()
+            del e.recover
+            phase["v"] = "run"
+        reqs = {r.rid: r for r in e.finished}
+        assert crashed == ([fault] if fault else [])
+        assert all(len(reqs[i].tokens) == 24 for i in ids)
+        if fault:
+            assert any(reqs[i].recoveries == 1 for i in ids)
+        e.clear_prefix_cache()
+        assert e.blocks_used() == 0
+        out[fault] = [reqs[i].tokens for i in ids]
+    rep = cfg.n_heads // cfg.n_kv_heads
+    assert any(t == "recovered" and r > rep and n > 0
+               for t, r, n in checked), checked
+    if dtype == torch.float32:
+        # Equal, or parting only at a near-tie of the plain path (a
+        # victim re-prefills its context where the twin decoded it).
+        for p, got, want in zip(prompts, out[seam], out[None]):
+            t = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+            if t is None:
+                continue
+            ctx = p + want[:t]
+            _, logits = tkv.prefill_batch(
+                params, torch.tensor([ctx], device=dev),
+                torch.tensor([len(ctx)], device=dev), cfg,
+                plain_attention=True)
+            top2 = logits[0].topk(2).values
+            assert (top2[0] - top2[1]).item() <= 1e-2, (t, got, want)

@@ -21,6 +21,10 @@ from skypilot_tpu_torch.infer import kvcache as tkv
 from skypilot_tpu_torch.infer import sampling as tsamp
 from skypilot_tpu_torch.models import llama as tl
 
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
+
 MAX_LEN, BL, N_BLOCKS, S = 32, 8, 6, 16
 NB = MAX_LEN // BL
 

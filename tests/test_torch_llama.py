@@ -11,6 +11,10 @@ import torch
 from skypilot_tpu.models import llama as jl
 from skypilot_tpu_torch.models import llama as tl
 
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
+
 _DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 

@@ -17,6 +17,10 @@ from skypilot_tpu.infer import kvcache as jkv
 from skypilot_tpu.ops import paged_attention as jpa
 from skypilot_tpu_torch.ops import paged_attention as tpa
 
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
+
 L, N_BLOCKS, BL, G, HD = 2, 12, 8, 2, 16
 B, R, NB = 4, 3, 5
 

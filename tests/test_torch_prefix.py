@@ -23,6 +23,10 @@ from skypilot_tpu_torch.infer import engine as te
 from skypilot_tpu_torch.infer import kvcache as tkv
 from skypilot_tpu_torch.models import llama as tl
 
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def models():
@@ -135,8 +139,22 @@ def _cow():
     return je.KV_COW_COPIES._require_default().value
 
 
+@pytest.fixture(scope="module")
+def jax_side():
+    """What a JAX engine did on a test's workload, computed once and
+    shared by the test's kernel and plain cases."""
+    cache = {}
+
+    def get(name, run):
+        if name not in cache:
+            cache[name] = run()
+        return cache[name]
+
+    return get
+
+
 @_PATHS
-def test_warm_equals_cold_equals_jax_block_aligned(models, plain):
+def test_warm_equals_cold_equals_jax_block_aligned(models, jax_side, plain):
     """Chunk 8, blocks of 8: the stored prefix is block-aligned, so the
     hit maps shared blocks with no copy; the warm request prefills one
     chunk from row 16, and warm, cold-after-clear and the JAX engine's
@@ -144,19 +162,24 @@ def test_warm_equals_cold_equals_jax_block_aligned(models, plain):
     jcfg, tcfg, jp, tp = models
     pa, pb = _SYSTEM + [31, 32, 33, 34], _SYSTEM + [41, 42, 43]
     kw = _pair_kw(kv_block=8)
-    ref = _jax_engine(jp, jcfg, **kw)
+
+    def run():
+        ref = _jax_engine(jp, jcfg, **kw)
+        ref.generate([pa], max_new_tokens=6)
+        ref.finished.clear()
+        cow0 = _cow()
+        want = ref.generate([pb], max_new_tokens=6)[0]
+        (jreq,) = ref.finished
+        return want, _cow() - cow0, (jreq.cached_len, jreq.n_chunks)
+
+    want, jcow, jcounts = jax_side("block_aligned", run)
+    assert jcow == 0
     e = _torch_engine(tp, tcfg, plain, **kw)
-    for eng in (ref, e):
-        eng.generate([pa], max_new_tokens=6)
-        eng.finished.clear()
-    cow0 = _cow()
-    want = ref.generate([pb], max_new_tokens=6)[0]
-    assert _cow() == cow0
+    e.generate([pa], max_new_tokens=6)
+    e.finished.clear()
     warm = e.generate([pb], max_new_tokens=6)[0]
     (req,) = e.finished
-    (jreq,) = ref.finished
-    assert (req.cached_len, req.n_chunks) == (jreq.cached_len,
-                                              jreq.n_chunks) == (16, 1)
+    assert (req.cached_len, req.n_chunks) == jcounts == (16, 1)
     assert e.cow_copies == 0 and e.prefix_hits == 1
     assert e.prefix_misses == 1                     # pa's cold claim
     e.finished.clear()
@@ -167,7 +190,7 @@ def test_warm_equals_cold_equals_jax_block_aligned(models, plain):
 
 
 @_PATHS
-def test_partial_block_copy_on_share_then_write(models, plain):
+def test_partial_block_copy_on_share_then_write(models, jax_side, plain):
     """Chunk 8, blocks of 16: a 24-token stored prefix ends mid-block, so
     storing copies the partial block (copy-on-share) and the hit copies
     it again before its suffix prefill writes there (copy-on-write), as
@@ -177,19 +200,25 @@ def test_partial_block_copy_on_share_then_write(models, plain):
     system = list(range(5, 29))                     # 24 tokens
     pa, pb = system + [31, 32, 33], system + [41, 42]
     kw = _pair_kw(kv_block=16)
-    ref = _jax_engine(jp, jcfg, **kw)
+
+    def run():
+        ref = _jax_engine(jp, jcfg, **kw)
+        cow0 = _cow()
+        want_a = ref.generate([pa], max_new_tokens=6)[0]
+        jcow_a = _cow() - cow0
+        ref.finished.clear()
+        want_b = ref.generate([pb], max_new_tokens=6)[0]
+        return (want_a, jcow_a, want_b, _cow() - cow0,
+                ref.finished[0].cached_len)
+
+    want_a, jcow_a, want_b, jcow, jcached = jax_side("partial_block", run)
     e = _torch_engine(tp, tcfg, plain, **kw)
-    cow0 = _cow()
-    want_a = ref.generate([pa], max_new_tokens=6)[0]
-    jcow_a = _cow() - cow0
     assert e.generate([pa], max_new_tokens=6)[0] == want_a
     assert e.cow_copies == jcow_a == 1
-    ref.finished.clear()
     e.finished.clear()
-    want_b = ref.generate([pb], max_new_tokens=6)[0]
     warm = e.generate([pb], max_new_tokens=6)[0]
-    assert e.cow_copies == _cow() - cow0 == 2
-    assert e.finished[0].cached_len == ref.finished[0].cached_len == 24
+    assert e.cow_copies == jcow == 2
+    assert e.finished[0].cached_len == jcached == 24
     e.finished.clear()
     e.clear_prefix_cache()
     assert warm == want_b == e.generate([pb], max_new_tokens=6)[0]
@@ -203,30 +232,36 @@ def _dry_engine(cls, params, cfg, **kw):
 
 
 @_PATHS
-def test_dry_pool_evicts_prefix_entries(models, plain):
+def test_dry_pool_evicts_prefix_entries(models, jax_side, plain):
     """Nine blocks, a stored prefix holding 2: two 40-token requests
     needing 6 blocks each find the pool dry; LRU entries that free blocks
     are evicted (counted as the JAX engine counts them) and everyone
     completes with the JAX engine's tokens."""
     jcfg, tcfg, jp, tp = models
-    ref = _dry_engine(je.InferenceEngine, jp, jcfg, prefix_pool=4)
+    long_ = [list(range(100, 140)), list(range(150, 190))]
+
+    def run():
+        ref = _dry_engine(je.InferenceEngine, jp, jcfg, prefix_pool=4)
+        ev0 = je.PREFIX_EVICTIONS._require_default().value
+        ref.generate([_SYSTEM + [31, 32]], max_new_tokens=4)
+        ref.finished.clear()
+        used = ref.blocks_used
+        want = ref.generate(long_, max_new_tokens=4)
+        return used, want, je.PREFIX_EVICTIONS._require_default().value - ev0
+
+    jused, want, jev = jax_side("dry_pool_evicts", run)
     e = _dry_engine(te.InferenceEngine, tp, tcfg, prefix_pool=4,
                     device="cpu", plain_attention=plain)
-    long_ = [list(range(100, 140)), list(range(150, 190))]
-    ev0 = je.PREFIX_EVICTIONS._require_default().value
-    for eng in (ref, e):
-        eng.generate([_SYSTEM + [31, 32]], max_new_tokens=4)
-        eng.finished.clear()
-    assert e.blocks_used() == ref.blocks_used == 2
-    want = ref.generate(long_, max_new_tokens=4)
+    e.generate([_SYSTEM + [31, 32]], max_new_tokens=4)
+    e.finished.clear()
+    assert e.blocks_used() == jused == 2
     assert e.generate(long_, max_new_tokens=4) == want
-    jev = je.PREFIX_EVICTIONS._require_default().value - ev0
     assert e.prefix_evictions == jev > 0
     assert not e.waiting and not e.chunking
 
 
 @_PATHS
-def test_hit_survives_dry_pool_admission(models, plain):
+def test_hit_survives_dry_pool_admission(models, jax_side, plain):
     """A hit claimed against a dry pool pins its shared blocks before
     eviction, so it never evicts its own entry (which would free
     nothing) and stalls until the hog retires: still warm, no eviction,
@@ -234,13 +269,8 @@ def test_hit_survives_dry_pool_admission(models, plain):
     block."""
     jcfg, tcfg, jp, tp = models
     pb = _SYSTEM + [41, 42, 43, 44, 45, 46, 47, 48]
-    out = {}
-    for name, eng in (
-            ("ref", _dry_engine(je.InferenceEngine, jp, jcfg,
-                                prefix_pool=2)),
-            ("port", _dry_engine(te.InferenceEngine, tp, tcfg,
-                                 prefix_pool=2, device="cpu",
-                                 plain_attention=plain))):
+
+    def drive(name, eng):
         eng.generate([_SYSTEM + [31, 32]], max_new_tokens=4)
         eng.finished.clear()
         ev0 = (je.PREFIX_EVICTIONS._require_default().value
@@ -253,15 +283,21 @@ def test_hit_survives_dry_pool_admission(models, plain):
         ev = (je.PREFIX_EVICTIONS._require_default().value
               if name == "ref" else eng.prefix_evictions) - ev0
         req = next(r for r in eng.finished if r.prompt == pb)
-        out[name] = (req.tokens, req.cached_len, ev)
-    assert out["port"] == out["ref"]
-    assert out["port"][1:] == (16, 0)
+        return req.tokens, req.cached_len, ev
+
+    want = jax_side("hit_survives", lambda: drive("ref", _dry_engine(
+        je.InferenceEngine, jp, jcfg, prefix_pool=2)))
+    eng = _dry_engine(te.InferenceEngine, tp, tcfg, prefix_pool=2,
+                      device="cpu", plain_attention=plain)
+    got = drive("port", eng)
+    assert got == want
+    assert got[1:] == (16, 0)
     eng.clear_prefix_cache()
     assert eng.blocks_used() == 0
 
 
 @_PATHS
-def test_blocks_return_to_the_entries_then_to_zero(models, plain):
+def test_blocks_return_to_the_entries_then_to_zero(models, jax_side, plain):
     """A mixed workload (waves, chunked prompts, a store and a hit):
     once the queue drains only the resident entries hold blocks (as in
     the JAX engine), clear_prefix_cache() frees them, and reset() clears
@@ -269,13 +305,17 @@ def test_blocks_return_to_the_entries_then_to_zero(models, plain):
     jcfg, tcfg, jp, tp = models
     prompts = [_SYSTEM + [31, 32], [3, 1, 4], _SYSTEM + [41, 42, 43]]
     kw = _pair_kw(kv_block=8)
-    ref = _jax_engine(jp, jcfg, **kw)
+
+    def run():
+        ref = _jax_engine(jp, jcfg, **kw)
+        return ref.generate(prompts, max_new_tokens=5), ref.blocks_used
+
+    want, jused = jax_side("blocks_return", run)
     e = _torch_engine(tp, tcfg, plain, **kw)
-    want = ref.generate(prompts, max_new_tokens=5)
     assert e.generate(prompts, max_new_tokens=5) == want
     assert not e.slot_req and not e.chunking
     held = sum(len(p) for p in e._prefix_index.payloads())
-    assert e.blocks_used() == ref.blocks_used == held > 0
+    assert e.blocks_used() == jused == held > 0
     e.clear_prefix_cache()
     assert e.blocks_used() == 0
     e.generate([_SYSTEM + [7, 8]], max_new_tokens=2)

@@ -43,6 +43,10 @@ from skypilot_tpu_torch.infer import kvcache as tkv
 from skypilot_tpu_torch.infer import sampling as tsamp
 from skypilot_tpu_torch.models import llama as tl
 
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -546,14 +550,32 @@ _PATHS = pytest.mark.parametrize("plain", [False, True],
                                  ids=["kernel", "plain"])
 
 
+@pytest.fixture(scope="module")
+def jax_parity(models):
+    """The JAX engine's tokens on the pinned parity workload, one run per
+    (spec_k, weights_int8), shared by the kernel and plain cases."""
+    jcfg, _, jp, _ = models
+    cache = {}
+
+    def get(spec_k, weights_int8=False):
+        if (spec_k, weights_int8) not in cache:
+            cache[spec_k, weights_int8] = _jax_engine(
+                jp, jcfg, weights_int8=weights_int8,
+                **_parity_kw(spec_k)).generate(
+                    _parity_prompts(jcfg.vocab_size), max_new_tokens=8)
+        return cache[spec_k, weights_int8]
+
+    return get
+
+
 @_PATHS
 @pytest.mark.parametrize("spec_k", [0, 3], ids=["spec0", "spec3"])
-def test_engine_int8_kv_matches_jax_engine(models, spec_k, plain):
+def test_engine_int8_kv_matches_jax_engine(models, jax_parity, spec_k,
+                                           plain):
     """``test_engine_parity_matrix``'s int8 cells: the port's fp32 greedy
     tokens on an int8 KV cache equal the JAX int8 engine's."""
-    jcfg, tcfg, jp, tp = models
-    want = _jax_engine(jp, jcfg, **_parity_kw(spec_k)).generate(
-        _parity_prompts(jcfg.vocab_size), max_new_tokens=8)
+    _, tcfg, _, tp = models
+    want = jax_parity(spec_k)
     e = _torch_engine(tp, tcfg, plain_attention=plain, **_parity_kw(spec_k))
     assert e.cache["k"].dtype == torch.int8
     assert e.generate(_parity_prompts(tcfg.vocab_size),
@@ -595,14 +617,14 @@ def test_engine_w8a8_random_weights_match_jax_engine(models):
 
 
 @_PATHS
-def test_engine_weights_int8_quantizes_once_and_slims(models, plain):
+def test_engine_weights_int8_quantizes_once_and_slims(models, jax_parity,
+                                                      plain):
     """``weights_int8=True`` quantizes the given float tree on the
     engine's device, keeps only the slim tree, and gives the JAX w8a8
     int8-KV engine's tokens (spec on, the reference server's default)."""
-    jcfg, tcfg, jp, tp = models
+    _, tcfg, _, tp = models
     prompts = _parity_prompts(tcfg.vocab_size)
-    want = _jax_engine(jp, jcfg, weights_int8=True,
-                       **_parity_kw(3)).generate(prompts, max_new_tokens=8)
+    want = jax_parity(3, weights_int8=True)
     e = _torch_engine(tp, tcfg, weights_int8=True, plain_attention=plain,
                       **_parity_kw(3))
     assert set(e.params) == {"embed", "final_norm", "blocks"}

@@ -37,6 +37,10 @@ from skypilot_tpu_torch.infer import qos as tq
 from skypilot_tpu_torch.infer import server as ts
 from skypilot_tpu_torch.models import llama as tl
 
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The reference server's response keys for /generate (blocking result
 # and the stream's closing line).

@@ -20,6 +20,10 @@ from skypilot_tpu_torch.data import input_pipeline as tip
 from skypilot_tpu_torch.models import llama as tl
 from skypilot_tpu_torch.train import trainer as tt
 
+# One intra-op thread: the suite runs several test files at once on a
+# few cores, and these tiny products gain nothing from more threads.
+torch.set_num_threads(1)
+
 
 def _cfgs(**kw):
     jcfg = dataclasses.replace(jl.CONFIGS["llama3-tiny"], dtype=jnp.float32,
