@@ -94,7 +94,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    tier D on one params tree: llama3-8b bf16 at full depth in the serve
    phase's settings, the int8 recipe at full depth (32 slots, max_len
    1280, quantized once) and float32 on the first 8 layers. The single
-   tier first (prompts of 775 and 597 tokens, 32 new tokens, on D's
+   tier first (prompts of 775 and 597 tokens, 16 new tokens, on D's
    ``/generate``), then, launch counts set to 0, each prompt's
    ``/prefill`` on P and its ``/handoff`` on D, blocking and streamed,
    D's prefix cache cleared before each: every handoff imports the
@@ -113,7 +113,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    llama3-8b full width and depth, bf16, random weights from seed 0,
    through its own functions, launch counts set to 0 before each leg
    and read after it: ``run_http`` (8 streamed requests of mixed
-   512-1024-token prompts over HTTP, 32 new tokens, three timed waves
+   512-1024-token prompts over HTTP, 32 new tokens, two timed waves
    after a warmup wave; every response 200 with 32 tokens, finite
    positive TTFT, p99 TTFT, tokens/s and TPOT), ``run`` (16 requests of
    96 tokens on the engine alone, 64 tokens each) and
@@ -176,7 +176,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    ``/handoff`` under one fine-tune between two port replicas: the
    wire's salt is the fine-tune's content digest, D imports 512 rows
    under it and hits. (c) ``bench_serve.run_adapters`` (rank 16, 8
-   fine-tunes, 8 requests of 128 tokens, 32 new): TPOT single and
+   fine-tunes, 8 requests of 128 tokens, 16 new): TPOT single and
    mixed, ``overhead_ratio`` (recorded, not gated), hot loads and
    evictions. Where (b) or (c)'s bf16 tokens part from their reference
    (single tier; sequential runs), the serve phase's bf16 floor rule
@@ -219,7 +219,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
 10. Recover: crash recovery on the serve engine at llama3-8b bf16 (16
    slots, max_len 1024, blocks of 256, chunks of 512, a prefix pool of
    8, n-gram spec K 4), launch counts set to 0 before each leg and read
-   after it: 8 requests (``RECOVER_LENS``, two chunked) of 32 new
+   after it: 8 requests (``RECOVER_LENS``, two chunked) of 24 new
    tokens, the uninterrupted twin, then one run per seeded fault of
    ``RECOVER_FAULTS`` (the admit, chunk, verify and decode dispatch
    seams and a KV block claim), each recovered through
@@ -236,7 +236,33 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    self-distilled draft pipelined with the fault at a verify while a
    predraft is pending; tokens equal the twin's wherever the plain
    top-2 gap exceeds 1e-2.
-11. Train: gradient parity of the kernels against the plain versions at
+11. Observe: the observability stack on a replica at llama3-8b (full
+   width and depth, bf16, the reference server's defaults), launch
+   counts set to 0 before the traffic and read after it. The engine is
+   warmed by ``server.warm_grid`` (``--warm-grid``: every program key
+   dispatched once, then the compile watch armed; the keys and their
+   first-dispatch host wall printed), then the HTTP server serves a
+   mixed workload (four wave prompts, chunked prompts of 700 and 900
+   tokens, a repeated phrase for the n-gram verify, one request with a
+   ``traceparent``, then a shared-prefix pair whose second is a prefix
+   hit), 16 new tokens each. Held: zero unexpected compiles, the
+   records' decode and verify program identities equal the engine's
+   ``decode_programs`` both ways, the traceparent's trace id on the
+   request's records, ``/debug/flight`` and ``/debug/forensics`` read
+   over HTTP with a ``?rid=`` ledger whose phases sum to its wall (90%
+   named) and a 400 on a bad rid, K1 and K2 launched. Printed: the
+   medians of ``dispatch_wall_ms``, ``fetch_wall_ms`` and ``dev_ms_est``
+   by burst kind; the HBM ledger beside ``allocated_bytes.all.current``
+   (its resident components must fit in it); then on the engine alone,
+   one request a slot of ``OBSERVE_PARITY_NEW`` tokens, everything on,
+   the recorder off, forensics off and calibration off, in that order
+   and back: greedy tokens equal in every pass, and
+   ``overhead_ratio``, ``forensics_overhead_ratio`` and
+   ``devtime_overhead_ratio`` (best against best) reported; one decode
+   program's ``dev_ms_est`` beside the profiler's
+   kernel-time sum for one dispatch of it; and the flushed flight log
+   read back.
+12. Train: gradient parity of the kernels against the plain versions at
    llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
    ``train.run`` at llama3-1b full width and depth for 6 steps on a
    repeated batch (counts set to 0 before, read after: K2 32, K3 16 and
@@ -247,8 +273,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``; the line before them gives each
 phase's wall. ``--phase kernels``, ``serve``, ``handoff``, ``bench``,
-``qos``, ``adapters``, ``draft``, ``recover`` or ``train`` runs one of
-phases 3-11 alone (the build always runs).
+``qos``, ``adapters``, ``draft``, ``recover``, ``observe`` or ``train``
+runs one of phases 3-12 alone (the build always runs).
 """
 
 from __future__ import annotations
@@ -260,6 +286,7 @@ import functools
 import gc
 import json
 import math
+import os
 import socket
 import subprocess
 import sys
@@ -268,9 +295,20 @@ import time
 import urllib.error
 import urllib.request
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and dense peak rates.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+# The card's dense bf16 rate and HBM rate are the H100 row of the
+# port's peaks table (``observability.attribution.datasheet_peaks``,
+# NVIDIA's H100 SXM data sheet), the numbers the serving MFU on /metrics
+# divides by too; the table alone, never an env override. The fp32 and
+# int8 dense rates from the same sheet. Outside the repository the
+# table is missing and main() says so.
+try:
+    from skypilot_tpu_torch.observability.attribution import \
+        datasheet_peaks
+    _BF16_OPS_PER_S, HBM_BYTES_PER_S = datasheet_peaks("nvidia h100")
+except ImportError:
+    datasheet_peaks = None
+    _BF16_OPS_PER_S = HBM_BYTES_PER_S = None
+PEAK_OPS_PER_S = {"bf16": _BF16_OPS_PER_S, "fp32": 67e12, "int8": 1979e12}
 SEED = 0
 
 
@@ -2290,7 +2328,7 @@ def phase_bench(dev, card: str) -> dict:
     """The port's serving bench (``infer/bench_serve.py``) at llama3-8b,
     full width and depth, bf16, random weights from seed 0, through its
     own functions: ``run_http`` (8 streamed requests of mixed 512-1024
-    tokens, three timed waves), ``run`` (16 requests of 96 tokens on the
+    tokens, two timed waves), ``run`` (16 requests of 96 tokens on the
     engine alone) and ``run_prefix_share`` at its full-size shapes with
     6 requests of 24 new tokens. The launch counts are set to 0 just before each leg and read just
     after; then the kernels are held against their plain versions at
@@ -2320,17 +2358,18 @@ def phase_bench(dev, card: str) -> dict:
         return out
 
     # 1. HTTP: every response 200 (the client raises otherwise) with its
-    # 32 tokens, in the warmup wave and the three timed ones.
+    # 32 tokens, in the warmup wave and the two timed ones (three until
+    # the observe phase came).
     waves = []
     with _tap(bs, "_client_wave", waves):
         http = leg("http", lambda: bs.run_http(
             config=config, requests=8, slots=16, new_tokens=32,
-            max_burst=8, open_burst=4, admit_wave=4, repeats=3,
+            max_burst=8, open_burst=4, admit_wave=4, repeats=2,
             device=dev))
     counts = [[n for _, n, _ in res] for res in waves]
-    if counts != [[32] * 8] * 4:
+    if counts != [[32] * 8] * 3:
         raise AssertionError(f"bench[http]: tokens per response {counts}, "
-                             f"expected 4 waves of 8 x 32")
+                             f"expected 3 waves of 8 x 32")
     _positive(http, ("median_ttft_ms", "p99_ttft_ms", "out_tok_s",
                      "tpot_ms"), "http")
     if http["transport"] != "http_streaming":
@@ -2505,7 +2544,7 @@ def _first_rows_call(engine, out: list, when=lambda lengths: True):
         kvcache._paged_attn_stats = real
 
 
-def _handoff_leg(P, D, tag: str, card: str, new: int = 32) -> dict:
+def _handoff_leg(P, D, tag: str, card: str, new: int = 16) -> dict:
     """P (prefill tier) and D (decode tier) behind two HTTP servers on
     one card. First the single-tier reference: each handoff prompt on
     D's ``/generate``, then ``clear_prefix_cache()``. Then, launch
@@ -3553,8 +3592,9 @@ def _adapter_bench(dev, card: str) -> tuple:
     16, 8 fine-tunes, 8 requests of 128 tokens (one under each
     fine-tune in the mixed batch; the reference's 16 cut to make room
     for the draft phase: the sequential parity runs, one a request,
-    take most of the time), 32 new (the reference's 256 cut to hold the
-    phase near 150 s; 64 took it to 199 s on a slow host), max burst 8.
+    take most of the time), 16 new (the reference's 256 cut to hold the
+    phase near 100 s; 64 took it to 199 s on a slow host, 32 until the
+    observe phase came), max burst 8.
     Its report line
     and launches; the TPOT keys positive, the churn loaded and evicted.
     Returns (launches, parity cases for the bf16 floor rule)."""
@@ -3563,7 +3603,7 @@ def _adapter_bench(dev, card: str) -> tuple:
     _zero_launches()
     t0 = time.time()
     r = bench_serve.run_adapters(config="llama3-8b", n_adapters=8,
-                                 requests=8, prompt_len=128, new_tokens=32,
+                                 requests=8, prompt_len=128, new_tokens=16,
                                  device=dev, tokens_out=toks)
     launches = _read_launches()
     _log(f"adapters[bench]: run_adapters(llama3-8b) in "
@@ -3917,6 +3957,7 @@ def _draft_engine_leg(dev, card: str) -> tuple:
     from skypilot_tpu_torch.infer import draft as draft_lib
     from skypilot_tpu_torch.infer import engine as eng
     from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.observability import flight as flight_lib
     cfg = llama.CONFIGS["llama3-8b"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3942,25 +3983,38 @@ def _draft_engine_leg(dev, card: str) -> tuple:
         seen = {}
         de = draft_lib.DraftEngine(dparams, dcfg, n_slots=16,
                                    max_len=1024, device=dev)
-        e = engine(spec_k=4, draft_engine=de, spec_pipeline=pipeline)
+        e = engine(spec_k=4, draft_engine=de, spec_pipeline=pipeline,
+                   flight_recorder=flight_lib.FlightRecorder())
         got, n, rep = _draft_run(e, prompts, DRAFT_NEW,
                                  f"draft[{name}]", card, seen)
         for k, v in n["total"].items():
             launches[k] += v
         st = de.stats()
-        model_rounds = [r for r in e.spec_rounds if r["drafter"] == "model"]
+        recs = e.flight.tail()
+        verifies = [r for r in recs if r["burst"] == "verify"]
+        predrafts = [r for r in recs if r["burst"] == "draft"]
         if not (rep["accept_rate"] > DRAFT_BF16_ACCEPT
                 and rep["modes"] == ["model"]):
             raise AssertionError(f"draft[{name}]: acceptance "
                                  f"{rep['accept_rate']}, rungs "
                                  f"{rep['modes']}")
+        # Every model-drafted round carries its predraft: each of its
+        # verify records (the parts of a round share its begin and end)
+        # holds a "draft" record between its last enqueue and its fetch.
+        model_verifies = [v for v in verifies if v["drafter"] == "model"]
+        bare = [v for v in model_verifies if not (
+            v.get("overlap_ms", 0) > 0 and any(
+                v["ts_s"] + v["dispatch_wall_ms"] / 1e3 <= d["ts_s"] + 1e-6
+                and d["ts_s"] + d["dur_s"] <= v["ts_s"] + v["dur_s"] + 1e-6
+                for d in predrafts))]
         if pipeline and not (st["reuse_hits"] > 0
-                             and rep["overlap_ratio"] > 0 and model_rounds
-                             and all(r["pending"] for r in model_rounds)):
+                             and rep["overlap_ratio"] > 0
+                             and model_verifies and not bare):
             raise AssertionError(f"draft[{name}]: no pipelined reuse or "
-                                 f"overlap: {st}, {rep}")
-        if not pipeline and any(r["draft_s"] is not None
-                                for r in e.spec_rounds):
+                                 f"overlap: {st}, {rep}, {len(bare)} of "
+                                 f"{len(model_verifies)} model-drafted "
+                                 f"verify records without a predraft")
+        if not pipeline and predrafts:
             raise AssertionError("draft[sync]: a predraft was dispatched")
         if not (n["draft"]["paged_attention"] > 0
                 and n["draft"]["paged_attention_rows"] > 0
@@ -4257,7 +4311,7 @@ def phase_draft(dev, card: str) -> tuple:
 # span groups, each a forward pass of every layer on this host-bound
 # engine, where the serve phase's spread of lengths runs up to four.
 RECOVER_LENS = (775, 597, 290, 320, 350, 380, 410, 440)
-RECOVER_NEW = 32
+RECOVER_NEW = 24
 RECOVER_FAULTS = {
     # The second admission pass: every request is resident or chunking.
     "admit": {"point": "engine.dispatch", "match": {"seam": "admit"},
@@ -4483,7 +4537,7 @@ def _recover_fp32_leg(dev, card: str) -> dict:
 def phase_recover(dev, card: str) -> dict:
     """Crash recovery on the serve engine at llama3-8b bf16 (16 slots,
     max_len 1024, blocks of 256, chunks of 512, a prefix pool of 8, spec
-    K 4): 8 requests (two chunked) of 32 new tokens, uninterrupted, then
+    K 4): 8 requests (two chunked) of 24 new tokens, uninterrupted, then
     one seeded fault a run at each of ``RECOVER_FAULTS`` (the admit,
     chunk, verify and decode seams and a block claim), held to the twin
     under the bf16 floor rule; K1 against its plain version at the first
@@ -4553,6 +4607,353 @@ def phase_recover(dev, card: str) -> dict:
     _log(f"recover: phase in {time.time() - t0:.1f} s; launches "
          f"{json.dumps(out)}; {card}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: observe a replica (tracing, flight records, forensics)
+# ---------------------------------------------------------------------------
+
+OBSERVE_NEW = 16
+# New tokens a request in each timed parity pass: 16 requests (one a
+# slot) x 24 = 384 tokens a pass.
+OBSERVE_PARITY_NEW = 24
+
+
+def _observe_prompts(cfg, rng) -> dict:
+    """The observe phase's mixed workload: waves (four short prompts),
+    chunks at 512 (prompts of 700 and 900 tokens), an n-gram verify (a
+    repeated 12-token phrase) and a shared-prefix pair (600 shared
+    tokens, then 220 and 160 of their own: the second is a prefix hit).
+    ``parity``: one prompt a slot for the timed passes, the two
+    shortest, the phrase six times and thirteen of 32-100 tokens (waves,
+    decode and verify in one span group of 128 rows; no chunk)."""
+    def draw(n):
+        return rng.integers(1, cfg.vocab_size, n).tolist()
+    phrase = draw(12)
+    base = draw(600)
+    short = [draw(n) for n in (40, 96, 180, 300)]
+    return {"batch": short + [draw(700), draw(900), phrase * 24],
+            "pair": [base + draw(220), base + draw(160)],
+            "parity": short[:2] + [phrase * 6]
+            + [draw(int(n)) for n in rng.integers(32, 101, 13)]}
+
+
+def _device_ms(prof) -> float:
+    """The device time of every CUDA kernel a profile recorded, ms."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(evt.time_range.elapsed_us() for evt in prof.events()
+               if getattr(evt, "device_type", None) == cuda) / 1e3
+
+
+def _observe_http(engine, card: str, prompts: dict) -> tuple:
+    """The port's HTTP server over the warmed ``engine`` serves the mixed
+    workload: the batch concurrently (one request with a ``traceparent``),
+    then the shared-prefix pair one after the other; then ``/debug/flight``
+    and ``/debug/forensics`` are read over HTTP. Returns (launches,
+    the window's flight records, the traced request's trace id)."""
+    from skypilot_tpu_torch.infer import server as srv
+    from skypilot_tpu_torch.observability import tracing
+    port = _free_port()
+    model, httpd = srv.serve(engine, host="127.0.0.1", port=port,
+                             max_burst=8, coalesce_s=0.5)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{port}"
+    caller = tracing.SpanContext(tracing.new_trace_id(),
+                                 tracing.new_span_id())
+    try:
+        model.wait_ready(timeout=600)
+        engine.decode_programs.clear()
+        seq0 = engine.flight.seq()
+        _zero_launches()
+        t0 = time.time()
+        results, errors = [None] * len(prompts["batch"]), []
+
+        def one(i, p):
+            hdr = ({"traceparent": tracing.format_traceparent(caller)}
+                   if i == 0 else None)
+            try:
+                code, body, _ = _post_status(
+                    f"{base}/generate",
+                    {"tokens": p, "max_new_tokens": OBSERVE_NEW}, hdr)
+                results[i] = body if code == 200 else None
+                if code != 200:
+                    errors.append((i, code, body))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append((i, e))
+
+        threads = [threading.Thread(target=one, args=(i, p))
+                   for i, p in enumerate(prompts["batch"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        pair = [_post(f"{base}/generate",
+                      {"tokens": p, "max_new_tokens": OBSERVE_NEW})
+                for p in prompts["pair"]]
+        wall = time.time() - t0
+        launches = _read_launches()
+        if errors or any(len(r["tokens"]) != OBSERVE_NEW
+                         for r in results + pair):
+            raise AssertionError(f"observe: failed requests {errors}")
+        if not pair[1]["cache_hit"] or pair[0]["cache_hit"]:
+            raise AssertionError(f"observe: the pair's prefix hits "
+                                 f"{[r['cache_hit'] for r in pair]}")
+        with urllib.request.urlopen(f"{base}/debug/flight?n=8192",
+                                    timeout=60) as r:
+            flight_body = json.loads(r.read())
+        with urllib.request.urlopen(f"{base}/debug/forensics",
+                                    timeout=60) as r:
+            forensics_body = json.loads(r.read())
+        window = [r for r in flight_body["records"] if r["seq"] > seq0]
+        retired = [r["rids"][0] for r in window if r["burst"] == "retire"]
+        if len(retired) != len(results) + len(pair):
+            raise AssertionError(f"observe: {len(retired)} retire records "
+                                 f"for {len(results) + len(pair)} "
+                                 f"requests")
+        # The longest request's ledger over HTTP: its phases partition
+        # its wall.
+        rid = retired[-2]
+        with urllib.request.urlopen(f"{base}/debug/forensics?rid={rid}",
+                                    timeout=60) as r:
+            why = json.loads(r.read())
+        led = why["ledger"]
+        total = sum(ph["ms"] for ph in led["phases"])
+        if abs(total - led["wall_ms"]) > 0.05 or \
+                led["named_ms"] < 0.9 * led["wall_ms"]:
+            raise AssertionError(f"observe: ledger of rid {rid} sums to "
+                                 f"{total} for a wall of {led['wall_ms']}"
+                                 f" ({led['named_ms']} named)")
+        traced = [r for r in window if caller.trace_id in
+                  (r.get("traces") or ())]
+        if not any(r["burst"] == "retire" for r in traced) or not any(
+                r["burst"] in ("wave", "chunk") for r in traced):
+            raise AssertionError("observe: the traceparent's trace id is "
+                                 "on no burst or retire record")
+        try:
+            with urllib.request.urlopen(
+                    f"{base}/debug/forensics?rid=x", timeout=60):
+                raise AssertionError("observe: a bad rid was answered")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise
+        _log(f"observe[http]: {len(results) + len(pair)} requests x "
+             f"{OBSERVE_NEW} tokens in {wall:.2f} s, {len(window)} flight "
+             f"records ({flight_body['seq']} in the ring), warm "
+             f"{flight_body['warm']}, unexpected "
+             f"{flight_body['unexpected']}, forensics keys "
+             f"{sorted(forensics_body)}; /debug/forensics?rid={rid}: "
+             f"wall {led['wall_ms']:.1f} ms over {led['n_records']} "
+             f"records = "
+             + ", ".join(f"{ph['phase']} {ph['ms']:.1f}"
+                         for ph in led["phases"])
+             + f"; launches {launches}; {card}")
+        return launches, window, caller.trace_id
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        model.shutdown()
+
+
+def _observe_parity(engine, prompts: list, card: str) -> None:
+    """Recording only observes, and what it costs: one request a slot
+    (``prompts``, ``OBSERVE_PARITY_NEW`` new tokens each) in four
+    settings, everything on, the recorder off, forensics off and
+    calibration off (``SKYTPU_DEVTIME_EVERY=0``: no stream sync), run
+    in that order and back again, so each setting runs twice, once in
+    each half. The prefix cache is cleared before each pass, so each
+    runs the same programs. Every pass gives the same greedy tokens, bit
+    for bit (gated). Each setting's best TPOT against the best of
+    everything on gives ``overhead_ratio`` (recorder),
+    ``forensics_overhead_ratio`` and ``devtime_overhead_ratio``
+    (calibration): reported, not gated."""
+    import torch
+
+    prior = os.environ.get("SKYTPU_DEVTIME_EVERY")
+
+    def one(setting):
+        samples = engine.devtime.samples
+        engine.flight.enabled = setting != "recorder off"
+        engine.forensics = setting != "forensics off"
+        if setting == "calibration off":
+            os.environ["SKYTPU_DEVTIME_EVERY"] = "0"
+        try:
+            engine.clear_prefix_cache()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = engine.generate(prompts,
+                                  max_new_tokens=OBSERVE_PARITY_NEW)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            engine.flight.enabled = engine.forensics = True
+            if prior is None:
+                os.environ.pop("SKYTPU_DEVTIME_EVERY", None)
+            else:
+                os.environ["SKYTPU_DEVTIME_EVERY"] = prior
+        engine.finished.clear()
+        return (out, wall / sum(len(o) for o in out),
+                engine.devtime.samples - samples)
+
+    settings = ("on", "recorder off", "forensics off", "calibration off")
+    outs, tpots, brackets = {}, {}, []
+    for setting in settings + settings[::-1]:
+        out, tpot, n = one(setting)
+        outs.setdefault(setting, []).append(out)
+        tpots.setdefault(setting, []).append(tpot)
+        brackets.append(n)
+    want = outs["on"][0]
+    same = {k: all(o == want for o in v) for k, v in outs.items()}
+    best = {k: min(v) for k, v in tpots.items()}
+    ratios = {name: round(best["on"] / best[k], 4) for name, k in (
+        ("overhead_ratio", "recorder off"),
+        ("forensics_overhead_ratio", "forensics off"),
+        ("devtime_overhead_ratio", "calibration off"))}
+    _log(f"observe[parity]: {len(prompts)} requests x "
+         f"{OBSERVE_PARITY_NEW} tokens a pass, greedy tokens equal "
+         f"{json.dumps(same)}; TPOT ms by setting (first half, second "
+         f"half): "
+         + ", ".join(f"{k} {v[0] * 1e3:.2f} / {v[1] * 1e3:.2f}"
+                     for k, v in tpots.items())
+         + f"; {json.dumps(ratios)} (best against best); calibration "
+         f"brackets a pass in run order {brackets}; {card}")
+    if not all(same.values()):
+        raise AssertionError(f"observe: recording changed tokens: {same}")
+
+
+def _observe_devtime(engine, card: str) -> None:
+    """One decode program's calibrated ``dev_ms_est`` (a CUDA-event
+    bracket: its kernels and the launch gaps between them) beside the
+    profiler's kernel-time sum for one dispatch of the same program,
+    and the dispatch's host wall."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(SEED + 17)
+    for _ in range(engine.n_slots):
+        engine.add_request(
+            rng.integers(1, engine.cfg.vocab_size, 100).tolist(), 64)
+    engine.admit()
+    for _ in range(2):      # the first hit is the calibrated dispatch
+        engine.complete_decode_burst(engine.dispatch_decode_burst(8))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        handle = engine.dispatch_decode_burst(8)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        engine.complete_decode_burst(handle)
+        torch.cuda.synchronize()
+    key = handle.keys[0]
+    est = engine.devtime.estimate(key)
+    kernel_ms = _device_ms(prof)
+    engine.reset()
+    if len(handle.keys) != 1 or est is None or not est > 0 \
+            or not kernel_ms > 0:
+        raise AssertionError(f"observe: {handle.keys}, dev_ms_est {est}, "
+                             f"kernel time {kernel_ms}")
+    _log(f"observe[devtime]: {key} over {engine.n_slots} slots: "
+         f"dev_ms_est {est * 1e3:.2f} ms (CUDA events, kernels and "
+         f"launch gaps), profiler kernel sum {kernel_ms:.2f} ms "
+         f"({kernel_ms / (est * 1e3):.3f} of it), dispatch host wall "
+         f"{host_ms:.2f} ms; {card}")
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def phase_observe(dev, card: str) -> dict:
+    """Observe a replica: llama3-8b (full width and depth, bf16) in the
+    reference server's defaults, warmed by ``server.warm_grid`` (the
+    ``--warm-grid`` startup), serving the mixed workload over HTTP.
+    Checked: zero unexpected compiles after the warm-up, record/program
+    coverage both ways, the traceparent on the request's records,
+    ``/debug/flight`` and a ``/debug/forensics?rid=`` ledger that sums
+    to its wall, identical tokens with recording off, the HBM ledger's
+    resident components within ``allocated_bytes.all.current``, and K1
+    and K2 launched. Returns {"observe": launches}."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import server as srv
+    from skypilot_tpu_torch.observability import flight as flight_lib
+    from skypilot_tpu_torch.observability import tracing
+    t0 = time.time()
+    engine = srv.make_engine("llama3-8b", slots=16, max_len=1024,
+                             admit_wave=8, kv_block=256, prefill_chunk=512,
+                             prefix_pool=8, spec_k=4, device=dev, seed=SEED)
+    engine.flight = flight_lib.FlightRecorder()
+    torch.cuda.synchronize()
+    built = time.time() - t0
+    t1 = time.time()
+    n = srv.warm_grid(engine, max_burst=8)
+    warm_s = time.time() - t1
+    summ = engine.compile_watch.summary()
+    slow = sorted(summ.items(), key=lambda kv: -kv[1])[:3]
+    _log(f"observe[warm]: engine built in {built:.1f} s; warm_grid "
+         f"dispatched {n} program keys in {warm_s:.1f} s, first-dispatch "
+         f"wall {engine.compile_watch.total_compile_s():.2f} s (host, no "
+         f"device sync), slowest "
+         + ", ".join(f"{k} {v * 1e3:.0f} ms" for k, v in slow)
+         + f"; {card}")
+    prompts = _observe_prompts(engine.cfg, np.random.default_rng(SEED + 5))
+    launches, window, trace_id = _observe_http(engine, card, prompts)
+    unexpected = engine.compile_watch.unexpected
+    rec_dv = {(r["program"]["k"], r["program"]["span"])
+              for r in window if r["burst"] in ("decode", "verify")}
+    eng_dv = {(k, sp) for kind, k, sp in engine.decode_programs
+              if kind in ("burst", "verify")}
+    kinds = {r["burst"] for r in window}
+    if unexpected or rec_dv != eng_dv or not {
+            "wave", "chunk", "decode", "verify", "retire"} <= kinds:
+        raise AssertionError(f"observe: unexpected {unexpected}, records "
+                             f"{sorted(rec_dv, key=str)} vs engine "
+                             f"{sorted(eng_dv, key=str)}, kinds {kinds}")
+    if not (launches["flash_attention_fwd"] > 0
+            and launches["paged_attention"] > 0
+            and launches["paged_attention_rows"] > 0):
+        raise AssertionError(f"observe: launches {launches}")
+    split = {}
+    for kind in ("wave", "chunk", "decode", "verify"):
+        recs = [r for r in window if r["burst"] == kind]
+        split[kind] = {
+            "n": len(recs),
+            "dispatch_wall_ms": _median([r["dispatch_wall_ms"]
+                                         for r in recs]),
+            "fetch_wall_ms": _median([r["fetch_wall_ms"] for r in recs]),
+            "dev_ms_est": _median([r["dev_ms_est"] for r in recs
+                                   if "dev_ms_est" in r])}
+    _log(f"observe[split]: medians by burst kind (host wall dispatch / "
+         f"fetch, calibrated device-stream span): {json.dumps(split)}; "
+         f"{card}")
+    led = engine.hbm_ledger.snapshot()
+    resident = sum(led[c] for c in ("weights", "kv_pool", "prefix_pool",
+                                    "draft_pool", "adapter_pool"))
+    alloc = torch.cuda.memory_stats(dev)["allocated_bytes.all.current"]
+    stats = engine.hbm_ledger.cross_check(dev)
+    _log(f"observe[hbm]: ledger {json.dumps(led)}; total "
+         f"{engine.hbm_ledger.total() / 2**30:.3f} GiB (resident "
+         f"{resident / 2**30:.3f} GiB) beside allocated_bytes.all.current "
+         f"{alloc / 2**30:.3f} GiB, limit "
+         f"{stats['bytes_limit'] / 2**30:.1f} GiB; {card}")
+    if resident > alloc or stats["bytes_in_use"] <= 0:
+        raise AssertionError(f"observe: resident ledger {resident} > "
+                             f"allocated {alloc}")
+    _observe_parity(engine, prompts["parity"], card)
+    _observe_devtime(engine, card)
+    engine.flight.flush()
+    tracing.flush()
+    files = flight_lib.load_records(dirs=[tracing.events_dir()])
+    if not any(trace_id in (r.get("traces") or ()) for r in files):
+        raise AssertionError("observe: the flushed flight log lacks the "
+                             "traced request")
+    _log(f"observe: {len(files)} flight records flushed to "
+         f"{tracing.events_dir()}")
+    del engine
+    _free_card()
+    return {"observe": launches}
 
 
 def phase_train(dev, card: str):
@@ -4652,7 +5053,7 @@ def main() -> int:
     ap.add_argument("--phase",
                     choices=("all", "kernels", "serve", "handoff", "bench",
                              "qos", "adapters", "draft", "recover",
-                             "train"),
+                             "observe", "train"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -4676,6 +5077,26 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     _log(smi)
     dev = torch.device("cuda", 0)
+    from skypilot_tpu_torch.observability import attribution
+    kind = attribution.device_kind(dev)
+    if datasheet_peaks(kind) != (PEAK_OPS_PER_S["bf16"], HBM_BYTES_PER_S):
+        print(f"chip_smoke: the bounds are an H100's; this card is "
+              f"{torch.cuda.get_device_name(dev)}", file=sys.stderr)
+        return 1
+    overrides = [k for k in ("SKYTPU_PEAK_TFLOPS", "SKYTPU_PEAK_GBPS")
+                 if os.environ.get(k)]
+    if overrides:
+        # The engines' /metrics MFU would divide by another number than
+        # the kernels' bounds.
+        print(f"chip_smoke: unset {overrides}: the smoke's bounds and "
+              f"the serving MFU divide by the data sheet's peaks",
+              file=sys.stderr)
+        return 1
+    # The engines' span, event and flight logs flush to a directory of
+    # this run's own.
+    import tempfile
+    os.environ["SKYTPU_EVENTS_DIR"] = tempfile.mkdtemp(
+        prefix="chip_smoke_events_")
     # The plain versions are references: full float32 products.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4724,6 +5145,7 @@ def main() -> int:
         for name, runs in draft_cases.items():
             cases.setdefault(name, []).extend(runs)
     by_path.update(run("recover", phase_recover) or {})
+    by_path.update(run("observe", phase_observe) or {})
     train = run("train", phase_train)
     if train is not None:
         by_path["train"] = train

@@ -8,8 +8,9 @@ and the server's NDJSON stream (catalog in :mod:`.plan`). A fault plan,
 JSON with a seed, schedules failures against those points:
 fail-N-times, fail with a probability under a seeded PRNG, skip the
 first N hits, inject latency. The same plan and seed reproduce the same
-injection sequence, and every fired fault prints a ``chaos.injected``
-event (:mod:`skypilot_tpu_torch.observability.events`).
+injection sequence, and every fired fault records a typed
+``chaos.injected`` event, echoed to stderr
+(:func:`skypilot_tpu_torch.observability.tracing.add_event`).
 
 Activation, in precedence order:
 
@@ -38,7 +39,7 @@ from typing import Any, Dict, List, Optional
 from skypilot_tpu_torch.chaos.plan import (KNOWN_POINTS, FaultRule, Plan,
                                            load_plan_file, parse_plan,
                                            unknown_points)
-from skypilot_tpu_torch.observability import events
+from skypilot_tpu_torch.observability import tracing
 
 ENV_PLAN_JSON = "SKYTPU_CHAOS_PLAN_JSON"
 ENV_PLAN = "SKYTPU_CHAOS_PLAN"
@@ -104,9 +105,12 @@ class Injector:
             rec = {"seq": len(self.fired), "point": name, "ctx": sctx,
                    "effect": rule.effect(), "latency_s": rule.latency_s}
             self.fired.append(rec)
-        events.emit("chaos.injected", point=name, effect=rec["effect"],
-                    seq=rec["seq"],
-                    **{f"ctx.{k}": v for k, v in sctx.items()})
+        tracing.add_event(
+            "chaos.injected",
+            attrs={"point": name, "effect": rec["effect"],
+                   "seq": rec["seq"], **{f"ctx.{k}": v
+                                         for k, v in sctx.items()}},
+            echo=True)
         if rule.latency_s > 0:
             time.sleep(rule.latency_s)
         if rule.error is not None or rule.latency_s <= 0:
@@ -164,9 +168,12 @@ def _from_env() -> Optional[Injector]:
         # A typo'd plan must not poison the serving path (the first
         # point sits inside handlers that would misread a ValueError as
         # a device failure): injection disables, loudly.
-        events.emit("chaos.plan_invalid",
-                    source=ENV_PLAN_JSON if inline else ENV_PLAN,
-                    error_type=type(e).__name__, message=str(e)[:500])
+        tracing.add_event(
+            "chaos.plan_invalid",
+            attrs={"source": ENV_PLAN_JSON if inline else ENV_PLAN,
+                   "error_type": type(e).__name__,
+                   "message": str(e)[:500]},
+            echo=True)
         return None
     return None
 

@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch import DeviceLike, chaos, resolve_device
-from skypilot_tpu_torch.observability import events, metrics
+from skypilot_tpu_torch.observability import metrics, tracing
 
 # The request header naming a fine-tune (the body's ``model`` field is
 # the SDK path) -- shared by the model server and the LB so the two
@@ -367,7 +367,8 @@ class AdapterCatalog:
             if not isinstance(entries, dict):
                 raise ValueError("expected a JSON object")
         except (ValueError, TypeError):
-            events.emit("adapter.env_invalid", raw=raw[:200])
+            tracing.add_event("adapter.env_invalid",
+                              {"raw": raw[:200]}, echo=True)
             return 0
         n = 0
         for name, path in entries.items():
@@ -375,7 +376,8 @@ class AdapterCatalog:
                 self.register(str(name), path=str(path))
                 n += 1
             except ValueError:
-                events.emit("adapter.env_invalid", adapter=str(name)[:64])
+                tracing.add_event("adapter.env_invalid",
+                                  {"adapter": str(name)[:64]}, echo=True)
         return n
 
     def names(self) -> List[str]:
@@ -549,8 +551,9 @@ class AdapterCatalog:
             _load_with_retry(attempt)
         except Exception as e:  # noqa: BLE001 — typed terminal failure
             self._free.append(slot)     # slot never became resident
-            events.emit("adapter.load_failed", adapter=ent.name,
-                        error=str(e)[:200])
+            tracing.add_event(
+                "adapter.load_failed",
+                {"adapter": ent.name, "error": str(e)[:200]}, echo=True)
             raise AdapterLoadError(ent.name, str(e)) from e
 
     def _stack(self, params: Dict, alpha: float,

@@ -47,16 +47,9 @@ Deliberate differences from the reference:
 - No wave padding. The port's engine dispatches each wave at its own
   size (``ROADMAP.md``, deliberate differences), so ``_build_engine``
   takes no ``pad_waves``.
-- No compile watch. The reference's ``run_adapters`` arms its compile
-  watch and reports ``unexpected_compiles``; PyTorch runs eagerly and the
-  port has no compile watch yet (``ROADMAP.md`` Queue 1, item 7), so the
-  key is ``null``. Its churn phase asserts instead that the adapter
-  pool's tensors keep their addresses (``data_ptr()``) across every hot
-  load and eviction: installs write in place.
-- No flight recorder. The reference's ``run_spec`` proves the pipeline's
-  overlap from its flight records (a ``draft`` record inside a
-  ``verify`` record's window); the port's reads the rounds the engine
-  notes itself (``InferenceEngine.spec_rounds``), with the same keys.
+- ``run_flight`` (``--flight``) runs the paged layout only:
+  ``layouts`` holds ``"paged"`` alone, since the port serves no
+  contiguous layout (``ROADMAP.md`` Queue 1).
 - Other KV blocks. The bench keeps the reference's ``max_len``
   (prompt + new tokens + 8), but on the card the engine picks the
   largest block that tiles it AND that K1's multi-row body reads
@@ -84,6 +77,7 @@ from skypilot_tpu_torch.infer import engine as eng
 from skypilot_tpu_torch.infer import kvcache
 from skypilot_tpu_torch.infer import server as srv
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import flight as flight_lib
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
@@ -975,9 +969,10 @@ def run_adapters(config=None, n_adapters=8, requests=None,
        parity is checked against per-request sequential runs.
     3. HOT-LOAD CHURN — twice the pool's fine-tunes cycle through
        traffic: every demand load is an LRU evict + install. The
-       reference counts unexpected compiles here; the port has no
-       compile watch (``unexpected_compiles`` is null) and asserts that
-       the pool's tensors keep their addresses instead.
+       engine warmed its programs and armed the compile watch first, so
+       ``unexpected_compiles`` counts any key the churn dispatched that
+       the warm-up did not; the pool's tensors must also keep their
+       addresses (installs write in place).
 
     ``smoke=True`` / CPU: CI-sized (rank 4, ``n_adapters`` requests of
     16 tokens, 32 new, max_len 256); else rank 16, ``2 * n_adapters``
@@ -1030,6 +1025,10 @@ def run_adapters(config=None, n_adapters=8, requests=None,
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist()
                for _ in range(requests)]
+    # Production startup: every program key (the adapter-install one
+    # included) dispatched once, then the compile watch armed.
+    e.warm_programs(max_burst=max_burst)
+    e.declare_warmup_complete()
 
     def decode_pass(adapter_names):
         ids = [e.add_request(p, max_new_tokens=new_tokens, adapter=a)
@@ -1094,10 +1093,11 @@ def run_adapters(config=None, n_adapters=8, requests=None,
         raise AssertionError("an adapter install moved the pool's tensors")
 
     overhead = tpot_mixed / max(tpot_single, 1e-9)
+    unexpected = list(e.compile_watch.unexpected)
     log(f"adapters: single {tpot_single * 1e3:.2f}ms/tok mixed "
         f"{tpot_mixed * 1e3:.2f}ms/tok (x{overhead:.3f}) "
         f"parity={parity_ok} churn_loads={churn_loads} "
-        f"evictions={catalog.evictions}")
+        f"evictions={catalog.evictions} unexpected={len(unexpected)}")
     del e
     gc.collect()
     if dev.type == "cuda":
@@ -1110,8 +1110,7 @@ def run_adapters(config=None, n_adapters=8, requests=None,
         "parity_ok": bool(parity_ok),
         "hot_loads": int(churn_loads),
         "evictions": int(catalog.evictions),
-        # No compile watch in the port (module docstring).
-        "unexpected_compiles": None,
+        "unexpected_compiles": len(unexpected),
         "n_adapters": n_adapters,
         "rank": rank,
         "requests": requests,
@@ -1187,9 +1186,6 @@ def run_spec(config=None, spec_k=4, requests=None, prompt_len=16,
     ``smoke=True`` (or the CPU) runs the reference's CI sizes; wall-clock
     is reported, never gated. The reference's names, defaults and report
     keys, but for three deliberate differences: the port has no flight
-    recorder, so ``overlap_ok`` and ``draft_records`` read the rounds the
-    engine notes itself (``InferenceEngine.spec_rounds``: its verify
-    calls' enqueue time, the predraft's dispatch time, the fetch time);
     ``backend`` is the torch device type; and the port compiles
     nothing, so each warm-up pass runs two verify rounds' worth of
     tokens (enough to launch every program of the pass once), not the
@@ -1286,7 +1282,8 @@ def run_spec(config=None, spec_k=4, requests=None, prompt_len=16,
         target, cfg_a, n_slots=slots, max_len=max_len,
         prompt_buckets=(prompt_len,), kv_int8=kv_int8, qweights=qw_t,
         prefill_chunk=0, prefix_pool=0, max_wave=slots, spec_k=spec_k,
-        device=dev)
+        device=dev, flight_recorder=flight_lib.FlightRecorder())
+    fl = e_a.flight
     ngram_factory_a = e_a._spec_drafter_factory
     de = draft_lib.DraftEngine(dparams, dcfg, n_slots=slots,
                                max_len=max_len, kv_int8=kv_int8,
@@ -1310,10 +1307,10 @@ def run_spec(config=None, spec_k=4, requests=None, prompt_len=16,
     de.reset()
 
     out_off_a, tpot_off_a, _, _, bursts_off_a = pass_a(False)
-    e_a.spec_rounds.clear()
+    seq0 = fl.seq()
     out_m, tpot_m, dr_m, ac_m, bursts_m = pass_a(
         True, draft_engine=de, pipeline=True)
-    rounds = list(e_a.spec_rounds)
+    recs = fl.since(seq0)
     reuse_hits, rollouts = de.reuse_hits, de.rollouts
     de.reset()
     out_ms, tpot_ms, dr_ms, ac_ms, bursts_ms = pass_a(
@@ -1321,12 +1318,18 @@ def run_spec(config=None, spec_k=4, requests=None, prompt_len=16,
     de.reset()
     out_ng, tpot_ng, dr_ng, ac_ng, bursts_ng = pass_a(True)
 
-    # Structural overlap evidence: each predraft dispatched inside its
-    # verify's dispatch-to-fetch window, timing-free.
-    draft_recs = [r for r in rounds if r["draft_s"] is not None]
-    overlapped = sum(1 for r in draft_recs
-                     if r["begin_s"] <= r["draft_s"] <= r["fetch_s"]
-                     and r["pending"])
+    # Structural overlap evidence: a "draft" record whose dispatch
+    # landed inside a verify record's dispatch-to-fetch window, the
+    # pipeline's whole point, timing-free.
+    verify_recs = [r for r in recs if r.get("burst") == "verify"]
+    draft_recs = [r for r in recs if r.get("burst") == "draft"]
+    overlapped = 0
+    for d in draft_recs:
+        for v in verify_recs:
+            if (v["ts_s"] <= d["ts_s"]
+                    <= v["ts_s"] + float(v.get("dur_s", 0.0))):
+                overlapped += 1
+                break
     overlap_ok = bool(draft_recs) and overlapped == len(draft_recs)
 
     model_parity = out_m == out_off_a
@@ -1453,6 +1456,194 @@ def run_spec_smoke(device: DeviceLike = None) -> dict:
     return run_spec(smoke=True, device=device)
 
 
+def run_flight(config=None, requests=None, new_tokens=None,
+               max_burst=8, spec_k=4, kv_int8=False,
+               weights_int8=False, smoke=False,
+               device: DeviceLike = None) -> dict:
+    """Flight recorder + compile watch bench over the full mixed
+    workload (the reference's ``run_flight``): chunked admission with
+    prefix reuse, n-gram speculation and span regrouping on a paged
+    engine.
+
+      1. ``warm_programs()`` dispatches every program key once, one
+         untimed workload pass covers anything workload-specific, then
+         the engine declares warmup complete (the ``--warm-grid``
+         startup).
+      2. The timed window runs the same workload and checks the
+         introspection contract: ``unexpected_compiles == 0`` and the
+         decode/verify programs the engine selected
+         (``decode_programs``) equal the records' program identities,
+         both directions.
+      3. Recorder-on against recorder-off passes (``overhead_ratio``),
+         calibration off (``SKYTPU_DEVTIME_EVERY=0``) and forensics
+         off: greedy outputs must be identical each time (recording only
+         observes).
+
+    The paged layout only: ``layouts`` holds ``"paged"`` alone (the
+    port serves no contiguous layout; ``ROADMAP.md`` Queue 1). The
+    reference's names, sizes (``smoke`` or the CPU: llama3-tiny, 6
+    requests of 24 new tokens, max_len 256, chunks of 24, blocks of 32;
+    else llama3-400m, 16 requests of 128, max_len 2048, chunks of 256,
+    blocks of 128) and report keys. Vocabulary 16, so the random
+    model's greedy output cycles and the n-gram drafter drafts. Wall
+    ratios are reported, never gated."""
+    dev = resolve_device(device)
+    on_cpu = dev.type == "cpu"
+    if config is None:
+        config = "llama3-tiny" if on_cpu else "llama3-400m"
+    small = smoke or on_cpu
+    if requests is None:
+        requests = 6 if small else 16
+    if new_tokens is None:
+        new_tokens = 24 if small else 128
+    max_len = 256 if small else 2048
+    chunk = 24 if small else 256
+    kv_block = 32 if small else 128   # not dividing chunk-aligned
+    #                                   prefixes cleanly: COW runs
+    short_len, long_a, long_b = (12, 60, 72) if small \
+        else (96, 640, 768)
+    shared = 2 * chunk                # chunk-aligned shared prefix
+    slots = requests
+    cfg = dataclasses.replace(llama.CONFIGS[config], vocab_size=16)
+    rng = np.random.default_rng(0)
+    base = rng.integers(1, cfg.vocab_size, shared).tolist()
+    prompts = (
+        [rng.integers(1, cfg.vocab_size, short_len).tolist()
+         for _ in range(requests - 4)]
+        + [base + rng.integers(1, cfg.vocab_size,
+                               long_a - shared).tolist(),
+           base + rng.integers(1, cfg.vocab_size,
+                               long_b - shared).tolist()] * 2)
+    log(f"flight bench: {config} (vocab 16) max_len={max_len} "
+        f"chunk={chunk} block={kv_block} K={spec_k} "
+        f"requests={len(prompts)} on {_device_kind(dev)}")
+
+    kw = dict(n_slots=slots, max_len=max_len,
+              prompt_buckets=(16 if small else 128, max_len),
+              kv_int8=kv_int8, prefill_chunk=chunk, prefix_pool=4,
+              max_wave=slots, spec_k=spec_k, kv_block=kv_block,
+              device=dev, flight_recorder=flight_lib.FlightRecorder())
+    if weights_int8:
+        params, qw = kvcache.random_quantized_params(cfg, device=dev)
+        e = eng.InferenceEngine(params, cfg, qweights=qw, **kw)
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+        e = eng.InferenceEngine(params, cfg, **kw)
+    del params
+
+    def workload():
+        ids = [e.add_request(p, max_new_tokens=new_tokens)
+               for p in prompts]
+        _sync(dev)
+        t0 = time.time()
+        e.run_to_completion(max_burst)
+        _sync(dev)
+        wall = time.time() - t0
+        by_rid = {r.rid: list(r.tokens) for r in e.finished}
+        outs = [by_rid[i] for i in ids]
+        e.finished.clear()
+        toks = sum(len(o) for o in outs)
+        return outs, wall / max(toks, 1)
+
+    rec = e.flight
+    # Production startup: the grid sweep and one untimed workload pass,
+    # then the watch armed.
+    warmed = e.warm_programs(max_burst=max_burst)
+    workload()
+    warm_compile_s = e.compile_watch.total_compile_s()
+    e.declare_warmup_complete()
+    # Timed window.
+    e.decode_programs.clear()
+    seq0 = rec.seq()
+    out_on, tpot_on = workload()
+    window = rec.since(seq0)
+    unexpected = list(e.compile_watch.unexpected)
+    rec_dv = {(r["program"]["k"], r["program"]["span"])
+              for r in window if r["burst"] in ("decode", "verify")}
+    eng_dv = {(k, sp) for kind, k, sp in e.decode_programs
+              if kind in ("burst", "verify")}
+    n_chunks = sum(1 for r in window if r["burst"] == "chunk")
+    n_waves = sum(1 for r in window if r["burst"] == "wave")
+    coverage_ok = rec_dv == eng_dv and n_chunks > 0 and n_waves > 0
+    # Recorder-off guard: identical greedy output, best-of-two TPOT.
+    rec.enabled = False
+    out_off, tpot_off = workload()
+    rec.enabled = True
+    _, tpot_on2 = workload()
+    rec.enabled = False
+    _, tpot_off2 = workload()
+    rec.enabled = True
+    tpot_on = min(tpot_on, tpot_on2)
+    tpot_off = min(tpot_off, tpot_off2)
+    # Calibration off must give the same tokens: the bracket observes.
+    cal_samples = e.devtime.samples
+    prev_every = os.environ.get("SKYTPU_DEVTIME_EVERY")
+    os.environ["SKYTPU_DEVTIME_EVERY"] = "0"
+    try:
+        out_nocal, _ = workload()
+    finally:
+        if prev_every is None:
+            os.environ.pop("SKYTPU_DEVTIME_EVERY", None)
+        else:
+            os.environ["SKYTPU_DEVTIME_EVERY"] = prev_every
+    # Forensics off: the same tokens, best-of-two TPOT.
+    e.forensics = False
+    out_foff, tpot_foff = workload()
+    e.forensics = True
+    _, tpot_fon = workload()
+    e.forensics = False
+    _, tpot_foff2 = workload()
+    e.forensics = True
+    tpot_fon = min(tpot_on, tpot_fon)
+    tpot_foff = min(tpot_foff, tpot_foff2)
+    paged = {
+        "programs_warmed": warmed,
+        "warmup_compile_s": round(warm_compile_s, 3),
+        "unexpected_compiles": len(unexpected),
+        "unexpected": unexpected,
+        "coverage_ok": bool(coverage_ok),
+        "parity_ok": bool(out_on == out_off),
+        "calibration_parity_ok": bool(out_nocal == out_on),
+        "calibration_samples": int(cal_samples),
+        "n_records": len(window),
+        "n_chunk_records": n_chunks,
+        "n_wave_records": n_waves,
+        "tpot_on_ms": round(tpot_on * 1e3, 3),
+        "tpot_off_ms": round(tpot_off * 1e3, 3),
+        "overhead_ratio": round(tpot_on / max(tpot_off, 1e-9), 4),
+        "forensics_parity_ok": bool(out_foff == out_on),
+        "tpot_forensics_on_ms": round(tpot_fon * 1e3, 3),
+        "tpot_forensics_off_ms": round(tpot_foff * 1e3, 3),
+        "forensics_overhead_ratio": round(
+            tpot_fon / max(tpot_foff, 1e-9), 4),
+    }
+    log(f"flight paged: {paged}")
+    del e
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {
+        "warmup_compile_s": paged["warmup_compile_s"],
+        "unexpected_compiles": paged["unexpected_compiles"],
+        "coverage_ok": paged["coverage_ok"],
+        "parity_ok": paged["parity_ok"],
+        "calibration_parity_ok": paged["calibration_parity_ok"],
+        "calibration_samples": paged["calibration_samples"],
+        "n_records": paged["n_records"],
+        "overhead_ratio": paged["overhead_ratio"],
+        "forensics_parity_ok": paged["forensics_parity_ok"],
+        "forensics_overhead_ratio": paged["forensics_overhead_ratio"],
+        "layouts": {"paged": paged},
+        "config": config,
+        "spec_k": spec_k,
+        "kv_int8": kv_int8,
+        "weights_int8": weights_int8,
+        "backend": dev.type,
+    }
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default=None,
@@ -1516,8 +1707,17 @@ def main(argv=None) -> None:
                          "--smoke for the CI-sized pass)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft length K for --spec")
+    ap.add_argument("--flight", action="store_true",
+                    help="flight recorder + compile watch bench: the "
+                         "full mixed workload (chunked admission + "
+                         "spec decode + span regrouping, paged) with "
+                         "warm-grid startup: zero unexpected compiles "
+                         "in the timed window, per-burst record "
+                         "coverage, and the recorder-off no-op guard "
+                         "(combine with --smoke for the CI-sized pass)")
     ap.add_argument("--smoke", action="store_true",
-                    help="CI-sized pass of --spec, --qos, --adapters or "
+                    help="CI-sized pass of --spec, --qos, --adapters, "
+                         "--flight or "
                          "of the prefix-share workload (regression "
                          "guard for the chunk scheduler)")
     ap.add_argument("--device", default=None,
@@ -1537,6 +1737,21 @@ def main(argv=None) -> None:
                 "tpot_single_ms", "tpot_mixed_ms", "parity_ok",
                 "hot_loads", "evictions", "unexpected_compiles",
                 "n_adapters", "rank", "backend", "config")},
+            "device": device,
+        }))
+        return
+    if args.flight:
+        r = run_flight(config=args.config, kv_int8=args.kv_int8,
+                       weights_int8=args.weights_int8, smoke=args.smoke,
+                       device=args.device)
+        print(json.dumps({
+            "metric": "serve_unexpected_compiles",
+            "value": r["unexpected_compiles"],
+            "unit": "programs_compiled_in_timed_window",
+            **{k: r[k] for k in (
+                "warmup_compile_s", "coverage_ok", "parity_ok",
+                "calibration_parity_ok", "calibration_samples",
+                "n_records", "overhead_ratio", "layouts", "config")},
             "device": device,
         }))
         return

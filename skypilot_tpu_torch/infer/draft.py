@@ -43,10 +43,9 @@ Deliberate differences from the reference:
 - The paged layout only (``kv_block`` > 0), and on the card the block
   length that K1's multi-row body reads (``engine.kv_block_len``), not
   the reference's largest divisor.
-- No compile watch (``warm_programs``, ``declare_warmup_complete``) and
-  no device-time calibrator: PyTorch runs eagerly and compiles nothing,
-  and the port's flight recorder is a later slice. No ``hbm_bytes``: the
-  port has no HBM ledger to publish it in.
+- :meth:`DraftEngine.warm_programs` runs against a free draft slot
+  (its table row all-sentinel) instead of a spare one, and restores the
+  lengths, pending tokens and generator stream afterwards.
 - Sampling draws from an explicit ``torch.Generator`` on the engine's
   device (greedy drafting never reads it).
 - No ``kv_blocks``, ``span_buckets`` or ``ingest_chunk`` options: the
@@ -68,6 +67,8 @@ from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.infer import engine as eng
 from skypilot_tpu_torch.infer import kvcache, sampling
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import attribution as attribution_lib
+from skypilot_tpu_torch.observability import flight as flight_lib
 
 # Catch-up rows land in chunks of this width (capped at max_len).
 INGEST_CHUNK = 256
@@ -153,6 +154,20 @@ class DraftEngine:
         self.ingest_chunks = 0       # catch-up chunks
         self.rollbacks = 0           # speculative rows discarded
         self.reuse_hits = 0          # rounds served from a predraft
+        self.decode_programs: set = set()
+        # The drafter's own compile watch and device-time calibrator:
+        # draft program identity is drafter-scoped, and the engine's
+        # "draft" flight records look their dev_ms_est up here.
+        self.compile_watch = flight_lib.CompileWatch()
+        self.devtime = attribution_lib.DeviceTimeCalibrator(
+            device=self.device)
+        self.compile_watch.calibrator = self.devtime
+        watch = self.compile_watch.wrap
+        self._rollout_fn = watch("draft_rollout", self._rollout_program,
+                                 ("k", "span"))
+        self._ingest_fn = watch("draft_ingest", self._ingest_program,
+                                ("final", "span"))
+        self._sync_fn = watch("draft_sync", kvcache.sync_slots)
 
     # -- paged table -------------------------------------------------------
 
@@ -381,11 +396,9 @@ class DraftEngine:
             chunk = np.zeros((C,), np.int64)
             chunk[:n] = ctx[pos:pos + n]
             sarg = self._span_arg(self._span_for(pos))
-            kvcache.prefill_chunk(
-                self.params, self.cache, eng.upload(chunk, self.device),
-                pos, n, slot, pos + n, self.cfg, self._sp,
-                self.table_device(), final=False, span=sarg,
-                generator=self.generator, qweights=self.qweights)
+            self.decode_programs.add(("ingest", False, sarg))
+            self._ingest_fn(eng.upload(chunk, self.device), pos, n, slot,
+                            pos + n, final=False, span=sarg)
             self.ingest_chunks += 1
             pos += n
 
@@ -397,9 +410,9 @@ class DraftEngine:
             active[slot] = True
             lengths[slot] = ln
             tokens[slot] = tok
-        kvcache.sync_slots(self.cache, eng.upload(active, self.device),
-                           eng.upload(lengths, self.device),
-                           eng.upload(tokens, self.device))
+        self._sync_fn(self.cache, eng.upload(active, self.device),
+                      eng.upload(lengths, self.device),
+                      eng.upload(tokens, self.device))
 
     def _dispatch_rollout(self, slots: Sequence[int],
                           k: int) -> torch.Tensor:
@@ -412,12 +425,71 @@ class DraftEngine:
             active[s] = True
             rows_max = max(rows_max, len(self._state[s].toks))
         sarg = self._span_arg(self._span_for(rows_max))
-        toks = kvcache.decode_burst_staged(
-            self.params, self.cache, eng.upload(active, self.device), k,
-            self.cfg, self._sp, self.table_device(), span=sarg,
-            generator=self.generator, qweights=self.qweights)
+        self.decode_programs.add(("rollout", k, sarg))
+        toks = self._rollout_fn(eng.upload(active, self.device), k=k,
+                                span=sarg)
         self.rollouts += 1
         return toks
+
+    def _rollout_program(self, active: torch.Tensor, *, k: int,
+                         span: Optional[int]) -> torch.Tensor:
+        return kvcache.decode_burst_staged(
+            self.params, self.cache, active, k, self.cfg, self._sp,
+            self.table_device(), span=span, generator=self.generator,
+            qweights=self.qweights)
+
+    def _ingest_program(self, chunk: torch.Tensor, start: int,
+                        n_valid: int, slot: int, new_len: int, *,
+                        final: bool, span: Optional[int]):
+        return kvcache.prefill_chunk(
+            self.params, self.cache, chunk, start, n_valid, slot, new_len,
+            self.cfg, self._sp, self.table_device(), final=final,
+            span=span, generator=self.generator, qweights=self.qweights)
+
+    # -- warmup ------------------------------------------------------------
+
+    def warm_programs(self, k: int) -> int:
+        """Dispatch the drafter's reachable programs once: rollouts at
+        ``k`` and ``k + 1`` (the pipelined predraft's width) and the
+        ingest chunk at every span rung, and the sync program, against
+        a free slot whose table row is all-sentinel, inside
+        :func:`engine.warm_sweep` as the engine's sweep runs. Raises
+        :class:`engine.NoFreeSlotError` when every draft slot is
+        claimed. Returns the keys first dispatched."""
+        spare = eng.warm_slot(
+            (s for s in range(self.n_slots) if s not in self._state),
+            self.block_table, self.n_kv_blocks)
+        before = self.compile_watch.count
+        k = max(int(k), 1)
+        active = np.zeros((self.n_slots,), bool)
+        active[spare] = True
+        active_dev = eng.upload(active, self.device)
+        with eng.warm_sweep(self.compile_watch, self.cache, self.generator):
+            chunk = eng.upload(np.zeros((self.ingest_chunk,), np.int64),
+                               self.device)
+            for span in self.span_ladder:
+                sarg = self._span_arg(span)
+                for kk in sorted({k, k + 1}):
+                    self._rollout_fn(active_dev, k=kk, span=sarg)
+                self._ingest_fn(chunk, 0, 1, spare, 0, final=False,
+                                span=sarg)
+            zeros = eng.upload(np.zeros((self.n_slots,), np.int64),
+                               self.device)
+            self._sync_fn(self.cache,
+                          eng.upload(np.zeros((self.n_slots,), bool),
+                                     self.device), zeros, zeros)
+        return self.compile_watch.count - before
+
+    def declare_warmup_complete(self) -> None:
+        self.compile_watch.declare_warm()
+
+    def hbm_bytes(self) -> int:
+        """Device-resident bytes the drafter holds (its weights and KV
+        pool): the engine's HBM ledger publishes them as
+        ``draft_pool``."""
+        return (attribution_lib.tensor_bytes(self.params)
+                + attribution_lib.tensor_bytes(self.qweights)
+                + attribution_lib.tensor_bytes(self.cache))
 
     def stats(self) -> Dict[str, int]:
         return {

@@ -93,11 +93,28 @@ behind a typed boundary (``_dispatch_boundary``, chaos point
 the engine and re-admits every queued and in-flight request through the
 ``_ctx`` resume seam preemption uses, with the same greedy tokens.
 
-Left for later slices of the port: the flight recorder and tracing. The
-JAX engine padded
+Observability, as in the reference: every device dispatch runs through
+the compile watch (``observability/flight.py``: program keys, the
+first-dispatch wall, the unexpected-compile alarm after
+:meth:`InferenceEngine.declare_warmup_complete`), and every burst (wave,
+chunk, decode, verify, the pipelined draft), preemption, recovery and
+retirement appends one flight record with its program identity, member
+requests and trace ids, the host wall split into dispatch and fetch,
+the device-time calibrator's ``dev_ms_est`` and the roofline's FLOPs and
+bytes (``observability/attribution.py``). Retirement records anchor the
+per-request forensics ledger and the streaming tail detector
+(``observability/forensics.py``), and each request records the
+reference's spans (``engine.request``, ``engine.queue_wait``,
+``engine.prefill``, ``engine.decode``). :meth:`InferenceEngine.
+warm_programs` dispatches every program key once before traffic.
+
+Deliberate differences from the reference: the JAX engine padded
 admission waves to fixed row counts to avoid recompiles; PyTorch runs
-eagerly, so the port dispatches each wave at its own size and keeps no
-spare slot for padding rows.
+eagerly, so the port dispatches each wave at its own size (a wave's
+program key carries its real row count) and keeps no spare slot for
+padding rows. The warm-up runs against a free slot whose table row is
+all-sentinel instead. A non-final prefill chunk is not fetched, so its
+flight record's ``fetch_wall_ms`` is 0.
 """
 
 from __future__ import annotations
@@ -118,7 +135,10 @@ from skypilot_tpu_torch.infer import adapters as adapters_lib
 from skypilot_tpu_torch.infer import kvcache, sampling
 from skypilot_tpu_torch.infer import qos as qos_lib
 from skypilot_tpu_torch.models import llama
-from skypilot_tpu_torch.observability import metrics
+from skypilot_tpu_torch.observability import attribution as attribution_lib
+from skypilot_tpu_torch.observability import flight as flight_lib
+from skypilot_tpu_torch.observability import forensics as forensics_lib
+from skypilot_tpu_torch.observability import metrics, tracing
 from skypilot_tpu_torch.ops import paged_attention as pa
 
 # The reference engine's serving metrics (``skypilot_tpu/infer/
@@ -139,6 +159,13 @@ DECODE_STEP_SECONDS = metrics.histogram(
     "skytpu_decode_step_seconds",
     "Decode device-call latency, dispatch to token fetch (one call "
     "decodes a burst of k tokens per active slot)")
+DECODE_STALL_SECONDS = metrics.histogram(
+    "skytpu_decode_stall_seconds",
+    "Time active decode slots waited on a prefill device call (one "
+    "chunk or one admission wave) — the interference chunked prefill "
+    "bounds",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+             0.5, 1.0, 2.5, 5.0))
 DECODE_TOKENS = metrics.counter(
     "skytpu_decode_tokens_total",
     "Output tokens committed to requests by decode")
@@ -270,6 +297,11 @@ class Request:
     first_token_s: Optional[float] = None
     done: bool = False
     eos_id: Optional[int] = None
+    # Identity of this request's trace span ("engine.request", recorded
+    # at retirement): its queue-wait/prefill/decode child spans parent to
+    # it; ``parent_id`` links it into the caller's trace (traceparent).
+    span_ctx: Optional[tracing.SpanContext] = None
+    parent_id: Optional[str] = None
     n_chunks: int = 0                 # prefill chunks run for this request
     cached_len: int = 0               # prompt rows reused from the cache
     # A resume (admitted with committed tokens, as a KV handoff is):
@@ -345,6 +377,64 @@ class BurstHandle:
     k: int
     slot_req: Dict[int, Request]      # slot->request snapshot at dispatch
     begin_s: float = 0.0              # dispatch start (decode-step span)
+    # Per-part span rungs and compile-watch keys (parallel to ``parts``):
+    # the completion's flight records carry each part's program identity
+    # and look its calibrated device time up by key.
+    spans: List[Optional[int]] = dataclasses.field(default_factory=list)
+    keys: List[Optional[str]] = dataclasses.field(default_factory=list)
+    # When the last part's dispatch returned: the record splits its host
+    # wall into dispatch and fetch here.
+    dispatch_s: Optional[float] = None
+
+
+class NoFreeSlotError(RuntimeError):
+    """:meth:`InferenceEngine.warm_programs` dispatches every program
+    against a free slot whose table row is all-sentinel (the port keeps
+    no spare slot); with every slot occupied there is none to warm on."""
+
+    def __init__(self):
+        super().__init__("warm_programs needs a free slot (the port keeps "
+                         "no spare slot); warm before traffic")
+        self.typed_error = {"type": "no_free_slot",
+                            "message": str(self)}
+
+
+def warm_slot(free_slots, block_table: np.ndarray, sentinel: int) -> int:
+    """A free slot whose table row is all-sentinel: a warm-up's writes
+    land in the trash block. Raises :class:`NoFreeSlotError` when there
+    is none."""
+    for s in free_slots:
+        if (block_table[s] == sentinel).all():
+            return s
+    raise NoFreeSlotError()
+
+
+@contextlib.contextmanager
+def warm_sweep(watch: flight_lib.CompileWatch, cache: Dict[str, Any],
+               generator: torch.Generator):
+    """The frame of a warm-up sweep (the engine's and the drafter's
+    ``warm_programs``): the block runs under ``metrics.suppress``; the
+    cache's lengths and pending tokens and the generator's stream are
+    restored afterwards, so no greedy token changes; then the watch's
+    new keys are drained (they are no burst's to claim) and their
+    compile metrics republished from the watch registry."""
+    pre_keys = set(watch.summary())
+    saved_len = cache["length"].clone()
+    saved_last = cache["last_token"].clone()
+    saved_gen = generator.get_state()
+    try:
+        with metrics.suppress():
+            yield
+    finally:
+        cache["length"].copy_(saved_len)
+        cache["last_token"].copy_(saved_last)
+        generator.set_state(saved_gen)
+    watch.drain_new()
+    summ = watch.summary()
+    for key in summ:
+        if key not in pre_keys:
+            flight_lib.COMPILE_SECONDS.labels(program=key).observe(summ[key])
+            flight_lib.PROGRAMS_COMPILED.inc()
 
 
 class PromptTooLongError(ValueError):
@@ -730,6 +820,12 @@ class InferenceEngine:
     ``SKYTPU_KV_LAZY``). ``adapters``: the multi-LoRA catalog (None: the
     adapterless path, whose programs run exactly as before); its pool
     moves to ``device`` if it lives elsewhere.
+
+    ``flight_recorder``: the flight ring the engine records into (None:
+    the process recorder ``flight.RECORDER``). ``forensics``: retirement
+    records and tail detection (None reads ``SKYTPU_FORENSICS``, default
+    on); ``exemplar_store``: where tail exemplars pin (None: the process
+    store).
     """
 
     def __init__(self, params: llama.Params, cfg: llama.LlamaConfig,
@@ -750,7 +846,12 @@ class InferenceEngine:
                  plain_attention: bool = False,
                  kv_lazy: Optional[bool] = None,
                  qos: Optional[qos_lib.FairScheduler] = None,
-                 adapters: Optional[adapters_lib.AdapterCatalog] = None):
+                 adapters: Optional[adapters_lib.AdapterCatalog] = None,
+                 flight_recorder: Optional[
+                     flight_lib.FlightRecorder] = None,
+                 forensics: Optional[bool] = None,
+                 exemplar_store: Optional[
+                     forensics_lib.ExemplarStore] = None):
         self.device = resolve_device(device)
         self.qos = qos
         # Per-slot adapter pool ids live in a host numpy vector with a
@@ -766,7 +867,6 @@ class InferenceEngine:
         if adapters is not None:
             if adapters.device != self.device:
                 adapters.pool = _to_device(adapters.pool, self.device)
-            adapters.bind_loader(adapters_lib.pool_install)
             self.adapter_ids = np.zeros((n_slots,), np.int64)
         params = _to_device(params, self.device)
         if qweights is not None:
@@ -825,14 +925,6 @@ class InferenceEngine:
             spec_pipeline = (
                 os.environ.get("SKYTPU_SPEC_PIPELINE", "1") != "0")
         self.spec_pipeline = bool(spec_pipeline) and draft_engine is not None
-        # What the engine notes of each verify round (newest last,
-        # bounded): when it began, when its verify calls were all
-        # enqueued, when the predraft was dispatched (None: none was),
-        # when the tokens were fetched, whether a predraft was pending
-        # then, and the drafter kind. The port has no flight recorder;
-        # the bench's overlap check reads these.
-        self.spec_rounds: Deque[Dict[str, Any]] = collections.deque(
-            maxlen=1024)
         # Acceptance-collapse ladder: a request that has drafted at
         # least spec_min_drafted tokens below spec_min_rate acceptance
         # in its current rung demotes one rung.
@@ -909,6 +1001,389 @@ class InferenceEngine:
         # Tokens dispatched to the device but not yet committed
         # host-side (one outstanding burst at a time; caps the next).
         self._inflight_tokens = 0
+        self._init_observability(flight_recorder, forensics,
+                                 exemplar_store)
+
+    # -- observability -----------------------------------------------------
+
+    def _init_observability(self, flight_recorder, forensics,
+                            exemplar_store) -> None:
+        """The reference engine's observability members: the flight
+        recorder, the compile watch over every dispatch site (with the
+        reference's program names and static keys), the device-time
+        calibrator, the HBM ledger and roofline, and forensics."""
+        # Decode-side program keys actually dispatched ((kind, width,
+        # span) tuples; span None = the full view): the coverage checks
+        # hold the flight records' program identities to this set.
+        self.decode_programs: set = set()
+        self.flight = (flight_recorder if flight_recorder is not None
+                       else flight_lib.RECORDER)
+        self.compile_watch = flight_lib.CompileWatch()
+        # Every Nth dispatch of a program key (SKYTPU_DEVTIME_EVERY) is
+        # bracketed with CUDA events on the card: the dev_ms_est column.
+        self.devtime = attribution_lib.DeviceTimeCalibrator(
+            device=self.device)
+        self.compile_watch.calibrator = self.devtime
+        # Per-burst attribution accumulators (loop thread): COW copies,
+        # prefix evictions and lazy grows since the previous record.
+        self._fl_cow = 0
+        self._fl_evictions = 0
+        self._fl_lazy_grows = 0
+        if forensics is None:
+            forensics = forensics_lib.forensics_enabled()
+        self.forensics = bool(forensics)
+        self.tail = forensics_lib.TailDetector()
+        self.exemplars = (exemplar_store if exemplar_store is not None
+                          else forensics_lib.EXEMPLARS)
+        # The reference's "kernel" static argument: whether the
+        # big-cache reads run K1 (the plain versions otherwise).
+        self._kernel = not self.plain_attention
+        watch = self.compile_watch.wrap
+        # A wave's program key carries its real row count: the port
+        # dispatches each wave at its own size.
+        self._admit_wave_fn = watch(
+            "admit_wave", self._admit_wave_program, ("bucket",),
+            key_fn=lambda a, kw: (("rows", a[0].shape[0]),))
+        self._decode_burst_fn = watch(
+            "decode_burst", self._decode_burst_program,
+            ("k", "span", "kernel"))
+        self._verify_fn = watch("verify", self._verify_program,
+                                ("k", "span", "kernel"))
+        self._prefill_chunk_fn = watch(
+            "prefill_chunk", self._prefill_chunk_program,
+            ("final", "span", "kernel"))
+        self._claim_fn = watch("claim", kvcache.claim_slot)
+        self._copy_block_fn = watch("copy_block", kvcache.copy_block)
+        self._export_blocks_fn = watch("export_blocks",
+                                       kvcache.export_blocks)
+        self._import_blocks_fn = watch("import_blocks",
+                                       kvcache.import_blocks)
+        self._adapter_install_fn = watch("adapter_load",
+                                         adapters_lib.pool_install)
+        if self.adapters is not None:
+            self.adapters.bind_loader(self._adapter_install_fn)
+        # HBM ledger + roofline: KV bytes per token from the cache's
+        # actual dtypes (int8 KV counts its bfloat16 scales).
+        cfg = self.cfg
+        G, hd, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+        self._kv_token_bytes = 2 * L * G * hd * self.cache["k"].element_size()
+        if "k_scale" in self.cache:
+            self._kv_token_bytes += (2 * L * G
+                                     * self.cache["k_scale"].element_size())
+        self._kv_block_bytes = self._kv_token_bytes * self.kv_block
+        self._weight_bytes = (attribution_lib.tensor_bytes(self.params)
+                              + attribution_lib.tensor_bytes(self.qweights))
+        self.hbm_ledger = attribution_lib.HbmLedger()
+        self.roofline = _roofline(cfg, self._weight_bytes,
+                                  self._kv_token_bytes, self.max_len,
+                                  self.prefill_chunk)
+        # The draft model's rollouts cost at ITS scale.
+        self._draft_roofline = None
+        de = self.draft_engine
+        if de is not None:
+            d_kvt = (2 * de.cfg.n_layers * de.cfg.n_kv_heads
+                     * de.cfg.head_dim * de.cache["k"].element_size())
+            if "k_scale" in de.cache:
+                d_kvt += (2 * de.cfg.n_layers * de.cfg.n_kv_heads
+                          * de.cache["k_scale"].element_size())
+            self._draft_roofline = _roofline(
+                de.cfg, attribution_lib.tensor_bytes(de.params)
+                + attribution_lib.tensor_bytes(de.qweights), d_kvt,
+                de.max_len, None)
+        peak_flops, peak_bw = attribution_lib.device_peaks(self.device)
+        attribution_lib.ROOFLINE_PEAK_FLOPS.set(peak_flops)
+        attribution_lib.ROOFLINE_PEAK_BW.set(peak_bw)
+        self._init_hbm_ledger()
+
+    def _init_hbm_ledger(self) -> None:
+        """Static ledger components: what each tensor family holds for
+        the engine's lifetime (storage sizes, no device fetch). The
+        workspace entry is the reference's activation estimate for the
+        widest admission wave (rows x bucket x (ff + 2d) fp32 plus the
+        wave logits)."""
+        led = self.hbm_ledger
+        led.set_bytes("weights", self._weight_bytes)
+        led.set_bytes("kv_pool", attribution_lib.tensor_bytes(self.cache))
+        led.set_bytes("prefix_pool", 0)     # paged: prefixes share blocks
+        led.set_bytes("draft_pool",
+                      self.draft_engine.hbm_bytes()
+                      if self.draft_engine is not None else 0)
+        led.set_bytes("adapter_pool",
+                      attribution_lib.tensor_bytes(self.adapters.pool)
+                      if self.adapters is not None else 0)
+        rows = (self.max_wave or self.n_slots) + 1
+        widest = max(self.buckets) if self.buckets else self.max_len
+        cfg = self.cfg
+        led.set_bytes("workspace",
+                      rows * widest * (cfg.d_ff + 2 * cfg.d_model) * 4
+                      + rows * cfg.vocab_size * 4)
+        stats = led.cross_check(self.device)
+        if stats is None:
+            # No device truth (the CPU): the limit comes from the
+            # operator, else the analytical total plus slack.
+            env = os.environ.get("SKYTPU_HBM_LIMIT_BYTES", "")
+            try:
+                limit = int(env) if env else 0
+            except ValueError:
+                limit = 0
+            led.set_limit(limit if limit > 0 else int(led.total() * 1.25))
+        self._refresh_hbm_ledger()
+
+    def _refresh_hbm_ledger(self) -> None:
+        """Occupancy components from the host bookkeeping admission runs
+        on (allocator counts, prefix payloads): a ledger leak is a
+        structure leak."""
+        led = self.hbm_ledger
+        led.set_bytes("kv_used", self.allocator.used * self._kv_block_bytes)
+        pinned = 0
+        if self._prefix_index is not None:
+            for payload in self._prefix_index.payloads():
+                pinned += len(payload) * self._kv_block_bytes
+        led.set_bytes("prefix_pinned", pinned)
+
+    def _record_flight(self, burst: str, begin_s: float, end_s: float,
+                       program: Dict[str, Any], slots, reqs,
+                       toks: int, stall: bool = False,
+                       drafted: int = 0, accepted: int = 0,
+                       drafter: Optional[str] = None,
+                       overlap_ms: float = 0.0,
+                       dispatch_s: Optional[float] = None,
+                       dev_keys: Optional[List[Optional[str]]] = None,
+                       calibrator: Optional[
+                           attribution_lib.DeviceTimeCalibrator]
+                       = None) -> None:
+        """Append one burst record (the reference's ``_record_flight``).
+        Host bookkeeping only: every value already lives on the host.
+        COW/eviction/lazy-grow attribution: whatever accumulated since
+        the previous record rides this one."""
+        cow, self._fl_cow = self._fl_cow, 0
+        evs, self._fl_evictions = self._fl_evictions, 0
+        lazy, self._fl_lazy_grows = self._fl_lazy_grows, 0
+        compiled = self.compile_watch.drain_new()
+        fl = self.flight
+        if fl is None or not fl.enabled:
+            return
+        program = dict(program)
+        program["layout"] = "paged"
+        if burst in ("decode", "verify", "chunk"):
+            program["attn"] = "kernel" if self._kernel else "gather"
+        extra: Dict[str, Any] = {}
+        if stall:
+            extra["stall"] = True
+        if drafted:
+            extra["drafted"] = drafted
+            extra["accepted"] = accepted
+        if drafter:
+            extra["drafter"] = drafter
+        if overlap_ms:
+            extra["overlap_ms"] = overlap_ms
+        if cow:
+            extra["cow"] = cow
+        if evs:
+            extra["evictions"] = evs
+        if lazy:
+            extra["lazy_grows"] = lazy
+        if compiled:
+            extra["compiled"] = compiled
+        dur_ms = max(end_s - begin_s, 0.0) * 1e3
+        if dispatch_s is not None:
+            disp_ms = min(max((dispatch_s - begin_s) * 1e3, 0.0), dur_ms)
+            extra["dispatch_wall_ms"] = round(disp_ms, 4)
+            extra["fetch_wall_ms"] = round(dur_ms - disp_ms, 4)
+        cal = calibrator if calibrator is not None else self.devtime
+        if dev_keys:
+            ests = [cal.estimate(k) for k in dev_keys]
+            ests = [e for e in ests if e is not None]
+            if ests:
+                dev_ms = sum(ests) * 1e3
+                extra["dev_ms_est"] = round(dev_ms, 4)
+                attribution_lib.DEVICE_SECONDS.inc(dev_ms / 1e3)
+        rl = self._draft_roofline if burst == "draft" else self.roofline
+        if rl is not None:
+            flops, hbm = rl.record_cost(burst, program, len(slots), toks)
+            if flops:
+                extra["flops"] = flops
+                extra["hbm_bytes"] = hbm
+                attribution_lib.DEVICE_FLOPS.inc(flops)
+                attribution_lib.DEVICE_HBM_MOVED.inc(hbm)
+        if self.adapters is not None and reqs:
+            ads: Dict[str, int] = {}
+            for r in reqs:
+                if r.adapter:
+                    ads[r.adapter] = ads.get(r.adapter, 0) + 1
+            if ads:
+                extra["adapters"] = ads
+        if self.qos is not None and reqs:
+            tenants: Dict[str, int] = {}
+            for r in reqs:
+                tenants[r.tenant] = tenants.get(r.tenant, 0) + 1
+            extra["tenants"] = tenants
+            if any(r.priority for r in reqs):
+                prios: Dict[str, int] = {}
+                for r in reqs:
+                    prios[str(r.priority)] = prios.get(str(r.priority),
+                                                       0) + 1
+                extra["priorities"] = prios
+        fl.record(
+            burst, ts_s=begin_s, dur_s=max(end_s - begin_s, 0.0),
+            program=program, slots=list(slots),
+            rids=[r.rid for r in reqs],
+            traces=[r.span_ctx.trace_id for r in reqs
+                    if r.span_ctx is not None],
+            toks=toks, **extra)
+
+    def _record_event(self, burst: str, slots, rids, **fields) -> None:
+        """A zero-duration record (preempt, recover, retire)."""
+        fl = self.flight
+        if fl is not None and fl.enabled:
+            fl.record(burst, ts_s=fields.pop("ts_s", time.time()),
+                      dur_s=0.0,
+                      program=dict(fields.pop("program", {}),
+                                   layout="paged"),
+                      slots=list(slots), rids=list(rids), toks=0,
+                      **fields)
+
+    def declare_warmup_complete(self) -> None:
+        """Arm the compile watch: every program the live workload can
+        reach is believed dispatched once, so a later new key is a shape
+        the warm-up never ran (a typed ``engine.unexpected_compile``
+        event and ``skytpu_unexpected_compiles_total``). The drafter's
+        programs are part of the replica's surface and arm with it."""
+        self.compile_watch.declare_warm()
+        if self.draft_engine is not None:
+            self.draft_engine.declare_warmup_complete()
+
+    def warm_programs(self, max_burst: int = 8) -> int:
+        """Dispatch every reachable program key once before traffic
+        (then :meth:`declare_warmup_complete`): each decode burst width
+        (powers of two up to ``max_burst``), verify, both chunk kinds at
+        every span rung, an admission wave per bucket and row count, and
+        the claim, block-copy, export/import and adapter-install
+        programs, each once.
+
+        The port keeps no spare slot, so every program runs against a
+        free slot whose table row is all-sentinel (its writes land in
+        the trash block); other slots ride inactive, their writes past
+        their lengths as in any span group's burst. Lengths, pending
+        tokens and the generator's stream are restored afterwards, so no
+        greedy token changes and no block is allocated. Raises
+        :class:`NoFreeSlotError` when every slot is occupied. Runs under
+        ``metrics.suppress``, then republishes the sweep's compile
+        metrics from the watch registry. Returns the keys first
+        dispatched (the drafter's included)."""
+        spare = warm_slot(self.free_slots, self.block_table,
+                          self.n_kv_blocks)
+        before = self.compile_watch.count
+        active = np.zeros((self.n_slots,), bool)
+        active[spare] = True
+        active_dev = upload(active, self.device)
+        table = self.table_device()
+        with warm_sweep(self.compile_watch, self.cache, self.generator):
+            for span in self.span_ladder:
+                sarg = self._span_arg(span)
+                k = 1
+                while k <= max_burst:
+                    self._decode_burst_fn(active_dev, table, k=k,
+                                          span=sarg, kernel=self._kernel)
+                    k *= 2
+                if self.spec_k:
+                    zeros = np.zeros((self.n_slots, self.spec_k),
+                                     np.int64)
+                    self._verify_fn(
+                        upload(zeros, self.device),
+                        upload(np.zeros((self.n_slots,), np.int64),
+                               self.device), active_dev, table,
+                        k=self.spec_k, span=sarg, kernel=self._kernel)
+                if self.prefill_chunk:
+                    chunk = upload(np.zeros((self.prefill_chunk,),
+                                            np.int64), self.device)
+                    for final in (False, True):
+                        self._prefill_chunk_fn(
+                            chunk, 0, 1, spare, self.max_len, table,
+                            final=final, span=sarg,
+                            kernel=self._kernel)
+            cap = min(self.max_wave or self.n_slots, self.n_slots)
+            for bucket in self.buckets:
+                for rows in range(1, cap + 1):
+                    self._admit_wave_fn(
+                        upload(np.ones((rows, bucket), np.int64),
+                               self.device),
+                        upload(np.ones((rows,), np.int64), self.device),
+                        [spare] * rows,
+                        np.zeros((rows,), np.int64)
+                        if self.adapters is not None else None,
+                        table, bucket=bucket)
+            self._claim_fn(self.cache, spare, self.max_len)
+            trash = self.n_kv_blocks
+            self._copy_block_fn(self.cache, trash, trash)
+            ids = torch.full((self.blocks_per_slot,), trash,
+                             dtype=torch.long, device=self.device)
+            self._import_blocks_fn(
+                self.cache, ids,
+                self._export_blocks_fn(self.cache, ids))
+            if self.adapters is not None:
+                # The all-zero weights into the base slot (values
+                # unchanged): a demand load mid-traffic dispatches a
+                # program the warm-up ran.
+                self.adapters.pool = self._adapter_install_fn(
+                    self.adapters.pool, 0, self.adapters.zero_weights())
+        n = self.compile_watch.count - before
+        if self.spec_k and self.draft_engine is not None:
+            n += self.draft_engine.warm_programs(self.spec_k)
+        return n
+
+    # -- the dispatch sites (each wrapped by the compile watch) -------------
+
+    def _admit_wave_program(self, tokens: torch.Tensor, lens: torch.Tensor,
+                            slots: List[int], aid: Optional[np.ndarray],
+                            table: torch.Tensor, *, bucket: int
+                            ) -> torch.Tensor:
+        """One wave's prefill, first-token sample and inserts; returns
+        the first tokens on the device, unfetched. ``aid``: each wave
+        row's adapter pool slot (None on the adapterless path)."""
+        wave_lora = {}
+        if aid is not None:
+            wave_lora = {"lora": self.adapters.pool,
+                         "aid": upload(aid, self.device)}
+        prefix, logits = kvcache.prefill_batch(
+            self.params, tokens, lens, self.cfg,
+            plain_attention=self.plain_attention, qweights=self.qweights,
+            **wave_lora)
+        first = sampling.sample(logits, self.sampling_params,
+                                self.generator)
+        for w, slot in enumerate(slots):
+            kvcache.insert(self.cache,
+                           {"k": prefix["k"][:, w], "v": prefix["v"][:, w]},
+                           slot, lens[w], first[w], table)
+        return first
+
+    def _decode_burst_program(self, active: torch.Tensor,
+                              table: torch.Tensor, *, k: int,
+                              span: Optional[int], kernel: bool
+                              ) -> torch.Tensor:
+        return kvcache.decode_burst_staged(
+            self.params, self.cache, active, k, self.cfg,
+            self.sampling_params, table, span=span,
+            generator=self.generator, plain_attention=not kernel,
+            qweights=self.qweights, **self._lora_args())
+
+    def _verify_program(self, draft: torch.Tensor, n_draft: torch.Tensor,
+                        active: torch.Tensor, table: torch.Tensor, *,
+                        k: int, span: Optional[int], kernel: bool):
+        return kvcache.verify_draft_staged(
+            self.params, self.cache, draft, n_draft, active, k, self.cfg,
+            table, span=span, plain_attention=not kernel,
+            qweights=self.qweights, **self._lora_args())
+
+    def _prefill_chunk_program(self, chunk: torch.Tensor, start: int,
+                               n_valid: int, slot: int, new_len: int,
+                               table: torch.Tensor, *, final: bool,
+                               span: Optional[int], kernel: bool):
+        return kvcache.prefill_chunk(
+            self.params, self.cache, chunk, start, n_valid, slot, new_len,
+            self.cfg, self.sampling_params, table, final=final, span=span,
+            generator=self.generator, plain_attention=not kernel,
+            qweights=self.qweights, **self._lora_args())
 
     # -- requests ----------------------------------------------------------
 
@@ -917,8 +1392,12 @@ class InferenceEngine:
                     tenant: str = qos_lib.DEFAULT_TENANT,
                     priority: int = 0,
                     adapter: Optional[str] = None,
-                    committed: Optional[List[int]] = None) -> int:
-        """Queue a request; returns its id. ``tenant``/``priority``: its
+                    committed: Optional[List[int]] = None,
+                    trace_ctx: Optional[tracing.SpanContext] = None
+                    ) -> int:
+        """Queue a request; returns its id. ``trace_ctx``: the caller's
+        span (the HTTP ``traceparent``; None: the ambient context, else a
+        fresh trace). ``tenant``/``priority``: its
         QoS identity (fair-scheduler lane, KV quota). ``adapter``: the
         fine-tune it generates under (None: the base model; an unknown
         name raises the typed 404 here). ``committed``:
@@ -935,6 +1414,14 @@ class InferenceEngine:
                       tenant=tenant, priority=priority, adapter=adapter)
         if committed:
             req.tokens = [int(t) for t in committed]
+        # Span identity minted at submit, so child spans recorded before
+        # retirement parent to it; the loop thread has no ambient
+        # context, so the caller's rides in explicitly.
+        parent = trace_ctx if trace_ctx is not None else tracing.current()
+        req.span_ctx = tracing.SpanContext(
+            parent.trace_id if parent else tracing.new_trace_id(),
+            tracing.new_span_id())
+        req.parent_id = parent.span_id if parent else None
         self._next_rid += 1
         self.waiting.append(req)
         ENGINE_WAITING.set(len(self.waiting))
@@ -947,6 +1434,7 @@ class InferenceEngine:
         if seen:
             PREFIX_HIT_RATIO.set(self.prefix_hits / seen)
         KV_BLOCKS_USED.set(self.allocator.used)
+        self._refresh_hbm_ledger()
 
     def table_device(self) -> torch.Tensor:
         """The block table as a device tensor, re-uploaded only after a
@@ -1100,6 +1588,7 @@ class InferenceEngine:
         self._table_dirty = True
         self._sync_kv_charge(slot, req.tenant)
         KV_LAZY_GROWS.inc(len(blocks))
+        self._fl_lazy_grows += len(blocks)
         return True
 
     def _alloc_blocks(self, n: int) -> Optional[List[int]]:
@@ -1130,10 +1619,12 @@ class InferenceEngine:
 
     def _count_eviction(self) -> None:
         self.prefix_evictions += 1
+        self._fl_evictions += 1
         PREFIX_EVICTIONS.inc()
 
     def _count_cow(self) -> None:
         self.cow_copies += 1
+        self._fl_cow += 1
         KV_COW_COPIES.inc()
 
     # -- per-tenant KV-block quotas (qos max_kv_blocks) --------------------
@@ -1360,6 +1851,7 @@ class InferenceEngine:
         ctx = req.prompt + req.tokens
         if not self._resumable(len(ctx)):
             return False
+        retired_rows = 0
         if self._prefix_index is not None and req.n_chunks:
             # Committed rows stop one short of the context: the last
             # token's row is written by the burst that decodes its
@@ -1369,6 +1861,11 @@ class InferenceEngine:
             # cold.
             self._store_prefix(ctx, slot, len(ctx) - 1, donor_live=False,
                                salt=self._prefix_salt(req))
+            # The record reports what the resume will read warm: the
+            # cached rows covering the context after the store.
+            covered = self._prefix_index.lookup(ctx, self._prefix_salt(req))
+            if covered is not None:
+                retired_rows = covered[1]
         self.slot_req.pop(slot, None)
         self.free_slots.append(slot)
         self._free_slot_blocks(slot)
@@ -1384,6 +1881,9 @@ class InferenceEngine:
             tenant=qos_lib.tenant_label(
                 req.tenant,
                 self.qos.cfg if self.qos is not None else None)).inc()
+        self._record_event("preempt", [slot], [req.rid],
+                           tenants={req.tenant: 1}, priority=req.priority,
+                           retired_rows=retired_rows)
         self._requeue(req)
         self._update_gauges()
         return True
@@ -1532,8 +2032,8 @@ class InferenceEngine:
                     dispatched.append(
                         (wave, slots, bucket,
                          self._dispatch_wave(wave, slots, bucket)))
-            for wave, slots, bucket, (first, t0) in dispatched:
-                self._complete_wave(wave, slots, first, bucket, t0)
+            for wave, slots, bucket, disp in dispatched:
+                self._complete_wave(wave, slots, bucket, *disp)
                 if on_wave is not None:
                     on_wave()
         if quota_held:
@@ -1541,12 +2041,21 @@ class InferenceEngine:
         self._update_gauges()
 
     def _dispatch_wave(self, wave: List[Request], slots: List[int],
-                       bucket: int) -> Tuple[torch.Tensor, float]:
+                       bucket: int
+                       ) -> Tuple[torch.Tensor, float, bool, float,
+                                  Optional[str]]:
         """Enqueue one wave's prefill + inserts; returns the first
-        tokens as a device tensor, not yet fetched, and the dispatch
-        time."""
+        tokens as a device tensor, not yet fetched, the dispatch start,
+        whether decode slots were active (the wave then also counts as
+        decode stall), when the dispatch returned, and its program
+        key."""
         WAVE_SIZE.observe(len(wave))
         t0 = time.time()
+        for req in wave:
+            # Queue wait ends where the prefill dispatch begins.
+            tracing.record_span(
+                "engine.queue_wait", req.submit_s, t0,
+                parent=req.span_ctx, attrs={"rid": req.rid})
         n = len(wave)
         tokens_b = np.zeros((n, bucket), np.int64)
         true_lens = np.ones((n,), np.int64)
@@ -1554,35 +2063,41 @@ class InferenceEngine:
             ctx = self._ctx(req)
             tokens_b[i, :len(ctx)] = ctx
             true_lens[i] = len(ctx)
-        tokens = upload(tokens_b, self.device)
-        lens = upload(true_lens, self.device)
-        wave_lora = {}
-        if self.adapters is not None:
-            # Each wave row gathers its own fine-tune: mixed-adapter
-            # admission is one call.
-            aid_w = np.array([r.adapter_slot for r in wave], np.int64)
-            wave_lora = {"lora": self.adapters.pool,
-                         "aid": upload(aid_w, self.device)}
-        prefix, logits = kvcache.prefill_batch(
-            self.params, tokens, lens, self.cfg,
-            plain_attention=self.plain_attention, qweights=self.qweights,
-            **wave_lora)
-        first = sampling.sample(logits, self.sampling_params,
-                                self.generator)
-        table = self.table_device()
-        for w, slot in enumerate(slots):
-            kvcache.insert(self.cache,
-                           {"k": prefix["k"][:, w], "v": prefix["v"][:, w]},
-                           slot, lens[w], first[w], table)
-        return first, t0
+        decode_active = bool(self.slot_req)
+        # Each wave row gathers its own fine-tune: mixed-adapter
+        # admission is one call.
+        aid = (np.array([r.adapter_slot for r in wave], np.int64)
+               if self.adapters is not None else None)
+        first = self._admit_wave_fn(
+            upload(tokens_b, self.device), upload(true_lens, self.device),
+            slots, aid, self.table_device(), bucket=bucket)
+        return (first, t0, decode_active, time.time(),
+                self.compile_watch.last_key)
 
     def _complete_wave(self, wave: List[Request], slots: List[int],
-                       first_dev: torch.Tensor, bucket: int,
-                       t0: float) -> None:
+                       bucket: int, first_dev: torch.Tensor, t0: float,
+                       decode_active: bool = False,
+                       dispatch_s: Optional[float] = None,
+                       dev_key: Optional[str] = None) -> None:
         first = first_dev.tolist()             # host sync for THIS wave
         now = time.time()
         PREFILL_SECONDS.labels(bucket=str(bucket)).observe(
             max(now - t0, 0.0))
+        if decode_active:
+            DECODE_STALL_SECONDS.observe(max(now - t0, 0.0))
+        self._record_flight(
+            "wave", begin_s=t0, end_s=now,
+            program={"bucket": bucket, "rows": len(first)},
+            slots=slots, reqs=wave, toks=len(wave),
+            stall=decode_active, dispatch_s=dispatch_s,
+            dev_keys=[dev_key])
+        for req in wave:
+            # Dispatch through first-token fetch: the latency the
+            # request experienced.
+            tracing.record_span(
+                "engine.prefill", t0, now, parent=req.span_ctx,
+                attrs={"rid": req.rid, "bucket": bucket,
+                       "cached_len": 0, "chunks": 0})
         for req, slot, tok in zip(wave, slots, first):
             req.slot = slot
             req.tokens.append(tok)
@@ -1674,6 +2189,9 @@ class InferenceEngine:
         req.slot = slot
         self._end_stall(req)
         req.prefill_begin_s = time.time()
+        tracing.record_span(
+            "engine.queue_wait", req.submit_s, req.prefill_begin_s,
+            parent=req.span_ctx, attrs={"rid": req.rid})
         row = self.block_table[slot]
         row[:] = self.n_kv_blocks
         if hit is not None:
@@ -1683,8 +2201,8 @@ class InferenceEngine:
             if partial:
                 # Copy the partial shared block before the suffix
                 # prefill writes into it (its owner keeps ref > 1).
-                kvcache.copy_block(self.cache, payload[n_shared],
-                                   new_blocks[0])
+                self._copy_block_fn(self.cache, payload[n_shared],
+                                    new_blocks[0])
                 self._count_cow()
         elif idx is not None and idx.eligible(ctx):
             self.prefix_misses += 1
@@ -1692,7 +2210,7 @@ class InferenceEngine:
         row[n_shared:n_shared + len(new_blocks)] = new_blocks
         self._table_dirty = True
         self._sync_kv_charge(slot, req.tenant)
-        kvcache.claim_slot(self.cache, slot, self.max_len)
+        self._claim_fn(self.cache, slot, self.max_len)
         if req.tokens:
             req.resumed_len = cached
         else:
@@ -1723,21 +2241,42 @@ class InferenceEngine:
         final = start + n_valid >= st.total
         chunk = np.zeros((C,), np.int64)
         chunk[:n_valid] = st.ctx[start:start + n_valid]
-        tok_dev = kvcache.prefill_chunk(
-            self.params, self.cache, upload(chunk, self.device), start,
-            n_valid, req.slot, st.total if final else self.max_len, self.cfg,
-            self.sampling_params, self.table_device(), final=final,
-            span=self._span_arg(self._span_for(start)),
-            generator=self.generator, plain_attention=self.plain_attention,
-            qweights=self.qweights, **self._lora_args())
+        decode_active = bool(self.slot_req)
+        attn_span = self._span_arg(self._span_for(start))
+        self.decode_programs.add(("chunk", final, attn_span))
+        t0 = time.time()
+        tok_dev = self._prefill_chunk_fn(
+            upload(chunk, self.device), start, n_valid, req.slot,
+            st.total if final else self.max_len, self.table_device(),
+            final=final, span=attn_span, kernel=self._kernel)
+        t_disp = time.time()              # dispatch returned
+        chunk_key = self.compile_watch.last_key
+        # Deliberate difference from the reference: only the final
+        # chunk is fetched (its token is the request's next one); a
+        # non-final chunk's record ends at its dispatch, so its
+        # fetch_wall_ms is 0.
+        tok = int(tok_dev) if final else None      # host sync
+        end_s = time.time() if final else t_disp
+        dt = end_s - t0
         req.n_chunks += 1
         PREFILL_CHUNKS.inc()
+        if decode_active:
+            DECODE_STALL_SECONDS.observe(dt)
+        self._record_flight(
+            "chunk", begin_s=t0, end_s=end_s,
+            program={"span": attn_span, "final": final},
+            slots=[req.slot], reqs=[req], toks=1 if final else 0,
+            stall=decode_active, dispatch_s=t_disp, dev_keys=[chunk_key])
         st.pos += n_valid
         if not final:
             return True
-        tok = int(tok_dev)                     # host sync
         now = time.time()
         self.chunking.popleft()
+        tracing.record_span(
+            "engine.prefill", req.prefill_begin_s, now,
+            parent=req.span_ctx,
+            attrs={"rid": req.rid, "bucket": "chunked",
+                   "cached_len": req.cached_len, "chunks": req.n_chunks})
         req.tokens.append(tok)
         if req.first_token_s is None:          # once per request
             req.first_token_s = now
@@ -1788,7 +2327,7 @@ class InferenceEngine:
             cow = self._alloc_blocks(1)
             if cow is None:                    # pool dry: skip storing
                 return 0
-            kvcache.copy_block(self.cache, blocks[n_full], cow[0])
+            self._copy_block_fn(self.cache, blocks[n_full], cow[0])
             self._count_cow()
             blocks[n_full] = cow[0]
         for b in blocks[:n_full]:
@@ -1850,7 +2389,7 @@ class InferenceEngine:
         payload, cached = hit
         ids = torch.tensor(payload, dtype=torch.long, device=self.device)
         tensors = {}
-        for name, v in kvcache.export_blocks(self.cache, ids).items():
+        for name, v in self._export_blocks_fn(self.cache, ids).items():
             if v.is_floating_point():
                 v = v.float()
             tensors[name] = v.cpu().numpy()
@@ -1899,7 +2438,7 @@ class InferenceEngine:
         if blocks is None:
             return 0            # pool dry: resume cold
         ids = torch.tensor(blocks, dtype=torch.long, device=self.device)
-        kvcache.import_blocks(self.cache, ids, {
+        self._import_blocks_fn(self.cache, ids, {
             name: torch.from_numpy(np.require(arr, requirements="CW")).to(
                 self.device)
             for name, arr in tensors.items()})
@@ -1923,10 +2462,43 @@ class InferenceEngine:
         self.finished.append(req)
         REQUESTS_FINISHED.inc()
         self._end_stall(req)
-        if req.first_token_s is not None and len(req.tokens) > 1:
+        now = time.time()
+        decoded = req.first_token_s is not None and len(req.tokens) > 1
+        if req.span_ctx is not None:
+            if decoded:
+                # ONE decode span per request (first token to
+                # retirement): a span per slot per burst would flood the
+                # ring at high occupancy.
+                tracing.record_span(
+                    "engine.decode", req.first_token_s, now,
+                    parent=req.span_ctx,
+                    attrs={"rid": req.rid, "tokens": len(req.tokens) - 1})
+            tracing.record_span(
+                "engine.request", req.submit_s, now,
+                ctx=req.span_ctx, parent_id=req.parent_id,
+                attrs={"rid": req.rid, "prompt_len": len(req.prompt),
+                       "n_tokens": len(req.tokens)})
+        if decoded:
             TPOT_SECONDS.observe(
-                max(time.time() - req.first_token_s, 0.0)
-                / (len(req.tokens) - 1))
+                max(now - req.first_token_s, 0.0) / (len(req.tokens) - 1))
+        if self.forensics:
+            # ONE retirement record anchors the request's ledger, then
+            # the tail detector decides whether to pin its evidence.
+            self._record_event(
+                "retire", [req.slot] if req.slot is not None else [],
+                [req.rid], ts_s=now,
+                traces=([req.span_ctx.trace_id]
+                        if req.span_ctx is not None else []),
+                submit_s=req.submit_s, first_token_s=req.first_token_s,
+                end_s=now, prompt_len=len(req.prompt),
+                n_toks=len(req.tokens), cached_len=req.cached_len,
+                resumed_len=req.resumed_len, n_chunks=req.n_chunks,
+                spec_drafted=req.spec_drafted,
+                spec_accepted=req.spec_accepted,
+                preemptions=req.preemptions,
+                stalls={k: round(v, 4) for k, v in req.stall_ms.items()},
+                tenants={req.tenant: 1}, adapter=req.adapter)
+            self._observe_tail(req, now)
         if req.slot is not None:
             self.slot_req.pop(req.slot, None)
             self.free_slots.append(req.slot)
@@ -1940,6 +2512,52 @@ class InferenceEngine:
         self._release_adapter(req)
         SLOTS_ACTIVE.set(len(self.slot_req))
         KV_BLOCKS_USED.set(self.allocator.used)
+
+    def _observe_tail(self, req: Request, now: float) -> None:
+        """Streaming tail detection at retirement: fold the request's
+        TTFT/TPOT into the P2 estimators and, when it crosses the
+        configured quantile, pin its full evidence (retirement record,
+        every flight record it rode, its ledger) into the exemplar
+        store. The ring scan runs only on a crossing."""
+        if metrics.suppressed():      # warmup must not skew the tail
+            return
+        hits = []
+        if req.first_token_s is not None:
+            ttft_ms = max(req.first_token_s - req.submit_s, 0.0) * 1e3
+            crossed, thr = self.tail.observe("ttft", ttft_ms)
+            if crossed:
+                hits.append(("ttft", ttft_ms, thr))
+            if len(req.tokens) > 1:
+                tpot_ms = (max(now - req.first_token_s, 0.0) * 1e3
+                           / (len(req.tokens) - 1))
+                crossed, thr = self.tail.observe("tpot", tpot_ms)
+                if crossed:
+                    hits.append(("tpot", tpot_ms, thr))
+        if not hits:
+            return
+        fl = self.flight
+        recs: List[Dict[str, Any]] = []
+        retire = None
+        if fl is not None and fl.enabled:
+            for r in fl.tail():
+                if req.rid in (r.get("rids") or ()):
+                    recs.append(r)
+                    if r.get("burst") == "retire":
+                        retire = r
+        ledger = (forensics_lib.build_ledger(retire, recs)
+                  if retire is not None else None)
+        for metric, value, thr in hits:
+            forensics_lib.TAIL_EXEMPLARS_PINNED.labels(metric=metric).inc()
+            self.exemplars.pin({
+                "rid": req.rid, "metric": metric,
+                "value_ms": round(value, 4),
+                "threshold_ms": (round(thr, 4) if thr is not None
+                                 else None),
+                "ts_s": now,
+                "trace_id": (req.span_ctx.trace_id
+                             if req.span_ctx is not None else None),
+                "tenant": req.tenant, "adapter": req.adapter,
+                "retire": retire, "records": recs, "ledger": ledger})
 
     def dispatch_decode_burst(self, max_burst: int = 8
                               ) -> Optional[BurstHandle]:
@@ -1975,20 +2593,24 @@ class InferenceEngine:
         t0 = time.time()
         self._note_adapter_mix(s for _, slots in groups for s in slots)
         parts: List[Tuple[torch.Tensor, List[int]]] = []
+        part_spans: List[Optional[int]] = []
+        part_keys: List[Optional[str]] = []
         for span, slots in groups:
             DECODE_ATTN_ROWS.observe(span)
             active = np.zeros((self.n_slots,), bool)
             active[slots] = True
-            toks = kvcache.decode_burst_staged(
-                self.params, self.cache, upload(active, self.device), k,
-                self.cfg, self.sampling_params, self.table_device(),
-                span=self._span_arg(span), generator=self.generator,
-                plain_attention=self.plain_attention, qweights=self.qweights,
-                **self._lora_args())
+            sarg = self._span_arg(span)
+            self.decode_programs.add(("burst", k, sarg))
+            toks = self._decode_burst_fn(
+                upload(active, self.device), self.table_device(), k=k,
+                span=sarg, kernel=self._kernel)
             parts.append((toks, slots))
+            part_spans.append(sarg)
+            part_keys.append(self.compile_watch.last_key)
         self._inflight_tokens += k
         return BurstHandle(parts=parts, k=k, slot_req=dict(self.slot_req),
-                           begin_s=t0)
+                           begin_s=t0, spans=part_spans, keys=part_keys,
+                           dispatch_s=time.time())
 
     def complete_decode_burst(self, handle: BurstHandle
                               ) -> Dict[int, List[int]]:
@@ -2006,10 +2628,13 @@ class InferenceEngine:
                                     ) -> Dict[int, List[int]]:
         fetched = [(toks.cpu().numpy(), slots)
                    for toks, slots in handle.parts]
-        DECODE_STEP_SECONDS.observe(max(time.time() - handle.begin_s, 0.0))
+        end_s = time.time()
+        DECODE_STEP_SECONDS.observe(max(end_s - handle.begin_s, 0.0))
         self._inflight_tokens -= handle.k
         out: Dict[int, List[int]] = {}
-        for toks, slots in fetched:
+        for part_i, (toks, slots) in enumerate(fetched):
+            part_emitted = 0
+            part_reqs: List[Request] = []
             for slot in slots:
                 req = handle.slot_req.get(slot)
                 if req is None or req.done:
@@ -2023,6 +2648,17 @@ class InferenceEngine:
                         self._retire(req)
                         break
                 out[req.rid] = emitted
+                part_emitted += len(emitted)
+                part_reqs.append(req)
+            self._record_flight(
+                "decode", begin_s=handle.begin_s, end_s=end_s,
+                program={"k": handle.k,
+                         "span": (handle.spans[part_i]
+                                  if part_i < len(handle.spans) else None)},
+                slots=slots, reqs=part_reqs, toks=part_emitted,
+                dispatch_s=handle.dispatch_s,
+                dev_keys=([handle.keys[part_i]]
+                          if part_i < len(handle.keys) else None))
         n = sum(len(v) for v in out.values())
         if n:
             DECODE_TOKENS.inc(n)
@@ -2158,31 +2794,40 @@ class InferenceEngine:
         draft_dev = upload(draft, self.device)
         n_draft_dev = upload(n_draft, self.device)
         parts = []
+        part_spans: List[Optional[int]] = []
+        part_keys: List[Optional[str]] = []
         for span, slots in groups:
             DECODE_ATTN_ROWS.observe(span)
             active = np.zeros((self.n_slots,), bool)
             active[slots] = True
-            toks, n_commit = kvcache.verify_draft_staged(
-                self.params, self.cache, draft_dev, n_draft_dev,
-                upload(active, self.device), K, self.cfg,
-                self.table_device(), span=self._span_arg(span),
-                plain_attention=self.plain_attention, qweights=self.qweights,
-                **self._lora_args())
+            sarg = self._span_arg(span)
+            self.decode_programs.add(("verify", K, sarg))
+            toks, n_commit = self._verify_fn(
+                draft_dev, n_draft_dev, upload(active, self.device),
+                self.table_device(), k=K, span=sarg, kernel=self._kernel)
             self.verify_calls += 1
             parts.append((slots, toks, n_commit))
-        enqueued_s = time.time()            # every verify call enqueued
-        # The pipelined predraft, enqueued behind the verify calls.
-        draft_s = None
+            part_spans.append(sarg)
+            part_keys.append(self.compile_watch.last_key)
+        dispatch_done_s = time.time()       # every verify call enqueued
+        # The pipelined predraft, enqueued behind the verify calls; its
+        # "draft" record spans the rollout's dispatch.
         overlap_s = 0.0
         pre_slots = [s for s in dlen if s in model_reqs]
         if self.spec_pipeline and pre_slots:
             t_d0 = time.time()
             if self.draft_engine.rollout(pre_slots, K + 1):
-                draft_s = t_d0
-                overlap_s = time.time() - t_d0
+                t_d1 = time.time()
+                overlap_s = t_d1 - t_d0
                 SPEC_OVERLAP_WALL.inc(overlap_s)
-        pending = bool(self.draft_engine is not None
-                       and self.draft_engine.stats()["pending"])
+                self._record_flight(
+                    "draft", begin_s=t_d0, end_s=t_d1,
+                    program={"k": K + 1, "span": None},
+                    slots=pre_slots,
+                    reqs=[model_reqs[s] for s in pre_slots], toks=0,
+                    drafter="model",
+                    dev_keys=[self.draft_engine.compile_watch.last_key],
+                    calibrator=self.draft_engine.devtime)
         out: Dict[int, List[int]] = {}
         drafted = accepted = 0
         model_drafted = ngram_drafted = 0
@@ -2191,7 +2836,10 @@ class InferenceEngine:
         end_s = time.time()
         DECODE_STEP_SECONDS.observe(max(end_s - t0, 0.0))
         SPEC_VERIFY_WALL.inc(max(end_s - t0, 0.0))
-        for slots, toks, n_commit in fetched:
+        for part_i, (slots, toks, n_commit) in enumerate(fetched):
+            grp_emitted = grp_drafted = grp_accepted = 0
+            grp_reqs: List[Request] = []
+            grp_kinds = set()
             for slot in slots:
                 req = self.slot_req.get(slot)
                 if req is None or req.done:
@@ -2214,20 +2862,29 @@ class InferenceEngine:
                 req.spec_accepted += acc
                 req.spec_mode_drafted += nd
                 req.spec_mode_accepted += acc
-                if slot in model_reqs:
-                    model_drafted += nd
-                else:
-                    ngram_drafted += nd
+                if nd:
+                    if slot in model_reqs:
+                        model_drafted += nd
+                        grp_kinds.add("model")
+                    else:
+                        ngram_drafted += nd
+                        grp_kinds.add("ngram")
                 drafted += nd
                 accepted += acc
                 out[req.rid] = emitted
-        kinds = [k for k, n in (("model", model_drafted),
-                                ("ngram", ngram_drafted)) if n]
-        self.spec_rounds.append({
-            "begin_s": t0, "enqueued_s": enqueued_s, "draft_s": draft_s,
-            "overlap_s": overlap_s, "fetch_s": end_s, "pending": pending,
-            "drafter": ("mixed" if len(kinds) > 1
-                        else kinds[0] if kinds else None)})
+                grp_emitted += len(emitted)
+                grp_drafted += nd
+                grp_accepted += acc
+                grp_reqs.append(req)
+            self._record_flight(
+                "verify", begin_s=t0, end_s=end_s,
+                program={"k": K, "span": part_spans[part_i]},
+                slots=slots, reqs=grp_reqs, toks=grp_emitted,
+                drafted=grp_drafted, accepted=grp_accepted,
+                drafter=("mixed" if len(grp_kinds) > 1
+                         else next(iter(grp_kinds), None)),
+                overlap_ms=round(overlap_s * 1e3, 3),
+                dispatch_s=dispatch_done_s, dev_keys=[part_keys[part_i]])
         if model_drafted:
             SPEC_DRAFT_TOKENS.labels(drafter="model").inc(model_drafted)
         if ngram_drafted:
@@ -2335,6 +2992,7 @@ class InferenceEngine:
         self.reset()
         self.finished.extend(finished)
         seam = getattr(exc, "seam", None) or "unknown"
+        now = time.time()
         victims: List[Request] = []
         seen = set()
         for req in residents + chunkers + queued:
@@ -2356,6 +3014,9 @@ class InferenceEngine:
             self._requeue(req)
         self.waiting.reverse()          # _requeue prepends: arrival order
         ENGINE_RECOVERIES.labels(seam=seam).inc()
+        self._record_event("recover", [], [r.rid for r in victims],
+                           ts_s=now, program={"seam": seam},
+                           n_victims=len(victims))
         self._update_gauges()
         return len(victims)
 
@@ -2365,6 +3026,16 @@ class InferenceEngine:
         self.run_to_completion()
         by_rid = {r.rid: r for r in self.finished}
         return [by_rid[i].tokens for i in ids]
+
+
+def _roofline(cfg: llama.LlamaConfig, weight_bytes: int,
+              kv_token_bytes: int, max_len: int,
+              chunk_tokens: Optional[int]) -> attribution_lib.Roofline:
+    return attribution_lib.Roofline(
+        param_count=cfg.num_params(), weight_bytes=weight_bytes,
+        kv_token_bytes=kv_token_bytes, d_model=cfg.d_model,
+        n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+        head_dim=cfg.head_dim, max_len=max_len, chunk_tokens=chunk_tokens)
 
 
 def _to_device(tree, device: torch.device):

@@ -59,7 +59,7 @@ import time
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
 from skypilot_tpu_torch import chaos
-from skypilot_tpu_torch.observability import events, metrics
+from skypilot_tpu_torch.observability import metrics, tracing
 
 DEFAULT_TENANT = "default"
 TENANT_HEADER_ENV = "SKYTPU_TENANT_HEADER"
@@ -263,7 +263,8 @@ class QosConfig:
             except (ValueError, TypeError, AttributeError):
                 # A typo'd override must not silently disable QoS for
                 # every tenant; fall back to the defaults, loudly.
-                events.emit("qos.tenants_invalid", raw=raw[:200])
+                tracing.add_event("qos.tenants_invalid",
+                                  {"raw": raw[:200]}, echo=True)
                 tenants = {}
         return cls(
             enabled=os.environ.get("SKYTPU_QOS", "") == "1",

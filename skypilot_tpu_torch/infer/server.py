@@ -29,6 +29,21 @@ and response JSON keys:
   POST /handoff             {"tokens", "committed", "export",
                              "max_new_tokens"[, "stream"]} -> as
                             /generate, the committed tokens first
+  GET  /debug/flight        ?n=K | ?since=SEQ -> {"records", "seq",
+                               "enabled", "programs", "warm",
+                               "unexpected", "devtime", "hbm"}: the
+                               engine's flight ring, compile watch,
+                               device-time estimates and HBM ledger
+  GET  /debug/forensics     -> {"enabled", "tail", "exemplars"};
+                            ?rid=N -> {"rid", "ledger", "records",
+                               "exemplar"} (400 on a bad rid, 404 on one
+                               not in the ring or the exemplar store)
+
+A ``traceparent`` header on ``/generate``, ``/prefill`` and ``/handoff``
+parents the request's engine spans and flight records to the caller's
+trace. The engine's spans, events and flight records flush to
+``<SKYPILOT_TPU_HOME>/events/`` from two background threads, where the
+reference CLI (``skytpu flight --local``, ``skytpu trace``) reads them.
 
 ``/prefill`` and ``/handoff`` are the two tiers of the reference's
 disaggregated serving, driven by its load balancer: a prefill-tier
@@ -92,8 +107,11 @@ drafter (trailer ``drafter``: ``model``, ``ngram`` after a demotion, or
         --kv-lazy
 
 serves greedy decoding on the CUDA card (``--device cpu`` runs the
-plain PyTorch versions on the CPU). ``/debug/flight`` and
-``/debug/forensics`` are later slices of the port.
+plain PyTorch versions on the CPU). ``--warm-grid`` (env
+``SKYTPU_WARM_GRID=1``) dispatches every program key once before
+``/health`` flips and arms the compile watch (the typed
+``server.programs_warmed`` event), so a later new key raises
+``engine.unexpected_compile``.
 
 Crash recovery: when a step of the serving loop raises the engine's
 recoverable :class:`engine.EngineDispatchError`, the loop calls
@@ -117,7 +135,6 @@ import argparse
 import json
 import os
 import queue
-import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
@@ -133,9 +150,10 @@ from skypilot_tpu_torch.infer import engine as eng
 from skypilot_tpu_torch.infer import qos as qos_lib
 from skypilot_tpu_torch.infer import sampling
 from skypilot_tpu_torch.models import llama
-from skypilot_tpu_torch.observability import events
+from skypilot_tpu_torch.observability import flight as flight_lib
+from skypilot_tpu_torch.observability import forensics as forensics_lib
 from skypilot_tpu_torch.observability import health as health_lib
-from skypilot_tpu_torch.observability import metrics
+from skypilot_tpu_torch.observability import metrics, tracing
 
 # The reference server's metric families (``skypilot_tpu/infer/
 # server.py``), same names, types, labels and help.
@@ -250,6 +268,12 @@ class ModelServer:
         self._storm_window_s = float(os.environ.get(
             "SKYTPU_RECOVERY_STORM_WINDOW_S", "30"))
         self._recover_times: list = []    # loop-thread only
+        # Off-thread flush heartbeats: spans, events and flight records
+        # become durable (visible to a separate-process ``skytpu trace``
+        # or ``skytpu flight --local``) within ~5 s, and the O(ring)
+        # serialization never runs on the serving loop.
+        tracing.ensure_flush_thread()
+        flight_lib.ensure_flush_thread()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -268,8 +292,10 @@ class ModelServer:
             self._draining = True
             self._drain_deadline_s = time.time() + max(grace_s, 0.0)
             SERVER_DRAINING.set(1)
-            events.emit("server.draining", in_flight=self.queue_depth(),
-                        grace_s=grace_s)
+            tracing.add_event(
+                "server.draining",
+                {"in_flight": self.queue_depth(), "grace_s": grace_s},
+                echo=True)
         return self.drain_status()
 
     def draining(self) -> bool:
@@ -285,6 +311,7 @@ class ModelServer:
         }
 
     def _add(self, tokens, max_new_tokens: int, stream: bool = False,
+             trace_ctx=None,
              tenant: str = qos_lib.DEFAULT_TENANT, priority: int = 0,
              adapter: Optional[str] = None, export_prefix: bool = False,
              handoff: Optional[Dict] = None) -> _Pending:
@@ -298,26 +325,30 @@ class ModelServer:
         p.stream = stream
         p.export_prefix = export_prefix
         with self._inbox_lock:
-            self._inbox.append((list(tokens), max_new_tokens, p, tenant,
-                                priority, adapter, handoff))
+            # The caller's trace context rides the inbox: admission
+            # runs on the loop thread, which has no ambient context.
+            self._inbox.append((list(tokens), max_new_tokens, p,
+                                trace_ctx, tenant, priority, adapter,
+                                handoff))
             self._last_arrival = time.monotonic()
             INBOX_DEPTH.set(len(self._inbox))
         return p
 
-    def submit(self, tokens, max_new_tokens: int,
+    def submit(self, tokens, max_new_tokens: int, trace_ctx=None,
                tenant: str = qos_lib.DEFAULT_TENANT, priority: int = 0,
                adapter: Optional[str] = None, export_prefix: bool = False,
                handoff: Optional[Dict] = None) -> Dict:
         """Blocking: the result dict once the request finishes (or
         ``{"error": {...}, "http_status": n}`` when it failed typed).
+        ``trace_ctx``: the caller's span (a parsed ``traceparent``).
         ``tenant``/``priority``: the request's QoS identity. ``adapter``:
         the fine-tune (None: the base model).
         ``export_prefix`` (``/prefill``) adds the engine's prefix export
         under ``"export"`` (None when none is resident); ``handoff``
         (``/handoff``: ``{"committed": [...], "export": {...} or None}``)
         imports the export and resumes after the committed tokens."""
-        p = self._add(tokens, max_new_tokens, tenant=tenant,
-                      priority=priority, adapter=adapter,
+        p = self._add(tokens, max_new_tokens, trace_ctx=trace_ctx,
+                      tenant=tenant, priority=priority, adapter=adapter,
                       export_prefix=export_prefix, handoff=handoff)
         t0 = time.time()
         p.event.wait()
@@ -325,7 +356,7 @@ class ModelServer:
         out["total_ms"] = round((time.time() - t0) * 1e3, 2)
         return out
 
-    def submit_stream(self, tokens, max_new_tokens: int,
+    def submit_stream(self, tokens, max_new_tokens: int, trace_ctx=None,
                       tenant: str = qos_lib.DEFAULT_TENANT,
                       priority: int = 0, adapter: Optional[str] = None,
                       handoff: Optional[Dict] = None):
@@ -335,7 +366,8 @@ class ModelServer:
         oversized prompt or an unknown adapter raises here as a clean
         400/404. ``handoff`` as in :meth:`submit`; the committed tokens
         stream first."""
-        p = self._add(tokens, max_new_tokens, stream=True, tenant=tenant,
+        p = self._add(tokens, max_new_tokens, stream=True,
+                      trace_ctx=trace_ctx, tenant=tenant,
                       priority=priority, adapter=adapter, handoff=handoff)
 
         def gen():
@@ -371,8 +403,8 @@ class ModelServer:
         except Exception as e:  # noqa: BLE001 — reported, then stop
             self.warmup_error = e
             self.health_reason = "warmup failed"
-            print(f"model server warmup failed: {e!r}", file=sys.stderr,
-                  flush=True)
+            tracing.add_event("server.warmup_failed", {"error": str(e)},
+                              echo=True)
             return
         self.engine.finished.clear()
         self.health_reason = ""
@@ -397,7 +429,8 @@ class ModelServer:
                 try:
                     self.engine.reset()
                 except Exception as e2:  # noqa: BLE001
-                    events.emit("server.engine_reset_failed", error=str(e2))
+                    tracing.add_event("server.engine_reset_failed",
+                                      {"error": str(e2)}, echo=True)
                     self.health_reason = "engine reset failed"
                     self._ready.clear()
                 for p in self._pending.values():
@@ -424,26 +457,32 @@ class ModelServer:
         self._recover_times = [t for t in self._recover_times
                                if now - t < self._storm_window_s]
         if len(self._recover_times) >= self._storm_limit:
-            events.emit("server.recovery_storm",
-                        recoveries=len(self._recover_times),
-                        window_s=self._storm_window_s, error=str(e))
+            tracing.add_event(
+                "server.recovery_storm",
+                {"recoveries": len(self._recover_times),
+                 "window_s": self._storm_window_s,
+                 "error": str(e)}, echo=True)
             return False
         self._recover_times.append(now)
         try:
             n = self.engine.recover(e)
         except Exception as e2:  # noqa: BLE001 — the reset failed; the
             # fail-all path retries it and turns /health to 503.
-            events.emit("server.engine_recover_failed", error=str(e2))
+            tracing.add_event("server.engine_recover_failed",
+                              {"error": str(e2)}, echo=True)
             return False
-        events.emit("server.engine_recovered",
-                    seam=getattr(e, "seam", None), victims=n, error=str(e))
+        tracing.add_event(
+            "server.engine_recovered",
+            {"seam": getattr(e, "seam", None), "victims": n,
+             "error": str(e)}, echo=True)
         return True
 
     def _drain_inbox(self) -> None:
         with self._inbox_lock:
             new, self._inbox = self._inbox, []
             INBOX_DEPTH.set(0)
-        for tokens, max_new, p, tenant, priority, adapter, handoff in new:
+        for tokens, max_new, p, trace_ctx, tenant, priority, adapter, \
+                handoff in new:
             committed = None
             if handoff is not None:
                 # Decode tier: install the prefill tier's blocks here
@@ -459,12 +498,13 @@ class ModelServer:
                             list(tokens) + committed, export,
                             salt=export.get("salt", b""))
                     except Exception as e:  # noqa: BLE001 — cold resume
-                        print(f"model server: handoff import failed, "
-                              f"resuming cold: {e!r}", file=sys.stderr,
-                              flush=True)
+                        tracing.add_event(
+                            "server.handoff_import_failed",
+                            {"error": str(e)}, echo=True)
             rid = self.engine.add_request(tokens, max_new, tenant=tenant,
                                           priority=priority, adapter=adapter,
-                                          committed=committed)
+                                          committed=committed,
+                                          trace_ctx=trace_ctx)
             p.req = self.engine.waiting[-1]
             # TTFT counts from when the handler enqueued the request.
             p.req.submit_s = p.enqueued_s
@@ -721,7 +761,76 @@ def make_handler(model: ModelServer):
             if self.path == "/metrics":
                 metrics.write_exposition(self)
                 return self._observe(200)
+            route, _, query = self.path.partition("?")
+            if route == "/debug/flight":
+                return self._debug_flight(query)
+            if route == "/debug/forensics":
+                return self._debug_forensics(query)
             return self._json(404, {"error": "not found"})
+
+        def _debug_flight(self, query: str):
+            """Burst-level introspection, the reference's body: the
+            engine's live flight ring (``?n=`` caps the tail, default 128;
+            ``?since=<seq>`` returns only newer records), the compile
+            watch's registry, the calibrated device-time estimates and
+            the HBM ledger."""
+            from urllib.parse import parse_qs
+            qs = parse_qs(query)
+            n, since = 128, None
+            try:
+                n = max(int(qs.get("n", ["128"])[0]), 1)
+            except ValueError:
+                pass
+            try:
+                if "since" in qs:
+                    since = int(qs["since"][0])
+            except ValueError:
+                pass
+            e = model.engine
+            fl, watch = e.flight, e.compile_watch
+            records = fl.since(since) if since is not None else fl.tail(n)
+            return self._json(200, {
+                "records": records, "seq": fl.seq(),
+                "enabled": bool(fl.enabled),
+                "programs": watch.summary(), "warm": watch.warm,
+                "unexpected": watch.unexpected,
+                "devtime": e.devtime.summary(),
+                "hbm": e.hbm_ledger.snapshot()})
+
+        def _debug_forensics(self, query: str):
+            """Request forensics, the reference's body: bare, the tail
+            estimates and pinned exemplars; ``?rid=N``, that request's
+            critical-path ledger from the live ring (or its pinned
+            exemplar once the ring rolled over), what ``skytpu why``
+            renders."""
+            from urllib.parse import parse_qs
+            qs = parse_qs(query)
+            rid = None
+            try:
+                if "rid" in qs:
+                    rid = int(qs["rid"][0])
+            except ValueError:
+                return self._json(400, {"error": "bad rid"})
+            e = model.engine
+            if rid is None:
+                return self._json(200, {
+                    "enabled": bool(e.forensics),
+                    "tail": e.tail.snapshot(),
+                    "exemplars": e.exemplars.list()})
+            recs = e.flight.tail()
+            ledger = forensics_lib.ledger_from_records(rid, recs)
+            records = forensics_lib.records_for(rid, recs)
+            exemplar = e.exemplars.get(rid)
+            if ledger is None and exemplar is not None:
+                ledger = exemplar.get("ledger")
+                records = exemplar.get("records") or []
+            if ledger is None:
+                return self._json(404, {
+                    "error": f"no retired request {rid} in the flight "
+                             f"ring or exemplar store"})
+            return self._json(200, {"rid": rid, "ledger": ledger,
+                                    "records": records,
+                                    "exemplar": exemplar is not None})
 
         def _stream(self, chunks):
             """Chunked NDJSON: tokens flow as the engine decodes them."""
@@ -812,6 +921,9 @@ def make_handler(model: ModelServer):
                               if model_name else None)
             except (ValueError, TypeError, KeyError) as e:
                 return self._json(400, {"error": f"bad request: {e}"})
+            # The caller's trace: a malformed header starts a fresh one.
+            trace_ctx = tracing.parse_traceparent(
+                self.headers.get("traceparent"))
             # QoS: identity from header or body, then the token-bucket
             # and overload check before any engine state is touched; a
             # shed is a typed 429/503 with Retry-After.
@@ -826,7 +938,7 @@ def make_handler(model: ModelServer):
                         e.http_status, {"error": e.typed_error},
                         headers={"Retry-After": e.retry_after_header()})
             who = {"tenant": tenant, "priority": priority,
-                   "adapter": model_name}
+                   "adapter": model_name, "trace_ctx": trace_ctx}
             if self.path == "/prefill":
                 return self._prefill(tokens, max_new, who)
             handoff = None
@@ -900,6 +1012,19 @@ def serve(engine: eng.InferenceEngine, host: str = "0.0.0.0",
                         qos=qos)
     httpd = _Threading((host, port), make_handler(model))
     return model, httpd
+
+
+def warm_grid(engine: eng.InferenceEngine, max_burst: int = 8) -> int:
+    """``--warm-grid``: dispatch every program key once before
+    ``/health`` can flip, then arm the compile watch; emits the typed
+    ``server.programs_warmed`` event. Returns the keys warmed."""
+    t0 = time.time()
+    n = engine.warm_programs(max_burst=max_burst)
+    engine.declare_warmup_complete()
+    tracing.add_event(
+        "server.programs_warmed",
+        {"programs": n, "warm_s": round(time.time() - t0, 2)}, echo=True)
+    return n
 
 
 def make_engine(config: str, slots: int = 16, max_len: int = 1024,
@@ -1093,9 +1218,23 @@ def main(argv=None) -> None:
                     help="adapter-pool LoRA rank (lower-rank "
                          "checkpoints zero-pad; default env "
                          "SKYTPU_ADAPTER_RANK or 16)")
+    ap.add_argument("--warm-grid", action="store_true",
+                    default=os.environ.get("SKYTPU_WARM_GRID") == "1",
+                    help="dispatch the engine's whole program grid once "
+                         "at startup and arm the compile watch: any "
+                         "later new program key is a mid-traffic "
+                         "first dispatch and raises the typed "
+                         "engine.unexpected_compile alarm + "
+                         "skytpu_unexpected_compiles_total (env "
+                         "SKYTPU_WARM_GRID=1)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default, the card) or cpu")
     args = ap.parse_args(argv)
+    # A long-lived daemon: sever any inherited trace root, or every
+    # headerless request would attach its spans to the launch's trace.
+    # Requests that carry their own traceparent are unaffected.
+    os.environ.pop(tracing.ENV_VAR, None)
+    tracing.set_process_name("model-server")
     kv_blocks = args.kv_blocks
     if kv_blocks is None:
         kv_blocks = int(os.environ.get("SKYTPU_KV_BLOCKS", "0") or 0)
@@ -1117,14 +1256,16 @@ def main(argv=None) -> None:
                          spec_pipeline=(bool(args.spec_pipeline)
                                         if args.spec_pipeline is not None
                                         else None))
+    if args.warm_grid:
+        warm_grid(engine, args.max_burst)
     model, httpd = serve(engine, port=args.port, max_burst=args.max_burst,
                          open_burst=args.open_burst,
                          open_window_s=args.open_window,
                          coalesce_s=args.coalesce,
                          qos=qos_lib.admission_from_env("server"))
-    print(json.dumps({"event": "server.listening", "port": args.port,
-                      "device": str(engine.device)}), file=sys.stderr,
-          flush=True)
+    tracing.add_event("server.listening",
+                      {"port": args.port, "device": str(engine.device)},
+                      echo=True)
     try:
         httpd.serve_forever()
     finally:

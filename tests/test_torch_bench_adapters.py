@@ -28,14 +28,13 @@ def test_run_adapters_report_has_the_reference_keys(port_adapters):
     """``run_adapters_smoke()``'s report has the keys of the reference's
     ``run_adapters`` and meets its own guard (``tests/test_adapters.py::
     test_adapter_smoke_bench``): greedy parity, hot loads and evictions
-    in the churn, a positive overhead ratio. ``unexpected_compiles`` is
-    null: the port has no compile watch (its churn asserts the pool's
-    addresses instead)."""
+    in the churn, a positive overhead ratio, and no program key first
+    dispatched after the warm-up while adapters hot-load."""
     r = port_adapters
     assert set(r) == _returned_keys("run_adapters")
     assert r["parity_ok"]
     assert r["hot_loads"] > 0 and r["evictions"] > 0
-    assert r["overhead_ratio"] > 0 and r["unexpected_compiles"] is None
+    assert r["overhead_ratio"] > 0 and r["unexpected_compiles"] == 0
     assert (r["n_adapters"], r["rank"], r["requests"],
             r["new_tokens"]) == (4, 4, 4, 32)
 

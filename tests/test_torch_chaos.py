@@ -154,9 +154,9 @@ def test_malformed_env_plan_disables_injection_loudly(monkeypatch, capfd):
     assert not chaos.active()
     lines = [json.loads(ln) for ln in capfd.readouterr().err.splitlines()
              if ln.startswith("{")]
-    assert [ln["event"] for ln in lines] == ["chaos.plan_invalid"]
-    assert lines[0]["source"] == "SKYTPU_CHAOS_PLAN_JSON"
-    assert lines[0]["error_type"] == "JSONDecodeError"
+    assert [ln["name"] for ln in lines] == ["chaos.plan_invalid"]
+    assert lines[0]["attrs"]["source"] == "SKYTPU_CHAOS_PLAN_JSON"
+    assert lines[0]["attrs"]["error_type"] == "JSONDecodeError"
 
 
 def test_env_plans_activate_and_print_injected_events(tmp_path, monkeypatch,
@@ -185,8 +185,8 @@ def test_env_plans_activate_and_print_injected_events(tmp_path, monkeypatch,
     assert time.monotonic() - t0 >= 0.04
     events = [json.loads(ln) for ln in capfd.readouterr().err.splitlines()
               if ln.startswith("{")]
-    assert [(e["event"], e["effect"]) for e in events] == [
+    assert [(e["name"], e["attrs"]["effect"]) for e in events] == [
         ("chaos.injected", "ChaosError"), ("chaos.injected", "latency")]
-    assert events[0]["ctx.seam"] == "verify"
+    assert events[0]["attrs"]["ctx.seam"] == "verify"
     chaos.deactivate()
     assert not chaos.active()

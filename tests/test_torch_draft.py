@@ -38,6 +38,7 @@ from skypilot_tpu_torch.infer import draft as td
 from skypilot_tpu_torch.infer import engine as te
 from skypilot_tpu_torch.infer import kvcache as tkv
 from skypilot_tpu_torch.models import llama as tl
+from skypilot_tpu_torch.observability import flight as flight_lib
 
 # One intra-op thread: the suite runs several test files at once on a
 # few cores, and these tiny products gain nothing from more threads.
@@ -531,35 +532,51 @@ def test_distilled_acceptance_and_reuse(models, distilled):
 
 
 def test_pipeline_overlap_structural(models, distilled):
-    """The pipeline's structure, timing-free: in pipelined mode every
-    verify round that drafted with the model dispatched a predraft
-    inside its own window (after its verify calls were enqueued, before
-    its fetch), the predraft was pending at the fetch, and the overlap
-    counter grew; in synchronous mode no round has a predraft and
-    nothing was pending at any fetch."""
+    """The pipeline's structure, timing-free, read off the flight
+    records as the reference's bench reads it: in pipelined mode every
+    round drafts with the model and every verify record has a ``draft``
+    record (the predraft) dispatched inside its window (after its verify
+    calls were enqueued, done before its fetch) with its overlap
+    attributed, and the overlap
+    counter grew; in synchronous mode there is no ``draft`` record and
+    no verify record carries an overlap."""
     _, tcfg, _, _ = models
     _, (tt, tdp, tdc) = distilled
     overlap = te.SPEC_OVERLAP_WALL.labels().value
     verify = te.SPEC_VERIFY_WALL.labels().value
     de = _port_draft(tdp, tdc)
     e = _port_engine(tt, tcfg, spec_k=4, draft_engine=de,
-                     spec_pipeline=True)
+                     spec_pipeline=True,
+                     flight_recorder=flight_lib.FlightRecorder())
     e.generate(_prompts(tcfg.vocab_size), max_new_tokens=16)
-    rounds = [r for r in e.spec_rounds if r["drafter"] == "model"]
-    assert rounds and len(rounds) == len(e.spec_rounds)
-    for r in rounds:
-        assert r["pending"]
-        assert r["begin_s"] <= r["enqueued_s"] <= r["draft_s"] \
-            <= r["fetch_s"]
+    recs = e.flight.tail()
+    verifies = [r for r in recs if r["burst"] == "verify"]
+    drafts = [r for r in recs if r["burst"] == "draft"]
+    assert verifies and all(v["drafter"] == "model" for v in verifies)
+    assert drafts
+    for d in drafts:
+        assert d["drafter"] == "model" and d["program"]["k"] == 5
+    # Every round carries its predraft: each verify record (each part of
+    # a round shares the round's begin and end) holds a draft record
+    # between its last enqueue and its fetch.
+    for v in verifies:
+        assert v["overlap_ms"] > 0
+        enqueued = v["ts_s"] + v["dispatch_wall_ms"] / 1e3
+        fetched = v["ts_s"] + v["dur_s"]
+        assert any(enqueued <= d["ts_s"] + 1e-6
+                   and d["ts_s"] + d["dur_s"] <= fetched + 1e-6
+                   for d in drafts)
     assert te.SPEC_OVERLAP_WALL.labels().value > overlap
     assert te.SPEC_VERIFY_WALL.labels().value > verify
     de2 = _port_draft(tdp, tdc)
     e2 = _port_engine(tt, tcfg, spec_k=4, draft_engine=de2,
-                      spec_pipeline=False)
+                      spec_pipeline=False,
+                      flight_recorder=flight_lib.FlightRecorder())
     e2.generate(_prompts(tcfg.vocab_size), max_new_tokens=16)
-    assert e2.spec_rounds
-    assert all(r["draft_s"] is None and not r["pending"]
-               and r["overlap_s"] == 0.0 for r in e2.spec_rounds)
+    recs2 = e2.flight.tail()
+    assert any(r["burst"] == "verify" for r in recs2)
+    assert not any(r["burst"] == "draft" for r in recs2)
+    assert not any(r.get("overlap_ms") for r in recs2)
 
 
 def test_draft_tokens_metric_by_drafter(models, distilled):

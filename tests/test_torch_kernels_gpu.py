@@ -1756,3 +1756,90 @@ def test_recover_on_card(dtype, seam, monkeypatch):
                 plain_attention=True)
             top2 = logits[0].topk(2).values
             assert (top2[0] - top2[1]).item() <= 1e-2, (t, got, want)
+
+
+# -- observability on the card ------------------------------------------------
+
+def _observed_engine(dev, **kw):
+    """A bf16 engine at head dim 128 (K1's and K2's kernel shapes) with
+    its own flight recorder, driven through waves, chunks and n-gram
+    verifies."""
+    from skypilot_tpu_torch.observability import flight as flight_lib
+    cfg = _hd128_config(torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tl.init_params(cfg, gen, device=dev)
+    e = te.InferenceEngine(
+        params, cfg, n_slots=3, max_len=1024, prompt_buckets=(128, 1024),
+        kv_block=256, prefill_chunk=512, prefix_pool=4, spec_k=4,
+        device=dev, flight_recorder=flight_lib.FlightRecorder(), **kw)
+    rng = np.random.default_rng(3)
+    phrase = rng.integers(1, cfg.vocab_size, 8).tolist()
+    prompts = [rng.integers(1, cfg.vocab_size, 40).tolist(), phrase * 12,
+               rng.integers(1, cfg.vocab_size, 700).tolist()]
+    return e, prompts
+
+
+@pytest.mark.gpu
+def test_calibrator_cuda_bracket_on_card():
+    """The calibrator brackets a sampled dispatch with CUDA events on the
+    card (never the host wall): each program's first estimate is
+    positive and no larger than the host wall of the record whose
+    dispatch it timed."""
+    from skypilot_tpu_torch.observability import flight as flight_lib
+    dev = _cuda()
+    e, prompts = _observed_engine(dev)
+    assert e.devtime.device.type == "cuda"
+    for _ in range(2):
+        e.generate(prompts, max_new_tokens=16)
+    firsts = {}
+    for r in e.flight.tail():
+        if r.get("dev_ms_est") is not None:
+            firsts.setdefault(flight_lib.program_label(r), r)
+    assert {"wave", "chunk", "decode"} <= {r["burst"]
+                                           for r in firsts.values()}
+    for label, r in firsts.items():
+        assert 0 < r["dev_ms_est"] <= r["dur_s"] * 1e3 + 1e-3, (label, r)
+    assert e.devtime.samples > 0
+
+
+@pytest.mark.gpu
+def test_hbm_cross_check_on_card():
+    """On the card the HBM ledger's cross-check reads the caching
+    allocator and publishes ``bytes_in_use``; the resident ledger fits
+    inside it."""
+    from skypilot_tpu_torch.observability import attribution
+    dev = _cuda()
+    e, _ = _observed_engine(dev)
+    stats = e.hbm_ledger.cross_check(dev)
+    assert stats["bytes_in_use"] == torch.cuda.memory_stats(dev)[
+        "allocated_bytes.all.current"]
+    assert stats["bytes_limit"] == torch.cuda.get_device_properties(
+        dev).total_memory
+    assert attribution.HBM_DEVICE_IN_USE.labels().value == \
+        stats["bytes_in_use"]
+    led = e.hbm_ledger.snapshot()
+    assert led["weights"] + led["kv_pool"] <= stats["bytes_in_use"]
+
+
+@pytest.mark.gpu
+def test_unwarmed_engine_records_first_dispatch_walls_on_card():
+    """An engine that was never warmed records a first-dispatch host
+    wall for every program key it ran, each attached to the flight
+    record of the burst that paid for it; a warmed twin then serves the
+    same traffic with no new key and the same tokens."""
+    dev = _cuda()
+    e, prompts = _observed_engine(dev)
+    cold = e.generate(prompts, max_new_tokens=16)
+    summ = e.compile_watch.summary()
+    assert summ and all(v > 0 for v in summ.values())
+    compiled = [k for r in e.flight.tail() for k in r.get("compiled", ())]
+    assert sorted(compiled) == sorted(summ)
+    assert {k.split("[")[0] for k in summ} >= {
+        "admit_wave", "prefill_chunk", "decode_burst", "verify", "claim"}
+    w, _ = _observed_engine(dev)
+    assert w.warm_programs(max_burst=8) > 0
+    w.declare_warmup_complete()
+    assert w.generate(prompts, max_new_tokens=16) == cold
+    assert w.compile_watch.unexpected == []
+    w.clear_prefix_cache()
+    assert w.blocks_used() == 0

@@ -443,6 +443,37 @@ class _CrashLoopEngine:
         self.free_slots = list(range(self.n_slots))
 
 
+def test_recover_ledger_names_stall_recover(models):
+    """Forensics, the twin of the reference's
+    ``test_recover_ledger_names_stall_recover``: a crash victim's
+    critical-path ledger names the requeued outage as a
+    ``stall_recover`` phase and still sums to its wall; the engine wrote
+    one ``recover`` record naming the seam and its victims."""
+    from skypilot_tpu_torch.observability import flight as tfl
+    from skypilot_tpu_torch.observability import forensics as tfo
+    _, tcfg, _, tp = models
+    e = te.InferenceEngine(tp, tcfg, n_slots=2, max_len=48,
+                           prompt_buckets=(16,), prefill_chunk=8,
+                           kv_block=16, device="cpu",
+                           flight_recorder=tfl.FlightRecorder())
+    chaos.configure({"seed": 21, "faults": [
+        {"point": "engine.dispatch", "match": {"seam": "decode"},
+         "times": 1}]})
+    _run_batch(e, _prompts(tcfg.vocab_size, seed=6))
+    chaos.deactivate()
+    victims = [r for r in e.finished if r.recoveries >= 1]
+    assert victims
+    recs = e.flight.tail()
+    (rec,) = [r for r in recs if r["burst"] == "recover"]
+    assert rec["program"]["seam"] == "decode"
+    assert {v.rid for v in victims} <= set(rec["rids"])
+    ledger = tfo.ledger_from_records(victims[0].rid, recs)
+    assert ledger is not None
+    assert "stall_recover" in {p["phase"] for p in ledger["phases"]}
+    total = sum(p["ms"] for p in ledger["phases"])
+    assert total == pytest.approx(ledger["wall_ms"], abs=0.05)
+
+
 def test_recovery_storm_guard_fails_over_to_reset(monkeypatch, capfd):
     """A crash loop does not recover forever: past the rolling-window
     limit the server fails the in-flight request and resets the engine,
@@ -459,8 +490,8 @@ def test_recovery_storm_guard_fails_over_to_reset(monkeypatch, capfd):
         assert model._ready.is_set()
     finally:
         model.shutdown()
-    events = [json.loads(ln)["event"] for ln in capfd.readouterr().err
-              .splitlines() if ln.startswith('{"event"')]
+    events = [json.loads(ln)["name"] for ln in capfd.readouterr().err
+              .splitlines() if ln.startswith('{"kind": "event"')]
     assert events.count("server.engine_recovered") == 2
     assert "server.recovery_storm" in events
 
