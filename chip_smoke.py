@@ -61,7 +61,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    prompts (one chunked) are replayed through
    an engine that runs the plain attention versions on the same card
    beside one that runs the kernels, in bf16 (divergence reported) and
-   on the same weights in float32, where greedy tokens must agree
+   on the first ``CUT_LAYERS`` (16) layers of the same weights in
+   float32, where greedy tokens must agree
    wherever the plain logits' top-2 gap exceeds 1e-2. The float32 leg
    reads float32 pools, so its chunks run the ``mma.sync`` multi-row
    body: counts set to 0 before that leg and read after it, that body
@@ -71,7 +72,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    does) must give the spec-off tokens, and the prefix pair's warm
    request its cold rerun's, under the same 1e-2 rule. Two float32 int8
    legs repeat the kernel-against-plain, spec and prefix checks over int8
-   KV pools on the first 8 of the 32 layers (their chunks run the
+   KV pools on the first 8 layers (their chunks run the
    ``wgmma`` body on int8 pools, counted from 0): on the float32
    weights, under the 1e-2 rule, and on the same weights quantized once
    (w8a8), where the bound is the larger of 1e-2 and the plain logits'
@@ -91,9 +92,10 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    column-major (as stored) and row-major.
 5. Handoff: the cross-replica KV handoff of disaggregated serving
    between two HTTP servers on the card, a prefill tier P and a decode
-   tier D on one params tree: llama3-8b bf16 at full depth in the serve
-   phase's settings, the int8 recipe at full depth (32 slots, max_len
-   1280, quantized once) and float32 on the first 8 layers. The single
+   tier D on one params tree: llama3-8b bf16 at ``CUT_LAYERS`` (16)
+   layers in the serve phase's settings, the int8 recipe at 16 layers
+   (32 slots, max_len 1280, quantized once) and float32 on the first 8
+   layers. The single
    tier first (prompts of 775 and 597 tokens, 16 new tokens, on D's
    ``/generate``), then, launch counts set to 0, each prompt's
    ``/prefill`` on P and its ``/handoff`` on D, blocking and streamed,
@@ -145,7 +147,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    (b) The HTTP server at the reference server's defaults plus
    ``--kv-lazy``, with ``SKYTPU_QOS=1`` and two tenants (``hog``:
    burst 2 and one KV block; ``vip``: a lane above the default), in
-   bf16 at full depth and in float32 on the first 8 layers: a quota
+   bf16 at ``CUT_LAYERS`` (16) layers and in float32 on the first 8: a quota
    stall, a typed 429 with Retry-After, a preemption of one of 16
    streamed 740-token requests whose tokens agree with its unpreempted
    twin's (float32: wherever the plain top-2 gap exceeds 1e-2; bf16:
@@ -189,7 +191,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    the target's and the draft's. (a) llama3-8b full width and depth,
    bf16, 16 slots, max_len 1024, spec K 4, target and draft from
    ``draft.self_distilled_pair(params, cfg, 16)``: 8 requests of 98-775
-   tokens (two chunked), 64 new tokens each, spec-off, then the model
+   tokens (two chunked), 48 new tokens each, spec-off, then the model
    drafter pipelined, then synchronous; per leg acceptance (> 0.8 in
    bf16), the draft engine's counters, TPOT and the overlap/verify wall
    ratio, and, pipelined, whether each predraft had finished on the
@@ -216,8 +218,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    ``bench_serve.run_spec`` at llama3-8b, 8 requests of 64 new tokens
    (the reference's 256, cut for time; its warm-up passes run 10 new
    tokens): its report line and its pipeline structure.
-10. Recover: crash recovery on the serve engine at llama3-8b bf16 (16
-   slots, max_len 1024, blocks of 256, chunks of 512, a prefix pool of
+10. Recover: crash recovery on the serve engine at llama3-8b bf16 (full
+   width at ``CUT_LAYERS``, 16, layers; 16 slots, max_len 1024, blocks of 256, chunks of 512, a prefix pool of
    8, n-gram spec K 4), launch counts set to 0 before each leg and read
    after it: 8 requests (``RECOVER_LENS``, two chunked) of 24 new
    tokens, the uninterrupted twin, then one run per seeded fault of
@@ -237,7 +239,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    predraft is pending; tokens equal the twin's wherever the plain
    top-2 gap exceeds 1e-2.
 11. Observe: the observability stack on a replica at llama3-8b (full
-   width and depth, bf16, the reference server's defaults), launch
+   width at ``CUT_LAYERS``, 16, layers, bf16, the reference server's
+   defaults), launch
    counts set to 0 before the traffic and read after it. The engine is
    warmed by ``server.warm_grid`` (``--warm-grid``: every program key
    dispatched once, then the compile watch armed; the keys and their
@@ -261,14 +264,29 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    ``devtime_overhead_ratio`` (best against best) reported; one decode
    program's ``dev_ms_est`` beside the profiler's
    kernel-time sum for one dispatch of it; and the flushed flight log
-   read back.
+   read back. The HTTP leg runs with ``SKYTPU_TIMELINE_FILE_PATH`` set:
+   the trace file's ``skytpu_prefill_seconds`` spans must be one a wave
+   record and its ``skytpu_decode_step_seconds`` spans one a decode or
+   verify dispatch (each the histogram's own sample).
 12. Train: gradient parity of the kernels against the plain versions at
    llama3-1b width (2 layers, fp32 asserted, bf16 reported); then
    ``train.run`` at llama3-1b full width and depth for 6 steps on a
    repeated batch (counts set to 0 before, read after: K2 32, K3 16 and
-   K4 16 launches a step; the loss must fall), one profiled step, and a
-   llama3-tiny resume from a checkpoint that must equal the
-   uninterrupted run bit for bit.
+   K4 16 launches a step; the loss must fall), with the goodput ledger
+   on: every step's phases sum to its wall (0.05 ms), the snapshot's
+   buckets to its elapsed wall, and ``compute`` is at least 0.85 of
+   every warm step's wall; printed: each warm step's ledger,
+   ``dev_ms_est`` beside ``compute``, the buckets, the goodput ratio and
+   the train MFU (6·N·T over the data sheet's bf16 peak). The same 6
+   steps again with ``SKYTPU_GOODPUT=0``: the median step ratio on/off
+   over steps 2-6 is reported. One profiled step. Then llama3-tiny with
+   ``SKYTPU_TIMELINE_FILE_PATH`` set: 4 steps, a checkpoint every 2; a
+   twin killed by a ``train.checkpoint_save`` fault at step 4 and
+   resumed from its step 2 must equal the uninterrupted run bit for bit
+   and carry the first run's goodput stamps (``goodput.json``; steps
+   counted across the restart, ``restart_replay`` > 0); the trace file
+   holds the checkpoint save and wait spans; a recorder-off twin gives
+   bit-equal losses and step-4 state.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``; the line before them gives each
@@ -1124,6 +1142,28 @@ def _plain_logits(engine, params, prompt, ctx, adapter=None):
 # floor is as large at 2 layers as at 32, and the legs hold the smoke's
 # time near half its limit.
 INT8_FP32_LAYERS = 8
+# Depth of the serve phase's float32 leg, and of the llama3-8b paths
+# whose checks are structural (tokens against a twin, records, typed
+# answers): the handoff, recover and observe phases and the QoS server
+# leg. Full
+# width at half the layers: none of their checks depends on depth, the
+# main serving path keeps all 32 in the serve phase, and the smoke must
+# stay inside its time limit on the slowest host as phases are added.
+CUT_LAYERS = 16
+
+
+@contextlib.contextmanager
+def _at_depth(config: str, n_layers: int):
+    """For the block, ``llama.CONFIGS[config]`` at ``n_layers`` layers
+    (everything that builds the config by name, the server's
+    ``make_engine`` included, sees the cut model)."""
+    from skypilot_tpu_torch.models import llama
+    full = llama.CONFIGS[config]
+    llama.CONFIGS[config] = dataclasses.replace(full, n_layers=n_layers)
+    try:
+        yield
+    finally:
+        llama.CONFIGS[config] = full
 # A relative perturbation of two float32 ulps of the embedding: the size
 # of the summation-order noise between two correct attention paths.
 W8A8_PROBE = 2.0 ** -22
@@ -1525,12 +1565,14 @@ def phase_serve(dev, card: str):
         else f"parts from the blocking one at step {t}, plain top-2 gap "
              f"{gap:.3e}"))
     del ref
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    params32 = {k: ({n: w.float() for n, w in v.items()}
-                    if isinstance(v, dict) else v.float())
+    # The float32 leg: the first CUT_LAYERS layers of the same weights.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                n_layers=CUT_LAYERS)
+    params32 = {k: ({n: w[:CUT_LAYERS].float() for n, w in v.items()}
+                    if k == "blocks" else v.float())
                 for k, v in engine.params.items()}
     want_rows = sum(-(-len(p) // chunk) for p in picked
-                    if len(p) > chunk) * cfg.n_layers
+                    if len(p) > chunk) * cfg32.n_layers
     # The float32 leg's kernel engine reads float32 pools: its chunks
     # run the mma.sync multi-row body, counted from 0 here.
     _zero_launches()
@@ -1569,7 +1611,7 @@ def phase_serve(dev, card: str):
     del params32
     gc.collect()
     torch.cuda.empty_cache()
-    want_chunks = want_rows // cfg.n_layers
+    want_chunks = want_rows // cfg32.n_layers
     launches_kv8 = _fp32_int8_leg(params_i8, cfg_i8, engine, dev, prompts,
                                   pick, chunk, want_chunks,
                                   "fp32, int8 KV", kv_int8=True)
@@ -2744,9 +2786,10 @@ def _free_card() -> None:
 
 
 def phase_handoff(dev, card: str) -> dict:
-    """The cross-replica KV handoff (:func:`_handoff_leg`) at llama3-8b:
-    bf16 at full depth (16 slots, max_len 1024), the int8 recipe at full
-    depth (``--kv-int8 --weights-int8``, 32 slots, max_len 1280, the
+    """The cross-replica KV handoff (:func:`_handoff_leg`) at llama3-8b
+    (``main`` runs it at ``CUT_LAYERS`` layers): bf16 (16 slots, max_len
+    1024), the int8 recipe (``--kv-int8 --weights-int8``, 32 slots,
+    max_len 1280, the
     weights quantized once and shared by both tiers) and float32 on the
     first 8 layers. Two-tier tokens are held to the single tier's: in
     float32 equal wherever the plain top-2 gap exceeds 1e-2; in bf16 and
@@ -2777,12 +2820,12 @@ def phase_handoff(dev, card: str) -> dict:
                                  f"times (> 0 expected), the mma.sync one "
                                  f"{n['paged_attention_rows_mma']} (0)")
 
-    # bf16, full depth, the serve phase's engine settings.
+    # bf16, the serve phase's engine settings.
     t0 = time.time()
     params = weights(cfg)
     P, D = _tiers(params, cfg, dev, 16, 1024)
-    _log(f"handoff: llama3-8b bf16 tiers P and D on one params tree in "
-         f"{time.time() - t0:.1f} s")
+    _log(f"handoff: llama3-8b ({cfg.n_layers} layers) bf16 tiers P and D "
+         f"on one params tree in {time.time() - t0:.1f} s")
     bf16 = _handoff_leg(P, D, "handoff", card)
     wgmma_only(bf16, "handoff")
     del P, D, params
@@ -2791,7 +2834,7 @@ def phase_handoff(dev, card: str) -> dict:
                      leg="handoff")
     _free_card()
 
-    # The int8 recipe, full depth: quantized once, shared by P and D.
+    # The int8 recipe: quantized once, shared by P and D.
     t0 = time.time()
     params = weights(cfg)
     w8 = {"blocks": kvcache.quantize_block_weights(params),
@@ -3225,8 +3268,8 @@ def _k1_on_qos_tables(params, cfg, dev, tag: str) -> None:
 def phase_qos(dev, card: str) -> dict:
     """QoS, preemption, per-tenant KV quota, lazy growth and the operator
     routes at llama3-8b: (a) :func:`_qos_bench`; (b)
-    :func:`_qos_server_leg` in bf16 at full depth and in float32 on the
-    first 8 layers, the preempted request's tokens held to its
+    :func:`_qos_server_leg` in bf16 at ``CUT_LAYERS`` layers and in
+    float32 on the first 8, the preempted request's tokens held to its
     unpreempted twin's (float32: equal wherever the plain top-2 gap
     exceeds 1e-2; bf16: the bf16 floor rule); (c)
     :func:`_k1_on_qos_tables` on the bf16 weights. Returns {path:
@@ -3236,25 +3279,26 @@ def phase_qos(dev, card: str) -> dict:
     out = {"qos[bench]": _qos_bench(dev, card)}
     _free_card()
     config = "llama3-8b"
-    cfg = llama.CONFIGS[config]
 
     def weights(c):
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED)
         return llama.init_params(c, gen, device=dev, dtype=c.dtype)
 
-    params = weights(cfg)
-    leg = _qos_server_leg(params, cfg, dev, "qos", card)
-    out["qos"] = leg["launches"]
-    _free_card()
-    _k1_on_qos_tables(params, cfg, dev, "qos[K1]")
-    del params
-    _free_card()
-    prompt, got, twin = leg["victim"]
-    _bf16_hold(dev, config, 512, [("the preempted request", "preempted "
-                                   "and unpreempted", prompt, got, twin)],
-               "qos")
-    _free_card()
+    with _at_depth(config, CUT_LAYERS):
+        cfg = llama.CONFIGS[config]
+        params = weights(cfg)
+        leg = _qos_server_leg(params, cfg, dev, "qos", card)
+        out["qos"] = leg["launches"]
+        _free_card()
+        _k1_on_qos_tables(params, cfg, dev, "qos[K1]")
+        del params
+        _free_card()
+        prompt, got, twin = leg["victim"]
+        _bf16_hold(dev, config, 512, [("the preempted request", "preempted "
+                                       "and unpreempted", prompt, got,
+                                       twin)], "qos")
+        _free_card()
     cfg8 = dataclasses.replace(cfg, dtype=torch.float32,
                                n_layers=INT8_FP32_LAYERS)
     params = weights(cfg8)
@@ -3735,16 +3779,18 @@ def phase_adapters(dev, card: str) -> dict:
 # The draft model and the async draft/verify pipeline
 # ---------------------------------------------------------------------------
 
-# The engine leg's 8 prompts (two of them chunked) and budget, the depth
-# of its self-distilled draft, and the float32 leg's depth and draft.
+# The engine leg's 8 prompts (two of them chunked) and budget (64 cut to
+# 48 for time), the depth of its self-distilled draft, and the float32
+# leg's depth and draft.
 DRAFT_LENS = (775, 597, 491, 289, 321, 98, 126, 400)
-DRAFT_NEW = 64
+DRAFT_NEW = 48
 DRAFT_LAYERS = 16
 DRAFT_FP32_LAYERS = 8
 DRAFT_FP32_DRAFT = 4
 # The engine leg's least acceptance in bf16. The distilled pair read
-# 0.903 pipelined and 0.924 synchronous on an H100 (bf16 near-ties flip
-# some drafts; a request's last round drafts past its budget); a draft
+# 0.903 pipelined and 0.924 synchronous on an H100 at 64 new tokens
+# (bf16 near-ties flip some drafts; a request's last round drafts past
+# its budget, which costs more of a shorter budget); a draft
 # that has nothing to do with the target reads ~0. The float32 legs
 # hold > 0.9 (they read 0.96-0.98).
 DRAFT_BF16_ACCEPT = 0.8
@@ -4652,11 +4698,15 @@ def _observe_http(engine, card: str, prompts: dict) -> tuple:
     then the shared-prefix pair one after the other; then ``/debug/flight``
     and ``/debug/forensics`` are read over HTTP. Returns (launches,
     the window's flight records, the traced request's trace id)."""
+    from skypilot_tpu_torch.infer import engine as eng
     from skypilot_tpu_torch.infer import server as srv
     from skypilot_tpu_torch.observability import tracing
+    from skypilot_tpu_torch.utils import timeline
     port = _free_port()
     model, httpd = srv.serve(engine, host="127.0.0.1", port=port,
                              max_burst=8, coalesce_s=0.5)
+    trace = os.path.join(os.environ["SKYTPU_EVENTS_DIR"],
+                         "observe_timeline.json")
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
     th.start()
     base = f"http://127.0.0.1:{port}"
@@ -4666,6 +4716,9 @@ def _observe_http(engine, card: str, prompts: dict) -> tuple:
         model.wait_ready(timeout=600)
         engine.decode_programs.clear()
         seq0 = engine.flight.seq()
+        os.environ[timeline.ENV_VAR] = trace
+        timeline._events.clear()
+        decode0 = sum(eng.DECODE_STEP_SECONDS.labels().hist_state()[0])
         _zero_launches()
         t0 = time.time()
         results, errors = [None] * len(prompts["batch"]), []
@@ -4694,6 +4747,9 @@ def _observe_http(engine, card: str, prompts: dict) -> tuple:
                 for p in prompts["pair"]]
         wall = time.time() - t0
         launches = _read_launches()
+        timeline.save_now()
+        decodes = sum(eng.DECODE_STEP_SECONDS.labels().hist_state()[0]) \
+            - decode0
         if errors or any(len(r["tokens"]) != OBSERVE_NEW
                          for r in results + pair):
             raise AssertionError(f"observe: failed requests {errors}")
@@ -4707,6 +4763,19 @@ def _observe_http(engine, card: str, prompts: dict) -> tuple:
                                     timeout=60) as r:
             forensics_body = json.loads(r.read())
         window = [r for r in flight_body["records"] if r["seq"] > seq0]
+        with open(trace) as f:
+            spans = [e["name"] for e in json.load(f)["traceEvents"]
+                     if e["ph"] == "X"]
+        span_counts = {n: spans.count(n) for n in (
+            "skytpu_prefill_seconds", "skytpu_decode_step_seconds",
+            "skytpu_server_wave_flush_seconds")}
+        waves = sum(r["burst"] == "wave" for r in window)
+        if span_counts["skytpu_prefill_seconds"] != waves or not waves or \
+                span_counts["skytpu_decode_step_seconds"] != decodes or \
+                not decodes:
+            raise AssertionError(f"observe: timeline spans {span_counts} "
+                                 f"for {waves} wave records and {decodes} "
+                                 f"decode-step samples")
         retired = [r["rids"][0] for r in window if r["burst"] == "retire"]
         if len(retired) != len(results) + len(pair):
             raise AssertionError(f"observe: {len(retired)} retire records "
@@ -4748,9 +4817,12 @@ def _observe_http(engine, card: str, prompts: dict) -> tuple:
              f"records = "
              + ", ".join(f"{ph['phase']} {ph['ms']:.1f}"
                          for ph in led["phases"])
-             + f"; launches {launches}; {card}")
+             + f"; timeline spans {span_counts}; launches {launches}; "
+             f"{card}")
         return launches, window, caller.trace_id
     finally:
+        os.environ.pop(timeline.ENV_VAR, None)
+        timeline._events.clear()
         httpd.shutdown()
         httpd.server_close()
         model.shutdown()
@@ -4958,13 +5030,8 @@ def phase_observe(dev, card: str) -> dict:
 
 def phase_train(dev, card: str):
     """Returns {kernel: launches} over the llama3-1b run."""
-    import os
-    import shutil
-    import tempfile
-
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
-    from skypilot_tpu_torch.train import checkpoints
 
     # 1. Gradient parity. In fp32 both paths differ only in how
     # attention orders its fp32 arithmetic (online softmax and per-tile
@@ -4992,15 +5059,17 @@ def phase_train(dev, card: str):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 2. The main path: llama3-1b at full width and depth.
+    # 2. The main path: llama3-1b at full width and depth, the goodput
+    # ledger on (the default).
     kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
                fa.flash_attention_bwd_dq)
     for f in kernels:
         f.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     steps = 6
-    res = _run_main(["--config", "llama3-1b", "--steps", str(steps),
-                     "--log-every", "1", "--xent-chunk", "512"])
+    argv = ["--config", "llama3-1b", "--steps", str(steps),
+            "--log-every", "1", "--xent-chunk", "512"]
+    res = _run_main(argv)
     launches = {f.__name__: f.launches for f in kernels}
     peak = torch.cuda.max_memory_allocated(dev)
     losses = res["losses"]
@@ -5014,38 +5083,167 @@ def phase_train(dev, card: str):
                     "flash_attention_bwd_dq": 16}:
         raise AssertionError(f"launches per step {per_step}, expected "
                              f"K2 32 (forward + recompute), K3 16, K4 16")
-    med = sorted(res["step_ms"][1:])[(steps - 1) // 2]
+    med = _median(res["step_ms"][1:])
     _log(f"train: llama3-1b batch 4 x 2048, {steps} steps, losses "
          f"{[round(x, 4) for x in losses]}; median step {med:.1f} ms "
          f"({4 * 2048 / med * 1e3:.0f} tokens/s, steps 2-{steps}); first "
          f"step {res['step_ms'][0]:.1f} ms; peak allocated "
          f"{peak / 2**30:.2f} GiB; launches per step {per_step}; {card}")
+    _train_goodput(res, steps, card)
+    on_ms, on_losses = res["step_ms"], losses
     del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The same run with the recorder off: what recording costs a step.
+    os.environ["SKYTPU_GOODPUT"] = "0"
+    try:
+        off = _run_main(argv)
+    finally:
+        del os.environ["SKYTPU_GOODPUT"]
+    if off["records"]:
+        raise AssertionError("SKYTPU_GOODPUT=0 still recorded steps")
+    _log(f"train[goodput off]: median step on/off (steps 2-{steps}) "
+         f"{_median(on_ms[1:]):.2f} / {_median(off['step_ms'][1:]):.2f} ms "
+         f"= {_median(on_ms[1:]) / _median(off['step_ms'][1:]):.4f} (the "
+         f"reference's budget 1.01x, reported); losses equal "
+         f"{off['losses'] == on_losses}; {card}")
+    del off
     gc.collect()
     torch.cuda.empty_cache()
     _profile_train_step(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-
-    # 3. Resume at llama3-tiny: 4 steps with a checkpoint every 2, then
-    # step 2 restored in a fresh directory and run to 4. The kernels
-    # use no atomics, so the two runs agree bit for bit.
-    with tempfile.TemporaryDirectory() as tmp:
-        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
-        common = ["--config", "llama3-tiny", "--steps", "4", "--seq", "256",
-                  "--log-every", "1", "--ckpt-every", "2"]
-        full = _run_main(common + ["--ckpt-dir", a])
-        shutil.copytree(os.path.join(a, "2"), os.path.join(b, "2"))
-        resumed = _run_main(common + ["--ckpt-dir", b, "--resume"])
-        if resumed["losses"] != full["losses"][2:]:
-            raise AssertionError(f"resumed losses {resumed['losses']} != "
-                                 f"uninterrupted {full['losses'][2:]}")
-        if not _tree_equal(checkpoints.CheckpointManager(a).restore(step=4),
-                           checkpoints.CheckpointManager(b).restore(step=4)):
-            raise AssertionError("the resumed run's step-4 state differs")
-    _log(f"train: llama3-tiny resume from step 2 equals the uninterrupted "
-         f"run (losses {resumed['losses']}; step-4 states bit-equal)")
+    _train_resume(card)
     return launches
+
+
+def _train_goodput(res: dict, steps: int, card: str) -> None:
+    """The llama3-1b run's goodput ledger: each record's phases must sum
+    to its wall and the snapshot's buckets to its elapsed wall, and
+    ``compute`` (which ends on the step's completion at a fetch step)
+    must hold at least 0.85 of every warm step's wall."""
+    recs, snap = res["records"], res["snapshot"]
+    if [r["step"] for r in recs] != list(range(steps)):
+        raise AssertionError(f"goodput: records for steps "
+                             f"{[r['step'] for r in recs]}")
+    for r in recs:
+        total = sum(r["phases"].values())
+        if abs(total - r["dur_s"] * 1e3) > 0.05:
+            raise AssertionError(f"goodput: step {r['step']} phases sum to "
+                                 f"{total} ms for a wall of "
+                                 f"{r['dur_s'] * 1e3} ms")
+    if abs(sum(snap["buckets"].values()) - snap["elapsed_s"]) > 1e-6:
+        raise AssertionError(f"goodput: buckets {snap['buckets']} do not "
+                             f"sum to {snap['elapsed_s']} s")
+    warm = [r for r in recs if r["warm"]]
+    if len(warm) != steps - 1:
+        raise AssertionError(f"goodput: {len(warm)} warm steps")
+    for r in warm:
+        wall = r["dur_s"] * 1e3
+        share = r["phases"]["compute"] / wall
+        _log(f"train[goodput]: step {r['step'] + 1} wall {wall:.2f} ms = "
+             + ", ".join(f"{k} {v:.2f}" for k, v in r["phases"].items())
+             + f"; compute share {share:.4f}; dev_ms_est "
+             f"{r['dev_ms_est']:.2f} beside compute "
+             f"{r['phases']['compute']:.2f} ms; {card}")
+        if share < 0.85:
+            raise AssertionError(f"goodput: compute {share:.4f} of step "
+                                 f"{r['step'] + 1}'s wall (< 0.85)")
+    walls = sorted(r["dur_s"] for r in warm)
+    mfu = warm[0]["flops"] / walls[len(walls) // 2] / PEAK_OPS_PER_S["bf16"]
+    _log(f"train[goodput]: ratio {snap['goodput_ratio']:.4f} over "
+         f"{snap['elapsed_s']:.2f} s; buckets (s) "
+         + ", ".join(f"{k} {v:.3f}" for k, v in snap["buckets"].items())
+         + f"; train MFU {mfu:.4f} (6 x {warm[0]['flops'] // 6 // warm[0]['toks']:,}"
+         f" params x {warm[0]['toks']} tokens over the median warm step "
+         f"{walls[len(walls) // 2] * 1e3:.2f} ms and "
+         f"{PEAK_OPS_PER_S['bf16']:.3g} bf16 FLOP/s); {card}")
+
+
+def _train_resume(card: str) -> None:
+    """llama3-tiny, 4 steps with a checkpoint every 2, traced to a
+    timeline file: the uninterrupted run; a twin killed by a
+    ``train.checkpoint_save`` fault at step 4 and resumed from its step
+    2, which must equal it bit for bit and fold the first run's goodput
+    stamps in; then a recorder-off twin, bit-equal too. The kernels use
+    no atomics, so the runs agree bit for bit."""
+    import io
+    import shutil
+    import tempfile
+    from skypilot_tpu_torch import chaos
+    from skypilot_tpu_torch.observability import goodput
+    from skypilot_tpu_torch.train import checkpoints, run
+    from skypilot_tpu_torch.utils import timeline
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    a, b, c = (os.path.join(tmp, d) for d in "abc")
+    trace = os.path.join(tmp, "trace.json")
+    common = ["--config", "llama3-tiny", "--steps", "4", "--seq", "256",
+              "--log-every", "1", "--ckpt-every", "2"]
+    os.environ[timeline.ENV_VAR] = trace
+    timeline._events.clear()
+    try:
+        full = _run_main(common + ["--ckpt-dir", a])
+        inj = chaos.configure({"seed": 0, "faults": [
+            {"point": "train.checkpoint_save", "match": {"step": "4"},
+             "times": 1}]})
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                run.main(common + ["--ckpt-dir", b])
+            raise AssertionError("resume: the checkpoint fault at step 4 "
+                                 "did not fire")
+        except chaos.ChaosError:
+            pass
+        finally:
+            chaos.deactivate()
+        with open(os.path.join(b, goodput.STAMPS_FILE)) as f:
+            prior = json.load(f)
+        resumed = _run_main(common + ["--ckpt-dir", b, "--resume"])
+        timeline.save_now()
+    finally:
+        del os.environ[timeline.ENV_VAR]
+        timeline._events.clear()
+    if len(inj.fired) != 1:
+        raise AssertionError(f"resume: faults fired {inj.fired}")
+    if resumed["losses"] != full["losses"][2:]:
+        raise AssertionError(f"resumed losses {resumed['losses']} != "
+                             f"uninterrupted {full['losses'][2:]}")
+    step4 = checkpoints.CheckpointManager(a).restore(step=4)
+    if not _tree_equal(step4, checkpoints.CheckpointManager(b).restore(
+            step=4)):
+        raise AssertionError("the resumed run's step-4 state differs")
+    if not os.path.exists(os.path.join(a, goodput.STAMPS_FILE)):
+        raise AssertionError("resume: no goodput.json beside the "
+                             "checkpoints")
+    snap = resumed["snapshot"]
+    if snap["steps"] != prior["steps"] + 2 or \
+            not snap["buckets"]["restart_replay"] > 0 or \
+            not snap["elapsed_s"] > snap["session_elapsed_s"]:
+        raise AssertionError(f"resume: the snapshot {snap} does not fold "
+                             f"the stamps {prior}")
+    with open(trace) as f:
+        spans = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e["ph"] == "X"]
+    counts = {n: spans.count(n) for n in (
+        "skytpu_checkpoint_save_seconds", "skytpu_checkpoint_wait_seconds")}
+    if not all(counts.values()):
+        raise AssertionError(f"resume: the trace file's checkpoint spans "
+                             f"{counts}")
+    os.environ["SKYTPU_GOODPUT"] = "0"
+    try:
+        off = _run_main(common + ["--ckpt-dir", c])
+    finally:
+        del os.environ["SKYTPU_GOODPUT"]
+    if off["losses"] != full["losses"] or not _tree_equal(
+            step4, checkpoints.CheckpointManager(c).restore(step=4)):
+        raise AssertionError("resume: the recorder-off twin differs")
+    shutil.rmtree(tmp, ignore_errors=True)
+    _log(f"train: llama3-tiny resume from step 2 after a checkpoint fault "
+         f"at step 4 equals the uninterrupted run (losses "
+         f"{resumed['losses']}; step-4 states bit-equal); stamps folded "
+         f"(steps {prior['steps']} + 2 = {snap['steps']}, restart_replay "
+         f"{snap['buckets']['restart_replay'] * 1e3:.1f} ms, goodput "
+         f"{snap['goodput_ratio']:.4f}); trace spans {counts}; the "
+         f"recorder-off twin bit-equal; {card}")
 
 
 def main() -> int:
@@ -5130,7 +5328,8 @@ def main() -> int:
     # before that path runs and read just after it.
     by_path = {}
     by_path.update(run("serve", phase_serve) or {})
-    by_path.update(run("handoff", phase_handoff) or {})
+    with _at_depth("llama3-8b", CUT_LAYERS):
+        by_path.update(run("handoff", phase_handoff) or {})
     bench = run("bench", phase_bench)
     if bench is not None:
         by_path["bench"] = bench
@@ -5144,8 +5343,9 @@ def main() -> int:
         # phase's cases, whose first case heads each entry.
         for name, runs in draft_cases.items():
             cases.setdefault(name, []).extend(runs)
-    by_path.update(run("recover", phase_recover) or {})
-    by_path.update(run("observe", phase_observe) or {})
+    with _at_depth("llama3-8b", CUT_LAYERS):
+        by_path.update(run("recover", phase_recover) or {})
+        by_path.update(run("observe", phase_observe) or {})
     train = run("train", phase_train)
     if train is not None:
         by_path["train"] = train

@@ -140,6 +140,7 @@ from skypilot_tpu_torch.observability import flight as flight_lib
 from skypilot_tpu_torch.observability import forensics as forensics_lib
 from skypilot_tpu_torch.observability import metrics, tracing
 from skypilot_tpu_torch.ops import paged_attention as pa
+from skypilot_tpu_torch.utils import timeline
 
 # The reference engine's serving metrics (``skypilot_tpu/infer/
 # engine.py``), same names, types, labels and help, for the quantities
@@ -376,7 +377,9 @@ class BurstHandle:
     parts: List[Tuple[torch.Tensor, List[int]]]
     k: int
     slot_req: Dict[int, Request]      # slot->request snapshot at dispatch
-    begin_s: float = 0.0              # dispatch start (decode-step span)
+    # Span opened at dispatch, closed when the tokens are fetched:
+    # records into skytpu_decode_step_seconds.
+    span: Optional[timeline.Event] = None
     # Per-part span rungs and compile-watch keys (parallel to ``parts``):
     # the completion's flight records carry each part's program identity
     # and look its calibrated device time up by key.
@@ -2042,19 +2045,23 @@ class InferenceEngine:
 
     def _dispatch_wave(self, wave: List[Request], slots: List[int],
                        bucket: int
-                       ) -> Tuple[torch.Tensor, float, bool, float,
-                                  Optional[str]]:
+                       ) -> Tuple[torch.Tensor, timeline.Event, bool,
+                                  float, Optional[str]]:
         """Enqueue one wave's prefill + inserts; returns the first
-        tokens as a device tensor, not yet fetched, the dispatch start,
-        whether decode slots were active (the wave then also counts as
-        decode stall), when the dispatch returned, and its program
-        key."""
+        tokens as a device tensor, not yet fetched, the open prefill
+        span (closed at completion: dispatch through first-token fetch,
+        the latency a request experiences), whether decode slots were
+        active (the wave then also counts as decode stall), when the
+        dispatch returned, and its program key."""
         WAVE_SIZE.observe(len(wave))
-        t0 = time.time()
+        span = timeline.Event(
+            "skytpu_prefill_seconds",
+            histogram=PREFILL_SECONDS.labels(bucket=str(bucket)))
+        span.begin()
         for req in wave:
             # Queue wait ends where the prefill dispatch begins.
             tracing.record_span(
-                "engine.queue_wait", req.submit_s, t0,
+                "engine.queue_wait", req.submit_s, span.begin_s,
                 parent=req.span_ctx, attrs={"rid": req.rid})
         n = len(wave)
         tokens_b = np.zeros((n, bucket), np.int64)
@@ -2071,18 +2078,18 @@ class InferenceEngine:
         first = self._admit_wave_fn(
             upload(tokens_b, self.device), upload(true_lens, self.device),
             slots, aid, self.table_device(), bucket=bucket)
-        return (first, t0, decode_active, time.time(),
+        return (first, span, decode_active, time.time(),
                 self.compile_watch.last_key)
 
     def _complete_wave(self, wave: List[Request], slots: List[int],
-                       bucket: int, first_dev: torch.Tensor, t0: float,
-                       decode_active: bool = False,
+                       bucket: int, first_dev: torch.Tensor,
+                       span: timeline.Event, decode_active: bool = False,
                        dispatch_s: Optional[float] = None,
                        dev_key: Optional[str] = None) -> None:
         first = first_dev.tolist()             # host sync for THIS wave
+        span.end()
         now = time.time()
-        PREFILL_SECONDS.labels(bucket=str(bucket)).observe(
-            max(now - t0, 0.0))
+        t0 = span.begin_s
         if decode_active:
             DECODE_STALL_SECONDS.observe(max(now - t0, 0.0))
         self._record_flight(
@@ -2590,7 +2597,9 @@ class InferenceEngine:
         groups = self._span_groups(k)
         if not groups:
             return None            # lazy: pool dry, retry next round
-        t0 = time.time()
+        ev = timeline.Event("skytpu_decode_step_seconds",
+                            histogram=DECODE_STEP_SECONDS)
+        ev.begin()
         self._note_adapter_mix(s for _, slots in groups for s in slots)
         parts: List[Tuple[torch.Tensor, List[int]]] = []
         part_spans: List[Optional[int]] = []
@@ -2609,7 +2618,7 @@ class InferenceEngine:
             part_keys.append(self.compile_watch.last_key)
         self._inflight_tokens += k
         return BurstHandle(parts=parts, k=k, slot_req=dict(self.slot_req),
-                           begin_s=t0, spans=part_spans, keys=part_keys,
+                           span=ev, spans=part_spans, keys=part_keys,
                            dispatch_s=time.time())
 
     def complete_decode_burst(self, handle: BurstHandle
@@ -2628,8 +2637,11 @@ class InferenceEngine:
                                     ) -> Dict[int, List[int]]:
         fetched = [(toks.cpu().numpy(), slots)
                    for toks, slots in handle.parts]
+        if handle.span is not None:
+            handle.span.end()
         end_s = time.time()
-        DECODE_STEP_SECONDS.observe(max(end_s - handle.begin_s, 0.0))
+        begin_s = (handle.span.begin_s if handle.span is not None
+                   else end_s)
         self._inflight_tokens -= handle.k
         out: Dict[int, List[int]] = {}
         for part_i, (toks, slots) in enumerate(fetched):
@@ -2651,7 +2663,7 @@ class InferenceEngine:
                 part_emitted += len(emitted)
                 part_reqs.append(req)
             self._record_flight(
-                "decode", begin_s=handle.begin_s, end_s=end_s,
+                "decode", begin_s=begin_s, end_s=end_s,
                 program={"k": handle.k,
                          "span": (handle.spans[part_i]
                                   if part_i < len(handle.spans) else None)},
@@ -2789,7 +2801,10 @@ class InferenceEngine:
             # K+1-wide verify for the rest would be strictly worse than
             # the plain burst the caller falls back to.
             return None
-        t0 = time.time()
+        step_ev = timeline.Event("skytpu_decode_step_seconds",
+                                 histogram=DECODE_STEP_SECONDS)
+        step_ev.begin()
+        t0 = step_ev.begin_s
         self._note_adapter_mix(s for _, slots in groups for s in slots)
         draft_dev = upload(draft, self.device)
         n_draft_dev = upload(n_draft, self.device)
@@ -2833,8 +2848,8 @@ class InferenceEngine:
         model_drafted = ngram_drafted = 0
         fetched = [(slots, toks_dev.cpu().numpy(), commit_dev.cpu().numpy())
                    for slots, toks_dev, commit_dev in parts]   # host sync
+        step_ev.end()
         end_s = time.time()
-        DECODE_STEP_SECONDS.observe(max(end_s - t0, 0.0))
         SPEC_VERIFY_WALL.inc(max(end_s - t0, 0.0))
         for part_i, (slots, toks, n_commit) in enumerate(fetched):
             grp_emitted = grp_drafted = grp_accepted = 0

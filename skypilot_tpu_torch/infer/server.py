@@ -154,6 +154,7 @@ from skypilot_tpu_torch.observability import flight as flight_lib
 from skypilot_tpu_torch.observability import forensics as forensics_lib
 from skypilot_tpu_torch.observability import health as health_lib
 from skypilot_tpu_torch.observability import metrics, tracing
+from skypilot_tpu_torch.utils import timeline
 
 # The reference server's metric families (``skypilot_tpu/infer/
 # server.py``), same names, types, labels and help.
@@ -523,14 +524,14 @@ class ModelServer:
                 p.cursor += len(new)
                 p.chunks.put({"tokens": list(new)})
 
+    @timeline.event(name="skytpu_server_wave_flush_seconds",
+                    histogram=WAVE_FLUSH_SECONDS)
     def _on_wave(self) -> None:
         # After each admission wave: stream its first tokens, then pull
         # requests that arrived during the wave's prefill into this
         # admission pass.
-        t0 = time.monotonic()
         self._flush_streams()
         self._drain_inbox()
-        WAVE_FLUSH_SECONDS.observe(time.monotonic() - t0)
 
     def _complete_burst(self) -> None:
         if self._burst is not None:

@@ -17,6 +17,14 @@ its semantics:
 Layout: ``<directory>/<step>/state.pt``, a ``torch.save`` of the state
 with every tensor on the CPU. A step directory appears only once its
 file is complete, so a crash mid-write leaves no partial step behind.
+
+Observability is the reference's: the ``skytpu_checkpoint_*`` and
+``skytpu_ckpt_*`` families, the ``train.checkpoint_{save,wait,restore}``
+tracing spans, the timeline spans that record into the save and wait
+histograms, and the ``train.checkpoint_save``/``train.checkpoint_restore``
+chaos points. ``save``'s inline cost here includes the host copy of the
+state (a device-to-host read of every tensor); ``wait`` is the write's
+durability tail.
 """
 
 from __future__ import annotations
@@ -24,13 +32,54 @@ from __future__ import annotations
 import os
 import shutil
 import threading
+import time
 from typing import Any, List, Optional
 
 import torch
 
-from skypilot_tpu_torch import DeviceLike
+from skypilot_tpu_torch import DeviceLike, chaos
+from skypilot_tpu_torch.observability import attribution
+from skypilot_tpu_torch.observability import metrics as obs_metrics
+from skypilot_tpu_torch.observability import tracing
+from skypilot_tpu_torch.utils import timeline
 
 _FILE = "state.pt"
+
+# Saves are async: ``_save_seconds`` is the dispatch cost the train
+# loop pays inline; ``_wait_seconds`` is the durability tail paid at
+# wait(). Their sum bounds the true checkpoint wall time.
+CKPT_SAVE_SECONDS = obs_metrics.histogram(
+    "skytpu_checkpoint_save_seconds",
+    "CheckpointManager.save dispatch latency (async saves: the inline "
+    "cost only)")
+CKPT_WAIT_SECONDS = obs_metrics.histogram(
+    "skytpu_checkpoint_wait_seconds",
+    "CheckpointManager.wait latency (async save durability tail)")
+CKPT_SAVES = obs_metrics.counter(
+    "skytpu_checkpoint_saves_total", "Checkpoint saves accepted")
+CKPT_BYTES = obs_metrics.gauge(
+    "skytpu_ckpt_bytes",
+    "Analytical bytes of the last saved checkpoint state by tensor "
+    "family (params, opt_state, total) — nbytes metadata only, never "
+    "a device fetch",
+    labelnames=("kind",))
+CKPT_LAST_DURATION = obs_metrics.gauge(
+    "skytpu_ckpt_last_duration_seconds",
+    "Most recent checkpoint operation wall seconds by op (save = "
+    "async dispatch, wait = durability tail, restore = full restore "
+    "wall) — restore feeds the goodput restart_replay bucket",
+    labelnames=("op",))
+
+
+def _publish_state_bytes(state: Any) -> None:
+    total = attribution.tensor_bytes(state)
+    CKPT_BYTES.labels(kind="total").set(total)
+    if hasattr(state, "get"):
+        for kind in ("params", "opt_state"):
+            part = state.get(kind)
+            if part is not None:
+                CKPT_BYTES.labels(kind=kind).set(
+                    attribution.tensor_bytes(part))
 
 
 def _map(fn, tree):
@@ -89,13 +138,27 @@ class CheckpointManager:
         """Queue an async save of ``state`` at ``step``. Returns False
         when skipped (interval, or not later than the latest step)."""
         step = int(step)
+        chaos.point("train.checkpoint_save", step=step)
+        t0 = time.monotonic()
+        with tracing.start_span("train.checkpoint_save",
+                                attrs={"step": step}), \
+                timeline.Event("skytpu_checkpoint_save_seconds",
+                               histogram=CKPT_SAVE_SECONDS):
+            saved = self._save(step, state, force)
+        CKPT_LAST_DURATION.labels(op="save").set(time.monotonic() - t0)
+        if saved:
+            CKPT_SAVES.inc()
+            _publish_state_bytes(state)
+        return saved
+
+    def _save(self, step: int, state: Any, force: bool) -> bool:
         steps = self.all_steps()
         if step in steps:
             return False
         if not force and ((steps and step <= steps[-1])
                           or step % self.save_interval_steps):
             return False
-        self.wait()
+        self._join()
         snapshot = _map(_host_copy, state)
         self._pending = step
         self._writer = threading.Thread(
@@ -122,6 +185,14 @@ class CheckpointManager:
 
     def wait(self) -> None:
         """Block until queued saves are durable; re-raise a failed write."""
+        t0 = time.monotonic()
+        with tracing.start_span("train.checkpoint_wait"), \
+                timeline.Event("skytpu_checkpoint_wait_seconds",
+                               histogram=CKPT_WAIT_SECONDS):
+            self._join()
+        CKPT_LAST_DURATION.labels(op="wait").set(time.monotonic() - t0)
+
+    def _join(self) -> None:
         if self._writer is not None:
             self._writer.join()
             self._writer = None
@@ -139,13 +210,24 @@ class CheckpointManager:
         in shape and dtype, and the target is returned with its scalars
         replaced; without one, tensors land on ``device`` (default: the
         CPU)."""
-        self.wait()
+        self._join()
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(
                 f"no checkpoint found under {self.directory}")
-        path = os.path.join(self.directory, str(int(step)), _FILE)
+        chaos.point("train.checkpoint_restore", step=int(step))
+        t0 = time.monotonic()
+        with tracing.start_span("train.checkpoint_restore",
+                                attrs={"step": int(step)}):
+            out = self._restore(int(step), target, device)
+        CKPT_LAST_DURATION.labels(op="restore").set(
+            time.monotonic() - t0)
+        return out
+
+    def _restore(self, step: int, target: Optional[Any],
+                 device: DeviceLike) -> Any:
+        path = os.path.join(self.directory, str(step), _FILE)
         if not os.path.exists(path):
             raise FileNotFoundError(f"no checkpoint for step {step} under "
                                     f"{self.directory}")
@@ -157,7 +239,7 @@ class CheckpointManager:
         return _copy_into(target, saved)
 
     def close(self) -> None:
-        self.wait()
+        self._join()
 
     def __enter__(self):
         return self

@@ -21,12 +21,24 @@ The state is ``{"params", "opt_state": {"count", "mu", "nu"}, "step"}``
 with the parameters in the JAX package's stacked layout. The step
 updates parameters and moments in place (the JAX step returns new
 arrays); it says so in its docstring.
+
+The step's metric families (``skytpu_train_*``), its ``train.step``
+span and the compile watch around it are the reference's
+(``skypilot_tpu/train/trainer.py``), under the same names, types,
+labels and help. The histogram records the host-side step call: on the
+card an eager step returns while its kernels may still be queued, and
+the launch queue's back-pressure, not donated state, carries the call
+toward the device step time (the help text is the reference's).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import math
+import statistics
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -34,6 +46,85 @@ import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import metrics as obs_metrics
+from skypilot_tpu_torch.observability import tracing
+
+STEP_SECONDS = obs_metrics.histogram(
+    "skytpu_train_step_seconds",
+    "Train step call latency (back-pressured by donated state to the "
+    "device step time at steady state)")
+TRAIN_STEPS = obs_metrics.counter(
+    "skytpu_train_steps_total", "Train steps dispatched")
+TRAIN_TOKENS = obs_metrics.counter(
+    "skytpu_train_tokens_total", "Tokens dispatched to train steps")
+TRAIN_TOKENS_PER_S = obs_metrics.gauge(
+    "skytpu_train_tokens_per_second",
+    "Dispatch-rate tokens/s, EMA over recent steps")
+TRAIN_LOSS = obs_metrics.gauge(
+    "skytpu_train_loss",
+    "Most recently fetched training loss (see observe_loss)")
+# Step-time regression pair for the SLO watchdog: the trailing median
+# is the baseline, and the watchdog compares the windowed mean
+# (histogram sum/count delta) against it.
+TRAIN_STEP_LAST = obs_metrics.gauge(
+    "skytpu_train_step_last_seconds",
+    "Most recent post-compile train step wall time")
+TRAIN_STEP_MEDIAN = obs_metrics.gauge(
+    "skytpu_train_step_median_seconds",
+    "Trailing median of recent post-compile step times (SLO regression "
+    "baseline)")
+_MEDIAN_WINDOW = 101
+
+
+def observe_loss(loss: float) -> None:
+    """Record a fetched loss into the gauge. Called where the train
+    loop already pays the host sync (its logging cadence) — the step
+    wrapper itself never forces a device fetch."""
+    TRAIN_LOSS.set(float(loss))
+
+
+def batch_tokens(batch) -> int:
+    """Tokens in a batch (the ``tokens`` tensor's size; 0 without one)."""
+    tokens = batch.get("tokens") if hasattr(batch, "get") else None
+    return int(tokens.numel()) if isinstance(tokens, torch.Tensor) else 0
+
+
+def _instrument_step(step_fn: Callable) -> Callable:
+    ema = {"rate": 0.0, "warm": False}
+    recent = collections.deque(maxlen=_MEDIAN_WINDOW)
+
+    @functools.wraps(step_fn)
+    def wrapper(state, batch):
+        t0 = time.monotonic()
+        t0_wall = time.time()
+        out = step_fn(state, batch)
+        dt = max(time.monotonic() - t0, 1e-9)
+        TRAIN_STEPS.inc()
+        tokens = batch_tokens(batch)
+        if tokens:
+            TRAIN_TOKENS.inc(tokens)
+        if not ema["warm"]:
+            # The first call pays the first-dispatch costs (kernel
+            # library loads, cuBLAS handles, allocator growth); seeding
+            # the EMA or the histogram with it would poison both.
+            ema["warm"] = True
+            return out
+        STEP_SECONDS.observe(dt)
+        recent.append(dt)
+        TRAIN_STEP_LAST.set(dt)
+        TRAIN_STEP_MEDIAN.set(statistics.median(recent))
+        # Per-step trace span (joins an ambient trace when the run was
+        # launched with one; the first call is skipped like above).
+        tracing.record_span("train.step", t0_wall, t0_wall + dt,
+                            attrs={"tokens": tokens} if tokens else None)
+        if tokens:
+            rate = tokens / dt
+            ema["rate"] = (rate if ema["rate"] == 0.0
+                           else 0.9 * ema["rate"] + 0.1 * rate)
+            TRAIN_TOKENS_PER_S.set(ema["rate"])
+        return out
+
+    return wrapper
 
 TrainState = Dict[str, Any]
 _MU_DTYPES = {None: None, "bfloat16": torch.bfloat16,
@@ -232,11 +323,35 @@ def grads_of(params, batch: Dict[str, torch.Tensor], cfg: llama.LlamaConfig,
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig) -> Callable:
+def _batch_key_fn(args: tuple, kwargs: dict):
+    """Shape-derived program identity for the trainer's compile watch:
+    a new batch shape dispatches programs the warm-up never ran (new
+    kernel tiles, new allocator blocks), and a mid-run shape change is
+    exactly the silent first dispatch ``train.unexpected_compile``
+    exists to expose."""
+    batch = args[1] if len(args) > 1 else kwargs.get("batch")
+    parts = []
+    if hasattr(batch, "items"):
+        for k in sorted(batch):
+            shape = getattr(batch[k], "shape", None)
+            if shape is not None:
+                parts.append((k, "x".join(str(d) for d in shape)))
+    return parts
+
+
+def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig,
+                    watch=None) -> Callable:
     """step(state, batch) -> (state, metrics). The step UPDATES
     ``state`` IN PLACE (parameters, moments, count and step) and
     returns the same dict; metrics are 0-dim tensors ("loss",
-    "accuracy", "tokens", "grad_norm" before clipping)."""
+    "accuracy", "tokens", "grad_norm" before clipping).
+
+    The step is instrumented (the ``skytpu_train_*`` families and the
+    ``train.step`` span, never a device fetch). ``watch`` is an
+    optional ``flight.CompileWatch`` (the trainer's own, with
+    ``event_name="train.unexpected_compile"``): the step is wrapped so
+    every distinct batch-shape identity registers as a program, and a
+    new one after warm-up emits the typed event."""
     update = make_optimizer(tc)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -246,7 +361,9 @@ def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig) -> Callable:
         state["step"] += 1
         return state, metrics
 
-    return step
+    if watch is not None:
+        step = watch.wrap("train_step", step, key_fn=_batch_key_fn)
+    return _instrument_step(step)
 
 
 def synthetic_batch(cfg: llama.LlamaConfig, batch_size: int, seq_len: int,

@@ -127,7 +127,8 @@ def test_named_errors_resolve_to_the_ports_classes():
 
 def test_port_call_sites_are_cataloged():
     """Every ``chaos.point`` call in ``skypilot_tpu_torch/`` names a
-    cataloged point, and the port injects at the serving points."""
+    cataloged point, and the port injects at the serving points and at
+    the train loop's checkpoint save and restore."""
     in_code = set()
     for path in (ROOT / "skypilot_tpu_torch").rglob("*.py"):
         if "chaos" in path.parts:
@@ -142,7 +143,8 @@ def test_port_call_sites_are_cataloged():
                 in_code.add(node.args[0].value)
     assert in_code <= set(chaos.KNOWN_POINTS), in_code
     assert in_code == {"engine.dispatch", "kv.alloc", "qos.shed",
-                       "adapter.load", "replica.kill"}
+                       "adapter.load", "replica.kill",
+                       "train.checkpoint_save", "train.checkpoint_restore"}
 
 
 def test_malformed_env_plan_disables_injection_loudly(monkeypatch, capfd):

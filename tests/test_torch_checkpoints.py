@@ -139,7 +139,7 @@ def test_resume_equals_uninterrupted_run(tmp_path, capsys):
     common = ["--steps", "4", "--ckpt-every", "2"]
     full, line = _run(capsys, *common, "--ckpt-dir", a)
     assert set(line) == {"final_loss", "steps", "wall_s", "tokens_per_sec",
-                         "tokens_per_sec_per_chip", "mesh"}
+                         "tokens_per_sec_per_chip", "goodput", "mesh"}
     assert line["steps"] == 4 and line["mesh"] == {}
     assert line["tokens_per_sec"] == line["tokens_per_sec_per_chip"] > 0
     assert len(full["losses"]) == 4 and full["losses"][-1] < full["losses"][0]

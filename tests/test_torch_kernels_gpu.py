@@ -1843,3 +1843,51 @@ def test_unwarmed_engine_records_first_dispatch_walls_on_card():
     assert w.compile_watch.unexpected == []
     w.clear_prefix_cache()
     assert w.blocks_used() == 0
+
+
+@pytest.mark.gpu
+def test_train_goodput_ledger_on_card(tmp_path, monkeypatch):
+    """llama3-tiny on the card, 4 steps at --log-every 1: every record's
+    phases partition its wall exactly, ``compute`` (which ends on the
+    step's completion at a fetch step) is the largest phase of every
+    warm step, and the losses and step-4 state are bit-equal with the
+    recorder off."""
+    import contextlib
+    import io
+    from skypilot_tpu_torch.train import checkpoints as tck
+    from skypilot_tpu_torch.train import run as trun
+    _cuda()
+    monkeypatch.setenv("SKYTPU_EVENTS_DIR", str(tmp_path / "ev"))
+    monkeypatch.setenv("SKYTPU_CALLBACK_LOG_DIR", str(tmp_path / "cb"))
+    monkeypatch.setenv("SKYPILOT_TPU_HOME", str(tmp_path / "home"))
+    argv = ["--config", "llama3-tiny", "--steps", "4", "--seq", "256",
+            "--log-every", "1", "--ckpt-every", "4"]
+
+    def go(goodput, d):
+        monkeypatch.setenv("SKYTPU_GOODPUT", goodput)
+        with contextlib.redirect_stdout(io.StringIO()):
+            return trun.main(argv + ["--ckpt-dir", str(tmp_path / d)])
+
+    on = go("1", "on")
+    recs = on["records"]
+    assert [r["warm"] for r in recs] == [False, True, True, True]
+    for r in recs:
+        assert abs(sum(r["phases"].values()) - r["dur_s"] * 1e3) <= 0.05
+    for r in recs[1:]:
+        ph = dict(r["phases"])
+        assert max(ph, key=ph.get) == "compute", ph
+        assert r["dev_ms_est"] > 0
+    off = go("0", "off")
+    assert off["records"] == [] and off["losses"] == on["losses"]
+    a = tck.CheckpointManager(str(tmp_path / "on")).restore(step=4)
+    b = tck.CheckpointManager(str(tmp_path / "off")).restore(step=4)
+
+    def equal(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(equal(x[k], y[k])
+                                                for k in x)
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        return x == y
+
+    assert equal(a, b)

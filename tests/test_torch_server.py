@@ -728,9 +728,14 @@ def test_metrics_parse_under_the_reference_names(tiny):
     draining gauge are present; and the TTFT count grows by the requests
     answered (the warmup records nothing)."""
     from skypilot_tpu.infer import server as js_
+    from skypilot_tpu.observability import goodput as jg_
     from skypilot_tpu.observability import metrics as jm
+    from skypilot_tpu.train import checkpoints as jc_
+    from skypilot_tpu.train import trainer as jt_
     from skypilot_tpu_torch.observability import metrics as tm
-    del js_                          # registers the reference's families
+    # Registers the reference's families: the server's, and those of the
+    # train modules whose port counterparts may share this process.
+    del js_, jg_, jc_, jt_
     model, httpd, url = _port_replica(tiny)
     try:
         def ttft_count():
