@@ -11,7 +11,9 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    registers and spills per kernel function.
 3. Kernels: each kernel against its plain PyTorch version on the same
    CUDA inputs at its main path's shapes (K1/K2 serving, K3/K4 the
-   llama3-1b training shape), with its time (CUDA events over many
+   llama3-1b training shape; K2, K3 and K4 also at the QLoRA-8B
+   recipe's, batch 2 x 2048 over 32 q-heads and 8 kv-heads), with its
+   time (CUDA events over many
    launches), its bound (the larger of bytes over the memory rate and
    operations over the peak rate), the plain version's time and, where
    one PyTorch call computes the same function, that call's time; each
@@ -287,12 +289,29 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    counted across the restart, ``restart_replay`` > 0); the trace file
    holds the checkpoint save and wait spans; a recorder-off twin gives
    bit-equal losses and step-4 state.
+13. Finetune: LoRA and QLoRA (``train/lora.py``, ``train/qlora.py``).
+   (a) float32 at llama3-8b width (2 layers), a packed batch of 2 x
+   2048, rank-16 adapters with B drawn nonzero: the QLoRA loss over a
+   random int8 base and the LoRA loss over a random float base, and
+   their adapter gradients, through the kernels against autograd of
+   einsum attention (1e-5 relative on the loss, 1e-4 of max|plain| on
+   each gradient). (b) The repo's recipe line ``train.run --config
+   llama3-8b --qlora 16 --qlora-random-base --xent-chunk 512 --seq 2048
+   --batch 2`` (``llm/qlora-8b.yaml``), full width and depth, 6 steps
+   logged at each: finite losses that fall on the repeated batch, K2
+   64 (forward and recompute), K3 32 and K4 32 launches a step (counts
+   set to 0 before, read after); the median step (steps 2-6),
+   tokens/s, peak allocated memory and the int8 base's bytes printed.
+   (c) ``--config llama3-1b --lora 16``, batch 4 x 2048, chunked
+   cross-entropy, the same checks, K2 32, K3 16 and K4 16 a step. (d)
+   QLoRA at llama3-tiny resumed from its step-2 checkpoint equals the
+   uninterrupted run bit for bit and books ``restart_replay``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``; the line before them gives each
 phase's wall. ``--phase kernels``, ``serve``, ``handoff``, ``bench``,
-``qos``, ``adapters``, ``draft``, ``recover``, ``observe`` or ``train``
-runs one of phases 3-12 alone (the build always runs).
+``qos``, ``adapters``, ``draft``, ``recover``, ``observe``, ``train`` or
+``finetune`` runs one of phases 3-13 alone (the build always runs).
 """
 
 from __future__ import annotations
@@ -870,13 +889,14 @@ def _bf16_ulp_err(got, want, name: str, floor_rel: float = 1e-3):
     return d.max().item()
 
 
-def _bwd_case(dtype, segments: bool, gen, dev):
+def _bwd_case(dtype, segments: bool, gen, dev, B: int = 4, H: int = 16):
     """K3/K4 inputs at llama3-1b's training shape: batch 4, S 2048, 16
     q-heads over 8 kv-heads, head_dim 128, causal; O and lse from the
-    forward kernel, dO random."""
+    forward kernel, dO random. ``B=2, H=32``: the QLoRA-8B recipe's
+    (a GQA group of 4)."""
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
-    B, S, H, Hkv, D = 4, 2048, 16, 8, 128
+    S, Hkv, D = 2048, 8, 128
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -1038,20 +1058,25 @@ def phase_kernels(dev):
     # The serve phase's waves (8 prompts), then the bench's: 16 x 96
     # (bench[engine]), and the monolith's 4 x 816 and 8 x 32
     # (bench[prefix]), whose last tiles are partial.
+    # Then the QLoRA-8B recipe's training shape (2 x 2048, 32 q-heads
+    # over 8 kv-heads).
     flash = [_check_flash(f"flash_attention_fwd[S={S},seg={int(s)}]"
                           + (f"[B={B}]" if B != 8 else ""),
                           _flash_case(S, s, gen, dev, B))
              for B, S, s in ((8, 1024, False), (8, 512, False),
                              (8, 1024, True), (8, 512, True),
                              (16, 96, False), (4, 816, False),
-                             (8, 32, False))]
+                             (8, 32, False), (2, 2048, False))]
     cases = {"paged_attention": paged, **rows,
              "flash_attention_fwd": flash,
              "flash_attention_bwd_dkv": [], "flash_attention_bwd_dq": []}
-    for dtype, segs in ((torch.bfloat16, False), (torch.bfloat16, True),
-                        (torch.float32, False)):
-        label = f"[{str(dtype).split('.')[-1]},seg={int(segs)}]"
-        rows = _check_bwd(label, _bwd_case(dtype, segs, gen, dev))
+    for dtype, segs, B, H in ((torch.bfloat16, False, 4, 16),
+                              (torch.bfloat16, True, 4, 16),
+                              (torch.float32, False, 4, 16),
+                              (torch.bfloat16, False, 2, 32)):
+        label = (f"[{str(dtype).split('.')[-1]},seg={int(segs)}"
+                 + (",B=2,Hq=32,8B" if H == 32 else "") + "]")
+        rows = _check_bwd(label, _bwd_case(dtype, segs, gen, dev, B, H))
         for kname, row in rows.items():
             cases[kname].append(row)
         torch.cuda.empty_cache()
@@ -2132,11 +2157,7 @@ def _run_main(argv) -> dict:
 
 def _profile_train_step(dev, card: str) -> None:
     """One llama3-1b step (batch 4 x 2048, after a warm-up step) under
-    torch.profiler: device time by kernel class and the device's idle
-    share of the step's wall time (kernels run on one stream, so their
-    times add up without overlap)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler (``_profile_step``)."""
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.train import trainer
     cfg = dataclasses.replace(llama.CONFIGS["llama3-1b"], xent_chunk=512)
@@ -2144,12 +2165,23 @@ def _profile_train_step(dev, card: str) -> None:
     state = trainer.create_train_state(cfg, tc, dev)
     step = trainer.make_train_step(cfg, tc)
     batch = trainer.synthetic_batch(cfg, 4, 2048, device=dev)
-    step(state, batch)
+    _profile_step(lambda: step(state, batch), "train[profile]: llama3-1b",
+                  card)
+
+
+def _profile_step(run_step, label: str, card: str) -> None:
+    """``run_step()`` once to warm up, then once under torch.profiler:
+    device time by kernel class and the device's idle share of the
+    step's wall time (kernels run on one stream, so their times add up
+    without overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run_step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        step(state, batch)
+        run_step()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     classes = {"K2 flash_fwd": ("flash_fwd",), "K3 flash_bwd_dkv":
@@ -2171,15 +2203,15 @@ def _profile_train_step(dev, card: str) -> None:
         n += 1
     busy = sum(by.values())
     if n == 0:
-        _log("train[profile]: the profiler recorded no device activity; "
-             "device time by kernel not measured")
+        _log(f"{label}: the profiler recorded no device activity; device "
+             f"time by kernel not measured")
         return
-    _log(f"train[profile]: llama3-1b step wall {wall_ms:.1f} ms under the "
+    _log(f"{label} step wall {wall_ms:.1f} ms under the "
          f"profiler; {n} device activities, busy {busy:.1f} ms, idle "
          f"share {max(0.0, 1 - busy / wall_ms):.3f}; device ms by class "
          + ", ".join(f"{c} {t:.1f}" for c, t in by.items()) + f"; {card}")
     top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
-    _log("train[profile]: largest 'other' kernels (ms): "
+    _log(f"{label.split(':')[0]}: largest 'other' kernels (ms): "
          + "; ".join(f"{t:.1f} {name[:90]}" for name, t in top))
 
 
@@ -5246,12 +5278,204 @@ def _train_resume(card: str) -> None:
          f"recorder-off twin bit-equal; {card}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: fine-tuning (LoRA and QLoRA)
+# ---------------------------------------------------------------------------
+
+# The repo's QLoRA recipe line (``llm/qlora-8b.yaml``), 6 steps logged at
+# every step.
+QLORA_RECIPE = ["--config", "llama3-8b", "--qlora", "16",
+                "--qlora-random-base", "--xent-chunk", "512", "--seq",
+                "2048", "--batch", "2"]
+FT_STEPS = 6
+
+
+def _finetune_parity(dev, card: str) -> None:
+    """fp32 at llama3-8b width (2 layers, 32/8 heads, head_dim 128, vocab
+    128256), one packed batch of 2 x 2048, rank-16 adapters with B
+    drawn nonzero (at B = 0, A's gradient is 0): the QLoRA loss over a
+    random int8 base and the LoRA loss over a random float base, and
+    their adapter gradients, through the kernels and through autograd
+    of einsum attention on the same card. Held as the train phase's
+    parity is: 1e-5 relative on the loss, 1e-4 of max|plain| on each
+    adapter gradient."""
+    import torch
+    from skypilot_tpu_torch.data import input_pipeline as ip
+    from skypilot_tpu_torch.infer import kvcache
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import lora, qlora, trainer
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], n_layers=2,
+                              dtype=torch.float32, xent_chunk=512)
+    lc = lora.LoRAConfig(rank=16)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    adapters = lora.init_lora_params(cfg, lc, gen, dev)
+    for ab in adapters.values():
+        ab["b"].normal_(0.0, 0.01, generator=gen)
+    docs = ip.synthetic_doc_stream(64, cfg.vocab_size, mean_len=600,
+                                   seed=SEED)
+    batch = ip.to_device(next(ip.packed_batches(docs, 2, 2048)), dev)
+    names = [f"{t}.{k}" for t in adapters for k in adapters[t]]
+    fp, qw = kvcache.random_quantized_params(cfg, seed=SEED, device=dev)
+    base = llama.init_params(cfg, gen, device=dev)
+    for what, lossf in (
+            ("qlora", lambda a, attn: qlora.loss_fn(qw, fp, a, batch, cfg,
+                                                    lc, attention=attn)),
+            ("lora", lambda a, attn: lora.loss_fn(a, base, batch, cfg, lc,
+                                                  attention=attn))):
+        got = trainer.value_and_grads(adapters, lambda a: lossf(a, None))
+        want = trainer.value_and_grads(
+            adapters, lambda a: lossf(a, _plain_attention))
+        dl = abs(got[0].item() - want[0].item()) / abs(want[0].item())
+        rel = {n: (g - w).abs().max().item() / w.abs().max().item()
+               for n, g, w in zip(names, got[2], want[2])}
+        worst = max(rel.items(), key=lambda kv: kv[1])
+        _log(f"finetune[fp32 parity, {what}]: loss kernel "
+             f"{got[0].item():.7f} plain {want[0].item():.7f} (rel "
+             f"{dl:.2e}); worst adapter grad {worst[0]} "
+             f"max|diff|/max|plain| {worst[1]:.2e}; {card}")
+        if not dl <= 1e-5 or not worst[1] <= 1e-4:
+            raise AssertionError(f"{what} fp32 parity failed: loss rel {dl}, "
+                                 f"grads {rel}")
+        del got, want
+
+
+def _int8_base_bytes(cfg) -> int:
+    """Bytes of the int8 base ``kvcache.random_quantized_params`` builds
+    for ``cfg``: int8 block weights and head, float32 scales (from the
+    shapes)."""
+    d, ff, v, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    weights = L * (2 * d * nh * hd + 2 * d * nkv * hd + 3 * d * ff) + d * v
+    scales = L * (nh * hd + 2 * nkv * hd + 2 * d + 2 * ff) + v
+    return weights + 4 * scales
+
+
+def _finetune_run(argv, tokens: int, expect: dict, label: str,
+                  card: str) -> dict:
+    """``train.run.main(argv)`` for ``FT_STEPS`` steps at every-step
+    logging, the kernels' counts set to 0 just before and read just
+    after: finite losses that fall on the repeated batch, ``expect``
+    launches a step. Prints the median step (steps 2-6), tokens/s
+    (``tokens`` a step) and peak allocated memory. Returns the
+    counts."""
+    import torch
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels:
+        f.launches = 0
+    res = _run_main(argv + ["--steps", str(FT_STEPS), "--log-every", "1"])
+    launches = {f.__name__: f.launches for f in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    if len(losses) != FT_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall on a "
+                             f"repeated batch: {losses}")
+    per_step = {n: c / FT_STEPS for n, c in launches.items()}
+    if per_step != expect:
+        raise AssertionError(f"{label}: launches per step {per_step}, "
+                             f"expected {expect}")
+    med = _median(res["step_ms"][1:])
+    _log(f"{label}: {' '.join(argv)}; losses "
+         f"{[round(x, 5) for x in losses]}; median step {med:.1f} ms "
+         f"({tokens / med * 1e3:.0f} tokens/s, steps 2-{FT_STEPS}); first "
+         f"step {res['step_ms'][0]:.1f} ms; peak allocated "
+         f"{peak / 2**30:.2f} GiB; launches per step {per_step}; {card}")
+    return launches
+
+
+def _profile_qlora_step(dev, card: str) -> None:
+    """One step of the recipe line (llama3-8b over a random int8 base,
+    batch 2 x 2048, chunked cross-entropy, rank 16) under
+    torch.profiler (``_profile_step``), after a warm-up step."""
+    from skypilot_tpu_torch.infer import kvcache
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import lora, qlora, trainer
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], xent_chunk=512)
+    lc = lora.LoRAConfig(rank=16)
+    tc = trainer.TrainConfig(warmup_steps=1, total_steps=6)
+    fp, qw = kvcache.random_quantized_params(cfg, device=dev)
+    state = qlora.create_qlora_state(cfg, lc, tc, dev)
+    step = qlora.make_qlora_train_step(cfg, lc, tc)
+    batch = trainer.synthetic_batch(cfg, 2, 2048, device=dev)
+    _profile_step(lambda: step(state, qw, fp, batch),
+                  "finetune[profile]: qlora-8b", card)
+
+
+def _finetune_resume(card: str) -> None:
+    """QLoRA at llama3-tiny over a random int8 base, 4 steps with a
+    checkpoint every 2; step 2 copied to a fresh directory and resumed
+    to 4 must give the same losses and step-4 adapter state bit for
+    bit, the restore booked as ``restart_replay``."""
+    import shutil
+    import tempfile
+    from skypilot_tpu_torch.train import checkpoints
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_finetune_")
+    a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    common = ["--config", "llama3-tiny", "--qlora", "4",
+              "--qlora-random-base", "--steps", "4", "--seq", "256",
+              "--log-every", "1", "--ckpt-every", "2"]
+    full = _run_main(common + ["--ckpt-dir", a])
+    shutil.copytree(os.path.join(a, "2"), os.path.join(b, "2"))
+    resumed = _run_main(common + ["--ckpt-dir", b, "--resume"])
+    if resumed["losses"] != full["losses"][2:]:
+        raise AssertionError(f"finetune resume: losses {resumed['losses']}"
+                             f" != uninterrupted {full['losses'][2:]}")
+    if not _tree_equal(checkpoints.CheckpointManager(a).restore(step=4),
+                       checkpoints.CheckpointManager(b).restore(step=4)):
+        raise AssertionError("finetune resume: the step-4 states differ")
+    replay = resumed["snapshot"]["buckets"]["restart_replay"]
+    if not replay > 0:
+        raise AssertionError("finetune resume: no restart_replay booked")
+    shutil.rmtree(tmp, ignore_errors=True)
+    _log(f"finetune[resume]: llama3-tiny --qlora 4 resumed from step 2 "
+         f"equals the uninterrupted run (losses {resumed['losses']}; "
+         f"step-4 states bit-equal); restart_replay "
+         f"{replay * 1e3:.1f} ms; {card}")
+
+
+def phase_finetune(dev, card: str) -> dict:
+    """Returns {path: {kernel: launches}}: the QLoRA recipe line
+    (``finetune``) and LoRA at llama3-1b (``finetune[lora]``)."""
+    import torch
+    from skypilot_tpu_torch.models import llama
+    _finetune_parity(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama.CONFIGS["llama3-8b"]
+    _log(f"finetune: the int8 base of llama3-8b holds "
+         f"{_int8_base_bytes(cfg) / 1e9:.3f} GB (int8 weights and head, "
+         f"float32 scales; from the shapes)")
+    paths = {"finetune": _finetune_run(
+        QLORA_RECIPE, 2 * 2048, {"flash_attention_fwd": 64,
+                       "flash_attention_bwd_dkv": 32,
+                       "flash_attention_bwd_dq": 32},
+        "finetune[qlora-8b]", card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    _profile_qlora_step(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["finetune[lora]"] = _finetune_run(
+        ["--config", "llama3-1b", "--lora", "16", "--xent-chunk", "512",
+         "--seq", "2048", "--batch", "4"], 4 * 2048,
+        {"flash_attention_fwd": 32, "flash_attention_bwd_dkv": 16,
+         "flash_attention_bwd_dq": 16}, "finetune[lora-1b]", card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _finetune_resume(card)
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "serve", "handoff", "bench",
                              "qos", "adapters", "draft", "recover",
-                             "observe", "train"),
+                             "observe", "train", "finetune"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -5349,6 +5573,7 @@ def main() -> int:
     train = run("train", phase_train)
     if train is not None:
         by_path["train"] = train
+    by_path.update(run("finetune", phase_finetune) or {})
     _log(f"phase walls (s): {json.dumps(walls)}; build and phases "
          f"{time.time() - t0:.1f} s; {smi}")
 

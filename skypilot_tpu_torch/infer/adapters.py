@@ -219,12 +219,17 @@ def lora_layer(pool: Optional[Dict[str, Dict[str, torch.Tensor]]],
 def save_adapter(path: str, params: Dict[str, Any],
                  alpha: float = 32.0) -> None:
     """Write a trained adapter tree (``train/lora.py`` layout: per
-    target ``{"a": [L, ..., r], "b": [L, r, ...]}``) as the small .npz
-    checkpoint the serve controller distributes to replicas."""
+    target ``{"a": [L, ..., r], "b": [L, r, ...]}``, numpy arrays or
+    tensors on any device) as the small .npz checkpoint the serve
+    controller distributes to replicas."""
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+
     flat = {"__alpha__": np.asarray(alpha, np.float64)}
     for t, ab in params.items():
-        flat[f"{t}.a"] = np.asarray(ab["a"])
-        flat[f"{t}.b"] = np.asarray(ab["b"])
+        flat[f"{t}.a"] = host(ab["a"])
+        flat[f"{t}.b"] = host(ab["b"])
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **flat)

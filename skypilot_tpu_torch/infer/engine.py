@@ -1198,8 +1198,12 @@ class InferenceEngine:
             ests = [cal.estimate(k) for k in dev_keys]
             ests = [e for e in ests if e is not None]
             if ests:
-                dev_ms = sum(ests) * 1e3
-                extra["dev_ms_est"] = round(dev_ms, 4)
+                # The counter takes the value the record carries (rounded
+                # once), so a window's counter delta equals its records'
+                # sum: the unrounded value parts from it by up to 5e-8 s
+                # a record, and records of one key repeat their error.
+                dev_ms = round(sum(ests) * 1e3, 4)
+                extra["dev_ms_est"] = dev_ms
                 attribution_lib.DEVICE_SECONDS.inc(dev_ms / 1e3)
         rl = self._draft_roofline if burst == "draft" else self.roofline
         if rl is not None:

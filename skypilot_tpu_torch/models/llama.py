@@ -18,13 +18,15 @@ package does; the trainer (``train/trainer.py``) holds them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.ops import attention as attn_ops
@@ -281,6 +283,35 @@ def decoder_layer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
     return x + ffn(h, layer, dt), k, v
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the output of every 2-D matrix product (``aten.mm``: the
+    weight projections, whose activations fold into rows), recompute
+    everything else, the attention ``autograd.Function`` and its batched
+    products included: JAX's ``dots_with_no_batch_dims_saveable``."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(cfg: LlamaConfig, fn: Callable, *args):
+    """``fn(*args)`` under per-layer ``torch.utils.checkpoint`` when
+    ``cfg.remat`` is set and grad is enabled, else called as it is.
+    ``cfg.remat_policy`` "none" keeps only the inputs (JAX's
+    ``nothing_saveable``); "dots" keeps the 2-D products' outputs too
+    (:func:`_dots_policy`). The llama and QLoRA forwards share it."""
+    if cfg.remat_policy not in ("none", "dots"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"expected 'none' or 'dots'")
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if cfg.remat_policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                    *, positions: Optional[torch.Tensor] = None,
                    segment_ids: Optional[torch.Tensor] = None,
@@ -290,13 +321,10 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     ``positions`` [B, S] and ``segment_ids`` [B, S] enable packed
     sequences (rope restarts per document, attention stays inside a
     document; see ``data/input_pipeline.py``). With ``cfg.remat`` and
-    grad enabled, each layer runs under ``torch.utils.checkpoint``: only
-    the layer inputs are kept, and the backward recomputes each layer
-    (the JAX package's ``nothing_saveable`` policy). ``attention`` is
-    passed to :func:`decoder_layer`."""
-    if cfg.remat_policy != "none":
-        raise ValueError(f"remat_policy {cfg.remat_policy!r} is not "
-                         f"supported by the port (only 'none')")
+    grad enabled, each layer runs under ``torch.utils.checkpoint`` with
+    ``cfg.remat_policy`` (:func:`remat`): the backward recomputes what
+    the policy did not keep. ``attention`` is passed to
+    :func:`decoder_layer`."""
     S = tokens.shape[1]
     # F.embedding: a deterministic backward on the card (a sort, no
     # atomics), so a resumed run repeats an uninterrupted one bit for bit.
@@ -304,15 +332,9 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
     cos, sin = rope_frequencies(cfg, positions)
-    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        layer = layer_slice(params, i)
-        if remat:
-            x = checkpoint(_layer_hidden, cfg, x, layer, cos, sin, attention,
-                           segment_ids, use_reentrant=False)
-        else:
-            x = _layer_hidden(cfg, x, layer, cos, sin, attention,
-                              segment_ids)
+        x = remat(cfg, _layer_hidden, cfg, x, layer_slice(params, i), cos,
+                  sin, attention, segment_ids)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -374,17 +396,20 @@ def _chunk_xent(h: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
 
 
 def xent_metrics(params: Params, h: torch.Tensor, tokens: torch.Tensor,
-                 mask: Optional[torch.Tensor], cfg: LlamaConfig):
+                 mask: Optional[torch.Tensor], cfg: LlamaConfig,
+                 head: Optional[torch.Tensor] = None):
     """LM head + next-token cross-entropy over final-norm hidden states
     h [B, S, D]. Returns (loss, accuracy, denom). As in the JAX package,
     the head product is taken in ``cfg.dtype`` and then widened to
     float32 (serving's :func:`logits` multiplies in float32 instead).
+    ``head`` overrides the [D, V] head matrix (QLoRA passes its
+    dequantized head: the slim tree has no float one).
 
     With ``cfg.xent_chunk`` > 0 the sequence is cut into chunks padded
     with masked positions, and each chunk's [B, c, vocab] logits are
     recomputed in the backward (``torch.utils.checkpoint``), so the
     full logits tensor never exists."""
-    head = lm_head(params, cfg).to(cfg.dtype)
+    head = (lm_head(params, cfg) if head is None else head).to(cfg.dtype)
     B, S = tokens.shape
     targets = tokens[:, 1:].long()
     m = (torch.ones((B, S - 1), dtype=torch.float32, device=h.device)

@@ -347,6 +347,8 @@ class GoodputRecorder:
             # waits on the step's CUDA event there) and is carried by
             # queue back-pressure elsewhere (module docstring).
             dev_ms = phases.get("compute", 0.0) * 1e3
+        if dev_ms is not None:
+            dev_ms = round(dev_ms, 4)
         flops = 6 * self.param_count * tokens \
             if (self.param_count and tokens) else 0
 
@@ -367,7 +369,7 @@ class GoodputRecorder:
         }
         if warm:
             rec_fields["flops"] = flops
-            rec_fields["dev_ms_est"] = round(dev_ms, 4)
+            rec_fields["dev_ms_est"] = dev_ms
         if compiled:
             rec_fields["compiled"] = compiled
         if loss is not None:

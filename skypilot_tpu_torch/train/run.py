@@ -17,8 +17,25 @@ checkpoint every ``--ckpt-every`` steps, and a forced final save that
 is waited for. Per-step logs go to stderr; the last stdout line is one
 JSON object with ``final_loss``, ``steps``, ``wall_s``,
 ``tokens_per_sec``, ``tokens_per_sec_per_chip``, ``goodput`` and
-``mesh`` (``{}``: one card, no mesh). Not in this slice: LoRA/QLoRA,
-MoE and pipeline models and the mesh flags.
+``mesh`` (``{}``: one card, no mesh). Not in this slice: MoE and
+pipeline models and the mesh flags.
+
+Fine-tuning, the reference's branches: ``--lora RANK`` trains rank-RANK
+adapters over a frozen float base drawn from seed 1
+(``train/lora.py``); ``--qlora RANK`` over a frozen int8 base
+(``train/qlora.py``): with ``--qlora-random-base`` random int8 weights
+drawn on the card (``kvcache.random_quantized_params``: the float tree
+never exists), else a float init from seed 1, quantized layer by layer
+and freed before the first step. The recipe ``llm/qlora-8b.yaml``::
+
+    python -m skypilot_tpu_torch.train.run --config llama3-8b \
+        --qlora 16 --qlora-random-base --xent-chunk 512 --seq 2048 \
+        --batch 2
+
+As in the reference, the adapter steps are not wrapped in the trainer's
+compile watch or its ``skytpu_train_*`` instrumentation (the dense step
+is); the goodput ledger books them as it books the dense step, and
+``--resume`` restores the adapter state under ``restart_replay``.
 
 Observed as the reference's loop is: the trainer's compile watch
 (``train.unexpected_compile`` after the first step) with sampled
@@ -87,6 +104,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--packed", action="store_true",
                     help="packed-sequence input (segment-masked "
                          "attention) over synthetic variable-length docs")
+    ap.add_argument("--lora", type=int, default=0, metavar="RANK",
+                    help="LoRA finetune: train rank-RANK adapters over "
+                         "frozen base weights (llama only)")
+    ap.add_argument("--qlora", type=int, default=0, metavar="RANK",
+                    help="QLoRA finetune: int8-quantized frozen base + "
+                         "rank-RANK adapters (llama only, one card)")
+    ap.add_argument("--qlora-random-base", action="store_true",
+                    help="random int8 base drawn on the card (skips the "
+                         "float init)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--resume", action="store_true")
@@ -94,6 +120,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain versions)")
     args = ap.parse_args(argv)
+    # The reference's argument errors, in its order (its "--model llama
+    # only" ones cannot fire: llama is the port's one model).
+    if args.lora < 0:
+        ap.error("--lora rank must be positive")
+    if args.qlora:
+        if args.lora:
+            ap.error("--lora and --qlora are mutually exclusive")
+        if args.qlora < 0:
+            ap.error("--qlora rank must be positive")
 
     import skypilot_tpu_torch.callbacks as sky_callback
     from skypilot_tpu_torch.data import input_pipeline as ip
@@ -128,20 +163,58 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         param_count=cfg.num_params(), watch=watch,
         calibrator=watch.calibrator)
     watchdog = goodput_lib.AnomalyWatchdog(goodput=gp)
-    step_fn = trainer.make_train_step(cfg, tc, watch=watch)
 
     mgr = checkpoints.CheckpointManager(args.ckpt_dir) \
         if args.ckpt_dir else None
-    start_step = 0
-    if mgr and args.resume and mgr.latest_step() is not None:
+    resume = bool(mgr and args.resume and mgr.latest_step() is not None)
+
+    def restore():
         gp.load_stamps(mgr.directory)
         with gp.account("restart_replay"):
-            state = mgr.restore(device=device)
-        start_step = int(state["step"])
-        log(f"resumed from step {start_step}")
+            restored = mgr.restore(device=device)
+        log(f"resumed from step {restored['step']}")
+        return restored
+
+    if args.qlora or args.lora:
+        from skypilot_tpu_torch.train import lora
+        lc = lora.LoRAConfig(rank=args.qlora or args.lora)
+        n_lora = lora.num_trainable_params(cfg, lc)
+        if args.qlora:
+            from skypilot_tpu_torch.infer import kvcache
+            from skypilot_tpu_torch.train import qlora
+            if args.qlora_random_base:
+                fp_params, qweights = kvcache.random_quantized_params(
+                    cfg, device=device)
+            else:
+                base = llama.init_params(
+                    cfg, torch.Generator(device=device).manual_seed(1), device)
+                qweights = {"blocks": kvcache.quantize_block_weights(base),
+                            "head": kvcache.quantize_head(base, cfg)}
+                fp_params = kvcache.slim_params(base)
+                del base    # the int8 copy replaces the float weights
+            log(f"QLoRA rank {args.qlora}: {n_lora:,} trainable over an "
+                f"int8 base of {cfg.num_params():,} params")
+            state = (restore() if resume
+                     else qlora.create_qlora_state(cfg, lc, tc, device))
+            raw_step = qlora.make_qlora_train_step(cfg, lc, tc)
+            step_fn = lambda s, b: raw_step(s, qweights, fp_params, b)
+        else:
+            base_params = llama.init_params(
+                cfg, torch.Generator(device=device).manual_seed(1), device)
+            log(f"LoRA rank {args.lora}: {n_lora:,} trainable / "
+                f"{cfg.num_params():,} base params (frozen)")
+            state = (restore() if resume
+                     else lora.create_lora_state(cfg, lc, tc, device))
+            raw_step = lora.make_lora_train_step(cfg, lc, tc)
+            step_fn = lambda s, b: raw_step(s, base_params, b)
     else:
-        with gp.account("warmup_compile"):
-            state = trainer.create_train_state(cfg, tc, device)
+        step_fn = trainer.make_train_step(cfg, tc, watch=watch)
+        if resume:
+            state = restore()
+        else:
+            with gp.account("warmup_compile"):
+                state = trainer.create_train_state(cfg, tc, device)
+    start_step = int(state["step"])
 
     batches = None
     batch_data = None

@@ -18,7 +18,9 @@ operation:
   nothing (the schedule starts at 0).
 
 The state is ``{"params", "opt_state": {"count", "mu", "nu"}, "step"}``
-with the parameters in the JAX package's stacked layout. The step
+with the parameters in the JAX package's stacked layout; the LoRA and
+QLoRA steps (``train/lora.py``, ``train/qlora.py``) keep the same state
+over an adapter tree. The step
 updates parameters and moments in place (the JAX step returns new
 arrays); it says so in its docstring.
 
@@ -170,10 +172,13 @@ def lr_schedule(tc: TrainConfig) -> Callable[[int], float]:
 
 
 def _layer_leaves(tree, like=None) -> List[torch.Tensor]:
-    """Leaves of a parameter-shaped tree in the key order of ``like``
-    (default: the tree's own), so moments, gradients and parameters pair
-    up by name; each stacked ``blocks`` tensor [L, ...] gives its L rows
-    (views), the unit that autograd and the optimizer work in."""
+    """Leaves of a parameter-shaped tree (nested dicts of tensors: the
+    model's, or an adapter tree ``{target: {"a", "b"}}``) in the key
+    order of ``like`` (default: the tree's own), depth first, so
+    moments, gradients and parameters pair up by name however each
+    tree's dicts were built; each stacked ``blocks`` tensor [L, ...]
+    gives its L rows (views), the unit that autograd and the optimizer
+    work in. Any other tensor is one leaf."""
     like = tree if like is None else like
     leaves = []
     for k in like:
@@ -181,6 +186,8 @@ def _layer_leaves(tree, like=None) -> List[torch.Tensor]:
             for n in like[k]:
                 w = tree[k][n]
                 leaves.extend(w[i] for i in range(w.shape[0]))
+        elif isinstance(like[k], dict):
+            leaves.extend(_layer_leaves(tree[k], like[k]))
         else:
             leaves.append(tree[k])
     return leaves
@@ -203,9 +210,12 @@ def init_opt_state(params, tc: TrainConfig) -> Dict[str, Any]:
 def make_optimizer(tc: TrainConfig):
     """update(grads, opt_state, params) -> grad_norm: the clip + AdamW
     chain applied in place to the ``params`` tree and ``opt_state``.
-    ``grads`` lists one gradient per entry of ``_layer_leaves(params)``
-    (each layer's row of a stacked tensor on its own). Returns the
-    global norm before clipping."""
+    ``params`` is any nested tree: the model's, or an adapter tree
+    (``train/lora.py``), which gets optax's chain unchanged (the clip
+    over all its leaves, weight decay on every one: the reference
+    passes no mask). ``grads`` lists one gradient per entry of
+    ``_layer_leaves(params)`` (each layer's row of a stacked ``blocks``
+    tensor on its own). Returns the global norm before clipping."""
     schedule = lr_schedule(tc)
     mu_dtype = _MU_DTYPES[tc.mu_dtype]
     b1, b2, wd = tc.beta1, tc.beta2, tc.weight_decay
@@ -260,6 +270,20 @@ def train_state_from_numpy(jax_state: Dict[str, Any],
     searched for its Adam entry (the one with ``count``, ``mu`` and
     ``nu``); mu keeps its dtype (bf16 under ``mu_dtype="bfloat16"``)."""
     device = resolve_device(device)
+    return {"params": llama.params_from_numpy(jax_state["params"], cfg,
+                                              device=device),
+            "opt_state": opt_state_from_numpy(jax_state["opt_state"],
+                                              device),
+            "step": int(np.asarray(jax_state["step"]))}
+
+
+def opt_state_from_numpy(opt_state, device: DeviceLike = None
+                         ) -> Dict[str, Any]:
+    """An optax chain's state (numpy leaves) -> the port's
+    ``{"count", "mu", "nu"}``: the chain is searched for its Adam entry
+    (the one with ``count``, ``mu`` and ``nu``); each moment keeps its
+    tree and its dtype (bf16 under ``mu_dtype="bfloat16"``)."""
+    device = resolve_device(device)
 
     def find_adam(node):
         if all(hasattr(node, a) for a in ("count", "mu", "nu")):
@@ -271,7 +295,7 @@ def train_state_from_numpy(jax_state: Dict[str, Any],
                     return found
         return None
 
-    adam = find_adam(jax_state["opt_state"])
+    adam = find_adam(opt_state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in opt_state")
 
@@ -282,20 +306,18 @@ def train_state_from_numpy(jax_state: Dict[str, Any],
                 device=device, dtype=torch.bfloat16)
         return torch.from_numpy(np.array(a)).to(device)
 
-    return {"params": llama.params_from_numpy(jax_state["params"], cfg,
-                                              device=device),
-            "opt_state": {"count": int(np.asarray(adam.count)),
-                          "mu": _tree_map(leaf, adam.mu),
-                          "nu": _tree_map(leaf, adam.nu)},
-            "step": int(np.asarray(jax_state["step"]))}
+    return {"count": int(np.asarray(adam.count)),
+            "mu": _tree_map(leaf, adam.mu),
+            "nu": _tree_map(leaf, adam.nu)}
 
 
 def _grad_leaves(params) -> Tuple[Dict[str, Any], List[torch.Tensor]]:
-    """Leaf tensors for autograd, in the order of ``_layer_leaves``: the
-    unstacked parameters as they are, and each stacked block tensor as
-    one leaf per layer (views of its rows), so a layer's backward writes
-    its own gradient instead of adding a zero-padded copy of the whole
-    stack."""
+    """Leaf tensors for autograd, in the order of ``_layer_leaves``, and
+    a view of ``params`` built from them: each stacked block tensor as
+    one leaf per layer (views of its rows, listed), so a layer's
+    backward writes its own gradient instead of adding a zero-padded
+    copy of the whole stack; every other tensor (an adapter's stacked
+    ``a`` or ``b`` included: a few MB) as itself."""
     leaves: List[torch.Tensor] = []
 
     def leaf(w):
@@ -303,24 +325,38 @@ def _grad_leaves(params) -> Tuple[Dict[str, Any], List[torch.Tensor]]:
         leaves.append(t)
         return t
 
-    view = {}
-    for k, w in params.items():
-        if k == "blocks":
-            view[k] = {n: [leaf(w[i]) for i in range(w.shape[0])]
-                       for n, w in w.items()}
-        else:
-            view[k] = leaf(w)
-    return view, leaves
+    def walk(tree):
+        view = {}
+        for k, w in tree.items():
+            if k == "blocks":
+                view[k] = {n: [leaf(w[i]) for i in range(w.shape[0])]
+                           for n, w in w.items()}
+            elif isinstance(w, dict):
+                view[k] = walk(w)
+            else:
+                view[k] = leaf(w)
+        return view
+
+    return walk(params), leaves
+
+
+def value_and_grads(params, loss_fn: Callable):
+    """(loss, metrics, grads) of ``loss_fn(view) -> (loss, metrics)``
+    with respect to ``params`` (any nested tree): ``view`` is
+    ``params`` rebuilt from autograd leaves, and grads lists one tensor
+    per entry of ``_layer_leaves(params)``."""
+    view, leaves = _grad_leaves(params)
+    loss, metrics = loss_fn(view)
+    grads = list(torch.autograd.grad(loss, leaves))
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def grads_of(params, batch: Dict[str, torch.Tensor], cfg: llama.LlamaConfig,
              attention: Optional[Callable] = None):
     """(loss, metrics, grads): grads lists one tensor per entry of
     ``_layer_leaves(params)``, a stacked tensor's gradient per layer."""
-    view, leaves = _grad_leaves(params)
-    loss, metrics = llama.loss_fn(view, batch, cfg, attention=attention)
-    grads = list(torch.autograd.grad(loss, leaves))
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    return value_and_grads(params, lambda p: llama.loss_fn(
+        p, batch, cfg, attention=attention))
 
 
 def _batch_key_fn(args: tuple, kwargs: dict):

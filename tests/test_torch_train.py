@@ -107,7 +107,7 @@ def test_remat_matches_no_remat():
         torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
     with pytest.raises(ValueError):
         tt.grads_of(params, batch,
-                    dataclasses.replace(tcfg, remat_policy="dots"))
+                    dataclasses.replace(tcfg, remat_policy="everything"))
 
 
 @pytest.mark.parametrize("warmup,total", [(5, 20), (1, 4), (100, 50)])
