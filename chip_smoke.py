@@ -12,7 +12,10 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
 3. Kernels: each kernel against its plain PyTorch version on the same
    CUDA inputs at its main path's shapes (K1/K2 serving, K3/K4 the
    llama3-1b training shape; K2, K3 and K4 also at the QLoRA-8B
-   recipe's, batch 2 x 2048 over 32 q-heads and 8 kv-heads), with its
+   recipe's, batch 2 x 2048 over 32 q-heads and 8 kv-heads, and at the
+   models phase's: moe-small's 4 x 2048 over 8 q-heads and 4 kv-heads,
+   and ViT-S/16's 64 x 197, 6 q-heads over 6, head_dim 64,
+   bidirectional), with its
    time (CUDA events over many
    launches), its bound (the larger of bytes over the memory rate and
    operations over the peak rate), the plain version's time and, where
@@ -217,7 +220,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    kv-heads, 3 rows; 768 rows), timed as in the kernel phase. (e) K1
    decode launches on two CUDA streams at once, each equal to its plain
    version (the ticket counters are per stream). (f)
-   ``bench_serve.run_spec`` at llama3-8b, 8 requests of 64 new tokens
+   ``bench_serve.run_spec`` at llama3-8b, 8 requests of 24 new tokens
    (the reference's 256, cut for time; its warm-up passes run 10 new
    tokens): its report line and its pipeline structure.
 10. Recover: crash recovery on the serve engine at llama3-8b bf16 (full
@@ -307,11 +310,36 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    QLoRA at llama3-tiny resumed from its step-2 checkpoint equals the
    uninterrupted run bit for bit and books ``restart_replay``.
 
+14. Models: the sparse MoE decoder and the ViT classifier
+   (``models/moe.py``, ``models/vit.py``), launch counts set to 0
+   before each leg and read after it. (a) MoE serving at Mixtral-8x7B's
+   full width on ``MOE_LAYERS`` (8) of its 32 layers (a layer's experts
+   are 2.82 GB in bf16), bf16, random weights drawn on the card, through
+   ``InferenceEngine`` at the reference server's defaults (16 slots,
+   max_len 1024, chunks of 512, a prefix pool of 8, n-gram K 4): the 8
+   requests of the draft phase's lengths (98-775 tokens, two chunked),
+   32 new tokens each, after a warm-up pass; the median TTFT, the
+   decode rate and the launches (K1's decode and ``wgmma`` multi-row
+   bodies and K2; ``mma.sync`` never). Then float32 at 2 layers of the
+   same width: the kernel engine's greedy tokens against the plain
+   engine's, parting only where the plain top-2 gap is below 1e-2
+   (reported). (b) MoE training: ``llm/moe-train.yaml``'s line without
+   ``--ep 4``, ``train.run --model moe --config moe-small --seq 2048
+   --batch 4``, 6 steps: finite losses that fall, the aux loss a step,
+   K2 16, K3 8 and K4 8 launches a step, the median step, tokens/s and
+   peak memory. (c) ViT: float32 gradient parity at ViT-S/16 width (2
+   layers, 8 images) through the kernels, bidirectional at a group of
+   one, against autograd of einsum attention; then
+   ``examples/vit_train.yaml``'s script: ViT-S/16, lr 1e-3,
+   total_steps 500, one repeated batch of 64 images, 6 steps: finite
+   losses that fall, K2 24, K3 12 and K4 12 launches a step.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``; the line before them gives each
 phase's wall. ``--phase kernels``, ``serve``, ``handoff``, ``bench``,
-``qos``, ``adapters``, ``draft``, ``recover``, ``observe``, ``train`` or
-``finetune`` runs one of phases 3-13 alone (the build always runs).
+``qos``, ``adapters``, ``draft``, ``recover``, ``observe``, ``train``,
+``finetune`` or ``models`` runs one of phases 3-14 alone (the build
+always runs).
 """
 
 from __future__ import annotations
@@ -791,11 +819,13 @@ def _check_paged(name: str, case, fn=None) -> dict:
                 bound_by=bound_by, library_ms=None, **rates)
 
 
-def _flash_case(S: int, segments: bool, gen, dev, B: int = 8):
+def _flash_case(S: int, segments: bool, gen, dev, B: int = 8, H: int = 32,
+                Hkv: int = 8, D: int = 128, causal: bool = True):
     """K2 inputs at the wave prefill's shapes: a wave of ``B`` prompts,
-    32 q-heads over 8 kv-heads, head_dim 128, bf16."""
+    32 q-heads over 8 kv-heads, head_dim 128, bf16, causal; ``H``,
+    ``Hkv``, ``D`` and ``causal`` give the training paths' shapes (the
+    ViT's: 6 q-heads over 6, head_dim 64, bidirectional)."""
     import torch
-    H, Hkv, D = 32, 8, 128
     q = torch.randn((B, S, H, D), generator=gen, device=dev,
                     dtype=torch.bfloat16)
     k = torch.randn((B, S, Hkv, D), generator=gen, device=dev,
@@ -807,7 +837,7 @@ def _flash_case(S: int, segments: bool, gen, dev, B: int = 8):
         # Packed documents: segment id steps at random cut points.
         cuts = torch.rand((B, S), generator=gen, device=dev) < 4.0 / S
         seg = cuts.int().cumsum(dim=1).to(torch.int32)
-    return dict(q=q, k=k, v=v, seg=seg)
+    return dict(q=q, k=k, v=v, seg=seg, causal=causal)
 
 
 def _flash_err(name: str, case):
@@ -832,16 +862,18 @@ def _check_flash(name: str, case) -> dict:
     import torch
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops import flash_attention as fa
-    q, k, v, seg = case["q"], case["k"], case["v"], case["seg"]
+    q, k, v, seg, c = (case[n] for n in ("q", "k", "v", "seg", "causal"))
     err, o, lse = _flash_err(name, case)
     B, S, H, D = q.shape
-    ms = _time_ms(lambda i: fa.flash_attention_fwd(q, k, v, seg), 5)
+    ms = _time_ms(lambda i: fa.flash_attention_fwd(q, k, v, seg, c), 5)
     plain_ms = _time_ms(
-        lambda i: fa.flash_attention_fwd_ref(q, k, v, seg), 2, warmup=1)
+        lambda i: fa.flash_attention_fwd_ref(q, k, v, seg, c), 2, warmup=1)
     # The library yardstick: one scaled_dot_product_attention call on
     # the same tensors ([B, H, S, D] views, GQA unexpanded).
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    causal = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if c:
+        causal = causal.tril()
     if seg is not None:
         same = seg[:, None, :, None] == seg[:, None, None, :]
         mask = same & causal
@@ -850,8 +882,8 @@ def _check_flash(name: str, case) -> dict:
         pairs = mask.sum().item() * H
     else:
         lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        pairs = B * H * S * (S + 1) // 2
+            qt, kt, vt, is_causal=c, enable_gqa=True)
+        pairs = B * H * (S * (S + 1) // 2 if c else S * S)
     library_ms = _time_ms(lib, 5)
     item = q.element_size()
     n_bytes = ((q.numel() + k.numel() + v.numel() + o.numel()) * item
@@ -889,14 +921,16 @@ def _bf16_ulp_err(got, want, name: str, floor_rel: float = 1e-3):
     return d.max().item()
 
 
-def _bwd_case(dtype, segments: bool, gen, dev, B: int = 4, H: int = 16):
+def _bwd_case(dtype, segments: bool, gen, dev, B: int = 4, H: int = 16,
+              Hkv: int = 8, S: int = 2048, D: int = 128,
+              causal: bool = True):
     """K3/K4 inputs at llama3-1b's training shape: batch 4, S 2048, 16
     q-heads over 8 kv-heads, head_dim 128, causal; O and lse from the
     forward kernel, dO random. ``B=2, H=32``: the QLoRA-8B recipe's
-    (a GQA group of 4)."""
+    (a GQA group of 4); ``H``, ``Hkv``, ``S``, ``D`` and ``causal`` the
+    MoE and ViT recipes'."""
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
-    S, Hkv, D = 2048, 8, 128
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -907,8 +941,8 @@ def _bwd_case(dtype, segments: bool, gen, dev, B: int = 4, H: int = 16):
     if segments:
         cuts = torch.rand((B, S), generator=gen, device=dev) < 4.0 / S
         seg = cuts.int().cumsum(dim=1).to(torch.int32)
-    o, lse = fa.flash_attention_fwd(q, k, v, seg)
-    return dict(q=q, k=k, v=v, o=o, lse=lse, do=do, seg=seg,
+    o, lse = fa.flash_attention_fwd(q, k, v, seg, causal)
+    return dict(q=q, k=k, v=v, o=o, lse=lse, do=do, seg=seg, causal=causal,
                 delta=fa.attention_delta(o, do))
 
 
@@ -920,21 +954,22 @@ def _check_bwd(name: str, case) -> dict:
     import torch
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops import flash_attention as fa
-    q, k, v, o, lse, do, seg, delta = (case[n] for n in (
-        "q", "k", "v", "o", "lse", "do", "seg", "delta"))
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg)
-    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, seg)
+    q, k, v, o, lse, do, seg, delta, c = (case[n] for n in (
+        "q", "k", "v", "o", "lse", "do", "seg", "delta", "causal"))
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg, c)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, seg, c)
     torch.cuda.synchronize()
     if q.dtype == torch.bfloat16:
         # No atomics: a second call gives the same bits.
-        dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, seg)
-        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg)
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, seg, c)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg,
+                                              c)
         if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
                 and torch.equal(dv, dv2)):
             raise AssertionError(f"{name}: K3/K4 gave other bits on a "
                                  f"second call")
         del dq2, dk2, dv2
-    rq, rk, rv = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, seg)
+    rq, rk, rv = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, seg, c)
     if q.dtype == torch.bfloat16:
         err_dkv = max(_bf16_ulp_err(dk, rk, f"{name} dK"),
                       _bf16_ulp_err(dv, rv, f"{name} dV"))
@@ -947,24 +982,26 @@ def _check_bwd(name: str, case) -> dict:
         kind = "fp32"
     del rq, rk, rv
     ms_dkv = _time_ms(lambda i: fa.flash_attention_bwd_dkv(
-        q, k, v, do, lse, delta, seg), 5)
+        q, k, v, do, lse, delta, seg, c), 5)
     ms_dq = _time_ms(lambda i: fa.flash_attention_bwd_dq(
-        q, k, v, do, lse, delta, seg), 5)
+        q, k, v, do, lse, delta, seg, c), 5)
     plain_ms = _time_ms(lambda i: fa.flash_attention_bwd_ref(
-        q, k, v, o, lse, do, seg), 2, warmup=1)
+        q, k, v, o, lse, do, seg, c), 2, warmup=1)
     B, S, H, D = q.shape
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    causal = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if c:
+        causal = causal.tril()
     if seg is not None:
         mask = (seg[:, None, :, None] == seg[:, None, None, :]) & causal
         out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                              enable_gqa=True)
         pairs = mask.sum().item() * H
     else:
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=c,
                                              enable_gqa=True)
-        pairs = B * H * S * (S + 1) // 2
+        pairs = B * H * (S * (S + 1) // 2 if c else S * S)
     dot = do.transpose(1, 2)
     library_ms = _time_ms(lambda i: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), 5)
@@ -1039,6 +1076,18 @@ def _rows_cases(gen, dev):
     return out
 
 
+# The models phase's attention shapes (``phase_models``): moe-small's
+# training recipe (batch 4 x 2048, 8 q-heads over 4, head_dim 128,
+# causal) and ViT-S/16's (64 images of 196 patches and the class token,
+# 6 q-heads over 6, head_dim 64, bidirectional).
+MODEL_ATTENTION = {
+    "moe-small,B=4,S=2048,Hq=8,Hkv=4": dict(B=4, S=2048, H=8, Hkv=4, D=128,
+                                            causal=True),
+    "ViT-S/16,B=64,S=197,Hq=Hkv=6,D=64,bidirectional": dict(
+        B=64, S=197, H=6, Hkv=6, D=64, causal=False),
+}
+
+
 def phase_kernels(dev):
     """Returns {kernel: [case results]}, the main-path case first."""
     import torch
@@ -1067,6 +1116,14 @@ def phase_kernels(dev):
                              (8, 1024, True), (8, 512, True),
                              (16, 96, False), (4, 816, False),
                              (8, 32, False), (2, 2048, False))]
+    # The models phase's training shapes: moe-small's recipe (4 x 2048,
+    # 8 q-heads over 4) and ViT-S/16's (64 images of 197 tokens, 6
+    # q-heads over 6, head_dim 64, bidirectional).
+    for label, kw in MODEL_ATTENTION.items():
+        flash.append(_check_flash(f"flash_attention_fwd[{label}]",
+                                  _flash_case(segments=False, gen=gen,
+                                              dev=dev, **kw)))
+        torch.cuda.empty_cache()
     cases = {"paged_attention": paged, **rows,
              "flash_attention_fwd": flash,
              "flash_attention_bwd_dkv": [], "flash_attention_bwd_dq": []}
@@ -1077,6 +1134,12 @@ def phase_kernels(dev):
         label = (f"[{str(dtype).split('.')[-1]},seg={int(segs)}"
                  + (",B=2,Hq=32,8B" if H == 32 else "") + "]")
         rows = _check_bwd(label, _bwd_case(dtype, segs, gen, dev, B, H))
+        for kname, row in rows.items():
+            cases[kname].append(row)
+        torch.cuda.empty_cache()
+    for label, kw in MODEL_ATTENTION.items():
+        rows = _check_bwd(f"[bf16,{label}]", _bwd_case(
+            torch.bfloat16, False, gen, dev, **kw))
         for kname, row in rows.items():
             cases[kname].append(row)
         torch.cuda.empty_cache()
@@ -2186,6 +2249,7 @@ def _profile_step(run_step, label: str, card: str) -> None:
         wall_ms = (time.time() - t0) * 1e3
     classes = {"K2 flash_fwd": ("flash_fwd",), "K3 flash_bwd_dkv":
                ("flash_bwd_dkv",), "K4 flash_bwd_dq": ("flash_bwd_dq",),
+               "K1 paged": ("paged",),
                "matmul": ("gemm", "xmma", "cutlass", "cublas", "nvjet")}
     by = {c: 0.0 for c in list(classes) + ["other"]}
     other = {}
@@ -3826,8 +3890,10 @@ DRAFT_FP32_DRAFT = 4
 # that has nothing to do with the target reads ~0. The float32 legs
 # hold > 0.9 (they read 0.96-0.98).
 DRAFT_BF16_ACCEPT = 0.8
-# ``run_spec``'s budget on the card: the reference's 256 cut for time.
-DRAFT_BENCH_NEW = 64
+# ``run_spec``'s budget on the card: the reference's 256 cut for time
+# (64 until the models phase joined the smoke; its checks are the
+# pipeline's structure, which a shorter budget keeps).
+DRAFT_BENCH_NEW = 24
 _K1_NAMES = ("paged_attention", "paged_attention_rows",
              "paged_attention_rows_mma")
 
@@ -5470,12 +5536,256 @@ def phase_finetune(dev, card: str) -> dict:
     return paths
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 14: mixture-of-experts and ViT
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B's width on 8 of its 32 layers: a layer's experts are 2.82
+# GB in bf16, so the whole depth (~93 GB) does not fit the card; the
+# float32 parity leg on 2.
+MOE_LAYERS = 8
+MOE_FP32_LAYERS = 2
+MOE_NEW = 32
+MOE_FP32_NEW = 16
+MODEL_STEPS = 6
+# llm/moe-train.yaml's line without ``--ep 4`` (the port has no mesh).
+MOE_RECIPE = ["--model", "moe", "--config", "moe-small", "--seq", "2048",
+              "--batch", "4"]
+
+
+def _moe_engine(params, cfg, dev, **kw):
+    """The serving engine at the reference server's defaults (16 slots,
+    max_len 1024, buckets 128/512/1024, waves of 8, blocks of 256,
+    chunks of 512, a prefix pool of 8, n-gram K 4) on an MoE config."""
+    from skypilot_tpu_torch.infer import engine as eng
+    return eng.InferenceEngine(
+        params, cfg, n_slots=16, max_len=1024,
+        prompt_buckets=(128, 512, 1024), max_wave=8, kv_block=256,
+        prefill_chunk=512, prefix_pool=8, spec_k=4, device=dev, **kw)
+
+
+def _moe_serve(dev, card: str) -> dict:
+    """(a) Mixtral-8x7B's width at ``MOE_LAYERS`` layers, bf16, random
+    weights drawn on the card: 8 requests (``DRAFT_LENS``, two chunked)
+    of ``MOE_NEW`` tokens through ``InferenceEngine`` after a warm-up
+    pass of 4; launches counted from 0 over the timed pass (K1's decode
+    and ``wgmma`` multi-row bodies and K2 must launch, ``mma.sync``
+    never). Then float32 at ``MOE_FP32_LAYERS`` layers of the same
+    width: the kernel engine's greedy tokens against the plain
+    engine's. Returns the timed pass's launches."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.models import moe
+    cfg = dataclasses.replace(moe.CONFIGS["mixtral-8x7b"],
+                              n_layers=MOE_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = moe.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+    _log(f"models[moe-serve]: mixtral-8x7b width at {MOE_LAYERS} of 32 "
+         f"layers, {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB of "
+         f"bf16 weights; {card}")
+    rng = np.random.default_rng(SEED + 20)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in DRAFT_LENS]
+    e = _moe_engine(params, cfg, dev)
+    e.generate(prompts, max_new_tokens=4)         # first dispatches
+    e.clear_prefix_cache()
+    e.finished.clear()
+    torch.cuda.synchronize(dev)
+    _zero_launches()
+    t0 = time.time()
+    got = e.generate(prompts, max_new_tokens=MOE_NEW)
+    torch.cuda.synchronize(dev)
+    t_end = time.time()
+    launches = _read_launches()
+    reqs = e.finished
+    ttft = [(r.first_token_s - r.submit_s) * 1e3 for r in reqs]
+    decoded = sum(len(r.tokens) - 1 for r in reqs)
+    rate = decoded / (t_end - min(r.first_token_s for r in reqs))
+    if any(len(t) != MOE_NEW for t in got) or not all(
+            0 <= x < cfg.vocab_size for t in got for x in t):
+        raise AssertionError(f"models[moe-serve]: tokens {got}")
+    if not (launches["paged_attention"] > 0
+            and launches["paged_attention_rows"] > 0
+            and launches["flash_attention_fwd"] > 0
+            and not launches["paged_attention_rows_mma"]):
+        raise AssertionError(f"models[moe-serve]: launches {launches}")
+    # One 8-token decode burst over the wave prompts' slots, profiled.
+    for p in prompts:
+        if len(p) <= 512:
+            e.add_request(p, max_new_tokens=64)
+    e.admit()
+    _profile_step(lambda: e.decode_burst(8),
+                  "models[moe-serve profile]: one 8-token decode burst, "
+                  f"{len(e.slot_req)} slots", card)
+    _log(f"models[moe-serve]: {len(prompts)} requests of "
+         f"{min(DRAFT_LENS)}-{max(DRAFT_LENS)} tokens x {MOE_NEW} new in "
+         f"{t_end - t0:.2f} s; TTFT median {_median(ttft):.1f} ms (max "
+         f"{max(ttft):.1f}); decode {rate:.1f} tokens/s; verify rounds "
+         f"{e.verify_calls}, drafted {e._spec_drafted_total}, accepted "
+         f"{e._spec_accepted_total}; launches {launches}; {card}")
+    del e, params
+    _free_card()
+
+    cfg32 = dataclasses.replace(cfg, n_layers=MOE_FP32_LAYERS,
+                                dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = moe.init_params(cfg32, gen, device=dev)
+    runs = {}
+    for plain in (False, True):
+        e = _moe_engine(params, cfg32, dev, plain_attention=plain)
+        _zero_launches()
+        runs[plain] = (e, e.generate(prompts, max_new_tokens=MOE_FP32_NEW),
+                       _read_launches())
+    kernel, want = runs[False][1], runs[True][1]
+    if not (runs[False][2]["paged_attention"] > 0
+            and runs[False][2]["paged_attention_rows_mma"] > 0
+            and runs[False][2]["flash_attention_fwd"] > 0
+            and not any(runs[True][2].values())):
+        raise AssertionError(f"models[moe-serve fp32]: launches kernel "
+                             f"{runs[False][2]}, plain {runs[True][2]}")
+    parts = []
+    for i, (p, g, w) in enumerate(zip(prompts, kernel, want)):
+        step, gap, _ = _divergence(runs[True][0], p, g, w)
+        if step is not None:
+            parts.append((i, step, gap))
+            if gap > 1e-2:
+                raise AssertionError(
+                    f"models[moe-serve fp32]: request {i} parts at step "
+                    f"{step} where the plain top-2 gap is {gap:.3e}")
+    _log(f"models[moe-serve fp32]: {MOE_FP32_LAYERS} layers, "
+         f"{len(prompts)} requests x {MOE_FP32_NEW} new: kernel tokens "
+         f"equal the plain engine's: {not parts} (parted at near-ties "
+         f"(request, step, gap): {parts}); kernel launches "
+         f"{runs[False][2]}; {card}")
+    del runs, params
+    _free_card()
+    return launches
+
+
+def _vit_grad_parity(dev) -> dict:
+    """ViT-S/16 at 2 layers in float32, 8 images: loss and gradients
+    through the kernels (bidirectional, a group of one) against autograd
+    of einsum attention, on the same card and weights."""
+    import torch
+    from skypilot_tpu_torch.models import vit
+    from skypilot_tpu_torch.ops import attention
+    from skypilot_tpu_torch.train import trainer
+    cfg = dataclasses.replace(vit.CONFIGS["vit-s16"], n_layers=2,
+                              dtype=torch.float32)
+    params = vit.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    batch = vit.synthetic_batch(cfg, 8, seed=SEED, device=dev)
+    got = trainer.grads_of(params, batch, cfg, model=vit)
+    want = trainer.grads_of(
+        params, batch, cfg, model=vit,
+        attention=lambda q, k, v: attention.xla_attention(q, k, v,
+                                                          causal=False))
+    rel = max((g - w).abs().max().item() / w.abs().max().item()
+              for g, w in zip(got[2], want[2]) if w.abs().max().item())
+    return {"loss_kernel": got[0].item(), "loss_plain": want[0].item(),
+            "grad_rel": rel}
+
+
+def _vit_train(dev, card: str) -> dict:
+    """(c) ``examples/vit_train.yaml``'s script on the port: ViT-S/16,
+    lr 1e-3, total_steps 500, one repeated batch of 64 images, for
+    ``MODEL_STEPS`` steps (counts from 0: K2 24, K3 12 and K4 12 a step,
+    bidirectional); finite losses that fall."""
+    import torch
+    from skypilot_tpu_torch.models import vit
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import trainer
+    par = _vit_grad_parity(dev)
+    dl = abs(par["loss_kernel"] - par["loss_plain"]) / abs(par["loss_plain"])
+    _log(f"models[vit fp32 parity]: loss kernel {par['loss_kernel']:.7f} "
+         f"plain {par['loss_plain']:.7f} (rel {dl:.2e}); worst grad "
+         f"max|diff|/max|plain| {par['grad_rel']:.2e}")
+    if not dl <= 1e-5 or not par["grad_rel"] <= 1e-4:
+        raise AssertionError(f"ViT fp32 gradient parity failed: {par}")
+    _free_card()
+    cfg = vit.CONFIGS["vit-s16"]
+    tc = trainer.TrainConfig(learning_rate=1e-3, total_steps=500)
+    state = trainer.create_train_state(cfg, tc, dev, model=vit)
+    step = trainer.make_train_step(cfg, tc, model=vit)
+    batch = vit.synthetic_batch(cfg, 64, device=dev)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for f in kernels:
+        f.launches = 0
+    losses, step_ms = [], []
+    for _ in range(MODEL_STEPS):
+        t = time.time()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.time() - t) * 1e3)
+    launches = {f.__name__: f.launches for f in kernels}
+    per_step = {n: c / MODEL_STEPS for n, c in launches.items()}
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"models[vit-train]: losses {losses}")
+    if per_step != {"flash_attention_fwd": 24, "flash_attention_bwd_dkv": 12,
+                    "flash_attention_bwd_dq": 12}:
+        raise AssertionError(f"models[vit-train]: launches per step "
+                             f"{per_step}, expected K2 24, K3 12, K4 12")
+    med = _median(step_ms[1:])
+    _log(f"models[vit-train]: vit-s16 batch 64 x {cfg.n_patches + 1} "
+         f"tokens, "
+         f"{MODEL_STEPS} steps, losses {[round(x, 5) for x in losses]}; "
+         f"median step {med:.1f} ms ({64 / med * 1e3:.0f} images/s, steps "
+         f"2-{MODEL_STEPS}); first step {step_ms[0]:.1f} ms; peak "
+         f"allocated {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+         f"GiB; launches per step {per_step}; {card}")
+    _profile_step(lambda: step(state, batch),
+                  "models[vit-train profile]: vit-s16", card)
+    return launches
+
+
+def _profile_moe_step(dev, card: str) -> None:
+    """One moe-small step of the recipe's shape (batch 4 x 2048) under
+    torch.profiler (``_profile_step``), after a warm-up step."""
+    from skypilot_tpu_torch.models import moe
+    from skypilot_tpu_torch.train import trainer
+    cfg = moe.CONFIGS["moe-small"]
+    tc = trainer.TrainConfig(warmup_steps=1, total_steps=6)
+    state = trainer.create_train_state(cfg, tc, dev, model=moe)
+    step = trainer.make_train_step(cfg, tc, model=moe)
+    batch = trainer.synthetic_batch(cfg, 4, 2048, device=dev)
+    _profile_step(lambda: step(state, batch),
+                  "models[moe-train profile]: moe-small", card)
+
+
+def phase_models(dev, card: str) -> dict:
+    """Returns {path: {kernel: launches}}: MoE serving at Mixtral-8x7B's
+    width (``models[moe-serve]``), the MoE training recipe
+    (``models[moe-train]``) and the ViT recipe (``models[vit-train]``)."""
+    from skypilot_tpu_torch.train import trainer
+    paths = {"models[moe-serve]": _moe_serve(dev, card)}
+    aux = []
+    with _tap(trainer, "grads_of", aux, keep=lambda out: out[1]["aux_loss"]):
+        paths["models[moe-train]"] = _finetune_run(
+            MOE_RECIPE, 4 * 2048, {"flash_attention_fwd": 16,
+                                   "flash_attention_bwd_dkv": 8,
+                                   "flash_attention_bwd_dq": 8},
+            "models[moe-train]", card)
+    aux = [float(a) for a in aux]
+    if len(aux) != MODEL_STEPS or not all(map(math.isfinite, aux)):
+        raise AssertionError(f"models[moe-train]: aux losses {aux}")
+    _log(f"models[moe-train]: aux_loss per step {[round(a, 5) for a in aux]}")
+    _free_card()
+    _profile_moe_step(dev, card)
+    _free_card()
+    paths["models[vit-train]"] = _vit_train(dev, card)
+    _free_card()
+    return paths
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "serve", "handoff", "bench",
                              "qos", "adapters", "draft", "recover",
-                             "observe", "train", "finetune"),
+                             "observe", "train", "finetune", "models"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -5574,6 +5884,7 @@ def main() -> int:
     if train is not None:
         by_path["train"] = train
     by_path.update(run("finetune", phase_finetune) or {})
+    by_path.update(run("models", phase_models) or {})
     _log(f"phase walls (s): {json.dumps(walls)}; build and phases "
          f"{time.time() - t0:.1f} s; {smi}")
 

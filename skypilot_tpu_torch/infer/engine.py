@@ -5,7 +5,10 @@ configuration: paged KV (block table, ref-counted block allocator), wave
 admission grouped by prompt bucket, chunked prefill of long prompts, and
 staged decode bursts whose slots regroup by span rung. Greedy decoding
 is the contract; temperature and top-k sample from the engine's own
-``torch.Generator``.
+``torch.Generator``. A sparse MoE config (``models/moe.py``) is served
+through the same programs, the expert FFN in place of the dense one
+(``kvcache._decode_out_ffn``), as in the reference; ``weights_int8``
+refuses it.
 
 A fixed pool of decode slots advances a burst of tokens per device call
 for every active request, while new requests prefill into free slots
@@ -875,6 +878,9 @@ class InferenceEngine:
         if qweights is not None:
             qweights = _to_device(qweights, self.device)
         elif weights_int8:
+            if hasattr(cfg, "n_experts"):
+                raise NotImplementedError(
+                    "weights_int8 is not supported for MoE configs yet")
             qweights = {"blocks": kvcache.quantize_block_weights(params),
                         "head": kvcache.quantize_head(params, cfg)}
         # w8a8: no float copy of the block matrices or the head stays

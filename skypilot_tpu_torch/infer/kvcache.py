@@ -55,7 +55,7 @@ import torch.nn.functional as F
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.infer import adapters as adapters_lib
 from skypilot_tpu_torch.infer import sampling as sampling_mod
-from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import llama, moe
 from skypilot_tpu_torch.ops import attention as attn_ops
 from skypilot_tpu_torch.ops import flash_attention as flash_ops
 from skypilot_tpu_torch.ops import paged_attention as paged_attn_ops
@@ -782,9 +782,18 @@ def _decode_qkv(cfg, layer, qlayer, x, cos, sin, llayer=None, aid=None):
 
 def _decode_out_ffn(cfg, layer, qlayer, x, o, llayer=None, aid=None):
     """Layer back half: output projection (plus the rows' adapter delta
-    with ``llayer``/``aid``) + residual + dense SwiGLU FFN (w8a8 with
-    ``qlayer``). x: [B, S, D]; o: the attention output, B * S rows of
-    every head."""
+    with ``llayer``/``aid``) + residual + FFN: the dense SwiGLU (w8a8
+    with ``qlayer``), or on an MoE config the expert FFN
+    (``moe.moe_ffn``, its aux loss dropped; the reference's ``_ffn``).
+    x: [B, S, D]; o: the attention output, B * S rows of every head.
+
+    The expert FFN's capacity is per batch row and a function of S, so
+    the grouping is the reference's in every program: a wave's rows at
+    the padded bucket length, a chunk as one row of its C tokens, a
+    burst or verify step as one row of S = 1 per slot (top-k distinct
+    experts always fit there). Padding rows sit after a row's real
+    tokens, and capacity goes in position order, so they never take a
+    real token's slot."""
     dt = cfg.dtype
     o = o.reshape(*x.shape[:2], cfg.n_heads, cfg.head_dim).to(dt)
     y = proj(o, layer, qlayer, "wo", 2, dt)
@@ -792,6 +801,8 @@ def _decode_out_ffn(cfg, layer, qlayer, x, o, llayer=None, aid=None):
         y = y + _lora_out_delta(o, llayer["wo"], aid)
     x = x + y
     h = llama.rms_norm(x, layer["ln2"], cfg.norm_eps)
+    if hasattr(cfg, "n_experts"):
+        return x + moe.moe_ffn(cfg, h, layer)[0]
     g = proj(h, layer, qlayer, "w_gate", 1, dt)
     u = proj(h, layer, qlayer, "w_up", 1, dt)
     return x + proj(F.silu(g) * u, layer, qlayer, "w_down", 1, dt)

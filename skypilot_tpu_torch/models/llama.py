@@ -258,15 +258,16 @@ def logits(x: torch.Tensor, params: Params,
     return x.float() @ head.float()
 
 
-def decoder_layer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
-                  cos: torch.Tensor, sin: torch.Tensor,
-                  attention: Optional[Callable] = None,
-                  segment_ids: Optional[torch.Tensor] = None):
-    """One pre-norm decoder block. x: [B, S, D] -> (x', k, v), with the
-    layer's post-rope k and v rows [B, S, Hkv, hd] (what prefill
-    caches). ``attention(q, k, v)`` defaults to causal grouped-query
-    attention through the flash kernels; with ``segment_ids`` [B, S] it
-    is called with ``segment_ids=`` as well (packed documents)."""
+def attention_block(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
+                    cos: torch.Tensor, sin: torch.Tensor,
+                    attention: Optional[Callable] = None,
+                    segment_ids: Optional[torch.Tensor] = None):
+    """A block's attention half: x + wo(attention(rope(q), rope(k), v)).
+    Returns (x', k, v) with the post-rope k and v rows [B, S, Hkv, hd].
+    ``attention(q, k, v)`` defaults to causal grouped-query attention
+    through the flash kernels; with ``segment_ids`` [B, S] it is called
+    with ``segment_ids=`` as well (packed documents). The llama and MoE
+    blocks share it."""
     if attention is None:
         attention = attn_ops.gqa_attention
     dt = cfg.dtype
@@ -278,9 +279,21 @@ def decoder_layer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
         o = attention(q, k, v)
     else:
         o = attention(q, k, v, segment_ids=segment_ids)
-    x = x + project_out(o, layer["wo"].to(dt))
+    return x + project_out(o, layer["wo"].to(dt)), k, v
+
+
+def decoder_layer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
+                  cos: torch.Tensor, sin: torch.Tensor,
+                  attention: Optional[Callable] = None,
+                  segment_ids: Optional[torch.Tensor] = None):
+    """One pre-norm decoder block. x: [B, S, D] -> (x', k, v), with the
+    layer's post-rope k and v rows [B, S, Hkv, hd] (what prefill
+    caches); ``attention`` and ``segment_ids`` as in
+    :func:`attention_block`."""
+    x, k, v = attention_block(cfg, x, layer, cos, sin, attention,
+                              segment_ids)
     h = rms_norm(x, layer["ln2"], cfg.norm_eps)
-    return x + ffn(h, layer, dt), k, v
+    return x + ffn(h, layer, cfg.dtype), k, v
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

@@ -1,8 +1,10 @@
 """Evaluation: loss / perplexity / accuracy over a batch stream.
 
-``python -m skypilot_tpu_torch.train.evaluate --ckpt-dir ... [--packed]``
-restores the latest checkpoint's parameters and prints one JSON line of
-aggregate metrics. Counterpart of ``skypilot_tpu/train/evaluate.py``.
+``python -m skypilot_tpu_torch.train.evaluate [--model llama|moe]
+--ckpt-dir ... [--packed]`` restores the latest checkpoint's parameters
+and prints one JSON line of aggregate metrics. Counterpart of
+``skypilot_tpu/train/evaluate.py``; ``--config`` defaults to
+llama3-400m, or moe-small with ``--model moe``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ def evaluate(loss_fn: Callable, params,
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     ap = argparse.ArgumentParser(
         prog="python -m skypilot_tpu_torch.train.evaluate")
-    ap.add_argument("--config", default="llama3-400m")
+    ap.add_argument("--model", default="llama", choices=("llama", "moe"))
+    ap.add_argument("--config", default=None)
     ap.add_argument("--ckpt-dir", default=None,
                     help="restore params from the latest checkpoint")
     ap.add_argument("--batches", type=int, default=8)
@@ -61,11 +64,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
 
     from skypilot_tpu_torch import resolve_device
     from skypilot_tpu_torch.data import input_pipeline as ip
-    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import llama, moe
     from skypilot_tpu_torch.train import checkpoints, trainer
 
     device = resolve_device(args.device)
-    cfg = llama.CONFIGS[args.config]
+    model, default_cfg = ((moe, "moe-small") if args.model == "moe"
+                          else (llama, "llama3-400m"))
+    cfg = model.CONFIGS[args.config or default_cfg]
     args.seq = min(args.seq, cfg.max_seq_len)
     if args.ckpt_dir:
         with checkpoints.CheckpointManager(args.ckpt_dir) as mgr:
@@ -73,7 +78,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
             print(f"restored step {mgr.latest_step()}", file=sys.stderr)
     else:
         params = trainer.create_train_state(
-            cfg, trainer.TrainConfig(), device)["params"]
+            cfg, trainer.TrainConfig(), device, model=model)["params"]
 
     if args.packed:
         docs = ip.synthetic_doc_stream(
@@ -87,7 +92,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                                            seed=i, device=device)
                    for i in range(args.batches))
 
-    out = evaluate(lambda p, b: llama.loss_fn(p, b, cfg), params, batches)
+    out = evaluate(lambda p, b: model.loss_fn(p, b, cfg), params, batches)
     print(json.dumps(out))
     return out
 

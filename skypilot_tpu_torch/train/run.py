@@ -1,10 +1,15 @@
 """Training entry point: ``python -m skypilot_tpu_torch.train.run``.
 
-Counterpart of ``skypilot_tpu/train/run.py`` for dense Llama on one
-card. Examples::
+Counterpart of ``skypilot_tpu/train/run.py`` for dense Llama and the
+sparse MoE decoder (``--model moe``, default config ``moe-small``) on
+one card. Examples::
 
     # llama3-1b, full width and depth, on the card
     python -m skypilot_tpu_torch.train.run --config llama3-1b --steps 100
+
+    # moe-small (the reference's llm/moe-train.yaml line, without --ep)
+    python -m skypilot_tpu_torch.train.run --model moe --config moe-small \
+        --steps 500 --seq 2048
 
     # tiny, on the CPU (the plain kernel versions), with checkpoints
     python -m skypilot_tpu_torch.train.run --device cpu \\
@@ -17,8 +22,9 @@ checkpoint every ``--ckpt-every`` steps, and a forced final save that
 is waited for. Per-step logs go to stderr; the last stdout line is one
 JSON object with ``final_loss``, ``steps``, ``wall_s``,
 ``tokens_per_sec``, ``tokens_per_sec_per_chip``, ``goodput`` and
-``mesh`` (``{}``: one card, no mesh). Not in this slice: MoE and
-pipeline models and the mesh flags.
+``mesh`` (``{}``: one card, no mesh). Not ported: ``--model pipeline``
+(refused with a message) and the mesh flags (``--dp``, ``--tp``,
+``--sp``, ``--ep``, ``--pp``, ``--zigzag``).
 
 Fine-tuning, the reference's branches: ``--lora RANK`` trains rank-RANK
 adapters over a frozen float base drawn from seed 1
@@ -92,8 +98,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     between logging syncs), the goodput ledger's ``train_step``
     ``records`` and its final ``snapshot`` added."""
     ap = argparse.ArgumentParser(prog="python -m skypilot_tpu_torch.train.run")
-    ap.add_argument("--model", default="llama", choices=("llama",))
-    ap.add_argument("--config", default="llama3-400m")
+    ap.add_argument("--model", default="llama",
+                    choices=("llama", "moe", "pipeline"))
+    ap.add_argument("--config", default=None,
+                    help="llama3-400m (llama) or moe-small (moe) by default")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
@@ -120,11 +128,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain versions)")
     args = ap.parse_args(argv)
-    # The reference's argument errors, in its order (its "--model llama
-    # only" ones cannot fire: llama is the port's one model).
+    if args.model == "pipeline":
+        ap.error("--model pipeline is not ported yet: pipeline "
+                 "parallelism (parallel/pipeline.py) is still to come")
+    # The reference's argument errors, in its order.
+    if args.lora and args.model != "llama":
+        ap.error("--lora currently supports --model llama only")
     if args.lora < 0:
         ap.error("--lora rank must be positive")
     if args.qlora:
+        if args.model != "llama":
+            ap.error("--qlora currently supports --model llama only")
         if args.lora:
             ap.error("--lora and --qlora are mutually exclusive")
         if args.qlora < 0:
@@ -132,13 +146,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
     import skypilot_tpu_torch.callbacks as sky_callback
     from skypilot_tpu_torch.data import input_pipeline as ip
-    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import llama, moe
     from skypilot_tpu_torch.observability import attribution, flight
     from skypilot_tpu_torch.observability import goodput as goodput_lib
     from skypilot_tpu_torch.train import checkpoints, trainer
 
     device = resolve_device(args.device)
-    cfg = llama.CONFIGS[args.config]
+    model, default_cfg = ((moe, "moe-small") if args.model == "moe"
+                          else (llama, "llama3-400m"))
+    args.config = args.config or default_cfg
+    cfg = model.CONFIGS[args.config]
     if args.xent_chunk is not None:
         cfg = dataclasses.replace(cfg, xent_chunk=args.xent_chunk)
     args.seq = min(args.seq, cfg.max_seq_len)
@@ -208,12 +225,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             raw_step = lora.make_lora_train_step(cfg, lc, tc)
             step_fn = lambda s, b: raw_step(s, base_params, b)
     else:
-        step_fn = trainer.make_train_step(cfg, tc, watch=watch)
+        step_fn = trainer.make_train_step(cfg, tc, watch=watch, model=model)
         if resume:
             state = restore()
         else:
             with gp.account("warmup_compile"):
-                state = trainer.create_train_state(cfg, tc, device)
+                state = trainer.create_train_state(cfg, tc, device,
+                                                   model=model)
     start_step = int(state["step"])
 
     batches = None

@@ -86,7 +86,8 @@ def observe_loss(loss: float) -> None:
 
 
 def batch_tokens(batch) -> int:
-    """Tokens in a batch (the ``tokens`` tensor's size; 0 without one)."""
+    """Tokens in a batch: the ``tokens`` tensor's size, and 0 without one
+    (an image batch ``{"images", "labels"}``), as the reference counts."""
     tokens = batch.get("tokens") if hasattr(batch, "get") else None
     return int(tokens.numel()) if isinstance(tokens, torch.Tensor) else 0
 
@@ -251,26 +252,28 @@ def make_optimizer(tc: TrainConfig):
 
 
 def create_train_state(cfg: llama.LlamaConfig, tc: TrainConfig,
-                       device: DeviceLike = None,
-                       seed: int = 0) -> TrainState:
-    """Random ``cfg.param_dtype`` parameters from ``seed`` (drawn on
-    ``device``), zero Adam moments, step 0."""
+                       device: DeviceLike = None, seed: int = 0,
+                       model=llama) -> TrainState:
+    """Random ``cfg.param_dtype`` parameters of ``model`` (the module:
+    ``models.llama``, ``models.moe`` or ``models.vit``) from ``seed``
+    (drawn on ``device``), zero Adam moments, step 0."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = llama.init_params(cfg, gen, device=device)
+    params = model.init_params(cfg, gen, device=device)
     return {"params": params, "opt_state": init_opt_state(params, tc),
             "step": 0}
 
 
 def train_state_from_numpy(jax_state: Dict[str, Any],
                            cfg: llama.LlamaConfig,
-                           device: DeviceLike = None) -> TrainState:
+                           device: DeviceLike = None,
+                           model=llama) -> TrainState:
     """A JAX train state with its leaves as numpy (``jax.tree.map(
     np.asarray, state)``) -> the port's. The optax chain's state is
     searched for its Adam entry (the one with ``count``, ``mu`` and
     ``nu``); mu keeps its dtype (bf16 under ``mu_dtype="bfloat16"``)."""
     device = resolve_device(device)
-    return {"params": llama.params_from_numpy(jax_state["params"], cfg,
+    return {"params": model.params_from_numpy(jax_state["params"], cfg,
                                               device=device),
             "opt_state": opt_state_from_numpy(jax_state["opt_state"],
                                               device),
@@ -352,10 +355,11 @@ def value_and_grads(params, loss_fn: Callable):
 
 
 def grads_of(params, batch: Dict[str, torch.Tensor], cfg: llama.LlamaConfig,
-             attention: Optional[Callable] = None):
-    """(loss, metrics, grads): grads lists one tensor per entry of
-    ``_layer_leaves(params)``, a stacked tensor's gradient per layer."""
-    return value_and_grads(params, lambda p: llama.loss_fn(
+             attention: Optional[Callable] = None, model=llama):
+    """(loss, metrics, grads) of ``model.loss_fn``: grads lists one
+    tensor per entry of ``_layer_leaves(params)``, a stacked tensor's
+    gradient per layer."""
+    return value_and_grads(params, lambda p: model.loss_fn(
         p, batch, cfg, attention=attention))
 
 
@@ -376,11 +380,12 @@ def _batch_key_fn(args: tuple, kwargs: dict):
 
 
 def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig,
-                    watch=None) -> Callable:
-    """step(state, batch) -> (state, metrics). The step UPDATES
+                    watch=None, model=llama) -> Callable:
+    """step(state, batch) -> (state, metrics) of ``model``'s loss
+    (``models.llama``, ``models.moe`` or ``models.vit``). The step UPDATES
     ``state`` IN PLACE (parameters, moments, count and step) and
-    returns the same dict; metrics are 0-dim tensors ("loss",
-    "accuracy", "tokens", "grad_norm" before clipping).
+    returns the same dict; metrics are 0-dim tensors (the loss's own,
+    e.g. "loss", "accuracy", "tokens", and "grad_norm" before clipping).
 
     The step is instrumented (the ``skytpu_train_*`` families and the
     ``train.step`` span, never a device fetch). ``watch`` is an
@@ -391,7 +396,8 @@ def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig,
     update = make_optimizer(tc)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        _, metrics, grads = grads_of(state["params"], batch, cfg)
+        _, metrics, grads = grads_of(state["params"], batch, cfg,
+                                     model=model)
         metrics["grad_norm"] = update(grads, state["opt_state"],
                                       state["params"])
         state["step"] += 1

@@ -67,3 +67,29 @@ def test_the_adapter_catalog_is_covered():
         assert f"import {name}" not in src and f".{name} import" not in src
     assert "from skypilot_tpu_torch import DeviceLike, chaos," in src
     assert "skypilot_tpu.chaos" not in src
+
+
+def test_the_model_families_are_covered():
+    """``models/moe.py`` and ``models/vit.py`` are among the modules
+    imported with jax absent and walked for their imports above."""
+    for name in ("moe", "vit"):
+        assert f"skypilot_tpu_torch.models.{name}" in MODULES
+        assert PKG / "models" / f"{name}.py" in set(PKG.rglob("*.py"))
+
+
+# The entry points (each has a ``main``) and the constructors that take
+# a device: each resolves it through ``resolve_device`` (the card unless
+# the caller asks for the CPU, an error without one) and names no
+# device of its own.
+DEVICE_TAKERS = ("train/run.py", "train/evaluate.py", "infer/server.py",
+                 "infer/bench_serve.py", "models/llama.py", "models/moe.py",
+                 "models/vit.py", "train/trainer.py", "infer/engine.py")
+
+
+@pytest.mark.parametrize("rel", DEVICE_TAKERS)
+def test_entry_points_resolve_their_device(rel):
+    src = (PKG / rel).read_text()
+    assert "resolve_device(" in src
+    for literal in ('torch.device("cuda"', "torch.device('cuda'",
+                    'device="cuda"', "device='cuda'"):
+        assert literal not in src, f"{rel}: {literal}"

@@ -60,16 +60,17 @@ def _flash_inputs(dev, dtype, S, segments, D=128, hkv=2, seed=0):
 
 
 # Shapes the tensor-core bodies must cover besides the main path's:
-# sequences shorter than a tile and not a multiple of one, every head
-# dim, GQA groups of 1, 2 and 4 (4 q-heads over 4, 2 or 1 kv-heads), and
-# attention without the causal mask.
+# sequences shorter than a tile and not a multiple of one (197: ViT's
+# 196 patches and the class token), every head dim, GQA groups of 1, 2
+# and 4 (4 q-heads over 4, 2 or 1 kv-heads), and attention without the
+# causal mask at groups of 2 and of 1 (ViT's).
 _DIMS = pytest.mark.parametrize("D", [32, 64, 128])
-_SEQS = pytest.mark.parametrize("S", [1, 16, 128, 200, 512, 1000])
+_SEQS = pytest.mark.parametrize("S", [1, 16, 128, 197, 200, 512, 1000])
 _DTYPES = pytest.mark.parametrize("dtype,segments", [
     (torch.bfloat16, False), (torch.bfloat16, True),
     (torch.float32, False), (torch.float32, True)])
 _VARIANTS = pytest.mark.parametrize("hkv,causal", [
-    (2, True), (4, True), (1, True), (2, False)])
+    (2, True), (4, True), (1, True), (2, False), (4, False)])
 
 
 @pytest.mark.gpu
@@ -811,6 +812,42 @@ def test_engine_kernel_path_matches_plain_path_on_card():
         ran = (tfa.flash_attention_fwd.launches > f0,
                tpa.paged_attention.launches > p0)
         assert ran == ((False, False) if plain else (True, True))
+    assert out[False] == out[True]
+
+
+@pytest.mark.gpu
+def test_moe_engine_kernel_path_matches_plain_path_on_card():
+    """moe-tiny in float32 on the card (capacity 1.25, so tokens drop):
+    the kernel engine's greedy tokens equal the plain-attention engine's
+    over waves, chunks of 128 (256 query rows a kv-head: K1's multi-row
+    body) and n-gram verify rounds, with the trash block filled with
+    100.0 (a read past a slot's rows shows at once); K1's decode and
+    ``mma.sync`` multi-row bodies and K2 ran."""
+    import dataclasses
+    from skypilot_tpu_torch.models import moe as tm
+    dev = _cuda()
+    cfg = dataclasses.replace(tm.CONFIGS["moe-tiny"], dtype=torch.float32)
+    params = tm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (5, 11, 3, 20, 30, 9, 200, 300)]
+    prompts.append(prompts[0] + [7, 8, 9] + prompts[0])
+    out = {}
+    for plain in (False, True):
+        e = te.InferenceEngine(params, cfg, n_slots=4, max_len=512,
+                               prompt_buckets=(32, 128, 512), kv_block=16,
+                               prefill_chunk=128, spec_k=4, max_wave=2,
+                               device=dev, plain_attention=plain)
+        _fill_trash(e)
+        before = (tfa.flash_attention_fwd.launches,
+                  tpa.paged_attention.launches,
+                  tpa.paged_attention_rows.mma_launches)
+        out[plain] = e.generate(prompts, max_new_tokens=10)
+        ran = (tfa.flash_attention_fwd.launches > before[0],
+               tpa.paged_attention.launches > before[1],
+               tpa.paged_attention_rows.mma_launches > before[2])
+        assert ran == ((False,) * 3 if plain else (True,) * 3)
     assert out[False] == out[True]
 
 
