@@ -333,13 +333,34 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    ``examples/vit_train.yaml``'s script: ViT-S/16, lr 1e-3,
    total_steps 500, one repeated batch of 64 images, 6 steps: finite
    losses that fall, K2 24, K3 12 and K4 12 launches a step.
+15. Contig: the contiguous KV layout (``kv_block`` 0), launch counts set
+   to 0 before each leg and read after it. (a) The HTTP server through
+   ``make_engine`` at llama3-8b full width and depth, bf16, with the
+   reference server's defaults (16 slots, max_len 1024, chunks of 512, a
+   prefix pool of 8, n-gram K 4) and ``kv_block=0``: the serve phase's 9
+   requests and its shared-prefix pair (the warm one a 512-token hit
+   copied from its pool row), every check of the serve leg but that
+   K2 alone launches (the big-cache reads are the gather, K1 never
+   launches); TTFT median and max, the decode rate, peak memory and the
+   contiguous KV's bytes (128 KiB a row). (b) Float32 at
+   ``CONTIG_FP32_LAYERS`` (2) layers of llama3-8b's width: the
+   contiguous engine against the paged one (K1) on a wave prompt, a
+   chunked prompt and the prefix pair (warm hit), spec K 4 on and off,
+   and on int8 KV pools; ``step()`` against the burst path; tokens agree
+   wherever the plain top-2 gap exceeds 1e-2. (c) The bench's
+   ``run_occupancy`` at its card size (llama3-400m, max_len 4096, 8
+   contiguous slots against 64 paged at equal KV bytes),
+   ``run_span_smoke`` and ``run_kernel_smoke``, in float32: each report
+   line; where tokens part, the plain top-2 gap there is at most the
+   larger of 1e-2 and twice the gather's own shift from the plain
+   logits on that context (the gather rounds its weights to bf16).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``; the line before them gives each
 phase's wall. ``--phase kernels``, ``serve``, ``handoff``, ``bench``,
 ``qos``, ``adapters``, ``draft``, ``recover``, ``observe``, ``train``,
-``finetune`` or ``models`` runs one of phases 3-14 alone (the build
-always runs).
+``finetune``, ``models`` or ``contig`` runs one of phases 3-15 alone
+(the build always runs).
 """
 
 from __future__ import annotations
@@ -1432,8 +1453,9 @@ def _serve_leg(engine, tag: str, card: str, chunk: int,
     of the path launched, at least one verify round, the wgmma multi-row
     body once a layer per chunk not skipped by a prefix hit and the
     mma.sync one never, the trailers' chunk counts, every request's
-    budget. Returns the batch's launches, results, wall time, TTFTs and
-    decode rate, and the pair's."""
+    budget. On a contiguous engine the path is K2 alone: K2 must launch
+    and no body of K1 may. Returns the batch's launches, results, wall
+    time, TTFTs and decode rate, and the pair's."""
     from skypilot_tpu_torch.infer import server as srv
     cfg = engine.cfg
     bodies, prompts, twins = _batch_bodies(chunk)
@@ -1491,7 +1513,11 @@ def _serve_leg(engine, tag: str, card: str, chunk: int,
          f"{launches} (K1 merges a slot's chunks inside its own launch: "
          f"no merge kernel, 0 merge launches)")
     for name, n in launches.items():
-        if n <= 0:
+        if not engine.paged and name != "flash_attention_fwd":
+            if n or mma_launches:
+                raise AssertionError(f"{tag}: K1 ({name}) launched {n} "
+                                     f"times on a contiguous engine")
+        elif n <= 0:
             raise AssertionError(f"{tag}: kernel {name} never launched on "
                                  f"the main path")
     _log(f"{_sub(tag, 'spec')}: {spec[2]} verify calls (K+1 = 5 "
@@ -1512,7 +1538,7 @@ def _serve_leg(engine, tag: str, card: str, chunk: int,
     want_chunks = [-(-(len(b["tokens"]) - c) // chunk)
                    if len(b["tokens"]) > chunk else 0
                    for b, c in zip(bodies, cached)]
-    want_rows = sum(want_chunks) * cfg.n_layers
+    want_rows = sum(want_chunks) * cfg.n_layers if engine.paged else 0
     chunked = [len(b["tokens"]) for b, c in zip(bodies, want_chunks) if c]
     _log(f"{tag}: chunked prompts {chunked} ({sum(want_chunks)} chunks; "
          f"cached tokens {cached}): multi-row launches "
@@ -2087,7 +2113,8 @@ def _prefix_pair(model, engine, url, cfg, chunk, tag: str) -> dict:
     then the second again after clear_prefix_cache(): the first reports
     no hit and 2 chunks, the second a 512-token hit and 1 chunk whose
     multi-row launches (32) read the first's shared blocks from start
-    512, and the rerun no hit again."""
+    512 (a contiguous engine: its pool row, through the gather, with no
+    multi-row launch), and the rerun no hit again."""
     from skypilot_tpu_torch.ops import paged_attention as pa
     # One request at a time: the server's default admission window
     # (12 ms), not the batch's 0.5 s, so TTFT is the prefill's.
@@ -2112,12 +2139,13 @@ def _prefix_pair(model, engine, url, cfg, chunk, tag: str) -> dict:
              f"{got[2]}, multi-row launches {rows}, TTFT {r['ttft_ms']} "
              f"ms, spec drafted {r['spec_drafted']} accepted "
              f"{r['spec_accepted']}")
-        if got != want or rows != want[2] * cfg.n_layers \
+        want_rows = want[2] * cfg.n_layers if engine.paged else 0
+        if got != want or rows != want_rows \
                 or engine.prefix_hits - hits != int(want[0]):
             raise AssertionError(
                 f"{tag} prefix pair, {label}: (cache_hit, cached_tokens, "
                 f"prefill_chunks) {got}, expected {want}; multi-row "
-                f"launches {rows}, expected {want[2] * cfg.n_layers}")
+                f"launches {rows}, expected {want_rows}")
         out[label] = r["tokens"]
         out[f"{label}_ttft"] = r["ttft_ms"]
     out["prompt"] = warm_p
@@ -5780,12 +5808,252 @@ def phase_models(dev, card: str) -> dict:
     _free_card()
     return paths
 
+# Depth of the contiguous phase's float32 parity leg at llama3-8b width.
+CONTIG_FP32_LAYERS = 2
+CONTIG_NEW = 32
+
+
+@contextlib.contextmanager
+def _fp32_config(*names: str):
+    """For the block, ``llama.CONFIGS[name]`` in float32 for each name
+    (the bench's sections build their configs by name)."""
+    import torch
+    from skypilot_tpu_torch.models import llama
+    full = {n: llama.CONFIGS[n] for n in names}
+    for n, c in full.items():
+        llama.CONFIGS[n] = dataclasses.replace(c, dtype=torch.float32)
+    try:
+        yield
+    finally:
+        llama.CONFIGS.update(full)
+
+
+def _kv_gib(tree) -> float:
+    return sum(t.numel() * t.element_size()
+               for t in (tree or {}).values()) / 2**30
+
+
+def _contig_serve(dev, card: str) -> dict:
+    """(a) llama3-8b at full width and depth, bf16, through the server's
+    ``make_engine`` with the reference server's defaults and
+    ``kv_block=0``: the serve phase's 9 requests and its shared-prefix
+    pair (:func:`_serve_leg`, launch counts from 0: K2 must launch and K1
+    never). Prints TTFT, decode rate, peak memory and the contiguous KV's
+    bytes. Returns the batch's launches."""
+    import torch
+    from skypilot_tpu_torch.infer import server as srv
+    chunk = 512
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    engine = srv.make_engine("llama3-8b", slots=16, max_len=1024,
+                             admit_wave=len(_batch_bodies(chunk)[0]),
+                             kv_block=0, prefill_chunk=chunk,
+                             prefix_pool=8, spec_k=4, device=dev, seed=SEED)
+    cfg = engine.cfg
+    if engine.paged or engine.pool is None:
+        raise AssertionError("contig: make_engine(kv_block=0) built a "
+                             "paged engine")
+    row_kib = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+               * engine.cache["k"].element_size() / 1024)
+    _log(f"contig: llama3-8b {cfg.n_layers} layers, bf16, contiguous KV "
+         f"{row_kib:.0f} KiB a row: cache {_kv_gib(engine.cache):.3f} GiB "
+         f"({engine.n_slots} slots + the trash slot of {engine.max_len} "
+         f"rows), prefix pool {_kv_gib(engine.pool):.3f} GiB "
+         f"({engine.prefix_pool} rows); built in {time.time() - t0:.1f} s")
+    leg = _serve_leg(engine, "contig[bf16]", card, chunk)
+    ttft = leg["ttft"]
+    _log(f"contig: TTFT median {ttft[len(ttft) // 2]:.1f} ms, max "
+         f"{ttft[-1]:.1f} ms; decode {leg['tps']:.1f} tokens/s over "
+         f"{len(ttft)} requests; peak allocated "
+         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+         f"launches {leg['launches']}; {card}")
+    del engine
+    _free_card()
+    return leg["launches"]
+
+
+def _contig_fp32(dev, card: str) -> None:
+    """(b) llama3-8b's width at ``CONTIG_FP32_LAYERS`` layers in float32:
+    the contiguous engine (the gather) against the paged one (K1) with
+    the serve defaults, on a wave prompt, a chunked prompt and the
+    shared-prefix pair (the second a warm 512-token hit), spec K 4 on and
+    off: greedy tokens agree wherever the plain top-2 gap exceeds 1e-2,
+    and K1 never launches on the contiguous engine. On the contiguous
+    engine, ``step()`` gives the burst path's tokens. Then the same
+    pair of layouts on int8 KV pools."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as eng
+    from skypilot_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"],
+                              n_layers=CONTIG_FP32_LAYERS,
+                              dtype=torch.float32)
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    rng = np.random.default_rng(SEED + 30)
+    cold, warm = _pair_prompts(cfg, 512)
+    first = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (300, 700)]
+    first.append(cold)
+    kw = dict(n_slots=16, max_len=1024, prompt_buckets=(128, 512, 1024),
+              max_wave=8, prefill_chunk=512, prefix_pool=8, device=dev)
+
+    def run(e):
+        out = e.generate(first, max_new_tokens=CONTIG_NEW)
+        out += e.generate([warm], max_new_tokens=CONTIG_NEW)
+        return out
+
+    for kv_int8 in (False, True):
+        ref = eng.InferenceEngine(params, cfg, kv_block=256,
+                                  plain_attention=True, kv_int8=kv_int8,
+                                  **kw)
+        for spec_k in ((0, 4) if not kv_int8 else (4,)):
+            leg = (f"contig[fp32{', int8 KV' if kv_int8 else ''}, "
+                   f"spec K {spec_k}]")
+            paged = eng.InferenceEngine(params, cfg, kv_block=256,
+                                        spec_k=spec_k, kv_int8=kv_int8, **kw)
+            want = run(paged)
+            del paged
+            contig = eng.InferenceEngine(params, cfg, kv_block=0,
+                                         spec_k=spec_k, kv_int8=kv_int8,
+                                         **kw)
+            _zero_launches()
+            got = run(contig)
+            launches = _read_launches()
+            hit = contig.finished[-1]
+            if hit.cached_len != 512 or launches["flash_attention_fwd"] <= 0 \
+                    or any(n for k, n in launches.items()
+                           if k != "flash_attention_fwd"):
+                raise AssertionError(f"{leg}: warm cached_len "
+                                     f"{hit.cached_len} (expected 512), "
+                                     f"launches {launches}")
+            for i, (p, g, w) in enumerate(zip(first + [warm], got, want)):
+                _agree(ref, p, g, w, f"prompt {i} ({len(p)} tokens)",
+                       "paged (K1) and contiguous (gather) engines", leg=leg)
+            if spec_k == 0:
+                for p in first[:2]:
+                    contig.add_request(p, max_new_tokens=CONTIG_NEW)
+                while contig.waiting or contig.chunking or contig.slot_req:
+                    contig.step()
+                stepped = [r.tokens for r in sorted(
+                    contig.finished, key=lambda r: r.rid)[-2:]]
+                keys = [k for k in contig.compile_watch.summary()
+                        if k.startswith("decode1")]
+                if not keys:
+                    raise AssertionError(f"{leg}: step() dispatched no "
+                                         f"decode1 program")
+                for p, g, w in zip(first, stepped, got):
+                    _agree(ref, p, g, w, f"{len(p)}-token prompt",
+                           "step() and step_burst()", leg=leg)
+            del contig
+            _free_card()
+        del ref
+    del params
+    _free_card()
+    _log(f"contig[fp32]: {CONTIG_FP32_LAYERS} layers at llama3-8b width; "
+         f"{card}")
+
+
+def _gaps(params, cfg, dev, prompts, got, want, leg: str) -> list:
+    """Requests whose greedy tokens ``got`` (paged, K1) and ``want``
+    (contiguous, the gather) part, as (request, step, the plain
+    prefill's top-2 gap there, the bound). The gather rounds its softmax
+    weights to bf16 (the reference's read), so the bound is the larger
+    of 1e-2 and twice the gather's own shift from the plain logits on
+    that context (one step of a one-slot contiguous cache over the
+    context); raises where a gap exceeds it."""
+    import torch
+    from skypilot_tpu_torch.infer import kvcache
+    parts = []
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        t = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if t is None:
+            continue
+        ctx = list(p) + list(w[:t])
+        n = len(ctx) - 1
+        _, logits = kvcache.prefill_batch(
+            params, torch.tensor([ctx], device=dev),
+            torch.tensor([len(ctx)], device=dev), cfg, plain_attention=True)
+        cache = kvcache.init_cache(cfg, 1, len(ctx), device=dev)
+        prefix, _ = kvcache.prefill_batch(
+            params, torch.tensor([ctx[:-1]], device=dev),
+            torch.tensor([n], device=dev), cfg, plain_attention=True)
+        kvcache.insert(cache, {k: prefix[k][:, 0] for k in ("k", "v")}, 0,
+                       n, ctx[-1])
+        gather = kvcache.step_logits(params, cache, cfg, None)
+        bound = max(1e-2, 2 * (gather - logits).abs().max().item())
+        top = logits[0].float().topk(2).values
+        gap = (top[0] - top[1]).item()
+        parts.append((i, t, round(gap, 6), round(bound, 6)))
+        if gap > bound:
+            raise AssertionError(f"{leg}: request {i} parts at step {t} "
+                                 f"where the plain top-2 gap is {gap:.4f} "
+                                 f"> {bound:.4f}")
+    return parts
+
+
+def _contig_bench(dev, card: str) -> dict:
+    """(c) The bench's sections of the contiguous layout on the card, in
+    float32 (their configs by name): ``run_occupancy`` at its card size
+    (llama3-400m, max_len 4096, 8 contiguous slots against 64 paged at
+    equal KV bytes), ``run_span_smoke`` and ``run_kernel_smoke`` (the
+    400m at their CI sizes); each report line, the parity of each held
+    to the gap rule of :func:`_gaps` on the seed-0 weights. Returns the
+    occupancy run's launches."""
+    from skypilot_tpu_torch.infer import bench_serve as bs
+    from skypilot_tpu_torch.models import llama
+    out = {}
+    with _fp32_config("llama3-400m", "llama3-tiny"):
+        for name, fn in (("occupancy", bs.run_occupancy),
+                         ("span", bs.run_span_smoke),
+                         ("kernel", bs.run_kernel_smoke)):
+            toks = {}
+            _zero_launches()
+            t = time.time()
+            r = fn(device=dev, tokens_out=toks)
+            wall = time.time() - t
+            launches = _read_launches()
+            cfg = llama.CONFIGS[r["config"]]
+            params, _ = bs._random_weights(cfg, False, dev)
+            parts = _gaps(params, cfg, dev, *toks["parity"],
+                          f"contig[{name}]")
+            del params
+            _log(f"contig[{name}]: {json.dumps(r)}; parted at near-ties "
+                 f"(request, step, gap, bound): {parts}; wall {wall:.1f} s; "
+                 f"launches {launches}; {card}")
+            if name == "occupancy" and not (
+                    r["same_hbm"] and r["occupancy_x"] >= 4
+                    and r["leak_free"]):
+                raise AssertionError(f"contig[occupancy]: {r}")
+            if name == "span" and not r["rows_span"] < r["rows_full"]:
+                raise AssertionError(f"contig[span]: {r}")
+            if name == "kernel" and not r["kernel_programs_ok"]:
+                raise AssertionError(f"contig[kernel]: {r}")
+            if launches["paged_attention"] <= 0:
+                raise AssertionError(f"contig[{name}]: K1 never launched "
+                                     f"on the paged engine")
+            out[name] = launches
+            _free_card()
+    return out["occupancy"]
+
+
+def phase_contig(dev, card: str) -> dict:
+    """Returns {path: {kernel: launches}}: the contiguous engine at
+    llama3-8b (``contig``: K2 alone) and the occupancy bench's paged and
+    contiguous engines (``contig[occupancy]``)."""
+    paths = {"contig": dict(_contig_serve(dev, card),
+                            paged_attention_rows_mma=0)}
+    _contig_fp32(dev, card)
+    paths["contig[occupancy]"] = _contig_bench(dev, card)
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "serve", "handoff", "bench",
                              "qos", "adapters", "draft", "recover",
-                             "observe", "train", "finetune", "models"),
+                             "observe", "train", "finetune", "models",
+                             "contig"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -5885,6 +6153,7 @@ def main() -> int:
         by_path["train"] = train
     by_path.update(run("finetune", phase_finetune) or {})
     by_path.update(run("models", phase_models) or {})
+    by_path.update(run("contig", phase_contig) or {})
     _log(f"phase walls (s): {json.dumps(walls)}; build and phases "
          f"{time.time() - t0:.1f} s; {smi}")
 

@@ -5,7 +5,10 @@ HTTP, prefix-share, QoS (``run_qos``: WFQ fairness against FIFO,
 preemption parity), adapter (``run_adapters``: mixed-adapter decode
 TPOT against one adapter, greedy parity, hot-load churn) and
 speculative-decoding (``run_spec``: the model drafter pipelined and
-synchronous, n-gram and oracle columns) sections, with
+synchronous, n-gram and oracle columns), occupancy (``run_occupancy``:
+paged against contiguous slots at equal KV bytes), span
+(``run_span``: span-on against full-view decode) and kernel
+(``run_kernel``: K1 against its plain version) sections, with
 the reference's function names, defaults and report keys. Prints ONE JSON line on stdout (chatter on
 stderr):
 
@@ -16,7 +19,7 @@ Usage: python -m skypilot_tpu_torch.infer.bench_serve
        [--config llama3-8b] [--requests 16] [--slots 16]
        [--new-tokens 64] [--repeats 3] [--kv-int8] [--weights-int8]
        [--engine-only | --prefix-share | --qos | --adapters | --spec
-        | --smoke]
+        | --flight | --occupancy | --span | --kernel | --smoke]
        [--device cpu]
 
 Everything runs on the CUDA card. Without one it raises, unless
@@ -47,9 +50,12 @@ Deliberate differences from the reference:
 - No wave padding. The port's engine dispatches each wave at its own
   size (``ROADMAP.md``, deliberate differences), so ``_build_engine``
   takes no ``pad_waves``.
-- ``run_flight`` (``--flight``) runs the paged layout only:
-  ``layouts`` holds ``"paged"`` alone, since the port serves no
-  contiguous layout (``ROADMAP.md`` Queue 1).
+- ``run_kernel``'s kernel-off leg is the engine's plain route for its
+  big-cache reads (the plain version K1 is held to), not the gather:
+  the port's paged engine has no gather. ``run_occupancy`` and
+  ``run_span`` take no ``kv_kernel``: their paged engine reads through
+  K1 always. ``run_occupancy`` counts trash rows on both sides, so its
+  paged pool holds one block less than the reference's.
 - Other KV blocks. The bench keeps the reference's ``max_len``
   (prompt + new tokens + 8), but on the card the engine picks the
   largest block that tiles it AND that K1's multi-row body reads
@@ -1456,14 +1462,402 @@ def run_spec_smoke(device: DeviceLike = None) -> dict:
     return run_spec(smoke=True, device=device)
 
 
+def _random_weights(cfg, weights_int8: bool, dev: torch.device):
+    """(params, qweights) from seed 0 on ``dev``: int8 weights drawn
+    directly (``kvcache.random_quantized_params``) with
+    ``weights_int8``, else the float tree in ``cfg.dtype`` and None."""
+    if weights_int8:
+        return kvcache.random_quantized_params(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype), None
+
+
+def _kv_bytes(e) -> int:
+    """Bytes of an engine's KV tensors (values and scales), trash rows
+    included."""
+    return sum(e.cache[n].numel() * e.cache[n].element_size()
+               for n in ("k", "v", "k_scale", "v_scale") if n in e.cache)
+
+
+def run_occupancy(config=None, smoke=False, kv_int8=False,
+                  weights_int8=False, factor=8, max_burst=4,
+                  device: DeviceLike = None, tokens_out=None) -> dict:
+    """High-occupancy decode sweep (the reference's ``run_occupancy``):
+    concurrent decode slots at the SAME KV bytes, the paged cache
+    against the contiguous layout.
+
+    Requests need max_len/8 rows each (prompt plus budget) on engines
+    sized for max_len. The contiguous engine holds ``slots_c`` rows of
+    max_len; the paged engine gets ``factor`` times the slots and a
+    pool of the same bytes, so admission itself shows that the blocks
+    suffice, and the greedy outputs are compared token for token.
+    ``blocks_per_token``: allocated block rows per resident token at
+    peak (eager allocation).
+
+    Equal bytes count every row each cache allocates, trash rows
+    included: the contiguous cache's ``slots_c + 1`` max_len rows (the
+    last its trash slot, the reference's spare slot) against the paged
+    pool's ``(slots_c + 1) * max_len / block`` blocks (the last its
+    trash block), so ``kv_blocks`` is one less than that. The paged
+    engine's reads run K1, the contiguous one's the gather: its parity
+    spans both layouts and both read paths, as the reference's
+    ``kv_kernel`` variant does. Sizes (the reference's): ``smoke`` or
+    the CPU: llama3-tiny, max_len 64, blocks of 8, 4-token prompts, 2
+    contiguous slots; else llama3-400m, max_len 4096, blocks of 256,
+    256-token prompts, 8 contiguous slots. ``tokens_out``, a dict,
+    receives ``"parity"``: (prompts, paged outputs, contiguous
+    outputs)."""
+    dev = resolve_device(device)
+    on_cpu = dev.type == "cpu"
+    if config is None:
+        config = "llama3-tiny" if on_cpu else "llama3-400m"
+    small = smoke or on_cpu
+    cfg = llama.CONFIGS[config]
+    max_len = 64 if small else 4096
+    kv_block = 8 if small else 256
+    plen = 4 if small else 256
+    new_tokens = max_len // 8 - plen
+    slots_c = 2 if small else 8
+    requests = slots_c * factor
+    log(f"occupancy bench: {config} max_len={max_len} block={kv_block} "
+        f"need={plen + new_tokens} rows/req on {_device_kind(dev)}")
+    params, qw = _random_weights(cfg, weights_int8, dev)
+    kw = dict(max_len=max_len, prompt_buckets=(plen,), kv_int8=kv_int8,
+              qweights=qw, prefill_chunk=0, prefix_pool=0, max_wave=8,
+              device=dev)
+    nb = max_len // eng.paged_block_len(max_len, kv_block, dev, kv_int8)
+    e_paged = eng.InferenceEngine(params, cfg, n_slots=slots_c * factor,
+                                  kv_block=kv_block,
+                                  kv_blocks=(slots_c + 1) * nb - 1, **kw)
+    e_contig = eng.InferenceEngine(params, cfg, n_slots=slots_c,
+                                   kv_block=0, **kw)
+    del params
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, plen).tolist()
+               for _ in range(requests)]
+
+    def drive(e):
+        ids = [e.add_request(p, max_new_tokens=new_tokens)
+               for p in prompts]
+        peak, bpt = 0, None
+        while e.waiting or e.chunking or e.slot_req:
+            # Occupancy is sampled right after admission, before a burst
+            # can retire short requests: the peak is what the cache held.
+            e.admit()
+            while e.chunking:
+                e.prefill_chunk_step()
+            occ = len(e.slot_req)
+            if occ >= peak:
+                peak = occ
+                if e.paged:
+                    toks = sum(len(r.prompt) + len(r.tokens)
+                               for r in e.slot_req.values())
+                    bpt = e.blocks_used() * e.kv_block / max(toks, 1)
+            e.decode_burst(max_burst=max_burst)
+        by_rid = {r.rid: r.tokens for r in e.finished}
+        e.finished.clear()
+        return [by_rid[i] for i in ids], peak, bpt
+
+    out_c, peak_c, _ = drive(e_contig)
+    out_p, peak_p, bpt = drive(e_paged)
+    parity_ok = out_p == out_c
+    leak_free = e_paged.blocks_used() == 0
+    bytes_p, bytes_c = _kv_bytes(e_paged), _kv_bytes(e_contig)
+    occupancy_x = peak_p / max(peak_c, 1)
+    if tokens_out is not None:
+        tokens_out["parity"] = (prompts, out_p, out_c)
+    log(f"occupancy: contiguous {peak_c} slots vs paged {peak_p} at "
+        f"{bytes_p / 1e6:.1f} MB KV ({occupancy_x:.1f}x, "
+        f"parity={parity_ok})")
+    del e_paged, e_contig
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {
+        "kv_hbm_bytes": bytes_p,
+        "kv_hbm_bytes_contiguous": bytes_c,
+        "same_hbm": bool(bytes_p == bytes_c),
+        "paged_slots": peak_p,
+        "contiguous_slots": peak_c,
+        "occupancy_x": round(occupancy_x, 2),
+        "blocks_per_token": round(bpt, 3) if bpt else None,
+        "kv_block": kv_block,
+        "parity_ok": bool(parity_ok),
+        "leak_free": bool(leak_free),
+        # The reference's bar: >= 4x concurrent slots at equal KV bytes.
+        "occupancy_regressed": bool(occupancy_x < 4 or not parity_ok
+                                    or bytes_p != bytes_c),
+        "requests": requests,
+        "max_len": max_len,
+        "new_tokens": new_tokens,
+        "config": config,
+        "kv_int8": kv_int8,
+        "weights_int8": weights_int8,
+        # The paged engine reads through K1's wrapper (its plain version
+        # on CPU tensors); there is no gather to choose on a paged cache.
+        "kv_kernel": True,
+        "backend": dev.type,
+    }
+
+
+def run_span(config=None, requests=None, prompt_len=None,
+             new_tokens=None, max_burst=8, kv_int8=False,
+             weights_int8=False, spec_k=0, smoke=False,
+             device: DeviceLike = None, tokens_out=None) -> dict:
+    """Span-bucketed decode attention bench (the reference's
+    ``run_span``): span-on against full-view decode TPOT on the SAME
+    paged engine (the ladder is host-side dispatch state: toggling it
+    only routes bursts to other span arguments), greedy parity asserted.
+
+    Workload: short active conversations on a long-max_len engine, every
+    request within max_len/8 rows; the full view reads max_len rows per
+    slot per layer per step, the span path the active rung. TTFT is out
+    of scope (admission waves take no span). ``spec_k``: the comparison
+    through the verify path. Sizes (the reference's): ``smoke`` or the
+    CPU: max_len 2048, blocks of 64, 16-token prompts, 96 new tokens;
+    else max_len 4096, blocks of 256, 128-token prompts, 256 new; 8
+    requests. The big-cache reads run K1 on the card. ``tokens_out``, a
+    dict, receives ``"parity"``: (prompts, span outputs, full-view
+    outputs). Wall ratios are reported, never gated."""
+    dev = resolve_device(device)
+    on_cpu = dev.type == "cpu"
+    if config is None:
+        config = "llama3-tiny" if on_cpu else "llama3-400m"
+    small = smoke or on_cpu
+    cfg = llama.CONFIGS[config]
+    max_len = 2048 if small else 4096
+    kv_block = 64 if small else 256
+    if requests is None:
+        requests = 8
+    if prompt_len is None:
+        prompt_len = 16 if small else 128
+    if new_tokens is None:
+        new_tokens = 96 if small else 256
+    slots = requests
+    need = prompt_len + new_tokens + (spec_k + 1 if spec_k else 0)
+    assert need <= max_len // 8, "workload must fit the smallest rungs"
+    log(f"span bench: {config} max_len={max_len} block={kv_block} "
+        f"active<={need} rows/req requests={requests} on "
+        f"{_device_kind(dev)}")
+    params, qw = _random_weights(cfg, weights_int8, dev)
+    e = eng.InferenceEngine(
+        params, cfg, qweights=qw, n_slots=slots, max_len=max_len,
+        prompt_buckets=(prompt_len,), kv_int8=kv_int8, prefill_chunk=0,
+        prefix_pool=0, max_wave=slots, kv_block=kv_block, spec_k=spec_k,
+        device=dev)
+    del params
+    ladder = e.span_ladder
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist()
+               for _ in range(requests)]
+
+    def decode_pass(span_on):
+        """One admit-then-decode pass; TPOT over the decode loop only.
+        Returns (outputs, tpot_s, the largest span dispatched)."""
+        e.span_ladder = ladder if span_on else (e.max_len,)
+        e.decode_programs.clear()
+        ids = [e.add_request(p, max_new_tokens=new_tokens)
+               for p in prompts]
+        e.admit()
+        _sync(dev)
+        t0 = time.time()
+        while e.slot_req:
+            e.decode_burst(max_burst)
+        _sync(dev)
+        wall = time.time() - t0
+        by_rid = {r.rid: list(r.tokens) for r in e.finished}
+        outs = [by_rid[i] for i in ids]
+        e.finished.clear()
+        rows = max((sp if sp is not None else e.max_len)
+                   for _, _, sp in e.decode_programs)
+        dtoks = sum(len(o) for o in outs) - len(outs)
+        return outs, wall / max(dtoks, 1), rows
+
+    # Warm-up: both modes' first launches outside the timed window.
+    decode_pass(False)
+    decode_pass(True)
+    out_full, tpot_full, rows_full = decode_pass(False)
+    out_span, tpot_span, rows_span = decode_pass(True)
+    e.span_ladder = ladder
+    parity_ok = out_span == out_full
+    n_programs = len(e.decode_programs)
+    if tokens_out is not None:
+        tokens_out["parity"] = (prompts, out_span, out_full)
+    log(f"span: full {tpot_full * 1e3:.2f}ms/tok ({rows_full} rows) "
+        f"span {tpot_span * 1e3:.2f}ms ({rows_span} rows, "
+        f"{n_programs} programs) parity={parity_ok}")
+    del e
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {
+        "tpot_full_ms": round(tpot_full * 1e3, 3),
+        "tpot_span_ms": round(tpot_span * 1e3, 3),
+        "speedup": round(tpot_full / max(tpot_span, 1e-9), 3),
+        "rows_full": int(rows_full),
+        "rows_span": int(rows_span),
+        "rows_ratio": round(rows_full / max(rows_span, 1), 2),
+        "span_ladder": list(ladder),
+        "n_span_programs": int(n_programs),
+        "parity_ok": bool(parity_ok),
+        "max_len": max_len,
+        "kv_block": kv_block,
+        "requests": requests,
+        "new_tokens": new_tokens,
+        "spec_k": spec_k,
+        "config": config,
+        "kv_int8": kv_int8,
+        "weights_int8": weights_int8,
+        # The paged engine reads through K1's wrapper (its plain version
+        # on CPU tensors); there is no gather to choose on a paged cache.
+        "kv_kernel": True,
+        "backend": dev.type,
+    }
+
+
+def run_span_smoke(device: DeviceLike = None, tokens_out=None) -> dict:
+    """CI-sized span pass: parity and the rows/program structure are
+    asserted (``tests/test_torch_bench_serve.py``); wall ratios are
+    reported, never gated."""
+    return run_span(smoke=True, device=device, tokens_out=tokens_out)
+
+
+def run_kernel(config=None, requests=None, prompt_len=None,
+               new_tokens=None, max_burst=8, kv_int8=False,
+               weights_int8=False, spec_k=0, smoke=False,
+               device: DeviceLike = None, tokens_out=None) -> dict:
+    """Paged decode-attention kernel bench (the reference's
+    ``run_kernel``): K1 against the plain read, decode TPOT on the SAME
+    engine, greedy parity asserted.
+
+    The kernel-off leg is the engine's plain route for its big-cache
+    reads (``paged_attention_ref``, the plain version K1 is held to),
+    flipped per pass on one engine as the reference flips its static
+    ``kernel`` flag; admission waves are the same in both (they never
+    read the cache). This is the bench's own A/B and lies on no serving
+    path. Workload: low occupancy, a few active requests on an engine
+    sized for many slots. The program keys carry ``kernel=True`` and
+    ``kernel=False`` (``kernel_programs_ok``). On the CPU both legs run
+    the plain version, so its times say nothing. Sizes (the
+    reference's): ``smoke`` or the CPU: max_len 256, blocks of 32, 8
+    slots, 2 requests of 8 prompt and 16 new tokens; else max_len 4096,
+    blocks of 256, 16 slots, 4 requests of 128 and 256. Full size on the
+    card re-runs :func:`run_span` and :func:`run_occupancy`, as the
+    reference does. ``tokens_out``, a dict, receives ``"parity"``:
+    (prompts, kernel outputs, plain outputs)."""
+    dev = resolve_device(device)
+    on_cpu = dev.type == "cpu"
+    if config is None:
+        config = "llama3-tiny" if on_cpu else "llama3-400m"
+    small = smoke or on_cpu
+    cfg = llama.CONFIGS[config]
+    max_len = 256 if small else 4096
+    kv_block = 32 if small else 256
+    slots = 8 if small else 16
+    if requests is None:
+        requests = 2 if small else 4
+    if prompt_len is None:
+        prompt_len = 8 if small else 128
+    if new_tokens is None:
+        new_tokens = 16 if small else 256
+    log(f"kernel bench: {config} max_len={max_len} block={kv_block} "
+        f"slots={slots} active={requests} (low occupancy) on "
+        f"{_device_kind(dev)}")
+    params, qw = _random_weights(cfg, weights_int8, dev)
+    e = eng.InferenceEngine(
+        params, cfg, qweights=qw, n_slots=slots, max_len=max_len,
+        prompt_buckets=(prompt_len,), kv_int8=kv_int8, prefill_chunk=0,
+        prefix_pool=0, max_wave=slots, kv_block=kv_block, spec_k=spec_k,
+        device=dev)
+    del params
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, prompt_len).tolist()
+               for _ in range(requests)]
+
+    def decode_pass(kernel_on):
+        """One admit-then-decode pass; TPOT over the decode loop only."""
+        e._kernel = kernel_on
+        ids = [e.add_request(p, max_new_tokens=new_tokens)
+               for p in prompts]
+        e.admit()
+        _sync(dev)
+        t0 = time.time()
+        while e.slot_req:
+            e.decode_burst(max_burst)
+        _sync(dev)
+        wall = time.time() - t0
+        by_rid = {r.rid: list(r.tokens) for r in e.finished}
+        outs = [by_rid[i] for i in ids]
+        e.finished.clear()
+        dtoks = sum(len(o) for o in outs) - len(outs)
+        return outs, wall / max(dtoks, 1)
+
+    decode_pass(False)
+    decode_pass(True)
+    out_plain, tpot_plain = decode_pass(False)
+    out_kernel, tpot_kernel = decode_pass(True)
+    e._kernel = True
+    parity_ok = out_kernel == out_plain
+    keys = e.compile_watch.summary()
+    kernel_programs_ok = (any("kernel=True" in k for k in keys)
+                          and any("kernel=False" in k for k in keys))
+    speedup = tpot_plain / max(tpot_kernel, 1e-9)
+    if tokens_out is not None:
+        tokens_out["parity"] = (prompts, out_kernel, out_plain)
+    log(f"kernel: plain {tpot_plain * 1e3:.2f}ms/tok kernel "
+        f"{tpot_kernel * 1e3:.2f}ms/tok ({speedup:.2f}x, "
+        f"parity={parity_ok}, backend={dev.type})")
+    ladder = list(e.span_ladder)
+    del e
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {
+        "tpot_gather_ms": round(tpot_plain * 1e3, 3),
+        "tpot_kernel_ms": round(tpot_kernel * 1e3, 3),
+        "speedup": round(speedup, 3),
+        "parity_ok": bool(parity_ok),
+        "kernel_programs_ok": bool(kernel_programs_ok),
+        "backend": dev.type,
+        "active_requests": requests,
+        "slots": slots,
+        "max_len": max_len,
+        "kv_block": kv_block,
+        "span_ladder": ladder,
+        "new_tokens": new_tokens,
+        "spec_k": spec_k,
+        "config": config,
+        "kv_int8": kv_int8,
+        "weights_int8": weights_int8,
+    }
+    if not small:
+        sa = run_span(config=config, kv_int8=kv_int8,
+                      weights_int8=weights_int8, device=dev)
+        out["span_under_kernel_speedup"] = sa["speedup"]
+        out["span_under_kernel_parity_ok"] = sa["parity_ok"]
+        oc = run_occupancy(config=config, kv_int8=kv_int8,
+                           weights_int8=weights_int8, device=dev)
+        out["occupancy_under_kernel_x"] = oc["occupancy_x"]
+        out["occupancy_under_kernel_ok"] = not oc["occupancy_regressed"]
+    return out
+
+
+def run_kernel_smoke(device: DeviceLike = None, tokens_out=None) -> dict:
+    """CI-sized kernel pass: parity and program identity are asserted
+    (``tests/test_torch_bench_serve.py``); wall ratios are reported,
+    never gated."""
+    return run_kernel(smoke=True, device=device, tokens_out=tokens_out)
+
+
 def run_flight(config=None, requests=None, new_tokens=None,
                max_burst=8, spec_k=4, kv_int8=False,
                weights_int8=False, smoke=False,
                device: DeviceLike = None) -> dict:
     """Flight recorder + compile watch bench over the full mixed
     workload (the reference's ``run_flight``): chunked admission with
-    prefix reuse, n-gram speculation and span regrouping on a paged
-    engine.
+    prefix reuse, n-gram speculation and span regrouping, on a paged
+    engine AND a contiguous twin. Per layout:
 
       1. ``warm_programs()`` dispatches every program key once, one
          untimed workload pass covers anything workload-specific, then
@@ -1479,14 +1873,13 @@ def run_flight(config=None, requests=None, new_tokens=None,
          off: greedy outputs must be identical each time (recording only
          observes).
 
-    The paged layout only: ``layouts`` holds ``"paged"`` alone (the
-    port serves no contiguous layout; ``ROADMAP.md`` Queue 1). The
-    reference's names, sizes (``smoke`` or the CPU: llama3-tiny, 6
-    requests of 24 new tokens, max_len 256, chunks of 24, blocks of 32;
-    else llama3-400m, 16 requests of 128, max_len 2048, chunks of 256,
-    blocks of 128) and report keys. Vocabulary 16, so the random
-    model's greedy output cycles and the n-gram drafter drafts. Wall
-    ratios are reported, never gated."""
+    ``layouts`` holds ``"paged"`` and ``"contig"``; the aggregate takes
+    the worst layout. The reference's names, sizes (``smoke`` or the
+    CPU: llama3-tiny, 6 requests of 24 new tokens, max_len 256, chunks
+    of 24, blocks of 32; else llama3-400m, 16 requests of 128, max_len
+    2048, chunks of 256, blocks of 128) and report keys. Vocabulary 16,
+    so the random model's greedy output cycles and the n-gram drafter
+    drafts. Wall ratios are reported, never gated."""
     dev = resolve_device(device)
     on_cpu = dev.type == "cpu"
     if config is None:
@@ -1518,22 +1911,17 @@ def run_flight(config=None, requests=None, new_tokens=None,
         f"chunk={chunk} block={kv_block} K={spec_k} "
         f"requests={len(prompts)} on {_device_kind(dev)}")
 
-    kw = dict(n_slots=slots, max_len=max_len,
-              prompt_buckets=(16 if small else 128, max_len),
-              kv_int8=kv_int8, prefill_chunk=chunk, prefix_pool=4,
-              max_wave=slots, spec_k=spec_k, kv_block=kv_block,
-              device=dev, flight_recorder=flight_lib.FlightRecorder())
-    if weights_int8:
-        params, qw = kvcache.random_quantized_params(cfg, device=dev)
-        e = eng.InferenceEngine(params, cfg, qweights=qw, **kw)
-    else:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
-        e = eng.InferenceEngine(params, cfg, **kw)
-    del params
+    def build(paged):
+        params, qw = _random_weights(cfg, weights_int8, dev)
+        return eng.InferenceEngine(
+            params, cfg, qweights=qw, n_slots=slots, max_len=max_len,
+            prompt_buckets=(16 if small else 128, max_len),
+            kv_int8=kv_int8, prefill_chunk=chunk, prefix_pool=4,
+            max_wave=slots, spec_k=spec_k,
+            kv_block=kv_block if paged else 0, device=dev,
+            flight_recorder=flight_lib.FlightRecorder())
 
-    def workload():
+    def workload(e):
         ids = [e.add_request(p, max_new_tokens=new_tokens)
                for p in prompts]
         _sync(dev)
@@ -1547,95 +1935,106 @@ def run_flight(config=None, requests=None, new_tokens=None,
         toks = sum(len(o) for o in outs)
         return outs, wall / max(toks, 1)
 
-    rec = e.flight
-    # Production startup: the grid sweep and one untimed workload pass,
-    # then the watch armed.
-    warmed = e.warm_programs(max_burst=max_burst)
-    workload()
-    warm_compile_s = e.compile_watch.total_compile_s()
-    e.declare_warmup_complete()
-    # Timed window.
-    e.decode_programs.clear()
-    seq0 = rec.seq()
-    out_on, tpot_on = workload()
-    window = rec.since(seq0)
-    unexpected = list(e.compile_watch.unexpected)
-    rec_dv = {(r["program"]["k"], r["program"]["span"])
-              for r in window if r["burst"] in ("decode", "verify")}
-    eng_dv = {(k, sp) for kind, k, sp in e.decode_programs
-              if kind in ("burst", "verify")}
-    n_chunks = sum(1 for r in window if r["burst"] == "chunk")
-    n_waves = sum(1 for r in window if r["burst"] == "wave")
-    coverage_ok = rec_dv == eng_dv and n_chunks > 0 and n_waves > 0
-    # Recorder-off guard: identical greedy output, best-of-two TPOT.
-    rec.enabled = False
-    out_off, tpot_off = workload()
-    rec.enabled = True
-    _, tpot_on2 = workload()
-    rec.enabled = False
-    _, tpot_off2 = workload()
-    rec.enabled = True
-    tpot_on = min(tpot_on, tpot_on2)
-    tpot_off = min(tpot_off, tpot_off2)
-    # Calibration off must give the same tokens: the bracket observes.
-    cal_samples = e.devtime.samples
-    prev_every = os.environ.get("SKYTPU_DEVTIME_EVERY")
-    os.environ["SKYTPU_DEVTIME_EVERY"] = "0"
-    try:
-        out_nocal, _ = workload()
-    finally:
-        if prev_every is None:
-            os.environ.pop("SKYTPU_DEVTIME_EVERY", None)
-        else:
-            os.environ["SKYTPU_DEVTIME_EVERY"] = prev_every
-    # Forensics off: the same tokens, best-of-two TPOT.
-    e.forensics = False
-    out_foff, tpot_foff = workload()
-    e.forensics = True
-    _, tpot_fon = workload()
-    e.forensics = False
-    _, tpot_foff2 = workload()
-    e.forensics = True
-    tpot_fon = min(tpot_on, tpot_fon)
-    tpot_foff = min(tpot_foff, tpot_foff2)
-    paged = {
-        "programs_warmed": warmed,
-        "warmup_compile_s": round(warm_compile_s, 3),
-        "unexpected_compiles": len(unexpected),
-        "unexpected": unexpected,
-        "coverage_ok": bool(coverage_ok),
-        "parity_ok": bool(out_on == out_off),
-        "calibration_parity_ok": bool(out_nocal == out_on),
-        "calibration_samples": int(cal_samples),
-        "n_records": len(window),
-        "n_chunk_records": n_chunks,
-        "n_wave_records": n_waves,
-        "tpot_on_ms": round(tpot_on * 1e3, 3),
-        "tpot_off_ms": round(tpot_off * 1e3, 3),
-        "overhead_ratio": round(tpot_on / max(tpot_off, 1e-9), 4),
-        "forensics_parity_ok": bool(out_foff == out_on),
-        "tpot_forensics_on_ms": round(tpot_fon * 1e3, 3),
-        "tpot_forensics_off_ms": round(tpot_foff * 1e3, 3),
-        "forensics_overhead_ratio": round(
-            tpot_fon / max(tpot_foff, 1e-9), 4),
-    }
-    log(f"flight paged: {paged}")
-    del e
-    gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    layouts = {}
+    for paged in (True, False):
+        e = build(paged)
+        rec = e.flight
+        # Production startup: the grid sweep and one untimed workload
+        # pass, then the watch armed.
+        warmed = e.warm_programs(max_burst=max_burst)
+        workload(e)
+        warm_compile_s = e.compile_watch.total_compile_s()
+        e.declare_warmup_complete()
+        # Timed window.
+        e.decode_programs.clear()
+        seq0 = rec.seq()
+        out_on, tpot_on = workload(e)
+        window = rec.since(seq0)
+        unexpected = list(e.compile_watch.unexpected)
+        rec_dv = {(r["program"]["k"], r["program"]["span"])
+                  for r in window if r["burst"] in ("decode", "verify")}
+        eng_dv = {(k, sp) for kind, k, sp in e.decode_programs
+                  if kind in ("burst", "verify")}
+        n_chunks = sum(1 for r in window if r["burst"] == "chunk")
+        n_waves = sum(1 for r in window if r["burst"] == "wave")
+        coverage_ok = rec_dv == eng_dv and n_chunks > 0 and n_waves > 0
+        # Recorder-off guard: identical greedy output, best-of-two TPOT.
+        rec.enabled = False
+        out_off, tpot_off = workload(e)
+        rec.enabled = True
+        _, tpot_on2 = workload(e)
+        rec.enabled = False
+        _, tpot_off2 = workload(e)
+        rec.enabled = True
+        tpot_on = min(tpot_on, tpot_on2)
+        tpot_off = min(tpot_off, tpot_off2)
+        # Calibration off must give the same tokens: the bracket
+        # observes.
+        cal_samples = e.devtime.samples
+        prev_every = os.environ.get("SKYTPU_DEVTIME_EVERY")
+        os.environ["SKYTPU_DEVTIME_EVERY"] = "0"
+        try:
+            out_nocal, _ = workload(e)
+        finally:
+            if prev_every is None:
+                os.environ.pop("SKYTPU_DEVTIME_EVERY", None)
+            else:
+                os.environ["SKYTPU_DEVTIME_EVERY"] = prev_every
+        # Forensics off: the same tokens, best-of-two TPOT.
+        e.forensics = False
+        out_foff, tpot_foff = workload(e)
+        e.forensics = True
+        _, tpot_fon = workload(e)
+        e.forensics = False
+        _, tpot_foff2 = workload(e)
+        e.forensics = True
+        tpot_fon = min(tpot_on, tpot_fon)
+        tpot_foff = min(tpot_foff, tpot_foff2)
+        name = "paged" if paged else "contig"
+        layouts[name] = {
+            "programs_warmed": warmed,
+            "warmup_compile_s": round(warm_compile_s, 3),
+            "unexpected_compiles": len(unexpected),
+            "unexpected": unexpected,
+            "coverage_ok": bool(coverage_ok),
+            "parity_ok": bool(out_on == out_off),
+            "calibration_parity_ok": bool(out_nocal == out_on),
+            "calibration_samples": int(cal_samples),
+            "n_records": len(window),
+            "n_chunk_records": n_chunks,
+            "n_wave_records": n_waves,
+            "tpot_on_ms": round(tpot_on * 1e3, 3),
+            "tpot_off_ms": round(tpot_off * 1e3, 3),
+            "overhead_ratio": round(tpot_on / max(tpot_off, 1e-9), 4),
+            "forensics_parity_ok": bool(out_foff == out_on),
+            "tpot_forensics_on_ms": round(tpot_fon * 1e3, 3),
+            "tpot_forensics_off_ms": round(tpot_foff * 1e3, 3),
+            "forensics_overhead_ratio": round(
+                tpot_fon / max(tpot_foff, 1e-9), 4),
+        }
+        log(f"flight {name}: {layouts[name]}")
+        del e
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    vals = list(layouts.values())
     return {
-        "warmup_compile_s": paged["warmup_compile_s"],
-        "unexpected_compiles": paged["unexpected_compiles"],
-        "coverage_ok": paged["coverage_ok"],
-        "parity_ok": paged["parity_ok"],
-        "calibration_parity_ok": paged["calibration_parity_ok"],
-        "calibration_samples": paged["calibration_samples"],
-        "n_records": paged["n_records"],
-        "overhead_ratio": paged["overhead_ratio"],
-        "forensics_parity_ok": paged["forensics_parity_ok"],
-        "forensics_overhead_ratio": paged["forensics_overhead_ratio"],
-        "layouts": {"paged": paged},
+        "warmup_compile_s": round(
+            sum(v["warmup_compile_s"] for v in vals), 3),
+        "unexpected_compiles": sum(v["unexpected_compiles"] for v in vals),
+        "coverage_ok": all(v["coverage_ok"] for v in vals),
+        "parity_ok": all(v["parity_ok"] for v in vals),
+        "calibration_parity_ok": all(v["calibration_parity_ok"]
+                                     for v in vals),
+        "calibration_samples": sum(v["calibration_samples"] for v in vals),
+        "n_records": sum(v["n_records"] for v in vals),
+        # Worst layout: a recorder change that slows one decode path
+        # must show.
+        "overhead_ratio": max(v["overhead_ratio"] for v in vals),
+        "forensics_parity_ok": all(v["forensics_parity_ok"] for v in vals),
+        "forensics_overhead_ratio": max(v["forensics_overhead_ratio"]
+                                        for v in vals),
+        "layouts": layouts,
         "config": config,
         "spec_k": spec_k,
         "kv_int8": kv_int8,
@@ -1707,6 +2106,26 @@ def main(argv=None) -> None:
                          "--smoke for the CI-sized pass)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft length K for --spec")
+    ap.add_argument("--occupancy", action="store_true",
+                    help="high-occupancy sweep: max concurrent slots "
+                         "at equal KV bytes, paged vs contiguous, with "
+                         "greedy parity (combine with --smoke for the "
+                         "CI-sized pass)")
+    ap.add_argument("--span", action="store_true",
+                    help="span-bucketed decode attention bench: "
+                         "span-on vs full-view decode TPOT on the "
+                         "same engine (short active conversations on "
+                         "a long-max_len engine), greedy parity "
+                         "asserted (combine with --smoke for the "
+                         "CI-sized pass)")
+    ap.add_argument("--kernel", action="store_true",
+                    help="paged decode-attention kernel bench: K1 vs "
+                         "its plain version, decode TPOT on the same "
+                         "engine at low occupancy, greedy parity "
+                         "asserted (combine with --smoke for the "
+                         "CI-sized pass; with --span or --occupancy "
+                         "it changes nothing: the paged engine's reads "
+                         "run K1 already)")
     ap.add_argument("--flight", action="store_true",
                     help="flight recorder + compile watch bench: the "
                          "full mixed workload (chunked admission + "
@@ -1717,7 +2136,7 @@ def main(argv=None) -> None:
                          "(combine with --smoke for the CI-sized pass)")
     ap.add_argument("--smoke", action="store_true",
                     help="CI-sized pass of --spec, --qos, --adapters, "
-                         "--flight or "
+                         "--flight, --occupancy, --span, --kernel or "
                          "of the prefix-share workload (regression "
                          "guard for the chunk scheduler)")
     ap.add_argument("--device", default=None,
@@ -1755,6 +2174,38 @@ def main(argv=None) -> None:
             "device": device,
         }))
         return
+    if args.span:
+        r = run_span(config=args.config, kv_int8=args.kv_int8,
+                     weights_int8=args.weights_int8, smoke=args.smoke,
+                     device=args.device)
+        print(json.dumps({
+            "metric": "serve_span_speedup",
+            "value": r["speedup"],
+            "unit": "x_decode_tok_s_vs_full_view",
+            **{k: r[k] for k in (
+                "tpot_full_ms", "tpot_span_ms", "rows_full",
+                "rows_span", "rows_ratio", "span_ladder",
+                "n_span_programs", "parity_ok", "kv_kernel",
+                "config")},
+            "device": device,
+        }))
+        return
+    if args.kernel and not args.occupancy:
+        r = run_kernel(config=args.config, kv_int8=args.kv_int8,
+                       weights_int8=args.weights_int8,
+                       spec_k=(args.spec_k if args.spec else 0),
+                       smoke=args.smoke, device=args.device)
+        print(json.dumps({
+            "metric": "serve_kernel_speedup",
+            "value": r["speedup"],
+            "unit": "x_decode_tok_s_vs_gather",
+            **{k: r[k] for k in (
+                "tpot_gather_ms", "tpot_kernel_ms", "parity_ok",
+                "kernel_programs_ok", "backend", "active_requests",
+                "slots", "span_ladder", "config")},
+            "device": device,
+        }))
+        return
     if args.spec:
         r = run_spec(config=args.config, spec_k=args.spec_k,
                      kv_int8=args.kv_int8,
@@ -1774,6 +2225,21 @@ def main(argv=None) -> None:
                 "speedup", "oracle_speedup", "accept_rate",
                 "oracle_accept_rate", "parity_ok",
                 "oracle_parity_ok", "spec_k", "config", "backend")},
+            "device": device,
+        }))
+        return
+    if args.occupancy:
+        r = run_occupancy(config=args.config, kv_int8=args.kv_int8,
+                          weights_int8=args.weights_int8,
+                          smoke=args.smoke, device=args.device)
+        print(json.dumps({
+            "metric": "serve_occupancy_x",
+            "value": r["occupancy_x"],
+            "unit": "x_slots_at_equal_hbm",
+            **{k: r[k] for k in (
+                "kv_hbm_bytes", "paged_slots", "contiguous_slots",
+                "blocks_per_token", "kv_block", "parity_ok",
+                "occupancy_regressed", "kv_kernel", "config")},
             "device": device,
         }))
         return

@@ -10,8 +10,10 @@ slot per round from one staged burst (``kvcache.decode_burst_staged``
 on the draft config, the program the engine bursts with, at the draft
 model's size).
 
-* **Paged KV in lockstep.** The drafter owns a paged block pool (the
-  ``kvcache`` layout, a block table whose last column is the sentinel).
+* **KV in lockstep.** The drafter owns a paged block pool (the
+  ``kvcache`` layout, a block table whose last column is the sentinel),
+  or with ``kv_block`` 0 a contiguous cache of one ``max_len`` row per
+  slot (``kvcache.init_cache``), whatever layout the target uses.
   Slot ``s`` of the drafter mirrors slot ``s`` of the engine; its rows
   advance as the drafter rolls out and roll back as the verifier's do,
   by a length that does not advance (:func:`kvcache.sync_slots`), never
@@ -40,12 +42,14 @@ Deliberate differences from the reference:
   row of blocks per slot. The sentinel id addresses the cache's trash
   block (``kvcache`` docstring), so a released slot's writes land
   there.
-- The paged layout only (``kv_block`` > 0), and on the card the block
-  length that K1's multi-row body reads (``engine.kv_block_len``), not
-  the reference's largest divisor.
+- On the card a paged pool takes the block length that K1's multi-row
+  body reads (``engine.kv_block_len``), not the reference's largest
+  divisor. A contiguous pool's rows at or past ``max_len`` land in its
+  trash slot (``kvcache`` docstring).
 - :meth:`DraftEngine.warm_programs` runs against a free draft slot
-  (its table row all-sentinel) instead of a spare one, and restores the
-  lengths, pending tokens and generator stream afterwards.
+  (its table row all-sentinel; contiguous: any free slot) instead of a
+  spare one, and restores the lengths, pending tokens and generator
+  stream afterwards.
 - Sampling draws from an explicit ``torch.Generator`` on the engine's
   device (greedy drafting never reads it).
 - No ``kv_blocks``, ``span_buckets`` or ``ingest_chunk`` options: the
@@ -116,25 +120,35 @@ class DraftEngine:
         # dirty-tracked device copy, sentinel last column. The pool
         # holds one full-length allocation per slot: the draft model's
         # KV is small, and a drafter must never limit admission.
+        # kv_block 0: the contiguous layout, no table.
         if kv_block is None:
             kv_block = int(os.environ.get("SKYTPU_DRAFT_KV_BLOCK",
                                           "256") or 0)
-        if kv_block <= 0:
-            raise ValueError("the port's draft engine serves the paged KV "
-                             "layout only: kv_block must be > 0")
-        self.kv_block = eng.paged_block_len(max_len, kv_block, self.device,
-                                            kv_int8)
-        nb = max_len // self.kv_block
-        self.blocks_per_slot = nb
-        self.n_kv_blocks = n_slots * nb
-        self.allocator = kvcache.BlockAllocator(self.n_kv_blocks)
-        self.block_table = np.full((n_slots, nb + 1), self.n_kv_blocks,
-                                   np.int32)
+        self.paged = kv_block > 0
         self._table_dev: Optional[torch.Tensor] = None
-        self._table_dirty = True
-        self.cache = kvcache.init_paged_cache(
-            cfg, n_slots, self.n_kv_blocks, self.kv_block, self.device,
-            kv_int8=kv_int8)
+        self._table_dirty = self.paged
+        if self.paged:
+            self.kv_block: Optional[int] = eng.paged_block_len(
+                max_len, kv_block, self.device, kv_int8)
+            nb = max_len // self.kv_block
+            self.blocks_per_slot = nb
+            self.n_kv_blocks = n_slots * nb
+            self.allocator: Optional[kvcache.BlockAllocator] = (
+                kvcache.BlockAllocator(self.n_kv_blocks))
+            self.block_table: Optional[np.ndarray] = np.full(
+                (n_slots, nb + 1), self.n_kv_blocks, np.int32)
+            self.cache = kvcache.init_paged_cache(
+                cfg, n_slots, self.n_kv_blocks, self.kv_block, self.device,
+                kv_int8=kv_int8)
+        else:
+            self.kv_block = None
+            self.blocks_per_slot = 0
+            self.n_kv_blocks = 0
+            self.allocator = None
+            self.block_table = None
+            self.cache = kvcache.init_cache(cfg, n_slots, max_len,
+                                            kv_int8=kv_int8,
+                                            device=self.device)
         self.span_ladder = eng._span_ladder(None, max_len)
         self.ingest_chunk = min(INGEST_CHUNK, max_len)
         self.generator = torch.Generator(device=self.device)
@@ -171,7 +185,9 @@ class DraftEngine:
 
     # -- paged table -------------------------------------------------------
 
-    def table_device(self) -> torch.Tensor:
+    def table_device(self) -> Optional[torch.Tensor]:
+        if not self.paged:
+            return None
         if self._table_dirty or self._table_dev is None:
             self._table_dev = eng.upload(self.block_table.copy(),
                                          self.device)
@@ -180,7 +196,7 @@ class DraftEngine:
 
     @property
     def blocks_used(self) -> int:
-        return self.allocator.used
+        return self.allocator.used if self.paged else 0
 
     # -- span buckets ------------------------------------------------------
 
@@ -200,13 +216,15 @@ class DraftEngine:
 
     def _acquire(self, slot: int) -> _SlotState:
         """Fresh state and a full-length block allocation for a slot the
-        engine started drafting on (the pool holds one per slot)."""
-        row = self.block_table[slot]
-        row[:] = self.n_kv_blocks
-        blocks = [self.allocator.alloc()
-                  for _ in range(self.blocks_per_slot)]
-        row[:len(blocks)] = blocks
-        self._table_dirty = True
+        engine started drafting on (the pool holds one per slot; a
+        contiguous slot owns its row already)."""
+        if self.paged:
+            row = self.block_table[slot]
+            row[:] = self.n_kv_blocks
+            blocks = [self.allocator.alloc()
+                      for _ in range(self.blocks_per_slot)]
+            row[:len(blocks)] = blocks
+            self._table_dirty = True
         st = _SlotState(toks=[], last=None, confirmed=0)
         self._state[slot] = st
         return st
@@ -217,7 +235,7 @@ class DraftEngine:
         (later rollouts' writes for it land in the trash block) and a
         re-acquire starts from zero rows, re-ingesting what it reads."""
         st = self._state.pop(slot, None)
-        if st is None:
+        if st is None or not self.paged:
             return
         row = self.block_table[slot]
         for b in row[row < self.n_kv_blocks].tolist():
@@ -238,9 +256,10 @@ class DraftEngine:
         self._state.clear()
         self._pending_roll = None
         self._pending_done = None
-        self.allocator.reset()
-        self.block_table[:] = self.n_kv_blocks
-        self._table_dirty = True
+        if self.paged:
+            self.allocator.reset()
+            self.block_table[:] = self.n_kv_blocks
+            self._table_dirty = True
         self.cache["length"].zero_()
 
     # -- drafting ----------------------------------------------------------
@@ -452,7 +471,8 @@ class DraftEngine:
         """Dispatch the drafter's reachable programs once: rollouts at
         ``k`` and ``k + 1`` (the pipelined predraft's width) and the
         ingest chunk at every span rung, and the sync program, against
-        a free slot whose table row is all-sentinel, inside
+        a free slot whose table row is all-sentinel (contiguous: any
+        free slot), inside
         :func:`engine.warm_sweep` as the engine's sweep runs. Raises
         :class:`engine.NoFreeSlotError` when every draft slot is
         claimed. Returns the keys first dispatched."""

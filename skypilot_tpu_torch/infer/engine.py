@@ -1,9 +1,13 @@
-"""Continuous-batching inference engine over the paged KV cache.
+"""Continuous-batching inference engine over the paged or the contiguous
+KV cache.
 
-Counterpart of the core of ``skypilot_tpu/infer/engine.py`` for one
-configuration: paged KV (block table, ref-counted block allocator), wave
-admission grouped by prompt bucket, chunked prefill of long prompts, and
-staged decode bursts whose slots regroup by span rung. Greedy decoding
+Counterpart of the core of ``skypilot_tpu/infer/engine.py``: paged KV
+(block table, ref-counted block allocator; the default) or the
+contiguous layout (``kv_block`` 0, env ``SKYTPU_KV_BLOCK=0``: one
+``max_len`` row per slot, a separate pool of prefix rows), wave
+admission grouped by prompt bucket, chunked prefill of long prompts,
+staged decode bursts whose slots regroup by span rung, and the classic
+single-token step (:meth:`InferenceEngine.step`). Greedy decoding
 is the contract; temperature and top-k sample from the engine's own
 ``torch.Generator``. A sparse MoE config (``models/moe.py``) is served
 through the same programs, the expert FFN in place of the dense one
@@ -111,13 +115,24 @@ reference's spans (``engine.request``, ``engine.queue_wait``,
 ``engine.prefill``, ``engine.decode``). :meth:`InferenceEngine.
 warm_programs` dispatches every program key once before traffic.
 
+A contiguous engine answers the paged-only features as the reference's
+does: no lazy growth, no KV quotas, ``blocks_used()`` 0, no handoff
+export (``None``) or import (0), and its big-cache reads take the
+gather, never K1; ``kv_kernel`` on it emits the typed event
+``engine.kv_kernel_fallback``. Its prefix cache copies whole rows into
+and out of a separate pool (``kvcache.pool_store``/``pool_load``), keyed
+through :meth:`PrefixIndex.acquire_row`.
+
 Deliberate differences from the reference: the JAX engine padded
 admission waves to fixed row counts to avoid recompiles; PyTorch runs
 eagerly, so the port dispatches each wave at its own size (a wave's
 program key carries its real row count) and keeps no spare slot for
 padding rows. The warm-up runs against a free slot whose table row is
-all-sentinel instead. A non-final prefill chunk is not fetched, so its
-flight record's ``fetch_wall_ms`` is 0.
+all-sentinel instead (contiguous: any free slot; its rows are dead). A
+non-final prefill chunk is not fetched, so its flight record's
+``fetch_wall_ms`` is 0. On a paged cache the big-cache reads run K1
+whatever ``kv_kernel`` says (the single step's too), and
+``kv_kernel`` only decides the typed event on a contiguous one.
 """
 
 from __future__ import annotations
@@ -405,12 +420,14 @@ class NoFreeSlotError(RuntimeError):
                             "message": str(self)}
 
 
-def warm_slot(free_slots, block_table: np.ndarray, sentinel: int) -> int:
+def warm_slot(free_slots, block_table: Optional[np.ndarray],
+              sentinel: int) -> int:
     """A free slot whose table row is all-sentinel: a warm-up's writes
-    land in the trash block. Raises :class:`NoFreeSlotError` when there
-    is none."""
+    land in the trash block (``block_table`` None, the contiguous
+    layout: any free slot, whose rows are dead). Raises
+    :class:`NoFreeSlotError` when there is none."""
     for s in free_slots:
-        if (block_table[s] == sentinel).all():
+        if block_table is None or (block_table[s] == sentinel).all():
             return s
     raise NoFreeSlotError()
 
@@ -622,12 +639,12 @@ class PrefixIndex:
     it too. Eviction is LRU over entries (a hit or a store bumps the
     entry); evicting drops all of its keys.
 
-    An entry's *payload* is a TUPLE of ref-counted block ids
+    An entry's *payload* is storage-layout specific: the contiguous
+    engine stores a pool ROW id (int, allocated via :meth:`acquire_row`);
+    the paged engine stores a TUPLE of ref-counted block ids
     (``insert_entry`` — the caller owns the ref-count bookkeeping and
     decrefs whatever ``evict_lru``/``clear``/``insert_entry`` report
-    as evicted). ``rows`` caps resident entries. (The JAX engine's
-    contiguous layout also stores pool-row payloads through
-    ``acquire_row``; the port serves the paged layout only.)
+    as evicted). ``rows`` caps resident entries either way.
     """
 
     def __init__(self, rows: int, block: int):
@@ -690,6 +707,21 @@ class PrefixIndex:
     def evict_entry(self, payload) -> None:
         """Drop one specific entry (the caller releases its storage)."""
         self._drop(payload)
+
+    def acquire_row(self) -> Tuple[int, bool]:
+        """Contiguous-pool payloads: a free row in [0, rows), or the LRU
+        row evicted (its keys dropped). Returns (row, evicted)."""
+        evicted = False
+        free = [r for r in range(self.rows) if r not in self._ent_used]
+        if free:
+            row = free[0]
+        else:
+            row = min(self._ent_used, key=self._ent_used.get)
+            self._drop(row)
+            evicted = True
+        self._tick += 1
+        self._ent_used[row] = self._tick
+        return row, evicted
 
     def insert_entry(self, prompt: List[int], n_tokens: int,
                      payload, salt: bytes = b"") -> List[Any]:
@@ -821,11 +853,18 @@ class InferenceEngine:
     reads ``SKYTPU_SPEC_PIPELINE``, default on; off without a draft
     engine).
 
+    ``kv_block``: the paged layout's block length (None reads
+    ``SKYTPU_KV_BLOCK``, default 256); 0 or less builds the contiguous
+    layout (one ``max_len`` row per slot, ``kv_blocks`` unused).
+    ``kv_kernel`` (None reads ``SKYTPU_KV_KERNEL``): a paged engine's
+    big-cache reads run K1 either way; on a contiguous engine, which has
+    no block table, asking for it emits ``engine.kv_kernel_fallback``.
+
     ``qos``: a :class:`qos.FairScheduler` (None: FIFO admission, no
     preemption, no KV quota). ``kv_lazy``: lazy KV growth (None reads
-    ``SKYTPU_KV_LAZY``). ``adapters``: the multi-LoRA catalog (None: the
-    adapterless path, whose programs run exactly as before); its pool
-    moves to ``device`` if it lives elsewhere.
+    ``SKYTPU_KV_LAZY``; paged only). ``adapters``: the multi-LoRA
+    catalog (None: the adapterless path, whose programs run exactly as
+    before); its pool moves to ``device`` if it lives elsewhere.
 
     ``flight_recorder``: the flight ring the engine records into (None:
     the process recorder ``flight.RECORDER``). ``forensics``: retirement
@@ -839,7 +878,8 @@ class InferenceEngine:
                  prompt_buckets: Tuple[int, ...] = (128, 512, 1024),
                  sampling_params: sampling.SamplingParams = sampling.SamplingParams(),
                  eos_id: Optional[int] = None, seed: int = 0,
-                 max_wave: Optional[int] = None, kv_block: int = 256,
+                 max_wave: Optional[int] = None,
+                 kv_block: Optional[int] = None,
                  kv_blocks: Optional[int] = None, span_buckets=None,
                  prefill_chunk: Optional[int] = 512,
                  prefix_pool: int = 0, spec_k: int = 0,
@@ -850,6 +890,7 @@ class InferenceEngine:
                  qweights: Optional[kvcache.QWeights] = None,
                  device: DeviceLike = None,
                  plain_attention: bool = False,
+                 kv_kernel: Optional[bool] = None,
                  kv_lazy: Optional[bool] = None,
                  qos: Optional[qos_lib.FairScheduler] = None,
                  adapters: Optional[adapters_lib.AdapterCatalog] = None,
@@ -949,33 +990,63 @@ class InferenceEngine:
         self._spec_drafted_total = 0
         self._spec_accepted_total = 0
         self.verify_calls = 0
-        if kv_block <= 0:
-            raise ValueError("the port serves the paged KV layout only: "
-                             "kv_block must be > 0")
-        b = paged_block_len(max_len, kv_block, self.device, kv_int8)
-        self.kv_block = b
-        nb = max_len // b
-        self.n_kv_blocks = (kv_blocks if kv_blocks and kv_blocks > 0
-                            else n_slots * nb)
-        if self.n_kv_blocks < nb:
-            raise ValueError(
-                f"kv_blocks={self.n_kv_blocks} cannot hold one max_len "
-                f"request ({nb} blocks of {b})")
-        self.blocks_per_slot = nb
-        self.allocator = kvcache.BlockAllocator(self.n_kv_blocks)
-        # Per-slot block table, one extra column pinned to the sentinel
-        # (== n_kv_blocks, the cache's trash block). Host numpy is
-        # authoritative; a cached device copy rides into every program.
-        self.block_table = np.full((n_slots, nb + 1), self.n_kv_blocks,
-                                   np.int32)
+        if kv_block is None:
+            kv_block = int(os.environ.get("SKYTPU_KV_BLOCK", "256") or 0)
+        self.paged = kv_block > 0
         self._table_dev: Optional[torch.Tensor] = None
-        self._table_dirty = True
+        self._table_dirty = self.paged
+        if self.paged:
+            b = paged_block_len(max_len, kv_block, self.device, kv_int8)
+            self.kv_block: Optional[int] = b
+            nb = max_len // b
+            self.n_kv_blocks = (kv_blocks if kv_blocks and kv_blocks > 0
+                                else n_slots * nb)
+            if self.n_kv_blocks < nb:
+                raise ValueError(
+                    f"kv_blocks={self.n_kv_blocks} cannot hold one "
+                    f"max_len request ({nb} blocks of {b})")
+            self.blocks_per_slot = nb
+            self.allocator: Optional[kvcache.BlockAllocator] = (
+                kvcache.BlockAllocator(self.n_kv_blocks))
+            # Per-slot block table, one extra column pinned to the
+            # sentinel (== n_kv_blocks, the cache's trash block). Host
+            # numpy is authoritative; a cached device copy rides into
+            # every program.
+            self.block_table: Optional[np.ndarray] = np.full(
+                (n_slots, nb + 1), self.n_kv_blocks, np.int32)
+            self.cache = kvcache.init_paged_cache(
+                cfg, n_slots, self.n_kv_blocks, self.kv_block, self.device,
+                kv_int8=kv_int8)
+        else:
+            # Contiguous: one max_len row per slot plus the trash slot
+            # (the reference's spare slot's bytes); no table, no
+            # allocator.
+            self.kv_block = None
+            self.n_kv_blocks = 0
+            self.blocks_per_slot = 0
+            self.allocator = None
+            self.block_table = None
+            self.cache = kvcache.init_cache(cfg, n_slots, max_len,
+                                            kv_int8=kv_int8,
+                                            device=self.device)
+        # The contiguous layout's prefix cache: a separate pool of
+        # ``prefix_pool`` max_len rows, copied whole on store and hit. A
+        # paged engine needs none: a stored prefix is shared blocks.
+        self.pool = (kvcache.init_prefix_pool(cfg, self.prefix_pool,
+                                              max_len, kv_int8=kv_int8,
+                                              device=self.device)
+                     if self.prefix_pool and not self.paged else None)
+        # K1 reads a paged cache whether or not kv_kernel is asked for;
+        # a contiguous cache has no block table for it to walk, and the
+        # request is answered with the reference's typed event.
+        if kv_kernel is None:
+            kv_kernel = os.environ.get("SKYTPU_KV_KERNEL", "") == "1"
+        if kv_kernel and not self.paged:
+            tracing.add_event("engine.kv_kernel_fallback",
+                              {"reason": "contiguous_layout"}, echo=True)
         # Span-bucketed decode attention: each burst reads only the
         # first ``span`` logical rows of the rung covering its slots.
         self.span_ladder = _span_ladder(span_buckets, max_len)
-        self.cache = kvcache.init_paged_cache(
-            cfg, n_slots, self.n_kv_blocks, self.kv_block, self.device,
-            kv_int8=kv_int8)
         if draft_engine is not None and (
                 draft_engine.n_slots != n_slots
                 or draft_engine.cache["k"].device != self.cache["k"].device):
@@ -988,7 +1059,7 @@ class InferenceEngine:
         # the rest allocates at burst dispatch (_ensure_headroom).
         if kv_lazy is None:
             kv_lazy = os.environ.get("SKYTPU_KV_LAZY", "") == "1"
-        self.kv_lazy = bool(kv_lazy)
+        self.kv_lazy = bool(kv_lazy) and self.paged
         self._lazy_headroom = max(16, self.spec_k + 1)
         # Per-tenant KV-block charges: a slot's table references are
         # charged to its tenant at claim and growth, refunded at free.
@@ -1045,14 +1116,16 @@ class InferenceEngine:
         self.exemplars = (exemplar_store if exemplar_store is not None
                           else forensics_lib.EXEMPLARS)
         # The reference's "kernel" static argument: whether the
-        # big-cache reads run K1 (the plain versions otherwise).
-        self._kernel = not self.plain_attention
+        # big-cache reads run K1 (the plain versions otherwise; a
+        # contiguous cache always takes the gather).
+        self._kernel = not self.plain_attention and self.paged
         watch = self.compile_watch.wrap
         # A wave's program key carries its real row count: the port
         # dispatches each wave at its own size.
         self._admit_wave_fn = watch(
             "admit_wave", self._admit_wave_program, ("bucket",),
             key_fn=lambda a, kw: (("rows", a[0].shape[0]),))
+        self._decode_fn = watch("decode1", self._decode_program, ("span",))
         self._decode_burst_fn = watch(
             "decode_burst", self._decode_burst_program,
             ("k", "span", "kernel"))
@@ -1062,6 +1135,8 @@ class InferenceEngine:
             "prefill_chunk", self._prefill_chunk_program,
             ("final", "span", "kernel"))
         self._claim_fn = watch("claim", kvcache.claim_slot)
+        self._pool_load_fn = watch("pool_load", kvcache.pool_load)
+        self._pool_store_fn = watch("pool_store", kvcache.pool_store)
         self._copy_block_fn = watch("copy_block", kvcache.copy_block)
         self._export_blocks_fn = watch("export_blocks",
                                        kvcache.export_blocks)
@@ -1079,7 +1154,8 @@ class InferenceEngine:
         if "k_scale" in self.cache:
             self._kv_token_bytes += (2 * L * G
                                      * self.cache["k_scale"].element_size())
-        self._kv_block_bytes = self._kv_token_bytes * self.kv_block
+        self._kv_block_bytes = (self._kv_token_bytes * self.kv_block
+                                if self.paged else 0)
         self._weight_bytes = (attribution_lib.tensor_bytes(self.params)
                               + attribution_lib.tensor_bytes(self.qweights))
         self.hbm_ledger = attribution_lib.HbmLedger()
@@ -1113,7 +1189,8 @@ class InferenceEngine:
         led = self.hbm_ledger
         led.set_bytes("weights", self._weight_bytes)
         led.set_bytes("kv_pool", attribution_lib.tensor_bytes(self.cache))
-        led.set_bytes("prefix_pool", 0)     # paged: prefixes share blocks
+        # Paged: prefixes share blocks; contiguous: the row pool.
+        led.set_bytes("prefix_pool", attribution_lib.tensor_bytes(self.pool))
         led.set_bytes("draft_pool",
                       self.draft_engine.hbm_bytes()
                       if self.draft_engine is not None else 0)
@@ -1143,10 +1220,20 @@ class InferenceEngine:
         on (allocator counts, prefix payloads): a ledger leak is a
         structure leak."""
         led = self.hbm_ledger
+        idx = self._prefix_index
+        if not self.paged:
+            # Contiguous: every active slot rents a whole max_len row, and
+            # every resident prefix a pool row.
+            row_bytes = self.max_len * self._kv_token_bytes
+            led.set_bytes("kv_used", len(self.slot_req) * row_bytes)
+            led.set_bytes("prefix_pinned",
+                          len(idx.payloads()) * row_bytes
+                          if idx is not None else 0)
+            return
         led.set_bytes("kv_used", self.allocator.used * self._kv_block_bytes)
         pinned = 0
-        if self._prefix_index is not None:
-            for payload in self._prefix_index.payloads():
+        if idx is not None:
+            for payload in idx.payloads():
                 pinned += len(payload) * self._kv_block_bytes
         led.set_bytes("prefix_pinned", pinned)
 
@@ -1173,8 +1260,8 @@ class InferenceEngine:
         if fl is None or not fl.enabled:
             return
         program = dict(program)
-        program["layout"] = "paged"
-        if burst in ("decode", "verify", "chunk"):
+        program["layout"] = self._layout
+        if burst in ("decode", "verify", "chunk", "decode1"):
             program["attn"] = "kernel" if self._kernel else "gather"
         extra: Dict[str, Any] = {}
         if stall:
@@ -1252,7 +1339,7 @@ class InferenceEngine:
             fl.record(burst, ts_s=fields.pop("ts_s", time.time()),
                       dur_s=0.0,
                       program=dict(fields.pop("program", {}),
-                                   layout="paged"),
+                                   layout=self._layout),
                       slots=list(slots), rids=list(rids), toks=0,
                       **fields)
 
@@ -1268,16 +1355,20 @@ class InferenceEngine:
 
     def warm_programs(self, max_burst: int = 8) -> int:
         """Dispatch every reachable program key once before traffic
-        (then :meth:`declare_warmup_complete`): each decode burst width
-        (powers of two up to ``max_burst``), verify, both chunk kinds at
-        every span rung, an admission wave per bucket and row count, and
-        the claim, block-copy, export/import and adapter-install
+        (then :meth:`declare_warmup_complete`): the single step and each
+        decode burst width (powers of two up to ``max_burst``), verify,
+        both chunk kinds at every span rung, an admission wave per
+        bucket and row count, and the claim, block-copy, export/import
+        (paged) or pool load/store (contiguous) and adapter-install
         programs, each once.
 
         The port keeps no spare slot, so every program runs against a
         free slot whose table row is all-sentinel (its writes land in
-        the trash block); other slots ride inactive, their writes past
-        their lengths as in any span group's burst. Lengths, pending
+        the trash block; contiguous: any free slot, whose rows are
+        dead); other slots ride inactive, their writes past their
+        lengths as in any span group's burst. The pool programs copy
+        pool row 0 into the free slot and back, so no resident prefix
+        changes. Lengths, pending
         tokens and the generator's stream are restored afterwards, so no
         greedy token changes and no block is allocated. Raises
         :class:`NoFreeSlotError` when every slot is occupied. Runs under
@@ -1294,6 +1385,7 @@ class InferenceEngine:
         with warm_sweep(self.compile_watch, self.cache, self.generator):
             for span in self.span_ladder:
                 sarg = self._span_arg(span)
+                self._decode_fn(active_dev, table, span=sarg)
                 k = 1
                 while k <= max_burst:
                     self._decode_burst_fn(active_dev, table, k=k,
@@ -1327,13 +1419,18 @@ class InferenceEngine:
                         if self.adapters is not None else None,
                         table, bucket=bucket)
             self._claim_fn(self.cache, spare, self.max_len)
-            trash = self.n_kv_blocks
-            self._copy_block_fn(self.cache, trash, trash)
-            ids = torch.full((self.blocks_per_slot,), trash,
-                             dtype=torch.long, device=self.device)
-            self._import_blocks_fn(
-                self.cache, ids,
-                self._export_blocks_fn(self.cache, ids))
+            if self.pool is not None:
+                self._pool_load_fn(self.cache, self.pool, 0, spare,
+                                   self.max_len)
+                self._pool_store_fn(self.pool, self.cache, spare, 0)
+            if self.paged:
+                trash = self.n_kv_blocks
+                self._copy_block_fn(self.cache, trash, trash)
+                ids = torch.full((self.blocks_per_slot,), trash,
+                                 dtype=torch.long, device=self.device)
+                self._import_blocks_fn(
+                    self.cache, ids,
+                    self._export_blocks_fn(self.cache, ids))
             if self.adapters is not None:
                 # The all-zero weights into the base slot (values
                 # unchanged): a demand load mid-traffic dispatches a
@@ -1369,6 +1466,20 @@ class InferenceEngine:
                            {"k": prefix["k"][:, w], "v": prefix["v"][:, w]},
                            slot, lens[w], first[w], table)
         return first
+
+    def _decode_program(self, active: torch.Tensor,
+                        table: Optional[torch.Tensor], *,
+                        span: Optional[int]) -> torch.Tensor:
+        """The single step: one token for every slot
+        (:func:`kvcache.decode_step`), sampled, committed on ``active``
+        slots; returns the tokens on the device, unfetched."""
+        logits = kvcache.decode_step(
+            self.params, self.cache, self.cfg, table, span=span,
+            plain_attention=not self._kernel, qweights=self.qweights,
+            **self._lora_args())
+        toks = sampling.sample(logits, self.sampling_params, self.generator)
+        kvcache.commit_tokens(self.cache, toks, active)
+        return toks
 
     def _decode_burst_program(self, active: torch.Tensor,
                               table: torch.Tensor, *, k: int,
@@ -1446,19 +1557,28 @@ class InferenceEngine:
         seen = self.prefix_hits + self.prefix_misses
         if seen:
             PREFIX_HIT_RATIO.set(self.prefix_hits / seen)
-        KV_BLOCKS_USED.set(self.allocator.used)
+        if self.paged:
+            KV_BLOCKS_USED.set(self.allocator.used)
         self._refresh_hbm_ledger()
 
-    def table_device(self) -> torch.Tensor:
+    @property
+    def _layout(self) -> str:
+        """The layout name program keys and flight records carry."""
+        return "paged" if self.paged else "contig"
+
+    def table_device(self) -> Optional[torch.Tensor]:
         """The block table as a device tensor, re-uploaded only after a
-        claim or retirement changed it."""
+        claim or retirement changed it (None when contiguous)."""
+        if not self.paged:
+            return None
         if self._table_dirty or self._table_dev is None:
             self._table_dev = upload(self.block_table.copy(), self.device)
             self._table_dirty = False
         return self._table_dev
 
     def blocks_used(self) -> int:
-        return self.allocator.used
+        """Physical blocks referenced (0 when contiguous)."""
+        return self.allocator.used if self.paged else 0
 
     # -- adapter catalog ---------------------------------------------------
 
@@ -1644,8 +1764,8 @@ class InferenceEngine:
 
     def _kv_quota(self, tenant: str) -> int:
         """The tenant's ``max_kv_blocks`` quota (0 = unlimited); only
-        with a QoS config."""
-        if self.qos is None:
+        on a paged engine with a QoS config."""
+        if not self.paged or self.qos is None:
             return 0
         return max(self.qos.cfg.tenant(tenant).max_kv_blocks, 0)
 
@@ -1710,7 +1830,10 @@ class InferenceEngine:
         """Re-point the tenant accounting at the slot's CURRENT table
         occupancy (at claim, growth and free): the charge is the blocks
         the slot's table references, so shared prefix blocks charge every
-        referencing tenant and the refund is exact by construction."""
+        referencing tenant and the refund is exact by construction. A
+        contiguous engine charges nothing."""
+        if not self.paged:
+            return
         old_tenant, old_n = self._slot_kv_charge.get(slot, (None, 0))
         tenant = tenant if tenant is not None else old_tenant
         row = self.block_table[slot]
@@ -1738,6 +1861,11 @@ class InferenceEngine:
         if st == "stall":
             self._mark_stall(req, "adapter_pin")
             return "held", None
+        if not self.paged:
+            slot = self.free_slots.pop(0)
+            self._set_slot_adapter(slot, req.adapter_slot)
+            self._end_stall(req)
+            return "ok", slot
         blocks = self._alloc_blocks(
             self._need_blocks(req, self._ctx_len(req)))
         if blocks is None:
@@ -1759,7 +1887,10 @@ class InferenceEngine:
     def _free_slot_blocks(self, slot: int) -> None:
         """Release a slot's block references and clear its table row to
         the sentinel: later bursts' writes for the dead slot land in the
-        trash block. A block a prefix entry still holds survives."""
+        trash block. A block a prefix entry still holds survives. A
+        contiguous slot holds no blocks."""
+        if not self.paged:
+            return
         row = self.block_table[slot]
         for b in row[row < self.n_kv_blocks].tolist():
             self.allocator.decref(b)
@@ -1865,7 +1996,9 @@ class InferenceEngine:
         if not self._resumable(len(ctx)):
             return False
         retired_rows = 0
-        if self._prefix_index is not None and req.n_chunks:
+        # A contiguous victim resumes cold: its rows would have to be
+        # copied into a pool row, and the reference stores none.
+        if self.paged and self._prefix_index is not None and req.n_chunks:
             # Committed rows stop one short of the context: the last
             # token's row is written by the burst that decodes its
             # successor, which never ran. Only a chunk-admitted victim's
@@ -2180,27 +2313,30 @@ class InferenceEngine:
         hit = idx.lookup(ctx, salt) if idx is not None else None
         cached = n_shared = partial = 0
         shared: List[int] = []
+        new_blocks: List[int] = []
         if hit is not None:
             payload, cached = hit
-            n_shared, partial = divmod(cached, self.kv_block)
-            # Pin the shared blocks BEFORE any dry-pool eviction:
-            # _alloc_blocks may evict the hit's own entry, and an
-            # unpinned block could come straight back as a fresh one,
-            # aliased at two table positions.
-            shared = list(payload[:n_shared])
-            for b in shared:
-                self.allocator.incref(b)
-        # A lazy reservation can be smaller than the shared prefix
-        # rounds to; never ask for a negative count.
-        new_blocks = self._alloc_blocks(
-            max(self._need_blocks(req, len(ctx)) - n_shared, 0))
-        if new_blocks is None:
-            for b in shared:                  # unpin; retry next pass
-                self.allocator.decref(b)
-            self._release_adapter(req)
-            self._mark_stall(req, "pool_dry")
-            self._requeue(req)
-            return "stall"
+        if self.paged:
+            if hit is not None:
+                n_shared, partial = divmod(cached, self.kv_block)
+                # Pin the shared blocks BEFORE any dry-pool eviction:
+                # _alloc_blocks may evict the hit's own entry, and an
+                # unpinned block could come straight back as a fresh
+                # one, aliased at two table positions.
+                shared = list(payload[:n_shared])
+                for b in shared:
+                    self.allocator.incref(b)
+            # A lazy reservation can be smaller than the shared prefix
+            # rounds to; never ask for a negative count.
+            new_blocks = self._alloc_blocks(
+                max(self._need_blocks(req, len(ctx)) - n_shared, 0))
+            if new_blocks is None:
+                for b in shared:              # unpin; retry next pass
+                    self.allocator.decref(b)
+                self._release_adapter(req)
+                self._mark_stall(req, "pool_dry")
+                self._requeue(req)
+                return "stall"
         slot = self.free_slots.pop(0)
         self._set_slot_adapter(slot, req.adapter_slot)
         req.slot = slot
@@ -2209,25 +2345,35 @@ class InferenceEngine:
         tracing.record_span(
             "engine.queue_wait", req.submit_s, req.prefill_begin_s,
             parent=req.span_ctx, attrs={"rid": req.rid})
-        row = self.block_table[slot]
-        row[:] = self.n_kv_blocks
         if hit is not None:
             self.prefix_hits += 1
             PREFIX_HITS.inc()
-            row[:n_shared] = shared
-            if partial:
-                # Copy the partial shared block before the suffix
-                # prefill writes into it (its owner keeps ref > 1).
-                self._copy_block_fn(self.cache, payload[n_shared],
-                                    new_blocks[0])
-                self._count_cow()
         elif idx is not None and idx.eligible(ctx):
             self.prefix_misses += 1
             PREFIX_MISSES.inc()
-        row[n_shared:n_shared + len(new_blocks)] = new_blocks
-        self._table_dirty = True
-        self._sync_kv_charge(slot, req.tenant)
-        self._claim_fn(self.cache, slot, self.max_len)
+        if not self.paged:
+            # A hit copies the pool row into the slot; both claims stamp
+            # the slot's length to max_len.
+            if hit is not None:
+                self._pool_load_fn(self.cache, self.pool, payload, slot,
+                                   self.max_len)
+            else:
+                self._claim_fn(self.cache, slot, self.max_len)
+        else:
+            row = self.block_table[slot]
+            row[:] = self.n_kv_blocks
+            if hit is not None:
+                row[:n_shared] = shared
+                if partial:
+                    # Copy the partial shared block before the suffix
+                    # prefill writes into it (its owner keeps ref > 1).
+                    self._copy_block_fn(self.cache, payload[n_shared],
+                                        new_blocks[0])
+                    self._count_cow()
+            row[n_shared:n_shared + len(new_blocks)] = new_blocks
+            self._table_dirty = True
+            self._sync_kv_charge(slot, req.tenant)
+            self._claim_fn(self.cache, slot, self.max_len)
         if req.tokens:
             req.resumed_len = cached
         else:
@@ -2326,8 +2472,11 @@ class InferenceEngine:
         the entry's payload. A trailing partial block is copied on share
         while the donor lives (it keeps writing into its own copy past
         the prefix); a dying donor (preemption) shares it by incref
-        alone, since no writer remains. ``salt``: the request's adapter
-        namespace (:meth:`_prefix_salt`)."""
+        alone, since no writer remains. Contiguous: the slot's whole row
+        copies into a pool row (:meth:`PrefixIndex.acquire_row`, LRU;
+        live donors only, so a contiguous preemption resumes cold).
+        ``salt``: the request's adapter namespace
+        (:meth:`_prefix_salt`)."""
         idx = self._prefix_index
         if idx is None:
             return 0
@@ -2337,6 +2486,15 @@ class InferenceEngine:
         covered = idx.lookup(ctx, salt)
         if covered is not None and covered[1] >= n:
             return 0
+        if not self.paged:
+            if not donor_live:
+                return 0
+            row, evicted = idx.acquire_row()
+            if evicted:
+                self._count_eviction()
+            self._pool_store_fn(self.pool, self.cache, slot, row)
+            idx.register(ctx, n, row, salt)
+            return n
         n_full, partial = divmod(n, self.kv_block)
         blocks = self.block_table[slot, :n_full + (1 if partial else 0)
                                   ].tolist()
@@ -2365,9 +2523,10 @@ class InferenceEngine:
         idx = self._prefix_index
         if idx is None:
             return
-        for payload in idx.payloads():
-            for b in payload:
-                self.allocator.decref(b)
+        if self.paged:          # contiguous: the pool rows just go stale
+            for payload in idx.payloads():
+                for b in payload:
+                    self.allocator.decref(b)
         idx.clear()
 
     # -- cross-replica KV handoff (disaggregated serving) ------------------
@@ -2379,7 +2538,7 @@ class InferenceEngine:
         prefix, more than one token to generate, and a resumed context
         (prompt + the one committed token) that the receiving tier
         admits through the chunk path (:meth:`_resumable`)."""
-        return (self._prefix_index is not None
+        return (self.paged and self._prefix_index is not None
                 and self._prefix_index.eligible(prompt)
                 and max_new_tokens > 1
                 and self._resumable(len(prompt) + 1))
@@ -2397,8 +2556,8 @@ class InferenceEngine:
         same, and numpy needs no bfloat16 type). None when no prefix of
         the request is resident (the caller serves it single-tier)."""
         idx = self._prefix_index
-        if idx is None:
-            return None
+        if not self.paged or idx is None:
+            return None         # contiguous: no handoff, as the reference
         salt = self._prefix_salt(req)
         hit = idx.lookup(self._ctx(req), salt)
         if hit is None:
@@ -2426,8 +2585,8 @@ class InferenceEngine:
         the rows already resident when this engine is at least as warm.
         """
         idx = self._prefix_index
-        if idx is None:
-            return 0
+        if not self.paged or idx is None:
+            return 0            # contiguous: no handoff, as the reference
         if export.get("kv_block") != self.kv_block:
             return 0            # geometry mismatch: resume cold
         cached = int(export["cached_len"])
@@ -2528,7 +2687,8 @@ class InferenceEngine:
             req.slot = None
         self._release_adapter(req)
         SLOTS_ACTIVE.set(len(self.slot_req))
-        KV_BLOCKS_USED.set(self.allocator.used)
+        if self.paged:
+            KV_BLOCKS_USED.set(self.allocator.used)
 
     def _observe_tail(self, req: Request, now: float) -> None:
         """Streaming tail detection at retirement: fold the request's
@@ -2929,6 +3089,75 @@ class InferenceEngine:
             DECODE_TOKENS.inc(n)
         return out
 
+    def step(self) -> Dict[int, int]:
+        """Admit waiting requests (draining any chunked prefills to
+        completion: single-step callers want classic semantics), then
+        decode one token per active slot. Returns {rid: token} emitted
+        this step."""
+        self.admit()
+        while self.chunking:
+            self.prefill_chunk_step()
+        return self.step_decode_once()
+
+    def step_decode_once(self) -> Dict[int, int]:
+        """One single-token decode for every active slot (no admission),
+        at ONE span: the rung covering the longest active slot (the
+        classic-semantics path; the burst path is where regrouping
+        pays). Runs behind the ``decode`` dispatch boundary. Raises
+        :class:`KvPoolWedgedError` when lazy growth cannot back any
+        active slot (no outstanding burst could free blocks)."""
+        if not self.slot_req:
+            return {}
+        with _dispatch_boundary("decode"):
+            return self._step_decode_once_impl()
+
+    def _step_decode_once_impl(self) -> Dict[int, int]:
+        active = np.zeros((self.n_slots,), bool)
+        rows_max = 0
+        for slot, req in self.slot_req.items():
+            if not self._ensure_headroom(slot, req,
+                                         self._slot_rows(req) + 1):
+                continue            # lazy: pool dry, sits this one out
+            active[slot] = True
+            rows_max = max(rows_max, self._slot_rows(req))
+        if not rows_max:
+            raise KvPoolWedgedError(
+                "KV block pool exhausted: lazy growth cannot back any "
+                "active slot — size SKYTPU_KV_BLOCKS for the live "
+                "working set or disable SKYTPU_KV_LAZY")
+        sarg = self._span_arg(self._span_for(rows_max))
+        self.decode_programs.add(("decode1", 1, sarg))
+        ev = timeline.Event("skytpu_decode_step_seconds",
+                            histogram=DECODE_STEP_SECONDS)
+        ev.begin()
+        self._note_adapter_mix(s for s in self.slot_req if active[s])
+        toks_dev = self._decode_fn(upload(active, self.device),
+                                   self.table_device(), span=sarg)
+        t_disp = time.time()
+        step_key = self.compile_watch.last_key
+        toks = toks_dev.cpu().numpy()             # host sync
+        ev.end()
+        out: Dict[int, int] = {}
+        step_slots: List[int] = []
+        step_reqs: List[Request] = []
+        for slot, req in list(self.slot_req.items()):
+            if not active[slot]:
+                continue
+            tok = int(toks[slot])
+            req.tokens.append(tok)
+            out[req.rid] = tok
+            step_slots.append(slot)
+            step_reqs.append(req)
+            if self._req_finished(req, tok):
+                self._retire(req)
+        DECODE_TOKENS.inc(len(out))
+        self._record_flight(
+            "decode1", begin_s=ev.begin_s, end_s=time.time(),
+            program={"k": 1, "span": sarg}, slots=step_slots,
+            reqs=step_reqs, toks=len(out), dispatch_s=t_disp,
+            dev_keys=[step_key])
+        return out
+
     def step_burst(self, max_burst: int = 8,
                    on_wave=None) -> Dict[int, List[int]]:
         """Admit, run ONE prefill chunk if any are queued (chunk ->
@@ -2976,12 +3205,13 @@ class InferenceEngine:
         # the index is cleared without per-block decrefs.
         if self._prefix_index is not None:
             self._prefix_index.clear()
-        self.allocator.reset()
-        self.block_table[:] = self.n_kv_blocks
-        self._table_dirty = True
-        self._slot_kv_charge.clear()
-        for t in list(self._tenant_kv):
-            self._set_tenant_kv(t, 0)
+        if self.paged:
+            self.allocator.reset()
+            self.block_table[:] = self.n_kv_blocks
+            self._table_dirty = True
+            self._slot_kv_charge.clear()
+            for t in list(self._tenant_kv):
+                self._set_tenant_kv(t, 0)
         if self.adapters is not None:
             # A failure mid-load may have left pins inconsistent: drop
             # all residency (the pool tensors stay; nothing maps to them

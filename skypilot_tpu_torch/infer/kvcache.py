@@ -1,19 +1,33 @@
-"""Paged KV cache: wave prefill, insert, chunked prefill and the staged
-decode burst.
+"""KV cache programs: wave prefill, insert, chunked prefill, the
+single-step decode and the staged decode burst, over two storage
+layouts.
 
-Counterpart of the paged serving subset of
-``skypilot_tpu/infer/kvcache.py``: the block pool
-``[L, n_blocks, block_len, G, hd]``, a per-slot block table mapping
-logical block j to a physical block id, wave prefill
-(:func:`prefill_batch` + :func:`insert`), chunked prefill
-(:func:`claim_slot` + :func:`prefill_chunk`), the prefix cache's
-copy-on-write (:func:`copy_block`), the draft engine's lockstep write
-(:func:`sync_slots`), the staged decode burst
+Counterpart of ``skypilot_tpu/infer/kvcache.py``. Two layouts share
+every program, as in the reference; each program takes a ``table``:
+
+* **Paged** (a block table): the block pool ``[L, n_blocks, block_len,
+  G, hd]`` and a per-slot table mapping logical block j to a physical
+  block id (:func:`init_paged_cache`). The chunk's, the burst's, the
+  verify round's and the single step's big-cache attention goes through
+  the paged-attention kernel (K1) and merges with the columns they hold
+  outside the cache (the chunk's own rows, the staged rows, the pending
+  row).
+* **Contiguous** (``table=None``): one ``max_len`` row per slot,
+  ``[L, slots + 1, max_len, G, hd]`` (:func:`init_cache`). Big-cache
+  reads are the reference's gather: the slot-major rows sliced to the
+  span, a bf16 einsum, one softmax over [cache | own columns]. The
+  reference runs that read as plain XLA, not a Pallas kernel, so plain
+  torch is its port. A contiguous prefix cache is a separate pool of
+  rows copied whole (:func:`init_prefix_pool`, :func:`pool_store`,
+  :func:`pool_load`).
+
+The programs: wave prefill (:func:`prefill_batch` + :func:`insert`),
+chunked prefill (:func:`claim_slot` + :func:`prefill_chunk`), the
+single decode step (:func:`decode_step` + :func:`commit_tokens`), the
+prefix cache's copy-on-write (:func:`copy_block`, paged), the draft
+engine's lockstep write (:func:`sync_slots`), the staged decode burst
 (:func:`decode_burst_staged`) and the speculative verify round
-(:func:`verify_draft_staged`). The chunk's, the burst's and the verify
-round's big-cache attention goes through the paged-attention kernel and
-merges with the columns they hold outside the cache (the chunk's own
-rows, the staged rows).
+(:func:`verify_draft_staged`).
 
 The int8 recipe (the reference's ``--kv-int8 --weights-int8``): an int8
 cache stores each K/V row as int8 values with one bfloat16 absmax scale
@@ -36,6 +50,14 @@ Two differences from the JAX module, both about mutation:
   sentinel id addresses it, sentinel writes land there, and no read
   ever admits its rows (they lie past every slot's length). Table
   columns past the sentinel column clamp to it, as JAX gathers clamp.
+  The contiguous layout relies on the same drop at row ``max_len``: a
+  slot claimed for a chunked prefill has its length stamped to
+  ``max_len``, so the interleaved bursts' writes for it fall there, and
+  verify windows and final chunks run past ``max_len``. Its cache holds
+  one **trash slot** past the ``slots`` the engine serves (index
+  ``slots``, the reference's spare slot, so the bytes are the
+  reference's): :func:`_phys` sends every row at or past ``max_len`` to
+  it, and no read admits it.
 
 Layer loops are Python loops over the stacked ``[L, ...]`` weights where
 JAX used ``lax.scan``. Attention runs the CUDA kernels on CUDA tensors
@@ -324,6 +346,84 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Contiguous layout
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: llama.LlamaConfig, n_slots: int, max_len: int,
+               kv_int8: bool = False, device: DeviceLike = None) -> Cache:
+    """Contiguous decode state: one ``max_len`` row of K/V per slot,
+    ``[L, n_slots + 1, max_len, G, hd]``, the last slot (index
+    ``n_slots``) the trash slot that rows at or past ``max_len`` land
+    in (:func:`_phys`). ``kv_int8``: int8 rows with bfloat16 scales
+    ``[L, n_slots + 1, G, max_len]`` (the paged scale layout with one
+    block of ``max_len`` rows a slot), whatever ``cfg.dtype`` is.
+    ``length`` and ``last_token`` cover the ``n_slots`` served slots."""
+    device = resolve_device(device)
+    L, G, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    shape = (L, n_slots + 1, max_len, G, hd)
+    kdt = torch.int8 if kv_int8 else cfg.dtype
+    cache = {
+        "length": torch.zeros((n_slots,), dtype=torch.int32, device=device),
+        "last_token": torch.zeros((n_slots,), dtype=torch.long,
+                                  device=device),
+        "k": torch.zeros(shape, dtype=kdt, device=device),
+        "v": torch.zeros(shape, dtype=kdt, device=device),
+    }
+    if kv_int8:
+        sshape = (L, n_slots + 1, G, max_len)
+        cache["k_scale"] = torch.zeros(sshape, dtype=torch.bfloat16,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(sshape, dtype=torch.bfloat16,
+                                       device=device)
+    return cache
+
+
+def init_prefix_pool(cfg: llama.LlamaConfig, rows: int, max_len: int,
+                     kv_int8: bool = False,
+                     device: DeviceLike = None) -> Cache:
+    """K/V rows reserved for a contiguous engine's prefix cache
+    (``rows`` resident prefixes, one ``max_len`` row each): the decode
+    cache's per-row layout and scales, so a row copy is a plain copy
+    with no requantization and cached generation stays bit-identical to
+    cold."""
+    device = resolve_device(device)
+    L, G, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    kdt = torch.int8 if kv_int8 else cfg.dtype
+    pool = {"k": torch.zeros((L, rows, max_len, G, hd), dtype=kdt,
+                             device=device)}
+    pool["v"] = torch.zeros_like(pool["k"])
+    if kv_int8:
+        pool["k_scale"] = torch.zeros((L, rows, G, max_len),
+                                      dtype=torch.bfloat16, device=device)
+        pool["v_scale"] = torch.zeros_like(pool["k_scale"])
+    return pool
+
+
+@torch.no_grad()
+def pool_store(pool: Cache, cache: Cache, slot: int, row: int) -> None:
+    """Copy a slot's K/V rows (all ``max_len`` of them, with the scales)
+    into pool row ``row``, in place. Rows past the prompt are garbage
+    but harmless: the host index records the cached prefix length, and
+    a load's suffix prefill overwrites everything past it before decode
+    reads it."""
+    for name in pool:
+        pool[name][:, row] = cache[name][:, slot]
+
+
+@torch.no_grad()
+def pool_load(cache: Cache, pool: Cache, row: int, slot: int,
+              claim_len: int) -> None:
+    """Copy pool row ``row`` into decode slot ``slot`` and claim the slot
+    for a chunked prefill, in place: the length is stamped to
+    ``claim_len`` (``max_len``), so the rows interleaved bursts write for
+    every slot at ``length`` land in the trash slot instead of over rows
+    a finished chunk already wrote (:func:`claim_slot`)."""
+    for name in pool:
+        cache[name][:, slot] = pool[name][:, row]
+    cache["length"][slot] = claim_len
+
+
+# ---------------------------------------------------------------------------
 # Paged block-pool layout
 # ---------------------------------------------------------------------------
 
@@ -468,20 +568,85 @@ def sync_slots(cache: Cache, active: torch.Tensor, lengths: torch.Tensor,
         active, tokens.to(cache["last_token"].dtype), cache["last_token"]))
 
 
-def _logical_rows(cache: Cache, table: torch.Tensor) -> int:
-    """Rows a slot's attention spans: blocks_per_slot * block_len (the
-    table's last column is the sentinel and holds no rows)."""
+def _logical_rows(cache: Cache, table: Optional[torch.Tensor]) -> int:
+    """Rows a slot's attention spans: ``max_len`` (contiguous) or
+    blocks_per_slot * block_len (paged; the table's last column is the
+    sentinel and holds no rows)."""
+    if table is None:
+        return cache["k"].shape[2]
     return (table.shape[1] - 1) * cache["k"].shape[2]
 
 
-def _phys(cache: Cache, table: torch.Tensor, slots, idx: torch.Tensor
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(slot, logical row) -> (physical block, row in block) through the
-    block table. Logical rows past the table clamp to its sentinel
-    column, whose id addresses the trash block."""
+def _phys(cache: Cache, table: Optional[torch.Tensor], slots,
+          idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(slot, logical row) -> the cache's two row-addressing indices.
+    Paged: (physical block, row in block) through the block table;
+    logical rows past the table clamp to its sentinel column, whose id
+    addresses the trash block. Contiguous (``table`` None): the identity
+    below ``max_len``; a row at or past it goes to the trash slot (the
+    explicit form of the reference's dropped out-of-bounds scatter)."""
     bl = cache["k"].shape[2]
+    if table is None:
+        slots = torch.as_tensor(slots, device=idx.device)
+        trash = cache["k"].shape[1] - 1
+        return torch.where(idx < bl, slots, trash), idx % bl
     col = (idx // bl).clamp(max=table.shape[1] - 1)
     return table[slots, col].long(), idx % bl
+
+
+def _gather_kv_layer(cache: Cache, i: int, span: Optional[int]):
+    """Layer ``i``'s contiguous rows of the served slots: k/v [B, M, G,
+    hd], scales [B, G, M] (None on a float cache), ``M = span`` or
+    ``max_len``: the slot-major rows read directly, a prefix of the full
+    view in the same order (the reference's ``_gather_kv_layer`` with
+    ``table=None``)."""
+    B = cache["length"].shape[0]
+    M = span if span is not None else cache["k"].shape[2]
+    ks = cache.get("k_scale")
+    vs = cache.get("v_scale")
+    return (cache["k"][i, :B, :M], cache["v"][i, :B, :M],
+            None if ks is None else ks[i, :B, :, :M],
+            None if vs is None else vs[i, :B, :, :M])
+
+
+def _gather_slot_kv_layer(cache: Cache, i: int, slot: int,
+                          span: Optional[int]):
+    """One contiguous slot's rows of layer ``i``: k/v [M, G, hd], scales
+    [G, M] (the chunk's read)."""
+    M = span if span is not None else cache["k"].shape[2]
+    ks = cache.get("k_scale")
+    vs = cache.get("v_scale")
+    return (cache["k"][i, slot, :M], cache["v"][i, slot, :M],
+            None if ks is None else ks[i, slot, :, :M],
+            None if vs is None else vs[i, slot, :, :M])
+
+
+def _gather_attn(eqs: Tuple[str, str, str], qh: torch.Tensor, ck, cv,
+                 cks, cvs, valid: torch.Tensor, ss: torch.Tensor,
+                 v_own: torch.Tensor,
+                 own_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's gather read (the contiguous layout): cache scores
+    ``q . k`` as a bf16 einsum with float32 accumulation (K's scales
+    multiply the scores), masked by ``valid``, one softmax over [cache
+    columns | the program's own columns ``ss``], then the weights (V's
+    scales folded in) against the cache rows and the own rows ``v_own``,
+    each a bf16 einsum. ``eqs``: the score, cache-value and own-value
+    einsums; scales are [..., G, M] and multiply over the query-row
+    axis; ``own_scale``: the own columns' V scales (staged int8 rows),
+    else None. Returns the normalized output."""
+    eq_s, eq_v, eq_own = eqs
+    sm = _bf16_dot(eq_s, qh, ck) * qh.shape[-1] ** -0.5
+    if cks is not None:
+        sm = sm * cks.float().unsqueeze(-2)
+    sm = sm.masked_fill(~valid, NEG_INF)
+    M = sm.shape[-1]
+    w = torch.softmax(torch.cat([sm, ss], dim=-1), dim=-1)
+    wm, ws = w[..., :M], w[..., M:]
+    if cvs is not None:
+        wm = wm * cvs.float().unsqueeze(-2)
+    if own_scale is not None:
+        ws = ws * own_scale
+    return _bf16_dot(eq_v, wm, cv) + _bf16_dot(eq_own, ws, v_own)
 
 
 Rows = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
@@ -641,13 +806,14 @@ def prefill_batch(params: llama.Params, tokens: torch.Tensor,
 
 @torch.no_grad()
 def insert(cache: Cache, prefix: Cache, slot: int, true_len,
-           first_token, table: torch.Tensor) -> None:
+           first_token, table: Optional[torch.Tensor] = None) -> None:
     """Install a prefilled prompt into decode slot ``slot`` (in place).
 
     prefix k/v: [L, S_bucket, G, hd]; the rows scatter through the
-    slot's block table, quantized first on an int8 cache. Rows >=
-    true_len are padding but harmless — decode masks by ``length``; rows
-    past the slot's allocation land in the trash block."""
+    slot's block table (contiguous: into the slot's row), quantized
+    first on an int8 cache. Rows >= true_len are padding but harmless —
+    decode masks by ``length``; rows past the slot's allocation land in
+    the trash block (contiguous: past ``max_len``, the trash slot)."""
     S = prefix["k"].shape[1]
     blk, off = _phys(cache, table, slot,
                      torch.arange(S, device=prefix["k"].device))
@@ -666,8 +832,9 @@ def claim_slot(cache: Cache, slot: int, claim_len: int) -> None:
     """Claim a slot for a cold chunked prefill (in place): its length is
     stamped to ``claim_len`` (max_len), so the rows that interleaved
     decode bursts flush for every slot, active or not, at index
-    ``length`` fall past the table and land in the trash block instead
-    of over rows a finished chunk already wrote."""
+    ``length`` fall past the table and land in the trash block (the
+    trash slot, contiguous) instead of over rows a finished chunk
+    already wrote."""
     cache["length"][slot] = claim_len
 
 
@@ -675,7 +842,8 @@ def claim_slot(cache: Cache, slot: int, claim_len: int) -> None:
 def prefill_chunk(params: llama.Params, cache: Cache,
                   tokens_c: torch.Tensor, start: int, n_valid: int,
                   slot: int, new_len: int, cfg: llama.LlamaConfig,
-                  sp: sampling_mod.SamplingParams, table: torch.Tensor, *,
+                  sp: sampling_mod.SamplingParams,
+                  table: Optional[torch.Tensor], *,
                   final: bool, span: Optional[int] = None,
                   generator: Optional[torch.Generator] = None,
                   plain_attention: bool = False,
@@ -692,9 +860,12 @@ def prefill_chunk(params: llama.Params, cache: Cache,
     ``start`` (the paged kernel with the chunk's ``C * rep`` query rows
     per kv-head, through its block table, ``span``-bounded) merged with
     the causal intra-chunk block, which stays a plain bf16 product as
-    the JAX program leaves it to XLA. The chunk's rows then scatter
-    through the table (rows past max_len land in the trash block) and
-    ``length`` is stamped, in place. On an int8 cache the big-cache read
+    the JAX program leaves it to XLA. With ``table`` None (contiguous)
+    the big-cache block is the reference's gather over the slot's row
+    (:func:`_gather_attn`), one softmax with the intra-chunk columns.
+    The chunk's rows then scatter through the table (rows past max_len
+    land in the trash block or slot) and ``length`` is stamped, in
+    place. On an int8 cache the big-cache read
     folds the stored rows' scales in, the intra-chunk block scores the
     chunk's own unquantized rows (as the reference does), and the rows
     are quantized as they are written. ``qweights``: w8a8 products and
@@ -715,7 +886,7 @@ def prefill_chunk(params: llama.Params, cache: Cache,
     # scores; padding rows compute rows past the prompt's length, which
     # no read admits.
     intra = (j[None, :] <= j[:, None]) & (j[None, :] < n_valid)
-    tbl = table[slot:slot + 1]
+    tbl = table[slot:slot + 1] if table is not None else None
     lens = torch.full((1,), start, dtype=torch.int32, device=dev)
     # The chunk runs ONE slot: its adapter id, aligned with x's batch.
     aid_b = aid[slot:slot + 1] if lora is not None else None
@@ -732,18 +903,25 @@ def prefill_chunk(params: llama.Params, cache: Cache,
         qh = q[0].reshape(C, G, rep, hd).to(torch.bfloat16)
         ss = _bf16_dot("cgrk,jgk->cgrj", qh, kr) * scale
         ss = ss.masked_fill(~intra[:, None, None, :], NEG_INF)
-        # The chunk's C * rep rows of each kv-head in one (slot,
-        # kv-head) cell of the kernel, masked below ``start``.
-        q_k = qh.permute(1, 0, 2, 3).reshape(1, G, C * rep, hd)
-        acc, m, l = _paged_attn_stats(cache, i, tbl, q_k.contiguous(),
-                                      lens, span, plain_attention)
-        acc = acc.reshape(G, C, rep, hd).permute(1, 0, 2, 3)
-        m = m.reshape(G, C, rep).permute(1, 0, 2)
-        l = l.reshape(G, C, rep).permute(1, 0, 2)
-        alpha, w_s, l_tot = _merge_attn_parts(acc, m, l, ss)
-        o = acc * alpha[..., None] + _bf16_dot("cgrj,jgk->cgrk", w_s, vr)
-        x = _decode_out_ffn(cfg, layer, qlayer, x, o / l_tot[..., None],
-                            llayer, aid_b)
+        if table is None:
+            ck, cv, cks, cvs = _gather_slot_kv_layer(cache, i, slot, span)
+            valid = torch.arange(ck.shape[0], device=dev) < start
+            o = _gather_attn(("cgrk,mgk->cgrm", "cgrm,mgk->cgrk",
+                              "cgrj,jgk->cgrk"), qh, ck, cv, cks, cvs,
+                             valid, ss, vr)
+        else:
+            # The chunk's C * rep rows of each kv-head in one (slot,
+            # kv-head) cell of the kernel, masked below ``start``.
+            q_k = qh.permute(1, 0, 2, 3).reshape(1, G, C * rep, hd)
+            acc, m, l = _paged_attn_stats(cache, i, tbl, q_k.contiguous(),
+                                          lens, span, plain_attention)
+            acc = acc.reshape(G, C, rep, hd).permute(1, 0, 2, 3)
+            m = m.reshape(G, C, rep).permute(1, 0, 2)
+            l = l.reshape(G, C, rep).permute(1, 0, 2)
+            alpha, w_s, l_tot = _merge_attn_parts(acc, m, l, ss)
+            o = (acc * alpha[..., None]
+                 + _bf16_dot("cgrj,jgk->cgrk", w_s, vr)) / l_tot[..., None]
+        x = _decode_out_ffn(cfg, layer, qlayer, x, o, llayer, aid_b)
     if final:
         x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = _head(cfg, params, qweights, x[:, n_valid - 1])
@@ -826,7 +1004,10 @@ def _staged_attn_layer(cfg, cache, table, layer, qlayer, x, cos, sin, i,
     ``stage_valid``), and the big cache stays untouched. On an int8
     cache the staged columns are quantized too: their K scales multiply
     the staged scores before the mask, their V scales the staged weights
-    after the merge. The one body the burst and the verify round run
+    after the merge. With ``table`` None (contiguous) the big-cache
+    block is the reference's gather instead (:func:`_gather_attn`, rows
+    below ``pos0`` of the first ``span`` rows). The one body the burst
+    and the verify round run
     (:func:`decode_burst_staged`, :func:`verify_draft_staged`), as
     ``kvcache.py:1307-1331`` of the JAX package asks of its burst and
     verify programs, so an accepted verify position sees the inputs a
@@ -850,10 +1031,20 @@ def _staged_attn_layer(cfg, cache, table, layer, qlayer, x, cos, sin, i,
     if sks is not None:
         ss = ss * sks[i].transpose(1, 2)[:, :, None, :].float()
     ss = ss.masked_fill(~stage_valid[:, None, None, :], NEG_INF)
+    own_scale = (svs[i].transpose(1, 2)[:, :, None, :].float()
+                 if svs is not None else None)
+    if table is None:
+        ck, cv, cks, cvs = _gather_kv_layer(cache, i, span)
+        valid = (torch.arange(ck.shape[1], device=pos0.device)[None, :]
+                 < pos0[:, None])
+        o = _gather_attn(("bgrk,bmgk->bgrm", "bgrm,bmgk->bgrk",
+                          "bgrj,bjgk->bgrk"), qh, ck, cv, cks, cvs,
+                         valid[:, None, None, :], ss, lv, own_scale)
+        return _decode_out_ffn(cfg, layer, qlayer, x, o, llayer, aid)
     acc, m, l = _paged_attn_stats(cache, i, table, qh, pos0, span, plain)
     alpha, w_s, l_tot = _merge_attn_parts(acc, m, l, ss)
-    if svs is not None:
-        w_s = w_s * svs[i].transpose(1, 2)[:, :, None, :].float()
+    if own_scale is not None:
+        w_s = w_s * own_scale
     o = acc * alpha[..., None] + _bf16_dot("bgrj,bjgk->bgrk", w_s, lv)
     o = o / l_tot[..., None]
     return _decode_out_ffn(cfg, layer, qlayer, x, o, llayer, aid)
@@ -933,6 +1124,95 @@ def step_logits(params: llama.Params, cache: Cache, cfg: llama.LlamaConfig,
         [qlayer_slice(qweights, i) for i in layers], cache, table,
         cache["last_token"], pos0, 0, _staging(cache, B, 1), valid, span,
         plain_attention, _lora_layers(cfg, lora), aid)
+
+
+@torch.no_grad()
+def decode_step(params: llama.Params, cache: Cache, cfg: llama.LlamaConfig,
+                table: Optional[torch.Tensor] = None,
+                span: Optional[int] = None, plain_attention: bool = False,
+                qweights: Optional[QWeights] = None,
+                lora: Optional[Dict] = None,
+                aid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One token for every slot: each slot's ``last_token`` enters at row
+    ``length``. Returns the logits [slots, vocab] float32; every layer's
+    pending K/V row is written at ``length`` once, after the layers (in
+    place; :func:`commit_tokens` advances the lengths).
+
+    Stored rows are strictly below ``length``; the pending token joins
+    attention as a self-term, one more column whose score uses the
+    values a read-back would see (quantized on an int8 cache), as in the
+    reference. The big-cache block reads the first ``span`` rows (None:
+    the full view): on a contiguous cache (``table`` None) through the
+    reference's gather, one softmax over [cache | self]; on a paged cache
+    through the paged-attention kernel (its plain version with
+    ``plain_attention``), whose stats merge with the self-term by the
+    online-softmax combine. ``qweights``: w8a8 products and head;
+    ``lora``/``aid``: the adapter pool and each slot's pool slot."""
+    B = cache["length"].shape[0]
+    G, hd = cfg.n_kv_heads, cfg.head_dim
+    rep = cfg.n_heads // G
+    scale = hd ** -0.5
+    dev = cache["k"].device
+    pos = cache["length"].clone()
+    x = params["embed"][cache["last_token"]].to(cfg.dtype)[:, None]
+    cos, sin = llama.rope_frequencies(cfg, pos[:, None])
+    quant = "k_scale" in cache
+    ys = []
+    for i in range(cfg.n_layers):
+        layer = llama.layer_slice(params, i)
+        qlayer = qlayer_slice(qweights, i)
+        llayer = adapters_lib.lora_layer(lora, i)
+        q, k, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin, llayer, aid)
+        rows = _stored_rows(cache, k[:, 0], v[:, 0])
+        ys.append(rows)
+        kq, vq, ksc, vsc = rows
+        k_new = kq.to(torch.bfloat16)           # exact for int8 values
+        v_new = vq.float()
+        qh = q[:, 0].reshape(B, G, rep, hd).to(torch.bfloat16).contiguous()
+        s_self = _bf16_dot("bgrk,bgk->bgr", qh, k_new) * scale
+        if quant:
+            v_new = v_new * vsc.float()[..., None]
+            s_self = s_self * ksc.float()[:, :, None]
+        if table is None:
+            ck, cv, cks, cvs = _gather_kv_layer(cache, i, span)
+            valid = (torch.arange(ck.shape[1], device=dev)[None, :]
+                     < pos[:, None])
+            sm = _bf16_dot("bgrk,bmgk->bgrm", qh, ck) * scale
+            if quant:
+                sm = sm * cks.float()[:, :, None, :]
+            sm = sm.masked_fill(~valid[:, None, None, :], NEG_INF)
+            w = torch.softmax(torch.cat([sm, s_self[..., None]], dim=-1),
+                              dim=-1)
+            M = sm.shape[-1]
+            wm, w_self = w[..., :M], w[..., M]
+            if quant:
+                wm = wm * cvs.float()[:, :, None, :]
+            o = (_bf16_dot("bgrm,bmgk->bgrk", wm, cv)
+                 + w_self[..., None] * v_new[:, :, None, :])
+        else:
+            acc, m, l = _paged_attn_stats(cache, i, table, qh, pos, span,
+                                          plain_attention)
+            alpha, w_s, l_tot = _merge_attn_parts(acc, m, l,
+                                                  s_self[..., None])
+            o = (acc * alpha[..., None]
+                 + w_s * v_new[:, :, None, :]) / l_tot[..., None]
+        x = _decode_out_ffn(cfg, layer, qlayer, x, o, llayer, aid)
+    logits = _decode_head(cfg, params, qweights, x)
+    stacked = tuple(None if ys[0][j] is None
+                    else torch.stack([r[j] for r in ys]) for j in range(4))
+    blk, off = _phys(cache, table, torch.arange(B, device=dev), pos.long())
+    _write_rows(cache, blk, off, stacked)
+    return logits
+
+
+@torch.no_grad()
+def commit_tokens(cache: Cache, tokens: torch.Tensor,
+                  active: torch.Tensor) -> None:
+    """Append sampled tokens on active slots, in place: bump their
+    lengths and set their pending tokens."""
+    cache["length"] += active.to(torch.int32)
+    cache["last_token"].copy_(torch.where(
+        active, tokens.to(cache["last_token"].dtype), cache["last_token"]))
 
 
 @torch.no_grad()

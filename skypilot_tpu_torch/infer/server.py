@@ -93,9 +93,14 @@ config name such as ``llama3-400m`` drawn at random with the target's
 vocabulary) puts a draft model's ``model`` rung above the n-gram
 drafter (trailer ``drafter``: ``model``, ``ngram`` after a demotion, or
 ``off``), and ``--spec-pipeline`` (env ``SKYTPU_SPEC_PIPELINE``, default
-1) enqueues its next draft burst behind each verify.
+1) enqueues its next draft burst behind each verify. ``--kv-block 0``
+(env ``SKYTPU_KV_BLOCK=0``) serves the contiguous KV layout: one
+``max_len`` row per slot, a pool of prefix rows, no handoff (``/prefill``
+answers the typed 409 ``handoff_ineligible``, ``/handoff`` resumes cold).
 
     python -m skypilot_tpu_torch.infer.server --config llama3-8b
+    python -m skypilot_tpu_torch.infer.server --config llama3-8b \
+        --kv-block 0
     python -m skypilot_tpu_torch.infer.server --config llama3-8b \
         --kv-int8 --weights-int8
     python -m skypilot_tpu_torch.infer.server --config llama3-8b \
@@ -1029,7 +1034,7 @@ def warm_grid(engine: eng.InferenceEngine, max_burst: int = 8) -> int:
 
 
 def make_engine(config: str, slots: int = 16, max_len: int = 1024,
-                admit_wave: int = 8, kv_block: int = 256,
+                admit_wave: int = 8, kv_block: Optional[int] = None,
                 kv_blocks: Optional[int] = None, span_buckets=None,
                 prefill_chunk: int = 512, prefix_pool: int = 8,
                 spec_k: int = 4, temperature: float = 0.0,
@@ -1045,7 +1050,9 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
                 ) -> eng.InferenceEngine:
     """The serving engine ``main()`` runs: ``config``'s model with
     random weights drawn in ``cfg.dtype`` on ``device`` from ``seed``,
-    paged KV (``kv_blocks`` blocks, None for one max_len row per slot),
+    paged KV of ``kv_block``-row blocks (None reads ``SKYTPU_KV_BLOCK``,
+    default 256; 0 the contiguous layout) and ``kv_blocks`` blocks (None
+    for one max_len row per slot),
     prompt buckets (128, 512, max_len), chunked prefill above
     ``prefill_chunk`` tokens, a prefix cache of ``prefix_pool`` entries
     and ``spec_k``-token n-gram speculation (0 disables each), the
@@ -1140,8 +1147,11 @@ def main(argv=None) -> None:
                     help="seconds to wait for a filling admission wave "
                          "when the newest arrival is fresher than this "
                          "(prevents 1-row waves on bursts)")
-    ap.add_argument("--kv-block", type=int, default=256,
-                    help="paged KV cache block length")
+    ap.add_argument("--kv-block", type=int, default=None,
+                    help="paged KV cache block length: slots rent "
+                         "blocks of this many rows instead of a "
+                         "contiguous max-len row (0 = contiguous "
+                         "layout; default env SKYTPU_KV_BLOCK or 256)")
     ap.add_argument("--kv-blocks", type=int, default=None,
                     help="paged KV pool size in blocks (default env "
                          "SKYTPU_KV_BLOCKS, or one max-len row per "

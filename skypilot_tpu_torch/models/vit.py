@@ -13,9 +13,10 @@ Plugs into ``train/trainer.py`` through ``model=vit`` (``init_params``,
 ``params_from_numpy``, ``loss_fn``); a batch is ``{"images": [B, H, W,
 C] float, "labels": [B] int}``.
 
-One deliberate difference: the flash kernels take head dims 32, 64 and
-128, so ``vit-tiny`` (head dim 16) runs on the CPU only and raises on
-the card (``vit-s16`` and ``vit-b16`` have head dim 64).
+The flash kernels take head dims 32, 64 and 128; ``gqa_attention``
+routes any other head dim to plain attention by shape, so ``vit-tiny``
+(head dim 16) runs plain attention on the card as on the CPU, while
+``vit-s16`` and ``vit-b16`` (head dim 64) launch the kernels.
 """
 
 from __future__ import annotations

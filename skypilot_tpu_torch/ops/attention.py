@@ -4,11 +4,15 @@ the plain einsum attention it is held against.
 Counterpart of ``skypilot_tpu/ops/attention.py``. The JAX module picked
 the Pallas kernel only on a TPU, at ``seq >= 1024`` and for head dims
 that are multiples of 128, and fell back to XLA on any error. The port
-has no such gates and no fallback: :func:`gqa_attention` always goes
-through ``FlashAttention`` (``ops/flash_attention.py``), whose wrappers
-launch the CUDA kernels (forward, and under autograd the backward) for
-CUDA tensors at every sequence length and raise on what the kernels do
-not take; only CPU tensors run the plain versions.
+has no sequence gate and no fallback on error: :func:`gqa_attention`
+chooses its route from the head dim alone, before any launch. Head dims
+the kernels take (32, 64, 128: ``flash_attention.HEAD_DIMS``) go through
+``FlashAttention`` (``ops/flash_attention.py``), whose wrappers launch
+the CUDA kernels (forward, and under autograd the backward) for CUDA
+tensors at every sequence length and run the plain versions only for CPU
+tensors; every other head dim (a ViT-tiny's 16) runs
+:func:`xla_attention` over :func:`repeat_kv`, as the reference does for
+every head dim that is not a multiple of 128.
 """
 
 from __future__ import annotations
@@ -57,5 +61,18 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> torch.Tensor:
     """Grouped-query attention. q: [B, S, Hq, D]; k/v: [B, S, Hkv, D],
     unexpanded: the flash kernels read kv-head ``h // (Hq / Hkv)``.
-    Differentiable: the backward runs K3 and K4."""
+    Differentiable: the backward runs K3 and K4. A head dim the kernels
+    do not take runs the plain attention (:func:`attention_route`)."""
+    if attention_route(q.shape[-1]) == "plain":
+        n_rep = q.shape[2] // k.shape[2]
+        return xla_attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
+                             causal=causal, segment_ids=segment_ids)
     return fa.FlashAttention.apply(q, k, v, segment_ids, causal)
+
+
+def attention_route(head_dim: int) -> str:
+    """The route :func:`gqa_attention` takes for a head dim: ``"flash"``
+    (K2, with K3/K4 backward) for the kernels' head dims, ``"plain"``
+    otherwise. A function of the shape alone, never of a launch's
+    outcome: a kernel that fails on a head dim it takes still raises."""
+    return "flash" if head_dim in fa.HEAD_DIMS else "plain"

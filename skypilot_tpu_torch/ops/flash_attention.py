@@ -46,6 +46,9 @@ from skypilot_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The head dims the kernels take (``ops/attention.gqa_attention`` routes
+# every other one to plain attention before any launch).
+HEAD_DIMS = (32, 64, 128)
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -116,7 +119,7 @@ def _check(q, k, v, segment_ids) -> None:
         raise TypeError(f"flash_attention: float32 or bfloat16 q/k/v of "
                         f"one dtype expected, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if D not in (32, 64, 128):
+    if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {D} not supported "
                          f"by the kernel (32, 64 or 128)")
     tensors = [q, k, v] + ([segment_ids] if segment_ids is not None else [])

@@ -96,3 +96,42 @@ def test_cpu_tensors_run_the_plain_version():
     tfa.flash_attention_fwd(*(torch.from_numpy(x) for x in (q, k, v)))
     assert tfa.flash_attention_fwd.launches == before
 
+
+
+@pytest.mark.parametrize("hd,route", [(16, "plain"), (24, "plain"),
+                                      (32, "flash"), (64, "flash"),
+                                      (128, "flash"), (256, "plain")])
+def test_gqa_attention_routes_by_head_dim(monkeypatch, hd, route):
+    """The route is chosen from the head dim before any launch: the
+    kernels' head dims go through ``FlashAttention`` (K2), every other
+    one through plain attention over ``repeat_kv``, with no device and
+    no launch attempted; both match the JAX package's ``gqa_attention``
+    (which sends these CPU shapes to its XLA path) within 1e-5 of the
+    max, causal and not, forward and backward."""
+    assert tattn.attention_route(hd) == route
+    calls = []
+    real = tfa.FlashAttention.apply
+    monkeypatch.setattr(tfa.FlashAttention, "apply",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    rng = np.random.default_rng(hd)
+    q = rng.standard_normal((2, 16, 4, hd)).astype(np.float32)
+    k = rng.standard_normal((2, 16, 2, hd)).astype(np.float32)
+    v = rng.standard_normal((2, 16, 2, hd)).astype(np.float32)
+    for causal in (True, False):
+        tq = torch.from_numpy(q).requires_grad_()
+        got = tattn.gqa_attention(tq, torch.from_numpy(k),
+                                  torch.from_numpy(v), causal=causal)
+        got.sum().backward()
+        assert tq.grad is not None and torch.isfinite(tq.grad).all()
+        want = np.asarray(jattn.gqa_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+            impl="xla"))
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+    assert len(calls) == (2 if route == "flash" else 0)
+    # A direct call of the kernel's wrapper still refuses the head dims
+    # the kernel does not take.
+    if route == "plain":
+        with pytest.raises(ValueError):
+            tfa._check(torch.zeros(1, 4, 1, hd), torch.zeros(1, 4, 1, hd),
+                       torch.zeros(1, 4, 1, hd), None)

@@ -5,7 +5,10 @@ chunks, hits and admission bursts, both draw the same prompts for seed
 0, every report has the reference report's keys (anchor keys null, the
 transport the port's), ``main`` prints one JSON line, the client raises
 on a typed 400, and without a card the bench raises instead of running
-on the CPU."""
+on the CPU. The contiguous layout's sections (``run_occupancy``,
+``run_span``, ``run_kernel``) meet the reference's guards at their smoke
+sizes and ``main``'s ``--occupancy``/``--span``/``--kernel`` lines carry
+the reference's keys."""
 
 import ast
 import json
@@ -252,3 +255,104 @@ def test_client_wave_raises_on_a_typed_400():
         httpd.shutdown()
         httpd.server_close()
         model.shutdown()
+
+
+# -- the contiguous layout's sections: occupancy, span, kernel ------------------
+
+@pytest.fixture(scope="module")
+def port_occupancy():
+    """``run_occupancy(smoke=True)`` on llama3-tiny in float32 (the tiny
+    config's bf16 puts near-ties everywhere, and K1's float32 value
+    product parts from the gather's bf16-rounded weights at them), with
+    the token lists behind its parity verdict."""
+    import dataclasses
+    real = tl.CONFIGS["llama3-tiny"]
+    tl.CONFIGS["llama3-tiny"] = dataclasses.replace(real,
+                                                    dtype=torch.float32)
+    try:
+        toks = {}
+        r = tb.run_occupancy(smoke=True, device="cpu", tokens_out=toks)
+    finally:
+        tl.CONFIGS["llama3-tiny"] = real
+    return r, toks
+
+
+@pytest.fixture(scope="module")
+def jax_occupancy():
+    return jb.run_occupancy(smoke=True)
+
+
+def test_run_occupancy_meets_the_reference_guard(port_occupancy):
+    """The reference's keys, equal KV bytes on both layouts (trash rows
+    counted on both), >= 4x the slots paged, no block leaked, and the
+    paged engine's tokens equal to the contiguous one's."""
+    r, toks = port_occupancy
+    assert _returned_keys("run_occupancy") <= set(r)
+    assert r["same_hbm"] and r["kv_hbm_bytes"] == r[
+        "kv_hbm_bytes_contiguous"]
+    assert r["parity_ok"] and r["leak_free"]
+    assert r["occupancy_x"] >= 4 and not r["occupancy_regressed"]
+    prompts, paged, contig = toks["parity"]
+    assert len(prompts) == r["requests"] and paged == contig
+
+
+@pytest.mark.parametrize("key", ["paged_slots", "contiguous_slots",
+                                 "occupancy_x", "requests", "max_len",
+                                 "new_tokens", "kv_block"])
+def test_run_occupancy_counts_equal_the_jax_bench(port_occupancy,
+                                                  jax_occupancy, key):
+    assert port_occupancy[0][key] == jax_occupancy[key]
+
+
+@pytest.fixture(scope="module")
+def port_span():
+    return tb.run_span_smoke(device="cpu")
+
+
+def test_run_span_meets_the_reference_guard(port_span):
+    """``tests/test_span_attn.py``'s guard on the smoke: the reference's
+    keys, span-on tokens equal to the full view's, the span pass reading
+    an eighth of the rows with one program per rung at most."""
+    r = port_span
+    assert _returned_keys("run_span") <= set(r)
+    assert r["parity_ok"]
+    assert r["rows_full"] == r["max_len"] == 2048
+    assert r["rows_span"] == 256 and r["rows_ratio"] == 8.0
+    assert 1 <= r["n_span_programs"] <= len(r["span_ladder"])
+
+
+def test_run_kernel_meets_the_reference_guard():
+    """The kernel bench's smoke: the reference's keys, kernel-on tokens
+    equal to the plain route's, and both program keys dispatched."""
+    r = tb.run_kernel_smoke(device="cpu")
+    assert _assigned_dict_keys("run_kernel", "out") <= set(r)
+    assert r["parity_ok"] and r["kernel_programs_ok"]
+    assert r["backend"] == "cpu" and r["active_requests"] == 2
+
+
+def _main_section_keys(metric):
+    """Keys of the reference ``main``'s JSON line for ``metric``."""
+    fn = _ref_function("main")
+    for d in ast.walk(fn):
+        if isinstance(d, ast.Dict) and metric in {
+                getattr(v, "value", None) for v in d.values}:
+            keys = _dict_keys(d)
+            # ``**{k: r[k] for k in (...)}``: the tuple's names.
+            for k, v in zip(d.keys, d.values):
+                if k is None:
+                    keys |= {e.value for e in v.generators[0].iter.elts}
+            return keys
+    raise AssertionError(metric)
+
+
+@pytest.mark.parametrize("flag,metric", [
+    ("--occupancy", "serve_occupancy_x"), ("--span", "serve_span_speedup"),
+    ("--kernel", "serve_kernel_speedup")])
+def test_main_prints_the_section_line(capsys, flag, metric):
+    tb.main(["--device", "cpu", "--smoke", flag])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["metric"] == metric
+    assert set(out) == _main_section_keys(metric) | {"device"}
+    assert out["device"] == "cpu"

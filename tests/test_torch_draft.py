@@ -193,7 +193,9 @@ def test_draft_engine_from_env(models, monkeypatch):
 
 def test_draft_engine_layout(distilled):
     """The port's layout: no spare slot, the sentinel column pointing
-    at the trash block, one full-length allocation per slot."""
+    at the trash block, one full-length allocation per slot; with
+    ``kv_block`` 0 the contiguous layout (one max_len row per slot and
+    the trash slot, no table)."""
     _, (_, tdp, tdc) = distilled
     de = _port_draft(tdp, tdc, slots=3, max_len=64, kv_block=16)
     assert de.kv_block == 16 and de.blocks_per_slot == 4
@@ -201,8 +203,10 @@ def test_draft_engine_layout(distilled):
     assert (de.block_table == 12).all()
     assert de.cache["k"].shape[1] == 13            # + the trash block
     assert de.cache["length"].shape == (3,)
-    with pytest.raises(ValueError):
-        _port_draft(tdp, tdc, kv_block=0)
+    de = _port_draft(tdp, tdc, slots=3, max_len=64, kv_block=0)
+    assert not de.paged and de.block_table is None
+    assert de.table_device() is None and de.blocks_used == 0
+    assert de.cache["k"].shape[1:3] == (4, 64)     # + the trash slot
 
 
 # -- kvcache.sync_slots ------------------------------------------------------

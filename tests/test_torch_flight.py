@@ -581,8 +581,8 @@ def test_traceparent_comes_back_as_the_trace_id(debug_bodies):
 
 def test_run_flight_report_has_the_reference_keys():
     """The bench's ``run_flight`` at a CI size: the reference's keys, the
-    paged layout alone, zero unexpected compiles, coverage and the
-    three parity guards."""
+    paged layout and its contiguous twin, zero unexpected compiles,
+    coverage and the three parity guards on each."""
     from skypilot_tpu_torch.infer import bench_serve
     r = bench_serve.run_flight(smoke=True, requests=5, new_tokens=8,
                                device="cpu")
@@ -591,7 +591,10 @@ def test_run_flight_report_has_the_reference_keys():
            "n_records", "overhead_ratio", "forensics_parity_ok",
            "forensics_overhead_ratio", "layouts", "config", "spec_k",
            "kv_int8", "weights_int8"}
-    assert ref <= set(r) and list(r["layouts"]) == ["paged"]
+    assert ref <= set(r) and list(r["layouts"]) == ["paged", "contig"]
+    for lay in r["layouts"].values():
+        assert lay["unexpected_compiles"] == 0 and lay["coverage_ok"]
+        assert lay["parity_ok"] and lay["forensics_parity_ok"]
     assert r["unexpected_compiles"] == 0
     assert r["coverage_ok"] and r["parity_ok"]
     assert r["calibration_parity_ok"] and r["forensics_parity_ok"]

@@ -1971,3 +1971,159 @@ def test_train_goodput_ledger_on_card(tmp_path, monkeypatch):
         return x == y
 
     assert equal(a, b)
+
+
+# -- head-dim routing and the contiguous layout on the card ---------------
+
+def _vit_grads(cfg, params, batch):
+    """(loss, {name: gradient}) of ``vit.loss_fn`` by autograd; the
+    stacked per-layer tensors under ``blocks/``."""
+    from skypilot_tpu_torch.models import vit as tv
+
+    def leaf(v):
+        return v.detach().clone().requires_grad_()
+
+    params = {k: ({n: leaf(w) for n, w in v.items()}
+                  if isinstance(v, dict) else leaf(v))
+              for k, v in params.items()}
+    loss, _ = tv.loss_fn(params, batch, cfg)
+    loss.backward()
+    flat = {}
+    for k, v in params.items():
+        for n, w in (v.items() if isinstance(v, dict) else [("", v)]):
+            flat[f"{k}/{n}" if n else k] = w.grad
+    return loss.detach(), flat
+
+
+def _tree_to(tree, dev):
+    return {k: (_tree_to(v, dev) if isinstance(v, dict) else v.to(dev))
+            for k, v in tree.items()}
+
+
+@pytest.mark.gpu
+def test_vit_tiny_trains_on_card_through_the_plain_route():
+    """``vit-tiny`` (head dim 16, which the kernels do not take) in
+    float32: ``gqa_attention`` routes it to plain attention by shape, so
+    its loss and every gradient on the card match the CPU's within 1e-4
+    of each max, and no flash kernel launches."""
+    import dataclasses
+    from skypilot_tpu_torch.models import vit as tv
+    dev = _cuda()
+    cfg = dataclasses.replace(tv.CONFIGS["vit-tiny"], dtype=torch.float32)
+    assert cfg.d_model // cfg.n_heads == 16
+    assert tattn.attention_route(16) == "plain"
+    params = tv.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", dtype=torch.float32)
+    batch = tv.synthetic_batch(cfg, 4, device="cpu")
+    want_loss, want = _vit_grads(cfg, params, batch)
+    before = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    got_loss, got = _vit_grads(cfg, _tree_to(params, dev),
+                               {k: v.to(dev) for k, v in batch.items()})
+    assert (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_bwd_dkv.launches) == before
+    _close(got_loss.cpu(), want_loss, 1e-4)
+    for name, g in want.items():
+        _close(got[name].cpu(), g, 1e-4)
+
+
+@pytest.mark.gpu
+def test_head_dim_64_vit_still_launches_k2():
+    """A ViT of head dim 64 (vit-s16's) runs K2 forward and K3/K4 backward
+    on the card, and its loss matches the CPU's plain path."""
+    import dataclasses
+    from skypilot_tpu_torch.models import vit as tv
+    dev = _cuda()
+    cfg = dataclasses.replace(tv.CONFIGS["vit-tiny"], d_model=128,
+                              n_heads=2, dtype=torch.float32)
+    params = tv.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", dtype=torch.float32)
+    batch = tv.synthetic_batch(cfg, 4, device="cpu")
+    want_loss, _ = _vit_grads(cfg, params, batch)
+    before = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_bwd_dkv.launches,
+              tfa.flash_attention_bwd_dq.launches)
+    got_loss, _ = _vit_grads(cfg, _tree_to(params, dev),
+                             {k: v.to(dev) for k, v in batch.items()})
+    after = (tfa.flash_attention_fwd.launches,
+             tfa.flash_attention_bwd_dkv.launches,
+             tfa.flash_attention_bwd_dq.launches)
+    assert all(a > b for a, b in zip(after, before))
+    _close(got_loss.cpu(), want_loss, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["f32", "int8"])
+def test_contiguous_engine_matches_paged_on_card(kv_int8):
+    """llama3-tiny in float32 on the card: the contiguous engine (the
+    gather; K2 for its waves, K1 never) gives the paged engine's greedy
+    tokens (K1) over waves, chunks, a warm prefix hit and spec rounds,
+    wherever the plain top-2 gap exceeds 1e-2; ``step()`` gives the
+    burst path's."""
+    import dataclasses
+    dev = _cuda()
+    cfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"],
+                              dtype=torch.float32)
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    rng = np.random.default_rng(1)
+    system = rng.integers(1, cfg.vocab_size, 32).tolist()
+    prompts = ([rng.integers(1, cfg.vocab_size, n).tolist()
+                for n in (5, 11, 3, 20, 30, 9)]
+               + [system + [7, 8, 9], system + [4, 5]])
+    out = {}
+    for kv_block in (16, 0):
+        e = te.InferenceEngine(params, cfg, n_slots=4, max_len=128,
+                               prompt_buckets=(16, 32, 128),
+                               kv_block=kv_block,
+                               prefill_chunk=16, prefix_pool=2, spec_k=3,
+                               kv_int8=kv_int8, max_wave=2, device=dev)
+        f0 = tfa.flash_attention_fwd.launches
+        p0 = (tpa.paged_attention.launches,
+              tpa.paged_attention_rows.launches
+              + tpa.paged_attention_rows.mma_launches)
+        # The warm prompt after the cold one has stored its prefix.
+        out[kv_block] = (e.generate(prompts[:-1], max_new_tokens=12)
+                         + e.generate(prompts[-1:], max_new_tokens=12))
+        assert tfa.flash_attention_fwd.launches > f0
+        k1 = (tpa.paged_attention.launches,
+              tpa.paged_attention_rows.launches
+              + tpa.paged_attention_rows.mma_launches)
+        assert (k1 != p0) == bool(kv_block)
+        assert e.prefix_hits >= 1
+    for p, got, want in zip(prompts, out[16], out[0]):
+        t, gap = _first_divergence(params, cfg, dev, p, got, want)
+        assert t is None or gap <= _gather_floor(params, cfg, dev, p,
+                                                 want[:t]), (t, gap)
+    e = te.InferenceEngine(params, cfg, n_slots=4, max_len=128,
+                           prompt_buckets=(16, 32, 128), kv_block=0,
+                           prefill_chunk=16, kv_int8=kv_int8, device=dev)
+    for p in prompts[:4]:
+        e.add_request(p, 6)
+    while e.waiting or e.chunking or e.slot_req:
+        e.step()
+    got = [r.tokens for r in sorted(e.finished, key=lambda r: r.rid)]
+    for p, g, w in zip(prompts, got, [o[:6] for o in out[0]]):
+        t, gap = _first_divergence(params, cfg, dev, p, g, w)
+        assert t is None or gap <= _gather_floor(params, cfg, dev, p,
+                                                 w[:t]), (t, gap)
+
+
+def _gather_floor(params, cfg, dev, prompt, toks):
+    """The bound where the gather (the contiguous read, which rounds its
+    softmax weights to bf16) may part from K1: the larger of 1e-2 and
+    twice the gather's own shift from the plain logits after ``prompt``
+    and ``toks``."""
+    ctx = list(prompt) + list(toks)
+    n = len(ctx) - 1
+    _, plain = tkv.prefill_batch(
+        params, torch.tensor([ctx], device=dev),
+        torch.tensor([len(ctx)], device=dev), cfg, plain_attention=True)
+    cache = tkv.init_cache(cfg, 1, len(ctx), device=dev)
+    prefix, _ = tkv.prefill_batch(
+        params, torch.tensor([ctx[:-1]], device=dev),
+        torch.tensor([n], device=dev), cfg, plain_attention=True)
+    tkv.insert(cache, {k: prefix[k][:, 0] for k in ("k", "v")}, 0, n,
+               ctx[-1])
+    gather = tkv.step_logits(params, cache, cfg, None)
+    return max(1e-2, 2 * (gather - plain).abs().max().item())
