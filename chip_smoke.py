@@ -355,12 +355,25 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    larger of 1e-2 and twice the gather's own shift from the plain
    logits on that context (the gather rounds its weights to bf16).
 
+16. Mesh: the trainer over a one-rank NCCL device mesh
+   (``parallel/mesh.make_mesh``; one card runs one rank, so no
+   collective is timed). (a) llama3-1b at full width and depth, bf16
+   activations, batch 4 x 2048, chunked cross-entropy at 512, 6 steps
+   from seed 0 on one batch, with ``mesh=None`` and then with the mesh
+   (DTensor parameters, moments and batch; K2, K3 and K4 on the local
+   shards): losses within 1e-2 relative of each other, K2 32, K3 16 and
+   K4 16 launches a step in the mesh leg (counted from 0 before it),
+   each leg's median step, tokens/s and peak memory; one profiled mesh
+   step. (b) 2 layers in float32, 3 steps: loss and grad norm within
+   1e-5 relative, parameters within 1e-5 of max|Δ|, and a checkpoint
+   of the mesh leg's state restores into the plain leg's bit for bit.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``; the line before them gives each
 phase's wall. ``--phase kernels``, ``serve``, ``handoff``, ``bench``,
 ``qos``, ``adapters``, ``draft``, ``recover``, ``observe``, ``train``,
-``finetune``, ``models`` or ``contig`` runs one of phases 3-15 alone
-(the build always runs).
+``finetune``, ``models``, ``contig`` or ``mesh`` runs one of phases 3-16
+alone (the build always runs).
 """
 
 from __future__ import annotations
@@ -6047,13 +6060,162 @@ def phase_contig(dev, card: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the trainer over a device mesh
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 6
+
+
+def _mesh_leg(dev, cfg, tc, batch, steps: int, mesh=None) -> dict:
+    """``steps`` trainer steps from seed 0 on one batch, ``mesh`` or
+    none: the losses and grad norms (each fetched, so each step's wall
+    ends on its completion), the step walls, the peak memory and the
+    final state."""
+    import torch
+    from skypilot_tpu_torch.train import trainer
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = trainer.create_train_state(cfg, tc, dev, seed=SEED, mesh=mesh)
+    step = trainer.make_train_step(cfg, tc, mesh=mesh)
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    for _ in range(steps):
+        t = time.time()
+        _, m = step(state, batch)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["ms"].append((time.time() - t) * 1e3)
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["state"] = state
+    out["step"] = step
+    return out
+
+
+def _mesh_line(tag: str, leg: dict, tokens: int, card: str) -> None:
+    med = _median(leg["ms"][1:])
+    _log(f"mesh[{tag}]: losses {[round(x, 5) for x in leg['loss']]}; "
+         f"median step {med:.1f} ms (steps 2-{len(leg['ms'])}; first "
+         f"{leg['ms'][0]:.1f}), {tokens / med * 1e3:.0f} tokens/s, peak "
+         f"allocated {leg['peak'] / 2**30:.2f} GiB; {card}")
+
+
+def _mesh_full(dev, card: str, mesh) -> dict:
+    """(a) llama3-1b, bf16 activations, batch 4 x 2048, chunked
+    cross-entropy at 512: the plain leg, then the mesh leg with the
+    flash kernels' counts set to 0 before it and read after it."""
+    import torch
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import trainer
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-1b"], xent_chunk=512)
+    tc = trainer.TrainConfig(warmup_steps=1, total_steps=MESH_STEPS)
+    batch = trainer.synthetic_batch(cfg, 4, 2048, seed=SEED, device=dev)
+    plain = _mesh_leg(dev, cfg, tc, batch, MESH_STEPS)
+    _mesh_line("plain", plain, 4 * 2048, card)
+    plain_loss = plain["loss"]
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    for f in kernels:
+        f.launches = 0
+    leg = _mesh_leg(dev, cfg, tc, batch, MESH_STEPS, mesh)
+    launches = {f.__name__: f.launches for f in kernels}
+    _mesh_line("mesh", leg, 4 * 2048, card)
+    per_step = {n: c / MESH_STEPS for n, c in launches.items()}
+    if per_step != {"flash_attention_fwd": 32, "flash_attention_bwd_dkv": 16,
+                    "flash_attention_bwd_dq": 16}:
+        raise AssertionError(f"mesh: launches per step {per_step}, expected "
+                             f"K2 32 (forward + recompute), K3 16, K4 16")
+    # bf16 activations: the mesh leg runs the plain leg's local products
+    # on whole tensors; held to 1e-2 relative a step (a few bf16 ulps).
+    rel = max(abs(a - b) / abs(b) for a, b in zip(leg["loss"], plain_loss))
+    _log(f"mesh: launches per step {per_step}; losses mesh - plain max "
+         f"rel {rel:.2e} (bound 1e-2); the loss fell "
+         f"{plain_loss[0]:.4f} -> {plain_loss[-1]:.4f}")
+    if not rel <= 1e-2 or not all(math.isfinite(x) for x in leg["loss"]):
+        raise AssertionError(f"mesh: losses {leg['loss']} against the plain "
+                             f"leg's {plain_loss}")
+    if not plain_loss[-1] < plain_loss[0]:
+        raise AssertionError(f"mesh: the loss did not fall: {plain_loss}")
+    state, step = leg["state"], leg["step"]
+    del leg
+    _profile_step(lambda: step(state, batch), "mesh[profile]: llama3-1b, "
+                  "one-rank mesh", card)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mesh_fp32(dev, card: str, mesh) -> None:
+    """(b) 2 layers of llama3-1b in float32: the mesh leg's losses, grad
+    norms and parameters against the plain leg's, and a checkpoint of
+    the mesh leg's state restored into the plain leg's, bit for bit."""
+    import tempfile
+
+    import torch
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import checkpoints, trainer
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-1b"], n_layers=2,
+                              dtype=torch.float32, xent_chunk=512)
+    tc = trainer.TrainConfig(warmup_steps=1, total_steps=MESH_STEPS)
+    batch = trainer.synthetic_batch(cfg, 4, 2048, seed=SEED, device=dev)
+    steps = 3
+    plain = _mesh_leg(dev, cfg, tc, batch, steps)
+    fa.flash_attention_fwd.launches = 0
+    leg = _mesh_leg(dev, cfg, tc, batch, steps, mesh)
+    if fa.flash_attention_fwd.launches != 4 * steps:
+        raise AssertionError(f"mesh[fp32]: K2 launched "
+                             f"{fa.flash_attention_fwd.launches} times")
+    drel = max(abs(a - b) / abs(b) for k in ("loss", "grad_norm")
+               for a, b in zip(leg[k], plain[k]))
+    dp = max((a - b.full_tensor()).abs().max().item()
+             for a, b in zip(trainer._layer_leaves(plain["state"]["params"]),
+                             trainer._layer_leaves(leg["state"]["params"])))
+    with tempfile.TemporaryDirectory() as tmp:
+        with checkpoints.CheckpointManager(tmp) as mgr:
+            mgr.save(steps, leg["state"])
+            mgr.wait()
+            mgr.restore(plain["state"])
+    same = all(torch.equal(a, b.full_tensor()) for a, b in zip(
+        trainer._layer_leaves(plain["state"]["params"]),
+        trainer._layer_leaves(leg["state"]["params"])))
+    _log(f"mesh[fp32, 2 layers]: losses {leg['loss']} against "
+         f"{plain['loss']}; loss and grad norm max rel {drel:.2e} (bound "
+         f"1e-5); parameters max|mesh - plain| {dp:.2e} (bound 1e-5); the "
+         f"mesh state's checkpoint restored into the plain state bit for "
+         f"bit: {same}; {card}")
+    if not (drel <= 1e-5 and dp <= 1e-5 and same):
+        raise AssertionError("mesh[fp32]: the mesh leg parts from the plain "
+                             "leg")
+
+
+def phase_mesh(dev, card: str) -> dict:
+    """Returns {"mesh": {kernel: launches}} over the llama3-1b mesh leg.
+    The one-rank NCCL group this opens is destroyed at the end."""
+    import torch.distributed as dist
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshShape(), dev)
+    try:
+        _log(f"mesh: {mesh_lib.mesh_shape(mesh).as_dict()} over "
+             f"{dist.get_world_size()} rank ({dist.get_backend()}); one card "
+             f"runs one rank, so no collective is timed here")
+        launches = _mesh_full(dev, card, mesh)
+        _mesh_fp32(dev, card, mesh)
+    finally:
+        dist.destroy_process_group()
+    return {"mesh": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "serve", "handoff", "bench",
                              "qos", "adapters", "draft", "recover",
                              "observe", "train", "finetune", "models",
-                             "contig"),
+                             "contig", "mesh"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -6154,6 +6316,7 @@ def main() -> int:
     by_path.update(run("finetune", phase_finetune) or {})
     by_path.update(run("models", phase_models) or {})
     by_path.update(run("contig", phase_contig) or {})
+    by_path.update(run("mesh", phase_mesh) or {})
     _log(f"phase walls (s): {json.dumps(walls)}; build and phases "
          f"{time.time() - t0:.1f} s; {smi}")
 

@@ -13,6 +13,12 @@ and storing the cast result gives the same numbers without re-casting
 the weights on every step. Training (:func:`loss_fn`) keeps
 ``cfg.param_dtype`` parameters and casts them in every step, as the JAX
 package does; the trainer (``train/trainer.py``) holds them.
+
+Over a device mesh (``parallel/``) the parameters are DTensors laid out
+by :func:`param_logical_axes` and the functions take a ``constrain``
+(``sharding.make_constrain``), which lays activations out at the
+reference's points, as its ``with_sharding_constraint`` calls do; with
+no mesh it is the identity and the one-card path runs as before.
 """
 
 from __future__ import annotations
@@ -25,11 +31,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.ops import attention as attn_ops
+from skypilot_tpu_torch.parallel import sharding
 
 Params = Dict[str, Any]
 
@@ -154,6 +162,31 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig,
     return conv(tree)
 
 
+def param_logical_axes(cfg: LlamaConfig) -> Params:
+    """Logical axis names per parameter, same tree structure as params.
+
+    Names are resolved to mesh axes by
+    ``parallel.sharding.logical_to_sharding``."""
+    axes: Params = {
+        "embed": ("vocab", "embed"),
+        "blocks": {
+            "ln1": ("layer", "embed"),
+            "ln2": ("layer", "embed"),
+            "wq": ("layer", "embed", "heads", "head_dim"),
+            "wk": ("layer", "embed", "kv_heads", "head_dim"),
+            "wv": ("layer", "embed", "kv_heads", "head_dim"),
+            "wo": ("layer", "heads", "head_dim", "embed"),
+            "w_gate": ("layer", "embed", "mlp"),
+            "w_up": ("layer", "embed", "mlp"),
+            "w_down": ("layer", "mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
 class Llama(nn.Module):
     """The model as a module: the stacked parameter tensors under the
     JAX names (``embed``, ``blocks.{ln1,ln2,wq,wk,wv,wo,w_gate,w_up,
@@ -247,21 +280,22 @@ def lm_head(params: Params, cfg: LlamaConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def logits(x: torch.Tensor, params: Params,
-           cfg: LlamaConfig) -> torch.Tensor:
+def logits(x: torch.Tensor, params: Params, cfg: LlamaConfig,
+           constrain: Callable = sharding.identity) -> torch.Tensor:
     """Hidden states [..., D] in ``cfg.dtype`` -> float32 logits. The
     head's ``cfg.dtype`` values are multiplied and summed in float32
     and the result is not rounded back: the JAX programs round their
     logits to bf16, which at |logit| ~ 4 leaves a resolution of 1/32
     and ties that greedy decoding breaks by token id."""
     head = lm_head(params, cfg).to(cfg.dtype)
-    return x.float() @ head.float()
+    return constrain(x.float() @ head.float(), ("batch", "seq", "vocab"))
 
 
 def attention_block(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
                     cos: torch.Tensor, sin: torch.Tensor,
                     attention: Optional[Callable] = None,
-                    segment_ids: Optional[torch.Tensor] = None):
+                    segment_ids: Optional[torch.Tensor] = None,
+                    constrain: Callable = sharding.identity):
     """A block's attention half: x + wo(attention(rope(q), rope(k), v)).
     Returns (x', k, v) with the post-rope k and v rows [B, S, Hkv, hd].
     ``attention(q, k, v)`` defaults to causal grouped-query attention
@@ -275,25 +309,30 @@ def attention_block(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
     q = apply_rope(project_in(h, layer["wq"].to(dt)), cos, sin)
     k = apply_rope(project_in(h, layer["wk"].to(dt)), cos, sin)
     v = project_in(h, layer["wv"].to(dt))
+    q = constrain(q, ("batch", "seq", "heads", "head_dim"))
+    k = constrain(k, ("batch", "seq", "kv_heads", "head_dim"))
     if segment_ids is None:
         o = attention(q, k, v)
     else:
         o = attention(q, k, v, segment_ids=segment_ids)
-    return x + project_out(o, layer["wo"].to(dt)), k, v
+    o = project_out(o, layer["wo"].to(dt))
+    return x + constrain(o, ("batch", "seq", "embed")), k, v
 
 
 def decoder_layer(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
                   cos: torch.Tensor, sin: torch.Tensor,
                   attention: Optional[Callable] = None,
-                  segment_ids: Optional[torch.Tensor] = None):
+                  segment_ids: Optional[torch.Tensor] = None,
+                  constrain: Callable = sharding.identity):
     """One pre-norm decoder block. x: [B, S, D] -> (x', k, v), with the
     layer's post-rope k and v rows [B, S, Hkv, hd] (what prefill
-    caches); ``attention`` and ``segment_ids`` as in
+    caches); ``attention``, ``segment_ids`` and ``constrain`` as in
     :func:`attention_block`."""
     x, k, v = attention_block(cfg, x, layer, cos, sin, attention,
-                              segment_ids)
+                              segment_ids, constrain)
     h = rms_norm(x, layer["ln2"], cfg.norm_eps)
-    return x + ffn(h, layer, cfg.dtype), k, v
+    return x + constrain(ffn(h, layer, cfg.dtype),
+                         ("batch", "seq", "embed")), k, v
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -328,7 +367,8 @@ def remat(cfg: LlamaConfig, fn: Callable, *args):
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                    *, positions: Optional[torch.Tensor] = None,
                    segment_ids: Optional[torch.Tensor] = None,
-                   attention: Optional[Callable] = None) -> torch.Tensor:
+                   attention: Optional[Callable] = None,
+                   constrain: Optional[Callable] = None) -> torch.Tensor:
     """Token ids [B, S] -> final-norm hidden states [B, S, D].
 
     ``positions`` [B, S] and ``segment_ids`` [B, S] enable packed
@@ -337,22 +377,53 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     grad enabled, each layer runs under ``torch.utils.checkpoint`` with
     ``cfg.remat_policy`` (:func:`remat`): the backward recomputes what
     the policy did not keep. ``attention`` is passed to
-    :func:`decoder_layer`."""
+    :func:`decoder_layer`. ``constrain`` lays out activations over a
+    mesh (module docstring); it also lays out the token ids, positions,
+    segment ids and rope tables, so every tensor a layer (and its
+    recompute) sees is a DTensor."""
+    if constrain is None:
+        constrain = sharding.identity
     S = tokens.shape[1]
+    tokens = constrain(tokens, ("batch", "seq"))
+    # The lookup-friendly table layout: vocab sharded, embed whole.
+    table = constrain(params["embed"].to(cfg.dtype), ("vocab", "embed"))
     # F.embedding: a deterministic backward on the card (a sort, no
     # atomics), so a resumed run repeats an uninterrupted one bit for bit.
-    x = F.embedding(tokens, params["embed"].to(cfg.dtype))
+    x = constrain(_lookup(tokens, table), ("batch", "seq", "embed"))
     if positions is None:
-        positions = torch.arange(S, device=tokens.device)
-    cos, sin = rope_frequencies(cfg, positions)
+        positions = torch.arange(S, device=x.device)
+        cos, sin = (constrain(t, ("seq", None))
+                    for t in rope_frequencies(cfg, positions))
+    else:
+        cos, sin = _rope_tables(cfg, constrain(positions, ("batch", "seq")))
+    if segment_ids is not None:
+        segment_ids = constrain(segment_ids, ("batch", "seq"))
     for i in range(cfg.n_layers):
         x = remat(cfg, _layer_hidden, cfg, x, layer_slice(params, i), cos,
-                  sin, attention, segment_ids)
+                  sin, attention, segment_ids, constrain)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def _layer_hidden(cfg, x, layer, cos, sin, attention, segment_ids):
-    return decoder_layer(cfg, x, layer, cos, sin, attention, segment_ids)[0]
+def _rope_tables(cfg: LlamaConfig, positions: torch.Tensor):
+    """:func:`rope_frequencies` of [B, S] positions; over a mesh, each
+    rank's rows from its own positions, in their layout."""
+    if not isinstance(positions, DTensor):
+        return rope_frequencies(cfg, positions)
+    return tuple(DTensor.from_local(t, positions.device_mesh,
+                                    positions.placements, run_check=False)
+                 for t in rope_frequencies(cfg, positions.to_local()))
+
+
+def _lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    if isinstance(table, DTensor):      # over a mesh: the vocab split
+        return sharding.embedding(tokens, table)
+    return F.embedding(tokens, table)
+
+
+def _layer_hidden(cfg, x, layer, cos, sin, attention, segment_ids,
+                  constrain=sharding.identity):
+    return decoder_layer(cfg, x, layer, cos, sin, attention, segment_ids,
+                         constrain)[0]
 
 
 @torch.no_grad()
@@ -367,18 +438,23 @@ def forward(params: Params, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: LlamaConfig,
-            attention: Optional[Callable] = None):
+            attention: Optional[Callable] = None,
+            constrain: Optional[Callable] = None):
     """Next-token cross-entropy. batch: {"tokens": [B, S] int, optionally
     "mask": [B, S] (1 = predict this position's next token),
     "positions" and "segment_ids" [B, S] (packed)}. Returns (loss,
-    {"loss", "accuracy", "tokens"}), all 0-dim float32 tensors."""
+    {"loss", "accuracy", "tokens"}), all 0-dim float32 tensors (DTensors
+    over a mesh). ``constrain`` as in :func:`forward_hidden`."""
+    constrain = constrain or sharding.identity
+    batch = {k: constrain(v, ("batch", "seq")) for k, v in batch.items()}
     tokens = batch["tokens"]
     h = forward_hidden(params, tokens, cfg,
                        positions=batch.get("positions"),
                        segment_ids=batch.get("segment_ids"),
-                       attention=attention)
+                       attention=attention, constrain=constrain)
     loss, acc, denom = xent_metrics(params, h, tokens,
-                                    packed_loss_mask(batch), cfg)
+                                    packed_loss_mask(batch), cfg,
+                                    constrain=constrain)
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
 
 
@@ -391,17 +467,15 @@ def packed_loss_mask(batch: Dict[str, torch.Tensor]):
     if seg is None:
         return mask
     same_next = (seg[:, :-1] == seg[:, 1:]) & (seg[:, :-1] > 0)
-    pad = torch.zeros((seg.shape[0], 1), dtype=torch.bool,
-                      device=seg.device)
-    seg_mask = torch.cat([same_next, pad], dim=1)
+    seg_mask = F.pad(same_next, (0, 1))     # the last position: False
     return seg_mask if mask is None else mask * seg_mask.to(mask.dtype)
 
 
 def _chunk_xent(h: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
-                m: torch.Tensor):
+                m: torch.Tensor, constrain: Callable = sharding.identity):
     """Summed log-likelihood and correct predictions of one chunk: the
     head product in the activation dtype, then float32."""
-    logits = (h @ head).float()
+    logits = constrain(h @ head, ("batch", "seq", "vocab")).float()
     logps = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logps, -1, targets[..., None])[..., 0]
     correct = (logits.argmax(dim=-1) == targets).to(m.dtype)
@@ -410,7 +484,8 @@ def _chunk_xent(h: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
 
 def xent_metrics(params: Params, h: torch.Tensor, tokens: torch.Tensor,
                  mask: Optional[torch.Tensor], cfg: LlamaConfig,
-                 head: Optional[torch.Tensor] = None):
+                 head: Optional[torch.Tensor] = None,
+                 constrain: Callable = sharding.identity):
     """LM head + next-token cross-entropy over final-norm hidden states
     h [B, S, D]. Returns (loss, accuracy, denom). As in the JAX package,
     the head product is taken in ``cfg.dtype`` and then widened to
@@ -421,16 +496,18 @@ def xent_metrics(params: Params, h: torch.Tensor, tokens: torch.Tensor,
     With ``cfg.xent_chunk`` > 0 the sequence is cut into chunks padded
     with masked positions, and each chunk's [B, c, vocab] logits are
     recomputed in the backward (``torch.utils.checkpoint``), so the
-    full logits tensor never exists."""
+    full logits tensor never exists. ``constrain`` lays each chunk's
+    logits out over a mesh (vocab over tp), as the reference does."""
     head = (lm_head(params, cfg) if head is None else head).to(cfg.dtype)
     B, S = tokens.shape
     targets = tokens[:, 1:].long()
     m = (torch.ones((B, S - 1), dtype=torch.float32, device=h.device)
          if mask is None else mask[:, :-1].float())
+    m = constrain(m, ("batch", "seq"))
     h = h[:, :-1]
     c = cfg.xent_chunk
     if not c:
-        ll_sum, correct = _chunk_xent(h, head, targets, m)
+        ll_sum, correct = _chunk_xent(h, head, targets, m, constrain)
     else:
         pad = (-(S - 1)) % c
         if pad:
@@ -440,7 +517,8 @@ def xent_metrics(params: Params, h: torch.Tensor, tokens: torch.Tensor,
         ll_sum = correct = torch.zeros((), dtype=torch.float32,
                                        device=h.device)
         for i in range(0, h.shape[1], c):
-            part = (h[:, i:i + c], head, targets[:, i:i + c], m[:, i:i + c])
+            part = (h[:, i:i + c], head, targets[:, i:i + c], m[:, i:i + c],
+                    constrain)
             if torch.is_grad_enabled():
                 ll, ok = checkpoint(_chunk_xent, *part, use_reentrant=False)
             else:

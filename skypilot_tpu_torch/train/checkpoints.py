@@ -18,6 +18,14 @@ Layout: ``<directory>/<step>/state.pt``, a ``torch.save`` of the state
 with every tensor on the CPU. A step directory appears only once its
 file is complete, so a crash mid-write leaves no partial step behind.
 
+A sharded state (DTensors over a device mesh, ``parallel/``) is saved
+whole: ``save`` gathers each leaf (``full_tensor()``, a collective that
+every rank joins) and rank 0 writes the same ``state.pt`` as one card
+does; ``wait`` returns on every rank once that file is durable.
+``restore(..., shardings=)`` loads it whole and lays it out again, and a
+sharded ``target`` takes each rank's shard. A checkpoint therefore
+moves between meshes, as an Orbax one does.
+
 Observability is the reference's: the ``skytpu_checkpoint_*`` and
 ``skytpu_ckpt_*`` families, the ``train.checkpoint_{save,wait,restore}``
 tracing spans, the timeline spans that record into the save and wait
@@ -36,11 +44,15 @@ import time
 from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from skypilot_tpu_torch import DeviceLike, chaos
 from skypilot_tpu_torch.observability import attribution
 from skypilot_tpu_torch.observability import metrics as obs_metrics
 from skypilot_tpu_torch.observability import tracing
+from skypilot_tpu_torch.parallel import distributed
+from skypilot_tpu_torch.parallel import sharding as sh
 from skypilot_tpu_torch.utils import timeline
 
 _FILE = "state.pt"
@@ -91,6 +103,8 @@ def _map(fn, tree):
 
 
 def _host_copy(x):
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return x
@@ -144,28 +158,33 @@ class CheckpointManager:
                                 attrs={"step": step}), \
                 timeline.Event("skytpu_checkpoint_save_seconds",
                                histogram=CKPT_SAVE_SECONDS):
-            saved = self._save(step, state, force)
+            snapshot = self._save(step, state, force)
         CKPT_LAST_DURATION.labels(op="save").set(time.monotonic() - t0)
-        if saved:
+        if snapshot is not None:
             CKPT_SAVES.inc()
-            _publish_state_bytes(state)
-        return saved
+            _publish_state_bytes(snapshot)
+        return snapshot is not None
 
-    def _save(self, step: int, state: Any, force: bool) -> bool:
+    def _save(self, step: int, state: Any, force: bool) -> Optional[Any]:
+        """The host snapshot taken, or None when the step is skipped.
+        Every rank takes the same decision (from the shared directory
+        and its own pending step) and joins the gathers; rank 0
+        writes."""
         steps = self.all_steps()
         if step in steps:
-            return False
+            return None
         if not force and ((steps and step <= steps[-1])
                           or step % self.save_interval_steps):
-            return False
+            return None
         self._join()
         snapshot = _map(_host_copy, state)
         self._pending = step
-        self._writer = threading.Thread(
-            target=self._write, args=(step, snapshot),
-            name=f"ckpt-save-{step}")
-        self._writer.start()
-        return True
+        if distributed.rank() == 0:
+            self._writer = threading.Thread(
+                target=self._write, args=(step, snapshot),
+                name=f"ckpt-save-{step}")
+            self._writer.start()
+        return snapshot
 
     def _write(self, step: int, snapshot: Any) -> None:
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
@@ -184,32 +203,39 @@ class CheckpointManager:
             shutil.rmtree(tmp, ignore_errors=True)
 
     def wait(self) -> None:
-        """Block until queued saves are durable; re-raise a failed write."""
+        """Block until queued saves are durable; re-raise a failed write.
+        With several ranks, every rank returns once rank 0's write is
+        durable (a barrier)."""
         t0 = time.monotonic()
         with tracing.start_span("train.checkpoint_wait"), \
                 timeline.Event("skytpu_checkpoint_wait_seconds",
                                histogram=CKPT_WAIT_SECONDS):
             self._join()
+            if distributed.world_size() > 1:
+                dist.barrier()
         CKPT_LAST_DURATION.labels(op="wait").set(time.monotonic() - t0)
 
     def _join(self) -> None:
         if self._writer is not None:
             self._writer.join()
             self._writer = None
-            self._pending = None
+        self._pending = None
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
     def restore(self, target: Optional[Any] = None,
                 step: Optional[int] = None,
-                device: DeviceLike = None) -> Any:
+                device: DeviceLike = None, shardings=None) -> Any:
         """The state saved at ``step`` (default: the latest). With
         ``target`` (a state of the same structure) the saved tensors
         are copied into the target's tensors in place, which must match
-        in shape and dtype, and the target is returned with its scalars
-        replaced; without one, tensors land on ``device`` (default: the
-        CPU)."""
+        in shape and dtype (a DTensor takes its own shard), and the
+        target is returned with its scalars replaced; without one,
+        tensors land on ``device`` (default: the CPU), and with
+        ``shardings`` (a tree of ``sharding.NamedSharding`` over part of
+        the state, e.g. ``trainer.state_shardings``) those tensors are
+        laid out over its mesh."""
         self._join()
         if step is None:
             step = self.latest_step()
@@ -221,6 +247,8 @@ class CheckpointManager:
         with tracing.start_span("train.checkpoint_restore",
                                 attrs={"step": int(step)}):
             out = self._restore(int(step), target, device)
+            if target is None and shardings is not None:
+                out = _place(out, shardings)
         CKPT_LAST_DURATION.labels(op="restore").set(
             time.monotonic() - t0)
         return out
@@ -248,6 +276,15 @@ class CheckpointManager:
         self.close()
 
 
+def _place(tree: Any, shardings: Any) -> Any:
+    """``tree`` with each tensor that ``shardings`` covers laid out by
+    its sharding; the rest as it is."""
+    if isinstance(shardings, sh.NamedSharding):
+        return sh.distribute(tree, shardings.mesh, shardings.spec)
+    return {k: _place(v, shardings[k]) if k in shardings else v
+            for k, v in tree.items()}
+
+
 def _copy_into(target: Any, saved: Any) -> Any:
     if isinstance(target, dict):
         if set(target) != set(saved):
@@ -262,6 +299,11 @@ def _copy_into(target: Any, saved: Any) -> Any:
                              f"{saved.dtype} does not match the target's "
                              f"{tuple(target.shape)} {target.dtype}")
         with torch.no_grad():
-            target.copy_(saved)
+            if isinstance(target, DTensor):
+                target.to_local().copy_(distribute_tensor(
+                    saved.to(target.device), target.device_mesh,
+                    target.placements, src_data_rank=None).to_local())
+            else:
+                target.copy_(saved)
         return target
     return saved

@@ -1,11 +1,19 @@
 """Training entry point: ``python -m skypilot_tpu_torch.train.run``.
 
 Counterpart of ``skypilot_tpu/train/run.py`` for dense Llama and the
-sparse MoE decoder (``--model moe``, default config ``moe-small``) on
-one card. Examples::
+sparse MoE decoder (``--model moe``, default config ``moe-small``).
+Examples::
 
     # llama3-1b, full width and depth, on the card
     python -m skypilot_tpu_torch.train.run --config llama3-1b --steps 100
+
+    # llama3-tiny over 2 CPU ranks at tp 2, one process per rank, from
+    # the gang driver's env contract (the same variables the reference
+    # reads)
+    for r in 0 1; do JAX_COORDINATOR_ADDRESS=127.0.0.1:29500 \
+        JAX_NUM_PROCESSES=2 JAX_PROCESS_ID=$r \
+        python -m skypilot_tpu_torch.train.run --device cpu \
+        --config llama3-tiny --seq 32 --steps 3 --tp 2 & done; wait
 
     # moe-small (the reference's llm/moe-train.yaml line, without --ep)
     python -m skypilot_tpu_torch.train.run --model moe --config moe-small \
@@ -22,9 +30,25 @@ checkpoint every ``--ckpt-every`` steps, and a forced final save that
 is waited for. Per-step logs go to stderr; the last stdout line is one
 JSON object with ``final_loss``, ``steps``, ``wall_s``,
 ``tokens_per_sec``, ``tokens_per_sec_per_chip``, ``goodput`` and
-``mesh`` (``{}``: one card, no mesh). Not ported: ``--model pipeline``
-(refused with a message) and the mesh flags (``--dp``, ``--tp``,
-``--sp``, ``--ep``, ``--pp``, ``--zigzag``).
+``mesh`` (the reference's dict of axis sizes).
+
+The mesh, as the reference builds it: the process joins the
+``torch.distributed`` rendezvous from the env contract first
+(``parallel/distributed.py``: one process per card, or per CPU rank
+with ``--device cpu``), the world's ranks are factored by
+``default_shape_for(n, tp=, dp=, ...)`` (the rest on fsdp) and the
+batch defaults to 4 x (dp x fsdp), rounded to that degree. The trainer
+gets the mesh when its size is above 1; a size-1 mesh keeps the plain
+one-card step (a deliberate difference: the one-card step stays as
+fast as it was, and a one-rank mesh computes the same numbers).
+Checkpoints are saved whole and restored onto any mesh.
+
+Not ported yet, refused with a message naming what is to come:
+``--model pipeline`` and ``--pp`` above 1 (pipeline parallelism),
+``--sp`` above 1 and ``--zigzag`` (ring attention), ``--ep`` above 1,
+and ``--model moe`` or ``--lora`` over more than one rank (the sharded
+MoE and LoRA steps). ``--qlora`` on more than one rank logs and trains
+on one, as the reference does.
 
 Fine-tuning, the reference's branches: ``--lora RANK`` trains rank-RANK
 adapters over a frozen float base drawn from seed 1
@@ -92,6 +116,14 @@ def _drain(device: torch.device) -> None:
         done.synchronize()
 
 
+def _persist(gp, mgr) -> None:
+    """The goodput stamps beside the checkpoints, from rank 0 alone (the
+    ranks' ledgers book the same steps)."""
+    from skypilot_tpu_torch.parallel import distributed
+    if distributed.rank() == 0:
+        gp.persist(mgr.directory)
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Run the loop; prints the summary line and also returns it, with
     the logged ``losses`` and ``step_ms`` (the wall time per step
@@ -103,15 +135,24 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--config", default=None,
                     help="llama3-400m (llama) or moe-small (moe) by default")
     ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=0,
+                    help="global batch (0 = 4 x data-parallel degree)")
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--xent-chunk", type=int, default=None,
                     help="chunked cross-entropy: the [B,S,vocab] logits "
                          "never exist at once (0 = unchunked)")
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--sp", type=int, default=1)
+    ap.add_argument("--ep", type=int, default=1)
+    ap.add_argument("--pp", type=int, default=1)
     ap.add_argument("--packed", action="store_true",
                     help="packed-sequence input (segment-masked "
                          "attention) over synthetic variable-length docs")
+    ap.add_argument("--zigzag", action="store_true",
+                    help="zigzag (load-balanced causal) ring attention "
+                         "for sp>1; llama only")
     ap.add_argument("--lora", type=int, default=0, metavar="RANK",
                     help="LoRA finetune: train rank-RANK adapters over "
                          "frozen base weights (llama only)")
@@ -143,15 +184,39 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             ap.error("--lora and --qlora are mutually exclusive")
         if args.qlora < 0:
             ap.error("--qlora rank must be positive")
+    for flag, what in (("sp", "sequence parallelism (ring attention, "
+                              "parallel/ring_attention.py)"),
+                       ("ep", "expert parallelism (the sharded MoE step)"),
+                       ("pp", "pipeline parallelism (parallel/pipeline.py)")):
+        if getattr(args, flag) > 1:
+            ap.error(f"--{flag} {getattr(args, flag)} is not ported yet: "
+                     f"{what} is still to come")
+    if args.zigzag:
+        ap.error("--zigzag is not ported yet: ring attention "
+                 "(parallel/ring_attention.py) is still to come")
 
     import skypilot_tpu_torch.callbacks as sky_callback
     from skypilot_tpu_torch.data import input_pipeline as ip
     from skypilot_tpu_torch.models import llama, moe
     from skypilot_tpu_torch.observability import attribution, flight
     from skypilot_tpu_torch.observability import goodput as goodput_lib
+    from skypilot_tpu_torch.parallel import distributed
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
     from skypilot_tpu_torch.train import checkpoints, trainer
 
     device = resolve_device(args.device)
+    # Multi-process: join the cluster-wide rendezvous from the runtime's
+    # env contract before touching the mesh.
+    distributed.initialize_from_env(device)
+    n = distributed.world_size()
+    shape = mesh_lib.default_shape_for(n, tp=args.tp, sp=args.sp,
+                                       dp=args.dp, ep=args.ep, pp=args.pp)
+    if n > 1 and args.model == "moe":
+        ap.error("--model moe over more than one rank is not ported yet: "
+                 "the sharded MoE step (with --ep) is still to come")
+    if n > 1 and args.lora:
+        ap.error("--lora over more than one rank is not ported yet: the "
+                 "sharded LoRA step is still to come")
     model, default_cfg = ((moe, "moe-small") if args.model == "moe"
                           else (llama, "llama3-400m"))
     args.config = args.config or default_cfg
@@ -161,8 +226,23 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args.seq = min(args.seq, cfg.max_seq_len)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+    log(f"mesh: {shape.as_dict()} over {n} devices ({name})")
+    data_degree = shape.dp * shape.fsdp
+    batch = args.batch or 4 * data_degree
+    if batch % data_degree:
+        batch = data_degree * max(1, batch // data_degree)
+    if args.qlora and n > 1:
+        # The int8 base is unsharded: each rank trains on its own card
+        # rather than dying on a multi-card job. Sharded multi-card
+        # fine-tuning is --lora (still to come).
+        log(f"--qlora is single-chip: using 1 of {n} devices")
+        n = 1
+        batch = args.batch or 4
+    mesh = mesh_lib.make_mesh(shape, device) if n > 1 else None
+    shardings = (trainer.state_shardings(cfg, mesh) if mesh is not None
+                 else None)
     log(f"device: {device} ({name}); {args.config} "
-        f"{cfg.num_params():,} params, batch {args.batch} x seq {args.seq}")
+        f"{cfg.num_params():,} params, batch {batch} x seq {args.seq}")
     tc = trainer.TrainConfig(learning_rate=args.lr,
                              warmup_steps=max(1, min(100, args.steps // 10)),
                              total_steps=args.steps)
@@ -188,7 +268,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     def restore():
         gp.load_stamps(mgr.directory)
         with gp.account("restart_replay"):
-            restored = mgr.restore(device=device)
+            restored = mgr.restore(device=device, shardings=shardings)
         log(f"resumed from step {restored['step']}")
         return restored
 
@@ -225,13 +305,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             raw_step = lora.make_lora_train_step(cfg, lc, tc)
             step_fn = lambda s, b: raw_step(s, base_params, b)
     else:
-        step_fn = trainer.make_train_step(cfg, tc, watch=watch, model=model)
+        step_fn = trainer.make_train_step(cfg, tc, watch=watch, model=model,
+                                          mesh=mesh)
         if resume:
             state = restore()
         else:
             with gp.account("warmup_compile"):
                 state = trainer.create_train_state(cfg, tc, device,
-                                                   model=model)
+                                                   model=model, mesh=mesh)
     start_step = int(state["step"])
 
     batches = None
@@ -242,18 +323,19 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             while True:
                 docs = ip.synthetic_doc_stream(
                     256, cfg.vocab_size, mean_len=args.seq // 3, seed=seed)
-                yield from ip.packed_batches(docs, args.batch, args.seq)
+                yield from ip.packed_batches(docs, batch, args.seq)
                 seed += 1
 
         batches = ip.prefetch(batch_stream(), device=device)
     else:
-        batch_data = trainer.synthetic_batch(cfg, args.batch, args.seq,
+        batch_data = trainer.synthetic_batch(cfg, batch, args.seq,
                                              device=device)
     try:
         if start_step >= args.steps:
             log(f"checkpoint already at step {start_step}; nothing to "
                 f"train")
-            out = {"steps": 0, "resumed_step": start_step, "mesh": {}}
+            out = {"steps": 0, "resumed_step": start_step,
+                   "mesh": shape.as_dict()}
             print(json.dumps(out))
             return out
         losses: List[float] = []
@@ -304,7 +386,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             if mgr and (step + 1) % args.ckpt_every == 0:
                 with gp.phase("ckpt_save"):
                     mgr.save(step + 1, state)
-                    gp.persist(mgr.directory)
+                    _persist(gp, mgr)
             rec = gp.step_end(tokens=trainer.batch_tokens(batch_data),
                               loss=loss, grad_norm=grad_norm)
             if rec is not None:
@@ -317,22 +399,22 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                 if mgr.latest_step() != args.steps:
                     mgr.save(args.steps, state, force=True)
                 mgr.wait()
-            gp.persist(mgr.directory)
+            _persist(gp, mgr)
     finally:
         if batches is not None:
             batches.close()
         if mgr:
             mgr.close()
     snap = gp.snapshot()
-    tokens_per_s = args.batch * args.seq * (args.steps - start_step) / wall
+    tokens_per_s = batch * args.seq * (args.steps - start_step) / wall
     out = {
         "final_loss": round(loss, 4),
         "steps": args.steps - start_step,
         "wall_s": round(wall, 2),
         "tokens_per_sec": round(tokens_per_s, 1),
-        "tokens_per_sec_per_chip": round(tokens_per_s, 1),
+        "tokens_per_sec_per_chip": round(tokens_per_s / n, 1),
         "goodput": round(snap["goodput_ratio"], 4),
-        "mesh": {},
+        "mesh": shape.as_dict(),
     }
     print(json.dumps(out), flush=True)
     return dict(out, losses=losses, step_ms=step_ms, records=records,

@@ -1,6 +1,6 @@
 """The training step: loss, gradients, global-norm clip and AdamW.
 
-Counterpart of ``skypilot_tpu/train/trainer.py`` on one card. The JAX
+Counterpart of ``skypilot_tpu/train/trainer.py``. The JAX
 trainer chains ``optax.clip_by_global_norm`` and ``optax.adamw`` under
 a warmup-cosine schedule; :func:`make_optimizer` writes that chain out
 by hand so that the port's step follows optax 0.2.6 operation for
@@ -24,6 +24,19 @@ over an adapter tree. The step
 updates parameters and moments in place (the JAX step returns new
 arrays); it says so in its docstring.
 
+Over a device mesh (``mesh=``; ``parallel/``) the state's tensors are
+DTensors: the parameters laid out by ``llama.param_logical_axes`` under
+the rule table (:func:`state_shardings`), each Adam moment by its
+parameter's name (for llama, the same sharding the reference's lookup
+by shape finds), the batch over ``("dp", "fsdp")``. The step's
+activations follow the activation rules, the gradients are reduced to
+their parameters' layouts (the dp all-reduce, the fsdp reduce-scatter),
+and the optimizer runs unchanged on the DTensor leaves: its global norm
+is the sum over every shard, and its in-place updates of a layer's row
+reach the stacked DTensor's local shard. The parameters are drawn whole
+from the seed and then distributed, so a run's parameters do not depend
+on its mesh.
+
 The step's metric families (``skytpu_train_*``), its ``train.step``
 span and the compile watch around it are the reference's
 (``skypilot_tpu/train/trainer.py``), under the same names, types,
@@ -45,11 +58,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.observability import metrics as obs_metrics
 from skypilot_tpu_torch.observability import tracing
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import sharding as sh
 
 STEP_SECONDS = obs_metrics.histogram(
     "skytpu_train_step_seconds",
@@ -251,15 +267,68 @@ def make_optimizer(tc: TrainConfig):
     return update
 
 
+def _check_mesh_model(mesh, model) -> None:
+    if mesh is not None and model is not llama:
+        raise NotImplementedError(
+            f"{model.__name__} over a device mesh is not ported yet (the "
+            f"sharded MoE and ViT steps come with expert parallelism)")
+
+
+def state_shardings(cfg: llama.LlamaConfig, mesh,
+                    rules: sh.Rules = sh.DEFAULT_RULES, model=llama):
+    """Shardings (``sharding.NamedSharding``) for the train state's
+    tensors: ``{"params": ..., "opt_state": {"mu": ..., "nu": ...}}``,
+    each moment its parameter's (:func:`opt_state_shardings`). The
+    divisibility guard reads the parameters' shapes, taken on the meta
+    device."""
+    _check_mesh_model(mesh, model)
+    shapes = model.init_params(cfg, torch.Generator(), device="meta")
+    p_sh = sh.logical_to_sharding(model.param_logical_axes(cfg), mesh,
+                                  rules, shapes=shapes)
+    return {"params": p_sh, "opt_state": opt_state_shardings(p_sh)}
+
+
+def opt_state_shardings(param_sh) -> Dict[str, Any]:
+    """Shardings for the Adam state given the parameters': each moment
+    takes its parameter's by name (the reference looks a moment's up by
+    shape, which finds the same one for llama's tree); the count is a
+    host integer."""
+    return {"mu": param_sh, "nu": param_sh}
+
+
+def shard_state(state: TrainState, cfg: llama.LlamaConfig, mesh,
+                rules: sh.Rules = sh.DEFAULT_RULES,
+                model=llama) -> TrainState:
+    """``state`` (whole tensors, the same on every rank) with its
+    parameters and moments distributed over ``mesh`` by
+    :func:`state_shardings`; the identity for ``mesh=None``."""
+    if mesh is None:
+        return state
+    shardings = state_shardings(cfg, mesh, rules, model)
+    opt = state["opt_state"]
+    return {"params": sh.distribute_tree(state["params"],
+                                         shardings["params"]),
+            "opt_state": dict(opt, **{
+                k: sh.distribute_tree(opt[k], shardings["opt_state"][k])
+                for k in ("mu", "nu")}),
+            "step": state["step"]}
+
+
 def create_train_state(cfg: llama.LlamaConfig, tc: TrainConfig,
                        device: DeviceLike = None, seed: int = 0,
-                       model=llama) -> TrainState:
+                       model=llama, mesh=None,
+                       rules: sh.Rules = sh.DEFAULT_RULES) -> TrainState:
     """Random ``cfg.param_dtype`` parameters of ``model`` (the module:
     ``models.llama``, ``models.moe`` or ``models.vit``) from ``seed``
-    (drawn on ``device``), zero Adam moments, step 0."""
+    (drawn on ``device``), zero Adam moments, step 0. With ``mesh`` the
+    parameters are drawn whole, then distributed by ``rules``."""
+    _check_mesh_model(mesh, model)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = model.init_params(cfg, gen, device=device)
+    if mesh is not None:
+        params = sh.distribute_tree(
+            params, state_shardings(cfg, mesh, rules, model)["params"])
     return {"params": params, "opt_state": init_opt_state(params, tc),
             "step": 0}
 
@@ -267,17 +336,20 @@ def create_train_state(cfg: llama.LlamaConfig, tc: TrainConfig,
 def train_state_from_numpy(jax_state: Dict[str, Any],
                            cfg: llama.LlamaConfig,
                            device: DeviceLike = None,
-                           model=llama) -> TrainState:
+                           model=llama, mesh=None,
+                           rules: sh.Rules = sh.DEFAULT_RULES) -> TrainState:
     """A JAX train state with its leaves as numpy (``jax.tree.map(
     np.asarray, state)``) -> the port's. The optax chain's state is
     searched for its Adam entry (the one with ``count``, ``mu`` and
-    ``nu``); mu keeps its dtype (bf16 under ``mu_dtype="bfloat16"``)."""
+    ``nu``); mu keeps its dtype (bf16 under ``mu_dtype="bfloat16"``).
+    With ``mesh``, distributed as :func:`shard_state` does."""
     device = resolve_device(device)
-    return {"params": model.params_from_numpy(jax_state["params"], cfg,
-                                              device=device),
-            "opt_state": opt_state_from_numpy(jax_state["opt_state"],
-                                              device),
-            "step": int(np.asarray(jax_state["step"]))}
+    state = {"params": model.params_from_numpy(jax_state["params"], cfg,
+                                               device=device),
+             "opt_state": opt_state_from_numpy(jax_state["opt_state"],
+                                               device),
+             "step": int(np.asarray(jax_state["step"]))}
+    return shard_state(state, cfg, mesh, rules, model)
 
 
 def opt_state_from_numpy(opt_state, device: DeviceLike = None
@@ -343,24 +415,41 @@ def _grad_leaves(params) -> Tuple[Dict[str, Any], List[torch.Tensor]]:
     return walk(params), leaves
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on every rank (a collective); a plain
+    tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def value_and_grads(params, loss_fn: Callable):
     """(loss, metrics, grads) of ``loss_fn(view) -> (loss, metrics)``
     with respect to ``params`` (any nested tree): ``view`` is
     ``params`` rebuilt from autograd leaves, and grads lists one tensor
-    per entry of ``_layer_leaves(params)``."""
+    per entry of ``_layer_leaves(params)``. Over a mesh the loss and
+    metrics come back whole (plain tensors) and each gradient in its
+    leaf's layout: a partial sum is reduced (all-reduce over a
+    replicated axis, reduce-scatter over a sharded one)."""
     view, leaves = _grad_leaves(params)
     loss, metrics = loss_fn(view)
+    loss = _whole(loss)
     grads = list(torch.autograd.grad(loss, leaves))
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if isinstance(p, DTensor) else g
+             for g, p in zip(grads, leaves)]
+    return (loss.detach(),
+            {k: _whole(v).detach() for k, v in metrics.items()}, grads)
 
 
 def grads_of(params, batch: Dict[str, torch.Tensor], cfg: llama.LlamaConfig,
-             attention: Optional[Callable] = None, model=llama):
+             attention: Optional[Callable] = None, model=llama,
+             constrain: Optional[Callable] = None):
     """(loss, metrics, grads) of ``model.loss_fn``: grads lists one
     tensor per entry of ``_layer_leaves(params)``, a stacked tensor's
-    gradient per layer."""
+    gradient per layer. ``constrain`` (llama over a mesh) lays out the
+    activations (``sharding.make_constrain``)."""
+    kw = {} if constrain is None else {"constrain": constrain}
     return value_and_grads(params, lambda p: model.loss_fn(
-        p, batch, cfg, attention=attention))
+        p, batch, cfg, attention=attention, **kw))
 
 
 def _batch_key_fn(args: tuple, kwargs: dict):
@@ -379,13 +468,35 @@ def _batch_key_fn(args: tuple, kwargs: dict):
     return parts
 
 
+def place_batch(batch: Dict[str, torch.Tensor], mesh
+                ) -> Dict[str, torch.Tensor]:
+    """The batch laid out over ``mesh``: dim 0 over ``("dp", "fsdp")``
+    (the reference's batch sharding), the rest whole. Every rank passes
+    the same whole batch."""
+    shape = mesh_lib.mesh_shape(mesh)
+    degree = shape.dp * shape.fsdp
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % degree:
+            raise ValueError(f"batch {k} of {v.shape[0]} rows does not "
+                             f"split over dp x fsdp = {degree}")
+        out[k] = sh.distribute(v, mesh, (("dp", "fsdp"),))
+    return out
+
+
 def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig,
-                    watch=None, model=llama) -> Callable:
+                    watch=None, model=llama, mesh=None,
+                    act_rules: sh.Rules = sh.ACT_RULES) -> Callable:
     """step(state, batch) -> (state, metrics) of ``model``'s loss
     (``models.llama``, ``models.moe`` or ``models.vit``). The step UPDATES
     ``state`` IN PLACE (parameters, moments, count and step) and
     returns the same dict; metrics are 0-dim tensors (the loss's own,
     e.g. "loss", "accuracy", "tokens", and "grad_norm" before clipping).
+
+    With ``mesh`` (llama only) the state must be sharded
+    (:func:`create_train_state` with the same mesh), the batch is placed
+    by :func:`place_batch` and the activations by ``act_rules``; the
+    metrics come back whole on every rank.
 
     The step is instrumented (the ``skytpu_train_*`` families and the
     ``train.step`` span, never a device fetch). ``watch`` is an
@@ -393,13 +504,17 @@ def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig,
     ``event_name="train.unexpected_compile"``): the step is wrapped so
     every distinct batch-shape identity registers as a program, and a
     new one after warm-up emits the typed event."""
+    _check_mesh_model(mesh, model)
     update = make_optimizer(tc)
+    constrain = None if mesh is None else sh.make_constrain(mesh, act_rules)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        if mesh is not None:
+            batch = place_batch(batch, mesh)
         _, metrics, grads = grads_of(state["params"], batch, cfg,
-                                     model=model)
-        metrics["grad_norm"] = update(grads, state["opt_state"],
-                                      state["params"])
+                                     model=model, constrain=constrain)
+        metrics["grad_norm"] = _whole(update(grads, state["opt_state"],
+                                             state["params"]))
         state["step"] += 1
         return state, metrics
 

@@ -140,7 +140,8 @@ def test_resume_equals_uninterrupted_run(tmp_path, capsys):
     full, line = _run(capsys, *common, "--ckpt-dir", a)
     assert set(line) == {"final_loss", "steps", "wall_s", "tokens_per_sec",
                          "tokens_per_sec_per_chip", "goodput", "mesh"}
-    assert line["steps"] == 4 and line["mesh"] == {}
+    assert line["steps"] == 4 and line["mesh"] == {
+        "pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "tp": 1, "sp": 1}
     assert line["tokens_per_sec"] == line["tokens_per_sec_per_chip"] > 0
     assert len(full["losses"]) == 4 and full["losses"][-1] < full["losses"][0]
     shutil.copytree(os.path.join(a, "2"), os.path.join(b, "2"))
@@ -152,7 +153,8 @@ def test_resume_equals_uninterrupted_run(tmp_path, capsys):
                   ck.CheckpointManager(b).restore(step=4))
     # Resuming at the end trains nothing.
     done, line_c = _run(capsys, *common, "--ckpt-dir", b, "--resume")
-    assert line_c == {"steps": 0, "resumed_step": 4, "mesh": {}}
+    assert line_c == {"steps": 0, "resumed_step": 4, "mesh": {
+        "pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "tp": 1, "sp": 1}}
     assert not _writers()
 
 

@@ -83,7 +83,8 @@ def test_the_model_families_are_covered():
 # device of its own.
 DEVICE_TAKERS = ("train/run.py", "train/evaluate.py", "infer/server.py",
                  "infer/bench_serve.py", "models/llama.py", "models/moe.py",
-                 "models/vit.py", "train/trainer.py", "infer/engine.py")
+                 "models/vit.py", "train/trainer.py", "infer/engine.py",
+                 "parallel/mesh.py", "parallel/distributed.py")
 
 
 @pytest.mark.parametrize("rel", DEVICE_TAKERS)

@@ -2127,3 +2127,49 @@ def _gather_floor(params, cfg, dev, prompt, toks):
                ctx[-1])
     gather = tkv.step_logits(params, cache, cfg, None)
     return max(1e-2, 2 * (gather - plain).abs().max().item())
+
+
+# -- the trainer over a one-rank NCCL mesh -------------------------------------
+
+@pytest.mark.gpu
+def test_one_rank_mesh_step_equals_plain_step_on_card():
+    """llama3-tiny in float32 over a one-rank NCCL mesh
+    (``parallel.mesh.make_mesh``): two steps equal the plain steps
+    (losses, grad norms, parameters) and the mesh leg reaches K2, K3
+    and K4 on its local shards: forward and recompute 4 launches a
+    step at 2 layers, dK/dV and dQ 2 each."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from skypilot_tpu_torch.parallel import mesh as tmesh
+    from skypilot_tpu_torch.train import trainer as tt
+    dev = _cuda()
+    cfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"], dtype=torch.float32)
+    tc = tt.TrainConfig(learning_rate=1e-2, warmup_steps=1, total_steps=4)
+    batch = tt.synthetic_batch(cfg, 2, 64, seed=1, device=dev)
+    assert not dist.is_initialized()
+    mesh = tmesh.make_mesh(tmesh.MeshShape(), dev)
+    try:
+        assert dist.get_backend() == "nccl"
+        plain = tt.create_train_state(cfg, tc, dev, seed=3)
+        sharded = tt.create_train_state(cfg, tc, dev, seed=3, mesh=mesh)
+        step_plain, step_mesh = (tt.make_train_step(cfg, tc),
+                                 tt.make_train_step(cfg, tc, mesh=mesh))
+        kernels = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv,
+                   tfa.flash_attention_bwd_dq)
+        for _ in range(2):
+            _, mp = step_plain(plain, batch)
+            for f in kernels:
+                f.launches = 0
+            _, mm = step_mesh(sharded, batch)
+            assert [f.launches for f in kernels] == [4, 2, 2]
+            for k in ("loss", "grad_norm"):
+                torch.testing.assert_close(mm[k], mp[k], rtol=1e-5,
+                                           atol=0)
+        worst = max((a - b.full_tensor()).abs().max().item()
+                    for a, b in zip(tt._layer_leaves(plain["params"]),
+                                    tt._layer_leaves(sharded["params"])))
+        assert worst <= 1e-5, worst
+    finally:
+        dist.destroy_process_group()

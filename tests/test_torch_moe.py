@@ -280,7 +280,8 @@ def test_run_moe_resumes_bit_for_bit_and_evaluates(tmp_path, capsys):
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
     common = ["--steps", "4", "--ckpt-every", "2", "--xent-chunk", "8"]
     full, line = _run(capsys, *common, "--ckpt-dir", a)
-    assert line["steps"] == 4 and line["mesh"] == {}
+    assert line["steps"] == 4 and line["mesh"] == {
+        "pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "tp": 1, "sp": 1}
     assert full["losses"][-1] < full["losses"][0]
     shutil.copytree(os.path.join(a, "2"), os.path.join(b, "2"))
     resumed, line_b = _run(capsys, *common, "--ckpt-dir", b, "--resume")
@@ -307,7 +308,7 @@ def test_run_defaults_and_errors(capsys, monkeypatch):
     class Stop(Exception):
         pass
 
-    def spy(cfg, tc, device=None, seed=0, model=None):
+    def spy(cfg, tc, device=None, seed=0, model=None, mesh=None):
         seen["cfg"], seen["model"] = cfg, model
         raise Stop
 
