@@ -3,12 +3,23 @@
 
     python3 chip_smoke.py            # every phase, as a release check runs it
 
-Phases, in order; any failure exits nonzero and nothing is swallowed:
+Phases, numbered as they are described; any failure exits nonzero and
+nothing is swallowed. They run in this order but for phase 3, which
+runs after phase 11: the serving phases (4-11) launch K1 and K2 alone,
+so they run while ``flash_bwd`` (K3/K4, the slowest file) still
+compiles.
+
+Depth: every llama3-8b path runs at full width on cut depth, as the
+smoke's 1200 s limit on the slowest host asks: the serve and contig
+phases at ``SERVE_LAYERS`` (16) of 32 layers, the handoff, bench, qos,
+adapters, draft, recover and observe phases at ``CUT_LAYERS`` (8).
 
 1. The card's name and power limit (``nvidia-smi``).
 2. Build: every hand-written kernel of ``skypilot_tpu_torch/csrc`` with
-   ``nvcc`` for ``sm_90a``, one process per source, all at once; ptxas's
-   registers and spills per kernel function.
+   ``nvcc`` for ``sm_90a``, one process per source, all started at
+   once; ``paged_attention`` and ``flash_fwd`` are waited for before
+   phase 4, ``flash_bwd`` before phase 3; ptxas's registers and spills
+   per kernel function.
 3. Kernels: each kernel against its plain PyTorch version on the same
    CUDA inputs at its main path's shapes (K1/K2 serving, K3/K4 the
    llama3-1b training shape; K2, K3 and K4 also at the QLoRA-8B
@@ -44,7 +55,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    eager loop's time and the host's time per call are printed beside
    it.
 4. Serve: the port's HTTP server (``infer/server.py``) at llama3-8b
-   full width and depth with random bf16 weights from a fixed seed, in
+   full width on ``SERVE_LAYERS`` layers with random bf16 weights from a fixed seed, in
    the reference server's default configuration (chunks of 512, a
    prefix pool of 8, n-gram speculation at K = 4), answers 9 concurrent
    ``/generate`` requests, two of them streamed twins of a chunked and
@@ -66,7 +77,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    prompts (one chunked) are replayed through
    an engine that runs the plain attention versions on the same card
    beside one that runs the kernels, in bf16 (divergence reported) and
-   on the first ``CUT_LAYERS`` (16) layers of the same weights in
+   on the first ``CUT_LAYERS`` (8) layers of the same weights in
    float32, where greedy tokens must agree
    wherever the plain logits' top-2 gap exceeds 1e-2. The float32 leg
    reads float32 pools, so its chunks run the ``mma.sync`` multi-row
@@ -87,7 +98,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    reference's int8 recipe, ``llm/serve-8b-w8a8.yaml`` (32 slots,
    max_len 1280,
    ``--kv-int8 --weights-int8``, max burst 32, waves of 4), at llama3-8b
-   full width and depth: int8 pools with bf16 scales, only the slim
+   full width on ``SERVE_LAYERS`` layers: int8 pools with bf16 scales, only the slim
    float tree resident (``memory_allocated`` held to the slim weights,
    the int8 weights and the int8 KV), the same 9 requests and prefix
    pair under the same checks, TTFT and decode rate beside the bf16
@@ -97,8 +108,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    column-major (as stored) and row-major.
 5. Handoff: the cross-replica KV handoff of disaggregated serving
    between two HTTP servers on the card, a prefill tier P and a decode
-   tier D on one params tree: llama3-8b bf16 at ``CUT_LAYERS`` (16)
-   layers in the serve phase's settings, the int8 recipe at 16 layers
+   tier D on one params tree: llama3-8b bf16 at ``CUT_LAYERS`` (8)
+   layers in the serve phase's settings, the int8 recipe at 8 layers
    (32 slots, max_len 1280, quantized once) and float32 on the first 8
    layers. The single
    tier first (prompts of 775 and 597 tokens, 16 new tokens, on D's
@@ -117,7 +128,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    first streamed decode token are printed beside the single tier's
    TTFT and decode rate.
 6. Bench: the port's serving bench (``infer/bench_serve.py``) at
-   llama3-8b full width and depth, bf16, random weights from seed 0,
+   llama3-8b full width on ``CUT_LAYERS`` layers, bf16, random weights
+   from seed 0,
    through its own functions, launch counts set to 0 before each leg
    and read after it: ``run_http`` (8 streamed requests of mixed
    512-1024-token prompts over HTTP, 32 new tokens, two timed waves
@@ -143,7 +155,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    lazy KV growth and the operator routes at llama3-8b, launch counts
    set to 0 before each leg and read after it. (a) The port's
    ``bench_serve.run_qos`` at the reference's chip defaults (8 slots,
-   max_len 256, 2 background requests; bf16, full depth) but for 12 hot
+   max_len 256, 2 background requests; bf16, ``CUT_LAYERS``) but for 12 hot
    requests and 32 new tokens (the reference's 24 and 64, cut for
    time): its report line; every preemption cycle
    preempts and resumes warm, WFQ admits the background tenant ahead of
@@ -152,7 +164,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    (b) The HTTP server at the reference server's defaults plus
    ``--kv-lazy``, with ``SKYTPU_QOS=1`` and two tenants (``hog``:
    burst 2 and one KV block; ``vip``: a lane above the default), in
-   bf16 at ``CUT_LAYERS`` (16) layers and in float32 on the first 8: a quota
+   bf16 at ``CUT_LAYERS`` (8) layers and in float32 on the first 8: a quota
    stall, a typed 429 with Retry-After, a preemption of one of 16
    streamed 740-token requests whose tokens agree with its unpreempted
    twin's (float32: wherever the plain top-2 gap exceeds 1e-2; bf16:
@@ -168,7 +180,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    seeded numpy (``bench_serve.adapter_tree``) are written by the port's
    ``save_adapter`` into a temporary directory (~55 MB each), with one
    corrupt entry. (a) The HTTP server through ``make_engine`` (bf16,
-   full depth, the reference server's defaults) with ``--adapters`` and
+   ``CUT_LAYERS``, the reference server's defaults) with ``--adapters`` and
    ``--adapter-slots 5`` (four fine-tunes resident, so the traffic
    evicts): 16 concurrent ``/generate`` requests, 12 under the eight
    fine-tunes (the body's ``model`` or the ``x-skytpu-model`` header)
@@ -193,9 +205,9 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    the sequential runs wherever the plain top-2 gap exceeds 1e-2.
 9. Draft: the draft model and the async draft/verify pipeline, launch
    counts set to 0 before each leg and read after it, K1's split into
-   the target's and the draft's. (a) llama3-8b full width and depth,
-   bf16, 16 slots, max_len 1024, spec K 4, target and draft from
-   ``draft.self_distilled_pair(params, cfg, 16)``: 8 requests of 98-775
+   the target's and the draft's. (a) llama3-8b full width on
+   ``CUT_LAYERS`` layers, bf16, 16 slots, max_len 1024, spec K 4,
+   target and draft from ``draft.self_distilled_pair(params, cfg, 4)``: 8 requests of 98-775
    tokens (two chunked), 48 new tokens each, spec-off, then the model
    drafter pipelined, then synchronous; per leg acceptance (> 0.8 in
    bf16), the draft engine's counters, TPOT and the overlap/verify wall
@@ -224,7 +236,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    (the reference's 256, cut for time; its warm-up passes run 10 new
    tokens): its report line and its pipeline structure.
 10. Recover: crash recovery on the serve engine at llama3-8b bf16 (full
-   width at ``CUT_LAYERS``, 16, layers; 16 slots, max_len 1024, blocks of 256, chunks of 512, a prefix pool of
+   width at ``CUT_LAYERS``, 8, layers; 16 slots, max_len 1024, blocks of 256, chunks of 512, a prefix pool of
    8, n-gram spec K 4), launch counts set to 0 before each leg and read
    after it: 8 requests (``RECOVER_LENS``, two chunked) of 24 new
    tokens, the uninterrupted twin, then one run per seeded fault of
@@ -244,7 +256,7 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    predraft is pending; tokens equal the twin's wherever the plain
    top-2 gap exceeds 1e-2.
 11. Observe: the observability stack on a replica at llama3-8b (full
-   width at ``CUT_LAYERS``, 16, layers, bf16, the reference server's
+   width at ``CUT_LAYERS``, 8, layers, bf16, the reference server's
    defaults), launch
    counts set to 0 before the traffic and read after it. The engine is
    warmed by ``server.warm_grid`` (``--warm-grid``: every program key
@@ -335,8 +347,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    losses that fall, K2 24, K3 12 and K4 12 launches a step.
 15. Contig: the contiguous KV layout (``kv_block`` 0), launch counts set
    to 0 before each leg and read after it. (a) The HTTP server through
-   ``make_engine`` at llama3-8b full width and depth, bf16, with the
-   reference server's defaults (16 slots, max_len 1024, chunks of 512, a
+   ``make_engine`` at llama3-8b full width on ``SERVE_LAYERS`` layers,
+   bf16, with the reference server's defaults (16 slots, max_len 1024, chunks of 512, a
    prefix pool of 8, n-gram K 4) and ``kv_block=0``: the serve phase's 9
    requests and its shared-prefix pair (the warm one a 512-token hit
    copied from its pool row), every check of the serve leg but that
@@ -350,7 +362,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    wherever the plain top-2 gap exceeds 1e-2. (c) The bench's
    ``run_occupancy`` at its card size (llama3-400m, max_len 4096, 8
    contiguous slots against 64 paged at equal KV bytes),
-   ``run_span_smoke`` and ``run_kernel_smoke``, in float32: each report
+   ``run_span_smoke`` and ``run_kernel_smoke``, in float32, the 400m
+   at ``CONTIG_400M_LAYERS`` (4) of its 12 layers: each report
    line; where tokens part, the plain top-2 gap there is at most the
    larger of 1e-2 and twice the gather's own shift from the plain
    logits on that context (the gather rounds its weights to bf16).
@@ -368,11 +381,34 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    1e-5 relative, parameters within 1e-5 of max|Δ|, and a checkpoint
    of the mesh leg's state restores into the plain leg's bit for bit.
 
+17. Parallel: context and pipeline parallelism on one card (one rank,
+   so the ring's shift, Ulysses's all-to-all and the pipeline's sends
+   do not run). (a) llama3-1b's width and depth as a pipeline of 2
+   stages and 4 microbatches, bf16, batch 4 x 2048, chunked
+   cross-entropy at 512, 6 steps from seed 0 beside the plain
+   llama3-1b leg, under GPipe and then 1F1B: K2 128, K3 64 and K4 64
+   launches a step (counted from 0 before each leg), the first loss
+   within 1e-2 of ``llama.loss_fn`` on the same weights, 1F1B's losses
+   within 1e-2 of GPipe's; each leg's median step, tokens/s and peak
+   memory, and one more GPipe step profiled (device time by kernel
+   class, idle share); then 2 layers in float32, 3 steps, against the plain stack
+   within 1e-5 on loss and grad norm. (b) The ring, the zigzag ring
+   and Ulysses by ``ring_attention.loopback``: the module's distributed
+   ring loop for 4 virtual sp ranks in one process, the ring's shift a
+   hand-over of the next block, Ulysses's all-to-all a reshuffle of the
+   ranks' chunks (its K2-K4 once over the stacked head groups), at
+   ``llm/long-context-ring.yaml``'s per-rank attention (16 q over 4 kv
+   heads, hd 128, 32768 packed rows), against K2 over the whole
+   sequence and K3/K4: outputs and gradients within 2e-2 of max in
+   bf16, 1e-4 in float32 at 4 x 1024; each scheme's wall and peak.
+   (c) ``train.run --model pipeline --config pp-tiny``, and
+   ``--zigzag`` on one rank (the same losses as without it).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``; the line before them gives each
 phase's wall. ``--phase kernels``, ``serve``, ``handoff``, ``bench``,
 ``qos``, ``adapters``, ``draft``, ``recover``, ``observe``, ``train``,
-``finetune``, ``models``, ``contig`` or ``mesh`` runs one of phases 3-16
+``finetune``, ``models``, ``contig``, ``mesh`` or ``parallel`` runs one of phases 3-17
 alone (the build always runs).
 """
 
@@ -1264,14 +1300,17 @@ def _plain_logits(engine, params, prompt, ctx, adapter=None):
 # floor is as large at 2 layers as at 32, and the legs hold the smoke's
 # time near half its limit.
 INT8_FP32_LAYERS = 8
-# Depth of the serve phase's float32 leg, and of the llama3-8b paths
-# whose checks are structural (tokens against a twin, records, typed
-# answers): the handoff, recover and observe phases and the QoS server
-# leg. Full
-# width at half the layers: none of their checks depends on depth, the
-# main serving path keeps all 32 in the serve phase, and the smoke must
-# stay inside its time limit on the slowest host as phases are added.
-CUT_LAYERS = 16
+# Depths of llama3-8b (full width; 32 layers) on the card. The serve
+# and contig phases run ``SERVE_LAYERS``: their 9 requests must draft
+# by n-gram at least once, which the contig leg's did not at 8 layers.
+# The serve phase's float32 leg and the handoff, bench, qos, adapters,
+# draft, recover and observe phases run ``CUT_LAYERS``: none of their
+# checks depends on depth. The smoke must stay inside its 1200 s limit
+# on the slowest host as phases are added: it passed that limit on
+# one host with serve, bench, qos, adapters, draft and contig at 32
+# layers and the rest at 12 (``CUT_LAYERS`` was 16 before that).
+SERVE_LAYERS = 16
+CUT_LAYERS = 8
 
 
 @contextlib.contextmanager
@@ -1725,7 +1764,7 @@ def phase_serve(dev, card: str):
 
     # The float32 int8 legs, on int8 KV pools and the first
     # INT8_FP32_LAYERS layers of the same weights (the serve[int8] leg
-    # runs the recipe at full depth): their chunks send bf16 q to int8
+    # runs the recipe at the phase's depth): their chunks send bf16 q to int8
     # pools, so they run the wgmma multi-row body, and their decode the
     # decode body on int8 pools. First on the float32 weights (int8 KV
     # alone leaves the paths' logits as close as float32 pools do), then
@@ -1805,7 +1844,7 @@ def _serve_int8(dev, card: str, chunk: int, bf16: dict) -> dict:
     1280 --weights-int8 --kv-int8 --max-burst 32 --admit-wave 4``, with
     the reference server's defaults: chunks of 512, a prefix pool of 8,
     spec K 4; its ``--open-burst`` waits for the rest of the server,
-    ROADMAP Queue 1 item 7) at llama3-8b full width and depth, random
+    ROADMAP Queue 1 item 7) at llama3-8b full width (``SERVE_LAYERS``), random
     bf16 weights from seed 0 quantized once on the card. Checks the int8
     pools and bf16 scales, the slim weight tree and the device memory
     after the build, then serves the bf16 leg's 9 requests and the
@@ -2277,13 +2316,13 @@ def _profile_step(run_step, label: str, card: str) -> None:
     """``run_step()`` once to warm up, then once under torch.profiler:
     device time by kernel class and the device's idle share of the
     step's wall time (kernels run on one stream, so their times add up
-    without overlap)."""
+    without overlap). The device alone is traced: host operators would
+    add the tracer's own cost to the wall and take seconds to parse."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run_step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         run_step()
         torch.cuda.synchronize()
@@ -2505,7 +2544,7 @@ def _positive(report: dict, keys, leg: str) -> None:
 
 def phase_bench(dev, card: str) -> dict:
     """The port's serving bench (``infer/bench_serve.py``) at llama3-8b,
-    full width and depth, bf16, random weights from seed 0, through its
+    full width (``CUT_LAYERS``), bf16, random weights from seed 0, through its
     own functions: ``run_http`` (8 streamed requests of mixed 512-1024
     tokens, two timed waves), ``run`` (16 requests of 96 tokens on the
     engine alone) and ``run_prefix_share`` at its full-size shapes with
@@ -3769,7 +3808,7 @@ def _adapter_handoff_leg(params, cfg, dev, card: str, catalog: str,
 
 
 def _adapter_bench(dev, card: str) -> tuple:
-    """``bench_serve.run_adapters`` at llama3-8b bf16, full depth: rank
+    """``bench_serve.run_adapters`` at llama3-8b bf16, ``CUT_LAYERS``: rank
     16, 8 fine-tunes, 8 requests of 128 tokens (one under each
     fine-tune in the mixed batch; the reference's 16 cut to make room
     for the draft phase: the sequential parity runs, one a request,
@@ -3921,7 +3960,7 @@ def phase_adapters(dev, card: str) -> dict:
 # leg's depth and draft.
 DRAFT_LENS = (775, 597, 491, 289, 321, 98, 126, 400)
 DRAFT_NEW = 48
-DRAFT_LAYERS = 16
+DRAFT_LAYERS = 4
 DRAFT_FP32_LAYERS = 8
 DRAFT_FP32_DRAFT = 4
 # The engine leg's least acceptance in bf16. The distilled pair read
@@ -4123,9 +4162,9 @@ def _draft_run(engine, prompts, new: int, tag: str, card: str,
 
 
 def _draft_engine_leg(dev, card: str) -> tuple:
-    """(a) llama3-8b at full width and depth, bf16, 16 slots, max_len
-    1024, chunks of 512, spec K 4; target and draft from
-    ``self_distilled_pair(params, cfg, 16)``. The 8 requests (``DRAFT_LENS``,
+    """(a) llama3-8b at full width (``CUT_LAYERS``), bf16, 16 slots,
+    max_len 1024, chunks of 512, spec K 4; target and draft from
+    ``self_distilled_pair(params, cfg, DRAFT_LAYERS)``. The 8 requests (``DRAFT_LENS``,
     two chunked) run spec-off, then with the model drafter pipelined,
     then synchronous, each from a fresh engine. Held: acceptance above
     ``DRAFT_BF16_ACCEPT``, every request on the model rung,
@@ -5077,7 +5116,7 @@ def _median(xs):
 
 
 def phase_observe(dev, card: str) -> dict:
-    """Observe a replica: llama3-8b (full width and depth, bf16) in the
+    """Observe a replica: llama3-8b (full width, ``CUT_LAYERS``, bf16) in the
     reference server's defaults, warmed by ``server.warm_grid`` (the
     ``--warm-grid`` startup), serving the mixed workload over HTTP.
     Checked: zero unexpected compiles after the warm-up, record/program
@@ -5823,6 +5862,10 @@ def phase_models(dev, card: str) -> dict:
 
 # Depth of the contiguous phase's float32 parity leg at llama3-8b width.
 CONTIG_FP32_LAYERS = 2
+# The bench sections' llama3-400m at 4 of its 12 layers (full width):
+# occupancy, span and parity do not depend on depth, and the occupancy
+# sweep's 64 requests took 65 s of the smoke at 12.
+CONTIG_400M_LAYERS = 4
 CONTIG_NEW = 32
 
 
@@ -5847,7 +5890,7 @@ def _kv_gib(tree) -> float:
 
 
 def _contig_serve(dev, card: str) -> dict:
-    """(a) llama3-8b at full width and depth, bf16, through the server's
+    """(a) llama3-8b at full width (``SERVE_LAYERS``), bf16, through the server's
     ``make_engine`` with the reference server's defaults and
     ``kv_block=0``: the serve phase's 9 requests and its shared-prefix
     pair (:func:`_serve_leg`, launch counts from 0: K2 must launch and K1
@@ -6009,13 +6052,15 @@ def _contig_bench(dev, card: str) -> dict:
     float32 (their configs by name): ``run_occupancy`` at its card size
     (llama3-400m, max_len 4096, 8 contiguous slots against 64 paged at
     equal KV bytes), ``run_span_smoke`` and ``run_kernel_smoke`` (the
-    400m at their CI sizes); each report line, the parity of each held
-    to the gap rule of :func:`_gaps` on the seed-0 weights. Returns the
-    occupancy run's launches."""
+    400m at their CI sizes), the 400m at ``CONTIG_400M_LAYERS``
+    layers; each report line, the parity of each held to the gap rule
+    of :func:`_gaps` on the seed-0 weights. Returns the occupancy run's
+    launches."""
     from skypilot_tpu_torch.infer import bench_serve as bs
     from skypilot_tpu_torch.models import llama
     out = {}
-    with _fp32_config("llama3-400m", "llama3-tiny"):
+    with _at_depth("llama3-400m", CONTIG_400M_LAYERS), \
+            _fp32_config("llama3-400m", "llama3-tiny"):
         for name, fn in (("occupancy", bs.run_occupancy),
                          ("span", bs.run_span_smoke),
                          ("kernel", bs.run_kernel_smoke)):
@@ -6209,13 +6254,313 @@ def phase_mesh(dev, card: str) -> dict:
     return {"mesh": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: context and pipeline parallelism
+# ---------------------------------------------------------------------------
+
+PP_STEPS = 6
+PP_SEQ = 2048
+# The long-context recipe's per-rank attention (llm/long-context-ring.yaml:
+# llama3-8b at tp 2, sequence 32768 over sp 4).
+RING_SEQ, RING_SP, RING_HQ, RING_HKV = 32768, 4, 16, 4
+RING_FP32_SEQ = 4 * 1024
+
+
+def _flash_counts() -> dict:
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    return {f.__name__: f.launches for f in (
+        fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+        fa.flash_attention_bwd_dq)}
+
+
+def _zero_flash() -> None:
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    for f in (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+              fa.flash_attention_bwd_dq):
+        f.launches = 0
+
+
+def _add(into: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        into[k] = into.get(k, 0) + v
+
+
+def _as_pipeline(cfg):
+    """``cfg`` (a ``LlamaConfig``) as 2 stages of 4 microbatches."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import pipeline
+    return pipeline.PipelineConfig(**{
+        f.name: getattr(cfg, f.name)
+        for f in dataclasses.fields(llama.LlamaConfig)},
+        n_stages=2, n_microbatches=4)
+
+
+def _pp_leg(dev, cfg, tc, batch, steps: int, model,
+            profile: tuple = None) -> dict:
+    """``steps`` trainer steps of ``model`` (``llama`` or ``pipeline``)
+    from seed 0 on one batch: losses, grad norms, walls (each step's loss
+    fetched), peak memory, the flash kernels' launches over the steps
+    (counted from 0 just before them), and the first state's loss
+    through the plain llama stack on the same weights (the
+    stage-stacked blocks reshaped). With ``profile`` (a label, the card
+    after it), one more step is profiled after them
+    (:func:`_profile_step`)."""
+    import torch
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = trainer.create_train_state(cfg, tc, dev, seed=SEED, model=model)
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    if model is not llama:
+        lcfg = llama.LlamaConfig(**{
+            f.name: getattr(cfg, f.name)
+            for f in dataclasses.fields(llama.LlamaConfig)})
+        p = state["params"]
+        flat = dict(p, blocks={k: w.reshape(-1, *w.shape[2:])
+                               for k, w in p["blocks"].items()})
+        with torch.no_grad():
+            out["llama_loss"] = float(llama.loss_fn(flat, batch, lcfg)[0])
+    step = trainer.make_train_step(cfg, tc, model=model)
+    _zero_flash()
+    for _ in range(steps):
+        t = time.time()
+        _, m = step(state, batch)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["ms"].append((time.time() - t) * 1e3)
+    out["launches"] = _flash_counts()
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    if profile is not None:
+        label, card = profile
+        _profile_step(lambda: step(state, batch), label, card)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_full(dev, card: str) -> dict:
+    """(a) llama3-1b's width and depth as a 2-stage, 4-microbatch
+    pipeline, bf16, batch 4 x 2048, xent chunks of 512, 6 steps from
+    seed 0: the plain llama3-1b leg, then GPipe, then 1F1B, the flash
+    kernels counted from 0 before each pipeline leg."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import pipeline
+    from skypilot_tpu_torch.train import trainer
+    base = dataclasses.replace(llama.CONFIGS["llama3-1b"], xent_chunk=512)
+    cfg = _as_pipeline(base)
+    tc = trainer.TrainConfig(warmup_steps=1, total_steps=PP_STEPS)
+    batch = trainer.synthetic_batch(cfg, 4, PP_SEQ, seed=SEED, device=dev)
+    tokens = 4 * PP_SEQ
+    plain = _pp_leg(dev, base, tc, batch, PP_STEPS, llama)
+    _log(f"parallel[plain llama3-1b]: losses "
+         f"{[round(x, 5) for x in plain['loss']]}; median step "
+         f"{_median(plain['ms'][1:]):.1f} ms, "
+         f"{tokens / _median(plain['ms'][1:]) * 1e3:.0f} tokens/s, peak "
+         f"allocated {plain['peak'] / 2**30:.2f} GiB; {card}")
+    launches = {}
+    legs = {}
+    for schedule in ("gpipe", "1f1b"):
+        # One schedule's step profiled (the train phase profiles the
+        # plain step; the schedules share every kernel).
+        leg = _pp_leg(dev, dataclasses.replace(cfg, schedule=schedule), tc,
+                      batch, PP_STEPS, pipeline,
+                      (f"parallel[profile]: pipeline {schedule}", card)
+                      if schedule == "gpipe" else None)
+        counts = leg["launches"]
+        _add(launches, counts)
+        per_step = {n: c / PP_STEPS for n, c in counts.items()}
+        med = _median(leg["ms"][1:])
+        _log(f"parallel[pipeline {schedule}]: losses "
+             f"{[round(x, 5) for x in leg['loss']]}; median step "
+             f"{med:.1f} ms (steps 2-{PP_STEPS}; first {leg['ms'][0]:.1f}) "
+             f"against the plain step's {_median(plain['ms'][1:]):.1f}, "
+             f"{tokens / med * 1e3:.0f} tokens/s, peak allocated "
+             f"{leg['peak'] / 2**30:.2f} GiB (plain "
+             f"{plain['peak'] / 2**30:.2f}); launches per step {per_step}; "
+             f"{card}")
+        # 16 layers x 4 microbatches: K2 forward and remat recompute,
+        # K3 and K4 once each.
+        want = {"flash_attention_fwd": 128, "flash_attention_bwd_dkv": 64,
+                "flash_attention_bwd_dq": 64}
+        if per_step != want:
+            raise AssertionError(f"parallel[pipeline {schedule}]: launches "
+                                 f"per step {per_step}, expected {want}")
+        rel = abs(leg["loss"][0] - leg["llama_loss"]) / abs(leg["llama_loss"])
+        _log(f"parallel[pipeline {schedule}]: first loss "
+             f"{leg['loss'][0]:.5f} against llama.loss_fn on the same "
+             f"weights {leg['llama_loss']:.5f}, rel {rel:.2e} (bound 1e-2)")
+        if not rel <= 1e-2 or not all(math.isfinite(x) for x in leg["loss"]):
+            raise AssertionError(f"parallel[pipeline {schedule}]: first loss "
+                                 f"{leg['loss'][0]} against llama's "
+                                 f"{leg['llama_loss']}")
+        legs[schedule] = leg
+    rel = max(abs(a - b) / abs(b) for a, b in zip(legs["1f1b"]["loss"],
+                                                  legs["gpipe"]["loss"]))
+    _log(f"parallel[pipeline]: 1F1B - GPipe losses max rel {rel:.2e} (bound "
+         f"1e-2); the loss fell {legs['gpipe']['loss'][0]:.4f} -> "
+         f"{legs['gpipe']['loss'][-1]:.4f}")
+    if not rel <= 1e-2:
+        raise AssertionError("parallel[pipeline]: 1F1B parts from GPipe")
+    if not legs["gpipe"]["loss"][-1] < legs["gpipe"]["loss"][0]:
+        raise AssertionError("parallel[pipeline]: the loss did not fall")
+    return launches
+
+
+def _pp_fp32(dev, card: str) -> None:
+    """2 layers of llama3-1b in float32, 3 steps: the pipeline (one layer
+    a stage, GPipe and 1F1B) against the plain stack, loss and grad norm
+    within 1e-5 relative."""
+    import torch
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import pipeline
+    from skypilot_tpu_torch.train import trainer
+    base = dataclasses.replace(llama.CONFIGS["llama3-1b"], n_layers=2,
+                               dtype=torch.float32, xent_chunk=512)
+    cfg = _as_pipeline(base)
+    tc = trainer.TrainConfig(warmup_steps=1, total_steps=PP_STEPS)
+    batch = trainer.synthetic_batch(cfg, 4, PP_SEQ, seed=SEED, device=dev)
+    plain = _pp_leg(dev, base, tc, batch, 3, llama)
+    for schedule in ("gpipe", "1f1b"):
+        leg = _pp_leg(dev, dataclasses.replace(cfg, schedule=schedule), tc,
+                      batch, 3, pipeline)
+        rel = max(abs(a - b) / abs(b) for k in ("loss", "grad_norm")
+                  for a, b in zip(leg[k], plain[k]))
+        _log(f"parallel[pipeline {schedule}, fp32, 2 layers]: losses "
+             f"{leg['loss']} against the plain stack's {plain['loss']}; "
+             f"loss and grad norm max rel {rel:.2e} (bound 1e-5); {card}")
+        if not rel <= 1e-5:
+            raise AssertionError(f"parallel[pipeline {schedule}, fp32]: the "
+                                 f"pipeline parts from the plain stack")
+
+
+def _ring_inputs(S: int, dtype, dev):
+    """q [1, S, 16, 128], k/v [1, S, 4, 128], dO, and packed segment ids
+    [1, S] from the input pipeline, seed 0."""
+    import torch
+    from skypilot_tpu_torch.data import input_pipeline as ip
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, do = (torch.randn(1, S, h, 128, generator=gen, device=dev,
+                               dtype=torch.float32).to(dtype)
+                   for h in (RING_HQ, RING_HKV, RING_HKV, RING_HQ))
+    docs = ip.synthetic_doc_stream(64, 32_768, mean_len=S // 6, seed=SEED)
+    seg = torch.from_numpy(next(ip.packed_batches(docs, 1, S))[
+        "segment_ids"]).to(dev, torch.int32)
+    return q, k, v, do, seg
+
+
+def _k2_reference(q, k, v, do, seg):
+    """K2 over the whole sequence (all heads), K3/K4 for its gradients."""
+    import torch
+    from skypilot_tpu_torch.ops import attention
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = attention.gqa_attention(*leaves, causal=True, segment_ids=seg)
+    return (o.detach(),) + torch.autograd.grad(o, leaves, grad_outputs=do)
+
+
+def _ring_schemes(dev, card: str, S: int, dtype, bound: float,
+                  launches: dict) -> None:
+    """(b) The ring, the zigzag ring and Ulysses over ``RING_SP`` virtual
+    ranks at sequence S, against K2/K3/K4 over the whole sequence: each
+    output and gradient within ``bound`` of the reference's max; each
+    scheme's wall and peak memory, by the module's ``loopback``: its
+    distributed ring loop for the virtual ranks in one process, the ring's
+    shift a hand-over of the next block and Ulysses's all-to-all a
+    reshuffle of the ranks' chunks. Ulysses's launches into
+    ``launches``."""
+    import torch
+    from skypilot_tpu_torch.parallel import ring_attention as ra
+    name = str(dtype).replace("torch.", "")
+    q, k, v, do, seg = _ring_inputs(S, dtype, dev)
+    want = _k2_reference(q, k, v, do, seg)
+    torch.cuda.synchronize()
+    walls = {}
+    for scheme in ("ring", "zigzag", "ulysses"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        if scheme == "ulysses":
+            _zero_flash()
+        t = time.time()
+        got = ra.loopback(scheme, q, k, v, do, seg, RING_SP)
+        torch.cuda.synchronize()
+        walls[scheme] = (time.time() - t) * 1e3
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        extra = ""
+        if scheme == "ulysses":
+            counts = _flash_counts()
+            _add(launches, counts)
+            extra = f"; launches {counts}"
+            # The virtual ranks' head groups stacked on the batch dim:
+            # one launch of each.
+            if set(counts.values()) != {1}:
+                raise AssertionError(f"parallel[ulysses]: launches {counts}, "
+                                     f"expected 1 of each")
+        errs = {}
+        for nm, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+            errs[nm] = ((g.float() - w.float()).abs().max()
+                        / w.float().abs().max()).item()
+        _log(f"parallel[{scheme}, {name}, S {S} over {RING_SP} virtual "
+             f"ranks, {RING_HQ}/{RING_HKV} heads, hd 128, packed]: wall "
+             f"{walls[scheme]:.1f} ms, peak above the inputs {peak:.2f} GiB; "
+             f"max|Δ| / max|K2,K3,K4| "
+             + ", ".join(f"{k_} {e:.2e}" for k_, e in errs.items())
+             + f" (bound {bound:g}){extra}; {card}")
+        if not all(e <= bound for e in errs.values()):
+            raise AssertionError(f"parallel[{scheme}, {name}]: {errs} over "
+                                 f"the bound {bound}")
+        del got
+    _log(f"parallel[{name}, S {S}]: the zigzag ring's wall "
+         f"{walls['zigzag']:.1f} ms against the plain ring's "
+         f"{walls['ring']:.1f} ({walls['ring'] / walls['zigzag']:.2f}x)")
+
+
+def _pp_run_main(card: str) -> None:
+    """(c) ``train.run --model pipeline --config pp-tiny --steps 4`` on
+    the card, and ``--zigzag`` on one rank (the identity: the losses of
+    the same run without it)."""
+    res = _run_main(["--model", "pipeline", "--config", "pp-tiny",
+                     "--steps", "4", "--log-every", "1"])
+    if not (len(res["losses"]) == 4
+            and all(math.isfinite(x) for x in res["losses"])):
+        raise AssertionError(f"parallel[run]: losses {res['losses']}")
+    argv = ["--config", "llama3-tiny", "--seq", "64", "--steps", "4",
+            "--log-every", "1"]
+    plain = _run_main(argv)["losses"]
+    zig = _run_main(argv + ["--zigzag"])["losses"]
+    _log(f"parallel[run]: --model pipeline (pp-tiny) losses "
+         f"{res['losses']}; llama3-tiny --zigzag on one rank {zig} against "
+         f"{plain} without it; {card}")
+    if zig != plain:
+        raise AssertionError("parallel[run]: --zigzag on one rank is not "
+                             "the identity")
+
+
+def phase_parallel(dev, card: str) -> dict:
+    """Returns {"parallel": {kernel: launches}}: the pipeline legs' and
+    Ulysses's, each counted from 0 just before it. One card runs one
+    rank, so the collectives (the ring's shift, the all-to-all, the
+    pipeline's sends) are not run here: the ring bodies run by loopback
+    and the pipeline's stages in turn."""
+    import torch
+    _log(f"parallel: one card runs one rank; the ring's shift, Ulysses's "
+         f"all-to-all and the pipeline's sends are not timed here")
+    launches = _pp_full(dev, card)
+    _pp_fp32(dev, card)
+    _ring_schemes(dev, card, RING_SEQ, torch.bfloat16, 2e-2, launches)
+    _ring_schemes(dev, card, RING_FP32_SEQ, torch.float32, 1e-4, launches)
+    _pp_run_main(card)
+    return {"parallel": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "serve", "handoff", "bench",
                              "qos", "adapters", "draft", "recover",
                              "observe", "train", "finetune", "models",
-                             "contig", "mesh"),
+                             "contig", "mesh", "parallel"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -6266,13 +6611,31 @@ def main() -> int:
          f"python {sys.version.split()[0]}")
 
     t0 = time.time()
-    logs = _build.build_all()
-    _log(f"build: {len(_build.SOURCES)} kernels for sm_90a in "
-         f"{time.time() - t0:.1f} s")
+    # Every nvcc starts now; flash_bwd (K3/K4), the slowest file, is
+    # waited for only after the serving phases, which launch K1 and K2.
+    _build.start()
+    try:
+        return _phases(args, dev, smi, t0)
+    finally:
+        _build.stop()
+
+
+def _wait_build(names, t0: float) -> None:
+    """Wait for the listed kernels' builds; their ptxas summaries."""
+    from skypilot_tpu_torch.ops import _build
+    t = time.time()
+    logs = _build.build_all(names)
+    _log(f"build: {', '.join(names)} for sm_90a: waited "
+         f"{time.time() - t:.1f} s, {time.time() - t0:.1f} s after the "
+         f"start")
     for name, text in logs.items():
         for line in _ptxas_summary(text):
             _log(f"  {name}: {line}")
 
+
+def _phases(args, dev, smi: str, t0: float) -> int:
+    import torch
+    _wait_build(("paged_attention", "flash_fwd"), t0)
     walls = {}
 
     def run(phase, fn):
@@ -6287,36 +6650,40 @@ def main() -> int:
         torch.cuda.empty_cache()
         return out
 
-    cases = run("kernels", phase_kernels) or {}
     # Launches of each kernel on each main path, counted from 0 just
     # before that path runs and read just after it.
     by_path = {}
-    by_path.update(run("serve", phase_serve) or {})
+    with _at_depth("llama3-8b", SERVE_LAYERS):
+        by_path.update(run("serve", phase_serve) or {})
+    draft_cases = {}
     with _at_depth("llama3-8b", CUT_LAYERS):
         by_path.update(run("handoff", phase_handoff) or {})
-    bench = run("bench", phase_bench)
-    if bench is not None:
-        by_path["bench"] = bench
-    by_path.update(run("qos", phase_qos) or {})
-    by_path.update(run("adapters", phase_adapters) or {})
-    draft = run("draft", phase_draft)
-    if draft is not None:
-        paths, draft_cases = draft
-        by_path.update(paths)
-        # K1 held on the draft engines' own inputs: after the kernel
-        # phase's cases, whose first case heads each entry.
-        for name, runs in draft_cases.items():
-            cases.setdefault(name, []).extend(runs)
-    with _at_depth("llama3-8b", CUT_LAYERS):
+        bench = run("bench", phase_bench)
+        if bench is not None:
+            by_path["bench"] = bench
+        by_path.update(run("qos", phase_qos) or {})
+        by_path.update(run("adapters", phase_adapters) or {})
+        draft = run("draft", phase_draft)
+        if draft is not None:
+            paths, draft_cases = draft
+            by_path.update(paths)
         by_path.update(run("recover", phase_recover) or {})
         by_path.update(run("observe", phase_observe) or {})
+    _wait_build(("flash_bwd",), t0)
+    cases = run("kernels", phase_kernels) or {}
+    # K1 held on the draft engines' own inputs: after the kernel phase's
+    # cases, whose first case heads each entry.
+    for name, runs in draft_cases.items():
+        cases.setdefault(name, []).extend(runs)
     train = run("train", phase_train)
     if train is not None:
         by_path["train"] = train
     by_path.update(run("finetune", phase_finetune) or {})
     by_path.update(run("models", phase_models) or {})
-    by_path.update(run("contig", phase_contig) or {})
+    with _at_depth("llama3-8b", SERVE_LAYERS):
+        by_path.update(run("contig", phase_contig) or {})
     by_path.update(run("mesh", phase_mesh) or {})
+    by_path.update(run("parallel", phase_parallel) or {})
     _log(f"phase walls (s): {json.dumps(walls)}; build and phases "
          f"{time.time() - t0:.1f} s; {smi}")
 

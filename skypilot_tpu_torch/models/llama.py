@@ -18,7 +18,10 @@ Over a device mesh (``parallel/``) the parameters are DTensors laid out
 by :func:`param_logical_axes` and the functions take a ``constrain``
 (``sharding.make_constrain``), which lays activations out at the
 reference's points, as its ``with_sharding_constraint`` calls do; with
-no mesh it is the identity and the one-card path runs as before.
+no mesh it is the identity and the one-card path runs as before. Its
+mesh and rules also pick the attention: ring attention where the
+sequence is split (sp), the zigzag layout where the rules ask for it
+(``parallel/ring_attention.py``).
 """
 
 from __future__ import annotations
@@ -31,15 +34,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.ops import attention as attn_ops
-from skypilot_tpu_torch.parallel import sharding
+from skypilot_tpu_torch.parallel import ring_attention, sharding
 
 Params = Dict[str, Any]
+
+# The trainer runs this model over a device mesh (``parallel/``).
+RUNS_ON_MESH = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,23 +258,41 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _seq_split(x: torch.Tensor) -> bool:
+    """A DTensor whose sequence dim (1) is split over a mesh axis."""
+    return isinstance(x, DTensor) and any(
+        getattr(p, "dim", None) == 1 for p in x.placements
+        if p.is_shard())
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, S, d] @ w [d, n]. Where the sequence is split over a mesh
+    (sp), a batched product: DTensor's rule for ``x @ w`` folds B and S
+    into one dim, split over two mesh axes, and plans that layout by a
+    graph search that takes minutes an operator; ``bmm`` keeps the two
+    dims apart."""
+    if x.dim() == 3 and _seq_split(x):
+        return torch.bmm(x, w.unsqueeze(0).expand(x.shape[0], -1, -1))
+    return x @ w
+
+
 def project_in(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """"bsd,dhk->bshk": h [B, S, d] @ w [d, H, hd] -> [B, S, H, hd]."""
     d, H, hd = w.shape
-    return (h @ w.reshape(d, H * hd)).reshape(*h.shape[:-1], H, hd)
+    return matmul(h, w.reshape(d, H * hd)).reshape(*h.shape[:-1], H, hd)
 
 
 def project_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """"bshk,hkd->bsd": o [B, S, H, hd] @ w [H, hd, d] -> [B, S, d]."""
     H, hd, d = w.shape
-    return o.reshape(*o.shape[:-2], H * hd) @ w.reshape(H * hd, d)
+    return matmul(o.reshape(*o.shape[:-2], H * hd), w.reshape(H * hd, d))
 
 
 def ffn(h: torch.Tensor, layer: Params, dtype) -> torch.Tensor:
     """Dense SwiGLU FFN. h: [B, S, D]."""
-    g = h @ layer["w_gate"].to(dtype)
-    u = h @ layer["w_up"].to(dtype)
-    return (F.silu(g) * u) @ layer["w_down"].to(dtype)
+    g = matmul(h, layer["w_gate"].to(dtype))
+    u = matmul(h, layer["w_up"].to(dtype))
+    return matmul(F.silu(g) * u, layer["w_down"].to(dtype))
 
 
 def layer_slice(params: Params, i: int) -> Params:
@@ -288,7 +312,8 @@ def logits(x: torch.Tensor, params: Params, cfg: LlamaConfig,
     logits to bf16, which at |logit| ~ 4 leaves a resolution of 1/32
     and ties that greedy decoding breaks by token id."""
     head = lm_head(params, cfg).to(cfg.dtype)
-    return constrain(x.float() @ head.float(), ("batch", "seq", "vocab"))
+    return constrain(matmul(x.float(), head.float()),
+                     ("batch", "seq", "vocab"))
 
 
 def attention_block(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
@@ -380,7 +405,10 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     :func:`decoder_layer`. ``constrain`` lays out activations over a
     mesh (module docstring); it also lays out the token ids, positions,
     segment ids and rope tables, so every tensor a layer (and its
-    recompute) sees is a DTensor."""
+    recompute) sees is a DTensor. Where its rules split the sequence
+    (sp), attention is ring attention, and with ``seq_layout: zigzag``
+    the sequence runs in the zigzag layout (:func:`sequence_layout`),
+    permuted once here and back before the final norm."""
     if constrain is None:
         constrain = sharding.identity
     S = tokens.shape[1]
@@ -392,6 +420,9 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     x = constrain(_lookup(tokens, table), ("batch", "seq", "embed"))
     if positions is None:
         positions = torch.arange(S, device=x.device)
+    x, positions, segment_ids, attention, use_zigzag, n_sp = sequence_layout(
+        x, positions, segment_ids, attention, constrain)
+    if positions.dim() == 1:
         cos, sin = (constrain(t, ("seq", None))
                     for t in rope_frequencies(cfg, positions))
     else:
@@ -401,7 +432,32 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     for i in range(cfg.n_layers):
         x = remat(cfg, _layer_hidden, cfg, x, layer_slice(params, i), cos,
                   sin, attention, segment_ids, constrain)
+    if use_zigzag:
+        x = constrain(ring_attention.zigzag_unpermute(x, n_sp),
+                      ("batch", "seq", "embed"))
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def sequence_layout(x, positions, segment_ids, attention, constrain):
+    """The zigzag sequence layout over a mesh (``constrain.mesh`` and
+    ``constrain.rules``; ``ring_attention.apply_zigzag_layout``): the
+    activations, positions and segment ids permuted once, and the
+    attention dispatched by the rules the layout leaves (the layout key
+    dropped where it does not apply). Without a mesh, or without the
+    layout key, everything comes back as it was. Returns ``(x,
+    positions, segment_ids, attention, use_zigzag, n_sp)``; the llama,
+    MoE and QLoRA forwards share it."""
+    mesh = getattr(constrain, "mesh", None)
+    rules = getattr(constrain, "rules", None)
+    if mesh is None:
+        return x, positions, segment_ids, attention, False, 1
+    (x, positions, segment_ids, layer_rules, use_zigzag,
+     n_sp) = ring_attention.apply_zigzag_layout(x, positions, segment_ids,
+                                                mesh, rules)
+    if attention is None:
+        attention = functools.partial(attn_ops.gqa_attention,
+                                      rules=layer_rules)
+    return x, positions, segment_ids, attention, use_zigzag, n_sp
 
 
 def _rope_tables(cfg: LlamaConfig, positions: torch.Tensor):
@@ -475,11 +531,28 @@ def _chunk_xent(h: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
                 m: torch.Tensor, constrain: Callable = sharding.identity):
     """Summed log-likelihood and correct predictions of one chunk: the
     head product in the activation dtype, then float32."""
-    logits = constrain(h @ head, ("batch", "seq", "vocab")).float()
+    logits = constrain(matmul(h, head), ("batch", "seq", "vocab")).float()
     logps = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logps, -1, targets[..., None])[..., 0]
-    correct = (logits.argmax(dim=-1) == targets).to(m.dtype)
+    correct = (_argmax(logits) == targets).to(m.dtype)
     return (ll * m).sum(), (correct * m).sum()
+
+
+def _argmax(logits: torch.Tensor) -> torch.Tensor:
+    """Each row's argmax over the last dim, the first of ties (as
+    ``jnp.argmax``). Over a mesh it is the first index that reaches the
+    row's ``amax``: where the vocab is split that costs two [B, c]
+    all-reduces (max and min), while DTensor's own argmax over a split
+    vocab miscomputes its gather's shape on a mesh of several dims."""
+    if not isinstance(logits, DTensor):
+        return logits.argmax(dim=-1)
+    V = logits.shape[-1]
+    mesh = logits.device_mesh
+    iota = DTensor.from_local(
+        torch.arange(V, dtype=torch.float32, device=logits.device), mesh,
+        [Replicate()] * mesh.ndim, run_check=False)
+    top = logits == logits.amax(dim=-1, keepdim=True)
+    return torch.where(top, iota, float(V)).amin(dim=-1).long()
 
 
 def xent_metrics(params: Params, h: torch.Tensor, tokens: torch.Tensor,
@@ -497,19 +570,39 @@ def xent_metrics(params: Params, h: torch.Tensor, tokens: torch.Tensor,
     with masked positions, and each chunk's [B, c, vocab] logits are
     recomputed in the backward (``torch.utils.checkpoint``), so the
     full logits tensor never exists. ``constrain`` lays each chunk's
-    logits out over a mesh (vocab over tp), as the reference does."""
+    logits out over a mesh (vocab over tp), as the reference does.
+    Where the sequence is split over sp, h keeps its rows in place and
+    the targets shift instead; with chunks, h's rows are gathered once
+    (the chunks slice the sequence)."""
     head = (lm_head(params, cfg) if head is None else head).to(cfg.dtype)
     B, S = tokens.shape
-    targets = tokens[:, 1:].long()
-    m = (torch.ones((B, S - 1), dtype=torch.float32, device=h.device)
-         if mask is None else mask[:, :-1].float())
-    m = constrain(m, ("batch", "seq"))
-    h = h[:, :-1]
+    if _seq_split(h):
+        # The sequence split over sp: h keeps its S rows (S - 1 would
+        # not split evenly), the targets shift left with the last
+        # position masked, and the ids are gathered whole (a few bytes a
+        # token) to shift them.
+        targets = F.pad(sharding.whole(tokens)[:, 1:].long(), (0, 1))
+        m = (torch.ones((B, S - 1), dtype=torch.float32, device=h.device)
+             if mask is None else sharding.whole(mask)[:, :-1].float())
+        # Chunks slice the sequence: then its rows are gathered once.
+        lay = ("batch", None) if cfg.xent_chunk else ("batch", "seq")
+        targets = constrain(targets, lay)
+        m = constrain(F.pad(m, (0, 1)), lay)
+        if cfg.xent_chunk:
+            h = h.redistribute(h.device_mesh, [
+                Replicate() if p.is_shard() and p.dim == 1 else p
+                for p in h.placements])
+    else:
+        targets = tokens[:, 1:].long()
+        m = (torch.ones((B, S - 1), dtype=torch.float32, device=h.device)
+             if mask is None else mask[:, :-1].float())
+        m = constrain(m, ("batch", "seq"))
+        h = h[:, :-1]
     c = cfg.xent_chunk
     if not c:
         ll_sum, correct = _chunk_xent(h, head, targets, m, constrain)
     else:
-        pad = (-(S - 1)) % c
+        pad = (-h.shape[1]) % c
         if pad:
             h = F.pad(h, (0, 0, 0, pad))
             targets = F.pad(targets, (0, pad))

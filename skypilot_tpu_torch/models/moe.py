@@ -15,9 +15,10 @@ layer axis under the same names (``w_router [L, d, E]``, ``we_gate`` and
 ``we_up [L, E, d, ff]``, ``we_down [L, E, ff, d]``), so a JAX tree
 converts one to one (:func:`params_from_numpy`).
 
-Two deliberate differences from the JAX module: there is no mesh, so no
-``constrain`` hook and no zigzag layout (without a mesh the JAX
-forward's layout is the identity), and ``lax.top_k``'s order on ties
+Two deliberate differences from the JAX module: MoE does not run over a
+mesh yet, so it has no ``constrain`` hook, and its zigzag layout hook
+(``llama.sequence_layout``, as in the JAX forward) is the identity
+until it does; and ``lax.top_k``'s order on ties
 (the lower expert index first) is kept by a stable descending sort,
 since ``torch.topk`` promises no order among equal values.
 """
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.parallel import ring_attention
 
 Params = llama.Params
 
@@ -222,18 +224,24 @@ def decoder_layer(cfg: MoEConfig, x: torch.Tensor, layer: Params,
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
                    *, positions: Optional[torch.Tensor] = None,
                    segment_ids: Optional[torch.Tensor] = None,
-                   attention: Optional[Callable] = None
+                   attention: Optional[Callable] = None,
+                   constrain: Optional[Callable] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token ids [B, S] -> (final-norm hidden [B, S, D], aux loss summed
     over the layers and divided by their number). ``positions`` and
     ``segment_ids`` [B, S]: packed sequences, as in
     ``llama.forward_hidden``. With ``cfg.remat`` and grad enabled each
     layer runs under ``llama.remat``, its aux an output of the
-    checkpointed block."""
+    checkpointed block. ``constrain`` carries the mesh and rules the
+    zigzag layout reads (``llama.sequence_layout``); without one the
+    layout is the identity."""
     S = tokens.shape[1]
     x = F.embedding(tokens, params["embed"].to(cfg.dtype))
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
+    x, positions, segment_ids, attention, use_zigzag, n_sp = \
+        llama.sequence_layout(x, positions, segment_ids, attention,
+                              constrain)
     cos, sin = llama.rope_frequencies(cfg, positions)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
@@ -241,6 +249,8 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
                              llama.layer_slice(params, i), cos, sin,
                              attention, segment_ids)
         aux_sum = aux_sum + aux
+    if use_zigzag:
+        x = ring_attention.zigzag_unpermute(x, n_sp)
     x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux_sum / cfg.n_layers
 

@@ -9,7 +9,10 @@ header rebuilds and a stale library is never loaded. A failed build
 raises.
 
 :func:`build_all` starts one ``nvcc`` per source together, so the build
-takes as long as the slowest file.
+takes as long as the slowest file. :func:`start` launches them and
+returns at once, so a caller can work beside a slow file's build; a
+later :func:`build_all` or :func:`load` of that source waits for it,
+and :func:`stop` ends the builds nobody waited for.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import threading
 from pathlib import Path
@@ -32,6 +36,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# Builds started by :func:`start` and not finished yet: {name: (process,
+# temporary library, library)}.
+_pending: Dict[str, tuple] = {}
 
 
 def _nvcc() -> str:
@@ -59,8 +66,11 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    # A session of its own: :func:`stop` ends nvcc with the compilers
+    # it runs.
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
     return proc, tmp, out
 
 
@@ -76,11 +86,37 @@ def _finish(name: str, started) -> str:
     return log
 
 
+def start(names=SOURCES) -> None:
+    """Start ``nvcc`` for every listed source that is neither built nor
+    building, and return without waiting."""
+    with _lock:
+        for n in names:
+            if n not in _pending:
+                st = _start(n)
+                if st is not None:
+                    _pending[n] = st
+
+
+def stop() -> None:
+    """End the builds :func:`start` began that nobody waited for, and
+    remove their partial output."""
+    with _lock:
+        while _pending:
+            _, (proc, tmp, _out) = _pending.popitem()
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.communicate()
+            tmp.unlink(missing_ok=True)
+
+
 def build_all(names=SOURCES) -> Dict[str, str]:
     """Compile every listed kernel source that is not built yet, all
-    ``nvcc`` processes at once. Returns {name: compiler output}."""
+    ``nvcc`` processes at once, a build :func:`start` began included.
+    Returns {name: compiler output}."""
     with _lock:
-        started = [(n, _start(n)) for n in names]
+        started = [(n, _pending.pop(n, None) or _start(n)) for n in names]
         logs = {}
         errors: List[str] = []
         for n, st in started:

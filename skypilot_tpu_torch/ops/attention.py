@@ -67,15 +67,17 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True,
-                  segment_ids: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  segment_ids: Optional[torch.Tensor] = None,
+                  rules=None) -> torch.Tensor:
     """Grouped-query attention. q: [B, S, Hq, D]; k/v: [B, S, Hkv, D],
     unexpanded: the flash kernels read kv-head ``h // (Hq / Hkv)``.
     Differentiable: the backward runs K3 and K4. A head dim the kernels
     do not take runs the plain attention (:func:`attention_route`).
-    DTensor inputs run on their local shards (module docstring)."""
+    DTensor inputs run on their local shards, laid out by the
+    activation ``rules`` (default ``sharding.ACT_RULES``; module
+    docstring)."""
     if isinstance(q, DTensor):
-        return _sharded_attention(q, k, v, causal, segment_ids)
+        return _sharded_attention(q, k, v, causal, segment_ids, rules)
     if attention_route(q.shape[-1]) == "plain":
         n_rep = q.shape[2] // k.shape[2]
         return xla_attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
@@ -108,20 +110,34 @@ def _rank_kv_heads(kv: torch.Tensor, rank: int, n_local: int,
     return kv[:, :, idx].contiguous()
 
 
-def _sharded_attention(q, k, v, causal: bool, segment_ids):
+def _sharded_attention(q, k, v, causal: bool, segment_ids, rules=None):
     """:func:`gqa_attention` over DTensors: q/k/v laid out by the
     activation rules (batch over dp and fsdp, heads over tp), the local
     attention on each rank's shard, O returned as a DTensor in q's
-    layout. Differentiable through ``to_local``/``from_local``."""
+    layout. Differentiable through ``to_local``/``from_local``.
+
+    Where the rules' sequence axis is above 1 and divides the sequence,
+    the sequence is context-parallel: ring attention over that axis
+    (``parallel/ring_attention.py``), the zigzag ring when the rules
+    carry ``seq_layout: zigzag``. A sequence the ring does not divide
+    falls through to local attention on a replicated sequence, the
+    reference's divisibility fallback."""
     from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import ring_attention as ra
     from skypilot_tpu_torch.parallel import sharding as sh
     mesh = q.device_mesh
     sizes = mesh_lib.mesh_shape(mesh)
-    if sizes.sp > 1:
-        raise NotImplementedError(
-            "sequence-parallel attention (ring attention, sp > 1) is not "
-            "ported yet")
-    rules = sh.ACT_RULES
+    rules = sh.ACT_RULES if rules is None else rules
+    seq_axis = rules.get("seq")
+    if (isinstance(seq_axis, str) and sizes.as_dict()[seq_axis] > 1
+            and q.shape[1] % sizes.as_dict()[seq_axis] == 0):
+        heads_axis = rules.get("heads")
+        kw = dict(axis=seq_axis, batch_axes=rules.get("batch"),
+                  heads_axis=heads_axis if isinstance(heads_axis, str)
+                  else None, segment_ids=segment_ids)
+        if rules.get("seq_layout") == "zigzag":
+            return ra.zigzag_ring_attention(q, k, v, mesh, **kw)
+        return ra.ring_attention(q, k, v, mesh, causal=causal, **kw)
     q_spec = sh.spec_for(("batch", "seq", "heads", "head_dim"), rules,
                          mesh, q.shape)
     kv_spec = sh.spec_for(("batch", "seq", "kv_heads", "head_dim"), rules,

@@ -219,21 +219,37 @@ def embedding(tokens: DTensor, table: DTensor) -> DTensor:
         run_check=False)
 
 
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on every rank (a collective: every rank of
+    its mesh calls it); a plain tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def identity(x, axes):
     """The constraint of no mesh: ``x`` as it is."""
     return x
 
 
-def make_constrain(mesh, rules: Rules = ACT_RULES):
-    """Return fn(x, logical_axes) laying ``x`` out by the rules (the
-    reference's ``with_sharding_constraint``). With ``mesh=None`` it is
-    the identity, so the one-card path runs unchanged."""
-    if mesh is None:
-        return identity
+class Constrain:
+    """fn(x, logical_axes) laying ``x`` out over ``mesh`` by ``rules`` (the
+    reference's ``with_sharding_constraint``). The models read ``mesh``
+    and ``rules`` off it where the reference passes them beside it (the
+    sequence layout and the attention dispatch)."""
 
-    def constrain(x, axes):
+    def __init__(self, mesh, rules: Rules):
+        self.mesh = mesh
+        self.rules = rules
+
+    def __call__(self, x, axes):
         if len(axes) != x.ndim:
             return x
-        return distribute(x, mesh, spec_for(axes, rules, mesh, x.shape))
+        return distribute(x, self.mesh,
+                          spec_for(axes, self.rules, self.mesh, x.shape))
 
-    return constrain
+
+def make_constrain(mesh, rules: Rules = ACT_RULES):
+    """A :class:`Constrain` over ``mesh``; with ``mesh=None`` the identity,
+    so the one-card path runs unchanged."""
+    if mesh is None:
+        return identity
+    return Constrain(mesh, rules)

@@ -23,9 +23,10 @@ layer being recomputed holds its dequantized weights. The head is
 dequantized once per step, outside the cross-entropy's chunks.
 
 The train state is LoRA's (``train/lora.py``): one definition, so a
-``--qlora --resume`` restores what a fresh run creates. Not ported: the
-reference's zigzag ring-attention layout (``ra.apply_zigzag_layout``),
-an identity without a mesh; the port has no mesh yet.
+``--qlora --resume`` restores what a fresh run creates. The reference's
+zigzag layout hook (``ra.apply_zigzag_layout``) is
+``llama.sequence_layout`` here: QLoRA trains on one card (as in the
+reference), where the layout is the identity.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 from skypilot_tpu_torch import DeviceLike
 from skypilot_tpu_torch.infer import kvcache
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.parallel import ring_attention
 from skypilot_tpu_torch.ops import attention as attn_ops
 from skypilot_tpu_torch.train import lora, trainer
 from skypilot_tpu_torch.train.lora import LoRAConfig
@@ -127,19 +129,26 @@ def forward_hidden(qweights: Params, fp_params: Params, adapters: Params,
                    tokens: torch.Tensor, cfg: llama.LlamaConfig,
                    lc: LoRAConfig, positions: Optional[torch.Tensor] = None,
                    segment_ids: Optional[torch.Tensor] = None,
-                   attention: Optional[Callable] = None) -> torch.Tensor:
+                   attention: Optional[Callable] = None,
+                   constrain: Optional[Callable] = None) -> torch.Tensor:
     """Token ids [B, S] -> final-norm hidden states, int8 base.
 
     ``fp_params`` is the slim tree (embed + norms,
     ``kvcache.slim_params``' layout); ``qweights["blocks"]`` the stacked
     int8 block weights. ``attention`` defaults to
-    ``attn_ops.gqa_attention`` (the kernels on the card)."""
-    if attention is None:
-        attention = attn_ops.gqa_attention
+    ``attn_ops.gqa_attention`` (the kernels on the card). ``constrain``
+    carries the mesh and rules the zigzag layout reads
+    (``llama.sequence_layout``); without one the layout is the
+    identity."""
     S = tokens.shape[1]
     x = F.embedding(tokens, fp_params["embed"].to(cfg.dtype))
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
+    x, positions, segment_ids, attention, use_zigzag, n_sp = \
+        llama.sequence_layout(x, positions, segment_ids, attention,
+                              constrain)
+    if attention is None:
+        attention = attn_ops.gqa_attention
     cos, sin = llama.rope_frequencies(cfg, positions)
     blocks = fp_params["blocks"]
     for i in range(cfg.n_layers):
@@ -149,6 +158,8 @@ def forward_hidden(qweights: Params, fp_params: Params, adapters: Params,
         x = llama.remat(cfg, _qdecoder_layer, cfg, lc, x,
                         kvcache.qlayer_slice(qweights, i), norms, ab, cos,
                         sin, attention, segment_ids)
+    if use_zigzag:
+        x = ring_attention.zigzag_unpermute(x, n_sp)
     return llama.rms_norm(x, fp_params["final_norm"], cfg.norm_eps)
 
 

@@ -1,7 +1,8 @@
 """Training entry point: ``python -m skypilot_tpu_torch.train.run``.
 
-Counterpart of ``skypilot_tpu/train/run.py`` for dense Llama and the
-sparse MoE decoder (``--model moe``, default config ``moe-small``).
+Counterpart of ``skypilot_tpu/train/run.py`` for dense Llama, the
+sparse MoE decoder (``--model moe``, default config ``moe-small``) and
+the pipelined llama (``--model pipeline``, default ``pp-tiny``).
 Examples::
 
     # llama3-1b, full width and depth, on the card
@@ -43,12 +44,26 @@ one-card step (a deliberate difference: the one-card step stays as
 fast as it was, and a one-rank mesh computes the same numbers).
 Checkpoints are saved whole and restored onto any mesh.
 
-Not ported yet, refused with a message naming what is to come:
-``--model pipeline`` and ``--pp`` above 1 (pipeline parallelism),
-``--sp`` above 1 and ``--zigzag`` (ring attention), ``--ep`` above 1,
-and ``--model moe`` or ``--lora`` over more than one rank (the sharded
-MoE and LoRA steps). ``--qlora`` on more than one rank logs and trains
-on one, as the reference does.
+Context and pipeline parallelism, as the reference's: ``--sp N`` splits
+the sequence over an sp axis of the mesh (ring attention,
+``parallel/ring_attention.py``), ``--zigzag`` adds the zigzag layout to
+the activation rules (llama or moe; the identity on one rank), and
+``--model pipeline`` (default config ``pp-tiny``) trains the
+stage-stacked llama of ``parallel/pipeline.py``, with ``--pp N`` its
+stages split over a pp axis; the batch is rounded to the microbatch
+count. ``--packed`` with ``--model pipeline`` is refused, as the
+reference refuses it. Not ported yet, refused with a message naming
+what is to come: ``--ep`` above 1, and ``--model moe`` or ``--lora``
+over more than one rank (the sharded MoE and LoRA steps). ``--qlora``
+on more than one rank logs and trains on one, as the reference does.
+
+Two CPU ranks pipelined, and two splitting packed sequences::
+
+    for r in 0 1; do JAX_COORDINATOR_ADDRESS=127.0.0.1:29500 \\
+        JAX_NUM_PROCESSES=2 JAX_PROCESS_ID=$r \\
+        python -m skypilot_tpu_torch.train.run --device cpu \\
+        --model pipeline --pp 2 --seq 32 --steps 3 & done; wait
+    # ... --config llama3-tiny --sp 2 --zigzag --packed --seq 64
 
 Fine-tuning, the reference's branches: ``--lora RANK`` trains rank-RANK
 adapters over a frozen float base drawn from seed 1
@@ -133,7 +148,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--model", default="llama",
                     choices=("llama", "moe", "pipeline"))
     ap.add_argument("--config", default=None,
-                    help="llama3-400m (llama) or moe-small (moe) by default")
+                    help="llama3-400m (llama), moe-small (moe) or pp-tiny "
+                         "(pipeline) by default")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=0,
                     help="global batch (0 = 4 x data-parallel degree)")
@@ -169,10 +185,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain versions)")
     args = ap.parse_args(argv)
-    if args.model == "pipeline":
-        ap.error("--model pipeline is not ported yet: pipeline "
-                 "parallelism (parallel/pipeline.py) is still to come")
     # The reference's argument errors, in its order.
+    if args.packed and args.model == "pipeline":
+        ap.error("--packed is not supported with --model pipeline")
     if args.lora and args.model != "llama":
         ap.error("--lora currently supports --model llama only")
     if args.lora < 0:
@@ -184,16 +199,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             ap.error("--lora and --qlora are mutually exclusive")
         if args.qlora < 0:
             ap.error("--qlora rank must be positive")
-    for flag, what in (("sp", "sequence parallelism (ring attention, "
-                              "parallel/ring_attention.py)"),
-                       ("ep", "expert parallelism (the sharded MoE step)"),
-                       ("pp", "pipeline parallelism (parallel/pipeline.py)")):
-        if getattr(args, flag) > 1:
-            ap.error(f"--{flag} {getattr(args, flag)} is not ported yet: "
-                     f"{what} is still to come")
-    if args.zigzag:
-        ap.error("--zigzag is not ported yet: ring attention "
-                 "(parallel/ring_attention.py) is still to come")
+    if args.zigzag and args.model not in ("llama", "moe"):
+        # Only llama's and moe's forwards apply the zigzag permute.
+        ap.error("--zigzag supports --model llama or moe only")
+    if args.ep > 1:
+        ap.error(f"--ep {args.ep} is not ported yet: expert parallelism "
+                 f"(the sharded MoE step) is still to come")
 
     import skypilot_tpu_torch.callbacks as sky_callback
     from skypilot_tpu_torch.data import input_pipeline as ip
@@ -202,6 +213,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     from skypilot_tpu_torch.observability import goodput as goodput_lib
     from skypilot_tpu_torch.parallel import distributed
     from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import pipeline
+    from skypilot_tpu_torch.parallel import sharding as sh_rules
     from skypilot_tpu_torch.train import checkpoints, trainer
 
     device = resolve_device(args.device)
@@ -217,8 +230,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if n > 1 and args.lora:
         ap.error("--lora over more than one rank is not ported yet: the "
                  "sharded LoRA step is still to come")
-    model, default_cfg = ((moe, "moe-small") if args.model == "moe"
-                          else (llama, "llama3-400m"))
+    model, default_cfg = {"llama": (llama, "llama3-400m"),
+                          "moe": (moe, "moe-small"),
+                          "pipeline": (pipeline, "pp-tiny")}[args.model]
     args.config = args.config or default_cfg
     cfg = model.CONFIGS[args.config]
     if args.xent_chunk is not None:
@@ -231,6 +245,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     batch = args.batch or 4 * data_degree
     if batch % data_degree:
         batch = data_degree * max(1, batch // data_degree)
+    micro = getattr(cfg, "n_microbatches", None)
+    if micro and batch % micro:
+        batch = micro * max(1, batch // micro)
     if args.qlora and n > 1:
         # The int8 base is unsharded: each rank trains on its own card
         # rather than dying on a multi-card job. Sharded multi-card
@@ -239,8 +256,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         n = 1
         batch = args.batch or 4
     mesh = mesh_lib.make_mesh(shape, device) if n > 1 else None
-    shardings = (trainer.state_shardings(cfg, mesh) if mesh is not None
-                 else None)
+    shardings = (trainer.state_shardings(cfg, mesh, model=model)
+                 if mesh is not None else None)
+    act_rules = sh_rules.ACT_RULES
+    if args.zigzag:
+        act_rules = dict(act_rules, seq_layout="zigzag")
     log(f"device: {device} ({name}); {args.config} "
         f"{cfg.num_params():,} params, batch {batch} x seq {args.seq}")
     tc = trainer.TrainConfig(learning_rate=args.lr,
@@ -306,7 +326,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             step_fn = lambda s, b: raw_step(s, base_params, b)
     else:
         step_fn = trainer.make_train_step(cfg, tc, watch=watch, model=model,
-                                          mesh=mesh)
+                                          mesh=mesh, act_rules=act_rules)
         if resume:
             state = restore()
         else:

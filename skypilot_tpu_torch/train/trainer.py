@@ -188,21 +188,30 @@ def lr_schedule(tc: TrainConfig) -> Callable[[int], float]:
     return schedule
 
 
+def _rows(w) -> list:
+    """A stacked ``blocks`` tensor's rows (views), the unit that autograd
+    and the optimizer work in; one whole leaf where the stacked dim is
+    split over a mesh (the pipeline's stage dim over pp), whose rows
+    live on other ranks."""
+    if isinstance(w, DTensor) and any(
+            p.is_shard() and p.dim == 0 for p in w.placements):
+        return [w]
+    return [w[i] for i in range(w.shape[0])]
+
+
 def _layer_leaves(tree, like=None) -> List[torch.Tensor]:
     """Leaves of a parameter-shaped tree (nested dicts of tensors: the
     model's, or an adapter tree ``{target: {"a", "b"}}``) in the key
     order of ``like`` (default: the tree's own), depth first, so
     moments, gradients and parameters pair up by name however each
     tree's dicts were built; each stacked ``blocks`` tensor [L, ...]
-    gives its L rows (views), the unit that autograd and the optimizer
-    work in. Any other tensor is one leaf."""
+    gives its L rows (:func:`_rows`). Any other tensor is one leaf."""
     like = tree if like is None else like
     leaves = []
     for k in like:
         if k == "blocks":
             for n in like[k]:
-                w = tree[k][n]
-                leaves.extend(w[i] for i in range(w.shape[0]))
+                leaves.extend(_rows(tree[k][n]))
         elif isinstance(like[k], dict):
             leaves.extend(_layer_leaves(tree[k], like[k]))
         else:
@@ -268,7 +277,10 @@ def make_optimizer(tc: TrainConfig):
 
 
 def _check_mesh_model(mesh, model) -> None:
-    if mesh is not None and model is not llama:
+    """A model module runs over a mesh where it says so
+    (``RUNS_ON_MESH``): llama and the pipeline adapter; MoE and ViT not
+    yet."""
+    if mesh is not None and not getattr(model, "RUNS_ON_MESH", False):
         raise NotImplementedError(
             f"{model.__name__} over a device mesh is not ported yet (the "
             f"sharded MoE and ViT steps come with expert parallelism)")
@@ -404,7 +416,7 @@ def _grad_leaves(params) -> Tuple[Dict[str, Any], List[torch.Tensor]]:
         view = {}
         for k, w in tree.items():
             if k == "blocks":
-                view[k] = {n: [leaf(w[i]) for i in range(w.shape[0])]
+                view[k] = {n: [leaf(r) for r in _rows(w)]
                            for n, w in w.items()}
             elif isinstance(w, dict):
                 view[k] = walk(w)
@@ -413,12 +425,6 @@ def _grad_leaves(params) -> Tuple[Dict[str, Any], List[torch.Tensor]]:
         return view
 
     return walk(params), leaves
-
-
-def _whole(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor's whole value on every rank (a collective); a plain
-    tensor as it is."""
-    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def value_and_grads(params, loss_fn: Callable):
@@ -431,13 +437,13 @@ def value_and_grads(params, loss_fn: Callable):
     replicated axis, reduce-scatter over a sharded one)."""
     view, leaves = _grad_leaves(params)
     loss, metrics = loss_fn(view)
-    loss = _whole(loss)
+    loss = sh.whole(loss)
     grads = list(torch.autograd.grad(loss, leaves))
     grads = [g.redistribute(p.device_mesh, p.placements)
              if isinstance(p, DTensor) else g
              for g, p in zip(grads, leaves)]
     return (loss.detach(),
-            {k: _whole(v).detach() for k, v in metrics.items()}, grads)
+            {k: sh.whole(v).detach() for k, v in metrics.items()}, grads)
 
 
 def grads_of(params, batch: Dict[str, torch.Tensor], cfg: llama.LlamaConfig,
@@ -513,7 +519,7 @@ def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig,
             batch = place_batch(batch, mesh)
         _, metrics, grads = grads_of(state["params"], batch, cfg,
                                      model=model, constrain=constrain)
-        metrics["grad_norm"] = _whole(update(grads, state["opt_state"],
+        metrics["grad_norm"] = sh.whole(update(grads, state["opt_state"],
                                              state["params"]))
         state["step"] += 1
         return state, metrics

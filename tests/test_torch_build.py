@@ -77,3 +77,51 @@ def test_changing_the_flags_changes_the_digest(csrc, monkeypatch):
     before = _build._lib_path("flash_fwd")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-lcuda"])
     assert _build._lib_path("flash_fwd") != before
+
+
+@pytest.fixture
+def fake_nvcc(csrc, tmp_path, monkeypatch):
+    """A stand-in compiler: writes the ``-o`` file after ``delay`` s."""
+    script = tmp_path / "nvcc"
+    script.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                      'sleep "${FAKE_NVCC_DELAY:-0}"\necho lib > "$2"\n'
+                      'echo "ptxas info: built"\n')
+    script.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(script))
+    monkeypatch.setattr(_build, "_pending", {})
+    return monkeypatch
+
+
+def test_build_all_waits_for_a_started_build(fake_nvcc):
+    fake_nvcc.setenv("FAKE_NVCC_DELAY", "0.2")
+    _build.start(("flash_bwd",))
+    assert set(_build._pending) == {"flash_bwd"}
+    assert not _build._lib_path("flash_bwd").exists()
+    # The started process is the one waited for: no second nvcc.
+    proc = _build._pending["flash_bwd"][0]
+    logs = _build.build_all(("flash_bwd", "flash_fwd"))
+    assert proc.returncode == 0 and not _build._pending
+    assert "ptxas info" in logs["flash_bwd"]
+    for name in ("flash_bwd", "flash_fwd"):
+        assert _build._lib_path(name).read_text() == "lib\n"
+
+
+def test_start_skips_what_is_built_or_building(fake_nvcc):
+    _build.build_all(("flash_fwd",))
+    fake_nvcc.setenv("FAKE_NVCC_DELAY", "0.2")
+    _build.start()
+    assert set(_build._pending) == {"paged_attention", "flash_bwd"}
+    first = dict(_build._pending)
+    _build.start()
+    assert _build._pending == first
+    _build.build_all()
+    assert not _build._pending
+
+
+def test_stop_ends_unwaited_builds(fake_nvcc):
+    fake_nvcc.setenv("FAKE_NVCC_DELAY", "30")
+    _build.start(("flash_bwd",))
+    proc, tmp, out = _build._pending["flash_bwd"]
+    _build.stop()
+    assert proc.returncode is not None and not _build._pending
+    assert not tmp.exists() and not out.exists()

@@ -301,8 +301,9 @@ def test_run_moe_resumes_bit_for_bit_and_evaluates(tmp_path, capsys):
 
 
 def test_run_defaults_and_errors(capsys, monkeypatch):
-    """The reference's per-model default config, and its argument errors
-    for adapters on MoE; ``--model pipeline`` is refused as unported."""
+    """The reference's per-model default config (moe-small, and pp-tiny
+    for ``--model pipeline``), and its argument errors for adapters on
+    MoE and for packed batches on the pipeline."""
     seen = {}
 
     class Stop(Exception):
@@ -324,9 +325,17 @@ def test_run_defaults_and_errors(capsys, monkeypatch):
         with pytest.raises(SystemExit):
             run.main(["--device", "cpu", "--model", "moe", *argv])
         assert words in capsys.readouterr().err
+    from skypilot_tpu_torch.parallel import pipeline as tpl
+    with monkeypatch.context() as m:
+        m.setattr(tt, "create_train_state", spy)
+        with pytest.raises(Stop):
+            run.main(["--device", "cpu", "--model", "pipeline", "--steps",
+                      "1"])
+    assert seen["cfg"] == tpl.CONFIGS["pp-tiny"] and seen["model"] is tpl
     with pytest.raises(SystemExit):
-        run.main(["--device", "cpu", "--model", "pipeline"])
-    assert "--model pipeline is not ported" in capsys.readouterr().err
+        run.main(["--device", "cpu", "--model", "pipeline", "--packed"])
+    assert ("--packed is not supported with --model pipeline"
+            in capsys.readouterr().err)
 
 
 # -- serving --------------------------------------------------------------------

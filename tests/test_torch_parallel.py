@@ -412,7 +412,7 @@ for name, (kw, slices, kind) in job["meshes"].items():
     step = tt.make_train_step(cfg, tc, mesh=mesh)
     for i in range(job["steps"]):
         _, m = step(state, batch)
-        for k in ("loss", "grad_norm"):
+        for k in ("loss", "grad_norm", "accuracy"):
             out[f"{name}/{k}{i}"] = m[k].numpy()
     for path, t in leaves(state["params"]):
         out[f"{name}/after/{path}"] = t.to_local().numpy().copy()
@@ -485,7 +485,8 @@ def _jax_leg(cfg, warm, kw, slices, batch, n):
     metrics = []
     for _ in range(STEPS):
         state, m = step(state, jb)
-        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        metrics.append({k: float(m[k])
+                        for k in ("loss", "grad_norm", "accuracy")})
     out["metrics"] = metrics
     out["after"] = shards(state["params"])
     out["full"] = {p: np.array(v) for p, v in _paths(state["params"])}
@@ -593,6 +594,20 @@ def test_sharded_steps_match_the_jax_steps(request, which, name):
     worst = max(np.abs(ranks[0][f"{name}/full/{p}"] - w).max()
                 for p, w in want[name]["full"].items())
     assert worst <= 1e-5, worst
+
+
+@pytest.mark.parametrize("which,name", CASES, ids=IDS)
+def test_sharded_accuracy_matches_the_jax_accuracy(request, which, name):
+    """The accuracy metric of each step equals the reference's on the
+    same mesh, where the vocab is split over tp (tp alone and with dp
+    and fsdp) and where it is not: each row's argmax is the first index
+    that reaches its max, ties included, without gathering the vocab."""
+    ranks, want = _group(request, which)
+    for i, m in enumerate(want[name]["metrics"]):
+        for got in ranks:
+            np.testing.assert_allclose(float(got[f"{name}/accuracy{i}"]),
+                                       m["accuracy"], rtol=0, atol=1e-6,
+                                       err_msg=f"step {i}")
 
 
 @pytest.mark.parametrize("which,name", CASES, ids=IDS)

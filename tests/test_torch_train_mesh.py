@@ -1,12 +1,15 @@
 """``train.run`` and the checkpoints over a device mesh of CPU ranks
 (gloo): ``--tp 2``, ``--fsdp`` (the default factorization) and ``--dp
-2`` against the world-1 run, the summary's ``mesh``, the flags this
-slice refuses, and checkpoints that cross meshes bit for bit."""
+2`` against the world-1 run, the summary's ``mesh``, the flags still
+refused, the reference's argument errors, checkpoints that cross meshes
+bit for bit, and ``--model pipeline --pp 2`` and ``--sp 2 --zigzag
+--packed`` against the JAX step on the same mesh."""
 
 import dataclasses
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -84,11 +87,7 @@ def test_world_1_summary_keeps_the_reference_mesh_dict(capsys):
     assert res["steps"] == 1
 
 
-REFUSED = {"sp": (["--sp", "2"], "ring attention"),
-           "ep": (["--ep", "2"], "expert parallelism"),
-           "pp": (["--pp", "2"], "pipeline parallelism"),
-           "zigzag": (["--zigzag"], "ring attention"),
-           "pipeline": (["--model", "pipeline"], "pipeline parallelism")}
+REFUSED = {"ep": (["--ep", "2"], "expert parallelism")}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
@@ -98,6 +97,32 @@ def test_unported_flags_are_refused_by_name(name, capsys):
         trun.main(ARGV + flags)
     err = capsys.readouterr().err
     assert "not ported yet" in err and what in err
+
+
+ARG_ERRORS = {
+    "packed-pipeline": ["--model", "pipeline", "--packed"],
+    "packed-before-zigzag": ["--model", "pipeline", "--packed", "--zigzag"],
+    "zigzag-pipeline": ["--model", "pipeline", "--zigzag"],
+    "lora-pipeline": ["--model", "pipeline", "--lora", "4"],
+    "qlora-moe": ["--model", "moe", "--qlora", "4"],
+}
+
+
+@pytest.mark.parametrize("name", list(ARG_ERRORS))
+def test_argument_errors_are_the_references(name, capsys, monkeypatch):
+    """The reference's ``train/run.py`` argument errors, in its order,
+    word for word (both mains exit before any model or device work)."""
+    import sys
+    from skypilot_tpu.train import run as jrun
+    argv = ["--steps", "1"] + ARG_ERRORS[name]
+    monkeypatch.setattr(sys, "argv", ["run"] + argv)
+    with pytest.raises(SystemExit):
+        jrun.main()
+    want = capsys.readouterr().err.strip().splitlines()[-1]
+    with pytest.raises(SystemExit):
+        trun.main(argv)
+    got = capsys.readouterr().err.strip().splitlines()[-1]
+    assert got.split("error: ")[1] == want.split("error: ")[1]
 
 
 @pytest.mark.parametrize("flags,what", [
@@ -224,3 +249,112 @@ def test_run_resumes_a_tp2_checkpoint_at_world_1(tmp_path, capsys):
     want, _ = _world1(ARGV, capsys)
     assert res["losses"][-1] == pytest.approx(want["losses"][-1], rel=1e-3)
     assert not torch.distributed.is_initialized()
+
+
+# -- context and pipeline parallelism through train.run ----------------------
+
+
+def _jax_run_losses(model: str, argv_cfg, shape: dict, rules, batches,
+                    tstate, steps: int):
+    """The JAX step on a ``shape`` mesh of its CPU devices from the port's
+    initial state ``tstate`` (numpy), ``train.run``'s schedule (lr 3e-4,
+    warmup max(1, min(100, steps // 10))), over ``batches``: its losses."""
+    import jax
+    import jax.numpy as jnp
+    from skypilot_tpu.parallel import mesh as jmesh
+    from skypilot_tpu.train import trainer as jt
+    if model == "pipeline":
+        from skypilot_tpu.parallel import pipeline as jm
+    else:
+        from skypilot_tpu.models import llama as jm
+    cfg = jm.CONFIGS[argv_cfg]
+    tc = jt.TrainConfig(learning_rate=3e-4,
+                        warmup_steps=max(1, min(100, steps // 10)),
+                        total_steps=steps)
+    mesh = jmesh.make_mesh(jmesh.MeshShape(**shape),
+                           jax.devices()[:2])
+    state = jt.create_train_state(cfg, tc, mesh, model=jm)
+    state = dict(state, params=jax.device_put(
+        jax.tree.map(jnp.asarray, tstate),
+        jt.state_shardings(cfg, mesh, model=jm)["params"]))
+    step = jt.make_train_step(cfg, tc, mesh, model=jm, act_rules=rules)
+    out = []
+    for b in batches:
+        state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})
+        out.append(float(m["loss"]))
+    return out
+
+
+def _np_tree(tree):
+    return {k: _np_tree(v) if isinstance(v, dict) else
+            v.detach().float().numpy() for k, v in tree.items()}
+
+
+def test_pipeline_over_two_pp_ranks_matches_the_jax_step(tmp_path):
+    """``train.run --model pipeline --pp 2`` (pp-tiny, bf16, batch 8 x
+    32, 3 steps) on two CPU ranks, one stage each: every rank logs the
+    losses of the JAX pipeline step on a pp 2 mesh from the port's
+    initial parameters, within 5e-3 relative (bf16 activations; the two
+    sides round their products' partial sums apart)."""
+    from skypilot_tpu.parallel import sharding as jsh
+    from skypilot_tpu_torch.parallel import pipeline as tpl
+    argv = ["--device", "cpu", "--model", "pipeline", "--seq", "32",
+            "--steps", "3", "--log-every", "1", "--batch", "8", "--pp", "2"]
+    got = _run_ranks(tmp_path, argv)
+    cfg = tpl.CONFIGS["pp-tiny"]
+    tc = tt.TrainConfig()
+    init = tt.create_train_state(cfg, tc, "cpu", model=tpl)["params"]
+    batch = {k: v.numpy() for k, v in
+             tt.synthetic_batch(cfg, 8, 32, device="cpu").items()}
+    want = _jax_run_losses("pipeline", "pp-tiny", dict(pp=2),
+                           jsh.ACT_RULES, [batch] * 3, _np_tree(init), 3)
+    for r in got:
+        assert r["summary"]["mesh"]["pp"] == 2
+        for a, b in zip(r["losses"], want):
+            assert a == pytest.approx(b, rel=5e-3)
+    assert got[0]["losses"] == got[1]["losses"]
+
+
+def test_sp2_zigzag_packed_run_matches_the_jax_step(tmp_path):
+    """``train.run --sp 2 --zigzag --packed`` (llama3-tiny, bf16, packed
+    documents of 64, 3 steps) on two CPU ranks: the zigzag ring over sp
+    2, every rank's losses those of the JAX step on an sp 2 mesh with
+    the zigzag rule, from the port's initial parameters on the same
+    packed batches, within 5e-3 relative."""
+    from skypilot_tpu.parallel import sharding as jsh
+    from skypilot_tpu_torch.data import input_pipeline as ip
+    argv = ["--device", "cpu", "--config", "llama3-tiny", "--seq", "64",
+            "--steps", "3", "--log-every", "1", "--sp", "2", "--zigzag",
+            "--packed"]
+    got = _run_ranks(tmp_path, argv)
+    cfg = tl.CONFIGS["llama3-tiny"]
+    init = tt.create_train_state(cfg, tt.TrainConfig(), "cpu")["params"]
+    docs = ip.synthetic_doc_stream(256, cfg.vocab_size, mean_len=64 // 3,
+                                   seed=0)
+    stream = ip.packed_batches(docs, 4, 64)
+    batches = [{k: np.asarray(v) for k, v in next(stream).items()}
+               for _ in range(3)]
+    want = _jax_run_losses("llama", "llama3-tiny", dict(sp=2),
+                           dict(jsh.ACT_RULES, seq_layout="zigzag"),
+                           batches, _np_tree(init), 3)
+    for r in got:
+        assert r["summary"]["mesh"]["sp"] == 2
+        for a, b in zip(r["losses"], want):
+            assert a == pytest.approx(b, rel=5e-3)
+    assert got[0]["losses"] == got[1]["losses"]
+
+
+def test_pipeline_over_two_tp_ranks_gives_the_world_1_losses(tmp_path,
+                                                            capsys):
+    """``train.run --model pipeline --tp 2`` (no pp axis: both stages run
+    in turn on each rank, over DTensors split on tp): every rank logs the
+    world-1 pipeline run's losses to 1e-3 (bf16 partial sums)."""
+    argv = ["--device", "cpu", "--model", "pipeline", "--seq", "32",
+            "--steps", "3", "--log-every", "1", "--batch", "8"]
+    want, _ = _world1(argv, capsys)
+    got = _run_ranks(tmp_path, argv + ["--tp", "2"])
+    for r in got:
+        assert r["summary"]["mesh"]["tp"] == 2
+        assert len(r["losses"]) == 3
+        for a, b in zip(r["losses"], want["losses"]):
+            assert a == pytest.approx(b, rel=1e-3)

@@ -6,6 +6,7 @@ files. The ranks import no JAX."""
 
 import os
 import pathlib
+import random
 import socket
 import subprocess
 import sys
@@ -14,6 +15,10 @@ import numpy as np
 
 ROOT = str(pathlib.Path(__file__).resolve().parent.parent)
 TIMEOUT_S = 120
+# Eight ranks of DTensor programs on a loaded machine (the suite's
+# workers and other rank groups share its cores) run several times
+# slower than alone; the groups that take 20-40 s alone get this.
+SLOW_TIMEOUT_S = 300
 
 # The prologue of every rank's script: one torch thread (the suite runs
 # several files at once on a few cores), the rendezvous, the directory
@@ -51,9 +56,20 @@ def leaves(tree, prefix=""):
 
 
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free port below the OS's ephemeral range (32768 up). Rank 0
+    binds it seconds later, after importing torch; a port the OS hands
+    out can go in the meantime to any socket of a concurrent test (each
+    gloo rank opens several), one outside that range cannot."""
+    rng = random.Random()
+    for _ in range(200):
+        port = rng.randrange(20000, 32768)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError("no free port in 20000-32767")
 
 
 def rank_env(n: int, rank: int, port: int, extra=None) -> dict:
@@ -68,9 +84,9 @@ def rank_env(n: int, rank: int, port: int, extra=None) -> dict:
     return env
 
 
-def spawn(argvs, envs, cwd=None):
+def spawn(argvs, envs, cwd=None, timeout=TIMEOUT_S):
     """Start one process per (argv, env), wait for all (each within
-    ``TIMEOUT_S``), and return their (stdout, stderr); a failed or
+    ``timeout`` seconds), and return their (stdout, stderr); a failed or
     timed-out rank fails the caller with every rank's output."""
     procs = [subprocess.Popen(argv, env=env, cwd=cwd or ROOT,
                               stdout=subprocess.PIPE,
@@ -79,7 +95,7 @@ def spawn(argvs, envs, cwd=None):
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=TIMEOUT_S))
+            outs.append(p.communicate(timeout=timeout))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -94,13 +110,14 @@ def spawn(argvs, envs, cwd=None):
     return outs
 
 
-def run_ranks(n: int, body: str, tmp_dir, extra_env=None):
+def run_ranks(n: int, body: str, tmp_dir, extra_env=None,
+              timeout=TIMEOUT_S):
     """Run ``PROLOGUE + body`` on ``n`` ranks with ``DIR = tmp_dir``."""
     port = free_port()
     code = PROLOGUE + body
     argvs = [[sys.executable, "-c", code, str(tmp_dir)]] * n
     envs = [rank_env(n, r, port, extra_env) for r in range(n)]
-    return spawn(argvs, envs)
+    return spawn(argvs, envs, timeout=timeout)
 
 
 def flatten(tree, prefix="") -> dict:
