@@ -403,13 +403,36 @@ adapters, draft, recover and observe phases at ``CUT_LAYERS`` (8).
    bf16, 1e-4 in float32 at 4 x 1024; each scheme's wall and peak.
    (c) ``train.run --model pipeline --config pp-tiny``, and
    ``--zigzag`` on one rank (the same losses as without it).
+18. Tp: tensor-parallel serving on one card (it runs after phase 11,
+   beside the ``flash_bwd`` build). llama3-70b's width (d_model 8192,
+   64 q over 8 kv heads, d_ff 28672, vocab 128256) on ``CUT_LAYERS``
+   (8) of 80 layers, bf16, drawn by ``InferenceEngine.sharded_init``
+   straight into 4 shards of the card (16 q over 2 kv heads each): the
+   serve phase's 9 requests (32 new tokens, after one short warm-up
+   request) through the engine with chunks of 512, a prefix pool of 8
+   and n-gram speculation at K 4, then the longest prompt again (a
+   prefix hit); launch counts set to 0 before and read after (K1's
+   decode and ``wgmma`` multi-row bodies and K2 must launch), TTFT,
+   decode rate and each shard's bytes printed; K1 and K2 then held
+   against their plain versions at every shape the leg gave them. A
+   tp-1 twin on the same weights gathered whole serves the same
+   requests: where tokens part, the plain top-2 gap (float32 weights)
+   must be within the bf16 noise floor (the serve phase's rule). On
+   the first 2 layers of those weights in float32, tp 4 and tp 1 give
+   the same greedy tokens, as they do with w8a8 weights and int8 KV
+   pools, and tp 4 with an oracle drafter gives them too with every
+   draft accepted; the float32 pools run the ``mma.sync`` multi-row
+   body. ``python -m skypilot_tpu_torch.infer.server --tp 4`` on one
+   card exits non-zero with the reference's "--tp 4 needs 4 devices"
+   message. The 4 shards share the card, so no cross-card reduction
+   is timed.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``; the line before them gives each
 phase's wall. ``--phase kernels``, ``serve``, ``handoff``, ``bench``,
 ``qos``, ``adapters``, ``draft``, ``recover``, ``observe``, ``train``,
-``finetune``, ``models``, ``contig``, ``mesh`` or ``parallel`` runs one of phases 3-17
-alone (the build always runs).
+``finetune``, ``models``, ``contig``, ``mesh``, ``parallel`` or ``tp``
+runs one of phases 3-18 alone (the build always runs).
 """
 
 from __future__ import annotations
@@ -6554,13 +6577,282 @@ def phase_parallel(dev, card: str) -> dict:
     return {"parallel": launches}
 
 
+# -- phase 18: tensor-parallel serving -----------------------------------------
+
+TP = 4
+# The float32 and w8a8 parity legs' depth (the bf16 leg runs CUT_LAYERS).
+TP_FP32_LAYERS = 2
+TP_NEW = 32
+
+
+def _tp_run(engine, prompts, new: int):
+    """``prompts`` as one batch of requests through ``engine``: (tokens by
+    request, sorted TTFTs in ms, decode tokens/s after the first token,
+    wall s)."""
+    t = time.time()
+    rids = [engine.add_request(p, new) for p in prompts]
+    engine.run_to_completion()
+    wall = time.time() - t
+    by_rid = {r.rid: r for r in engine.finished}
+    reqs = [by_rid[i] for i in rids]
+    ttft = sorted((r.first_token_s - r.submit_s) * 1e3 for r in reqs)
+    tps = (sum(len(r.tokens) for r in reqs) - len(reqs)) / max(
+        wall - ttft[0] / 1e3, 1e-9)
+    return [r.tokens for r in reqs], ttft, tps, wall
+
+
+def _tp_serve(engine, batch, warm, tag: str, card: str):
+    """The 9-request batch, then ``warm`` again (a prefix hit), through
+    ``engine`` after one short request (the process's first launches of
+    each kernel and GEMM shape land there): (tokens, the warm request's
+    tokens)."""
+    _tp_run(engine, [batch[0][:64]], 2)
+    hits = engine.prefix_hits
+    spec0 = (engine._spec_drafted_total, engine._spec_accepted_total,
+             engine.verify_calls)
+    got, ttft, tps, wall = _tp_run(engine, batch, TP_NEW)
+    warm_got = _tp_run(engine, [warm], TP_NEW)[0][0]
+    drafted, accepted, verify = (n - n0 for n, n0 in zip(
+        (engine._spec_drafted_total, engine._spec_accepted_total,
+         engine.verify_calls), spec0))
+    _log(f"{tag}: {len(batch)} requests of {TP_NEW} new tokens in "
+         f"{wall:.2f} s: TTFT ms min {ttft[0]:.1f} median "
+         f"{ttft[len(ttft) // 2]:.1f} max {ttft[-1]:.1f}; decode "
+         f"{tps:.1f} tokens/s; {verify} verify calls (drafted {drafted}, "
+         f"accepted {accepted}); prefix hits {engine.prefix_hits - hits} "
+         f"(the {len(warm)}-token prompt again); {card}")
+    if engine.prefix_hits - hits < 1:
+        raise AssertionError(f"{tag}: the repeated prompt did not hit the "
+                             f"prefix cache")
+    for i, toks in enumerate(got + [warm_got]):
+        if len(toks) != TP_NEW or not all(0 <= t < engine.cfg.vocab_size
+                                          for t in toks):
+            raise AssertionError(f"{tag}: request {i}: {len(toks)} tokens "
+                                 f"or a token outside the vocab")
+    return got, warm_got
+
+
+def _tp_profile(engine, prompt, tag: str, card: str) -> None:
+    """One short request (the first 64 tokens of ``prompt``, 16 new)
+    through ``engine`` under :func:`_profile_step`: the device's busy
+    time and idle share of its wall, tp 4 beside tp 1."""
+    _profile_step(lambda: _tp_run(engine, [prompt[:64]], 16),
+                  f"{tag}: one 64-token request of 16 new tokens", card)
+
+
+def _tp_bf16(dev, card: str, mesh):
+    """The bf16 leg at llama3-70b's width on ``CUT_LAYERS`` layers: tp 4
+    drawn into its shards, the 9 requests and a prefix hit (launches
+    counted from 0 around them, K1 and K2 then held at every shape they
+    ran, one short request profiled), then a tp-1 twin on the same
+    weights (profiled alike) under the top-2 gap rule. Returns (the tp leg's launches, the whole bf16 tree, the
+    config, the 9 prompts)."""
+    import torch
+    from skypilot_tpu_torch.infer import engine as eng
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import sharding
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-70b"],
+                              n_layers=CUT_LAYERS)
+    chunk = 512
+    _, prompts, twins = _batch_bodies(chunk)
+    batch = prompts + [prompts[i] for i in twins]
+    warm = max(prompts, key=len)
+    kw = dict(n_slots=16, max_len=1024, prompt_buckets=(128, 512, 1024),
+              max_wave=len(batch), kv_block=256, prefill_chunk=chunk,
+              prefix_pool=8, spec_k=4)
+    t = time.time()
+    params = eng.InferenceEngine.sharded_init(cfg, mesh, seed=SEED)
+    e4 = eng.InferenceEngine(params, cfg, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    sb = e4.shard_bytes()
+    _log(f"tp[bf16]: llama3-70b width (d_model {cfg.d_model}, "
+         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}) on "
+         f"{cfg.n_layers} of 80 layers ({cfg.num_params() / 1e9:.2f}B "
+         f"params, bf16), tp {TP} on one card, drawn into its shards and "
+         f"built in {time.time() - t:.1f} s; each shard holds "
+         f"{sb['weights'] / 2**30:.3f} GiB of weights and "
+         f"{sb['kv_pool'] / 2**30:.3f} GiB of KV pool "
+         f"({cfg.n_heads // TP} q over {cfg.n_kv_heads // TP} kv heads); "
+         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated "
+         f"on the card; {card}")
+    seen = {}
+    _zero_launches()
+    with _path_shapes(seen):
+        got, warm_got = _tp_serve(e4, batch, warm, "tp[bf16]", card)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    _log(f"tp[bf16]: launches {launches} (K1 decode body, wgmma and "
+         f"mma.sync multi-row bodies, K2) over the shards' heads; {card}")
+    for name in ("paged_attention", "paged_attention_rows",
+                 "flash_attention_fwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"tp[bf16]: {name} never launched")
+    _check_path_shapes(seen, "tp[bf16]", dev)
+    _tp_profile(e4, batch[0], f"tp[bf16, tp {TP}]", card)
+    whole = sharding.gather_tree(e4.params, llama.param_logical_axes(cfg),
+                                 dev)
+    del e4, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    e1 = eng.InferenceEngine(whole, cfg, device=dev, **kw)
+    want, warm_want = _tp_serve(e1, batch, warm, "tp[bf16, tp 1]", card)
+    _tp_profile(e1, batch[0], "tp[bf16, tp 1]", card)
+    cases = [(f"request {i}", batch[i], g, w)
+             for i, (g, w) in enumerate(zip(got, want))]
+    cases.append(("the warm request", warm, warm_got, warm_want))
+    parted = [c for c in cases if c[2] != c[3]]
+    _log(f"tp[bf16]: {len(cases) - len(parted)} of {len(cases)} requests "
+         f"give tp 1's tokens; {card}")
+    if parted:
+        # The gap from plain float32 logits on the same weights, the
+        # floor from the bf16 twin's: the serve phase's bf16 rule.
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        ref = eng.InferenceEngine(
+            {k: ({n: w.float() for n, w in v.items()}
+                 if isinstance(v, dict) else v.float())
+             for k, v in whole.items()}, cfg32, n_slots=1, max_len=1024,
+            prompt_buckets=(1024,), prefill_chunk=chunk, device=dev,
+            plain_attention=True)
+        for what, prompt, g, w in parted:
+            _agree(ref, prompt, g, w, what, "tp 4 and tp 1", "tp, bf16",
+                   low=e1)
+        del ref
+    del e1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, whole, cfg, batch
+
+
+def _tp_exact(got, want, leg: str, paths: str) -> None:
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f"{leg}: {paths} give other greedy tokens on "
+                             f"requests {bad}")
+    _log(f"{leg}: {paths} give the same greedy tokens on all "
+         f"{len(got)} requests")
+
+
+def _tp_fp32(dev, card: str, mesh, whole, cfg, batch) -> dict:
+    """The float32 and w8a8 + int8 KV legs on the first
+    ``TP_FP32_LAYERS`` layers of the bf16 leg's weights, widened: tp 4
+    against tp 1, greedy tokens identical; tp 4 with an oracle drafter
+    (verify rounds that accept every position) gives them too. K1 and
+    K2 are held against their plain versions at every shape each tp-4
+    leg ran. Returns each leg's launches."""
+    import torch
+    from skypilot_tpu_torch.infer import engine as eng
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import sharding
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                n_layers=TP_FP32_LAYERS)
+    params = {k: ({n: w[:TP_FP32_LAYERS].float() for n, w in v.items()}
+                  if k == "blocks" else v.float())
+              for k, v in whole.items()}
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    split = sharding.split_tree(params, llama.param_logical_axes(cfg32),
+                                mesh)
+    lens = [len(p) for p in batch]
+    prompts = [batch[lens.index(min(lens))], batch[lens.index(max(lens))],
+               [5, 6, 7, 8] * 40]
+    kw = dict(n_slots=4, max_len=1024, prompt_buckets=(128, 512, 1024),
+              kv_block=256, prefill_chunk=512, prefix_pool=8, spec_k=4)
+    out, tokens = {}, {}
+    for leg, extra in (("tp[fp32]", {}),
+                       ("tp[fp32,int8]", dict(weights_int8=True,
+                                              kv_int8=True))):
+        seen = {}
+        _zero_launches()
+        e4 = eng.InferenceEngine(split, cfg32, mesh=mesh, **kw, **extra)
+        with _path_shapes(seen):
+            got = e4.generate(prompts, TP_NEW)
+        torch.cuda.synchronize()
+        out[leg] = _read_launches()
+        _check_path_shapes(seen, leg, dev)
+        _log(f"{leg}: {TP_FP32_LAYERS} layers at llama3-70b width, tp "
+             f"{TP}: launches {out[leg]}; {card}")
+        body = "paged_attention_rows" if extra else "paged_attention_rows_mma"
+        for name in ("paged_attention", body, "flash_attention_fwd"):
+            if out[leg][name] <= 0:
+                raise AssertionError(f"{leg}: {name} never launched")
+        del e4
+        e1 = eng.InferenceEngine(params, cfg32, device=dev, **kw, **extra)
+        want = e1.generate(prompts, TP_NEW)
+        del e1
+        _tp_exact(got, want, leg, "tp 4 and tp 1")
+        tokens[leg] = want
+    oracle = _Replay({tuple(p): w
+                      for p, w in zip(prompts, tokens["tp[fp32]"])})
+    e4 = eng.InferenceEngine(split, cfg32, mesh=mesh,
+                             **dict(kw, spec_drafter=oracle))
+    seen = {}
+    with _path_shapes(seen):
+        got = e4.generate(prompts, TP_NEW)
+    _check_path_shapes(seen, "tp[fp32, oracle]", dev)
+    _tp_exact(got, tokens["tp[fp32]"], "tp[fp32, oracle]",
+              "spec on (an oracle drafter) and off")
+    _log(f"tp[fp32, oracle]: {e4.verify_calls} verify calls, drafted "
+         f"{e4._spec_drafted_total}, accepted {e4._spec_accepted_total}; "
+         f"{card}")
+    if not e4.verify_calls or \
+            e4._spec_accepted_total != e4._spec_drafted_total:
+        raise AssertionError("tp[fp32, oracle]: the oracle's drafts did "
+                             "not all verify")
+    del e4
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_server_refuses(card: str) -> None:
+    """``infer.server --tp 4`` on a machine with fewer cards exits
+    non-zero with the reference's message."""
+    import torch
+    found = torch.cuda.device_count()
+    if found >= TP:
+        _log(f"tp[server]: {found} cards: --tp {TP} would serve")
+        return
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "skypilot_tpu_torch.infer.server",
+         "--config", "llama3-tiny", "--tp", str(TP), "--port",
+         str(_free_port())], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    want = f"--tp {TP} needs {TP} devices, found {found}"
+    if proc.returncode == 0 or want not in proc.stderr:
+        raise AssertionError(f"tp[server]: exit {proc.returncode}, "
+                             f"stderr {proc.stderr[-500:]!r}")
+    _log(f"tp[server]: --tp {TP} on {found} card(s) exits "
+         f"{proc.returncode} with {want!r} in {time.time() - t:.1f} s; "
+         f"{card}")
+
+
+def phase_tp(dev, card: str) -> dict:
+    """Returns {path: {kernel: launches}}: the bf16 leg's (``tp``) and the
+    float32 and w8a8 legs' (``tp[fp32]``, ``tp[fp32,int8]``). The 4
+    shards share the one card, so the joins are copies within it: no
+    cross-card reduction is timed here."""
+    t = time.time()
+    mesh = [dev] * TP
+    _log(f"tp: {TP} shards on one card: the joins at wo, w_down, the "
+         f"embedding and the head are copies within it; no cross-card "
+         f"reduction is timed here")
+    launches, whole, cfg, batch = _tp_bf16(dev, card, mesh)
+    out = {"tp": launches}
+    out.update(_tp_fp32(dev, card, mesh, whole, cfg, batch))
+    _tp_server_refuses(card)
+    _log(f"tp: phase wall {time.time() - t:.1f} s; {card}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "serve", "handoff", "bench",
                              "qos", "adapters", "draft", "recover",
                              "observe", "train", "finetune", "models",
-                             "contig", "mesh", "parallel"),
+                             "contig", "mesh", "parallel", "tp"),
                     default="all")
     args = ap.parse_args()
     try:
@@ -6669,6 +6961,7 @@ def _phases(args, dev, smi: str, t0: float) -> int:
             by_path.update(paths)
         by_path.update(run("recover", phase_recover) or {})
         by_path.update(run("observe", phase_observe) or {})
+    by_path.update(run("tp", phase_tp) or {})
     _wait_build(("flash_bwd",), t0)
     cases = run("kernels", phase_kernels) or {}
     # K1 held on the draft engines' own inputs: after the kernel phase's

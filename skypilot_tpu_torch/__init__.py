@@ -21,7 +21,9 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: the caller's choice, else the
-    first CUDA card. Never falls back to the CPU silently."""
+    first CUDA card. Never falls back to the CPU silently. A card named
+    without an index gets the current card's, so the device compares
+    equal to its tensors' (``cuda:0``, not ``cuda``)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -29,8 +31,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "the plain PyTorch versions on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not "
-                           f"available")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is not "
+                               f"available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 

@@ -123,6 +123,17 @@ gather, never K1; ``kv_kernel`` on it emits the typed event
 and out of a separate pool (``kvcache.pool_store``/``pool_load``), keyed
 through :meth:`PrefixIndex.acquire_row`.
 
+Tensor-parallel serving (``mesh``, a tp group of devices): the weights,
+the w8a8 weights, the KV cache and the prefix pool are split over the
+group by the reference's logical axes (``parallel.sharding.split_tree``:
+Megatron heads, mlp and vocab; the cache's kv heads), and every program
+runs each layer shard by shard, joining the shards at wo, w_down, the
+embedding and the head (``infer/kvcache.py``), so K1 and K2 run on each
+shard's own heads and cache slice. The host side stays single: one
+scheduler, allocator, block table and prefix index serve every shard.
+:meth:`InferenceEngine.sharded_init` draws a split tree without ever
+holding the whole one on a device.
+
 Deliberate differences from the reference: the JAX engine padded
 admission waves to fixed row counts to avoid recompiles; PyTorch runs
 eagerly, so the port dispatches each wave at its own size (a wave's
@@ -132,7 +143,16 @@ all-sentinel instead (contiguous: any free slot; its rows are dead). A
 non-final prefill chunk is not fetched, so its flight record's
 ``fetch_wall_ms`` is 0. On a paged cache the big-cache reads run K1
 whatever ``kv_kernel`` says (the single step's too), and
-``kv_kernel`` only decides the typed event on a contiguous one.
+``kv_kernel`` only decides the typed event on a contiguous one. The
+reference runs tp as one process over N local chips and lets XLA SPMD
+partition the unchanged programs; the port keeps the one process (a
+single controller) but runs each shard's part of a layer itself and
+joins the shards by copies to the first shard's device, not by NCCL
+collectives, and a tp group may repeat a device, so N shards can share
+one card (one process per card over NCCL is left for later). Under tp
+the adapter pool stays whole on the first device and each shard reads
+its heads' slices of it, and a draft engine runs whole on the first
+device; MoE configs are refused (:class:`TpUnsupportedError`).
 """
 
 from __future__ import annotations
@@ -141,9 +161,11 @@ import collections
 import contextlib
 import dataclasses
 import hashlib
+import math
 import os
 import time
-from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -158,6 +180,7 @@ from skypilot_tpu_torch.observability import flight as flight_lib
 from skypilot_tpu_torch.observability import forensics as forensics_lib
 from skypilot_tpu_torch.observability import metrics, tracing
 from skypilot_tpu_torch.ops import paged_attention as pa
+from skypilot_tpu_torch.parallel import sharding
 from skypilot_tpu_torch.utils import timeline
 
 # The reference engine's serving metrics (``skypilot_tpu/infer/
@@ -442,15 +465,16 @@ def warm_sweep(watch: flight_lib.CompileWatch, cache: Dict[str, Any],
     new keys are drained (they are no burst's to claim) and their
     compile metrics republished from the watch registry."""
     pre_keys = set(watch.summary())
-    saved_len = cache["length"].clone()
-    saved_last = cache["last_token"].clone()
+    saved = [(c, c["length"].clone(), c["last_token"].clone())
+             for c in sharding.shards_of(cache)]
     saved_gen = generator.get_state()
     try:
         with metrics.suppress():
             yield
     finally:
-        cache["length"].copy_(saved_len)
-        cache["last_token"].copy_(saved_last)
+        for c, length, last in saved:
+            c["length"].copy_(length)
+            c["last_token"].copy_(last)
         generator.set_state(saved_gen)
     watch.drain_new()
     summ = watch.summary()
@@ -496,6 +520,17 @@ class KvQuotaUnsatisfiableError(ValueError):
             "need_blocks": need,
             "max_kv_blocks": quota,
         }
+
+
+class TpUnsupportedError(NotImplementedError):
+    """A feature the tensor-parallel engine does not serve yet (ROADMAP
+    Queue 1 item 1: MoE ``--ep``)."""
+
+    def __init__(self, feature: str):
+        super().__init__(
+            f"{feature} under a tp group is not ported yet (ROADMAP "
+            f"Queue 1 item 1)")
+        self.feature = feature
 
 
 class EngineDispatchError(RuntimeError):
@@ -866,6 +901,16 @@ class InferenceEngine:
     catalog (None: the adapterless path, whose programs run exactly as
     before); its pool moves to ``device`` if it lives elsewhere.
 
+    ``mesh``: a tensor-parallel group, a sequence of devices in rank
+    order (a device may repeat; one device is no group), given instead
+    of ``device``. The engine runs on the first; ``params`` (whole, or
+    split by :meth:`sharded_init`), ``qweights``, the cache and the
+    prefix pool are split over the group after quantization, and a
+    split that does not divide the heads, kv heads, mlp or vocab evenly
+    raises ``ValueError``. ``adapters`` and ``draft_engine`` live whole
+    on the first device; an MoE config raises
+    :class:`TpUnsupportedError`.
+
     ``flight_recorder``: the flight ring the engine records into (None:
     the process recorder ``flight.RECORDER``). ``forensics``: retirement
     records and tail detection (None reads ``SKYTPU_FORENSICS``, default
@@ -894,12 +939,23 @@ class InferenceEngine:
                  kv_lazy: Optional[bool] = None,
                  qos: Optional[qos_lib.FairScheduler] = None,
                  adapters: Optional[adapters_lib.AdapterCatalog] = None,
+                 mesh: Optional[Sequence[DeviceLike]] = None,
                  flight_recorder: Optional[
                      flight_lib.FlightRecorder] = None,
                  forensics: Optional[bool] = None,
                  exemplar_store: Optional[
                      forensics_lib.ExemplarStore] = None):
-        self.device = resolve_device(device)
+        if mesh and device is not None:
+            raise ValueError("pass a tp group as mesh or one device, not "
+                             "both")
+        self.devices = ([resolve_device(d) for d in mesh] if mesh
+                        else [resolve_device(device)])
+        self.device = self.devices[0]
+        # The tp group (None: one device, whole trees).
+        self.mesh = self.devices if len(self.devices) > 1 else None
+        self.tp = len(self.devices)
+        if self.mesh is not None and hasattr(cfg, "n_experts"):
+            raise TpUnsupportedError("a mixture-of-experts config")
         self.qos = qos
         # Per-slot adapter pool ids live in a host numpy vector with a
         # dirty-tracked device copy (the block table's idiom) and ride
@@ -915,15 +971,20 @@ class InferenceEngine:
             if adapters.device != self.device:
                 adapters.pool = _to_device(adapters.pool, self.device)
             self.adapter_ids = np.zeros((n_slots,), np.int64)
-        params = _to_device(params, self.device)
-        if qweights is not None:
-            qweights = _to_device(qweights, self.device)
-        elif weights_int8:
+        if self.mesh is not None:
+            params = self._split(params, llama.param_logical_axes(cfg))
+            if qweights is not None:
+                qweights = self._split(qweights,
+                                       kvcache.qweight_logical_axes(cfg))
+        else:
+            params = _to_device(params, self.device)
+            if qweights is not None:
+                qweights = _to_device(qweights, self.device)
+        if qweights is None and weights_int8:
             if hasattr(cfg, "n_experts"):
                 raise NotImplementedError(
                     "weights_int8 is not supported for MoE configs yet")
-            qweights = {"blocks": kvcache.quantize_block_weights(params),
-                        "head": kvcache.quantize_head(params, cfg)}
+            qweights = kvcache.quantize_weights(params, cfg)
         # w8a8: no float copy of the block matrices or the head stays
         # resident (the caller drops its own reference to the float tree).
         self.qweights = qweights
@@ -1014,9 +1075,10 @@ class InferenceEngine:
             # every program.
             self.block_table: Optional[np.ndarray] = np.full(
                 (n_slots, nb + 1), self.n_kv_blocks, np.int32)
-            self.cache = kvcache.init_paged_cache(
-                cfg, n_slots, self.n_kv_blocks, self.kv_block, self.device,
-                kv_int8=kv_int8)
+            self.cache = self._per_shard(
+                lambda dev, G: kvcache.init_paged_cache(
+                    cfg, n_slots, self.n_kv_blocks, self.kv_block, dev,
+                    kv_int8=kv_int8, kv_heads=G))
         else:
             # Contiguous: one max_len row per slot plus the trash slot
             # (the reference's spare slot's bytes); no table, no
@@ -1026,16 +1088,18 @@ class InferenceEngine:
             self.blocks_per_slot = 0
             self.allocator = None
             self.block_table = None
-            self.cache = kvcache.init_cache(cfg, n_slots, max_len,
-                                            kv_int8=kv_int8,
-                                            device=self.device)
+            self.cache = self._per_shard(
+                lambda dev, G: kvcache.init_cache(
+                    cfg, n_slots, max_len, kv_int8=kv_int8, device=dev,
+                    kv_heads=G))
         # The contiguous layout's prefix cache: a separate pool of
         # ``prefix_pool`` max_len rows, copied whole on store and hit. A
         # paged engine needs none: a stored prefix is shared blocks.
-        self.pool = (kvcache.init_prefix_pool(cfg, self.prefix_pool,
-                                              max_len, kv_int8=kv_int8,
-                                              device=self.device)
-                     if self.prefix_pool and not self.paged else None)
+        self.pool = (self._per_shard(
+            lambda dev, G: kvcache.init_prefix_pool(
+                cfg, self.prefix_pool, max_len, kv_int8=kv_int8,
+                device=dev, kv_heads=G))
+            if self.prefix_pool and not self.paged else None)
         # K1 reads a paged cache whether or not kv_kernel is asked for;
         # a contiguous cache has no block table for it to walk, and the
         # request is answered with the reference's typed event.
@@ -1049,7 +1113,8 @@ class InferenceEngine:
         self.span_ladder = _span_ladder(span_buckets, max_len)
         if draft_engine is not None and (
                 draft_engine.n_slots != n_slots
-                or draft_engine.cache["k"].device != self.cache["k"].device):
+                or draft_engine.cache["k"].device
+                != sharding.shards_of(self.cache)[0]["k"].device):
             raise ValueError(
                 f"draft engine of {draft_engine.n_slots} slots on "
                 f"{draft_engine.device} for an engine of {n_slots} slots "
@@ -1083,6 +1148,118 @@ class InferenceEngine:
         self._inflight_tokens = 0
         self._init_observability(flight_recorder, forensics,
                                  exemplar_store)
+
+    # -- tensor parallelism ------------------------------------------------
+
+    def _split(self, tree, logical_tree):
+        """``tree`` split over the tp group (kept as it is when it is
+        split over the group already)."""
+        if isinstance(tree, sharding.Shards):
+            if [_tree_device(t) for t in tree] != self.devices:
+                raise ValueError("a split tree on other devices than the "
+                                 "tp group's")
+            return tree
+        return sharding.split_tree(tree, logical_tree, self.devices)
+
+    def _per_shard(self, make):
+        """``make(device, kv_heads)`` for each shard of the tp group, as
+        :class:`sharding.Shards` (the one tree without a group); the
+        weights' split has checked that tp divides the kv heads."""
+        G = self.cfg.n_kv_heads
+        if self.mesh is None:
+            return make(self.device, G)
+        return sharding.Shards(make(d, G // self.tp) for d in self.devices)
+
+    @staticmethod
+    @torch.no_grad()
+    def sharded_init(cfg: llama.LlamaConfig,
+                     mesh: Sequence[DeviceLike], seed: int = 0
+                     ) -> sharding.Shards:
+        """Random parameters (``llama.init_params``' distributions, in
+        ``cfg.dtype``, as serving draws them) drawn straight into their
+        shards over the tp group ``mesh``: one layer of one weight at a
+        time from a generator on the first device seeded with ``seed``,
+        each shard's slice copied to its device, so no device ever holds
+        the whole tree. The draws follow ``init_params``' order and are
+        cut only between rows, so on the CPU, where a draw continues
+        the stream of a longer one, the result is the split of
+        ``init_params`` from the same seed. CUDA's generator advances by
+        launch, so on a card the values differ from one whole draw, the
+        distributions not. Pass the result with the same ``mesh`` to
+        :class:`InferenceEngine`."""
+        devices = [resolve_device(d) for d in mesh]
+        dtype = cfg.dtype
+        axes = llama.param_logical_axes(cfg)
+        gen = torch.Generator(device=devices[0])
+        gen.manual_seed(seed)
+        d, ff, v, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+        hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+
+        def draw(shape, std, ax):
+            """A [shape] weight drawn in blocks of whole rows (at most
+            ~2**26 values a block), each block's shard slices copied to
+            their devices; a weight split along its rows draws each
+            shard's rows in turn."""
+            n = len(devices)
+            step = max(1, (1 << 26) // math.prod(shape[1:]))
+
+            def rows(a, b):
+                return torch.randn((b - a,) + tuple(shape[1:]),
+                                   generator=gen, device=devices[0],
+                                   dtype=dtype).mul_(std)
+
+            if sharding.tp_dim(ax) == 0:
+                if shape[0] % n:
+                    raise ValueError(f"tp {n} does not divide the "
+                                     f"{shape[0]} rows of {ax}")
+                R = shape[0] // n
+                return [torch.cat([rows(a, min(a + step, R)).to(dev)
+                                   for a in range(0, R, step)])
+                        for dev in devices]
+            parts = [[] for _ in devices]
+            for a in range(0, shape[0], step):
+                blk = rows(a, min(a + step, shape[0]))
+                for r, part in enumerate(sharding.split_tensor(
+                        blk, (None,) + tuple(ax[1:]), devices)):
+                    parts[r].append(part)
+            return [torch.cat(ps) for ps in parts]
+
+        def ones(shape):
+            return [torch.ones(shape, device=dev, dtype=dtype)
+                    for dev in devices]
+
+        blocks = {"ln1": ones((L, d)), "ln2": ones((L, d))}
+        embed = draw((v, d), 0.02, axes["embed"])
+        for name, shape, std in (
+                ("wq", (L, d, nh, hd), d ** -0.5),
+                ("wk", (L, d, nkv, hd), d ** -0.5),
+                ("wv", (L, d, nkv, hd), d ** -0.5),
+                ("wo", (L, nh, hd, d), (nh * hd) ** -0.5),
+                ("w_gate", (L, d, ff), d ** -0.5),
+                ("w_up", (L, d, ff), d ** -0.5),
+                ("w_down", (L, ff, d), ff ** -0.5)):
+            blocks[name] = draw(shape, std, axes["blocks"][name])
+        final = ones((d,))
+        head = (draw((d, v), d ** -0.5, axes["lm_head"])
+                if not cfg.tie_embeddings else None)
+        out = sharding.Shards()
+        for r in range(len(devices)):
+            p = {"embed": embed[r],
+                 "blocks": {k: w[r] for k, w in blocks.items()},
+                 "final_norm": final[r]}
+            if head is not None:
+                p["lm_head"] = head[r]
+            out.append(p)
+        return out
+
+    def _wire_shape(self, name: str) -> Tuple[int, ...]:
+        """A cache array's shape with every kv head (the handoff wire's,
+        whatever the tp degree)."""
+        cache0 = sharding.shards_of(self.cache)[0]
+        shape = list(cache0[name].shape)
+        shape[sharding.tp_dim(kvcache.cache_logical_axes(cache0)[name])] \
+            *= self.tp
+        return tuple(shape)
 
     # -- observability -----------------------------------------------------
 
@@ -1147,13 +1324,17 @@ class InferenceEngine:
         if self.adapters is not None:
             self.adapters.bind_loader(self._adapter_install_fn)
         # HBM ledger + roofline: KV bytes per token from the cache's
-        # actual dtypes (int8 KV counts its bfloat16 scales).
+        # actual dtypes (int8 KV counts its bfloat16 scales). The
+        # roofline costs the whole model; the ledger counts what one
+        # shard of a tp group holds (its kv heads, its weight slices and
+        # the replicated norms), each shard the same.
         cfg = self.cfg
         G, hd, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
-        self._kv_token_bytes = 2 * L * G * hd * self.cache["k"].element_size()
-        if "k_scale" in self.cache:
+        cache0 = sharding.shards_of(self.cache)[0]
+        self._kv_token_bytes = 2 * L * G * hd * cache0["k"].element_size()
+        if "k_scale" in cache0:
             self._kv_token_bytes += (2 * L * G
-                                     * self.cache["k_scale"].element_size())
+                                     * cache0["k_scale"].element_size())
         self._kv_block_bytes = (self._kv_token_bytes * self.kv_block
                                 if self.paged else 0)
         self._weight_bytes = (attribution_lib.tensor_bytes(self.params)
@@ -1187,10 +1368,9 @@ class InferenceEngine:
         widest admission wave (rows x bucket x (ff + 2d) fp32 plus the
         wave logits)."""
         led = self.hbm_ledger
-        led.set_bytes("weights", self._weight_bytes)
-        led.set_bytes("kv_pool", attribution_lib.tensor_bytes(self.cache))
-        # Paged: prefixes share blocks; contiguous: the row pool.
-        led.set_bytes("prefix_pool", attribution_lib.tensor_bytes(self.pool))
+        # Paged: prefixes share blocks; contiguous: the prefix_pool rows.
+        for family, n in self.shard_bytes().items():
+            led.set_bytes(family, n)
         led.set_bytes("draft_pool",
                       self.draft_engine.hbm_bytes()
                       if self.draft_engine is not None else 0)
@@ -1215,26 +1395,37 @@ class InferenceEngine:
             led.set_limit(limit if limit > 0 else int(led.total() * 1.25))
         self._refresh_hbm_ledger()
 
+    def shard_bytes(self) -> Dict[str, int]:
+        """Bytes each shard of the tp group holds, by family (the whole
+        engine without a group): ``weights`` (float and int8), ``kv_pool``
+        and ``prefix_pool``. Storage sizes, no device fetch."""
+        def one(tree):
+            return (attribution_lib.tensor_bytes(sharding.shards_of(tree)[0])
+                    if tree is not None else 0)
+        return {"weights": one(self.params) + one(self.qweights),
+                "kv_pool": one(self.cache), "prefix_pool": one(self.pool)}
+
     def _refresh_hbm_ledger(self) -> None:
         """Occupancy components from the host bookkeeping admission runs
         on (allocator counts, prefix payloads): a ledger leak is a
         structure leak."""
         led = self.hbm_ledger
         idx = self._prefix_index
+        block_bytes = self._kv_block_bytes // self.tp     # one shard's
         if not self.paged:
             # Contiguous: every active slot rents a whole max_len row, and
             # every resident prefix a pool row.
-            row_bytes = self.max_len * self._kv_token_bytes
+            row_bytes = self.max_len * self._kv_token_bytes // self.tp
             led.set_bytes("kv_used", len(self.slot_req) * row_bytes)
             led.set_bytes("prefix_pinned",
                           len(idx.payloads()) * row_bytes
                           if idx is not None else 0)
             return
-        led.set_bytes("kv_used", self.allocator.used * self._kv_block_bytes)
+        led.set_bytes("kv_used", self.allocator.used * block_bytes)
         pinned = 0
         if idx is not None:
             for payload in idx.payloads():
-                pinned += len(payload) * self._kv_block_bytes
+                pinned += len(payload) * block_bytes
         led.set_bytes("prefix_pinned", pinned)
 
     def _record_flight(self, burst: str, begin_s: float, end_s: float,
@@ -1462,9 +1653,8 @@ class InferenceEngine:
         first = sampling.sample(logits, self.sampling_params,
                                 self.generator)
         for w, slot in enumerate(slots):
-            kvcache.insert(self.cache,
-                           {"k": prefix["k"][:, w], "v": prefix["v"][:, w]},
-                           slot, lens[w], first[w], table)
+            kvcache.insert(self.cache, kvcache.wave_row(prefix, w), slot,
+                           lens[w], first[w], table)
         return first
 
     def _decode_program(self, active: torch.Tensor,
@@ -2592,20 +2782,22 @@ class InferenceEngine:
         cached = int(export["cached_len"])
         nb = int(export["n_blocks"])
         tensors = export["tensors"]
+        cache0 = sharding.shards_of(self.cache)[0]
         if nb != -(-cached // self.kv_block) or nb < 1 or set(tensors) != {
                 n for n in ("k", "v", "k_scale", "v_scale")
-                if n in self.cache}:
+                if n in cache0}:
             return 0            # int8 against float, or a torn export
         for name, have in tensors.items():
-            want = self.cache[name]
+            want = cache0[name]
+            shape = self._wire_shape(name)      # every kv head
             # The wire carries float planes as float32 (exact; the
             # scatter casts back); int8 against float is a real
             # quantization mismatch.
             hdt = str(have.dtype)
             ok_dtype = (hdt == str(want.dtype).removeprefix("torch.")
                         or (hdt == "float32" and want.is_floating_point()))
-            if tuple(have.shape) != (want.shape[0], nb) + tuple(
-                    want.shape[2:]) or not ok_dtype:
+            if tuple(have.shape) != (shape[0], nb) + shape[2:] \
+                    or not ok_dtype:
                 return 0        # model/dtype mismatch: resume cold
         covered = idx.lookup(ctx, salt)
         if covered is not None and covered[1] >= cached:
@@ -3222,7 +3414,8 @@ class InferenceEngine:
         if self.draft_engine is not None:
             # Drafter state mirrors the slots just wiped.
             self.draft_engine.reset()
-        self.cache["length"].zero_()
+        for c in sharding.shards_of(self.cache):
+            c["length"].zero_()
         self._update_gauges()
 
     def recover(self, exc: Optional[BaseException] = None) -> int:
@@ -3291,6 +3484,13 @@ def _roofline(cfg: llama.LlamaConfig, weight_bytes: int,
         kv_token_bytes=kv_token_bytes, d_model=cfg.d_model,
         n_layers=cfg.n_layers, n_heads=cfg.n_heads,
         head_dim=cfg.head_dim, max_len=max_len, chunk_tokens=chunk_tokens)
+
+
+def _tree_device(tree) -> torch.device:
+    """The device of a tree's first tensor."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.device
 
 
 def _to_device(tree, device: torch.device):

@@ -59,6 +59,24 @@ Two differences from the JAX module, both about mutation:
   reference's): :func:`_phys` sends every row at or past ``max_len`` to
   it, and no read admits it.
 
+Tensor-parallel serving (``InferenceEngine(mesh=...)``): every program
+and cache op also takes ``params``, ``qweights``, ``cache`` and ``pool``
+as :class:`parallel.sharding.Shards`, one tree per shard of a tp group,
+split by :func:`qweight_logical_axes`, :func:`cache_logical_axes`,
+:func:`pool_logical_axes` and ``llama.param_logical_axes`` under
+``sharding.INFER_TP_RULES``. Where the reference lets XLA partition
+the unchanged programs, the port runs each layer shard by shard and
+joins the shards at the Megatron points on the first shard's device
+(:class:`_Group`): rope and attention (K1, K2) run over each shard's
+own heads and cache slice; the wo and w_down partial products are summed
+in float32 in rank order and cast once (w8a8: one activation scale over
+every shard's slice, and the int32 partials summed before the one
+rescale, exact under any split); the vocab-split embedding's per-shard
+lookups (zeros outside a shard's rows) are summed, and the head's
+float32 logit columns concatenated in vocab order. The residual, the
+norms and sampling run once, on the joined hidden state. With one shard
+every join is the identity, so a whole tree runs as before.
+
 Layer loops are Python loops over the stacked ``[L, ...]`` weights where
 JAX used ``lax.scan``. Attention runs the CUDA kernels on CUDA tensors
 (their plain versions on CPU tensors); ``plain_attention=True`` runs the
@@ -67,8 +85,9 @@ plain versions on any device, as the reference the kernels are held to.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +100,7 @@ from skypilot_tpu_torch.models import llama, moe
 from skypilot_tpu_torch.ops import attention as attn_ops
 from skypilot_tpu_torch.ops import flash_attention as flash_ops
 from skypilot_tpu_torch.ops import paged_attention as paged_attn_ops
+from skypilot_tpu_torch.parallel import sharding
 
 Cache = Dict[str, torch.Tensor]
 QWeights = Dict[str, Dict]
@@ -128,14 +148,18 @@ def int8_layout(w: torch.Tensor, contract_ndim: int,
     return w.permute(order).contiguous().permute(inverse)
 
 
-def quantize_weight(w: torch.Tensor, contract_ndim: int
+def quantize_weight(w: torch.Tensor, contract_ndim: int,
+                    absmax: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
     """Per-output-channel absmax int8. ``contract_ndim``: how many
     LEADING dims the consuming product contracts; the rest are output
-    channels. Returns {"w": int8 like ``w`` (stored output-major,
-    :func:`int8_layout`), "s": float32 [out...]}."""
+    channels. ``absmax``: each channel's, where ``w`` is a tp shard's
+    slice of a longer contraction (the whole weight's absmax). Returns
+    {"w": int8 like ``w`` (stored output-major, :func:`int8_layout`),
+    "s": float32 [out...]}."""
     wf = w.float()
-    s = _scale(wf.abs().amax(dim=tuple(range(contract_ndim))))
+    s = _scale(wf.abs().amax(dim=tuple(range(contract_ndim)))
+               if absmax is None else absmax)
     return {"w": int8_layout(_to_int8(wf, s), contract_ndim), "s": s}
 
 
@@ -146,11 +170,16 @@ QUANT_CONTRACT = {"wq": 1, "wk": 1, "wv": 1, "wo": 2,
 
 
 @torch.no_grad()
-def quantize_block_weights(params: llama.Params) -> Dict[str, Dict]:
+def quantize_block_weights(params: llama.Params,
+                           absmax: Optional[Dict[str, torch.Tensor]] = None
+                           ) -> Dict[str, Dict]:
     """int8 copies of the stacked per-layer matmul weights (the norms and
     the embedding stay float), quantized one layer at a time on the
-    weights' device, so the float32 temporaries stay one layer's size."""
+    weights' device, so the float32 temporaries stay one layer's size.
+    ``absmax``: {name: [L, out...]} channel absmaxes to quantize those
+    weights by (:func:`quantize_weight`)."""
     blocks = params["blocks"]
+    absmax = absmax or {}
     out = {}
     for name, nd in QUANT_CONTRACT.items():
         w = blocks[name]
@@ -159,8 +188,10 @@ def quantize_block_weights(params: llama.Params) -> Dict[str, Dict]:
                                     device=w.device), nd, lead_ndim=1)
         s = torch.empty((L,) + tuple(w.shape[1 + nd:]),
                         dtype=torch.float32, device=w.device)
+        am = absmax.get(name)
         for i in range(L):
-            one = quantize_weight(w[i], nd)
+            one = quantize_weight(w[i], nd, None if am is None
+                                  else am[i].to(w.device))
             q[i], s[i] = one["w"], one["s"]
         out[name] = {"w": q, "s": s}
     return out
@@ -172,15 +203,51 @@ def quantize_head(params: llama.Params, cfg: llama.LlamaConfig
     return quantize_weight(llama.lm_head(params, cfg), 1)
 
 
-def slim_params(params: llama.Params) -> llama.Params:
+@torch.no_grad()
+def quantize_weights(params, cfg: llama.LlamaConfig):
+    """The w8a8 tree ``{"blocks": ..., "head": ...}`` of a whole float
+    tree (:func:`quantize_block_weights`, :func:`quantize_head`) or of a
+    split one, shard by shard. Where the tp group splits a weight's
+    contraction (wo over the heads, w_down over mlp), each output
+    channel's scale is the absmax over every shard's rows, so each shard
+    holds its slice of the whole weight's quantization, as the reference
+    quantizes before it shards."""
+    shards = sharding.shards_of(params)
+    axes = qweight_logical_axes(cfg)["blocks"]
+    absmax = {}
+    for name, nd in QUANT_CONTRACT.items():
+        if len(shards) == 1 or sharding.tp_dim(axes[name]["w"]) not in \
+                range(1, 1 + nd):
+            continue
+        ws = [p["blocks"][name] for p in shards]
+        dev = ws[0].device
+        absmax[name] = torch.stack([functools.reduce(torch.maximum, [
+            w[i].float().abs().amax(dim=tuple(range(nd))).to(dev)
+            for w in ws]) for i in range(ws[0].shape[0])])
+    return _tree([{"blocks": quantize_block_weights(p, absmax),
+                   "head": quantize_head(p, cfg)} for p in shards])
+
+
+def slim_params(params):
     """Drop the float copies of quantized weights: blocks keep only the
-    norms; the head is the quantized one."""
-    return {
-        "embed": params["embed"],
-        "final_norm": params["final_norm"],
-        "blocks": {"ln1": params["blocks"]["ln1"],
-                   "ln2": params["blocks"]["ln2"]},
-    }
+    norms; the head is the quantized one. A split tree slims shard by
+    shard."""
+    return _tree([{
+        "embed": p["embed"],
+        "final_norm": p["final_norm"],
+        "blocks": {"ln1": p["blocks"]["ln1"], "ln2": p["blocks"]["ln2"]},
+    } for p in sharding.shards_of(params)])
+
+
+def qweight_logical_axes(cfg: llama.LlamaConfig) -> Dict[str, Dict]:
+    """Logical axes of the ``{"blocks": ..., "head": ...}`` qweights tree
+    (the float tree's names, so one rule set splits both): ``w`` mirrors
+    its float tensor; ``s`` keeps ("layer",) and the output axes."""
+    full = llama.param_logical_axes(cfg)["blocks"]
+    blocks = {name: {"w": full[name], "s": ("layer",) + full[name][1 + nd:]}
+              for name, nd in QUANT_CONTRACT.items()}
+    return {"blocks": blocks,
+            "head": {"w": ("embed", "vocab"), "s": ("vocab",)}}
 
 
 @torch.no_grad()
@@ -279,13 +346,15 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), b)[:M]
 
 
-def _act_quant(x: torch.Tensor, n_contract: int
+def _act_quant(x: torch.Tensor, n_contract: int,
+               absmax: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-token int8: absmax over the TRAILING ``n_contract`` dims.
+    """Per-token int8: absmax over the TRAILING ``n_contract`` dims (or
+    the given ``absmax``, a tp group's over every shard's slice).
     Returns (int8 like ``x``, float32 scales ``x.shape[:-n_contract]``)."""
     xf = x.float()
     dims = tuple(range(x.dim() - n_contract, x.dim()))
-    s = _scale(xf.abs().amax(dim=dims))
+    s = _scale(xf.abs().amax(dim=dims) if absmax is None else absmax)
     return _to_int8(xf, s[(...,) + (None,) * n_contract]), s
 
 
@@ -298,13 +367,35 @@ def qeinsum(x: torch.Tensor, qw: Dict[str, torch.Tensor], n_contract: int,
     accumulator widens to float32 and is multiplied by the scale product
     ``sx (x) s``, formed first, then cast: the reference's order, and so
     its bits."""
-    xq, sx = _act_quant(x, n_contract)
-    w, s = qw["w"], qw["s"]
-    lead = x.shape[:x.dim() - n_contract]
-    out = w.shape[n_contract:]
-    k = math.prod(w.shape[:n_contract])
-    acc = int8_matmul(xq.reshape(-1, k), w.reshape(k, -1))
-    acc = acc.reshape(*lead, *out).float()
+    return _qeinsum_parts([x], [qw], n_contract, out_dtype)
+
+
+def _qeinsum_parts(xs: List[torch.Tensor], qws: List[Dict], n_contract: int,
+                   out_dtype) -> torch.Tensor:
+    """:func:`qeinsum` over a contraction the tp group splits: shard r's
+    slice ``xs[r]`` against its rows ``qws[r]``. One activation scale
+    from the absmax over every slice, the shards' int32 accumulators
+    summed on the first shard's device in rank order, then the one
+    rescale (the weight scales are whole on every shard): the same bits
+    as the unsplit product."""
+    dev = xs[0].device
+    absmax = None
+    if len(xs) > 1:
+        dims = tuple(range(xs[0].dim() - n_contract, xs[0].dim()))
+        absmax = functools.reduce(torch.maximum, [
+            x.float().abs().amax(dim=dims).to(dev) for x in xs])
+    acc = sx = None
+    for x, qw in zip(xs, qws):
+        xq, sxr = _act_quant(x, n_contract, None if absmax is None
+                             else absmax.to(x.device))
+        w = qw["w"]
+        k = math.prod(w.shape[:n_contract])
+        part = int8_matmul(xq.reshape(-1, k), w.reshape(k, -1))
+        acc, sx = (part, sxr) if acc is None else (acc + part.to(dev), sx)
+    s = qws[0]["s"]
+    x = xs[0]
+    acc = acc.reshape(*x.shape[:x.dim() - n_contract],
+                      *qws[0]["w"].shape[n_contract:]).float()
     scale = sx[(...,) + (None,) * s.dim()] * s
     return (acc * scale).to(out_dtype)
 
@@ -324,13 +415,35 @@ def proj(x: torch.Tensor, layer: Dict, qlayer: Optional[Dict], name: str,
     return y.reshape(*lead, *w.shape[n_contract:])
 
 
-def _head(cfg: llama.LlamaConfig, params: llama.Params,
-          qweights: Optional[QWeights], x: torch.Tensor) -> torch.Tensor:
+def _proj_join(xs: List[torch.Tensor], layers: List[Dict],
+               qlayers: List[Optional[Dict]], name: str, n_contract: int,
+               dtype) -> torch.Tensor:
+    """:func:`proj` of a weight whose contraction the tp group splits (wo,
+    w_down): shard r's slice ``xs[r]`` against its rows, the partial
+    products summed in float32 in rank order on the first shard's device
+    and cast once (w8a8: :func:`_qeinsum_parts`). One shard: :func:`proj`
+    itself."""
+    if qlayers[0] is not None:
+        return _qeinsum_parts(xs, [q[name] for q in qlayers], n_contract,
+                              dtype)
+    return _join_sum([proj(x, layer, None, name, n_contract, dtype)
+                      for x, layer in zip(xs, layers)], dtype)
+
+
+def _head(cfg: llama.LlamaConfig, params: List[llama.Params],
+          qweights: List[Optional[QWeights]], x: torch.Tensor
+          ) -> torch.Tensor:
     """LM head on final-norm hidden states [..., D] -> float32 logits:
-    w8a8 with ``qweights``, else :func:`llama.logits`."""
-    if qweights is not None:
-        return qeinsum(x, qweights["head"], 1, torch.float32)
-    return llama.logits(x, params, cfg)
+    w8a8 with ``qweights``, else :func:`llama.logits`; over a tp group
+    (``params`` and ``qweights`` one per shard) each shard's vocab
+    columns, concatenated in vocab order on ``x``'s device."""
+    parts = []
+    for p, q in zip(params, qweights):
+        xr = x.to(p["final_norm"].device)
+        part = (qeinsum(xr, q["head"], 1, torch.float32) if q is not None
+                else llama.logits(xr, p, cfg))
+        parts.append(part.to(x.device))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -346,20 +459,129 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism: a program's shards and their joins
+# ---------------------------------------------------------------------------
+
+def _tree(parts: list):
+    """One shard's tree as itself, several as :class:`sharding.Shards`."""
+    return parts[0] if len(parts) == 1 else sharding.Shards(parts)
+
+
+def _to(v, device: torch.device):
+    """A tensor argument on ``device``; a Python number as it is."""
+    return v.to(device) if isinstance(v, torch.Tensor) else v
+
+
+def _join_sum(parts: List[torch.Tensor], dtype) -> torch.Tensor:
+    """The shards' partial sums added in float32 in rank order on the
+    first shard's device and cast once to ``dtype``; one part as it is."""
+    if len(parts) == 1:
+        return parts[0]
+    dev = parts[0].device
+    acc = parts[0].float()
+    for p in parts[1:]:
+        acc = acc + p.to(dev).float()
+    return acc.to(dtype)
+
+
+class _Group:
+    """A program's tp group: the shards' params, qweights and caches in
+    rank order (one each for a whole tree) and the shards' devices.
+    Tensors the program makes on the first shard's device reach each
+    shard through :meth:`rep`."""
+
+    def __init__(self, params, qweights=None, cache=None):
+        self.params = sharding.shards_of(params)
+        n = len(self.params)
+        self.qweights = ([None] * n if qweights is None
+                         else sharding.shards_of(qweights))
+        self.caches = ([None] * n if cache is None
+                       else sharding.shards_of(cache))
+        self.devs = [p["final_norm"].device for p in self.params]
+
+    def rep(self, t: Optional[torch.Tensor]) -> list:
+        """``t`` on every shard's device (the same tensor where a device
+        is ``t``'s own)."""
+        return [None if t is None else t.to(d) for d in self.devs]
+
+    def layer(self, i: int) -> Tuple[List[Dict], List[Optional[Dict]]]:
+        """Layer ``i``'s float and int8 slices, one per shard."""
+        return ([llama.layer_slice(p, i) for p in self.params],
+                [qlayer_slice(q, i) for q in self.qweights])
+
+    def lora(self, llayer: Optional[Dict]) -> list:
+        """One layer of the adapter pool (``adapters.lora_layer``, whole
+        on the first device) as each shard reads it: B of the wq, wk and
+        wv deltas cut to the shard's heads and kv heads, A of the wo
+        delta to its heads, on the shard's device."""
+        n = len(self.params)
+        if llayer is None or n == 1:
+            return [llayer] * n
+        return [{t: {"a": (ab["a"].chunk(n, dim=1)[r] if t == "wo"
+                           else ab["a"]).to(dev),
+                     "b": (ab["b"] if t == "wo"
+                           else ab["b"].chunk(n, dim=2)[r]).to(dev)}
+                 for t, ab in llayer.items()}
+                for r, dev in enumerate(self.devs)]
+
+    def layer_step(self, cfg, i: int, x: torch.Tensor, cos: list,
+                   sin: list, attend: Callable, llayer: Optional[Dict] = None,
+                   aid: Optional[list] = None, layers=None) -> torch.Tensor:
+        """Decoder layer ``i`` over the group on x [B, S, D] (on the first
+        shard's device): each shard's q, k and v on its own columns
+        (:func:`_decode_qkv`), ``attend(r, i, q, k, v)`` its attention
+        output, and the join at wo and w_down (:func:`_decode_out_ffn`).
+        ``cos``, ``sin`` and ``aid`` are per shard (:meth:`rep`),
+        ``llayer`` the adapter pool's layer ``i`` (whole), ``layers``
+        the layer's slices where the caller holds them. Returns x after
+        the layer."""
+        layers, qlayers = self.layer(i) if layers is None else layers
+        lls = self.lora(llayer)
+        aid = aid or [None] * len(self.devs)
+        os = [attend(r, i, *_decode_qkv(cfg, layers[r], qlayers[r], xr,
+                                        cos[r], sin[r], lls[r], aid[r]))
+              for r, xr in enumerate(self.rep(x))]
+        return _decode_out_ffn(cfg, layers, qlayers, x, os, lls, aid)
+
+
+def _embed(params: List[llama.Params], tokens: torch.Tensor,
+           dtype) -> torch.Tensor:
+    """Token ids -> ``dtype`` hidden states on the first shard's device.
+    Over a vocab-split embedding each shard looks the ids up in its own
+    rows and writes zeros for the rest, and the shards' lookups are
+    summed: exactly one is not zero."""
+    if len(params) == 1:
+        return params[0]["embed"][tokens].to(dtype)
+    parts, first = [], 0
+    for p in params:
+        e = p["embed"]
+        ids = tokens.to(e.device) - first
+        inside = (ids >= 0) & (ids < e.shape[0])
+        rows = e[ids.clamp(0, e.shape[0] - 1)].to(dtype)
+        parts.append(torch.where(inside[..., None], rows,
+                                 torch.zeros((), dtype=dtype,
+                                             device=e.device)))
+        first += e.shape[0]
+    return _join_sum(parts, dtype)
+
+
+# ---------------------------------------------------------------------------
 # Contiguous layout
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: llama.LlamaConfig, n_slots: int, max_len: int,
-               kv_int8: bool = False, device: DeviceLike = None) -> Cache:
+               kv_int8: bool = False, device: DeviceLike = None,
+               kv_heads: Optional[int] = None) -> Cache:
     """Contiguous decode state: one ``max_len`` row of K/V per slot,
     ``[L, n_slots + 1, max_len, G, hd]``, the last slot (index
     ``n_slots``) the trash slot that rows at or past ``max_len`` land
     in (:func:`_phys`). ``kv_int8``: int8 rows with bfloat16 scales
     ``[L, n_slots + 1, G, max_len]`` (the paged scale layout with one
     block of ``max_len`` rows a slot), whatever ``cfg.dtype`` is.
-    ``length`` and ``last_token`` cover the ``n_slots`` served slots."""
+    ``length`` and ``last_token`` cover the ``n_slots`` served slots.
+    ``kv_heads``: a tp shard's kv heads (default all of them)."""
     device = resolve_device(device)
-    L, G, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    L, G, hd = cfg.n_layers, kv_heads or cfg.n_kv_heads, cfg.head_dim
     shape = (L, n_slots + 1, max_len, G, hd)
     kdt = torch.int8 if kv_int8 else cfg.dtype
     cache = {
@@ -379,15 +601,15 @@ def init_cache(cfg: llama.LlamaConfig, n_slots: int, max_len: int,
 
 
 def init_prefix_pool(cfg: llama.LlamaConfig, rows: int, max_len: int,
-                     kv_int8: bool = False,
-                     device: DeviceLike = None) -> Cache:
+                     kv_int8: bool = False, device: DeviceLike = None,
+                     kv_heads: Optional[int] = None) -> Cache:
     """K/V rows reserved for a contiguous engine's prefix cache
     (``rows`` resident prefixes, one ``max_len`` row each): the decode
     cache's per-row layout and scales, so a row copy is a plain copy
     with no requantization and cached generation stays bit-identical to
-    cold."""
+    cold. ``kv_heads``: a tp shard's kv heads (default all of them)."""
     device = resolve_device(device)
-    L, G, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    L, G, hd = cfg.n_layers, kv_heads or cfg.n_kv_heads, cfg.head_dim
     kdt = torch.int8 if kv_int8 else cfg.dtype
     pool = {"k": torch.zeros((L, rows, max_len, G, hd), dtype=kdt,
                              device=device)}
@@ -405,9 +627,10 @@ def pool_store(pool: Cache, cache: Cache, slot: int, row: int) -> None:
     into pool row ``row``, in place. Rows past the prompt are garbage
     but harmless: the host index records the cached prefix length, and
     a load's suffix prefill overwrites everything past it before decode
-    reads it."""
-    for name in pool:
-        pool[name][:, row] = cache[name][:, slot]
+    reads it. Split trees copy shard by shard."""
+    for p, c in zip(sharding.shards_of(pool), sharding.shards_of(cache)):
+        for name in p:
+            p[name][:, row] = c[name][:, slot]
 
 
 @torch.no_grad()
@@ -418,9 +641,35 @@ def pool_load(cache: Cache, pool: Cache, row: int, slot: int,
     ``claim_len`` (``max_len``), so the rows interleaved bursts write for
     every slot at ``length`` land in the trash slot instead of over rows
     a finished chunk already wrote (:func:`claim_slot`)."""
-    for name in pool:
-        cache[name][:, slot] = pool[name][:, row]
-    cache["length"][slot] = claim_len
+    for c, p in zip(sharding.shards_of(cache), sharding.shards_of(pool)):
+        for name in p:
+            c[name][:, slot] = p[name][:, row]
+        c["length"][slot] = claim_len
+
+
+def cache_logical_axes(cache: Optional[Cache] = None) -> Dict[str, Tuple]:
+    """Logical axes of a cache's arrays (the reference's names; an int8
+    cache adds its scales, None is the float layout). Both layouts use
+    the same names: the paged block dim takes "batch" and its rows
+    "seq_cache", so ``kv_heads`` is dim 3 of k/v either way and dim 2 of
+    the scales; ``length`` and ``last_token`` replicate."""
+    axes = {
+        "k": ("layer", "batch", "seq_cache", "kv_heads", "head_dim"),
+        "v": ("layer", "batch", "seq_cache", "kv_heads", "head_dim"),
+        "length": ("batch",),
+        "last_token": ("batch",),
+    }
+    if cache is not None and "k_scale" in cache:
+        axes["k_scale"] = ("layer", "batch", "kv_heads", "seq_cache")
+        axes["v_scale"] = ("layer", "batch", "kv_heads", "seq_cache")
+    return axes
+
+
+def pool_logical_axes(pool: Cache) -> Dict[str, Tuple]:
+    """Logical axes of a contiguous prefix pool: the cache's names (the
+    row dim takes "batch"), so one rule set splits both."""
+    axes = cache_logical_axes(pool)
+    return {name: axes[name] for name in pool}
 
 
 # ---------------------------------------------------------------------------
@@ -429,14 +678,16 @@ def pool_load(cache: Cache, pool: Cache, row: int, slot: int,
 
 def init_paged_cache(cfg: llama.LlamaConfig, n_slots: int, n_blocks: int,
                      block_len: int, device: torch.device,
-                     kv_int8: bool = False) -> Cache:
+                     kv_int8: bool = False,
+                     kv_heads: Optional[int] = None) -> Cache:
     """Block-pool decode state: ``n_blocks`` physical blocks of
     ``block_len`` rows shared by ``n_slots`` slots, plus the trash
     block (id ``n_blocks``) that sentinel writes land in. ``kv_int8``:
     int8 pools with bfloat16 scales ``[L, n_blocks + 1, G, block_len]``
     (the row dim last, as the reference lays them out and the kernel
-    reads them), whatever ``cfg.dtype`` is."""
-    L, G, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    reads them), whatever ``cfg.dtype`` is. ``kv_heads``: a tp shard's
+    kv heads (default all of them)."""
+    L, G, hd = cfg.n_layers, kv_heads or cfg.n_kv_heads, cfg.head_dim
     shape = (L, n_blocks + 1, block_len, G, hd)
     kdt = torch.int8 if kv_int8 else cfg.dtype
     cache = {
@@ -516,9 +767,10 @@ def copy_block(cache: Cache, src: int, dst: int) -> None:
     All ``block_len`` rows copy; rows past the shared prefix are garbage
     in both blocks and stay unreadable until the new owner overwrites
     them."""
-    for name in ("k", "v", "k_scale", "v_scale"):
-        if name in cache:
-            cache[name][:, dst] = cache[name][:, src]
+    for c in sharding.shards_of(cache):
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if name in c:
+                c[name][:, dst] = c[name][:, src]
 
 
 def export_blocks(cache: Cache, ids: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -532,9 +784,18 @@ def export_blocks(cache: Cache, ids: torch.Tensor) -> Dict[str, torch.Tensor]:
     block count) and the host slices ``[:, :nb]`` before the wire. Eager
     torch compiles nothing, and the port's sentinel is a real block (the
     trash block), so only the ``nb`` real ids are gathered; the wire is
-    the same."""
-    return {name: cache[name][:, ids]
-            for name in ("k", "v", "k_scale", "v_scale") if name in cache}
+    the same. A split cache exports every kv head, the shards' slices
+    joined in rank order on ``ids``' device: the reference's full-head
+    wire, whatever the tp degree of either side."""
+    caches = sharding.shards_of(cache)
+    parts = [{name: c[name][:, ids.to(c["k"].device)]
+              for name in ("k", "v", "k_scale", "v_scale") if name in c}
+             for c in caches]
+    if len(parts) == 1:
+        return parts[0]
+    return sharding.gather_tree(sharding.Shards(parts),
+                                cache_logical_axes(caches[0]),
+                                ids.device)
 
 
 def import_blocks(cache: Cache, ids: torch.Tensor,
@@ -543,9 +804,16 @@ def import_blocks(cache: Cache, ids: torch.Tensor,
     blocks ``ids`` ([nb] int), in place, cast to each pool's dtype — the
     receive half of a cross-replica KV handoff. As in
     :func:`export_blocks`, only the ``nb`` real ids are written (the
-    reference pads with the sentinel and drops those writes)."""
-    for name, v in vals.items():
-        cache[name][:, ids] = v.to(cache[name].dtype)
+    reference pads with the sentinel and drops those writes). A split
+    cache takes the full-head wire and writes each shard its kv heads."""
+    caches = sharding.shards_of(cache)
+    if len(caches) > 1:
+        vals = sharding.split_tree(vals, cache_logical_axes(caches[0]),
+                                   [c["k"].device for c in caches])
+    for c, part in zip(caches, sharding.shards_of(vals)):
+        dev_ids = ids.to(c["k"].device)
+        for name, v in part.items():
+            c[name][:, dev_ids] = v.to(c[name].dtype)
 
 
 @torch.no_grad()
@@ -562,10 +830,13 @@ def sync_slots(cache: Cache, active: torch.Tensor, lengths: torch.Tensor,
     bookkeeping write alone: no K/V row and no block moves. ``active``
     [slots] bool masks the slots that sync; the rest keep their values.
     """
-    cache["length"].copy_(torch.where(active, lengths.to(torch.int32),
-                                      cache["length"]))
-    cache["last_token"].copy_(torch.where(
-        active, tokens.to(cache["last_token"].dtype), cache["last_token"]))
+    for c in sharding.shards_of(cache):
+        dev = c["length"].device
+        act = active.to(dev)
+        c["length"].copy_(torch.where(act, lengths.to(dev, torch.int32),
+                                      c["length"]))
+        c["last_token"].copy_(torch.where(
+            act, tokens.to(dev, c["last_token"].dtype), c["last_token"]))
 
 
 def _logical_rows(cache: Cache, table: Optional[torch.Tensor]) -> int:
@@ -779,29 +1050,41 @@ def prefill_batch(params: llama.Params, tokens: torch.Tensor,
     plain version. With ``qweights`` the block products and the head
     run w8a8, so ``params`` may be the slim tree (embedding and norms
     only). ``lora``/``aid``: the adapter pool and each wave row's pool
-    slot."""
+    slot. Over a tp group the rows come back per shard, each shard's kv
+    heads (:func:`wave_row` picks one prompt's)."""
     attention = attn_ops.gqa_attention
     if plain_attention:
         def attention(q, k, v):
             return flash_ops.flash_attention_fwd_ref(q, k, v)[0]
+    g = _Group(params, qweights)
     W, S = tokens.shape
-    x = params["embed"].to(cfg.dtype)[tokens]
+    x = _embed(g.params, tokens, cfg.dtype)
     cos, sin = llama.rope_frequencies(
         cfg, torch.arange(S, device=tokens.device))
-    ks, vs = [], []
+    coss, sins, aids = g.rep(cos), g.rep(sin), g.rep(aid)
+    ks = [[] for _ in g.params]
+    vs = [[] for _ in g.params]
+
+    def attend(r, i, q, k, v):
+        ks[r].append(k)
+        vs[r].append(v)
+        return attention(q, k, v)
+
     for i in range(cfg.n_layers):
-        layer = llama.layer_slice(params, i)
-        qlayer = qlayer_slice(qweights, i)
-        llayer = adapters_lib.lora_layer(lora, i)
-        q, k, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin, llayer, aid)
-        x = _decode_out_ffn(cfg, layer, qlayer, x, attention(q, k, v),
-                            llayer, aid)
-        ks.append(k)
-        vs.append(v)
-    x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = g.layer_step(cfg, i, x, coss, sins, attend,
+                         adapters_lib.lora_layer(lora, i), aids)
+    x = llama.rms_norm(x, g.params[0]["final_norm"], cfg.norm_eps)
     last = x[torch.arange(W, device=x.device), true_lens.long() - 1]
-    return ({"k": torch.stack(ks), "v": torch.stack(vs)},
-            _head(cfg, params, qweights, last))
+    return (_tree([{"k": torch.stack(k), "v": torch.stack(v)}
+                   for k, v in zip(ks, vs)]),
+            _head(cfg, g.params, g.qweights, last))
+
+
+def wave_row(prefix, w: int):
+    """Prompt ``w``'s rows of a wave's prefix (:func:`prefill_batch`), in
+    the form :func:`insert` takes, shard by shard over a tp group."""
+    return _tree([{"k": p["k"][:, w], "v": p["v"][:, w]}
+                  for p in sharding.shards_of(prefix)])
 
 
 @torch.no_grad()
@@ -813,14 +1096,15 @@ def insert(cache: Cache, prefix: Cache, slot: int, true_len,
     slot's block table (contiguous: into the slot's row), quantized
     first on an int8 cache. Rows >= true_len are padding but harmless —
     decode masks by ``length``; rows past the slot's allocation land in
-    the trash block (contiguous: past ``max_len``, the trash slot)."""
-    S = prefix["k"].shape[1]
-    blk, off = _phys(cache, table, slot,
-                     torch.arange(S, device=prefix["k"].device))
-    _write_rows(cache, blk, off,
-                _stored_rows(cache, prefix["k"], prefix["v"]))
-    cache["length"][slot] = true_len
-    cache["last_token"][slot] = first_token
+    the trash block (contiguous: past ``max_len``, the trash slot). A
+    split cache takes the prefix's shard of kv heads on each shard."""
+    for c, p in zip(sharding.shards_of(cache), sharding.shards_of(prefix)):
+        dev = c["k"].device
+        blk, off = _phys(c, None if table is None else table.to(dev), slot,
+                         torch.arange(p["k"].shape[1], device=dev))
+        _write_rows(c, blk, off, _stored_rows(c, p["k"], p["v"]))
+        c["length"][slot] = _to(true_len, dev)
+        c["last_token"][slot] = _to(first_token, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -835,7 +1119,8 @@ def claim_slot(cache: Cache, slot: int, claim_len: int) -> None:
     ``length`` fall past the table and land in the trash block (the
     trash slot, contiguous) instead of over rows a finished chunk
     already wrote."""
-    cache["length"][slot] = claim_len
+    for c in sharding.shards_of(cache):
+        c["length"][slot] = claim_len
 
 
 @torch.no_grad()
@@ -873,12 +1158,13 @@ def prefill_chunk(params: llama.Params, cache: Cache,
     slots, of which the chunk reads ``aid[slot]``. Returns the first
     token sampled at the last valid position on the ``final`` chunk,
     else 0 (device tensors)."""
+    g = _Group(params, qweights, cache)
     C = tokens_c.shape[0]
-    G, hd = cfg.n_kv_heads, cfg.head_dim
-    rep = cfg.n_heads // G
+    hd = cfg.head_dim
+    rep = cfg.n_heads // cfg.n_kv_heads
     scale = hd ** -0.5
     dev = tokens_c.device
-    x = params["embed"].to(cfg.dtype)[tokens_c][None]          # [1, C, D]
+    x = _embed(g.params, tokens_c, cfg.dtype)[None]          # [1, C, D]
     cos, sin = llama.rope_frequencies(
         cfg, start + torch.arange(C, device=dev))
     j = torch.arange(C, device=dev)
@@ -890,50 +1176,56 @@ def prefill_chunk(params: llama.Params, cache: Cache,
     lens = torch.full((1,), start, dtype=torch.int32, device=dev)
     # The chunk runs ONE slot: its adapter id, aligned with x's batch.
     aid_b = aid[slot:slot + 1] if lora is not None else None
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        layer = llama.layer_slice(params, i)
-        qlayer = qlayer_slice(qweights, i)
-        llayer = adapters_lib.lora_layer(lora, i)
-        q, k, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin, llayer,
-                              aid_b)
+    coss, sins, js, intras, tables, tbls, lenss, aids = map(
+        g.rep, (cos, sin, j, intra, table, tbl, lens, aid_b))
+
+    ks = [[] for _ in g.params]
+    vs = [[] for _ in g.params]
+
+    def attend(r, i, q, k, v):
+        """Shard r's attention of layer i: its kv heads' rows."""
+        c = g.caches[r]
         kr, vr = k[0], v[0]                                    # [C, G, hd]
-        ks.append(kr)
-        vs.append(vr)
+        ks[r].append(kr)
+        vs[r].append(vr)
+        G = kr.shape[1]
         qh = q[0].reshape(C, G, rep, hd).to(torch.bfloat16)
         ss = _bf16_dot("cgrk,jgk->cgrj", qh, kr) * scale
-        ss = ss.masked_fill(~intra[:, None, None, :], NEG_INF)
+        ss = ss.masked_fill(~intras[r][:, None, None, :], NEG_INF)
         if table is None:
-            ck, cv, cks, cvs = _gather_slot_kv_layer(cache, i, slot, span)
-            valid = torch.arange(ck.shape[0], device=dev) < start
-            o = _gather_attn(("cgrk,mgk->cgrm", "cgrm,mgk->cgrk",
-                              "cgrj,jgk->cgrk"), qh, ck, cv, cks, cvs,
-                             valid, ss, vr)
-        else:
-            # The chunk's C * rep rows of each kv-head in one (slot,
-            # kv-head) cell of the kernel, masked below ``start``.
-            q_k = qh.permute(1, 0, 2, 3).reshape(1, G, C * rep, hd)
-            acc, m, l = _paged_attn_stats(cache, i, tbl, q_k.contiguous(),
-                                          lens, span, plain_attention)
-            acc = acc.reshape(G, C, rep, hd).permute(1, 0, 2, 3)
-            m = m.reshape(G, C, rep).permute(1, 0, 2)
-            l = l.reshape(G, C, rep).permute(1, 0, 2)
-            alpha, w_s, l_tot = _merge_attn_parts(acc, m, l, ss)
-            o = (acc * alpha[..., None]
-                 + _bf16_dot("cgrj,jgk->cgrk", w_s, vr)) / l_tot[..., None]
-        x = _decode_out_ffn(cfg, layer, qlayer, x, o, llayer, aid_b)
+            ck, cv, cks, cvs = _gather_slot_kv_layer(c, i, slot, span)
+            valid = torch.arange(ck.shape[0], device=kr.device) < start
+            return _gather_attn(("cgrk,mgk->cgrm", "cgrm,mgk->cgrk",
+                                 "cgrj,jgk->cgrk"), qh, ck, cv, cks, cvs,
+                                valid, ss, vr)
+        # The chunk's C * rep rows of each kv-head in one (slot, kv-head)
+        # cell of the kernel, masked below ``start``.
+        q_k = qh.permute(1, 0, 2, 3).reshape(1, G, C * rep, hd)
+        acc, m, l = _paged_attn_stats(c, i, tbls[r], q_k.contiguous(),
+                                      lenss[r], span, plain_attention)
+        acc = acc.reshape(G, C, rep, hd).permute(1, 0, 2, 3)
+        m = m.reshape(G, C, rep).permute(1, 0, 2)
+        l = l.reshape(G, C, rep).permute(1, 0, 2)
+        alpha, w_s, l_tot = _merge_attn_parts(acc, m, l, ss)
+        return (acc * alpha[..., None]
+                + _bf16_dot("cgrj,jgk->cgrk", w_s, vr)) / l_tot[..., None]
+
+    for i in range(cfg.n_layers):
+        x = g.layer_step(cfg, i, x, coss, sins, attend,
+                         adapters_lib.lora_layer(lora, i), aids)
     if final:
-        x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = _head(cfg, params, qweights, x[:, n_valid - 1])
+        x = llama.rms_norm(x, g.params[0]["final_norm"], cfg.norm_eps)
+        logits = _head(cfg, g.params, g.qweights, x[:, n_valid - 1])
         tok = sampling_mod.sample(logits, sp, generator)[0]
     else:
         tok = torch.zeros((), dtype=torch.long, device=dev)
-    blk, off = _phys(cache, table, slot, start + j)
-    _write_rows(cache, blk, off,
-                _stored_rows(cache, torch.stack(ks), torch.stack(vs)))
-    cache["length"][slot] = new_len
-    if final:
-        cache["last_token"][slot] = tok
+    for r, c in enumerate(g.caches):
+        blk, off = _phys(c, tables[r], slot, start + js[r])
+        _write_rows(c, blk, off,
+                    _stored_rows(c, torch.stack(ks[r]), torch.stack(vs[r])))
+        c["length"][slot] = new_len
+        if final:
+            c["last_token"][slot] = tok.to(g.devs[r])
     return tok
 
 
@@ -945,7 +1237,8 @@ def _decode_qkv(cfg, layer, qlayer, x, cos, sin, llayer=None, aid=None):
     """Layer front half: norm + q/k/v projections (w8a8 with ``qlayer``)
     + rope. x: [B, S, D]. ``llayer``/``aid``: one layer's adapter-pool
     slice and the rows' pool slots; each row's delta is added before
-    rope, exactly as a merged weight would be."""
+    rope, exactly as a merged weight would be. Over a tp group each
+    shard runs it on its own columns: its heads and kv heads."""
     dt = cfg.dtype
     h = llama.rms_norm(x, layer["ln1"], cfg.norm_eps)
     q = proj(h, layer, qlayer, "wq", 1, dt)
@@ -958,12 +1251,17 @@ def _decode_qkv(cfg, layer, qlayer, x, cos, sin, llayer=None, aid=None):
     return llama.apply_rope(q, cos, sin), llama.apply_rope(k, cos, sin), v
 
 
-def _decode_out_ffn(cfg, layer, qlayer, x, o, llayer=None, aid=None):
+def _decode_out_ffn(cfg, layers, qlayers, x, os, llayers=None, aids=None):
     """Layer back half: output projection (plus the rows' adapter delta
-    with ``llayer``/``aid``) + residual + FFN: the dense SwiGLU (w8a8
-    with ``qlayer``), or on an MoE config the expert FFN
+    with ``llayers``/``aids``) + residual + FFN: the dense SwiGLU (w8a8
+    with ``qlayers``), or on an MoE config the expert FFN
     (``moe.moe_ffn``, its aux loss dropped; the reference's ``_ffn``).
-    x: [B, S, D]; o: the attention output, B * S rows of every head.
+    x: [B, S, D] on the first shard's device; ``layers``, ``qlayers``,
+    ``os`` (the attention output, B * S rows of a shard's heads),
+    ``llayers`` (:meth:`_Group.lora`) and ``aids`` one per shard. The tp
+    group joins at wo (the adapter deltas' partials summed alike) and at
+    w_down (:func:`_proj_join`); the residual and ln2 run once on the
+    joined state, w_gate and w_up on each shard's mlp columns.
 
     The expert FFN's capacity is per batch row and a function of S, so
     the grouping is the reference's in every program: a wave's rows at
@@ -973,52 +1271,55 @@ def _decode_out_ffn(cfg, layer, qlayer, x, o, llayer=None, aid=None):
     tokens, and capacity goes in position order, so they never take a
     real token's slot."""
     dt = cfg.dtype
-    o = o.reshape(*x.shape[:2], cfg.n_heads, cfg.head_dim).to(dt)
-    y = proj(o, layer, qlayer, "wo", 2, dt)
-    if llayer is not None:
-        y = y + _lora_out_delta(o, llayer["wo"], aid)
+    os = [o.reshape(*x.shape[:2], -1, cfg.head_dim).to(dt) for o in os]
+    y = _proj_join(os, layers, qlayers, "wo", 2, dt)
+    if llayers is not None and llayers[0] is not None:
+        y = y + _join_sum([_lora_out_delta(o, ll["wo"], a)
+                           for o, ll, a in zip(os, llayers, aids)], dt)
     x = x + y
-    h = llama.rms_norm(x, layer["ln2"], cfg.norm_eps)
+    h = llama.rms_norm(x, layers[0]["ln2"], cfg.norm_eps)
     if hasattr(cfg, "n_experts"):
-        return x + moe.moe_ffn(cfg, h, layer)[0]
-    g = proj(h, layer, qlayer, "w_gate", 1, dt)
-    u = proj(h, layer, qlayer, "w_up", 1, dt)
-    return x + proj(F.silu(g) * u, layer, qlayer, "w_down", 1, dt)
+        return x + moe.moe_ffn(cfg, h, layers[0])[0]
+    acts = []
+    for layer, qlayer in zip(layers, qlayers):
+        hr = h.to(layer["ln2"].device)
+        gate = proj(hr, layer, qlayer, "w_gate", 1, dt)
+        u = proj(hr, layer, qlayer, "w_up", 1, dt)
+        acts.append(F.silu(gate) * u)
+    return x + _proj_join(acts, layers, qlayers, "w_down", 1, dt)
 
 
-def _decode_head(cfg, params, qweights, x):
+def _decode_head(cfg, g: _Group, x):
     """Final norm + LM head: x [B, 1, D] -> logits [B, vocab] float32."""
-    x = llama.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _head(cfg, params, qweights, x[:, 0])
+    x = llama.rms_norm(x, g.params[0]["final_norm"], cfg.norm_eps)
+    return _head(cfg, g.params, g.qweights, x[:, 0])
 
 
-def _staged_attn_layer(cfg, cache, table, layer, qlayer, x, cos, sin, i,
-                       s, stage, stage_valid, span, pos0, plain=False,
-                       llayer=None, aid=None):
-    """One decoder layer of a staged-burst step: the step's K/V rows land
-    in the staging buffers ``stage = (sk, sv, sks, svs)`` ([L, B, k, G,
-    hd], and on an int8 cache int8 with bfloat16 scales [L, B, k, G]; in
-    place), attention runs as the big-cache stats of the paged kernel
-    (rows below the burst-start lengths ``pos0``, ``span``-bounded)
-    merged with the staged-columns dot (columns masked by
-    ``stage_valid``), and the big cache stays untouched. On an int8
+def _staged_attn(cache, table, q, kk, v, i, s, stage, stage_valid, span,
+                 pos0, plain=False):
+    """One shard's attention in one decoder layer of a staged-burst step
+    (q [B, 1, heads, hd], kk and v [B, 1, G, hd] after rope): the step's
+    K/V rows land in the staging buffers ``stage = (sk, sv, sks, svs)``
+    ([L, B, k, G, hd], and on an int8 cache int8 with bfloat16 scales
+    [L, B, k, G]; in place), attention runs as the big-cache stats of
+    the paged kernel (rows below the burst-start lengths ``pos0``,
+    ``span``-bounded) merged with the staged-columns dot (columns masked
+    by ``stage_valid``), and the big cache stays untouched. On an int8
     cache the staged columns are quantized too: their K scales multiply
     the staged scores before the mask, their V scales the staged weights
     after the merge. With ``table`` None (contiguous) the big-cache
     block is the reference's gather instead (:func:`_gather_attn`, rows
     below ``pos0`` of the first ``span`` rows). The one body the burst
-    and the verify round run
-    (:func:`decode_burst_staged`, :func:`verify_draft_staged`), as
-    ``kvcache.py:1307-1331`` of the JAX package asks of its burst and
-    verify programs, so an accepted verify position sees the inputs a
-    plain decode step would. ``llayer``/``aid``: the layer's adapter
-    pool slice and each slot's pool slot. Returns x'."""
-    B = x.shape[0]
-    G, hd = cfg.n_kv_heads, cfg.head_dim
-    rep = cfg.n_heads // G
+    and the verify round run (:func:`decode_burst_staged`,
+    :func:`verify_draft_staged`), as ``kvcache.py:1307-1331`` of the JAX
+    package asks of its burst and verify programs, so an accepted verify
+    position sees the inputs a plain decode step would. Returns the
+    normalized output [B, G, rep, hd]."""
+    B = q.shape[0]
+    G, hd = kk.shape[2], kk.shape[3]
+    rep = q.shape[2] // G
     scale = hd ** -0.5
     sk, sv, sks, svs = stage
-    q, kk, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin, llayer, aid)
     kq, vq, ksc, vsc = _stored_rows(cache, kk[:, 0], v[:, 0])
     sk[i, :, s] = kq
     sv[i, :, s] = vq
@@ -1037,17 +1338,15 @@ def _staged_attn_layer(cfg, cache, table, layer, qlayer, x, cos, sin, i,
         ck, cv, cks, cvs = _gather_kv_layer(cache, i, span)
         valid = (torch.arange(ck.shape[1], device=pos0.device)[None, :]
                  < pos0[:, None])
-        o = _gather_attn(("bgrk,bmgk->bgrm", "bgrm,bmgk->bgrk",
-                          "bgrj,bjgk->bgrk"), qh, ck, cv, cks, cvs,
-                         valid[:, None, None, :], ss, lv, own_scale)
-        return _decode_out_ffn(cfg, layer, qlayer, x, o, llayer, aid)
+        return _gather_attn(("bgrk,bmgk->bgrm", "bgrm,bmgk->bgrk",
+                             "bgrj,bjgk->bgrk"), qh, ck, cv, cks, cvs,
+                            valid[:, None, None, :], ss, lv, own_scale)
     acc, m, l = _paged_attn_stats(cache, i, table, qh, pos0, span, plain)
     alpha, w_s, l_tot = _merge_attn_parts(acc, m, l, ss)
     if own_scale is not None:
         w_s = w_s * own_scale
     o = acc * alpha[..., None] + _bf16_dot("bgrj,bjgk->bgrk", w_s, lv)
-    o = o / l_tot[..., None]
-    return _decode_out_ffn(cfg, layer, qlayer, x, o, llayer, aid)
+    return o / l_tot[..., None]
 
 
 def _staging(cache: Cache, B: int, W: int):
@@ -1078,22 +1377,50 @@ def _flush_staged_rows(cache: Cache, table: torch.Tensor,
     _write_rows(cache, blk, off, stage)
 
 
-def _staged_step(cfg, params, qweights, layers, qlayers, cache, table, tok,
-                 pos0, s, stage, stage_valid, span, plain, llayers=None,
-                 aid=None):
+class _Staged:
+    """The per-shard state of a staged burst or verify round over ``W``
+    window rows: the shards' burst-start lengths, staging buffers and
+    tables, and every layer's slices."""
+
+    def __init__(self, g: _Group, cfg, table, W: int):
+        self.g = g
+        self.pos0 = [c["length"].clone() for c in g.caches]
+        B = self.pos0[0].shape[0]
+        self.stage = [_staging(c, B, W) for c in g.caches]
+        self.tables = g.rep(table)
+        self.layers = [g.layer(i) for i in range(cfg.n_layers)]
+
+    def flush(self, n_commit: torch.Tensor, last: torch.Tensor) -> None:
+        """Every shard's staged rows into its cache, then ``length +=
+        n_commit`` and ``last_token = last``."""
+        for r, c in enumerate(self.g.caches):
+            _flush_staged_rows(c, self.tables[r], self.pos0[r],
+                               self.stage[r])
+            c["length"] += n_commit.to(c["length"].device, torch.int32)
+            c["last_token"].copy_(last)
+
+
+def _staged_step(cfg, st: _Staged, tok, s, stage_valid, span, plain,
+                 llayers=None, aid=None):
     """Step ``s`` of a staged burst or verify round: ``tok`` [B] enters at
     row ``pos0 + s`` of every slot through every layer
-    (:func:`_staged_attn_layer`, ``layers``/``qlayers``/``llayers`` the
-    per-layer slices; ``llayers`` None without adapters). Returns the
-    logits [B, vocab] float32."""
-    x = params["embed"][tok].to(cfg.dtype)[:, None]
-    cos, sin = llama.rope_frequencies(cfg, (pos0 + s)[:, None])
+    (:func:`_staged_attn` on each shard, ``llayers`` the per-layer
+    adapter slices, None without adapters). Returns the logits [B,
+    vocab] float32."""
+    g = st.g
+    x = _embed(g.params, tok, cfg.dtype)[:, None]
+    cos, sin = llama.rope_frequencies(cfg, (st.pos0[0] + s)[:, None])
+    coss, sins, valids, aids = map(g.rep, (cos, sin, stage_valid, aid))
+
+    def attend(r, i, q, kk, v):
+        return _staged_attn(g.caches[r], st.tables[r], q, kk, v, i, s,
+                            st.stage[r], valids[r], span, st.pos0[r], plain)
+
     for i in range(cfg.n_layers):
-        x = _staged_attn_layer(cfg, cache, table, layers[i], qlayers[i], x,
-                               cos, sin, i, s, stage, stage_valid, span,
-                               pos0, plain,
-                               llayers[i] if llayers else None, aid)
-    return _decode_head(cfg, params, qweights, x)
+        x = g.layer_step(cfg, i, x, coss, sins, attend,
+                         llayers[i] if llayers else None, aids,
+                         st.layers[i])
+    return _decode_head(cfg, g, x)
 
 
 def _lora_layers(cfg, lora):
@@ -1115,15 +1442,11 @@ def step_logits(params: llama.Params, cache: Cache, cfg: llama.LlamaConfig,
     them, without writing the cache: the logits the engine's next token
     is read from. ``lora``/``aid``: the adapter pool and each slot's
     pool slot."""
-    B = cache["length"].shape[0]
-    pos0 = cache["length"].clone()
-    valid = torch.ones((1, 1), dtype=torch.bool, device=pos0.device)
-    layers = range(cfg.n_layers)
-    return _staged_step(
-        cfg, params, qweights, [llama.layer_slice(params, i) for i in layers],
-        [qlayer_slice(qweights, i) for i in layers], cache, table,
-        cache["last_token"], pos0, 0, _staging(cache, B, 1), valid, span,
-        plain_attention, _lora_layers(cfg, lora), aid)
+    g = _Group(params, qweights, cache)
+    st = _Staged(g, cfg, table, 1)
+    valid = torch.ones((1, 1), dtype=torch.bool, device=st.pos0[0].device)
+    return _staged_step(cfg, st, g.caches[0]["last_token"], 0, valid, span,
+                        plain_attention, _lora_layers(cfg, lora), aid)
 
 
 @torch.no_grad()
@@ -1148,24 +1471,29 @@ def decode_step(params: llama.Params, cache: Cache, cfg: llama.LlamaConfig,
     ``plain_attention``), whose stats merge with the self-term by the
     online-softmax combine. ``qweights``: w8a8 products and head;
     ``lora``/``aid``: the adapter pool and each slot's pool slot."""
-    B = cache["length"].shape[0]
-    G, hd = cfg.n_kv_heads, cfg.head_dim
-    rep = cfg.n_heads // G
+    g = _Group(params, qweights, cache)
+    c0 = g.caches[0]
+    B = c0["length"].shape[0]
+    hd = cfg.head_dim
+    rep = cfg.n_heads // cfg.n_kv_heads
     scale = hd ** -0.5
-    dev = cache["k"].device
-    pos = cache["length"].clone()
-    x = params["embed"][cache["last_token"]].to(cfg.dtype)[:, None]
+    pos = c0["length"].clone()
+    x = _embed(g.params, c0["last_token"], cfg.dtype)[:, None]
     cos, sin = llama.rope_frequencies(cfg, pos[:, None])
-    quant = "k_scale" in cache
-    ys = []
-    for i in range(cfg.n_layers):
-        layer = llama.layer_slice(params, i)
-        qlayer = qlayer_slice(qweights, i)
-        llayer = adapters_lib.lora_layer(lora, i)
-        q, k, v = _decode_qkv(cfg, layer, qlayer, x, cos, sin, llayer, aid)
-        rows = _stored_rows(cache, k[:, 0], v[:, 0])
-        ys.append(rows)
+    coss, sins, poss, tables, aids = map(g.rep, (cos, sin, pos, table, aid))
+    quant = "k_scale" in c0
+
+    ys = [[] for _ in g.caches]
+
+    def attend(r, i, q, k, v):
+        """Shard r's attention of layer i over its kv heads; the step's
+        rows as the cache stores them kept for the write after the
+        layers."""
+        c, dev = g.caches[r], g.devs[r]
+        rows = _stored_rows(c, k[:, 0], v[:, 0])
+        ys[r].append(rows)
         kq, vq, ksc, vsc = rows
+        G = kq.shape[1]
         k_new = kq.to(torch.bfloat16)           # exact for int8 values
         v_new = vq.float()
         qh = q[:, 0].reshape(B, G, rep, hd).to(torch.bfloat16).contiguous()
@@ -1174,9 +1502,9 @@ def decode_step(params: llama.Params, cache: Cache, cfg: llama.LlamaConfig,
             v_new = v_new * vsc.float()[..., None]
             s_self = s_self * ksc.float()[:, :, None]
         if table is None:
-            ck, cv, cks, cvs = _gather_kv_layer(cache, i, span)
+            ck, cv, cks, cvs = _gather_kv_layer(c, i, span)
             valid = (torch.arange(ck.shape[1], device=dev)[None, :]
-                     < pos[:, None])
+                     < poss[r][:, None])
             sm = _bf16_dot("bgrk,bmgk->bgrm", qh, ck) * scale
             if quant:
                 sm = sm * cks.float()[:, :, None, :]
@@ -1187,21 +1515,25 @@ def decode_step(params: llama.Params, cache: Cache, cfg: llama.LlamaConfig,
             wm, w_self = w[..., :M], w[..., M]
             if quant:
                 wm = wm * cvs.float()[:, :, None, :]
-            o = (_bf16_dot("bgrm,bmgk->bgrk", wm, cv)
-                 + w_self[..., None] * v_new[:, :, None, :])
-        else:
-            acc, m, l = _paged_attn_stats(cache, i, table, qh, pos, span,
-                                          plain_attention)
-            alpha, w_s, l_tot = _merge_attn_parts(acc, m, l,
-                                                  s_self[..., None])
-            o = (acc * alpha[..., None]
-                 + w_s * v_new[:, :, None, :]) / l_tot[..., None]
-        x = _decode_out_ffn(cfg, layer, qlayer, x, o, llayer, aid)
-    logits = _decode_head(cfg, params, qweights, x)
-    stacked = tuple(None if ys[0][j] is None
-                    else torch.stack([r[j] for r in ys]) for j in range(4))
-    blk, off = _phys(cache, table, torch.arange(B, device=dev), pos.long())
-    _write_rows(cache, blk, off, stacked)
+            return (_bf16_dot("bgrm,bmgk->bgrk", wm, cv)
+                    + w_self[..., None] * v_new[:, :, None, :])
+        acc, m, l = _paged_attn_stats(c, i, tables[r], qh, poss[r], span,
+                                      plain_attention)
+        alpha, w_s, l_tot = _merge_attn_parts(acc, m, l, s_self[..., None])
+        return (acc * alpha[..., None]
+                + w_s * v_new[:, :, None, :]) / l_tot[..., None]
+
+    for i in range(cfg.n_layers):
+        x = g.layer_step(cfg, i, x, coss, sins, attend,
+                         adapters_lib.lora_layer(lora, i), aids)
+    logits = _decode_head(cfg, g, x)
+    for r, c in enumerate(g.caches):
+        stacked = tuple(None if ys[r][0][j] is None
+                        else torch.stack([row[j] for row in ys[r]])
+                        for j in range(4))
+        blk, off = _phys(c, tables[r], torch.arange(B, device=g.devs[r]),
+                         poss[r].long())
+        _write_rows(c, blk, off, stacked)
     return logits
 
 
@@ -1210,9 +1542,12 @@ def commit_tokens(cache: Cache, tokens: torch.Tensor,
                   active: torch.Tensor) -> None:
     """Append sampled tokens on active slots, in place: bump their
     lengths and set their pending tokens."""
-    cache["length"] += active.to(torch.int32)
-    cache["last_token"].copy_(torch.where(
-        active, tokens.to(cache["last_token"].dtype), cache["last_token"]))
+    for c in sharding.shards_of(cache):
+        dev = c["length"].device
+        act = active.to(dev)
+        c["length"] += act.to(torch.int32)
+        c["last_token"].copy_(torch.where(
+            act, tokens.to(dev, c["last_token"].dtype), c["last_token"]))
 
 
 @torch.no_grad()
@@ -1241,27 +1576,20 @@ def decode_burst_staged(params: llama.Params, cache: Cache,
     active slot's burst-start length is at most ``span``. ``qweights``:
     w8a8 products and head. ``lora``/``aid``: the adapter pool and each
     slot's pool slot."""
-    B = cache["length"].shape[0]
-    L = cfg.n_layers
-    dev = cache["k"].device
-    pos0 = cache["length"].clone()                     # burst-start rows
-    stage = _staging(cache, B, k)
-    last = cache["last_token"].clone()
-    layers = [llama.layer_slice(params, i) for i in range(L)]
-    qlayers = [qlayer_slice(qweights, i) for i in range(L)]
+    g = _Group(params, qweights, cache)
+    st = _Staged(g, cfg, table, k)
+    dev = st.pos0[0].device
+    last = g.caches[0]["last_token"].clone()
     llayers = _lora_layers(cfg, lora)
     toks = []
     for s in range(k):
         stage_valid = (torch.arange(k, device=dev) <= s)[None, :]
-        logits = _staged_step(cfg, params, qweights, layers, qlayers, cache,
-                              table, last, pos0, s, stage, stage_valid,
-                              span, plain_attention, llayers, aid)
+        logits = _staged_step(cfg, st, last, s, stage_valid, span,
+                              plain_attention, llayers, aid)
         tok = sampling_mod.sample(logits, sp, generator)
         last = torch.where(active, tok, last)
         toks.append(tok)
-    _flush_staged_rows(cache, table, pos0, stage)
-    cache["length"] += k * active.to(torch.int32)
-    cache["last_token"].copy_(last)
+    st.flush(k * active.to(torch.int32), last)
     return torch.stack(toks)
 
 
@@ -1283,7 +1611,7 @@ def verify_draft_staged(params: llama.Params, cache: Cache,
     slot (the rest pad and never match). The window is ``k + 1``
     positions: position 0 consumes the slot's pending ``last_token``,
     positions 1..k the draft. The K+1 positions scan one after another
-    through :func:`_staged_attn_layer`, as a plain burst's steps do
+    through :func:`_staged_attn`, as a plain burst's steps do
     (big-cache stats below the round-start lengths, merged with the
     staged columns), with the window's tokens in place of sampled
     feedback and greedy argmax outputs. ``lora``/``aid``: the adapter
@@ -1300,23 +1628,20 @@ def verify_draft_staged(params: llama.Params, cache: Cache,
 
     Returns (toks [B, k+1], the window's argmax outputs, whose first
     ``n_commit[b]`` of row b are committed; n_commit [B] int32)."""
-    B = cache["length"].shape[0]
+    g = _Group(params, qweights, cache)
     W = k + 1
-    L = cfg.n_layers
-    dev = cache["k"].device
-    pos0 = cache["length"].clone()                     # round-start rows
-    window = torch.cat([cache["last_token"][:, None], draft.long()], dim=1)
-    stage = _staging(cache, B, W)
-    layers = [llama.layer_slice(params, i) for i in range(L)]
-    qlayers = [qlayer_slice(qweights, i) for i in range(L)]
+    st = _Staged(g, cfg, table, W)
+    B = st.pos0[0].shape[0]
+    dev = st.pos0[0].device
+    c0 = g.caches[0]
+    window = torch.cat([c0["last_token"][:, None], draft.long()], dim=1)
     llayers = _lora_layers(cfg, lora)
     toks = []
     for s in range(W):
         stage_valid = (torch.arange(W, device=dev) <= s)[None, :]
         toks.append(sampling_mod.argmax_tokens(_staged_step(
-            cfg, params, qweights, layers, qlayers, cache, table,
-            window[:, s], pos0, s, stage, stage_valid, span,
-            plain_attention, llayers, aid)))
+            cfg, st, window[:, s], s, stage_valid, span, plain_attention,
+            llayers, aid)))
     toks = torch.stack(toks, dim=1)                    # [B, W]
     # Padding positions (>= n_draft) never match: a pad that equals the
     # argmax must not commit a token computed from a garbage input.
@@ -1326,9 +1651,6 @@ def verify_draft_staged(params: llama.Params, cache: Cache,
     n_match = match.int().cumprod(dim=1).sum(dim=1)
     n_commit = torch.where(active, n_match + 1,
                            torch.zeros_like(n_match)).int()
-    _flush_staged_rows(cache, table, pos0, stage)
-    cache["length"] += n_commit
     last = toks[torch.arange(B, device=dev), n_match.long()]
-    cache["last_token"].copy_(torch.where(active, last,
-                                          cache["last_token"]))
+    st.flush(n_commit, torch.where(active, last, c0["last_token"]))
     return toks, n_commit

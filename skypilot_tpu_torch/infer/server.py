@@ -144,7 +144,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
 from socketserver import ThreadingMixIn
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -159,6 +159,7 @@ from skypilot_tpu_torch.observability import flight as flight_lib
 from skypilot_tpu_torch.observability import forensics as forensics_lib
 from skypilot_tpu_torch.observability import health as health_lib
 from skypilot_tpu_torch.observability import metrics, tracing
+from skypilot_tpu_torch.parallel import sharding
 from skypilot_tpu_torch.utils import timeline
 
 # The reference server's metric families (``skypilot_tpu/infer/
@@ -1046,7 +1047,7 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
                 adapter_slots: Optional[int] = None,
                 adapter_rank: Optional[int] = None,
                 draft_model: Optional[str] = None,
-                spec_pipeline: Optional[bool] = None
+                spec_pipeline: Optional[bool] = None, tp: int = 1
                 ) -> eng.InferenceEngine:
     """The serving engine ``main()`` runs: ``config``'s model with
     random weights drawn in ``cfg.dtype`` on ``device`` from ``seed``,
@@ -1069,19 +1070,37 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
     the model drafter through :func:`draft.draft_engine_from_env` (None:
     ``SKYTPU_DRAFT_MODEL``; its pool int8 under ``kv_int8``), built
     before the engine drops the float tree, as the reference builds it;
-    ``spec_pipeline``: the engine's (None: ``SKYTPU_SPEC_PIPELINE``)."""
+    ``spec_pipeline``: the engine's (None: ``SKYTPU_SPEC_PIPELINE``).
+    ``tp`` above 1: the engine over the tp group :func:`tp_devices`, its
+    weights drawn straight into their shards
+    (``InferenceEngine.sharded_init``); a ``self:N`` draft then takes
+    the first N layers gathered whole onto the first device."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[config]
+    spec = (draft_model if draft_model is not None
+            else os.environ.get("SKYTPU_DRAFT_MODEL", "")).strip()
+    mesh = tp_devices(tp, dev) if tp > 1 else None
     catalog = ad_lib.catalog_from_env(cfg, adapters_json=adapters,
                                       slots=adapter_slots,
                                       rank=adapter_rank, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
-    spec = (draft_model if draft_model is not None
-            else os.environ.get("SKYTPU_DRAFT_MODEL", "")).strip()
+    if mesh is not None:
+        # Drawn into their shards: a model that fits only split never
+        # exists whole on one device.
+        params = eng.InferenceEngine.sharded_init(cfg, mesh, seed)
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = llama.init_params(cfg, gen, device=dev, dtype=cfg.dtype)
+    draft_params = params
+    if mesh is not None and spec.startswith("self:"):
+        n = int(spec.split(":", 1)[1])
+        draft_params = sharding.gather_tree(
+            sharding.Shards(dict(p, blocks={k: w[:n] for k, w in
+                                            p["blocks"].items()})
+                            for p in params),
+            llama.param_logical_axes(cfg), dev)
     draft = draft_lib.draft_engine_from_env(
-        params, cfg, n_slots=slots, max_len=max_len, spec=spec,
+        draft_params, cfg, n_slots=slots, max_len=max_len, spec=spec,
         kv_int8=kv_int8, device=dev)
     if weights_int8 and spec.startswith("self:"):
         # A self:N draft keeps the float slices of its N layers, as the
@@ -1099,13 +1118,27 @@ def make_engine(config: str, slots: int = 16, max_len: int = 1024,
         max_wave=admit_wave, kv_block=kv_block, kv_blocks=kv_blocks,
         span_buckets=span_buckets, prefill_chunk=prefill_chunk,
         prefix_pool=prefix_pool, spec_k=spec_k, kv_int8=kv_int8,
-        weights_int8=weights_int8, device=dev, seed=seed,
+        weights_int8=weights_int8, device=None if mesh else dev, seed=seed,
         kv_lazy=kv_lazy, qos=qos, adapters=catalog, draft_engine=draft,
-        spec_pipeline=spec_pipeline)
+        spec_pipeline=spec_pipeline, mesh=mesh)
     # Under weights_int8 the engine keeps only the slim tree; this
     # reference must go too, or the float block matrices stay resident.
     del params
     return engine
+
+
+def tp_devices(tp: int, device: DeviceLike = None) -> List[torch.device]:
+    """The tp group ``--tp`` serves on: the first ``tp`` cards
+    (``cuda:0`` .. ``cuda:tp-1``), or ``tp`` shards of the CPU when
+    ``device`` is the CPU. Fewer cards than ``tp`` exit with the
+    reference's message."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [dev] * tp
+    found = torch.cuda.device_count()
+    if found < tp:
+        raise SystemExit(f"--tp {tp} needs {tp} devices, found {found}")
+    return [torch.device(dev.type, i) for i in range(tp)]
 
 
 def _span_buckets(arg: Optional[str]):
@@ -1238,9 +1271,17 @@ def main(argv=None) -> None:
                          "engine.unexpected_compile alarm + "
                          "skytpu_unexpected_compiles_total (env "
                          "SKYTPU_WARM_GRID=1)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: shard weights + KV "
+                         "cache over the first N local devices "
+                         "(Megatron head/mlp/vocab split — serves "
+                         "models bigger than one card's memory); with "
+                         "--device cpu, N shards on the CPU")
     ap.add_argument("--device", default=None,
                     help="cuda (the default, the card) or cpu")
     args = ap.parse_args(argv)
+    if args.tp < 1:
+        ap.error("--tp must be at least 1")
     # A long-lived daemon: sever any inherited trace root, or every
     # headerless request would attach its spans to the launch's trace.
     # Requests that carry their own traceparent are unaffected.
@@ -1266,7 +1307,8 @@ def main(argv=None) -> None:
                          draft_model=args.draft_model,
                          spec_pipeline=(bool(args.spec_pipeline)
                                         if args.spec_pipeline is not None
-                                        else None))
+                                        else None),
+                         tp=args.tp)
     if args.warm_grid:
         warm_grid(engine, args.max_burst)
     model, httpd = serve(engine, port=args.port, max_burst=args.max_burst,

@@ -253,3 +253,97 @@ def make_constrain(mesh, rules: Rules = ACT_RULES):
     if mesh is None:
         return identity
     return Constrain(mesh, rules)
+
+
+# ---------------------------------------------------------------------------
+# Serving's tensor-parallel split: one process, a list of devices
+# ---------------------------------------------------------------------------
+# The serving engine runs one process over a tp group of devices, as the
+# reference runs one process over its local chips, and holds each tree
+# as one tree per shard instead of DTensors: a tensor whose logical axes
+# map to "tp" is cut into equal slices along that dim, the rest copied
+# whole to every shard. The programs that read them join the shards
+# themselves (``infer/kvcache.py``). A device may repeat in the group.
+
+class Shards(list):
+    """A tree split over a tp group: one tree per shard, in rank order
+    (:func:`split_tree`)."""
+
+
+def shards_of(tree) -> list:
+    """The shards of a split tree (a :class:`Shards`), or ``[tree]``."""
+    return tree if isinstance(tree, Shards) else [tree]
+
+
+def tp_dim(axes: Optional[Sequence[Optional[str]]],
+           rules: Rules = INFER_TP_RULES) -> Optional[int]:
+    """The dim that ``rules`` split over "tp", or None (replicated)."""
+    dims = [d for d, a in enumerate(axes or ())
+            if a is not None and "tp" in _axes(rules.get(a))]
+    if len(dims) > 1:
+        raise ValueError(f"axes {axes} split over tp more than once")
+    return dims[0] if dims else None
+
+
+def _placed(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A copy of ``x`` on ``device`` in ``x``'s own memory order (an
+    output-major int8 weight stays output-major)."""
+    order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
+    inverse = [order.index(d) for d in range(x.dim())]
+    y = x.permute(order).clone(memory_format=torch.contiguous_format)
+    return y.to(device).permute(inverse)
+
+
+def split_tensor(x: torch.Tensor, axes, devices: Sequence[torch.device],
+                 rules: Rules = INFER_TP_RULES) -> list:
+    """``x`` as one tensor per device: equal slices along its tp dim
+    (:func:`tp_dim`), or a whole copy each. A tp dim that the group does
+    not divide raises ``ValueError``, as the reference's tp <= kv_heads
+    refuses: a slice of unequal heads would change the programs."""
+    n = len(devices)
+    d = tp_dim(axes, rules)
+    if d is None:
+        return [_placed(x, dev) for dev in devices]
+    if x.shape[d] % n:
+        raise ValueError(f"tp {n} does not divide dim {d} ({axes[d]!r}) "
+                         f"of a tensor of shape {tuple(x.shape)}")
+    return [_placed(p, dev) for p, dev in zip(x.chunk(n, dim=d), devices)]
+
+
+def split_tree(tree, logical_tree, devices: Sequence[torch.device],
+               rules: Rules = INFER_TP_RULES) -> Shards:
+    """``tree`` split over ``devices`` by its axes in ``logical_tree``,
+    walked by dict key as :func:`shard_tree_subset` walks it, so
+    ``tree`` may be a subset of the axes tree; a tensor without an axes
+    entry is copied whole to every shard."""
+    n = len(devices)
+
+    def walk(t, ax):
+        if isinstance(t, dict):
+            sub = ax if isinstance(ax, dict) else {}
+            per_key = {k: walk(v, sub.get(k)) for k, v in t.items()}
+            return [{k: parts[r] for k, parts in per_key.items()}
+                    for r in range(n)]
+        return split_tensor(t, ax if isinstance(ax, tuple) else None,
+                            devices, rules)
+
+    return Shards(walk(tree, logical_tree))
+
+
+def gather_tree(shards, logical_tree, device: torch.device,
+                rules: Rules = INFER_TP_RULES):
+    """The inverse of :func:`split_tree`: one whole tree on ``device``,
+    the tp slices concatenated in rank order, a replicated tensor taken
+    from the first shard."""
+    shards = shards_of(shards)
+
+    def walk(ts, ax):
+        if isinstance(ts[0], dict):
+            sub = ax if isinstance(ax, dict) else {}
+            return {k: walk([t[k] for t in ts], sub.get(k)) for k in ts[0]}
+        d = tp_dim(ax if isinstance(ax, tuple) else None, rules)
+        if d is None or len(ts) == 1:
+            return ts[0].to(device)
+        return torch.cat([t.to(device) for t in ts], dim=d)
+
+    return walk(list(shards), logical_tree)

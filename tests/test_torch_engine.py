@@ -227,6 +227,19 @@ def test_no_device_raises_without_a_card():
         resolve_device(None)
 
 
+def test_an_unindexed_card_resolves_to_the_current_one(monkeypatch):
+    """``"cuda"`` resolves to the current card's index, so an engine's
+    device group compares equal to its tensors' devices; an index given
+    stands, and the CPU stays unindexed."""
+    from skypilot_tpu_torch import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
+    assert resolve_device("cuda") == torch.device("cuda", 2)
+    assert resolve_device(torch.device("cuda")) == torch.device("cuda", 2)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
 # (max_len, the JAX engine's block = the port's on the CPU, the port's
 # on the card). The card's is the largest divisor no larger than 256
 # that K1's wgmma multi-row body reads (8, 16, 32 or a multiple of 64);

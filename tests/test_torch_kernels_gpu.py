@@ -1887,9 +1887,14 @@ def test_hbm_cross_check_on_card():
     """On the card the HBM ledger's cross-check reads the caching
     allocator and publishes ``bytes_in_use``; the resident ledger fits
     inside it."""
+    import gc
+
     from skypilot_tpu_torch.observability import attribution
     dev = _cuda()
     e, _ = _observed_engine(dev)
+    # Earlier tests' cyclic garbage holds card tensors: collected between
+    # the two reads below, it would move the allocator's count.
+    gc.collect()
     stats = e.hbm_ledger.cross_check(dev)
     assert stats["bytes_in_use"] == torch.cuda.memory_stats(dev)[
         "allocated_bytes.all.current"]
@@ -2243,3 +2248,166 @@ def test_pp_tiny_pipeline_step_launches_the_flash_kernels_on_card(schedule):
     _, m = tt.make_train_step(cfg, tc, model=tpl)(state, batch)
     assert [f.launches for f in kernels] == [32, 16, 16]
     assert abs(float(m["loss"]) - want) <= 1e-2 * abs(want)
+
+
+# -- one shard of a tensor-parallel engine ------------------------------------
+# llama3-70b at tp 4: each shard serves 16 q-heads over 2 kv heads (a GQA
+# group of 8), head dim 128. A decode step and each verify position hand
+# K1 R = 8 rows of a kv head (the port scans a verify window position by
+# position); a 512-token chunk R = 4096; K2 a wave at 16 over 2.
+
+@pytest.mark.gpu
+@_POOLS
+@pytest.mark.parametrize("bl", [16, 256])
+def test_paged_decode_at_a_70b_tp_shard(kv_dtype, bl):
+    """K1's decode body at a shard's group of 8: R = 8 over 2 kv heads,
+    hd 128, on float32, bf16 and int8 pools; length-0 slots exactly."""
+    dev = _cuda()
+    args = _paged_inputs(dev, kv_dtype, hd=128, R=8, bl=bl, G=2)
+    span_blocks = -(-max(_PAGED_LENGTHS) // bl)
+    before = tpa.paged_attention.launches
+    got = tpa.paged_attention(*args, 1, span_blocks=span_blocks)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention.launches == before + 1
+    want = tpa.paged_attention_ref(*args, 1, span_blocks)
+    live = args[-1] > 0
+    for g, w in zip(got, want):
+        _close(g[live], w[live], 2e-3)
+    assert torch.all(got[1][~live] == -1e30)
+
+
+@pytest.mark.gpu
+@_ROWS_DTYPES
+@pytest.mark.parametrize("R", [40, 4096])
+@pytest.mark.parametrize("start", [0, 512])
+def test_paged_rows_at_a_70b_tp_shard(q_dtype, kv_dtype, R, start):
+    """K1's multi-row bodies at a shard's group of 8 (2 kv heads, hd
+    128, blocks of 256): a chunk's 512 x 8 = 4096 rows, and the 40 rows
+    a one-pass verify window of K + 1 = 5 at rep 8 would hand it
+    (40 x 128 = 5120 is past the decode body's 4096)."""
+    dev = _cuda()
+    args = _rows_inputs(dev, q_dtype, kv_dtype, 128, R, 256, start, G=2)
+    _check_rows(args, 1, _ROWS_SPAN // 256)
+    if R * 128 > 4096:
+        before = _rows_launches()
+        tpa.paged_attention(*args, 1, span_blocks=_ROWS_SPAN // 256)
+        assert _rows_launches() != before      # dispatched to a rows body
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("S", [128, 512])
+def test_flash_at_a_70b_tp_shard(dtype, S):
+    """K2 at a shard's wave: 16 q-heads over 2 kv heads, hd 128, causal."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((2, S, 16, 128), generator=gen, device=dev).to(dtype)
+    k = torch.randn((2, S, 2, 128), generator=gen, device=dev).to(dtype)
+    v = torch.randn((2, S, 2, 128), generator=gen, device=dev).to(dtype)
+    before = tfa.flash_attention_fwd.launches
+    o, lse = tfa.flash_attention_fwd(q, k, v, None, True)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == before + 1
+    ro, rlse = tfa.flash_attention_fwd_ref(q, k, v, None, True)
+    if dtype == torch.bfloat16:
+        _ulp_close(o, ro)
+    else:
+        _close(o, ro, 1e-4)
+    _close(lse, rlse, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "w8a8-int8kv"])
+@pytest.mark.parametrize("kv_block", [None, 0], ids=["paged", "contig"])
+def test_tp2_engine_on_card_matches_tp1(quant, kv_block):
+    """A llama3-tiny engine over two shards of the card against the
+    one-shard engine, float32: the same greedy tokens through waves,
+    chunks, the prefix pool and verify rounds, with K1 and K2 on each
+    shard's heads (w8a8 + int8 KV: exact under any split)."""
+    import dataclasses
+    dev = _cuda()
+    cfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"], dtype=torch.float32)
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, dtype=torch.float32)
+    prompts = [list(range(1, 40)), [5, 6, 7, 8] * 6, [3, 1, 4]]
+    kw = dict(n_slots=4, max_len=128, prompt_buckets=(16, 128),
+              prefill_chunk=16, prefix_pool=4, spec_k=3, kv_block=kv_block,
+              weights_int8=quant, kv_int8=quant)
+
+    def run(**more):
+        e = te.InferenceEngine(params, cfg, **kw, **more)
+        return e.generate(prompts, 24) + e.generate(prompts[:1], 24), e
+
+    want, _ = run(device=dev)
+    k1 = tpa.paged_attention.launches
+    k2 = tfa.flash_attention_fwd.launches
+    got, e = run(mesh=[dev, dev])
+    assert got == want
+    assert e.prefix_hits >= 1
+    assert tfa.flash_attention_fwd.launches > k2
+    if kv_block is None:
+        assert tpa.paged_attention.launches > k1
+
+
+@pytest.mark.gpu
+def test_tp2_engine_on_card_with_adapters_and_a_draft():
+    """Float32 llama3-tiny over two shards of the card with an adapter
+    catalog (the pool whole on the card, each shard reading its heads'
+    slices) and a self-distilled one-layer draft whole beside it: the
+    one-shard engine's tokens, the drafts accepted."""
+    import dataclasses
+
+    import numpy as np
+
+    from skypilot_tpu_torch.infer import adapters as tad
+    from skypilot_tpu_torch.infer import draft as td
+    dev = _cuda()
+    cfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"], dtype=torch.float32)
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, dtype=torch.float32)
+    target, dparams, dcfg = td.self_distilled_pair(params, cfg, 1)
+    rng = np.random.default_rng(0)
+    tree = {t: {"a": rng.normal(size=(cfg.n_layers,) + sa) * 0.05,
+                "b": rng.normal(size=(cfg.n_layers,) + sb) * 0.05}
+            for t, (sa, sb) in tad.target_shapes(cfg, 4).items()}
+    prompts = [list(range(1, 40)), [5, 6, 7, 8] * 6]
+
+    def run(**more):
+        cat = tad.AdapterCatalog(cfg, n_adapters=2, rank=4, device=dev)
+        cat.register("ft", params=tree)
+        draft = td.DraftEngine(dparams, dcfg, n_slots=4, max_len=128,
+                               device=dev)
+        e = te.InferenceEngine(target, cfg, n_slots=4, max_len=128,
+                               prompt_buckets=(16, 128), prefill_chunk=16,
+                               spec_k=3, adapters=cat, draft_engine=draft,
+                               **more)
+        ids = [e.add_request(p, 16, adapter=a)
+               for p, a in zip(prompts, ("ft", None))]
+        e.run_to_completion()
+        by_rid = {r.rid: r.tokens for r in e.finished}
+        return [by_rid[i] for i in ids], e
+
+    want, _ = run(device=dev)
+    got, e = run(mesh=[dev, dev])
+    assert got == want
+    assert e.verify_calls > 0
+
+
+@pytest.mark.gpu
+def test_sharded_init_with_an_unindexed_card_mesh():
+    """``sharded_init`` over ``["cuda"] * 2`` and an engine over the same
+    string mesh: the shards' devices (``cuda:0``) are the group's, and
+    the engine serves."""
+    import dataclasses
+    _cuda()
+    cfg = dataclasses.replace(tl.CONFIGS["llama3-tiny"], dtype=torch.float32)
+    mesh = ["cuda"] * 2
+    params = te.InferenceEngine.sharded_init(cfg, mesh, seed=0)
+    e = te.InferenceEngine(params, cfg, mesh=mesh, n_slots=2, max_len=64,
+                           prompt_buckets=(16, 64))
+    assert e.devices == [torch.device("cuda", torch.cuda.current_device())
+                         ] * 2
+    out = e.generate([[1, 2, 3, 4]], 8)
+    assert len(out[0]) == 8
+    assert all(0 <= t < cfg.vocab_size for t in out[0])
